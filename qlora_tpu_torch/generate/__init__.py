@@ -1,0 +1,16 @@
+from .engine import decode_loop, generate, generate_stream, prefill
+from .sampler import (
+    SamplingParams,
+    apply_repetition_penalty,
+    ban_repeated_ngrams,
+    sample_token,
+    top_k_mask,
+    top_p_mask,
+    typical_p_mask,
+)
+
+__all__ = [
+    "decode_loop", "generate", "generate_stream", "prefill", "SamplingParams",
+    "apply_repetition_penalty", "ban_repeated_ngrams", "sample_token",
+    "top_k_mask", "top_p_mask", "typical_p_mask",
+]
