@@ -9,10 +9,10 @@ them.  Phases, each failing the run on any mismatch or exception:
 
 1. build: the card's name and power limit, then every kernel built for sm_90a.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the LLaMA-7B serving shapes, with its time (CUDA events), the plain
-   version's time, one PyTorch library call's time as a yardstick, and the
-   least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate of their type).
+   at the LLaMA-7B serving and training shapes, with its time (CUDA events),
+   the plain version's time, one PyTorch library call's time as a yardstick,
+   and the least time the card could take (bytes over 3.35 TB/s or
+   operations over the peak rate of their type).
 3. parity: LLaMA-7B width, 2 layers — the same weights through the plain
    path on the CPU and through the kernels on the card, a 128-token prefill
    then 4 teacher-forced decode steps; logits must agree.
@@ -22,6 +22,15 @@ them.  Phases, each failing the run on any mismatch or exception:
    tokens each; launch counts read around the call.
 5. nodq: a 2-layer full-width model with f32 absmax generates 16 tokens, so
    the f32-absmax qmm variant runs on a generate path.
+6. train-parity: LLaMA-7B width, 2 layers — one collated micro-batch with
+   unequal lengths through the plain path on the CPU and through the kernels
+   on the card; the loss and every LoRA gradient must agree.
+7. train: LLaMA-7B at full width and depth, random NF4 weights and a fresh
+   rank-64 LoRA; ``make_train_step`` (2 micro-batches of 2 x 512 collated
+   tokens, remat "full", ``paged_adamw_32bit``) takes 5 optimizer steps on
+   one batch: finite losses, no movement on the first step (its learning
+   rate is 0), a lower loss at the end, frozen tensors byte-identical, and
+   exact launch counts read around the steps.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 """
@@ -45,18 +54,41 @@ ATTN_TOL = 2e-2           # of each (row, head)'s max |out|: bf16 probabilities 
                           # chunk-wise running maxima, up to 2^-8 of the values' scale
 LOGIT_TOL = 0.15          # 7B width, 2 layers: bf16 activations rounded in other orders
 
+FLASH_TOL = 2e-2          # o: of each (row, head)'s max |o| (bf16 probabilities against
+                          # tile-wise running maxima); dq, dk, dv: of the largest |value| of
+                          # their (batch, head) slice (bf16 p and ds, f32 sums in another order)
+LSE_TOL = 1e-3            # f32 log-sum-exp, summed in another order
+GRAD_TOL = 0.05           # train-parity: |g_card - g_cpu| / |g_cpu| per LoRA tensor; two
+                          # layers of bf16 activations rounded in other orders
+LOSS_TOL = 0.02           # train-parity: |loss_card - loss_cpu|, losses near ln(32000)
+
 SERVE_LENGTHS = (512, 384, 200, 97)
 SERVE_NEW = 64
+TRAIN_MICRO = (2, 512)    # micro-batch rows x padded length
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 5
+TRAIN_LR = 2e-4
 
-# kernel phase: the LLaMA-7B block linears (K, N) at prefill (M = 4 x 512)
-# and decode (M = 4) rows, and decode attention at the serving width
+# kernel phase: the LLaMA-7B block linears (K, N) at prefill (M = 4 x 512),
+# training (M = 2 x 512, forward and backward) and decode (M = 4) rows,
+# decode attention at the serving width, flash attention at the training one
 QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
-QMM_ROWS = (2048, 4)
+QMM_ROWS = (2048, 1024, 4)
+QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
 ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
     (4, 32, 32, 128, 640, (0, 97, 383, 639), None, False),
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, False),      # GQA G=4, sliding window
     (4, 32, 32, 128, 600, (5, 300, 598, 599), None, False),   # T not a multiple of 128
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, True),       # an off-by-one moves it O(1)
+)
+
+
+FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse cotangent
+    (2, 32, 32, 128, 512, (512, 300), None, False, False),   # the train run's shape
+    (2, 32, 8, 128, 512, (512, 300), 256, False, True),      # GQA G=4, sliding window
+    (2, 32, 32, 128, 600, (600, 333), None, False, False),   # S no multiple of 64
+    (2, 32, 32, 128, 512, (512, 0), None, False, True),      # a row of length 0
+    (2, 32, 8, 128, 512, (512, 300), 256, True, False),      # an off-by-one moves it O(1)
 )
 
 
@@ -111,6 +143,31 @@ def attn_bound(B, H, KVH, hd, lens, T, window):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_bounds(B, H, KVH, hd, S, lens, window):
+    """(bound_ms, bound_by) for flash_fwd, flash_bwd_dq, flash_bwd_dkv: each
+    input read once and each output written once, and the products over the
+    (query, key) pairs that these lengths and this window leave visible
+    (2 products forward, 3 for dq, 4 for dk and dv; 2 * hd operations each)."""
+    import numpy as np
+
+    row = np.arange(S)
+    pairs = 0
+    for n in lens:
+        lo = np.maximum(0, row - window + 1) if window else 0
+        pairs += int(np.maximum(0, np.minimum(row + 1, n) - lo).sum())
+    qo = B * H * S * hd * 2            # q, o, do or dq: bf16 [B, H, S, hd]
+    kv = B * KVH * S * hd * 2          # k, v, dk or dv
+    stat = B * H * S * 4               # lse or di, f32
+    out = {}
+    for name, nbytes, products in (
+            ("flash_fwd", 2 * qo + 2 * kv + stat + B * 4, 2),
+            ("flash_bwd_dq", 3 * qo + 2 * kv + 2 * stat + B * 4, 3),
+            ("flash_bwd_dkv", 2 * qo + 4 * kv + 2 * stat + B * 4, 4)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES, products * 2 * hd * H * pairs / PEAK_BF16
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def plant_edges(q, kc, lens, window):
     """Give the keys just inside and just outside each row's window (its
     first key, the one before it, its last key and the slot the new token
@@ -127,13 +184,38 @@ def plant_edges(q, kc, lens, window):
                 kc[b, :, t] = key[b]
 
 
+def plant_flash_edges(q, k, v, lens, window):
+    """The same for flash attention, in place: for a few query rows of each
+    batch row (its last valid one, one in the middle, one past its length)
+    the keys on both sides of the causal edge (row, row + 1), of the window
+    edge (row - window + 1, row - window) and of the length edge (len - 1,
+    len) become one key that dominates that query in every head of its
+    group, with values of O(1) that differ from key to key.  One key too many
+    or too few then moves o, and with it dk and dv, by O(1)."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    for b, n in enumerate(lens):
+        if n < 2:
+            continue
+        rows = {n - 1, n // 2} | ({min(S - 1, n + 5)} if n < S else set())
+        for r in sorted(rows):
+            key = q[b, :, r].float().reshape(KVH, H // KVH, D).sum(1).to(k.dtype)
+            cols = {r, r + 1, n - 1, n}
+            if window:
+                cols |= {r - window + 1, r - window}
+            for t in cols:
+                if 0 <= t < S:
+                    k[b, :, t] = key
+                    v[b, :, t] = 2.0 * (t % 5 - 2) + 0.5
+
+
 def kernel_phase(dev, results):
     import torch
     import torch.nn.functional as F
 
     from qlora_tpu_torch.ops import (
-        decode_attention_cuda, decode_attention_plain, qmatmul_plain,
-        qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
+        decode_attention_cuda, decode_attention_plain, qmatmul_bwd_plain, qmatmul_plain,
+        qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
     )
     from qlora_tpu_torch.quant import dequantize, quantize
 
@@ -175,6 +257,29 @@ def kernel_phase(dev, results):
                       f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
                 if excess > QMM_TOL[0]:
                     fail(f"{name} M={M} K={K} N={N} differs from its plain version by {err}")
+            # the backward at the training micro-batch: dx = g @ dequant(W)^T
+            M = QMM_BWD_ROWS
+            gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
+            dx = qmm_nf4_bwd(gr, qt)
+            ref = qmatmul_bwd_plain(gr, qt)
+            torch.cuda.synchronize()
+            diff = (dx.float() - ref.float()).abs()
+            err = diff.max().item()
+            excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
+            ms = cuda_ms(lambda i: qmm_nf4_bwd(gr, qts[i % len(qts)]), 20)
+            plain_ms = cuda_ms(lambda i: qmatmul_bwd_plain(gr, qts[i % len(qts)]), 3)
+            lib_ms = cuda_ms(lambda i: torch.matmul(gr, ws[i % len(ws)].T), 20)
+            bound_ms, bound_by = qmm_bound(M, K, N, dq)    # the same bytes and operations
+            shape = f"M={M} K={K} N={N} {'dq' if dq else 'f32'} absmax"
+            results.append(dict(name="qmm_nf4_bwd", shape=shape, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                                bound_by=bound_by))
+            print(f"kernel qmm_nf4_bwd {shape}: max|d|={err:.3g} "
+                  f"(tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|) ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+            if excess > QMM_TOL[0]:
+                fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
 
     for B, H, KVH, hd, T, lens, window, planted in ATTN_CASES:
         mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
@@ -224,6 +329,119 @@ def kernel_phase(dev, results):
               f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
         if excess > 0 or not same:
             fail(f"decode attention {shape}: max|d|={err}, cache bytes equal={same}")
+
+
+def flash_phase(dev, results):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain versions
+    at the training shapes.  The backward kernels get the plain forward's o
+    and lse, so that each kernel is held against the same function of the
+    same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from qlora_tpu_torch.ops import (
+        flash_bwd_dkv, flash_bwd_dq, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    for B, H, KVH, hd, S, lens, window, planted, with_dlse in FLASH_CASES:
+        mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v, do = mk(B, H, S, hd), mk(B, KVH, S, hd), mk(B, KVH, S, hd), mk(B, H, S, hd)
+        if planted:
+            plant_flash_edges(q, k, v, lens, window)
+        L = torch.tensor(lens, device=dev, dtype=torch.int32)
+        sm = hd ** -0.5
+        dlse = 0.3 * torch.randn(B, H, S, device=dev, generator=g) if with_dlse else None
+        shape = (f"B={B} H={H} KVH={KVH} hd={hd} S={S} lens={list(lens)} window={window}"
+                 + (" planted edges" if planted else "") + (" dlse" if with_dlse else ""))
+
+        o, lse = flash_fwd(q, k, v, L, sm, True, window)
+        o2, lse2 = flash_fwd_plain(q, k, v, L, sm, True, window)
+        di = (o2.float() * do.float()).sum(-1)
+        if dlse is not None:
+            di = di - dlse
+        dq = flash_bwd_dq(q, k, v, L, do, lse2, di, sm, True, window)
+        dk, dv = flash_bwd_dkv(q, k, v, L, do, lse2, di, sm, True, window)
+        rq, rk, rv = flash_bwd_plain(q, k, v, L, o2, lse2, do, sm, True, window, dlse=dlse)
+        torch.cuda.synchronize()
+
+        def excess(got, ref, dims):
+            d = (got.float() - ref.float()).abs()
+            tol = FLASH_TOL * ref.float().abs().amax(dims, keepdim=True)
+            return d.max().item(), (d - tol).max().item()
+
+        errs = {"flash_fwd": excess(o, o2, -1)}
+        errs["flash_bwd_dq"] = excess(dq, rq, (-2, -1))
+        ek, ev = excess(dk, rk, (-2, -1)), excess(dv, rv, (-2, -1))
+        errs["flash_bwd_dkv"] = (max(ek[0], ev[0]), max(ek[1], ev[1]))
+        empty = lse2 > 1e37                                  # rows that see no key
+        lse_err = (lse - lse2)[~empty].abs().max().item()
+        exact = (bool((lse[empty] == 3e38).all()) and bool((o[empty] == 0).all())
+                 and bool((dq[empty] == 0).all())
+                 and all(bool((dk[b, :, n:] == 0).all()) and bool((dv[b, :, n:] == 0).all())
+                         for b, n in enumerate(lens)))
+        moved = None
+        if planted:
+            # the planted keys do what they are for: one more key in the window
+            # moves the plain o by O(1), so a kernel that read it would fail
+            o3, _ = flash_fwd_plain(q, k, v, L, sm, True, window + 1)
+            moved = (o3.float() - o2.float()).abs().max().item()
+
+        n_sets = copies_past_l2(3 * q.nbytes + 2 * k.nbytes)
+        sets = [(q, k, v, do)] + [(q.clone(), k.clone(), v.clone(), do.clone())
+                                  for _ in range(n_sets - 1)]
+        pick = lambda i: sets[i % n_sets]
+        ms = {
+            "flash_fwd": cuda_ms(lambda i: flash_fwd(*pick(i)[:3], L, sm, True, window), 50),
+            "flash_bwd_dq": cuda_ms(lambda i: flash_bwd_dq(*pick(i)[:3], L, pick(i)[3], lse2, di,
+                                                           sm, True, window), 50),
+            "flash_bwd_dkv": cuda_ms(lambda i: flash_bwd_dkv(*pick(i)[:3], L, pick(i)[3], lse2,
+                                                             di, sm, True, window), 50),
+        }
+        plain_fwd = cuda_ms(lambda i: flash_fwd_plain(*pick(i)[:3], L, sm, True, window), 5)
+        plain_bwd = cuda_ms(lambda i: flash_bwd_plain(*pick(i)[:3], L, o2, lse2, pick(i)[3], sm,
+                                                      True, window, dlse=dlse), 5)
+        # yardstick: SDPA with the same mask (an all-masked row gives it NaN,
+        # which does not change its time) and its autograd backward, which
+        # computes dq, dk and dv in one call
+        row = torch.arange(S, device=dev)[:, None]
+        col = torch.arange(S, device=dev)[None, :]
+        vis = (col <= row) & (col < L[:, None, None])
+        if window:
+            vis = vis & (row - col < window)
+        mask = vis[:, None]
+        sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask, scale=sm, enable_gqa=KVH != H)
+        lib_fwd = cuda_ms(lambda i: sdpa(*pick(i)[:3]), 50)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves)
+        lib_bwd = cuda_ms(lambda i: torch.autograd.grad(out, leaves, pick(i)[3],
+                                                        retain_graph=True), 20)
+        bounds = flash_bounds(B, H, KVH, hd, S, lens, window)
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            fwd = name == "flash_fwd"
+            results.append(dict(
+                name=name, shape=shape, max_abs_err=errs[name][0], ms=ms[name],
+                plain_ms=plain_fwd if fwd else plain_bwd,
+                library_ms=lib_fwd if fwd else lib_bwd,
+                bound_ms=bounds[name][0], bound_by=bounds[name][1]))
+            print(f"kernel {name} {shape}: max|d|={errs[name][0]:.3g} (tol {FLASH_TOL}*max|ref|"
+                  f"{' of the row' if fwd else ' of the slice'}) ms={ms[name]:.4f} "
+                  f"plain_ms={plain_fwd if fwd else plain_bwd:.4f} "
+                  f"library_ms={lib_fwd if fwd else lib_bwd:.4f} "
+                  f"bound_ms={bounds[name][0]:.4f} ({bounds[name][1]})", flush=True)
+        print(f"  lse max|d|={lse_err:.3g} (tol {LSE_TOL}); empty rows and keys past the "
+              f"length exactly 0: {exact}; plain_ms of the backward is dq, dk and dv "
+              f"together, library_ms SDPA's whole backward"
+              + (f"; one more key in the window moves the plain o by {moved:.3g}"
+                 if planted else ""), flush=True)
+        bad = [n for n, (_, ex) in errs.items() if ex > 0]
+        if bad or lse_err > LSE_TOL or not exact:
+            fail(f"flash {shape}: {bad} differ from their plain versions ({errs}), "
+                 f"lse {lse_err}, exact zeros {exact}")
+        if planted and moved < 0.5:
+            fail(f"flash {shape}: the planted edges move o by only {moved}")
+        del sets, leaves, out
 
 
 def seven_b(num_layers=None):
@@ -290,9 +508,18 @@ def parity_phase(dev):
 
 
 def counters():
-    from qlora_tpu_torch.ops import decode_attention_cuda, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32
+    from qlora_tpu_torch.ops import (
+        decode_attention_cuda, flash_bwd_dkv, flash_bwd_dq, flash_fwd, qmm_nf4_bwd,
+        qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
+    )
 
-    return (qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, decode_attention_cuda)
+    return (qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, decode_attention_cuda, qmm_nf4_bwd, flash_fwd,
+            flash_bwd_dq, flash_bwd_dkv)
+
+
+def expected_counts(**nonzero):
+    """Every counter at 0 except the ones named."""
+    return {**{w.__name__: 0 for w in counters()}, **nonzero}
 
 
 def reset_counts():
@@ -353,8 +580,8 @@ def serve_phase(dev):
         prefill_s = time.perf_counter() - t1
     del cache
     n_lin = 7 * cfg.num_layers
-    want = {"qmm_nf4_fwd_dq": n_lin * (SERVE_NEW + 1), "qmm_nf4_fwd_f32": 0,
-            "decode_attention_cuda": cfg.num_layers * SERVE_NEW}
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin * (SERVE_NEW + 1),
+                           decode_attention_cuda=cfg.num_layers * SERVE_NEW)
     decode_s = total_s - prefill_s
     print(f"serve: generated {tuple(toks.shape)} tokens in {total_s:.3f} s; prefill "
           f"{prefill_s * 1e3:.1f} ms (4 x 512 padded), decode {decode_s * 1e3:.1f} ms = "
@@ -387,8 +614,8 @@ def nodq_phase(dev):
                     device=dev)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {"qmm_nf4_fwd_dq": 0, "qmm_nf4_fwd_f32": 7 * cfg.num_layers * (new + 1),
-            "decode_attention_cuda": cfg.num_layers * new}
+    want = expected_counts(qmm_nf4_fwd_f32=7 * cfg.num_layers * (new + 1),
+                           decode_attention_cuda=cfg.num_layers * new)
     print(f"nodq: generated {tuple(toks.shape)} tokens; launches {counts} "
           f"(expected {want})", flush=True)
     if counts != want or toks.shape != (2, new):
@@ -398,6 +625,227 @@ def nodq_phase(dev):
     return counts
 
 
+class SeededTokenizer:
+    """Stands in for a tokenizer: a text is a run of token ids in decimal."""
+    bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+
+    def encode(self, text):
+        return [int(t) for t in text.split()]
+
+
+def collated_batch(vocab, rows, S, seed, stacked):
+    """`stacked` micro-batches of `rows` collated examples each, right-padded
+    to S, with unequal source and target lengths and -100 on source tokens
+    and padding; [stacked, rows, S] arrays, or [rows, S] when stacked is 0."""
+    import numpy as np
+
+    from qlora_tpu_torch.train import CausalCollator
+
+    rng = np.random.default_rng(seed)
+    text = lambda n: " ".join(str(t) for t in rng.integers(3, vocab, size=n))
+    collate = CausalCollator(SeededTokenizer(), source_max_len=S - S // 4,
+                             target_max_len=S // 4, pad_to=S)
+    micro = []
+    for _ in range(max(stacked, 1)):
+        inst = [{"input": text(int(rng.integers(S // 8, S - S // 4))),
+                 "output": text(int(rng.integers(S // 16, S // 4)))} for _ in range(rows)]
+        micro.append(collate(inst))
+    if not stacked:
+        return micro[0]
+    return {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+
+
+def train_parity_phase(dev):
+    import torch
+
+    from qlora_tpu_torch.models import init_params
+    from qlora_tpu_torch.train import loss_fn
+    from qlora_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
+    from qlora_tpu_torch.utils import move_to
+
+    cfg = seven_b(num_layers=2)
+    p_gpu = init_params(cfg, seed=21, device=dev)
+    lora_gpu, lcfg = random_lora(cfg, dev, seed=22)
+    p_cpu, lora_cpu = move_to(p_gpu, "cpu"), move_to(lora_gpu, "cpu")
+    batch = collated_batch(cfg.vocab_size, 2, 256, seed=23, stacked=0)
+    lengths = batch["attention_mask"].sum(-1).tolist()
+
+    def run(params, lora, device):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(lora)]
+        mb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        loss, n = loss_fn(tree_unflatten(lora, leaves), params, mb, cfg, lcfg, None, True,
+                          "lora", "full")
+        return loss.detach(), int(n), torch.autograd.grad(loss, leaves)
+
+    reset_counts()
+    loss_g, n_g, grads_g = run(p_gpu, lora_gpu, dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    loss_c, n_c, grads_c = run(p_cpu, lora_cpu, "cpu")
+    names = [f"layer {i} {name}.{k}" for i, layer in enumerate(lora_cpu)
+             for name, ad in layer.items() for k in ad]
+    worst, worst_name = 0.0, ""
+    for name, gg, gc in zip(names, grads_g, grads_c):
+        if not torch.isfinite(gg).all() or gc.norm() == 0:
+            fail(f"train-parity: gradient of {name} is not finite on the card or 0 on the CPU")
+        rel = ((gg.cpu().float() - gc.float()).norm() / gc.float().norm()).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    d_loss = abs(loss_g.item() - loss_c.item())
+    # one forward, one recomputed forward and one backward over 2 layers; the
+    # first layer's wq, wk, wv get an input without a gradient: no dx for them
+    L = cfg.num_layers
+    want = expected_counts(qmm_nf4_fwd_dq=2 * 7 * L, qmm_nf4_bwd=7 * L - 3, flash_fwd=2 * L,
+                           flash_bwd_dq=L, flash_bwd_dkv=L)
+    print(f"train-parity: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
+          f"loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
+          f"(tol {LOSS_TOL}); {len(names)} LoRA gradients, worst |g_card - g_cpu|/|g_cpu| = "
+          f"{worst:.4g} at {worst_name} (tol {GRAD_TOL}); launches {counts}", flush=True)
+    if n_g != n_c or d_loss > LOSS_TOL or worst > GRAD_TOL:
+        fail(f"train-parity: loss differs by {d_loss}, worst gradient by {worst} ({worst_name})")
+    if counts != want:
+        fail(f"train-parity launch counts {counts} != {want}")
+    del p_gpu, p_cpu, lora_gpu, lora_cpu, grads_g, grads_c
+    torch.cuda.empty_cache()
+    return worst
+
+
+def frozen_tensors(params):
+    """Every tensor of the base model: packed nibbles, absmax, meta-scales
+    and offsets of each block linear, the norms, embed and lm_head."""
+    import torch
+
+    out = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(params)
+    return out
+
+
+def train_phase(dev):
+    import torch
+
+    from qlora_tpu_torch.lora import LoraConfig, count_lora_params
+    from qlora_tpu_torch.models import init_lora_params, init_params
+    from qlora_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    cfg = seven_b()
+    rows, S = TRAIN_MICRO
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=31, device=dev)
+    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0)
+    lora = init_lora_params(cfg, lcfg, seed=32, device=dev)          # B = 0: a fresh adapter
+    torch.cuda.synchronize()
+    print(f"train: LLaMA-7B {cfg.num_layers} layers, random NF4 weights (double quant) + a "
+          f"fresh rank-{lcfg.r} LoRA on all 7 block linears ({count_lora_params(lora) / 1e6:.1f}"
+          f" M parameters), made in {time.perf_counter() - t0:.1f} s", flush=True)
+    frozen = frozen_tensors(params)
+    if any(t.requires_grad for t in frozen):
+        fail("train: a frozen tensor asks for a gradient")
+    before = [t.clone() for t in frozen]
+
+    opt = make_optimizer("paged_adamw_32bit", TRAIN_LR, total_steps=TRAIN_STEPS)
+    state = init_train_state(lora, opt, device=dev)
+    step = make_train_step(cfg, lcfg, opt, accum_steps=TRAIN_ACCUM, remat="full", device=dev)
+    batch = collated_batch(cfg.vocab_size, rows, S, seed=33, stacked=TRAIN_ACCUM)
+    real = int(batch["attention_mask"].sum())
+    targets = int((batch["labels"][..., 1:] != -100).sum())
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # per optimizer step, TRAIN_ACCUM micro-batches, L layers, 7 block linears each:
+    #   qmm forward   7 L in the forward + 7 L in the backward's recomputed forward (remat)
+    #   qmm backward  7 L - 3: layer 0's wq, wk, wv see the embeddings, which need no gradient
+    #   flash forward L + L recomputed; flash dq L; flash dk, dv L
+    L = cfg.num_layers
+    per_step = expected_counts(
+        qmm_nf4_fwd_dq=TRAIN_ACCUM * 2 * 7 * L,       # 2 * 448 = 896
+        qmm_nf4_bwd=TRAIN_ACCUM * (7 * L - 3),        # 2 * 221 = 442
+        flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
+        flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
+        flash_bwd_dkv=TRAIN_ACCUM * L)                # 64
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    step_s = sum(secs[1:]) / (TRAIN_STEPS - 1)        # the first step warms the allocator
+    losses = [m[0] for m in metrics]
+    print("train: " + "; ".join(f"step {i} loss {l:.5f} grad_norm {g:.5f} {t:.2f} s"
+                                for i, ((l, g), t) in enumerate(zip(metrics, secs))), flush=True)
+    print(f"train: {step_s:.3f} s per optimizer step (mean of steps 1..{TRAIN_STEPS - 1}; "
+          f"{TRAIN_ACCUM} micro-batches of {rows} x {S}) = "
+          f"{TRAIN_ACCUM * rows * S / step_s:.1f} padded tokens/s, {real / step_s:.1f} real "
+          f"tokens/s ({real} real, {targets} target tokens per step); peak memory "
+          f"{peak_gib:.2f} GiB", flush=True)
+    print(f"train: launches {counts} (expected {TRAIN_STEPS} x {per_step})", flush=True)
+    if counts != want:
+        fail(f"train launch counts {counts} != {want}")
+    if not torch.isfinite(torch.tensor(metrics)).all():
+        fail(f"train: a loss or gradient norm is not finite: {metrics}")
+    if min(m[1] for m in metrics) <= 0:
+        fail(f"train: a gradient norm is 0: {metrics}")
+    # the schedule's first learning rate is 0: step 1 sees the weights of step 0
+    if abs(losses[1] - losses[0]) > 1e-3:
+        fail(f"train: the first step moved the loss ({losses[0]} -> {losses[1]})")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall ({losses})")
+    if state.step != TRAIN_STEPS:
+        fail(f"train: state.step is {state.step}")
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, frozen_tensors(params)))
+    print(f"train: {len(before)} frozen tensors byte-identical after {TRAIN_STEPS} steps: "
+          f"{changed == 0}", flush=True)
+    if changed:
+        fail(f"train: {changed} frozen tensors changed")
+    del params, lora, state, before
+    torch.cuda.empty_cache()
+    return counts, per_step, dict(step_s=step_s, padded_tok_s=TRAIN_ACCUM * rows * S / step_s,
+                                  real_tok_s=real / step_s, peak_gib=peak_gib, losses=losses)
+
+
+def train_split(results, per_step, stats):
+    """Split the optimizer step by kernel: each kernel's launches per step
+    times its kernel-phase time at the train shape (M = 1024, S = 512).  What
+    is left is the plain PyTorch ops (LoRA products and their backward, norms,
+    RoPE, SwiGLU, lm_head, the loss, AdamW) and the gaps between launches."""
+    at = lambda name, start: next(r["ms"] for r in results
+                                  if r["name"] == name and r["shape"].startswith(start))
+    M = QMM_BWD_ROWS
+    layers = seven_b().num_layers
+    # per layer: wq, wk, wv, wo (4096 -> 4096), w_gate, w_up (4096 -> 11008), w_down
+    fwd = (4 * at("qmm_nf4_fwd_dq", f"M={M} K=4096 N=4096")
+           + 2 * at("qmm_nf4_fwd_dq", f"M={M} K=4096 N=11008")
+           + at("qmm_nf4_fwd_dq", f"M={M} K=11008 N=4096"))
+    fwd_ms = fwd * per_step["qmm_nf4_fwd_dq"] / 7
+    sq, up, down = (at("qmm_nf4_bwd", f"M={M} K={k} N={n} dq") for k, n in QMM_SHAPES)
+    per_micro = layers * (4 * sq + 2 * up + down) - 3 * sq       # layer 0: no dx for q, k, v
+    bwd_ms = per_micro * per_step["qmm_nf4_bwd"] / (7 * layers - 3)
+    head = "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]"
+    flash = {n: at(n, head) * per_step[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    step_ms = stats["step_s"] * 1e3
+    other = step_ms - fwd_ms - bwd_ms - sum(flash.values())
+    return dict(step_ms=step_ms, qmm_fwd_ms=fwd_ms, qmm_bwd_ms=bwd_ms, other_ms=other,
+                **{f"{n}_ms": v for n, v in flash.items()})
+
+
 SOURCES = {
     "qmm_nf4_fwd_dq": ("qlora_tpu_torch/csrc/qmm_nf4_fwd.cu",
                        "qlora_tpu/ops/qmatmul.py:592 (_qmm_pallas_dq)"),
@@ -405,11 +853,24 @@ SOURCES = {
                         "qlora_tpu/ops/qmatmul.py:521 (_qmm_pallas)"),
     "decode_attention_cuda": ("qlora_tpu_torch/csrc/decode_attention.cu",
                               "qlora_tpu/ops/decode_attention.py:207 (fused_decode_attention)"),
+    "qmm_nf4_bwd": ("qlora_tpu_torch/csrc/qmm_nf4_bwd.cu",
+                    "qlora_tpu/ops/qmatmul.py:651 (_qmm_bwd_pallas)"),
+    "flash_fwd": ("qlora_tpu_torch/csrc/flash_attention.cu",
+                  "qlora_tpu/ops/flash_attention.py:196 (_flash_fwd)"),
+    "flash_bwd_dq": ("qlora_tpu_torch/csrc/flash_attention.cu",
+                     "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :449)"),
+    "flash_bwd_dkv": ("qlora_tpu_torch/csrc/flash_attention.cu",
+                      "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :476)"),
 }
 # the shape each kernel's summary entry reports: the decode step's most
-# common launch (4096 -> 4096 at batch 4) and the serving-shape attention
+# common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
+# the train step's micro-batch (M = 1024 rows; 2 x 32 heads x 512 tokens)
 HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=4096 N=4096",
-            "decode_attention_cuda": "B=4 H=32 KVH=32"}
+            "decode_attention_cuda": "B=4 H=32 KVH=32",
+            "qmm_nf4_bwd": "M=1024 K=4096 N=4096 dq",
+            "flash_fwd": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
+            "flash_bwd_dq": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
+            "flash_bwd_dkv": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]"}
 
 
 def qmm_ms_per_forward(results, num_layers, M):
@@ -466,6 +927,7 @@ def main() -> int:
     results = []
     t0 = time.perf_counter()
     kernel_phase(dev, results)
+    flash_phase(dev, results)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     worst = parity_phase(dev)
@@ -475,8 +937,19 @@ def main() -> int:
     serve_counts, serve_stats = serve_phase(dev)
     print(f"serve: {time.perf_counter() - t0:.1f} s", flush=True)
     nodq_counts = nodq_phase(dev)
+    t0 = time.perf_counter()
+    worst = train_parity_phase(dev)
+    print(f"train-parity: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train_counts, train_per_step, train_stats = train_phase(dev)
+    print(f"train: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    launches = dict(serve_counts, qmm_nf4_fwd_f32=nodq_counts["qmm_nf4_fwd_f32"])
+    # each kernel's launches on the main path that runs it: serve for the
+    # serving kernels (nodq for the f32-absmax variant), train for the rest
+    launches = dict(train_counts, qmm_nf4_fwd_dq=serve_counts["qmm_nf4_fwd_dq"],
+                    decode_attention_cuda=serve_counts["decode_attention_cuda"],
+                    qmm_nf4_fwd_f32=nodq_counts["qmm_nf4_fwd_f32"])
     summary = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]
@@ -489,12 +962,21 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],
         })
+    summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
     print(f"serve: prefill {split['prefill_ms']:.1f} ms, of which qmm kernels "
           f"~{split['prefill_qmm_ms']:.1f} ms; decode step {split['step_ms']:.2f} ms = qmm "
           f"kernels ~{split['step_qmm_ms']:.2f} ms + decode attention "
           f"~{split['step_attention_ms']:.2f} ms + other ~{split['step_other_ms']:.2f} ms "
           "(kernel-phase times x launches)", flush=True)
+    ts = train_split(results, train_per_step, train_stats)
+    print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
+          f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm "
+          f"backward kernel ~{ts['qmm_bwd_ms']:.0f} ms ({train_per_step['qmm_nf4_bwd']}) + flash "
+          f"forward ~{ts['flash_fwd_ms']:.1f} ms ({train_per_step['flash_fwd']}) + flash dq "
+          f"~{ts['flash_bwd_dq_ms']:.1f} ms ({train_per_step['flash_bwd_dq']}) + flash dk, dv "
+          f"~{ts['flash_bwd_dkv_ms']:.1f} ms ({train_per_step['flash_bwd_dkv']}) + other "
+          f"~{ts['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

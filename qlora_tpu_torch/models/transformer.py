@@ -13,6 +13,10 @@ Parameter layout:
   }
   lora = [{"<linear name>": {"a": [K, r], "b": [r, N]} f32, ...}] * L
   cache = {"k": [[B, KVH, T, hd] bf16] * L, "v": [...] * L, "length": [B] int32}
+
+Nothing on the no-cache path writes into a tensor in place, so autograd can
+differentiate it with respect to the LoRA tensors; every other parameter is
+frozen (``requires_grad`` False) and gets no gradient.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from qlora_tpu_torch import resolve_device
 from qlora_tpu_torch.lora import LoraConfig, apply_lora, init_lora
@@ -38,7 +43,7 @@ from qlora_tpu_torch.models.layers import (
     rms_norm,
     rope_frequencies,
 )
-from qlora_tpu_torch.ops import fused_decode_attention
+from qlora_tpu_torch.ops import flash_attention, fused_decode_attention
 from qlora_tpu_torch.quant.blockwise import quantize
 
 LLAMA_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -65,10 +70,24 @@ def linear_dims(cfg: ModelConfig) -> dict:
     }
 
 
-def _block_linear(block, lora, name, x, lcfg: LoraConfig):
+# stable per-linear ids, so that each adapter draws an independent dropout mask
+_LINEAR_RNG_IDS = {
+    name: i for i, name in enumerate(sorted(set(LLAMA_LINEARS + NEOX_LINEARS)))
+}
+
+
+def _block_linear(block, lora, name, x, lcfg: LoraConfig, seed=None):
+    """Base linear plus its LoRA term.  `seed`, an int or None, is the
+    block's dropout seed: each linear draws its mask from a generator seeded
+    with it and the linear's id, so a recomputed block (remat) draws the
+    same masks again."""
     y = apply_linear(block[name], x)
     if lora is not None and name in lora:
-        y = y + apply_lora(x, lora[name], lcfg.scale)
+        gen = None
+        if lcfg.dropout > 0 and seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(
+                seed * len(_LINEAR_RNG_IDS) + _LINEAR_RNG_IDS[name])
+        y = y + apply_lora(x, lora[name], lcfg.scale, lcfg.dropout, gen)
     return y
 
 
@@ -86,19 +105,21 @@ def _write_prefill(buf: torch.Tensor, new: torch.Tensor, starts) -> None:
         buf[b, :, p:p + S] = new[b]
 
 
-def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos):
+def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
+          flash_lengths=None):
     """Attention sub-block; cache_kv None or (k_buf, v_buf) [B, KVH, T, hd],
-    which are updated in place."""
+    which are updated in place.  flash_lengths: [B] valid-key lengths; when
+    set (and there is no cache) attention goes through ``flash_attention``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     rotary_dim = int(cfg.rotary_pct * hd) // 2 * 2
     if cfg.arch == "llama":
-        q = _block_linear(block, lora, "wq", x, lcfg).reshape(B, S, -1, hd)
-        k = _block_linear(block, lora, "wk", x, lcfg).reshape(B, S, -1, hd)
-        v = _block_linear(block, lora, "wv", x, lcfg).reshape(B, S, -1, hd)
+        q = _block_linear(block, lora, "wq", x, lcfg, seed).reshape(B, S, -1, hd)
+        k = _block_linear(block, lora, "wk", x, lcfg, seed).reshape(B, S, -1, hd)
+        v = _block_linear(block, lora, "wv", x, lcfg, seed).reshape(B, S, -1, hd)
     else:
         # HF NeoX packs qkv per head: [B, S, H, 3, hd]
-        qkv = _block_linear(block, lora, "w_qkv", x, lcfg).reshape(B, S, -1, 3, hd)
+        qkv = _block_linear(block, lora, "w_qkv", x, lcfg, seed).reshape(B, S, -1, 3, hd)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     q = apply_rope(q, cos, sin, rotary_dim)
     k = apply_rope(k, cos, sin, rotary_dim)
@@ -116,40 +137,65 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos):
             _write_prefill(k_buf, k.transpose(1, 2).to(k_buf.dtype), starts)
             _write_prefill(v_buf, v.transpose(1, 2).to(v_buf.dtype), starts)
             attn_out = attention_kvmajor(q, k_buf, v_buf, mask)
+    elif flash_lengths is not None:
+        # GQA is handled inside the kernel (query head h reads kv head h // G)
+        oh = flash_attention(
+            q.transpose(1, 2).to(torch.bfloat16), k.transpose(1, 2).to(torch.bfloat16),
+            v.transpose(1, 2).to(torch.bfloat16), flash_lengths,
+            1.0 / hd ** 0.5, True, cfg.sliding_window)
+        attn_out = oh.transpose(1, 2)
     else:
         attn_out = attention(q, k, v, mask)
-    return _block_linear(block, lora, "wo", attn_out.reshape(B, S, -1), lcfg)
+    return _block_linear(block, lora, "wo", attn_out.reshape(B, S, -1), lcfg, seed)
 
 
-def _mlp(cfg, block, lora, lcfg, x):
+def _mlp(cfg, block, lora, lcfg, x, seed=None):
     if cfg.arch == "llama":
-        g = _block_linear(block, lora, "w_gate", x, lcfg)
-        u = _block_linear(block, lora, "w_up", x, lcfg)
+        g = _block_linear(block, lora, "w_gate", x, lcfg, seed)
+        u = _block_linear(block, lora, "w_up", x, lcfg, seed)
         act = (F.gelu(g.float(), approximate="tanh") if cfg.hidden_act == "gelu_tanh"
                else F.silu(g.float()))
         h = (act * u.float()).to(torch.bfloat16)
-        return _block_linear(block, lora, "w_down", h, lcfg)
-    h = _block_linear(block, lora, "w_fc", x, lcfg)
+        return _block_linear(block, lora, "w_down", h, lcfg, seed)
+    h = _block_linear(block, lora, "w_fc", x, lcfg, seed)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(torch.bfloat16)
-    return _block_linear(block, lora, "w_out", h, lcfg)
+    return _block_linear(block, lora, "w_out", h, lcfg, seed)
 
 
-def block_forward(cfg, lcfg, x, block, lora, cos, sin, mask, cache_kv, pos):
+def block_forward(cfg, lcfg, x, block, lora, cos, sin, mask, cache_kv, pos, seed=None,
+                  flash_lengths=None):
     """One transformer block; returns x (the cache is updated in place)."""
     if cfg.arch == "llama":
         h = rms_norm(x, _nscale(cfg, block["attn_norm"]), cfg.norm_eps)
-        x = x + _attn(cfg, block, lora, lcfg, h, cos, sin, mask, cache_kv, pos)
+        x = x + _attn(cfg, block, lora, lcfg, h, cos, sin, mask, cache_kv, pos, seed,
+                      flash_lengths)
         h2 = rms_norm(x, _nscale(cfg, block["mlp_norm"]), cfg.norm_eps)
-        return x + _mlp(cfg, block, lora, lcfg, h2)
+        return x + _mlp(cfg, block, lora, lcfg, h2, seed)
     h1 = layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"], cfg.norm_eps)
-    a = _attn(cfg, block, lora, lcfg, h1, cos, sin, mask, cache_kv, pos)
+    a = _attn(cfg, block, lora, lcfg, h1, cos, sin, mask, cache_kv, pos, seed, flash_lengths)
     if cfg.use_parallel_residual:
         h2 = layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"], cfg.norm_eps)
-        return x + a + _mlp(cfg, block, lora, lcfg, h2)
+        return x + a + _mlp(cfg, block, lora, lcfg, h2, seed)
     x = x + a
     h2 = layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"], cfg.norm_eps)
-    return x + _mlp(cfg, block, lora, lcfg, h2)
+    return x + _mlp(cfg, block, lora, lcfg, h2, seed)
+
+
+def _check_remat(remat) -> bool:
+    """Per-layer gradient checkpointing.  ``True`` / ``"full"`` keeps only
+    the layer boundaries: the backward runs each block's whole forward
+    again, every NF4 matmul and attention kernel included (least memory).
+    The JAX package's ``"save_linear"`` names residuals for a JAX checkpoint
+    policy, which has no counterpart for ``autograd.Function``s here."""
+    if remat == "save_linear":
+        raise NotImplementedError(
+            "remat='save_linear' (keep the linear and attention outputs, recompute "
+            "the rest) is not ported: ROADMAP queue A2, remat=\"save_linear\"; use "
+            "remat='full'")
+    if remat not in (False, True, "full"):
+        raise ValueError(f"remat must be False, True, 'full' or 'save_linear', got {remat!r}")
+    return bool(remat)
 
 
 def forward(
@@ -163,14 +209,16 @@ def forward(
     attn_mask: Optional[torch.Tensor] = None,   # [B, S] 1 = real (right padding)
     cache: Optional[dict] = None,
     use_flash: str = "auto",                    # "auto" | "never" | "always"
+    generator: Optional[torch.Generator] = None,   # LoRA dropout (lcfg.dropout > 0)
+    remat=False,                                # False | True / "full"
 ):
     """Returns (logits [B, S, V] f32, cache or None).  The cache's K/V
     buffers are updated in place; the returned dict carries the new lengths.
 
-    Without a cache, attention is the plain grouped softmax (the JAX
-    package's ``use_flash="never"`` path).  Where the JAX package would take
-    its flash kernel on the card, this raises: that kernel is ported with
-    training (ROADMAP queue B, flash attention)."""
+    Without a cache, attention goes through ``flash_attention`` when
+    ``use_flash`` is "always", or "auto" at the JAX package's gate
+    (S % 128 == 0 and head_dim % 64 == 0); otherwise it is the plain grouped
+    softmax.  ``remat`` checkpoints each block when gradients are recorded."""
     B, S = ids.shape
     dev = ids.device
     x = lookup_embedding(params["embed"], ids, torch.bfloat16)
@@ -186,6 +234,7 @@ def forward(
         cfg.head_dim, int(cfg.rotary_pct * cfg.head_dim) // 2 * 2,
         cfg.rope_theta, positions)
 
+    flash_lengths = None
     if cache is not None:
         if S == 1:
             mask = None              # the decode kernel masks by length itself
@@ -196,14 +245,13 @@ def forward(
             mask = kj <= pq
             if cfg.sliding_window:
                 mask = mask & (pq - kj < cfg.sliding_window)
+    elif use_flash == "always" or (
+            use_flash != "never" and S % 128 == 0 and cfg.head_dim % 64 == 0):
+        mask = None                  # flash attention masks by length itself
+        flash_lengths = (torch.full((B,), S, dtype=torch.int32, device=dev)
+                         if attn_mask is None
+                         else attn_mask.to(dev).sum(-1, dtype=torch.int32))
     else:
-        flash = use_flash == "always" or (
-            use_flash != "never" and S % 128 == 0 and cfg.head_dim % 64 == 0)
-        if flash and ids.is_cuda:
-            raise NotImplementedError(
-                "no-cache attention at this shape takes the flash kernel, which "
-                "is not ported yet (ROADMAP queue B: _flash_fwd); pass "
-                "use_flash='never'")
         mask = causal_mask(S, S, device=dev)
         if cfg.sliding_window:
             row = torch.arange(S, device=dev)[:, None]
@@ -213,10 +261,22 @@ def forward(
         if attn_mask is not None:
             mask = mask & attn_mask.to(dev)[:, None, None, :].bool()
 
+    seed0 = None
+    if generator is not None and lcfg.dropout > 0:
+        # one draw per forward; layer i's masks come from seed0 + i
+        seed0 = int(torch.randint(0, 2 ** 40, (1,), generator=generator,
+                                  device=generator.device).item())
+    remat = _check_remat(remat) and cache is None and torch.is_grad_enabled()
     for i, block in enumerate(params["blocks"]):
         lora_l = None if lora is None else lora[i]
         cache_l = None if cache is None else (cache["k"][i], cache["v"][i])
-        x = block_forward(cfg, lcfg, x, block, lora_l, cos, sin, mask, cache_l, positions)
+        seed = None if seed0 is None else seed0 + i
+
+        def body(x, block=block, lora_l=lora_l, cache_l=cache_l, seed=seed):
+            return block_forward(cfg, lcfg, x, block, lora_l, cos, sin, mask, cache_l,
+                                 positions, seed, flash_lengths)
+
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
 
     if cfg.arch == "llama":
         x = rms_norm(x, _nscale(cfg, params["final_norm"]["scale"]), cfg.norm_eps)

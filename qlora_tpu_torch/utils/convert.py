@@ -6,7 +6,8 @@ passed through ``np.asarray``): a ``QuantizedTensor`` as a dict of
 ``shape``, ``block_size`` and ``quant_type``; a ``QLinear`` as
 ``{"qt": ..., "bias": ...}``; a ``DenseLinear`` as ``{"w": ..., "bias": ...}``.
 Block and LoRA leaves stacked over layers ``[L, ...]`` become per-layer
-lists.  Every byte is kept: bfloat16 arrays (numpy's ml_dtypes type) are
+lists; ``lora_to_numpy`` goes the other way, so that an adapter trained
+here can be set beside one trained there.  Every byte is kept: bfloat16 arrays (numpy's ml_dtypes type) are
 reinterpreted through their 16-bit pattern.
 """
 
@@ -98,3 +99,12 @@ def lora_from_numpy(tree: dict, device) -> list:
     L = next(iter(tree.values()))["a"].shape[0]
     return [{name: {k: to_tensor(np.asarray(ad[k])[i], device) for k in ("a", "b")}
              for name, ad in tree.items()} for i in range(L)]
+
+
+def lora_to_numpy(lora: list) -> dict:
+    """The reverse of :func:`lora_from_numpy`: a per-layer list of adapters
+    → {name: {"a": [L, K, r], "b": [L, r, N]}} of f32 numpy arrays, the JAX
+    package's stacked layout."""
+    return {name: {k: np.stack([layer[name][k].detach().float().cpu().numpy()
+                                for layer in lora]) for k in ("a", "b")}
+            for name in lora[0]}

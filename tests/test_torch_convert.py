@@ -20,7 +20,9 @@ from qlora_tpu.quant.blockwise import QuantizedTensor as JQT
 
 from qlora_tpu_torch.models.config import get_config
 from qlora_tpu_torch.models.layers import DenseLinear, QLinear
-from qlora_tpu_torch.utils.convert import lora_from_numpy, params_from_numpy, to_tensor
+from qlora_tpu_torch.utils.convert import (
+    lora_from_numpy, lora_to_numpy, params_from_numpy, to_tensor,
+)
 
 torch.set_num_threads(2)
 
@@ -106,3 +108,16 @@ def test_to_tensor_bfloat16_bits():
     t = to_tensor(np.asarray(x))
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.uint16).numpy(), np.asarray(x).view(np.uint16))
+
+
+def test_lora_round_trip_to_the_stacked_layout():
+    """Per-layer adapters go back to JAX's L-stacked arrays with every
+    value kept, so an adapter trained by the port sets beside JAX's."""
+    jcfg = jget_config("debug")
+    lora, _ = nonzero_lora(jcfg)
+    back = lora_to_numpy(lora_from_numpy(jax_to_numpy(lora), "cpu"))
+    assert sorted(back) == sorted(lora)
+    for name, ad in lora.items():
+        for k in ("a", "b"):
+            assert back[name][k].dtype == np.float32
+            np.testing.assert_array_equal(back[name][k], np.asarray(ad[k]))

@@ -14,16 +14,28 @@ apart and an output element moves by up to 2^-8 of the attended values'
 scale, even where it cancels to near 0: each element within 2e-2 of its
 (row, head)'s largest |output|.  The planted cases make one key read too
 many or too few at a window edge move the output by O(1).  Caches
-byte-equal."""
+byte-equal.
+
+The qmm backward kernel decodes the weight with the forward's arithmetic
+and sums g·Wᵀ in f32 in another order: rtol 1e-2, atol 2e-2, as the
+forward.  The flash kernels round the probabilities against tile-wise
+running maxima where the plain version has the row's maximum, and sum in
+another order: o within 2e-2 of its (row, head)'s largest |o|, lse within
+1e-3, each gradient within 2e-2 of the largest |gradient| of its (batch,
+head) slice; rows and keys that must get exactly 0 are checked for 0."""
 
 import pytest
 import torch
 
-from chip_smoke import plant_edges
+from chip_smoke import plant_edges, plant_flash_edges
 from qlora_tpu_torch.generate import generate
 from qlora_tpu_torch.models import forward, get_config, init_params
 from qlora_tpu_torch.ops import decode_attention_cuda, decode_attention_plain
-from qlora_tpu_torch.ops import qmatmul, qmatmul_plain, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32
+from qlora_tpu_torch.ops import flash_attention_lse, flash_bwd_dkv, flash_bwd_dq, flash_bwd_plain
+from qlora_tpu_torch.ops import flash_fwd, flash_fwd_plain
+from qlora_tpu_torch.ops import qmatmul, qmatmul_bwd_plain, qmatmul_plain, qmm_nf4_bwd
+from qlora_tpu_torch.ops import qmm_nf4_fwd_dq, qmm_nf4_fwd_f32
+from qlora_tpu_torch.quant import dequantize
 from qlora_tpu_torch.quant import quantize
 from qlora_tpu_torch.utils import move_to
 
@@ -105,8 +117,134 @@ def test_debug_model_card_matches_cpu(cuda):
     lengths = torch.tensor([4, 2])
     toks = generate(p_gpu, None, ids, lengths, cfg, max_new_tokens=4, eos_id=-1)
     assert toks.shape == (2, 4) and toks.is_cuda
-    with pytest.raises(NotImplementedError, match="flash"):
-        forward(p_gpu, None, torch.zeros(1, 128, dtype=torch.long, device=cuda), cfg)
+    flash_before = flash_fwd.launches
+    long_ids = torch.arange(128)[None] % cfg.vocab_size
+    got, _ = forward(p_gpu, None, long_ids.to(cuda), cfg)        # "auto" takes the kernel
+    assert flash_fwd.launches == flash_before + cfg.num_layers
+    want, _ = forward(p_cpu, None, long_ids, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0.1)
     got, _ = forward(p_gpu, None, ids.to(cuda), cfg, use_flash="never")
     want, _ = forward(p_cpu, None, ids, cfg)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0.1)
+
+
+@pytest.mark.parametrize("M,K,N,block_size", [
+    (1, 256, 64, 64), (1024, 4096, 4096, 64), (37, 384, 200, 64),
+    (300, 1024, 320, 32), (130, 11008, 512, 64), (16, 64 * 600, 96, 64),
+])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_qmm_bwd_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    qt = quantize(w, block_size=block_size, double_quant=double_quant)
+    g = torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16).requires_grad_()
+    before = qmm_nf4_bwd.launches
+    qmatmul(x, qt).backward(g)
+    assert qmm_nf4_bwd.launches == before + 1
+    assert x.grad.dtype == torch.bfloat16 and x.grad.shape == (M, K)
+    torch.testing.assert_close(x.grad.float(), qmatmul_bwd_plain(g, qt).float(),
+                               rtol=1e-2, atol=2e-2)
+
+
+def test_qmm_bwd_sees_the_forward_weight(cuda):
+    """An identity cotangent reads the decoded weight out of the backward
+    kernel, an identity input out of the forward one: both must be the
+    plain dequantize, bit for bit, with int8 and with f32 absmax."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for dq in (True, False):
+        K, N = 64 * 260 * 2, 64                       # two meta-blocks of absmax rows
+        qt = quantize(torch.randn(K, N, device=cuda, generator=gen), double_quant=dq)
+        w = dequantize(qt, torch.bfloat16)
+        eye_n = torch.eye(N, device=cuda, dtype=torch.bfloat16)
+        assert torch.equal(qmm_nf4_bwd(eye_n, qt), w.T.contiguous())
+        qt2 = quantize(torch.randn(256, 192, device=cuda, generator=gen), double_quant=dq)
+        eye_k = torch.eye(256, device=cuda, dtype=torch.bfloat16)
+        assert torch.equal(qmatmul(eye_k, qt2), dequantize(qt2, torch.bfloat16))
+        assert torch.equal(qmm_nf4_bwd(torch.eye(192, device=cuda, dtype=torch.bfloat16), qt2),
+                           dequantize(qt2, torch.bfloat16).T.contiguous())
+
+
+def test_qmm_no_backward_launch_without_input_grad(cuda):
+    qt = quantize(torch.randn(256, 64, device=cuda))
+    x = torch.randn(8, 256, device=cuda).to(torch.bfloat16)
+    before = qmm_nf4_bwd.launches
+    y = qmatmul(x, qt)
+    assert not y.requires_grad and qmm_nf4_bwd.launches == before
+
+
+FLASH_CASES = [   # B, H, KVH, D, S, lens, causal, window, planted
+    (2, 32, 32, 128, 512, [512, 300], True, None, False),
+    (2, 32, 8, 128, 512, [512, 300], True, 256, False),      # GQA G=4, sliding window
+    (2, 8, 8, 128, 600, [600, 77], True, None, False),       # S not a multiple of 64
+    (3, 4, 2, 64, 200, [200, 0, 1], True, 64, False),        # a row of length 0, D=64
+    (2, 4, 4, 64, 130, [130, 65], False, None, False),       # not causal
+    (2, 8, 2, 128, 384, [384, 200], True, 100, True),        # planted edges
+    (2, 4, 4, 64, 192, [192, 131], True, None, True),
+]
+
+
+def _slice_tol(ref):
+    return 2e-2 * ref.float().abs().amax((-2, -1), keepdim=True).clamp_min(1e-6)
+
+
+@pytest.mark.parametrize("B,H,KVH,D,S,lens,causal,window,planted", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, planted):
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=gen).to(torch.bfloat16)
+    q, k, v, do = mk(B, H, S, D), mk(B, KVH, S, D), mk(B, KVH, S, D), mk(B, H, S, D)
+    if planted:
+        plant_flash_edges(q, k, v, lens, window)
+    L = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    sm = D ** -0.5
+    n0 = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    o, lse = flash_fwd(q, k, v, L, sm, causal, window)
+    o2, lse2 = flash_fwd_plain(q, k, v, L, sm, causal, window)
+    d = (o.float() - o2.float()).abs()
+    tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
+    assert (d <= tol).all(), f"o: max excess {(d - tol).max().item()}"
+    torch.testing.assert_close(lse, lse2, rtol=1e-3, atol=1e-3)
+    empty = torch.tensor(lens, device=cuda) == 0
+    assert (o[empty] == 0).all() and (lse[empty] == 3e38).all()
+    # the backward kernels on the plain forward's residuals, with an lse cotangent
+    dlse = torch.randn(B, H, S, device=cuda, generator=gen) * 0.1
+    di = (o2.float() * do.float()).sum(-1) - dlse
+    dq = flash_bwd_dq(q, k, v, L, do, lse2, di, sm, causal, window)
+    dk, dv = flash_bwd_dkv(q, k, v, L, do, lse2, di, sm, causal, window)
+    n1 = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    assert n1 == tuple(n + 1 for n in n0)
+    rq, rk, rv = flash_bwd_plain(q, k, v, L, o2, lse2, do, sm, causal, window, dlse=dlse)
+    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        d = (got.float() - ref.float()).abs()
+        assert (d <= _slice_tol(ref)).all(), f"{name}: max excess {(d - _slice_tol(ref)).max()}"
+    for b, n in enumerate(lens):       # keys past the length get exactly nothing
+        assert (dk[b, :, n:] == 0).all() and (dv[b, :, n:] == 0).all()
+    assert (dq[empty] == 0).all()
+
+
+def test_flash_autograd_launches_all_three(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=gen).to(torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (mk(1, 4, 128, 64), mk(1, 2, 128, 64),
+                                             mk(1, 2, 128, 64)))
+    L = torch.tensor([100], device=cuda, dtype=torch.int32)
+    n0 = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    o, lse = flash_attention_lse(q, k, v, L, 0.125, True, None)
+    (o.float().square().sum() + lse[:, :, :100].sum()).backward()
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == \
+        tuple(n + 1 for n in n0)
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    oc, lsec = flash_attention_lse(qc, kc, vc, L.cpu(), 0.125, True, None)
+    (oc.float().square().sum() + lsec[:, :, :100].sum()).backward()
+    for got, ref in ((q.grad, qc.grad), (k.grad, kc.grad), (v.grad, vc.grad)):
+        d = (got.float().cpu() - ref.float()).abs()
+        assert (d <= _slice_tol(ref)).all()
+
+
+def test_flash_rejects_bad_input(cuda):
+    q = torch.zeros(1, 4, 64, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd(q, q, q, torch.tensor([64], device=cuda))
+    q = torch.zeros(1, 4, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="pair up"):
+        flash_fwd(q, q[:, :3], q[:, :3], torch.tensor([64], device=cuda))
