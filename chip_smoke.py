@@ -31,12 +31,34 @@ them.  Phases, each failing the run on any mismatch or exception:
    one batch: finite losses, no movement on the first step (its learning
    rate is 0), a lower loss at the end, frozen tensors byte-identical, and
    exact launch counts read around the steps.
+8. kernels-int8: the four kernels of the int8 family against their plain
+   versions: ``qmm_i8_direct`` (M = 4, the block linears and the padded
+   lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128 and 2048) equal
+   bit for bit, in the raw int32 accumulators and in the bf16 output;
+   ``qmm_i8_fwd`` (M = 4, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024) within
+   the NF4 kernels' tolerance, f32 and double-quantized absmax, and reading
+   out ``dequantize``'s weight bit for bit from identity operands.
+9. parity-int8: LLaMA-7B width, 2 layers, the CPU's plain path against the
+   card, at three seeds: 4 teacher-forced decode steps on the int8 serving
+   tree and a 128-token prefill of the NF4 params, both under
+   ``default_impl("w8a8")``; logits agree, agree as closely as the exact
+   path's once the card multiplies the CPU's int8 row codes, and stay within
+   a band of the exact path's without being equal to them.
+10. serve-int8 (inside serve, on its weights): the same 4 requests through
+   ``generate(..., decode_impl="int8")`` on a serving tree requantized once;
+   exact launch counts (the prefill on the NF4 kernel, every decode step on
+   ``qmm_i8_direct``, the lm_head included), the first tokens equal to the NF4
+   run's, both decode paths' times side by side.
+11. train-int8: train-parity and train again over an int8 base (``--bits 8``
+   storage), 3 optimizer steps, the NF4 phase's launch counts on the int8
+   kernels' counters and none on the NF4 ones.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -47,6 +69,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+PEAK_INT8 = 1979e12       # dense int8 tensor-core OP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores, FLOP/s
 L2_BYTES = 50 * 2 ** 20   # H100 L2 cache
 QMM_TOL = (2e-2, 1e-2)    # atol, rtol: one bf16 ulp of the output + f32 reassociation
@@ -62,11 +85,25 @@ GRAD_TOL = 0.05           # train-parity: |g_card - g_cpu| / |g_cpu| per LoRA te
                           # layers of bf16 activations rounded in other orders
 LOSS_TOL = 0.02           # train-parity: |loss_card - loss_cpu|, losses near ln(32000)
 
+INT8_BAND = 0.05          # kernels-int8: |w8a8 product - exact product| of the largest |exact
+                          # value|: per-channel w8a8 noise (the JAX kernel tests' budget)
+W8A8_LOGIT_TOL = 0.30     # parity-int8, card against CPU, each quantizing its own rows: twice
+                          # LOGIT_TOL.  Where the bf16 activations differ by an ulp, an int8 code
+                          # moves a whole step, 1/127 of its row's largest value.  On the CPU's
+                          # row codes the card is held to LOGIT_TOL (it reads 0.03 there); free
+                          # running it reads 0.17 to 0.23 over PARITY_INT8_SEEDS
+INT8_LOGIT_BAND = 0.08    # parity-int8: the int8 path against the exact one through two layers
+                          # and the lm_head, of the largest |exact logit|; 0.046 to 0.064 over
+                          # PARITY_INT8_SEEDS, where one matmul has 0.012 to 0.015
+
+PARITY_INT8_SEEDS = (41, 51, 61)
+
 SERVE_LENGTHS = (512, 384, 200, 97)
 SERVE_NEW = 64
 TRAIN_MICRO = (2, 512)    # micro-batch rows x padded length
 TRAIN_ACCUM = 2
 TRAIN_STEPS = 5
+TRAIN_INT8_STEPS = 3      # the int8 base's run: a zero step, a repeat, one that has moved
 TRAIN_LR = 2e-4
 
 # kernel phase: the LLaMA-7B block linears (K, N) at prefill (M = 4 x 512),
@@ -75,6 +112,8 @@ TRAIN_LR = 2e-4
 QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 QMM_ROWS = (2048, 1024, 4)
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
+LM_HEAD_SHAPE = (4096, 32768)     # the int8 serving copy pads 32000 columns to 32768
+W8A8_ROWS = (4, 128, 2048)       # decode, the parity-int8 prefill (1 x 128), a 4 x 512 prefill
 ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
     (4, 32, 32, 128, 640, (0, 97, 383, 639), None, False),
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, False),      # GQA G=4, sliding window
@@ -444,6 +483,190 @@ def flash_phase(dev, results):
         del sets, leaves, out
 
 
+def int8_bound(M, K, N, weight_bytes, peak_ops, act_bytes):
+    """(bound_ms, bound_by) of an [M, K] x [K, N] product whose weight side
+    (codes and scales) is `weight_bytes` and whose activations are
+    `act_bytes` wide: every input read once, the bf16 output written once,
+    2*M*K*N operations at `peak_ops`."""
+    nbytes = M * K * act_bytes + weight_bytes + M * N * 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * M * K * N / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def record(results, name, shape, err, tol, ms, plain_ms, lib_ms, bound, **more):
+    bound_ms, bound_by = bound
+    results.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, **more))
+    extra = "".join(f" {k}={v:.4f}" for k, v in more.items())
+    print(f"kernel {name} {shape}: max|d|={err:.3g} ({tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}){extra}", flush=True)
+
+
+def int_mm_ms(x8, w8s, s_out, xs, iters):
+    """The yardstick of the w8a8 kernels: ``torch._int_mm`` (cuBLAS int8,
+    rows padded to 32: it wants more than 16) and the epilogue in PyTorch
+    ops.  It takes every shape of this script once its rows are padded."""
+    import torch
+
+    M = x8.shape[0]
+    xp = torch.nn.functional.pad(x8, (0, 0, 0, (-M) % 32))
+
+    def call(i):
+        acc = torch._int_mm(xp, w8s[i % len(w8s)])[:M]
+        return (acc.float() * s_out[None, :]).to(torch.bfloat16) * xs.to(torch.bfloat16)
+
+    return cuda_ms(call, iters)
+
+
+def w8a8_check(name, shape, wrapper, plain, x, qt, w8):
+    """A w8a8 kernel against its plain version: the raw int32 accumulators
+    equal the exact integer product, and the bf16 output, whose float steps
+    (two multiplications, two roundings) both sides take in the same order,
+    is equal bit for bit.  Returns the largest |difference| (0.0 or a failure)."""
+    import torch
+
+    from qlora_tpu_torch.ops import int8_matmul_plain, quantize_rows
+    from qlora_tpu_torch.ops.qmatmul import _w8a8_accumulators
+
+    x8, _ = quantize_rows(x)
+    acc = _w8a8_accumulators(x8, qt)
+    ref_acc = int8_matmul_plain(x8, w8).to(torch.int32)
+    y, ref = wrapper(x, qt), plain(x, qt)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    if not torch.equal(acc, ref_acc):
+        bad = (acc != ref_acc).sum().item()
+        fail(f"{name} {shape}: {bad} int32 accumulators differ from the exact integer product")
+    if not torch.equal(y, ref):
+        fail(f"{name} {shape}: the bf16 output differs from its plain version by {err}")
+    return err, y
+
+
+def int8_kernel_phase(dev, results):
+    """The int8 family against its plain versions, at the LLaMA-7B shapes."""
+    import torch
+
+    from qlora_tpu_torch.ops import (
+        qmatmul_plain, qmm_i8_bwd, qmm_i8_bwd_plain, qmm_i8_direct, qmm_i8_direct_plain,
+        qmm_i8_fwd, qmm_i8_fwd_plain, qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows,
+        w8a8_codes, w8a8_scales,
+    )
+    from qlora_tpu_torch.quant import absmax_f32, dequantize, quantize
+
+    # "ms" is the kernel alone on rows quantized beforehand, as bound_ms and library_ms
+    # are; "wrapper_ms" adds the wrapper's row quantization in PyTorch ops
+    from qlora_tpu_torch.ops.qmatmul import _launch_w8a8 as launch_w8a8
+    g = torch.Generator(device=dev).manual_seed(2468)
+    clones = lambda qt: [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(),
+                                                    absmax=qt.absmax.clone())
+                                for _ in range(copies_past_l2(qt.nbytes) - 1)]
+    exact_tol = "equal bit for bit, int32 accumulators and bf16 output"
+
+    # qmm_i8_direct: the decode step's launches (M = 4) and a ragged shape
+    for M, (K, N) in [(4, s) for s in QMM_SHAPES + (LM_HEAD_SHAPE,)] + [(5, (200, 328))]:
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        qt = quantize(w, block_size=K, quant_type="int8", double_quant=False)
+        del w
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        shape = f"M={M} K={K} N={N}"
+        err, _ = w8a8_check("qmm_i8_direct", shape, qmm_i8_direct, qmm_i8_direct_plain, x, qt,
+                            qt.packed)
+        qts = clones(qt)
+        x8, xs = quantize_rows(x)
+        s_out = absmax_f32(qt).reshape(-1) / 127.0
+        ms = cuda_ms(lambda i: launch_w8a8("qmm_i8_direct", x8, qts[i % len(qts)], None, s_out,
+                                           xs), 200)
+        wrapper_ms = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 200)
+        plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
+        lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200)
+        record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms,
+               int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1), wrapper_ms=wrapper_ms)
+        del qts, qt
+
+    # qmm_nf4_w8a8: NF4 storage (double quant), decode and prefill rows
+    for K, N in QMM_SHAPES:
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        qt = quantize(w)
+        del w
+        ratio, s_out = w8a8_scales(qt)
+        w8 = w8a8_codes(qt, ratio)
+        qts = clones(qt)
+        w8s = [w8] + [w8.clone() for _ in range(copies_past_l2(w8.nbytes) - 1)]
+        for M in W8A8_ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            shape = f"M={M} K={K} N={N}"
+            err, y = w8a8_check("qmm_nf4_w8a8", shape, qmm_nf4_w8a8, qmm_nf4_w8a8_plain, x, qt,
+                                w8)
+            exact = qmatmul_plain(x, qt).float()
+            off = (y.float() - exact).abs().max().item() / exact.abs().max().item()
+            if not 0 < off < INT8_BAND:
+                fail(f"qmm_nf4_w8a8 {shape}: {off:.4f} of the largest |value| away from the "
+                     f"exact product (band {INT8_BAND})")
+            x8, xs = quantize_rows(x)
+            iters = 20 if M > 16 else 200
+            ms = cuda_ms(lambda i: launch_w8a8("qmm_nf4_w8a8", x8, qts[i % len(qts)], ratio,
+                                               s_out, xs), iters)
+            wrapper_ms = cuda_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]), iters)
+            plain_ms = cuda_ms(lambda i: qmm_nf4_w8a8_plain(x, qts[i % len(qts)]), 2)
+            lib_ms = int_mm_ms(x8, w8s, s_out, xs, iters)
+            record(results, "qmm_nf4_w8a8", shape, err, exact_tol, ms, plain_ms, lib_ms,
+                   int8_bound(M, K, N, K * N // 2 + ratio.nbytes + N * 4 + M * 4, PEAK_INT8, 1),
+                   wrapper_ms=wrapper_ms, of_exact=off)
+        del qts, w8s, w8, qt
+
+    # qmm_i8_fwd, qmm_i8_bwd: the --bits 8 base, f32 and double-quantized absmax
+    tol = f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|"
+    for dq in (True, False):
+        for K, N in QMM_SHAPES:
+            w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+            qt = quantize(w, quant_type="int8", double_quant=dq)
+            w_bf16 = dequantize(qt, torch.bfloat16)
+            del w
+            qts = clones(qt)
+            ws = [w_bf16] + [w_bf16.clone() for _ in range(copies_past_l2(w_bf16.nbytes) - 1)]
+            am_bytes = qt.nbytes - K * N
+            kind = "dq" if dq else "f32"
+            for name, kernel, plain, rows in (("qmm_i8_fwd", qmm_i8_fwd, qmm_i8_fwd_plain,
+                                               (4, QMM_BWD_ROWS, 2048)),
+                                              ("qmm_i8_bwd", qmm_i8_bwd, qmm_i8_bwd_plain,
+                                               (QMM_BWD_ROWS,))):
+                fwd = name == "qmm_i8_fwd"
+                for M in rows:
+                    a = torch.randn(M, K if fwd else N, device=dev, generator=g).to(torch.bfloat16)
+                    y, ref = kernel(a, qt), plain(a, qt)
+                    torch.cuda.synchronize()
+                    diff = (y.float() - ref.float()).abs()
+                    err = diff.max().item()
+                    excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
+                    shape = f"M={M} K={K} N={N} {kind} absmax"
+                    if excess > QMM_TOL[0]:
+                        fail(f"{name} {shape} differs from its plain version by {err}")
+                    iters = 20 if M > 16 else 200
+                    ms = cuda_ms(lambda i: kernel(a, qts[i % len(qts)]), iters)
+                    plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3 if M > 16 else 20)
+                    lib_ms = cuda_ms(lambda i: torch.matmul(
+                        a, ws[i % len(ws)] if fwd else ws[i % len(ws)].T), iters)
+                    record(results, name, shape, err, tol, ms, plain_ms, lib_ms,
+                           int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2))
+            del qts, ws, w_bf16, qt
+        # identity operands read the decoded weight out of both kernels: dequantize's, bit
+        # for bit (two meta-blocks of absmax rows; a ragged shape)
+        for K, N in ((64 * 260, 64), (192, 200)):
+            qt = quantize(torch.randn(K, N, device=dev, generator=g), quant_type="int8",
+                          double_quant=dq)
+            w = dequantize(qt, torch.bfloat16)
+            same = torch.equal(qmm_i8_bwd(torch.eye(N, device=dev, dtype=torch.bfloat16), qt),
+                               w.T.contiguous())
+            if K <= 256:
+                same = same and torch.equal(
+                    qmm_i8_fwd(torch.eye(K, device=dev, dtype=torch.bfloat16), qt), w)
+            print(f"kernel qmm_i8_fwd/qmm_i8_bwd K={K} N={N} {'dq' if dq else 'f32'} absmax: "
+                  f"identity operands read out dequantize's weight bit for bit: {same}",
+                  flush=True)
+            if not same:
+                fail(f"the int8 kernels decode another weight than dequantize (K={K} N={N})")
+
+
 def seven_b(num_layers=None):
     from qlora_tpu_torch.models import get_config
 
@@ -507,14 +730,145 @@ def parity_phase(dev):
     return worst
 
 
+def clone_cache(cache):
+    return {"k": [t.clone() for t in cache["k"]], "v": [t.clone() for t in cache["v"]],
+            "length": cache["length"].clone()}
+
+
+@contextlib.contextmanager
+def row_codes(tape, replay_on=None):
+    """Inside the block the w8a8 paths' ``quantize_rows`` writes each call's
+    (x8, xs) to `tape`, or, with `replay_on` a device, hands back the tape's
+    entries there in the same order of calls instead of quantizing what it is
+    given: a second run of the same model then multiplies the first run's
+    int8 codes."""
+    import importlib
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    real, left = qm.quantize_rows, iter(tape)
+
+    def record(x):
+        tape.append(real(x))
+        return tape[-1]
+
+    def replay(x):
+        x8, xs = next(left)
+        if x8.shape != x.shape:
+            fail(f"row_codes: call of shape {tuple(x.shape)} meets a tape entry {tuple(x8.shape)}")
+        return x8.to(replay_on), xs.to(replay_on)
+
+    qm.quantize_rows = record if replay_on is None else replay
+    try:
+        yield
+    finally:
+        qm.quantize_rows = real
+    if replay_on is not None and next(left, None) is not None:
+        fail("row_codes: the replaying run quantized fewer rows than the recording one")
+
+
+def parity_int8_phase(dev, seed):
+    """The w8a8 paths, CPU plain versions against the card, 2 layers at full
+    width: (a) 4 teacher-forced decode steps on the int8 serving tree, (b) a
+    128-token prefill of the NF4 params, both under ``default_impl("w8a8")``.
+    Three readings each.  Card against CPU, within W8A8_LOGIT_TOL.  The same
+    with the CPU's row codes replayed on the card (:func:`row_codes`), within
+    LOGIT_TOL, the exact path's limit: given equal codes every integer
+    product is equal, and what is left is what the exact path has too.  And
+    the card's int8 logits against its exact ones: inside INT8_LOGIT_BAND and
+    not equal.  Returns (the worst of each reading, launch counts of the
+    prefill)."""
+    import torch
+
+    from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
+    from qlora_tpu_torch.models import forward, init_cache, init_params
+    from qlora_tpu_torch.ops import default_impl
+    from qlora_tpu_torch.utils import move_to
+
+    cfg = seven_b(num_layers=2)
+    p_gpu = init_params(cfg, seed=seed, device=dev)
+    lora_gpu, lcfg = random_lora(cfg, dev, seed=seed + 1)
+    S, steps = 128, 4
+    ids = torch.randint(0, cfg.vocab_size, (1, S),
+                        generator=torch.Generator().manual_seed(seed + 2))
+    worst = dict(free=0.0, replayed=0.0, of_exact=0.0)
+
+    def compare(what, l_cpu, l_gpu, l_replayed, l_exact):
+        if not all(torch.isfinite(t).all() for t in (l_cpu, l_gpu, l_replayed)):
+            fail(f"parity-int8 {what}: non-finite logits")
+        err = (l_cpu - l_gpu.cpu()).abs().max().item()
+        err_replayed = (l_cpu - l_replayed.cpu()).abs().max().item()
+        top = l_exact.abs().max().item()
+        off = (l_gpu - l_exact).abs().max().item() / top
+        for k, v in (("free", err), ("replayed", err_replayed), ("of_exact", off)):
+            worst[k] = max(worst[k], v)
+        print(f"parity-int8 seed {seed} {what}: max|logits cpu - card|={err:.4g} (tol "
+              f"{W8A8_LOGIT_TOL}), with the CPU's row codes on the card {err_replayed:.4g} (tol "
+              f"{LOGIT_TOL}); int8 path against the exact path on the card: {off:.4f} of the "
+              f"largest |logit| {top:.3g} (band {INT8_LOGIT_BAND}, and not 0)", flush=True)
+        if err > W8A8_LOGIT_TOL:
+            fail(f"parity-int8 {what}: card logits differ from the CPU's by {err}")
+        if err_replayed > LOGIT_TOL:
+            fail(f"parity-int8 {what}: on the CPU's row codes the card's logits still differ "
+                 f"from the CPU's by {err_replayed}")
+        if not 0 < off < INT8_LOGIT_BAND:
+            fail(f"parity-int8 {what}: the int8 path is {off} of the largest |logit| away "
+                 "from the exact path")
+
+    with torch.inference_mode():
+        dec_gpu = requantize_params_int8_unstacked(p_gpu)
+        p_cpu, lora_cpu, dec_cpu = (move_to(t, "cpu") for t in (p_gpu, lora_gpu, dec_gpu))
+        # (b) first: the prefill, on the NF4 params, under w8a8
+        tape = []
+        with default_impl("w8a8"):
+            with row_codes(tape):
+                l_cpu, _ = forward(p_cpu, lora_cpu, ids, cfg, lcfg,
+                                   cache=init_cache(cfg, 1, S, device="cpu"))
+            reset_counts()
+            l_gpu, _ = forward(p_gpu, lora_gpu, ids.to(dev), cfg, lcfg,
+                               cache=init_cache(cfg, 1, S, device=dev))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            with row_codes(tape, dev):
+                l_rep, _ = forward(p_gpu, lora_gpu, ids.to(dev), cfg, lcfg,
+                                   cache=init_cache(cfg, 1, S, device=dev))
+        want = expected_counts(qmm_nf4_w8a8=7 * cfg.num_layers)
+        if counts != want:
+            fail(f"parity-int8 prefill launch counts {counts} != {want}")
+        # the exact prefill fills the caches the decode steps start from
+        c_cpu = init_cache(cfg, 1, S + steps, device="cpu")
+        c_gpu = init_cache(cfg, 1, S + steps, device=dev)
+        e_cpu, c_cpu = forward(p_cpu, lora_cpu, ids, cfg, lcfg, cache=c_cpu)
+        e_gpu, c_gpu = forward(p_gpu, lora_gpu, ids.to(dev), cfg, lcfg, cache=c_gpu)
+        compare(f"prefill of {S} tokens, NF4 params (launches {counts['qmm_nf4_w8a8']} "
+                "qmm_nf4_w8a8)", l_cpu, l_gpu, l_rep, e_gpu)
+        # (a) teacher-forced decode steps on the int8 tree
+        c_exact = clone_cache(c_gpu)
+        tok = e_cpu[:, -1].argmax(-1, keepdim=True)
+        for step in range(steps):
+            l_exact, c_exact = forward(p_gpu, lora_gpu, tok.to(dev), cfg, lcfg, cache=c_exact)
+            c_rep, tape = clone_cache(c_gpu), []
+            with default_impl("w8a8"):
+                with row_codes(tape):
+                    l_cpu, c_cpu = forward(dec_cpu, lora_cpu, tok, cfg, lcfg, cache=c_cpu)
+                l_gpu, c_gpu = forward(dec_gpu, lora_gpu, tok.to(dev), cfg, lcfg, cache=c_gpu)
+                with row_codes(tape, dev):
+                    l_rep, _ = forward(dec_gpu, lora_gpu, tok.to(dev), cfg, lcfg, cache=c_rep)
+            compare(f"decode step {step}, int8 tree", l_cpu[:, -1], l_gpu[:, -1], l_rep[:, -1],
+                    l_exact[:, -1])
+            tok = l_cpu[:, -1].argmax(-1, keepdim=True)      # teacher-force the CPU's token
+    del p_gpu, p_cpu, lora_gpu, lora_cpu, dec_gpu, dec_cpu, c_cpu, c_gpu, c_exact, c_rep
+    torch.cuda.empty_cache()
+    return worst, counts
+
+
 def counters():
     from qlora_tpu_torch.ops import (
-        decode_attention_cuda, flash_bwd_dkv, flash_bwd_dq, flash_fwd, qmm_nf4_bwd,
-        qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
+        decode_attention_cuda, flash_bwd_dkv, flash_bwd_dq, flash_fwd, qmm_i8_bwd,
+        qmm_i8_direct, qmm_i8_fwd, qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, qmm_nf4_w8a8,
     )
 
     return (qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, decode_attention_cuda, qmm_nf4_bwd, flash_fwd,
-            flash_bwd_dq, flash_bwd_dkv)
+            flash_bwd_dq, flash_bwd_dkv, qmm_i8_direct, qmm_nf4_w8a8, qmm_i8_fwd, qmm_i8_bwd)
 
 
 def expected_counts(**nonzero):
@@ -541,12 +895,29 @@ def padded_requests(lengths, S, vocab, seed):
     return ids, torch.tensor(lengths, dtype=torch.int32)
 
 
+def timed_prefill(dev, cfg, params, lora, lcfg, ids, lengths):
+    """Seconds of one prefill of the serve requests on the exact params, as
+    ``generate`` runs it first under either decode path; each run times its
+    own, just after its ``generate``, and takes it off its total."""
+    import torch
+
+    from qlora_tpu_torch.generate.engine import prefill
+    from qlora_tpu_torch.models import init_cache
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, 4, max(SERVE_LENGTHS) + SERVE_NEW, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, lora, ids.to(dev), lengths.to(dev), cfg, lcfg, cache=cache)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+
 def serve_phase(dev):
     import torch
 
     from qlora_tpu_torch.generate import generate
-    from qlora_tpu_torch.generate.engine import prefill
-    from qlora_tpu_torch.models import init_cache, init_params
+    from qlora_tpu_torch.models import init_params
 
     cfg = seven_b()
     t0 = time.perf_counter()
@@ -571,14 +942,7 @@ def serve_phase(dev):
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    with torch.inference_mode():
-        cache = init_cache(cfg, 4, max(SERVE_LENGTHS) + SERVE_NEW, device=dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        prefill(params, lora, ids.to(dev), lengths.to(dev), cfg, lcfg, cache=cache)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t1
-    del cache
+    prefill_s = timed_prefill(dev, cfg, params, lora, lcfg, ids, lengths)
     n_lin = 7 * cfg.num_layers
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * (SERVE_NEW + 1),
                            decode_attention_cuda=cfg.num_layers * SERVE_NEW)
@@ -593,10 +957,73 @@ def serve_phase(dev):
         fail(f"serve launch counts {counts} != {want}")
     if toks.shape != (4, SERVE_NEW) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         fail("serve: tokens out of range or wrong shape")
+    stats = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
+                 decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib)
+    int8_counts, int8_stats = serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, toks)
     del params, lora
     torch.cuda.empty_cache()
-    return counts, dict(prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s / SERVE_NEW
-                        * 1e3, decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib)
+    return counts, stats, int8_counts, int8_stats
+
+
+def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
+    """The serve phase's requests again through ``decode_impl="int8"``: the
+    prefill on the NF4 params (the exact path), every decode step on a
+    per-column int8 serving tree made once."""
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
+    from qlora_tpu_torch.models.layers import QLinear
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        dec = requantize_params_int8_unstacked(params)
+    torch.cuda.synchronize()
+    requant_s = time.perf_counter() - t0
+    tree_bytes = sum(v.qt.nbytes for b in dec["blocks"] for v in b.values()
+                   if isinstance(v, QLinear)) + dec["lm_head"].qt.nbytes
+    print(f"serve-int8: per-column int8 serving tree requantized in {requant_s:.2f} s, "
+          f"{tree_bytes / 2 ** 30:.2f} GiB (lm_head {tuple(dec['lm_head'].qt.packed.shape)})",
+          flush=True)
+    kw = dict(eos_id=-1, device=dev, decode_impl="int8", decode_params=dec)
+    generate(params, lora, ids[:, :16], torch.full((4,), 16), cfg, lcfg, max_new_tokens=2, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = generate(params, lora, ids, lengths, cfg, lcfg, max_new_tokens=SERVE_NEW, **kw)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prefill_s = timed_prefill(dev, cfg, params, lora, lcfg, ids, lengths)
+    n_lin = 7 * cfg.num_layers
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin,                       # the prefill, exact
+                           qmm_i8_direct=(n_lin + 1) * SERVE_NEW,      # + 1: the lm_head
+                           decode_attention_cuda=cfg.num_layers * SERVE_NEW)
+    decode_s = total_s - prefill_s
+    agree = (toks == nf4_toks).float().mean().item()
+    print(f"serve-int8: generated {tuple(toks.shape)} tokens in {total_s:.3f} s; decode "
+          f"{decode_s * 1e3:.1f} ms = {toks.numel() / decode_s:.1f} tok/s, "
+          f"{decode_s / SERVE_NEW * 1e3:.2f} ms/step (its prefill, on the exact params, "
+          f"{prefill_s * 1e3:.1f} ms); peak memory {peak_gib:.2f} GiB; {agree:.2f} of the tokens equal "
+          "the NF4 run's", flush=True)
+    print(f"serve-int8: launches {counts} (expected {want}: the prefill's {n_lin} on the NF4 "
+          f"kernel, {n_lin} + 1 qmm_i8_direct and {cfg.num_layers} decode-attention per decode "
+          "step)", flush=True)
+    if counts != want:
+        fail(f"serve-int8 launch counts {counts} != {want}")
+    if toks.shape != (4, SERVE_NEW) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("serve-int8: tokens out of range or wrong shape")
+    # the first token comes from the prefill's logits, which both runs compute alike
+    if not torch.equal(toks[:, 0], nf4_toks[:, 0]):
+        fail("serve-int8: the first tokens differ from the NF4 run's")
+    del dec
+    return counts, dict(decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
+                        decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib,
+                        requantize_s=requant_s, tokens_equal=agree)
 
 
 def nodq_phase(dev):
@@ -655,7 +1082,14 @@ def collated_batch(vocab, rows, S, seed, stacked):
     return {k: np.stack([m[k] for m in micro]) for k in micro[0]}
 
 
-def train_parity_phase(dev):
+def qmm_counters(quant_type):
+    """The names of the (forward, backward) qmm counters a base of this
+    storage runs through (double-quantized absmax)."""
+    return ("qmm_i8_fwd", "qmm_i8_bwd") if quant_type == "int8" else (
+        "qmm_nf4_fwd_dq", "qmm_nf4_bwd")
+
+
+def train_parity_phase(dev, quant_type="nf4"):
     import torch
 
     from qlora_tpu_torch.models import init_params
@@ -663,8 +1097,10 @@ def train_parity_phase(dev):
     from qlora_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
     from qlora_tpu_torch.utils import move_to
 
+    tag = "train-parity" if quant_type == "nf4" else f"train-parity-{quant_type}"
+    fwd_name, bwd_name = qmm_counters(quant_type)
     cfg = seven_b(num_layers=2)
-    p_gpu = init_params(cfg, seed=21, device=dev)
+    p_gpu = init_params(cfg, seed=21, device=dev, quant_type=quant_type)
     lora_gpu, lcfg = random_lora(cfg, dev, seed=22)
     p_cpu, lora_cpu = move_to(p_gpu, "cpu"), move_to(lora_gpu, "cpu")
     batch = collated_batch(cfg.vocab_size, 2, 256, seed=23, stacked=0)
@@ -687,7 +1123,7 @@ def train_parity_phase(dev):
     worst, worst_name = 0.0, ""
     for name, gg, gc in zip(names, grads_g, grads_c):
         if not torch.isfinite(gg).all() or gc.norm() == 0:
-            fail(f"train-parity: gradient of {name} is not finite on the card or 0 on the CPU")
+            fail(f"{tag}: gradient of {name} is not finite on the card or 0 on the CPU")
         rel = ((gg.cpu().float() - gc.float()).norm() / gc.float().norm()).item()
         if rel > worst:
             worst, worst_name = rel, name
@@ -695,16 +1131,16 @@ def train_parity_phase(dev):
     # one forward, one recomputed forward and one backward over 2 layers; the
     # first layer's wq, wk, wv get an input without a gradient: no dx for them
     L = cfg.num_layers
-    want = expected_counts(qmm_nf4_fwd_dq=2 * 7 * L, qmm_nf4_bwd=7 * L - 3, flash_fwd=2 * L,
+    want = expected_counts(**{fwd_name: 2 * 7 * L, bwd_name: 7 * L - 3}, flash_fwd=2 * L,
                            flash_bwd_dq=L, flash_bwd_dkv=L)
-    print(f"train-parity: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
+    print(f"{tag}: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
           f"loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
           f"(tol {LOSS_TOL}); {len(names)} LoRA gradients, worst |g_card - g_cpu|/|g_cpu| = "
           f"{worst:.4g} at {worst_name} (tol {GRAD_TOL}); launches {counts}", flush=True)
     if n_g != n_c or d_loss > LOSS_TOL or worst > GRAD_TOL:
-        fail(f"train-parity: loss differs by {d_loss}, worst gradient by {worst} ({worst_name})")
+        fail(f"{tag}: loss differs by {d_loss}, worst gradient by {worst} ({worst_name})")
     if counts != want:
-        fail(f"train-parity launch counts {counts} != {want}")
+        fail(f"{tag} launch counts {counts} != {want}")
     del p_gpu, p_cpu, lora_gpu, lora_cpu, grads_g, grads_c
     torch.cuda.empty_cache()
     return worst
@@ -734,29 +1170,31 @@ def frozen_tensors(params):
     return out
 
 
-def train_phase(dev):
+def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
     import torch
 
     from qlora_tpu_torch.lora import LoraConfig, count_lora_params
     from qlora_tpu_torch.models import init_lora_params, init_params
     from qlora_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 
+    tag = "train" if quant_type == "nf4" else f"train-{quant_type}"
+    fwd_name, bwd_name = qmm_counters(quant_type)
     cfg = seven_b()
     rows, S = TRAIN_MICRO
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=31, device=dev)
+    params = init_params(cfg, seed=31, device=dev, quant_type=quant_type)
     lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0)
     lora = init_lora_params(cfg, lcfg, seed=32, device=dev)          # B = 0: a fresh adapter
     torch.cuda.synchronize()
-    print(f"train: LLaMA-7B {cfg.num_layers} layers, random NF4 weights (double quant) + a "
-          f"fresh rank-{lcfg.r} LoRA on all 7 block linears ({count_lora_params(lora) / 1e6:.1f}"
+    print(f"{tag}: LLaMA-7B {cfg.num_layers} layers, random {quant_type} weights (double "
+          f"quant) + a fresh rank-{lcfg.r} LoRA on all 7 block linears ({count_lora_params(lora) / 1e6:.1f}"
           f" M parameters), made in {time.perf_counter() - t0:.1f} s", flush=True)
     frozen = frozen_tensors(params)
     if any(t.requires_grad for t in frozen):
-        fail("train: a frozen tensor asks for a gradient")
+        fail(f"{tag}: a frozen tensor asks for a gradient")
     before = [t.clone() for t in frozen]
 
-    opt = make_optimizer("paged_adamw_32bit", TRAIN_LR, total_steps=TRAIN_STEPS)
+    opt = make_optimizer("paged_adamw_32bit", TRAIN_LR, total_steps=steps)
     state = init_train_state(lora, opt, device=dev)
     step = make_train_step(cfg, lcfg, opt, accum_steps=TRAIN_ACCUM, remat="full", device=dev)
     batch = collated_batch(cfg.vocab_size, rows, S, seed=33, stacked=TRAIN_ACCUM)
@@ -766,7 +1204,7 @@ def train_phase(dev):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     metrics, secs = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t1 = time.perf_counter()
         state, m = step(state, params, batch)
         torch.cuda.synchronize()
@@ -781,47 +1219,47 @@ def train_phase(dev):
     #   flash forward L + L recomputed; flash dq L; flash dk, dv L
     L = cfg.num_layers
     per_step = expected_counts(
-        qmm_nf4_fwd_dq=TRAIN_ACCUM * 2 * 7 * L,       # 2 * 448 = 896
-        qmm_nf4_bwd=TRAIN_ACCUM * (7 * L - 3),        # 2 * 221 = 442
+        **{fwd_name: TRAIN_ACCUM * 2 * 7 * L,         # 2 * 448 = 896
+           bwd_name: TRAIN_ACCUM * (7 * L - 3)},      # 2 * 221 = 442
         flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
         flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
         flash_bwd_dkv=TRAIN_ACCUM * L)                # 64
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    step_s = sum(secs[1:]) / (TRAIN_STEPS - 1)        # the first step warms the allocator
+    want = {k: v * steps for k, v in per_step.items()}
+    step_s = sum(secs[1:]) / (steps - 1)        # the first step warms the allocator
     losses = [m[0] for m in metrics]
-    print("train: " + "; ".join(f"step {i} loss {l:.5f} grad_norm {g:.5f} {t:.2f} s"
+    print(f"{tag}: " + "; ".join(f"step {i} loss {l:.5f} grad_norm {g:.5f} {t:.2f} s"
                                 for i, ((l, g), t) in enumerate(zip(metrics, secs))), flush=True)
-    print(f"train: {step_s:.3f} s per optimizer step (mean of steps 1..{TRAIN_STEPS - 1}; "
+    print(f"{tag}: {step_s:.3f} s per optimizer step (mean of steps 1..{steps - 1}; "
           f"{TRAIN_ACCUM} micro-batches of {rows} x {S}) = "
           f"{TRAIN_ACCUM * rows * S / step_s:.1f} padded tokens/s, {real / step_s:.1f} real "
           f"tokens/s ({real} real, {targets} target tokens per step); peak memory "
           f"{peak_gib:.2f} GiB", flush=True)
-    print(f"train: launches {counts} (expected {TRAIN_STEPS} x {per_step})", flush=True)
+    print(f"{tag}: launches {counts} (expected {steps} x {per_step})", flush=True)
     if counts != want:
-        fail(f"train launch counts {counts} != {want}")
+        fail(f"{tag} launch counts {counts} != {want}")
     if not torch.isfinite(torch.tensor(metrics)).all():
-        fail(f"train: a loss or gradient norm is not finite: {metrics}")
+        fail(f"{tag}: a loss or gradient norm is not finite: {metrics}")
     if min(m[1] for m in metrics) <= 0:
-        fail(f"train: a gradient norm is 0: {metrics}")
+        fail(f"{tag}: a gradient norm is 0: {metrics}")
     # the schedule's first learning rate is 0: step 1 sees the weights of step 0
     if abs(losses[1] - losses[0]) > 1e-3:
-        fail(f"train: the first step moved the loss ({losses[0]} -> {losses[1]})")
+        fail(f"{tag}: the first step moved the loss ({losses[0]} -> {losses[1]})")
     if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall ({losses})")
-    if state.step != TRAIN_STEPS:
-        fail(f"train: state.step is {state.step}")
+        fail(f"{tag}: the loss did not fall ({losses})")
+    if state.step != steps:
+        fail(f"{tag}: state.step is {state.step}")
     changed = sum(not torch.equal(a, b) for a, b in zip(before, frozen_tensors(params)))
-    print(f"train: {len(before)} frozen tensors byte-identical after {TRAIN_STEPS} steps: "
+    print(f"{tag}: {len(before)} frozen tensors byte-identical after {steps} steps: "
           f"{changed == 0}", flush=True)
     if changed:
-        fail(f"train: {changed} frozen tensors changed")
+        fail(f"{tag}: {changed} frozen tensors changed")
     del params, lora, state, before
     torch.cuda.empty_cache()
     return counts, per_step, dict(step_s=step_s, padded_tok_s=TRAIN_ACCUM * rows * S / step_s,
                                   real_tok_s=real / step_s, peak_gib=peak_gib, losses=losses)
 
 
-def train_split(results, per_step, stats):
+def train_split(results, per_step, stats, quant_type="nf4"):
     """Split the optimizer step by kernel: each kernel's launches per step
     times its kernel-phase time at the train shape (M = 1024, S = 512).  What
     is left is the plain PyTorch ops (LoRA products and their backward, norms,
@@ -830,14 +1268,15 @@ def train_split(results, per_step, stats):
                                   if r["name"] == name and r["shape"].startswith(start))
     M = QMM_BWD_ROWS
     layers = seven_b().num_layers
+    fwd_name, bwd_name = qmm_counters(quant_type)
     # per layer: wq, wk, wv, wo (4096 -> 4096), w_gate, w_up (4096 -> 11008), w_down
-    fwd = (4 * at("qmm_nf4_fwd_dq", f"M={M} K=4096 N=4096")
-           + 2 * at("qmm_nf4_fwd_dq", f"M={M} K=4096 N=11008")
-           + at("qmm_nf4_fwd_dq", f"M={M} K=11008 N=4096"))
-    fwd_ms = fwd * per_step["qmm_nf4_fwd_dq"] / 7
-    sq, up, down = (at("qmm_nf4_bwd", f"M={M} K={k} N={n} dq") for k, n in QMM_SHAPES)
+    fwd = (4 * at(fwd_name, f"M={M} K=4096 N=4096")
+           + 2 * at(fwd_name, f"M={M} K=4096 N=11008")
+           + at(fwd_name, f"M={M} K=11008 N=4096"))
+    fwd_ms = fwd * per_step[fwd_name] / 7
+    sq, up, down = (at(bwd_name, f"M={M} K={k} N={n} dq") for k, n in QMM_SHAPES)
     per_micro = layers * (4 * sq + 2 * up + down) - 3 * sq       # layer 0: no dx for q, k, v
-    bwd_ms = per_micro * per_step["qmm_nf4_bwd"] / (7 * layers - 3)
+    bwd_ms = per_micro * per_step[bwd_name] / (7 * layers - 3)
     head = "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]"
     flash = {n: at(n, head) * per_step[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     step_ms = stats["step_s"] * 1e3
@@ -861,6 +1300,14 @@ SOURCES = {
                      "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :449)"),
     "flash_bwd_dkv": ("qlora_tpu_torch/csrc/flash_attention.cu",
                       "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :476)"),
+    "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
+                      "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct)"),
+    "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
+                     "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8)"),
+    "qmm_i8_fwd": ("qlora_tpu_torch/csrc/qmm_i8.cu",
+                   "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8)"),
+    "qmm_i8_bwd": ("qlora_tpu_torch/csrc/qmm_i8.cu",
+                   "qlora_tpu/ops/qmatmul.py:475 (_qmm_bwd_pallas_i8)"),
 }
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
@@ -870,7 +1317,11 @@ HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=409
             "qmm_nf4_bwd": "M=1024 K=4096 N=4096 dq",
             "flash_fwd": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
             "flash_bwd_dq": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
-            "flash_bwd_dkv": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]"}
+            "flash_bwd_dkv": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
+            # the int8 decode step's most common launch, the parity-int8 prefill's (the
+            # run whose launches the w8a8 kernel's entry counts), the int8 base's train step
+            "qmm_i8_direct": "M=4 K=4096 N=4096", "qmm_nf4_w8a8": "M=128 K=4096 N=4096",
+            "qmm_i8_fwd": "M=1024 K=4096 N=4096 dq", "qmm_i8_bwd": "M=1024 K=4096 N=4096 dq"}
 
 
 def qmm_ms_per_forward(results, num_layers, M):
@@ -893,6 +1344,20 @@ def serve_split(results, num_layers, stats):
     return dict(prefill_ms=stats["prefill_ms"], prefill_qmm_ms=qmm_prefill,
                 step_ms=step, step_qmm_ms=qmm_step, step_attention_ms=attn,
                 step_other_ms=step - qmm_step - attn)
+
+
+def serve_int8_split(results, num_layers, stats):
+    """The int8 decode step by kernel, as :func:`serve_split`: 7 launches of
+    ``qmm_i8_direct`` per layer and the lm_head's, each at its time alone in
+    the kernel phase (the kernel without its wrapper's row quantization)."""
+    ms = {r["shape"]: r["ms"] for r in results if r["name"] == "qmm_i8_direct"}
+    lin = {k: ms[f"M=4 K={k[0]} N={k[1]}"] for k in QMM_SHAPES + (LM_HEAD_SHAPE,)}
+    qmm = num_layers * (4 * lin[(4096, 4096)] + 2 * lin[(4096, 11008)]
+                        + lin[(11008, 4096)]) + lin[LM_HEAD_SHAPE]
+    attn = num_layers * next(r["ms"] for r in results if r["name"] == "decode_attention_cuda")
+    step = stats["decode_ms_per_step"]
+    return dict(step_ms=step, step_qmm_ms=qmm, step_attention_ms=attn,
+                step_other_ms=step - qmm - attn)
 
 
 def main() -> int:
@@ -930,12 +1395,25 @@ def main() -> int:
     flash_phase(dev, results)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    int8_kernel_phase(dev, results)
+    print(f"kernels-int8: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     worst = parity_phase(dev)
     print(f"parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    serve_counts, serve_stats = serve_phase(dev)
-    print(f"serve: {time.perf_counter() - t0:.1f} s", flush=True)
+    worst = {}
+    for seed in PARITY_INT8_SEEDS:
+        w, w8a8_counts = parity_int8_phase(dev, seed)
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+    print(f"parity-int8: over seeds {PARITY_INT8_SEEDS}, worst max|logits cpu - card| "
+          f"{worst['free']:.4g} <= {W8A8_LOGIT_TOL}, on the CPU's row codes "
+          f"{worst['replayed']:.4g} <= {LOGIT_TOL}, int8 against exact "
+          f"{worst['of_exact']:.4f} < {INT8_LOGIT_BAND}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    serve_counts, serve_stats, int8_counts, int8_stats = serve_phase(dev)
+    print(f"serve and serve-int8: {time.perf_counter() - t0:.1f} s", flush=True)
     nodq_counts = nodq_phase(dev)
     t0 = time.perf_counter()
     worst = train_parity_phase(dev)
@@ -944,12 +1422,27 @@ def main() -> int:
     t0 = time.perf_counter()
     train_counts, train_per_step, train_stats = train_phase(dev)
     print(f"train: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    worst = train_parity_phase(dev, "int8")
+    train8_counts, train8_per_step, train8_stats = train_phase(dev, "int8", TRAIN_INT8_STEPS)
+    print(f"train-int8: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # each kernel's launches on the main path that runs it: serve for the
-    # serving kernels (nodq for the f32-absmax variant), train for the rest
+    # serving kernels (nodq for the f32-absmax variant), train for the rest.
+    # The int8 family: serve-int8 for the direct kernel, parity-int8's prefill
+    # for the w8a8 kernel over NF4 storage (the engine that prefills through
+    # it is not ported yet), train-int8 for the other two
     launches = dict(train_counts, qmm_nf4_fwd_dq=serve_counts["qmm_nf4_fwd_dq"],
                     decode_attention_cuda=serve_counts["decode_attention_cuda"],
-                    qmm_nf4_fwd_f32=nodq_counts["qmm_nf4_fwd_f32"])
+                    qmm_nf4_fwd_f32=nodq_counts["qmm_nf4_fwd_f32"],
+                    qmm_i8_direct=int8_counts["qmm_i8_direct"],
+                    qmm_nf4_w8a8=w8a8_counts["qmm_nf4_w8a8"],
+                    qmm_i8_fwd=train8_counts["qmm_i8_fwd"],
+                    qmm_i8_bwd=train8_counts["qmm_i8_bwd"])
+    idle = [name for name in SOURCES if launches[name] <= 0]
+    if idle:
+        fail(f"kernels never launched on their main path: {idle}")
     summary = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["name"] == name]
@@ -961,6 +1454,9 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],
+            # the w8a8 kernels' "ms" is the kernel alone; with the wrapper's row
+            # quantization (PyTorch ops), as the decode step pays it:
+            **({"wrapper_ms": head["wrapper_ms"]} if "wrapper_ms" in head else {}),
         })
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
@@ -969,6 +1465,14 @@ def main() -> int:
           f"kernels ~{split['step_qmm_ms']:.2f} ms + decode attention "
           f"~{split['step_attention_ms']:.2f} ms + other ~{split['step_other_ms']:.2f} ms "
           "(kernel-phase times x launches)", flush=True)
+    s8 = serve_int8_split(results, seven_b().num_layers, int8_stats)
+    print(f"serve-int8: decode step {s8['step_ms']:.2f} ms = qmm_i8_direct kernels "
+          f"~{s8['step_qmm_ms']:.2f} ms + decode attention ~{s8['step_attention_ms']:.2f} ms + "
+          f"other ~{s8['step_other_ms']:.2f} ms (row quantization in PyTorch ops included, issued "
+          f"by the host: it differs from call to call); kernel time of a step "
+          f"{s8['step_qmm_ms'] + s8['step_attention_ms']:.2f} ms against the NF4 path's "
+          f"{split['step_qmm_ms'] + split['step_attention_ms']:.2f} ms; on the host's clock the "
+          f"NF4 step is {split['step_ms'] / s8['step_ms']:.2f} x as long in this run", flush=True)
     ts = train_split(results, train_per_step, train_stats)
     print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
           f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm "
@@ -977,6 +1481,12 @@ def main() -> int:
           f"~{ts['flash_bwd_dq_ms']:.1f} ms ({train_per_step['flash_bwd_dq']}) + flash dk, dv "
           f"~{ts['flash_bwd_dkv_ms']:.1f} ms ({train_per_step['flash_bwd_dkv']}) + other "
           f"~{ts['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
+    t8 = train_split(results, train8_per_step, train8_stats, "int8")
+    print(f"train-int8: optimizer step {t8['step_ms']:.0f} ms = qmm_i8_fwd kernel "
+          f"~{t8['qmm_fwd_ms']:.0f} ms ({train8_per_step['qmm_i8_fwd']} launches) + qmm_i8_bwd "
+          f"kernel ~{t8['qmm_bwd_ms']:.0f} ms ({train8_per_step['qmm_i8_bwd']}) + flash "
+          f"~{t8['flash_fwd_ms'] + t8['flash_bwd_dq_ms'] + t8['flash_bwd_dkv_ms']:.1f} ms + "
+          f"other ~{t8['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

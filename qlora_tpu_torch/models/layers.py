@@ -2,7 +2,8 @@
 
 Plain functions over tensors.  The dtype policy is the JAX package's: norms
 in f32, matrix products with bf16 operands and f32 accumulation, frozen base
-weights NF4 (``bf16_matmul`` in ``ops`` holds the product's policy).
+weights NF4, FP4 or int8 (``bf16_matmul`` in ``ops`` holds the product's
+policy).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from qlora_tpu_torch.quant.blockwise import QuantizedTensor
 
 @dataclasses.dataclass
 class QLinear:
-    """A linear layer whose weight is a frozen NF4 QuantizedTensor."""
+    """A linear layer whose weight is a frozen QuantizedTensor."""
     qt: QuantizedTensor
     bias: Optional[torch.Tensor] = None
 

@@ -2,14 +2,16 @@
 
 One implementation driven by ModelConfig flags, as in the JAX package.
 Layers are per-layer Python lists, looped in Python; every block linear is
-an NF4 ``QLinear`` computed through ``qmatmul`` plus its LoRA term.
+a quantized ``QLinear`` (NF4, FP4 or int8) computed through ``qmatmul`` plus
+its LoRA term.
 
 Parameter layout:
   params = {
     "embed":      [V, D] bf16,
     "blocks":     [per-layer dict of QLinear/DenseLinear and norm tensors] * L,
     "final_norm": {"scale": [D], ("bias": [D])} f32,
-    "lm_head":    DenseLinear [D, V] bf16,
+    "lm_head":    DenseLinear [D, V] bf16 (the int8 serving copy: a QLinear
+                  whose columns are padded; the logits are cut to V),
   }
   lora = [{"<linear name>": {"a": [K, r], "b": [r, N]} f32, ...}] * L
   cache = {"k": [[B, KVH, T, hd] bf16] * L, "v": [...] * L, "length": [B] int32}

@@ -1,26 +1,41 @@
-"""Fused NF4/FP4 dequantize + matmul, differentiable in its input.
+"""Fused dequantize + matmul over NF4/FP4 and int8 storage, differentiable
+in its input.
 
 ``qmatmul(x, qt)`` dispatches on the device of its operands: a CUDA tensor
-launches the hand-written kernels (``csrc/qmm_nf4_fwd.cu`` forward,
-``csrc/qmm_nf4_bwd.cu`` backward; the int8-absmax variant when
-``qt.double_quant``, else the f32-absmax one) and raises if it cannot; a CPU
-tensor takes :func:`qmatmul_plain` and :func:`qmatmul_bwd_plain`, which
-mirror the JAX package's ``impl="xla"`` path.  The kernels take every shape
-``quantize`` accepts: they have none of the TPU's tiling conditions.
+launches a hand-written kernel and raises if it cannot; a CPU tensor takes
+the kernel's plain version.  Which kernel follows the storage and the
+scoped ``default_impl``:
+
+=====================  ==========================  ========================
+storage                exact (default)             under ``"w8a8"``
+=====================  ==========================  ========================
+NF4 / FP4              ``qmm_nf4_fwd_dq`` / _f32   ``qmm_nf4_w8a8``
+int8, per column       ``qmm_i8_fwd``              ``qmm_i8_direct``
+int8, blockwise        ``qmm_i8_fwd``              ``qmm_i8_fwd``
+=====================  ==========================  ========================
+
+The exact kernels multiply bf16 operands with f32 accumulation
+(``csrc/qmm_nf4_fwd.cu``, ``csrc/qmm_i8.cu``); the two ``w8a8`` kernels
+quantize each row of x to int8, multiply int8 by int8 into int32 on the
+tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
+serving engines' decode path.  The kernels take every shape ``quantize``
+accepts: they have none of the TPU's tiling conditions.
 
 The quantized weight is frozen: the backward decodes it again, computes
-``dx = g @ dequant(W)ᵀ`` and gives no leaf of the ``QuantizedTensor`` a
-gradient.
+``dx = g @ dequant(W)ᵀ`` exactly (``qmm_nf4_bwd``, ``qmm_i8_bwd``), also
+under ``"w8a8"``, and gives no leaf of the ``QuantizedTensor`` a gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from typing import Optional
 
 import torch
 
 from qlora_tpu_torch.quant.blockwise import (
-    ABSMAX_BLOCK, QuantizedTensor, dequantize, logical_k,
+    ABSMAX_BLOCK, QuantizedTensor, absmax_f32, dequantize, logical_k, unpack_indices,
 )
 from qlora_tpu_torch.quant.codebooks import get_code
 
@@ -63,8 +78,10 @@ def _check_quantized(qt: QuantizedTensor, dev: torch.device):
     for name, t in (("packed", qt.packed), ("absmax", qt.absmax)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
-    if qt.packed.dtype != torch.uint8 or qt.packed.ndim != 2:
-        raise ValueError("packed must be uint8 [K/2, N]")
+    want = torch.int8 if qt.quant_type == "int8" else torch.uint8
+    if qt.packed.dtype != want or qt.packed.ndim != 2:
+        raise ValueError(f"{qt.quant_type} codes must be a 2-D {want} tensor, got "
+                         f"{qt.packed.dtype} {tuple(qt.packed.shape)}")
     nb = K // qt.block_size
     if K % qt.block_size or tuple(qt.absmax.shape) != (nb, N):
         raise ValueError(f"absmax {tuple(qt.absmax.shape)} is not [{nb}, {N}]")
@@ -82,37 +99,48 @@ def _check_quantized(qt: QuantizedTensor, dev: torch.device):
     return K, N, scale, offset
 
 
-def _launch(entry: str, a: torch.Tensor, qt: QuantizedTensor, outer: int,
+def _check_rows(a: torch.Tensor, width: int, what: str) -> None:
+    if a.ndim != 2 or a.shape[1] != width:
+        raise ValueError(f"{what} {tuple(a.shape)} does not match a [M, {width}] operand")
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """`a` contiguous at a 16-byte address: the kernels load rows 16 bytes
+    at a time."""
+    a = a.contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
+
+
+def _launch(lib: str, entry: str, a: torch.Tensor, qt: QuantizedTensor, outer: int,
             scale, offset) -> torch.Tensor:
-    """Launch `entry` (``qmm_nf4_fwd`` or ``qmm_nf4_bwd``, which take the
-    same argument list) on a [M, ·] → out [M, outer] bf16.  No rows, no
-    launch."""
+    """Launch a bf16 kernel (``qmm_nf4_fwd``, ``qmm_nf4_bwd``, ``qmm_i8_fwd``
+    or ``qmm_i8_bwd``, which take the same argument list) on a [M, ·] →
+    out [M, outer] bf16.  No rows, no launch."""
     K, N = logical_k(qt), qt.packed.shape[-1]
-    a = a.to(torch.bfloat16).contiguous()
-    if a.data_ptr() % 16:
-        a = a.clone()                      # the kernels load rows 16 bytes at a time
+    a = _aligned(a.to(torch.bfloat16))
     M = a.shape[0]
     out = torch.empty((M, outer), dtype=torch.bfloat16, device=a.device)
     if M == 0:
         return out
-    fn = _build.kernel(entry, entry, _ARGTYPES)
+    fn = _build.kernel(lib, entry, _ARGTYPES)
+    code = None if qt.quant_type == "int8" else _code_on(qt.quant_type, a.device).data_ptr()
     err = fn(a.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
              None if scale is None else scale.data_ptr(),
              None if offset is None else offset.data_ptr(),
-             _code_on(qt.quant_type, a.device).data_ptr(), out.data_ptr(),
+             code, out.data_ptr(),
              M, K, N, qt.block_size, int(qt.double_quant), _build.stream_ptr(a))
     _build.check(err, entry)
     return out
 
 
 def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Check the operands and launch the forward kernel: x [M, K] on the
+    """Check the operands and launch the NF4 forward kernel: x [M, K] on the
     card → y [M, N] bf16.  The variant follows ``qt.double_quant``."""
-    K = logical_k(qt)
-    if x.ndim != 2 or x.shape[1] != K:
-        raise ValueError(f"x {tuple(x.shape)} does not match a [M, {K}] input")
+    if qt.quant_type == "int8":
+        raise ValueError("the NF4 kernels do not read int8 storage")
+    _check_rows(x, logical_k(qt), "x")
     K, N, scale, offset = _check_quantized(qt, x.device)
-    return _launch("qmm_nf4_fwd", x, qt, N, scale, offset)
+    return _launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset)
 
 
 def qmm_nf4_fwd_dq(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -147,11 +175,11 @@ def qmm_nf4_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The backward kernel (TPU _qmm_bwd_pallas): dx = g @ dequant(qt)ᵀ for
     g [M, N] on the card → [M, K] bf16.  Double-quantized absmax is decoded
     in the kernel with the forward's arithmetic."""
-    N = qt.packed.shape[-1]
-    if g.ndim != 2 or g.shape[1] != N:
-        raise ValueError(f"g {tuple(g.shape)} does not match a [M, {N}] cotangent")
+    if qt.quant_type == "int8":
+        raise ValueError("the NF4 kernels do not read int8 storage")
+    _check_rows(g, qt.packed.shape[-1], "g")
     K, N, scale, offset = _check_quantized(qt, g.device)
-    dx = _launch("qmm_nf4_bwd", g, qt, K, scale, offset)
+    dx = _launch("qmm_nf4_bwd", "qmm_nf4_bwd", g, qt, K, scale, offset)
     qmm_nf4_bwd.launches += g.shape[0] > 0
     return dx
 
@@ -159,12 +187,242 @@ def qmm_nf4_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 qmm_nf4_bwd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# int8 storage, exact: the --bits 8 base (bf16 product of the decoded weight)
+# ---------------------------------------------------------------------------
+
+# ``dequantize`` decodes int8 storage as (code * (1/127)) * absmax rounded to
+# bf16, which is the kernels' arithmetic: their plain versions are the
+# generic ones.
+qmm_i8_fwd_plain = qmatmul_plain
+qmm_i8_bwd_plain = qmatmul_bwd_plain
+
+
+def _check_int8(qt: QuantizedTensor, what: str) -> None:
+    if qt.quant_type != "int8":
+        raise ValueError(f"{what} reads int8 storage, not {qt.quant_type}")
+
+
+def qmm_i8_fwd(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The forward kernel over int8 storage (TPU _qmm_pallas_i8): x [M, K]
+    on the card → x @ dequant(qt) [M, N] bf16.  f32 or double-quantized
+    absmax, decoded in the kernel."""
+    _check_int8(qt, "qmm_i8_fwd")
+    _check_rows(x, logical_k(qt), "x")
+    K, N, scale, offset = _check_quantized(qt, x.device)
+    y = _launch("qmm_i8", "qmm_i8_fwd", x, qt, N, scale, offset)
+    qmm_i8_fwd.launches += x.shape[0] > 0
+    return y
+
+
+def qmm_i8_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The backward kernel over int8 storage (TPU _qmm_bwd_pallas_i8):
+    g [M, N] on the card → dx = g @ dequant(qt)ᵀ [M, K] bf16."""
+    _check_int8(qt, "qmm_i8_bwd")
+    _check_rows(g, qt.packed.shape[-1], "g")
+    K, N, scale, offset = _check_quantized(qt, g.device)
+    dx = _launch("qmm_i8", "qmm_i8_bwd", g, qt, K, scale, offset)
+    qmm_i8_bwd.launches += g.shape[0] > 0
+    return dx
+
+
+qmm_i8_fwd.launches = 0
+qmm_i8_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# w8a8: int8 activations times int8 weights, the serving decode path
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row int8 quantization of the activations, outside the kernels as
+    in the JAX package: xs = max|x| / 127 (1 for a zero row) f32 [M, 1] and
+    x8 = round(x / xs) int8 [M, K]."""
+    xf = x.float()
+    xs = xf.abs().amax(dim=1, keepdim=True) / 127.0
+    xs = torch.where(xs == 0, torch.ones_like(xs), xs)
+    return torch.round(xf / xs).to(torch.int8), xs
+
+
+def w8a8_scales(qt: QuantizedTensor):
+    """An NF4/FP4 tensor's per-block absmax folded into per-column int8
+    scales: (ratio f32 [K/B, N] = absmax * (127 / col), s_out f32 [N] =
+    col / 127), with col[n] the column's largest absmax (1 where 0)."""
+    am = absmax_f32(qt)
+    col = am.amax(dim=0)
+    col = torch.where(col == 0, torch.ones_like(col), col)
+    return (am * (127.0 / col)[None, :]).contiguous(), col / 127.0
+
+
+def w8a8_codes(qt: QuantizedTensor, ratio: torch.Tensor) -> torch.Tensor:
+    """The int8 weight the w8a8 kernel decodes from the nibbles:
+    round(code[idx] * ratio[k / B, n]) int8 [K, N]."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    vals = _code_on(qt.quant_type, qt.device)[unpack_indices(qt.packed).long()]
+    w = vals.reshape(K // qt.block_size, qt.block_size, N) * ratio[:, None, :]
+    return torch.round(w).reshape(K, N).to(torch.int8)
+
+
+def int8_matmul_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """x8 @ w8 as exact integers, returned f64: the products and their sum
+    (at most K * 127² < 2^53) are exact in f64 on the CPU and on the card."""
+    return x8.double() @ w8.double()
+
+
+def _w8a8_epilogue(acc: torch.Tensor, s_out: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """float(acc) * s_out[n] rounded to bf16, then times bf16(xs[m]) rounded
+    to bf16 again: the two roundings of the JAX package's epilogue."""
+    y = (acc.float() * s_out.reshape(1, -1)).to(torch.bfloat16)
+    return y * xs.to(torch.bfloat16)
+
+
+def qmm_i8_direct_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The plain version of :func:`qmm_i8_direct`: rows of x quantized to
+    int8, an exact integer product with the per-column int8 codes, scaled by
+    xs[m] * (col[n] / 127)."""
+    x8, xs = quantize_rows(x)
+    s_out = absmax_f32(qt).reshape(-1) / 127.0
+    return _w8a8_epilogue(int8_matmul_plain(x8, qt.packed), s_out, xs)
+
+
+def qmm_nf4_w8a8_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The plain version of :func:`qmm_nf4_w8a8`: the nibbles decoded to
+    per-column int8 codes, then as :func:`qmm_i8_direct_plain`."""
+    x8, xs = quantize_rows(x)
+    ratio, s_out = w8a8_scales(qt)
+    return _w8a8_epilogue(int8_matmul_plain(x8, w8a8_codes(qt, ratio)), s_out, xs)
+
+
+def _per_column(qt: QuantizedTensor) -> bool:
+    return qt.quant_type == "int8" and qt.block_size == logical_k(qt)
+
+
+def _launch_w8a8(entry: str, x8: torch.Tensor, qt: QuantizedTensor, ratio, s_out, xs):
+    """Launch ``qmm_i8_direct`` or ``qmm_nf4_w8a8`` on x8 int8 [M, K].  With
+    scales, y bf16 [M, N] as :func:`_w8a8_epilogue`; with ``s_out`` None, the
+    int32 accumulators [M, N] (:func:`_w8a8_accumulators`)."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    _check_rows(x8, K, "x8")
+    if x8.dtype != torch.int8 or not x8.is_cuda:
+        raise ValueError("x8 must be int8 on the card")
+    _check_quantized(qt, x8.device)
+    x8 = _aligned(x8)
+    M = x8.shape[0]
+    out = torch.empty((M, N), device=x8.device,
+                      dtype=torch.int32 if s_out is None else torch.bfloat16)
+    if M == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if s_out is None:
+        xs = None
+    else:
+        s_out = s_out.to(torch.float32).contiguous()
+        xs = xs.to(torch.float32).contiguous()
+    if entry == "qmm_i8_direct":
+        fn = _build.kernel("qmm_i8_direct", entry, [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+        err = fn(x8.data_ptr(), qt.packed.data_ptr(), ptr(s_out), ptr(xs), out.data_ptr(),
+                 M, K, N, _build.stream_ptr(x8))
+    else:
+        fn = _build.kernel("qmm_i8_direct", entry,
+                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+        err = fn(x8.data_ptr(), qt.packed.data_ptr(), ratio.data_ptr(), ptr(s_out), ptr(xs),
+                 _code_on(qt.quant_type, x8.device).data_ptr(), out.data_ptr(),
+                 M, K, N, qt.block_size, _build.stream_ptr(x8))
+    _build.check(err, entry)
+    return out
+
+
+def _w8a8_accumulators(x8: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """For the checks only: the int32 accumulators [M, N] that the w8a8 kernel
+    of qt's storage sums for x8 int8 [M, K], before its epilogue.  No launch
+    is counted."""
+    if _per_column(qt):
+        return _launch_w8a8("qmm_i8_direct", x8, qt, None, None, None)
+    return _launch_w8a8("qmm_nf4_w8a8", x8, qt, w8a8_scales(qt)[0], None, None)
+
+
+def qmm_i8_direct(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The direct int8 kernel (TPU _qmm_pallas_i8_direct) over a per-column
+    int8 tensor (``block_size == K``): x [M, K] on the card → [M, N] bf16,
+    ``(x8 @ codes) * xs[m] * (col[n] / 127)`` with the int32 sum exact."""
+    if not _per_column(qt):
+        raise ValueError("qmm_i8_direct needs per-column int8 storage (block_size == K)")
+    _check_rows(x, logical_k(qt), "x")
+    x8, xs = quantize_rows(x)
+    s_out = absmax_f32(qt).reshape(-1) / 127.0
+    y = _launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
+    qmm_i8_direct.launches += x.shape[0] > 0
+    return y
+
+
+def qmm_nf4_w8a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The w8a8 kernel over NF4/FP4 storage (TPU _qmm_pallas_w8a8): each
+    nibble decoded in the kernel to ``round(code * absmax * 127 / col)``
+    int8, then as :func:`qmm_i8_direct`.  Double quant is undone before the
+    kernel, where the per-column scales are made."""
+    if qt.quant_type == "int8":
+        raise ValueError("qmm_nf4_w8a8 reads NF4/FP4 storage")
+    _check_rows(x, logical_k(qt), "x")
+    x8, xs = quantize_rows(x)
+    ratio, s_out = w8a8_scales(qt)
+    y = _launch_w8a8("qmm_nf4_w8a8", x8, qt, ratio, s_out, xs)
+    qmm_nf4_w8a8.launches += x.shape[0] > 0
+    return y
+
+
+qmm_i8_direct.launches = 0
+qmm_nf4_w8a8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+_IMPL_OVERRIDE: list = [None]
+
+
+def set_default_impl(impl: Optional[str]) -> None:
+    """Choose the forward's arithmetic for every later ``qmatmul``: None is
+    the exact bf16 product; "w8a8" opts the forward into the int8
+    tensor-core kernels (serving only; the backward stays exact)."""
+    if impl not in (None, "w8a8"):
+        raise ValueError(f"impl={impl!r}: only 'w8a8' or None")
+    _IMPL_OVERRIDE[0] = impl
+
+
+@contextlib.contextmanager
+def default_impl(impl: Optional[str]):
+    """Scoped :func:`set_default_impl`: the serving engines wrap their decode
+    steps in ``default_impl("w8a8")``."""
+    prev = _IMPL_OVERRIDE[0]
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        _IMPL_OVERRIDE[0] = prev
+
+
 def _forward(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    if x.is_cuda:
-        return qmm_nf4_fwd_dq(x, qt) if qt.double_quant else qmm_nf4_fwd_f32(x, qt)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"qmatmul runs on CUDA or the CPU, not {x.device}")
-    return qmatmul_plain(x, qt)
+    cuda = x.is_cuda
+    if _IMPL_OVERRIDE[0] == "w8a8":
+        if _per_column(qt):
+            return qmm_i8_direct(x, qt) if cuda else qmm_i8_direct_plain(x, qt)
+        if qt.quant_type != "int8":
+            return qmm_nf4_w8a8(x, qt) if cuda else qmm_nf4_w8a8_plain(x, qt)
+    if not cuda:
+        return qmatmul_plain(x, qt)
+    if qt.quant_type == "int8":
+        return qmm_i8_fwd(x, qt)
+    return qmm_nf4_fwd_dq(x, qt) if qt.double_quant else qmm_nf4_fwd_f32(x, qt)
+
+
+def _backward(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    if not g.is_cuda:
+        return qmatmul_bwd_plain(g, qt)
+    return qmm_i8_bwd(g, qt) if qt.quant_type == "int8" else qmm_nf4_bwd(g, qt)
 
 
 class _QMatmul(torch.autograd.Function):
@@ -181,8 +439,7 @@ class _QMatmul(torch.autograd.Function):
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
             return None, None
-        dx = qmm_nf4_bwd(g, ctx.qt) if g.is_cuda else qmatmul_bwd_plain(g, ctx.qt)
-        return dx.to(ctx.x_dtype), None
+        return _backward(g, ctx.qt).to(ctx.x_dtype), None
 
 
 def qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Blockwise 4-bit quantization with double-quantized scales, in PyTorch.
+"""Blockwise 4-bit (NF4/FP4) and int8 quantization with double-quantized
+scales, in PyTorch.
 
 The storage layout is the JAX package's, byte for byte:
 
@@ -7,6 +8,9 @@ The storage layout is the JAX package's, byte for byte:
   ``absmax[K//B, n] = max |W[bB:(b+1)B, n]|``.
 * 4-bit codes pack two per byte, global split-half: byte ``(r, n)`` holds
   logical row ``r`` in the low nibble and row ``K/2 + r`` in the high one.
+* int8 codes (``quant_type="int8"``, the ``--bits 8`` base and the per-column
+  serving copy) are stored unpacked, int8 ``[K, N]``:
+  ``round(W / absmax * 127)``, decoded as ``(code * (1/127)) * absmax``.
 * Double quantization stores the f32 absmax as int8 with one f32 scale per
   column-aligned meta-block of 256 absmax rows, plus one f32 mean offset.
 
@@ -31,9 +35,10 @@ ABSMAX_BLOCK = 256  # double-quant meta-block, along K within each column
 
 @dataclasses.dataclass
 class QuantizedTensor:
-    """A 4-bit blockwise-quantized 2-D tensor (frozen base weight).
+    """A blockwise-quantized 2-D tensor (frozen base weight).
 
-    ``packed`` uint8 [K//2, N]; ``absmax`` f32 [K//B, N] or, with double
+    ``packed`` uint8 [K//2, N] (4-bit) or int8 [K, N] (``quant_type``
+    "int8"); ``absmax`` f32 [K//B, N] or, with double
     quant, int8 [K//B, N] with ``absmax_scale`` f32 [ceil(K//B/256), N] and
     ``absmax_offset`` a 0-dim f32 tensor.  ``shape`` is the logical (K, N).
     """
@@ -114,14 +119,24 @@ def dequantize_absmax(q: torch.Tensor, scales: torch.Tensor,
 
 def quantize(w: torch.Tensor, block_size: int = DEFAULT_BLOCK,
              quant_type: str = "nf4", double_quant: bool = True) -> QuantizedTensor:
-    """Quantize a 2-D weight ``W[K, N]`` to packed 4-bit nibbles on its own
-    device (``quant_type`` "nf4" or "fp4")."""
+    """Quantize a 2-D weight ``W[K, N]`` on its own device: ``quant_type``
+    "nf4" or "fp4" to packed 4-bit nibbles, "int8" to unpacked linear int8
+    codes with the same per-block absmax."""
     if w.ndim != 2:
         raise ValueError(f"quantize expects a 2-D weight, got shape {tuple(w.shape)}")
-    if quant_type == "int8":
-        raise NotImplementedError(
-            "int8 base storage (--bits 8) is ROADMAP queue A, its own slice")
     K, N = w.shape
+    if quant_type == "int8":
+        if K % block_size != 0:
+            raise ValueError(f"K={K} must be divisible by block_size={block_size}")
+        blocks = w.to(torch.float32).reshape(K // block_size, block_size, N)
+        absmax = blocks.abs().amax(dim=1)
+        safe = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+        codes = torch.clamp(torch.round(blocks / safe[:, None, :] * 127.0), -127, 127)
+        codes = codes.reshape(K, N).to(torch.int8)
+        if double_quant:
+            q, sc, off = double_quantize_absmax(absmax)
+            return QuantizedTensor(codes, q, sc, off, (K, N), block_size, "int8")
+        return QuantizedTensor(codes, absmax, None, None, (K, N), block_size, "int8")
     if K % (2 * block_size) != 0:
         raise ValueError(f"K={K} must be divisible by 2*block_size={2 * block_size}")
     code = torch.as_tensor(get_code(quant_type), device=w.device)
@@ -139,8 +154,9 @@ def quantize(w: torch.Tensor, block_size: int = DEFAULT_BLOCK,
 
 
 def logical_k(qt: QuantizedTensor) -> int:
-    """Leaf-derived logical contraction dim (4-bit packs 2 rows per byte)."""
-    return qt.packed.shape[-2] * 2
+    """Leaf-derived logical contraction dim (4-bit packs 2 rows per byte,
+    int8 stores one row per row)."""
+    return qt.packed.shape[-2] * (1 if qt.quant_type == "int8" else 2)
 
 
 def quantize_k_sharded(*args, **kwargs):
@@ -171,7 +187,10 @@ def unpack_indices(packed: torch.Tensor) -> torch.Tensor:
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Reconstruct ``W[K, N]`` in `dtype` (the plain reference path)."""
     K, N = logical_k(qt), qt.packed.shape[-1]
-    code = torch.as_tensor(get_code(qt.quant_type), device=qt.device)
-    vals = code[unpack_indices(qt.packed).long()]
+    if qt.quant_type == "int8":
+        vals = qt.packed.to(torch.float32) * (1.0 / 127.0)
+    else:
+        code = torch.as_tensor(get_code(qt.quant_type), device=qt.device)
+        vals = code[unpack_indices(qt.packed).long()]
     w = vals.reshape(K // qt.block_size, qt.block_size, N) * absmax_f32(qt)[:, None, :]
     return w.reshape(K, N).to(dtype)

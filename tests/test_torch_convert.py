@@ -45,6 +45,8 @@ def jax_to_numpy(tree):
         return {"w": np.asarray(tree.w), "bias": jax_to_numpy(tree.bias)}
     if isinstance(tree, dict):
         return {k: jax_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):          # a per-layer list of blocks
+        return [jax_to_numpy(v) for v in tree]
     return np.asarray(tree)
 
 

@@ -22,7 +22,15 @@ forward.  The flash kernels round the probabilities against tile-wise
 running maxima where the plain version has the row's maximum, and sum in
 another order: o within 2e-2 of its (row, head)'s largest |o|, lse within
 1e-3, each gradient within 2e-2 of the largest |gradient| of its (batch,
-head) slice; rows and keys that must get exactly 0 are checked for 0."""
+head) slice; rows and keys that must get exactly 0 are checked for 0.
+
+The two w8a8 kernels sum int8 products in int32, which is exact, and their
+epilogue is two f32 multiplications and two bf16 roundings that the plain
+version makes in the same order: the raw accumulators and the bf16 outputs
+are held equal bit for bit.  The int8-storage kernels (``--bits 8``) decode
+the weight as ``dequantize`` does and sum in f32 in another order: rtol
+1e-2, atol 2e-2 as the NF4 kernels, and an identity operand reads the
+decoded weight out of both, bit for bit."""
 
 import pytest
 import torch
@@ -35,6 +43,12 @@ from qlora_tpu_torch.ops import flash_attention_lse, flash_bwd_dkv, flash_bwd_dq
 from qlora_tpu_torch.ops import flash_fwd, flash_fwd_plain
 from qlora_tpu_torch.ops import qmatmul, qmatmul_bwd_plain, qmatmul_plain, qmm_nf4_bwd
 from qlora_tpu_torch.ops import qmm_nf4_fwd_dq, qmm_nf4_fwd_f32
+from qlora_tpu_torch.ops import default_impl, int8_matmul_plain, qmm_i8_bwd, qmm_i8_bwd_plain
+from qlora_tpu_torch.ops import qmm_i8_direct, qmm_i8_direct_plain, qmm_i8_fwd, qmm_i8_fwd_plain
+from qlora_tpu_torch.ops import qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows
+from qlora_tpu_torch.ops import w8a8_codes, w8a8_scales
+from qlora_tpu_torch.ops.qmatmul import _w8a8_accumulators
+from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
 from qlora_tpu_torch.quant import quantize
 from qlora_tpu_torch.utils import move_to
@@ -248,3 +262,167 @@ def test_flash_rejects_bad_input(cuda):
     q = torch.zeros(1, 4, 64, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="pair up"):
         flash_fwd(q, q[:, :3], q[:, :3], torch.tensor([64], device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the int8 family
+# ---------------------------------------------------------------------------
+
+I8_SHAPES = [   # M, K, N
+    (1, 256, 64), (4, 4096, 4096), (5, 200, 328), (37, 384, 200), (300, 1024, 320),
+    (130, 11008, 512), (16, 1000, 24), (4, 4096, 32768),
+]
+
+
+@pytest.mark.parametrize("M,K,N", I8_SHAPES)
+def test_i8_direct_kernel_equals_plain(cuda, M, K, N):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    w[:, N // 2] = 0                                   # a zero column, scale guarded to 1
+    qt = quantize(w, block_size=K, quant_type="int8", double_quant=False)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    x[M - 1] = 0                                       # a zero row
+    before = qmm_i8_direct.launches
+    with default_impl("w8a8"):
+        y = qmatmul(x, qt)
+    assert qmm_i8_direct.launches == before + 1
+    x8, _ = quantize_rows(x)
+    acc = _w8a8_accumulators(x8, qt)
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, int8_matmul_plain(x8, qt.packed).to(torch.int32))
+    assert torch.equal(y, qmm_i8_direct_plain(x, qt))
+    assert (y[M - 1] == 0).all() and (y[:, N // 2] == 0).all()
+
+
+@pytest.mark.parametrize("M,K,N,block_size,quant_type,dq", [
+    (1, 256, 64, 64, "nf4", True), (4, 4096, 4096, 64, "nf4", True),
+    (37, 384, 200, 64, "nf4", False), (300, 1024, 320, 32, "fp4", True),
+    (2048, 11008, 512, 64, "nf4", True), (16, 64 * 600, 96, 64, "nf4", True),
+    (5, 200, 24, 4, "nf4", False),                     # K/2 = 100: no 16-byte row chunks
+])
+def test_nf4_w8a8_kernel_equals_plain(cuda, M, K, N, block_size, quant_type, dq):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    qt = quantize(w, block_size=block_size, quant_type=quant_type, double_quant=dq)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    before = qmm_nf4_w8a8.launches
+    with default_impl("w8a8"):
+        y = qmatmul(x, qt)
+    assert qmm_nf4_w8a8.launches == before + 1
+    x8, _ = quantize_rows(x)
+    w8 = w8a8_codes(qt, w8a8_scales(qt)[0])
+    assert torch.equal(_w8a8_accumulators(x8, qt), int8_matmul_plain(x8, w8).to(torch.int32))
+    assert torch.equal(y, qmm_nf4_w8a8_plain(x, qt))
+    exact = qmatmul_plain(x, qt).float()
+    assert (y.float() - exact).abs().max() < 0.05 * exact.abs().max()
+
+
+def test_w8a8_kernels_round_half_to_even(cuda):
+    """Weights and activations built so that most codes land exactly on a
+    half: rounding half away from zero (``roundf``) would move them all."""
+    K, N = 256, 64
+    # NF4: code 1.0 (index 15) everywhere, absmax chosen so that code * ratio = k + 0.5
+    packed = torch.full((K // 2, N), 0xFF, dtype=torch.uint8, device=cuda)
+    halves = (torch.arange(K // 64 * N, device=cuda).reshape(K // 64, N) % 120 + 0.5)
+    absmax = halves.float()
+    absmax[0, :] = 127.0                               # the column's maximum: ratio = absmax
+    from qlora_tpu_torch.quant import QuantizedTensor
+    qt = QuantizedTensor(packed, absmax, None, None, (K, N), 64, "nf4")
+    ratio, _ = w8a8_scales(qt)
+    assert torch.equal(ratio, absmax)
+    w8 = w8a8_codes(qt, ratio)
+    assert (w8[64:].float() % 2 == 0).all()            # every half went to the even side
+    x = torch.zeros(3, K, device=cuda)
+    x[:, 0] = 127.0                                    # xs = 1: x8 = round(x)
+    x[0, 1:8] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5], device=cuda)
+    x[1, 64:] = 1.0
+    x8, xs = quantize_rows(x)
+    assert x8[0, 1:8].tolist() == [0, 2, 2, 0, -2, -2, 4] and (xs == 1).all()
+    got = _w8a8_accumulators(x8, qt)
+    assert torch.equal(got, int8_matmul_plain(x8, w8).to(torch.int32))
+    away = torch.floor(halves[1:] + 0.5).repeat_interleave(64, 0)     # what roundf would give
+    assert (away != w8[64:].float()).float().mean() > 0.4
+
+
+@pytest.mark.parametrize("M,K,N,block_size", [
+    (1, 256, 64, 64), (4, 4096, 4096, 64), (37, 384, 200, 64), (5, 192, 200, 64),
+    (300, 1024, 320, 32), (1024, 11008, 512, 64), (16, 64 * 600, 96, 64),
+])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_fwd_and_bwd_kernels_match_plain(cuda, M, K, N, block_size, double_quant):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    qt = quantize(w, block_size=block_size, quant_type="int8", double_quant=double_quant)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
+    n0 = (qmm_i8_fwd.launches, qmm_i8_bwd.launches, qmm_nf4_fwd_dq.launches,
+          qmm_nf4_bwd.launches)
+    y = qmatmul(x, qt)
+    y.backward(g)
+    assert (qmm_i8_fwd.launches, qmm_i8_bwd.launches, qmm_nf4_fwd_dq.launches,
+            qmm_nf4_bwd.launches) == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    torch.testing.assert_close(y.detach().float(), qmm_i8_fwd_plain(x.detach(), qt).float(),
+                               rtol=1e-2, atol=2e-2)
+    assert x.grad.dtype == torch.bfloat16 and x.grad.shape == (M, K)
+    torch.testing.assert_close(x.grad.float(), qmm_i8_bwd_plain(g, qt).float(),
+                               rtol=1e-2, atol=2e-2)
+
+
+def test_i8_kernels_read_out_the_decoded_weight(cuda):
+    """Identity operands read the decoded weight out of the forward and the
+    backward kernel: ``dequantize``, bit for bit, with int8 and f32 absmax."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for dq in (True, False):
+        for K, N in ((64 * 260, 64), (256, 192), (192, 200)):
+            qt = quantize(torch.randn(K, N, device=cuda, generator=gen), quant_type="int8",
+                          double_quant=dq)
+            w = dequantize(qt, torch.bfloat16)
+            assert torch.equal(qmm_i8_bwd(torch.eye(N, device=cuda, dtype=torch.bfloat16), qt),
+                               w.T.contiguous())
+            if K <= 256:
+                assert torch.equal(qmm_i8_fwd(torch.eye(K, device=cuda, dtype=torch.bfloat16),
+                                              qt), w)
+
+
+def test_i8_no_backward_launch_without_input_grad(cuda):
+    qt = quantize(torch.randn(256, 64, device=cuda), quant_type="int8")
+    x = torch.randn(8, 256, device=cuda).to(torch.bfloat16)
+    before = qmm_i8_bwd.launches
+    y = qmatmul(x, qt)
+    assert not y.requires_grad and qmm_i8_bwd.launches == before
+    xg = x.clone().requires_grad_()
+    with default_impl("w8a8"):                         # the backward under w8a8 is exact
+        qmatmul(xg, quantize(torch.randn(256, 64, device=cuda))).float().sum().backward()
+    assert qmm_i8_bwd.launches == before and xg.grad is not None
+
+
+def test_debug_model_int8_decode_card_matches_cpu(cuda):
+    """``generate(decode_impl="int8")`` on the card: 7 block linears per layer
+    and the lm_head through ``qmm_i8_direct`` each step, none through the NF4
+    kernel; one teacher-forced step's logits against the CPU's plain path
+    within atol 0.2 (see tests/test_torch_generate.py)."""
+    cfg = get_config("debug")
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = move_to(p_cpu, cuda)
+    dec_cpu = requantize_params_int8_unstacked(p_cpu)
+    dec_gpu = requantize_params_int8_unstacked(p_gpu)
+    assert torch.equal(dec_gpu["blocks"][1]["w_up"].qt.packed.cpu(),
+                       dec_cpu["blocks"][1]["w_up"].qt.packed)
+    ids = torch.tensor([[3, 17, 5, 9], [4, 7, 0, 0]])
+    lengths = torch.tensor([4, 2])
+    n0 = (qmm_i8_direct.launches, qmm_nf4_fwd_dq.launches)
+    toks = generate(p_gpu, None, ids, lengths, cfg, max_new_tokens=4, eos_id=-1,
+                    decode_impl="int8", decode_params=dec_gpu)
+    assert toks.shape == (2, 4) and toks.is_cuda
+    assert qmm_i8_direct.launches == n0[0] + 4 * (7 * cfg.num_layers + 1)
+    assert qmm_nf4_fwd_dq.launches == n0[1] + 7 * cfg.num_layers          # the prefill only
+    from qlora_tpu_torch.models import init_cache
+    with torch.inference_mode():
+        c_cpu, c_gpu = init_cache(cfg, 2, 8, device="cpu"), init_cache(cfg, 2, 8, device=cuda)
+        _, c_cpu = forward(p_cpu, None, ids, cfg, cache=c_cpu)
+        _, c_gpu = forward(p_gpu, None, ids.to(cuda), cfg, cache=c_gpu)
+        tok = torch.tensor([[5], [9]])
+        with default_impl("w8a8"):
+            want, _ = forward(dec_cpu, None, tok, cfg, cache=c_cpu)
+            got, _ = forward(dec_gpu, None, tok.to(cuda), cfg, cache=c_gpu)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0.2)

@@ -15,12 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from qlora_tpu.generate.engine import generate as jgenerate
+from qlora_tpu.generate.engine import generate_stream as jgenerate_stream
 from qlora_tpu.generate.engine import prefill as jprefill
+from qlora_tpu.generate.serve_int8 import (
+    requantize_params_int8_unstacked as jrequantize_unstacked,
+)
 from qlora_tpu.generate import sampler as jsampler
 from qlora_tpu.models import forward as jforward
 from qlora_tpu.models import get_config as jget_config
 from qlora_tpu.models import init_params as jinit_params
 from qlora_tpu.models.transformer import init_cache as jinit_cache
+from qlora_tpu.models.unstack import unstack_cache, unstack_lora
+from qlora_tpu.ops.qmatmul import default_impl as jdefault_impl
 
 from qlora_tpu_torch.generate import (
     SamplingParams, apply_repetition_penalty, ban_repeated_ngrams, generate,
@@ -28,6 +35,7 @@ from qlora_tpu_torch.generate import (
 )
 from qlora_tpu_torch.lora import LoraConfig
 from qlora_tpu_torch.models import forward, get_config, init_cache, init_params
+from qlora_tpu_torch.ops import default_impl
 from test_torch_convert import bridge, nonzero_lora
 
 torch.set_num_threads(2)
@@ -98,11 +106,88 @@ def test_entry_points_need_a_device_or_cuda(model):
                      lambda: generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
-    for kw in (dict(num_beams=2), dict(penalty_alpha=0.6), dict(decode_impl="int8")):
+    for kw in (dict(num_beams=2), dict(penalty_alpha=0.6),
+               dict(decode_impl="int8", num_beams=2),
+               dict(decode_impl="int8", penalty_alpha=0.6)):
         with pytest.raises(NotImplementedError):
             generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="only 'int8' or None"):
+        generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="cpu",
+                 decode_impl="fp8")
+    with pytest.raises(ValueError, match="only 'int8' or None"):
+        next(generate_stream(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="cpu",
+                             decode_impl="fp8"))
     with pytest.raises(ValueError, match="params live on"):
         generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="meta")
+
+
+def test_int8_teacher_forced_decode_matches_jax(model):
+    """The token loop's step on the int8 serving tree under
+    ``default_impl("w8a8")``, fed the same tokens on both sides (JAX runs its
+    int8 kernels in interpret mode).  Logits within atol 0.2 of JAX's, twice
+    the exact path's: where the two packages' bf16 activations differ by an
+    ulp, an int8 code of the row moves by a whole step (1/127 of the row's
+    largest value), which the exact path does not have.  And within 5 % of
+    the largest |logit| of the port's exact path, from which they must differ
+    (the int8 path ran)."""
+    (jcfg, jp, jl, jlc), (cfg, p, lo, lc) = model
+    ids = np.array([[3, 1, 4, 1, 5], [4, 7, 0, 0, 0]], np.int32)
+    lengths = np.array([5, 2], np.int32)
+    jdec = jrequantize_unstacked(jp)
+    dec, _ = bridge(jdec, None, cfg)
+    jlog, jc = jprefill(jp, jl, jnp.asarray(ids), jnp.asarray(lengths), jcfg, jlc,
+                        cache=jinit_cache(jcfg, 2, 8))
+    tlog, tc = prefill(p, lo, torch.from_numpy(ids), torch.from_numpy(lengths), cfg, lc,
+                       cache=init_cache(cfg, 2, 8, device="cpu"))
+    jl_list, jc = unstack_lora(jl, jcfg.num_layers), unstack_cache(jc)
+    for _ in range(3):
+        tok = np.asarray(jlog, np.float32).argmax(-1).astype(np.int32)[:, None]
+        with jdefault_impl("w8a8"):
+            jlog, jc = jforward(jdec, jl_list, jnp.asarray(tok), jcfg, jlc, cache=jc)
+        exact_cache = dict(tc, k=[t.clone() for t in tc["k"]], v=[t.clone() for t in tc["v"]])
+        exact, _ = forward(p, lo, torch.from_numpy(tok), cfg, lc, cache=exact_cache)
+        with default_impl("w8a8"):
+            tlog, tc = forward(dec, lo, torch.from_numpy(tok), cfg, lc, cache=tc)
+        jlog, tlog = jlog[:, 0], tlog[:, 0]
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog, np.float32), atol=2 * ATOL,
+                                   rtol=0)
+        d = (tlog - exact[:, 0]).abs().max().item()
+        assert 0 < d < 0.05 * exact.abs().max().item()
+
+
+def test_generate_int8_decode_matches_jax(model):
+    """``generate(decode_impl="int8")`` against JAX's, with the serving tree
+    built by JAX and carried across and with the one the port builds itself.
+    As tests/test_generate.py bounds it (same prompt, no adapter): the first
+    greedy steps agree with JAX's and with the exact path; a later near-tie
+    may flip under the int8 path's logit noise."""
+    (jcfg, jp, _, _), (cfg, p, _, _) = model
+    ids = np.array([[3, 1, 4, 1, 5]], np.int32)
+    lengths = np.array([5], np.int32)
+    jdec = jrequantize_unstacked(jp)
+    jkw = dict(max_new_tokens=6, eos_id=-1, decode_impl="int8", decode_params=jdec)
+    want = np.asarray(jgenerate(jp, None, jnp.asarray(ids), jnp.asarray(lengths), jcfg, **jkw))
+    dec, _ = bridge(jdec, None, cfg)
+    assert dec["lm_head"].qt.quant_type == "int8" and dec["lm_head"].qt.packed.shape[1] == 1024
+    kw = dict(max_new_tokens=6, eos_id=-1, device="cpu", decode_impl="int8")
+    tids, tlen = torch.from_numpy(ids), torch.from_numpy(lengths)
+    carried = generate(p, None, tids, tlen, cfg, decode_params=dec, **kw).numpy()
+    own = generate(p, None, tids, tlen, cfg, **kw).numpy()            # requantizes itself
+    exact = generate(p, None, tids, tlen, cfg, max_new_tokens=6, eos_id=-1,
+                     device="cpu").numpy()
+    assert carried.shape == want.shape == (1, 6)
+    np.testing.assert_array_equal(carried, own)          # the same tree, byte for byte
+    np.testing.assert_array_equal(carried[:, :2], want[:, :2])
+    np.testing.assert_array_equal(carried[:, :2], exact[:, :2])
+    assert ((carried >= 0) & (carried < cfg.vocab_size)).all()
+    # streaming: the same serving copy reused through decode_params
+    stream = np.stack(list(generate_stream(p, None, tids, tlen, cfg, decode_params=dec,
+                                           **kw)), 1)
+    np.testing.assert_array_equal(stream, carried)
+    jstream = [int(t[0]) for t in jgenerate_stream(
+        jp, None, jnp.asarray(ids), jnp.asarray(lengths), jcfg, max_new_tokens=2,
+        eos_id=-1, decode_impl="int8", decode_params=jdec)]
+    assert jstream == stream[0, :2].tolist()
 
 
 def _logits(seed=0, B=3, V=64):

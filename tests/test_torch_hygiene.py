@@ -1,7 +1,10 @@
 """The port stands alone: no module of qlora_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package (qlora_tpu)."""
+chip_smoke.py, imports jax, flax or the JAX package (qlora_tpu); its CUDA
+sources include nothing of them, quote no figure measured on a TPU, and each
+says which TPU kernel it replaces."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -27,3 +30,31 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_the_port():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    assert ROOT / "qlora_tpu_torch" / "generate" / "serve_int8.py" in FILES
+
+
+SOURCES = sorted((ROOT / "qlora_tpu_torch" / "csrc").glob("*.cu*"))
+# a TPU generation, its units, or a time in microseconds (the port's own times
+# are milliseconds on an H100 and live in PERF.md, not in the sources)
+TPU_FIGURE = re.compile(r"v5e|v5p|v4-\d|\bMXU\b|\bVMEM\b|\bVPU\b|µs|\d\s*us\b|HBM SOL", re.I)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_cuda_sources_stand_alone(path):
+    text = path.read_text()
+    includes = re.findall(r"#\s*include\s*[<\"]([^>\"]+)[>\"]", text)
+    assert includes and not [i for i in includes if "jax" in i or "qlora_tpu" in i
+                             or "xla" in i.lower() or "torch" in i]
+    assert not TPU_FIGURE.findall(text), TPU_FIGURE.findall(text)
+    assert "Replaces the TPU kernel" in text          # file and function of the original
+    assert 'extern "C"' in text                       # plain C entries, loaded with ctypes
+
+
+def test_cuda_sources_cover_the_int8_family():
+    names = {p.name for p in SOURCES}
+    assert {"qmm_i8.cu", "qmm_i8_direct.cu", "qmm_nf4_fwd.cu", "qmm_nf4_bwd.cu",
+            "decode_attention.cu", "flash_attention.cu"} <= names
+    entries = set()
+    for p in SOURCES:
+        entries |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
+    assert {"qmm_i8_direct", "qmm_nf4_w8a8", "qmm_i8_fwd", "qmm_i8_bwd"} <= entries

@@ -87,8 +87,9 @@ def test_round_trip_error_and_rejections():
     assert err <= 0.14 * w.abs().max().item()
     with pytest.raises(ValueError):
         quantize(torch.zeros(96, 8))                     # K not a multiple of 128
-    with pytest.raises(NotImplementedError):
-        quantize(torch.zeros(128, 8), quant_type="int8")
+    with pytest.raises(ValueError):
+        quantize(torch.zeros(96, 8), quant_type="int8")  # K not a multiple of 64
+    assert quantize(torch.zeros(64, 8), quant_type="int8").packed.dtype == torch.int8
     with pytest.raises(NotImplementedError):
         quantize_k_sharded(w, 2)
     with pytest.raises(NotImplementedError):

@@ -280,6 +280,84 @@ def test_accumulation_equivalence(model):
                                                      tree_leaves(lo)))
 
 
+@pytest.fixture(scope="module")
+def model8():
+    """The debug model with an int8 base (``--bits 8``: blockwise int8 codes,
+    double-quantized absmax), made by JAX and carried across."""
+    jcfg = jget_config("debug")
+    jparams = jinit_params(jax.random.PRNGKey(0), jcfg, quant_type="int8")
+    jlora, jlcfg = nonzero_lora(jcfg)
+    cfg = get_config("debug")
+    params, lora = bridge(jparams, jlora, cfg)
+    assert params["blocks"][0]["wq"].qt.packed.dtype == torch.int8
+    return (jcfg, jparams, jlora, jlcfg), (cfg, params, lora, LoraConfig(r=jlcfg.r,
+                                                                        alpha=jlcfg.alpha))
+
+
+def test_int8_base_loss_and_gradients_match_jax(model8):
+    """One micro-batch through both ``loss_fn``s over an int8 base (JAX: the
+    int8 Pallas kernels, forward and dx, in interpret mode).  bf16
+    activations with f32 sums in other orders, as the NF4 case: the loss
+    within 1 %, every LoRA gradient within 5 % of its norm."""
+    from qlora_tpu.train.step import loss_fn as jloss_fn
+
+    (jcfg, jp, jl, jlc), (cfg, p, lo, lc) = model8
+    batch = _batch(cfg, 3)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda t: jloss_fn(t, jp, jbatch, jcfg, jlc, None, True, "lora", "full"),
+        has_aux=True)(jl)
+    leaves = [t.detach().clone().requires_grad_() for t in tree_leaves(lo)]
+    it = iter(leaves)
+    lora = tree_map(lambda _: next(it), lo)
+    loss, n = loss_fn(lora, p, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg, lc,
+                      None, True, "lora", "full")
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-2)
+    it = iter(grads)
+    got = lora_to_numpy(tree_map(lambda _: next(it), lo))
+    for name in jgrads:
+        for k in ("a", "b"):
+            want = np.asarray(jgrads[name][k])
+            for layer in range(cfg.num_layers):
+                err = np.linalg.norm(got[name][k][layer] - want[layer]) / np.linalg.norm(
+                    want[layer])
+                assert err < 0.05, (name, k, layer, err)
+
+
+def test_int8_base_trains_and_stays_frozen(model8):
+    """5 optimizer steps over the int8 base: the first moves nothing, the
+    loss then falls, and no int8 code, absmax or scale changes."""
+    _, (cfg, p, lo, lc) = model8
+    before = _snapshot(p)
+    opt = make_optimizer("paged_adamw_32bit", 5e-3, total_steps=5)
+    state = init_train_state(lo, opt, device="cpu")
+    step = make_train_step(cfg, lc, opt, device="cpu")
+    batch = _batch(cfg, 7)
+    losses = []
+    for _ in range(5):
+        state, m = step(state, p, batch)
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all() and losses[1] == losses[0]
+    assert losses[-1] < losses[0] * 0.98, losses
+    assert all(torch.equal(a, b) for a, b in zip(before, _snapshot(p)))
+
+
+def test_merge_lora_into_int8_params_requantizes_int8(model8):
+    """``merge_lora_into_params`` keeps the storage it finds: an int8 base
+    comes back int8, with the adapter folded in."""
+    from qlora_tpu_torch.lora import merge_lora_into_params
+    from qlora_tpu_torch.quant import dequantize
+
+    _, (cfg, p, lo, lc) = model8
+    merged = merge_lora_into_params(p, lo, lc)
+    qt, old = merged["blocks"][0]["wq"].qt, p["blocks"][0]["wq"].qt
+    assert qt.quant_type == "int8" and qt.packed.dtype == torch.int8 and qt.double_quant
+    want = dequantize(old, torch.float32) + lc.scale * (lo[0]["wq"]["a"] @ lo[0]["wq"]["b"])
+    err = (dequantize(qt, torch.float32) - want).abs().max()
+    assert err <= want.abs().max() / 127 * 0.51 + 1e-3       # half an int8 step (+ absmax codes)
+
+
 def _snapshot(params):
     """A copy of every tensor in a params tree, dataclasses included."""
     return [t.clone() for t in frozen_tensors(params)]
