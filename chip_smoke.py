@@ -52,6 +52,24 @@ them.  Phases, each failing the run on any mismatch or exception:
 11. train-int8: train-parity and train again over an int8 base (``--bits 8``
    storage), 3 optimizer steps, the NF4 phase's launch counts on the int8
    kernels' counters and none on the NF4 ones.
+12. kernels-paged: the paged decode and verify-chunk kernels against their
+   plain versions at LLaMA-7B width (H 32, hd 128), pages of 64, 16 pages per
+   sequence, 8 rows with scattered tables: an inactive row on page 0, lengths
+   on both sides of page edges, GQA with a sliding window and entries behind
+   it evicted to page 0, planted edges, a chunk across a page and up to the
+   table's end, the chunk of one token against the decode kernel; outputs
+   within ATTN_TOL, pools byte-equal after the append.
+13. paged-parity: LLaMA-7B width, 2 layers — a 126-token prompt prefilled
+   into pages with ``PagedPool.write_prefill``, 4 teacher-forced decode steps
+   and a 5-token verify chunk through ``forward(cache=paged)``; logits of the
+   card against the CPU and against the card's contiguous cache.
+14. serve-paged (inside serve, on its weights): ``PagedBatcher`` with 8
+   slots over a pool small enough to preempt, 16 requests of 64-512 prompt
+   and 16-64 new tokens; exact launch counts from the counted forwards, the
+   pool recycled; then the same requests with ``decode_impl="int8",
+   prefill_impl="w8a8"``.
+15. serve-paged-spec: the same engine with 4 drafts per verify chunk on 8
+   requests whose prompts repeat a 16-token phrase.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 """
@@ -113,7 +131,8 @@ QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 QMM_ROWS = (2048, 1024, 4)
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
 LM_HEAD_SHAPE = (4096, 32768)     # the int8 serving copy pads 32000 columns to 32768
-W8A8_ROWS = (4, 128, 2048)       # decode, the parity-int8 prefill (1 x 128), a 4 x 512 prefill
+W8A8_ROWS = (4, 128, 512, 2048)  # decode, the parity-int8 prefill (1 x 128), the serve-paged
+                                 # prefill of one row at bucket 512 (its commonest), a 4 x 512 group
 ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
     (4, 32, 32, 128, 640, (0, 97, 383, 639), None, False),
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, False),      # GQA G=4, sliding window
@@ -121,6 +140,28 @@ ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, True),       # an off-by-one moves it O(1)
 )
 
+
+PAGE, PPS = 64, 16               # serve-paged's pages: 64 tokens, 16 per sequence (T = 1024)
+PAGED_B = 8                      # serve-paged's slots
+SPEC_DRAFT = 4                   # drafts per verify chunk (C = 5)
+DECODE_LENS = (0, 1, 63, 64, 65, 300, 511, 1022)
+CHUNK_LENS = (0, 1, 63, 64, 65, 300, 510, 1019)   # 510 % 64 == 62: across a page; 1019 + 5 == T
+PAGED_CASES = (  # C (None: the decode kernel), KVH, lengths, sliding window, evicted, planted
+    (None, 32, DECODE_LENS, None, False, False),
+    (None, 8, DECODE_LENS, 256, True, False),     # GQA G=4, window, entries behind it on page 0
+    (None, 8, DECODE_LENS, 256, True, True),      # an off-by-one moves it O(1)
+    (SPEC_DRAFT + 1, 32, CHUNK_LENS, None, False, False),
+    (SPEC_DRAFT + 1, 8, CHUNK_LENS, 256, True, False),
+    (SPEC_DRAFT + 1, 8, CHUNK_LENS, 256, True, True),
+)
+SERVE_PAGED = dict(num_slots=PAGED_B, page_size=PAGE, max_pages_per_seq=PPS,
+                   prefill_buckets=(128, 256, 512), eos_id=-1, admit_batch=4,
+                   admission="optimistic")
+SERVE_PAGED_PAGES = 32           # 31 usable pages (1.07 GB at 7B): this traffic preempts twice
+SERVE_PAGED_REQUESTS = 16
+SERVE_PAGED_SEED = 0
+SPEC_REQUESTS = 8
+SPEC_PAGES = 64                  # ample: speculation, not preemption, is what this run shows
 
 FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse cotangent
     (2, 32, 32, 128, 512, (512, 300), None, False, False),   # the train run's shape
@@ -246,6 +287,155 @@ def plant_flash_edges(q, k, v, lens, window):
                 if 0 <= t < S:
                     k[b, :, t] = key
                     v[b, :, t] = 2.0 * (t % 5 - 2) + 0.5
+
+
+def paged_case(g, dev, B, C, H, KVH, hd, page, pps, lens, window, evict=False, planted=False):
+    """Inputs of one paged-attention call, drawn from `g`: q, new_k, new_v
+    ([B, C, ...], or with C None the decode's [B, ...]), pools of noise with
+    B * pps + 9 pages, lengths, and tables of distinct scattered pages.  A
+    row of length 0 is an inactive slot: its table is all page 0.  With
+    `evict` the entries wholly behind the window point at page 0, as
+    ``PagedPool.evict_before`` leaves them."""
+    import torch
+
+    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+    lead = (B,) if C is None else (B, C)
+    q, nk, nv = mk(*lead, H, hd), mk(*lead, KVH, hd), mk(*lead, KVH, hd)
+    n_pages = B * pps + 9
+    kp, vp = mk(n_pages, KVH, page, hd), mk(n_pages, KVH, page, hd)
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev)[:B * pps] + 1
+    tables = perm.reshape(B, pps).to(torch.int32)
+    for b, n in enumerate(lens):
+        if n == 0:
+            tables[b] = 0
+        elif evict and window:
+            tables[b, :max(0, n + 1 - window) // page] = 0
+    if planted:
+        plant_paged_edges(q, kp, tables, lens, window)
+    return q, nk, nv, kp, vp, torch.tensor(lens, device=dev, dtype=torch.int32), tables
+
+
+def plant_paged_edges(q, kp, tables, lens, window):
+    """:func:`plant_edges` for the paged pool: the keys on both sides of each
+    row's length edge and, for every query of a chunk, of its window edge
+    become one key that dominates every query of the kv head's rows."""
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    KVH, page = kp.shape[1], kp.shape[2]
+    T = page * tables.shape[1]
+    C = q.shape[1] if q.ndim == 4 else 1
+    key = q.float().reshape(B, -1, KVH, H // KVH, hd).sum((1, 3)).to(kp.dtype)
+    for b, n in enumerate(lens):
+        if n == 0:
+            continue
+        edges = {min(n, T) - 1, n}
+        if window:
+            edges |= {e for c in range(C) for e in (n + c - window, n + c - window + 1)}
+        for t in edges:
+            if 0 <= t < T and int(tables[b, t // page]) != 0:
+                kp[int(tables[b, t // page]), :, t % page] = key[b]
+
+
+def paged_bound(B, C, H, KVH, hd, lens, window, T, pps):
+    """(bound_ms, bound_by) of a paged call: the pool keys each row attends
+    (read once), q and out, the C new k/v rows read and written into the
+    pool, lengths and tables; 4 * hd operations per (query, key) pair, the
+    chunk's own keys included, at the f32 rate."""
+    keys = [max(0, min(n, T) - (max(0, n - window + 1) if window else 0)) for n in lens]
+    nbytes = (2 * KVH * hd * 2 * sum(keys) + 2 * B * C * H * hd * 2
+              + 2 * 2 * B * C * KVH * hd * 2 + B * 4 + B * pps * 4)
+    ops = sum(4 * C * H * hd * (k + C) for k in keys)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), sum(keys)
+
+
+def paged_kernel_phase(dev, results):
+    """The two paged kernels against their plain versions at the serve-paged
+    shapes (PAGED_CASES), and the chunk of one token against the decode
+    kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from qlora_tpu_torch.ops import (
+        paged_chunk_attention_cuda, paged_chunk_plain, paged_decode_attention_cuda,
+        paged_decode_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8642)
+    H, hd, B, T = 32, 128, PAGED_B, PAGE * PPS
+    for C, KVH, lens, window, evict, planted in PAGED_CASES:
+        q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, C, H, KVH, hd, PAGE, PPS, lens,
+                                                  window, evict, planted)
+        name = "paged_decode_attention_cuda" if C is None else "paged_chunk_attention_cuda"
+        kernel, plain = ((paged_decode_attention_cuda, paged_decode_plain) if C is None
+                         else (paged_chunk_attention_cuda, paged_chunk_plain))
+        kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
+        k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        o1, _, _ = kernel(q, nk, nv, k1, v1, L, tables, **kw)
+        o2, _, _ = plain(q, nk, nv, k2, v2, L, tables, **kw)
+        torch.cuda.synchronize()
+        diff = (o1.float() - o2.float()).abs()
+        err = diff.max().item()
+        excess = (diff - ATTN_TOL * o2.float().abs().amax(-1, keepdim=True)).max().item()
+        same = torch.equal(k1, k2) and torch.equal(v1, v2)
+        moved = None
+        if planted:
+            # one more key in the window moves the plain output by O(1)
+            o3, _, _ = plain(q, nk, nv, kp.clone(), vp.clone(), L, tables, sm_scale=hd ** -0.5,
+                             sliding_window=window + 1)
+            moved = (o3.float() - o2.float()).abs().max().item()
+        Cq = C or 1
+        bound_ms, bound_by, keys = paged_bound(B, Cq, H, KVH, hd, lens, window, T, PPS)
+        pools = [(k1, v1)] + [(k1.clone(), v1.clone())
+                              for _ in range(copies_past_l2(2 * KVH * hd * 2 * keys) - 1)]
+        ms = cuda_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw), 200)
+        plain_ms = cuda_ms(lambda i: plain(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
+                           5)
+        # yardstick: index_select of each row's pages into [B, KVH, T, hd], then
+        # SDPA with a boolean mask over the pool as if the new tokens were in it
+        pos = torch.arange(T, device=dev)
+        qpos = L[:, None].long() + torch.arange(Cq, device=dev)[None, :]
+        vis = pos[None, None, :] <= qpos[..., None]
+        if window:
+            vis &= pos[None, None, :] > qpos[..., None] - window
+        mask = vis[:, None]
+        qs = (q[:, None] if C is None else q).transpose(1, 2)
+        flat = tables.reshape(-1)
+
+        def gathered(pages):
+            return pages.index_select(0, flat).reshape(B, PPS, KVH, PAGE, hd).transpose(
+                1, 2).reshape(B, KVH, T, hd)
+
+        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qs, gathered(pools[i % len(pools)][0]), gathered(pools[i % len(pools)][1]),
+            attn_mask=mask, scale=hd ** -0.5, enable_gqa=KVH != H), 200)
+        shape = (f"B={B}{'' if C is None else f' C={C}'} H={H} KVH={KVH} hd={hd} page={PAGE} "
+                 f"pps={PPS} lens={list(lens)} window={window}"
+                 + (" evicted" if evict else "") + (" planted edges" if planted else ""))
+        record(results, name, shape, err, f"tol {ATTN_TOL}*row max|ref|", ms, plain_ms, lib_ms,
+               (bound_ms, bound_by))
+        print(f"  pools byte-equal after the append: {same}"
+              + (f"; one more key in the window moves the plain output by {moved:.3g}"
+                 if planted else ""), flush=True)
+        if excess > 0 or not same:
+            fail(f"{name} {shape}: max|d|={err}, pools byte-equal={same}")
+        if planted and moved < 0.5:
+            fail(f"{name} {shape}: the planted edges move the output by only {moved}")
+        del pools, k1, v1, k2, v2
+
+    # the chunk of one token is the decode step
+    q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, None, H, 8, hd, PAGE, PPS,
+                                              DECODE_LENS, 256, True, True)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    kw = dict(sm_scale=hd ** -0.5, sliding_window=256)
+    oc, _, _ = paged_chunk_attention_cuda(q[:, None], nk[:, None], nv[:, None], k1, v1, L,
+                                          tables, **kw)
+    od, _, _ = paged_decode_attention_cuda(q, nk, nv, k2, v2, L, tables, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(oc[:, 0], od) and torch.equal(k1, k2) and torch.equal(v1, v2)
+    print(f"kernel paged_chunk_attention_cuda C=1 against paged_decode_attention_cuda: outputs "
+          f"and pools equal bit for bit: {same}", flush=True)
+    if not same:
+        fail("the chunk kernel at C=1 differs from the decode kernel")
 
 
 def kernel_phase(dev, results):
@@ -861,14 +1051,97 @@ def parity_int8_phase(dev, seed):
     return worst, counts
 
 
+def paged_parity_phase(dev):
+    """LLaMA-7B width, 2 layers, the same weights on the CPU and the card: a
+    126-token prompt prefilled into a contiguous cache and scattered into
+    pages (``PagedPool.write_prefill``), then 4 decode steps across a page
+    edge and a 5-token verify chunk through ``forward(cache=paged)``, the
+    CPU's tokens teacher-forced.  The card's paged logits against the CPU's
+    and against the card's own contiguous cache fed the same tokens.
+    Returns (the worst of the two, launch counts of the card's paged run)."""
+    import torch
+
+    from qlora_tpu_torch.generate.paged import PagedPool
+    from qlora_tpu_torch.models import forward, init_cache, init_params
+    from qlora_tpu_torch.utils import move_to
+
+    cfg = seven_b(num_layers=2)
+    p_gpu = init_params(cfg, seed=13, device=dev)
+    lora_gpu, lcfg = random_lora(cfg, dev, seed=14)
+    p_cpu, lora_cpu = move_to(p_gpu, "cpu"), move_to(lora_gpu, "cpu")
+    S, steps, C = 126, 4, SPEC_DRAFT + 1
+    g = torch.Generator().manual_seed(15)
+    ids = torch.randint(3, cfg.vocab_size, (1, S), generator=g)
+    drafts = torch.randint(3, cfg.vocab_size, (1, C - 1), generator=g)
+
+    def paged_run(p, lora, device, toks=None):
+        """Prefill, scatter, decode and verify; the tokens are the argmax of
+        this run's logits unless `toks` gives them (the card's run, whose
+        launches are counted from the first decode step).  Returns (logits of
+        each step, tokens fed, the contiguous cache right after the prefill)."""
+        contig = init_cache(cfg, 1, S + steps + C, device=device)
+        logits, contig = forward(p, lora, ids.to(device), cfg, lcfg, cache=contig)
+        after_prefill = clone_cache(contig)
+        pool = PagedPool(cfg, n_pages=8, page_size=PAGE, max_pages_per_seq=4, device=device)
+        pool.allocate(1, S)
+        pool.write_prefill(1, [k[0, :, :S] for k in contig["k"]],
+                           [v[0, :, :S] for v in contig["v"]])
+        cache, out, fed = pool.decode_cache([1], [S]), [logits[:, -1].cpu()], []
+        if toks is not None:
+            reset_counts()
+        for step in range(steps + 1):
+            tok = (out[-1].argmax(-1, keepdim=True) if toks is None else toks[step])
+            inp = tok if step < steps else torch.cat([tok, drafts], 1)
+            fed.append(inp)
+            n = int(cache["length"][0])
+            pool.extend(1, n + inp.shape[1])
+            cache = dict(cache, tables=pool.table_array([1]))
+            logits, cache = forward(p, lora, inp.to(device), cfg, lcfg, cache=cache)
+            out.append(logits[0].cpu() if step == steps else logits[:, -1].cpu())
+        return out, fed, after_prefill
+
+    with torch.inference_mode():
+        l_cpu, fed, _ = paged_run(p_cpu, lora_cpu, "cpu")
+        l_gpu, _, contig = paged_run(p_gpu, lora_gpu, dev, [f[:, :1] for f in fed])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        l_contig = []
+        for inp in fed:
+            logits, contig = forward(p_gpu, lora_gpu, inp.to(dev), cfg, lcfg, cache=contig)
+            l_contig.append(logits[0].cpu() if inp.shape[1] > 1 else logits[:, -1].cpu())
+    worst = 0.0
+    for step, (a, b, c) in enumerate(zip(l_cpu[1:], l_gpu[1:], l_contig)):
+        if not all(torch.isfinite(t).all() for t in (a, b, c)):
+            fail(f"paged-parity: non-finite logits at step {step}")
+        err, err_contig = (a - b).abs().max().item(), (c - b).abs().max().item()
+        worst = max(worst, err, err_contig)
+        what = f"verify chunk of {C}" if step == steps else f"decode step {step}"
+        print(f"paged-parity {what}: max|logits cpu - card| {err:.4g}, max|card paged - card "
+              f"contiguous| {err_contig:.4g} (tol {LOGIT_TOL})", flush=True)
+        if err > LOGIT_TOL or err_contig > LOGIT_TOL:
+            fail(f"paged-parity {what}: card paged logits differ from the CPU's by {err}, "
+                 f"from the contiguous cache's by {err_contig}")
+    L = cfg.num_layers
+    want = expected_counts(qmm_nf4_fwd_dq=7 * L * (steps + 1),
+                           paged_decode_attention_cuda=L * steps, paged_chunk_attention_cuda=L)
+    print(f"paged-parity: launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"paged-parity launch counts {counts} != {want}")
+    del p_gpu, p_cpu, lora_gpu, lora_cpu, contig
+    torch.cuda.empty_cache()
+    return worst
+
+
 def counters():
     from qlora_tpu_torch.ops import (
-        decode_attention_cuda, flash_bwd_dkv, flash_bwd_dq, flash_fwd, qmm_i8_bwd,
-        qmm_i8_direct, qmm_i8_fwd, qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, qmm_nf4_w8a8,
+        decode_attention_cuda, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+        paged_chunk_attention_cuda, paged_decode_attention_cuda, qmm_i8_bwd, qmm_i8_direct,
+        qmm_i8_fwd, qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, qmm_nf4_w8a8,
     )
 
     return (qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, decode_attention_cuda, qmm_nf4_bwd, flash_fwd,
-            flash_bwd_dq, flash_bwd_dkv, qmm_i8_direct, qmm_nf4_w8a8, qmm_i8_fwd, qmm_i8_bwd)
+            flash_bwd_dq, flash_bwd_dkv, qmm_i8_direct, qmm_nf4_w8a8, qmm_i8_fwd, qmm_i8_bwd,
+            paged_decode_attention_cuda, paged_chunk_attention_cuda)
 
 
 def expected_counts(**nonzero):
@@ -960,9 +1233,15 @@ def serve_phase(dev):
     stats = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
                  decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib)
     int8_counts, int8_stats = serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, toks)
+    t0 = time.perf_counter()
+    paged = serve_paged_phase(dev, cfg, params, lora, lcfg)
+    print(f"serve-paged: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    spec = serve_paged_spec_phase(dev, cfg, params, lora, lcfg)
+    print(f"serve-paged-spec: {time.perf_counter() - t0:.1f} s", flush=True)
     del params, lora
     torch.cuda.empty_cache()
-    return counts, stats, int8_counts, int8_stats
+    return counts, stats, int8_counts, int8_stats, paged, spec
 
 
 def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
@@ -1024,6 +1303,183 @@ def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
     return counts, dict(decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
                         decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib,
                         requantize_s=requant_s, tokens_equal=agree)
+
+
+def paged_traffic(vocab, seed, n):
+    """`n` requests: prompt lengths uniform in 64-512, max_new_tokens uniform
+    in 16-64, token ids uniform, from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens, news = rng.integers(64, 513, size=n), rng.integers(16, 65, size=n)
+    return [(rng.integers(3, vocab, size=int(L)).tolist(), int(m)) for L, m in zip(lens, news)]
+
+
+def phrase_traffic(vocab, seed, n):
+    """`n` requests whose prompts repeat one seeded 16-token phrase 4 to 32
+    times (64-512 tokens), max_new_tokens uniform in 16-64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    phrase = rng.integers(3, vocab, size=16).tolist()
+    return [(phrase * int(rng.integers(4, 33)), int(rng.integers(16, 65))) for _ in range(n)]
+
+
+def instrument(pb):
+    """Count a batcher's decode, verify and prefill forwards and time its
+    decode steps and admissions on the host clock (each ends in a host read
+    of the sampled tokens; a synchronize closes it), by wrapping its methods."""
+    import torch
+
+    st = dict(decode=0, verify=0, prefill=0, prefill_rows=[], steps=0, step_s=0.0,
+              verify_steps=0, verify_s=0.0, admit_s=0.0)
+    fwd, pre, step, admit = pb._decode_forward, pb._prefill_rows, pb._decode_step, pb._admit
+
+    def decode_forward(toks, cache):
+        st["decode" if toks.shape[1] == 1 else "verify"] += 1
+        return fwd(toks, cache)
+
+    def prefill_rows(ids, *a):
+        st["prefill"] += 1
+        st["prefill_rows"].append(ids.numel())
+        return pre(ids, *a)
+
+    def decode_step():
+        t0, v0 = time.perf_counter(), st["verify"]
+        out = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st["steps"] += 1
+        st["step_s"] += dt
+        if st["verify"] > v0:
+            st["verify_steps"] += 1
+            st["verify_s"] += dt
+        return out
+
+    def timed_admit():
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        st["admit_s"] += time.perf_counter() - t0
+
+    pb._decode_forward, pb._prefill_rows = decode_forward, prefill_rows
+    pb._decode_step, pb._admit = decode_step, timed_admit
+    return st
+
+
+def serve_paged_run(tag, dev, cfg, params, lora, lcfg, traffic, n_pages, **kw):
+    """One ``PagedBatcher`` run over `traffic`: every request must end with
+    exactly its max_new_tokens in-vocabulary tokens and the pool must be
+    fully recycled.  Returns (engine, instrument stats, launch counts, stats)."""
+    import torch
+
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+
+    pb = PagedBatcher(params, lora, cfg, lcfg, n_pages=n_pages, device=dev,
+                      **{**SERVE_PAGED, **kw})
+    st = instrument(pb)
+    reqs = [pb.submit(p, max_new_tokens=n) for p, n in traffic]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pb.run_to_completion()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [r.uid for r, (_, n) in zip(reqs, traffic)
+           if not (r.done and len(r.generated) == n
+                   and all(0 <= t < cfg.vocab_size for t in r.generated))]
+    if bad:
+        fail(f"{tag}: requests {bad} did not end with exactly their max_new_tokens "
+             "in-vocabulary tokens")
+    if pb.pool.n_free != n_pages - 1 or pb.pool.tables:
+        fail(f"{tag}: the pool is not recycled ({pb.pool.n_free} of {n_pages - 1} free, "
+             f"tables {sorted(pb.pool.tables)})")
+    tokens = sum(len(r.generated) for r in reqs)
+    stats = dict(total_s=total_s, tokens=tokens, tok_s=tokens / total_s,
+                 ms_per_step=st["step_s"] / max(st["steps"], 1) * 1e3,
+                 admit_s=st["admit_s"], peak_gib=peak_gib, preemptions=pb.preemptions,
+                 decode_forwards=st["decode"], verify_forwards=st["verify"],
+                 prefill_forwards=st["prefill"])
+    rows = {m: st["prefill_rows"].count(m) for m in sorted(set(st["prefill_rows"]))}
+    print(f"{tag}: {len(reqs)} requests, {tokens} tokens in {total_s:.3f} s = "
+          f"{stats['tok_s']:.1f} tok/s; {st['steps']} decode steps, "
+          f"{stats['ms_per_step']:.2f} ms/step; admissions {st['admit_s'] * 1e3:.1f} ms "
+          f"({st['prefill']} prefill forwards, token rows: count {rows}); {pb.preemptions} "
+          f"preemptions; pool {n_pages} pages, recycled; peak memory {peak_gib:.2f} GiB",
+          flush=True)
+    return pb, st, counts, stats
+
+
+def serve_paged_phase(dev, cfg, params, lora, lcfg):
+    """serve-paged: the serve phase's weights through ``PagedBatcher`` on 16
+    requests over a pool that preempts, with the NF4 path and then with
+    ``decode_impl="int8", prefill_impl="w8a8"``; exact launch counts from
+    the counted forwards."""
+    import torch
+
+    traffic = paged_traffic(cfg.vocab_size, SERVE_PAGED_SEED, SERVE_PAGED_REQUESTS)
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+    pb, st, counts, stats = serve_paged_run("serve-paged", dev, cfg, params, lora, lcfg,
+                                            traffic, SERVE_PAGED_PAGES)
+    fwds = st["decode"] + st["prefill"]
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
+                           paged_decode_attention_cuda=L * st["decode"])
+    print(f"serve-paged: launches {counts} (expected {want}: {n_lin} qmm per forward, {L} "
+          f"paged decode attention per decode forward)", flush=True)
+    if counts != want:
+        fail(f"serve-paged launch counts {counts} != {want}")
+    if pb.preemptions < 1:
+        fail("serve-paged: no preemption; the pool is not small enough for this traffic")
+    del pb
+    torch.cuda.empty_cache()
+
+    pb, st8, counts8, stats8 = serve_paged_run(
+        "serve-paged-int8", dev, cfg, params, lora, lcfg, traffic, SERVE_PAGED_PAGES,
+        decode_impl="int8", prefill_impl="w8a8")
+    want8 = expected_counts(qmm_i8_direct=(n_lin + 1) * st8["decode"],    # + 1: the lm_head
+                            qmm_nf4_w8a8=n_lin * st8["prefill"],
+                            paged_decode_attention_cuda=L * st8["decode"])
+    print(f"serve-paged-int8: launches {counts8} (expected {want8}: {n_lin} + 1 qmm_i8_direct "
+          f"per decode forward, {n_lin} qmm_nf4_w8a8 per prefill forward, no NF4 qmm)",
+          flush=True)
+    if counts8 != want8:
+        fail(f"serve-paged-int8 launch counts {counts8} != {want8}")
+    del pb
+    torch.cuda.empty_cache()
+    return counts, stats, counts8, stats8
+
+
+def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
+    """serve-paged-spec: verify chunks of SPEC_DRAFT prompt-lookup drafts plus
+    the pending token, on prompts that repeat a phrase.  Acceptance is left
+    to the random weights; the launch counts follow the counted forwards."""
+    import torch
+
+    traffic = phrase_traffic(cfg.vocab_size, 5, SPEC_REQUESTS)
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+    pb, st, counts, stats = serve_paged_run("serve-paged-spec", dev, cfg, params, lora, lcfg,
+                                            traffic, SPEC_PAGES, spec_draft_len=SPEC_DRAFT)
+    fwds = st["decode"] + st["verify"] + st["prefill"]
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
+                           paged_decode_attention_cuda=L * st["decode"],
+                           paged_chunk_attention_cuda=L * st["verify"])
+    per_chunk = pb.spec_tokens / max(pb.spec_chunks, 1)
+    ms_chunk = st["verify_s"] / max(st["verify_steps"], 1) * 1e3
+    stats.update(tokens_per_chunk=per_chunk, ms_per_chunk=ms_chunk, chunks=pb.spec_chunks)
+    print(f"serve-paged-spec: {st['verify']} verify forwards ({pb.spec_chunks} slot chunks, "
+          f"{per_chunk:.3f} tokens retired per chunk, {ms_chunk:.2f} ms per verify step), "
+          f"{st['decode']} plain decode forwards near capacity; launches {counts} "
+          f"(expected {want})", flush=True)
+    if counts != want:
+        fail(f"serve-paged-spec launch counts {counts} != {want}")
+    if st["verify"] < 1:
+        fail("serve-paged-spec: no verify chunk ran")
+    del pb
+    torch.cuda.empty_cache()
+    return counts, stats
 
 
 def nodq_phase(dev):
@@ -1308,6 +1764,12 @@ SOURCES = {
                    "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8)"),
     "qmm_i8_bwd": ("qlora_tpu_torch/csrc/qmm_i8.cu",
                    "qlora_tpu/ops/qmatmul.py:475 (_qmm_bwd_pallas_i8)"),
+    "paged_decode_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
+                                    "qlora_tpu/ops/paged_attention.py:217 "
+                                    "(fused_paged_decode_attention)"),
+    "paged_chunk_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
+                                   "qlora_tpu/ops/paged_attention.py:478 "
+                                   "(fused_paged_chunk_attention)"),
 }
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
@@ -1318,10 +1780,14 @@ HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=409
             "flash_fwd": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
             "flash_bwd_dq": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
             "flash_bwd_dkv": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
-            # the int8 decode step's most common launch, the parity-int8 prefill's (the
-            # run whose launches the w8a8 kernel's entry counts), the int8 base's train step
-            "qmm_i8_direct": "M=4 K=4096 N=4096", "qmm_nf4_w8a8": "M=128 K=4096 N=4096",
-            "qmm_i8_fwd": "M=1024 K=4096 N=4096 dq", "qmm_i8_bwd": "M=1024 K=4096 N=4096 dq"}
+            # the int8 decode step's most common launch, the serve-paged w8a8 prefill's
+            # commonest (one row at bucket 512; the run whose launches the w8a8 kernel's
+            # entry counts), the int8 base's train step
+            "qmm_i8_direct": "M=4 K=4096 N=4096", "qmm_nf4_w8a8": "M=512 K=4096 N=4096",
+            "qmm_i8_fwd": "M=1024 K=4096 N=4096 dq", "qmm_i8_bwd": "M=1024 K=4096 N=4096 dq",
+            # serve-paged's decode step and its verify chunk, full attention
+            "paged_decode_attention_cuda": "B=8 H=32 KVH=32",
+            "paged_chunk_attention_cuda": "B=8 C=5 H=32 KVH=32"}
 
 
 def qmm_ms_per_forward(results, num_layers, M):
@@ -1398,13 +1864,16 @@ def main() -> int:
     int8_kernel_phase(dev, results)
     print(f"kernels-int8: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    paged_kernel_phase(dev, results)
+    print(f"kernels-paged: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     worst = parity_phase(dev)
     print(f"parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     worst = {}
     for seed in PARITY_INT8_SEEDS:
-        w, w8a8_counts = parity_int8_phase(dev, seed)
+        w, _ = parity_int8_phase(dev, seed)
         worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
     print(f"parity-int8: over seeds {PARITY_INT8_SEEDS}, worst max|logits cpu - card| "
           f"{worst['free']:.4g} <= {W8A8_LOGIT_TOL}, on the CPU's row codes "
@@ -1412,8 +1881,15 @@ def main() -> int:
           f"{worst['of_exact']:.4f} < {INT8_LOGIT_BAND}; {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    serve_counts, serve_stats, int8_counts, int8_stats = serve_phase(dev)
-    print(f"serve and serve-int8: {time.perf_counter() - t0:.1f} s", flush=True)
+    worst = paged_parity_phase(dev)
+    print(f"paged-parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    (serve_counts, serve_stats, int8_counts, int8_stats,
+     (paged_counts, paged_stats, paged8_counts, paged8_stats),
+     (spec_counts, spec_stats)) = serve_phase(dev)
+    print(f"serve, serve-int8, serve-paged and serve-paged-spec: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     nodq_counts = nodq_phase(dev)
     t0 = time.perf_counter()
     worst = train_parity_phase(dev)
@@ -1430,16 +1906,18 @@ def main() -> int:
 
     # each kernel's launches on the main path that runs it: serve for the
     # serving kernels (nodq for the f32-absmax variant), train for the rest.
-    # The int8 family: serve-int8 for the direct kernel, parity-int8's prefill
-    # for the w8a8 kernel over NF4 storage (the engine that prefills through
-    # it is not ported yet), train-int8 for the other two
+    # The int8 family: serve-int8 for the direct kernel, serve-paged's w8a8
+    # prefill for the w8a8 kernel over NF4 storage, train-int8 for the other
+    # two; serve-paged and serve-paged-spec for the paged kernels
     launches = dict(train_counts, qmm_nf4_fwd_dq=serve_counts["qmm_nf4_fwd_dq"],
                     decode_attention_cuda=serve_counts["decode_attention_cuda"],
                     qmm_nf4_fwd_f32=nodq_counts["qmm_nf4_fwd_f32"],
                     qmm_i8_direct=int8_counts["qmm_i8_direct"],
-                    qmm_nf4_w8a8=w8a8_counts["qmm_nf4_w8a8"],
+                    qmm_nf4_w8a8=paged8_counts["qmm_nf4_w8a8"],
                     qmm_i8_fwd=train8_counts["qmm_i8_fwd"],
-                    qmm_i8_bwd=train8_counts["qmm_i8_bwd"])
+                    qmm_i8_bwd=train8_counts["qmm_i8_bwd"],
+                    paged_decode_attention_cuda=paged_counts["paged_decode_attention_cuda"],
+                    paged_chunk_attention_cuda=spec_counts["paged_chunk_attention_cuda"])
     idle = [name for name in SOURCES if launches[name] <= 0]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")
@@ -1473,6 +1951,16 @@ def main() -> int:
           f"{s8['step_qmm_ms'] + s8['step_attention_ms']:.2f} ms against the NF4 path's "
           f"{split['step_qmm_ms'] + split['step_attention_ms']:.2f} ms; on the host's clock the "
           f"NF4 step is {split['step_ms'] / s8['step_ms']:.2f} x as long in this run", flush=True)
+    paged_attn = seven_b().num_layers * next(
+        r["ms"] for r in results if r["name"] == "paged_decode_attention_cuda")
+    print(f"serve-paged: {PAGED_B} slots, {paged_stats['tok_s']:.1f} tok/s over the run "
+          f"(admissions included), {paged_stats['ms_per_step']:.2f} ms per decode step (paged "
+          f"attention ~{paged_attn:.2f} ms of it), against generate()'s 4 rows at "
+          f"{serve_stats['decode_tok_s']:.1f} tok/s and {serve_stats['decode_ms_per_step']:.2f} "
+          f"ms/step; int8 decode and w8a8 prefill {paged8_stats['tok_s']:.1f} tok/s, "
+          f"{paged8_stats['ms_per_step']:.2f} ms/step; speculation "
+          f"{spec_stats['tokens_per_chunk']:.3f} tokens per chunk, "
+          f"{spec_stats['ms_per_chunk']:.2f} ms per verify step", flush=True)
     ts = train_split(results, train_per_step, train_stats)
     print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
           f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm "

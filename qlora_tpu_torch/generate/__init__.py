@@ -14,3 +14,14 @@ __all__ = [
     "apply_repetition_penalty", "ban_repeated_ngrams", "sample_token",
     "top_k_mask", "top_p_mask", "typical_p_mask",
 ]
+
+
+def __getattr__(name):
+    # the serving engines load on first use, as in the JAX package
+    if name == "ContinuousBatcher":
+        from .continuous import ContinuousBatcher
+        return ContinuousBatcher
+    if name in ("PagedBatcher", "PagedPool"):
+        from . import paged
+        return getattr(paged, name)
+    raise AttributeError(name)

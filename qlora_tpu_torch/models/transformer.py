@@ -15,6 +15,9 @@ Parameter layout:
   }
   lora = [{"<linear name>": {"a": [K, r], "b": [r, N]} f32, ...}] * L
   cache = {"k": [[B, KVH, T, hd] bf16] * L, "v": [...] * L, "length": [B] int32}
+  paged cache = {"k_pages": [[n_pages, KVH, page, hd] bf16] * L, "v_pages": [...] * L,
+                 "tables": [B, pages_per_seq] int32 (shared by every layer),
+                 "length": [B] int32}
 
 Nothing on the no-cache path writes into a tensor in place, so autograd can
 differentiate it with respect to the LoRA tensors; every other parameter is
@@ -45,7 +48,10 @@ from qlora_tpu_torch.models.layers import (
     rms_norm,
     rope_frequencies,
 )
-from qlora_tpu_torch.ops import flash_attention, fused_decode_attention
+from qlora_tpu_torch.ops import (
+    flash_attention, fused_decode_attention, fused_paged_chunk_attention,
+    fused_paged_decode_attention,
+)
 from qlora_tpu_torch.quant.blockwise import quantize
 
 LLAMA_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -109,9 +115,10 @@ def _write_prefill(buf: torch.Tensor, new: torch.Tensor, starts) -> None:
 
 def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
           flash_lengths=None):
-    """Attention sub-block; cache_kv None or (k_buf, v_buf) [B, KVH, T, hd],
-    which are updated in place.  flash_lengths: [B] valid-key lengths; when
-    set (and there is no cache) attention goes through ``flash_attention``."""
+    """Attention sub-block; cache_kv None, (k_buf, v_buf) [B, KVH, T, hd] or
+    the paged (k_pages, v_pages, tables), the buffers updated in place.
+    flash_lengths: [B] valid-key lengths; when set (and there is no cache)
+    attention goes through ``flash_attention``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     rotary_dim = int(cfg.rotary_pct * hd) // 2 * 2
@@ -126,7 +133,21 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
     q = apply_rope(q, cos, sin, rotary_dim)
     k = apply_rope(k, cos, sin, rotary_dim)
 
-    if cache_kv is not None:
+    if cache_kv is not None and len(cache_kv) == 3:
+        # the paged pool: a decode token or a speculative verify chunk of S
+        # tokens, appended at pos[:, 0].. and attended in one kernel
+        k_pages, v_pages, tables = cache_kv
+        kw = dict(sm_scale=1.0 / hd ** 0.5, sliding_window=cfg.sliding_window)
+        lengths = pos[:, 0].to(torch.int32)
+        if S == 1:
+            o, _, _ = fused_paged_decode_attention(
+                q[:, 0].to(torch.bfloat16), k[:, 0], v[:, 0], k_pages, v_pages, lengths,
+                tables, **kw)
+            attn_out = o[:, None]
+        else:
+            attn_out, _, _ = fused_paged_chunk_attention(
+                q.to(torch.bfloat16), k, v, k_pages, v_pages, lengths, tables, **kw)
+    elif cache_kv is not None:
         k_buf, v_buf = cache_kv
         if S == 1:
             o, _, _ = fused_decode_attention(
@@ -237,9 +258,10 @@ def forward(
         cfg.rope_theta, positions)
 
     flash_lengths = None
+    paged = cache is not None and "k_pages" in cache
     if cache is not None:
-        if S == 1:
-            mask = None              # the decode kernel masks by length itself
+        if S == 1 or paged:
+            mask = None              # the decode and paged kernels mask by length
         else:
             T = cache["k"][0].shape[2]
             kj = torch.arange(T, device=dev)[None, None, None, :]
@@ -271,7 +293,10 @@ def forward(
     remat = _check_remat(remat) and cache is None and torch.is_grad_enabled()
     for i, block in enumerate(params["blocks"]):
         lora_l = None if lora is None else lora[i]
-        cache_l = None if cache is None else (cache["k"][i], cache["v"][i])
+        if paged:
+            cache_l = (cache["k_pages"][i], cache["v_pages"][i], cache["tables"])
+        else:
+            cache_l = None if cache is None else (cache["k"][i], cache["v"][i])
         seed = None if seed0 is None else seed0 + i
 
         def body(x, block=block, lora_l=lora_l, cache_l=cache_l, seed=seed):

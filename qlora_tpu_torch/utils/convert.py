@@ -7,7 +7,8 @@ passed through ``np.asarray``): a ``QuantizedTensor`` as a dict of
 ``{"qt": ..., "bias": ...}``; a ``DenseLinear`` as ``{"w": ..., "bias": ...}``.
 Block and LoRA leaves stacked over layers ``[L, ...]`` become per-layer
 lists; ``lora_to_numpy`` goes the other way, so that an adapter trained
-here can be set beside one trained there.  Every byte is kept: bfloat16 arrays (numpy's ml_dtypes type) are
+here can be set beside one trained there.  ``paged_cache_from_numpy``
+carries a paged KV cache (per-layer page pools and the page tables) across.  Every byte is kept: bfloat16 arrays (numpy's ml_dtypes type) are
 reinterpreted through their 16-bit pattern.
 """
 
@@ -99,6 +100,16 @@ def lora_from_numpy(tree: dict, device) -> list:
     L = next(iter(tree.values()))["a"].shape[0]
     return [{name: {k: to_tensor(np.asarray(ad[k])[i], device) for k in ("a", "b")}
              for name, ad in tree.items()} for i in range(L)]
+
+
+def paged_cache_from_numpy(tree: dict, device) -> dict:
+    """A JAX paged cache {"k_pages", "v_pages": per-layer [n_pages, KVH, page,
+    hd] bf16, "tables": [B, pps], "length": [B]} (as numpy) → the port's,
+    every pool byte kept."""
+    return {"k_pages": [to_tensor(a, device) for a in tree["k_pages"]],
+            "v_pages": [to_tensor(a, device) for a in tree["v_pages"]],
+            "tables": to_tensor(np.asarray(tree["tables"], np.int32), device),
+            "length": to_tensor(np.asarray(tree["length"], np.int32), device)}
 
 
 def lora_to_numpy(lora: list) -> dict:

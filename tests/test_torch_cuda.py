@@ -30,12 +30,17 @@ version makes in the same order: the raw accumulators and the bf16 outputs
 are held equal bit for bit.  The int8-storage kernels (``--bits 8``) decode
 the weight as ``dequantize`` does and sum in f32 in another order: rtol
 1e-2, atol 2e-2 as the NF4 kernels, and an identity operand reads the
-decoded weight out of both, bit for bit."""
+decoded weight out of both, bit for bit.
+
+The paged kernels have the decode kernel's arithmetic over a page table:
+each output element within 2e-2 of its (row, head)'s largest |output|, the
+pools byte-equal after the append (page 0 and untouched pages included).
+The chunk kernel at C = 1 is the decode kernel, bit for bit."""
 
 import pytest
 import torch
 
-from chip_smoke import plant_edges, plant_flash_edges
+from chip_smoke import paged_case, plant_edges, plant_flash_edges
 from qlora_tpu_torch.generate import generate
 from qlora_tpu_torch.models import forward, get_config, init_params
 from qlora_tpu_torch.ops import decode_attention_cuda, decode_attention_plain
@@ -47,6 +52,8 @@ from qlora_tpu_torch.ops import default_impl, int8_matmul_plain, qmm_i8_bwd, qmm
 from qlora_tpu_torch.ops import qmm_i8_direct, qmm_i8_direct_plain, qmm_i8_fwd, qmm_i8_fwd_plain
 from qlora_tpu_torch.ops import qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows
 from qlora_tpu_torch.ops import w8a8_codes, w8a8_scales
+from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
+from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
 from qlora_tpu_torch.ops.qmatmul import _w8a8_accumulators
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
@@ -426,3 +433,74 @@ def test_debug_model_int8_decode_card_matches_cpu(cuda):
             want, _ = forward(dec_cpu, None, tok, cfg, cache=c_cpu)
             got, _ = forward(dec_gpu, None, tok.to(cuda), cfg, cache=c_gpu)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0.2)
+
+
+PAGED_CASES = [  # B, C (None: decode), H, KVH, hd, page, pps, lens, window, evict, planted
+    (8, None, 32, 32, 128, 64, 16, [0, 1, 63, 64, 65, 300, 511, 1022], None, False, False),
+    (8, None, 32, 8, 128, 64, 16, [0, 1, 63, 64, 65, 300, 511, 1022], 256, True, True),
+    (3, None, 8, 2, 64, 16, 4, [0, 63, 37], 20, False, True),
+    (2, None, 64, 2, 256, 8, 3, [24, 27], None, False, False),     # G = 32; the append clamped
+    (3, None, 4, 4, 128, 8, 4, [5, 17, 30], 4, True, False),
+    (8, 5, 32, 32, 128, 64, 16, [0, 1, 63, 64, 65, 300, 510, 1019], None, False, False),
+    (8, 5, 32, 8, 128, 64, 16, [0, 1, 63, 64, 65, 300, 510, 1019], 256, True, True),
+    (3, 8, 4, 2, 128, 16, 4, [13, 29, 47], None, False, False),    # straddles two pages
+    (2, 5, 8, 2, 64, 8, 2, [13, 3], None, False, False),           # clamped: later position wins
+    (2, 16, 8, 2, 64, 16, 4, [7, 40], 12, False, True),            # C * G = 64
+]
+
+
+@pytest.mark.parametrize("B,C,H,KVH,hd,page,pps,lens,window,evict,planted", PAGED_CASES)
+def test_paged_kernels_match_plain(cuda, B, C, H, KVH, hd, page, pps, lens, window, evict,
+                                   planted):
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + page + (C or 0))
+    q, nk, nv, kp, vp, L, tables = paged_case(g, cuda, B, C, H, KVH, hd, page, pps, lens,
+                                              window, evict, planted)
+    kernel, plain = ((paged_decode_attention_cuda, paged_decode_plain) if C is None
+                     else (paged_chunk_attention_cuda, paged_chunk_plain))
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = kernel.launches
+    o1, _, _ = kernel(q, nk, nv, k1, v1, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
+    o2, _, _ = plain(q, nk, nv, k2, v2, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
+    assert kernel.launches == before + 1
+    d = (o1.float() - o2.float()).abs()
+    tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
+    assert (d <= tol).all(), f"max excess {(d - tol).max().item()}"
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    assert not torch.equal(k1, kp)                      # the append happened
+
+
+def test_paged_chunk_of_one_is_the_decode_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, nk, nv, kp, vp, L, tables = paged_case(g, cuda, 4, None, 8, 2, 128, 16, 4,
+                                              [0, 5, 37, 63], 24, True, True)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    oc, _, _ = paged_chunk_attention_cuda(q[:, None], nk[:, None], nv[:, None], k1, v1, L,
+                                          tables, sm_scale=0.1, sliding_window=24)
+    od, _, _ = paged_decode_attention_cuda(q, nk, nv, k2, v2, L, tables, sm_scale=0.1,
+                                           sliding_window=24)
+    assert torch.equal(oc[:, 0], od) and torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def test_paged_batcher_on_card(cuda):
+    """The debug model through ``PagedBatcher`` on the card, plain and
+    speculative: every request completes, the pool is recycled, and the
+    decode and verify steps launch the paged kernels, one per layer."""
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+
+    cfg = get_config("debug")
+    params = init_params(cfg, seed=0, device=cuda)
+    traffic = [([3, 17, 5, 9] * 3, 6), ([4, 7], 9), ([11, 2, 6, 11, 2, 6], 7)]
+    for spec in (0, 3):
+        pb = PagedBatcher(params, None, cfg, num_slots=2, n_pages=32, page_size=8,
+                          max_pages_per_seq=8, prefill_buckets=(16,), eos_id=-1,
+                          spec_draft_len=spec)
+        n0 = (paged_decode_attention_cuda.launches, paged_chunk_attention_cuda.launches)
+        reqs = [pb.submit(p, max_new_tokens=n) for p, n in traffic]
+        pb.run_to_completion()
+        assert [len(r.generated) for r in reqs] == [n for _, n in traffic]
+        assert pb.pool.n_free == 31 and not pb.pool.tables
+        grown = (paged_decode_attention_cuda.launches - n0[0],
+                 paged_chunk_attention_cuda.launches - n0[1])
+        assert grown[1 if spec else 0] > 0 and grown[1 if spec else 0] % cfg.num_layers == 0
+        if not spec:
+            assert grown[1] == 0

@@ -31,6 +31,7 @@ def test_no_jax_imports(path):
 def test_scan_covers_the_port():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     assert ROOT / "qlora_tpu_torch" / "generate" / "serve_int8.py" in FILES
+    assert ROOT / "qlora_tpu_torch" / "generate" / "paged.py" in FILES
 
 
 SOURCES = sorted((ROOT / "qlora_tpu_torch" / "csrc").glob("*.cu*"))
@@ -58,3 +59,12 @@ def test_cuda_sources_cover_the_int8_family():
     for p in SOURCES:
         entries |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
     assert {"qmm_i8_direct", "qmm_nf4_w8a8", "qmm_i8_fwd", "qmm_i8_bwd"} <= entries
+
+
+def test_cuda_sources_cover_paged_attention():
+    path = ROOT / "qlora_tpu_torch" / "csrc" / "paged_attention.cu"
+    assert path in SOURCES
+    text = path.read_text()
+    assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {
+        "paged_decode_attention", "paged_chunk_attention"}
+    assert "fused_paged_decode_attention" in text and "fused_paged_chunk_attention" in text
