@@ -12,7 +12,12 @@ them.  Phases, each failing the run on any mismatch or exception:
    at the LLaMA-7B serving and training shapes, with its time (CUDA events),
    the plain version's time, one PyTorch library call's time as a yardstick,
    and the least time the card could take (bytes over 3.35 TB/s or
-   operations over the peak rate of their type).
+   operations over the peak rate of their type).  The NF4 forward at
+   decode rows (4, 8, 16 and 40) is timed in CUDA graphs beside the tile
+   kernel's M <= 16 branch (the "before") and, at 40, the decode kernel;
+   up to 16 rows the decode kernel is also held bit for bit: two calls
+   equal, each row alone equal to its row in the batch, rows of the
+   identity equal to ``dequantize``'s weight.
 3. parity: LLaMA-7B width, 2 layers — the same weights through the plain
    path on the CPU and through the kernels on the card, a 128-token prefill
    then 4 teacher-forced decode steps; logits must agree.
@@ -128,7 +133,10 @@ TRAIN_LR = 2e-4
 # training (M = 2 x 512, forward and backward) and decode (M = 4) rows,
 # decode attention at the serving width, flash attention at the training one
 QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
-QMM_ROWS = (2048, 1024, 4)
+QMM_ROWS = (2048, 1024, 4, 8, 16, 40)   # + decode: generate()'s 4 rows, serve-paged's 8
+                                        # slots, DECODE_ROWS, a verify step's 8 x 5
+FEW_ROWS = 64             # up to here a row count is timed in a CUDA graph, with the tile
+                          # kernel ("before") and the decode kernel beside it
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
 LM_HEAD_SHAPE = (4096, 32768)     # the int8 serving copy pads 32000 columns to 32768
 W8A8_ROWS = (4, 128, 512, 2048)  # decode, the parity-int8 prefill (1 x 128), the serve-paged
@@ -192,6 +200,90 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of fn(i) over `iters` launches captured in one CUDA
+    graph and replayed, so that the host's cost of a launch, which exceeds
+    the kernel's time at decode rows, leaves no gaps between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up off the capture: allocator, handles
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def nf4_kernels():
+    """The two NF4 forward kernels launched through their C entries,
+    bypassing the dispatch and the counters: (decode, tile), each
+    (x, qt) -> y.  The tile kernel's M <= 16 branch is the "before" of the
+    decode kernel."""
+    import importlib
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+
+    def decode(x, qt):
+        _, _, scale, offset = qm._check_quantized(qt, x.device)
+        return qm._decode_launch(x, qt, scale, offset)
+
+    def tile(x, qt):
+        _, N, scale, offset = qm._check_quantized(qt, x.device)
+        return qm._launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset)
+
+    return decode, tile
+
+
+def one_hot_rows(K, block_size, n):
+    """n logical rows of W to read out: both planes, both sides of an
+    absmax-block edge and, where K/B > 256, of a meta-block edge."""
+    K2, B = K // 2, block_size
+    ks = [0, K2, B - 1, B, K2 + B - 1, K2 + B, K2 - 1, K - 1]
+    if K // B > 256:
+        ks += [256 * B - 1, 256 * B, K2 + 256 * B - 1, K2 + 256 * B]
+    ks = list(dict.fromkeys(k for k in ks if k < K))
+    more = max(0, n - len(ks))
+    ks += list(range(1, K, max(1, K // (more + 1))))[:more]
+    return ks[:n]
+
+
+def decode_checks(name, wrapper, x, qt, w_bf16):
+    """The decode path at x's rows, each check bit for bit: two calls equal;
+    each row alone equal to its row in the batch; rows of the identity read
+    out ``dequantize``'s weight.  Fails the run if one is broken."""
+    import torch
+
+    M, K = x.shape
+    y = wrapper(x, qt)
+    same = torch.equal(y, wrapper(x, qt))
+    alone = all(torch.equal(wrapper(x[i:i + 1], qt)[0], y[i]) for i in range(M))
+    ks = one_hot_rows(K, qt.block_size, M)
+    eye = torch.zeros(M, K, device=x.device, dtype=torch.bfloat16)
+    eye[torch.arange(M), torch.tensor(ks)] = 1
+    readout = torch.equal(wrapper(eye, qt), w_bf16[ks])
+    print(f"kernel {name} M={M} K={K} N={qt.packed.shape[-1]}: two calls equal {same}, each "
+          f"row alone equal {alone}, identity rows {ks} read out dequantize's weight "
+          f"{readout}", flush=True)
+    if not (same and alone and readout):
+        fail(f"{name} M={M} K={K}: deterministic {same}, batch-invariant {alone}, "
+             f"one-hot readout {readout}")
 
 
 def copies_past_l2(nbytes: int) -> int:
@@ -446,8 +538,10 @@ def kernel_phase(dev, results):
         decode_attention_cuda, decode_attention_plain, qmatmul_bwd_plain, qmatmul_plain,
         qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
     )
+    from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
     from qlora_tpu_torch.quant import dequantize, quantize
 
+    decode, tile = nf4_kernels()
     g = torch.Generator(device=dev).manual_seed(1234)
     for dq in (True, False):
         wrapper = qmm_nf4_fwd_dq if dq else qmm_nf4_fwd_f32
@@ -469,23 +563,42 @@ def kernel_phase(dev, results):
                 diff = (y.float() - ref.float()).abs()
                 err = diff.max().item()
                 excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
-                iters = 20 if M > 16 else 200
-                ms = cuda_ms(lambda i: wrapper(x, qts[i % len(qts)]), iters)
-                plain_ms = cuda_ms(lambda i: qmatmul_plain(x, qts[i % len(qts)]),
-                                   3 if M > 16 else 20)
-                lib_ms = cuda_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), iters)
-                bound_ms, bound_by = qmm_bound(M, K, N, dq)
                 name = wrapper.__name__
+                more = {}
+                if M > FEW_ROWS:
+                    ms = cuda_ms(lambda i: wrapper(x, qts[i % len(qts)]), 20)
+                    plain_ms = cuda_ms(lambda i: qmatmul_plain(x, qts[i % len(qts)]), 3)
+                    lib_ms = cuda_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 20)
+                else:
+                    # device times in a graph: the wrapper (the decode kernel up to
+                    # DECODE_ROWS), the tile kernel on the same inputs, the library
+                    ms = graph_ms(lambda i: wrapper(x, qts[i % len(qts)]), 200)
+                    more["tile_ms"] = graph_ms(lambda i: tile(x, qts[i % len(qts)]), 50)
+                    lib_ms = graph_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 200)
+                    plain_ms = cuda_ms(lambda i: qmatmul_plain(x, qts[i % len(qts)]), 20)
+                    if M > DECODE_ROWS:   # the decode kernel where the dispatch does not send it
+                        yd = decode(x, qt)
+                        torch.cuda.synchronize()
+                        dd = (yd.float() - ref.float()).abs()
+                        more["decode_err"] = dd.max().item()
+                        excess = max(excess, (dd - QMM_TOL[1] * ref.float().abs()).max().item())
+                        more["decode_ms"] = graph_ms(lambda i: decode(x, qts[i % len(qts)]), 200)
+                bound_ms, bound_by = qmm_bound(M, K, N, dq)
                 rec = dict(name=name, shape=f"M={M} K={K} N={N}", max_abs_err=err, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, **more)
                 results.append(rec)
                 print(f"kernel {name} M={M} K={K} N={N}: max|d|={err:.3g} "
                       f"(tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|) ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                      f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+                      f"bound_ms={bound_ms:.4f} ({bound_by})"
+                      + "".join(f" {k}={v:.4g}" for k, v in more.items()), flush=True)
                 if excess > QMM_TOL[0]:
                     fail(f"{name} M={M} K={K} N={N} differs from its plain version by {err}")
+                if M <= DECODE_ROWS:
+                    decode_checks(name, wrapper, x, qt, w_bf16)
+                elif M <= FEW_ROWS:
+                    decode_checks(f"{name} (decode kernel)", decode, x, qt, w_bf16)
             # the backward at the training micro-batch: dx = g @ dequant(W)^T
             M = QMM_BWD_ROWS
             gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
@@ -1122,7 +1235,8 @@ def paged_parity_phase(dev):
             fail(f"paged-parity {what}: card paged logits differ from the CPU's by {err}, "
                  f"from the contiguous cache's by {err_contig}")
     L = cfg.num_layers
-    want = expected_counts(qmm_nf4_fwd_dq=7 * L * (steps + 1),
+    want = expected_counts(qmm_nf4_fwd_dq=7 * L * (steps + 1),      # 1 row, then the chunk of C
+                           qmm_nf4_decode_dq=7 * L * (steps + 1),
                            paged_decode_attention_cuda=L * steps, paged_chunk_attention_cuda=L)
     print(f"paged-parity: launches {counts} (expected {want})", flush=True)
     if counts != want:
@@ -1144,18 +1258,27 @@ def counters():
             paged_decode_attention_cuda, paged_chunk_attention_cuda)
 
 
+# the NF4 forward wrappers also count the launches that took the decode
+# kernel (M <= DECODE_ROWS), read as qmm_nf4_decode_dq / _f32
+DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32"}
+
+
 def expected_counts(**nonzero):
     """Every counter at 0 except the ones named."""
-    return {**{w.__name__: 0 for w in counters()}, **nonzero}
+    return {**{w.__name__: 0 for w in counters()}, **{k: 0 for k in DECODE_COUNTS}, **nonzero}
 
 
 def reset_counts():
     for w in counters():
         w.launches = 0
+        if hasattr(w, "decode_launches"):
+            w.decode_launches = 0
 
 
 def read_counts():
-    return {w.__name__: w.launches for w in counters()}
+    by_name = {w.__name__: w for w in counters()}
+    return {**{n: w.launches for n, w in by_name.items()},
+            **{k: by_name[n].decode_launches for k, n in DECODE_COUNTS.items()}}
 
 
 def padded_requests(lengths, S, vocab, seed):
@@ -1218,14 +1341,16 @@ def serve_phase(dev):
     prefill_s = timed_prefill(dev, cfg, params, lora, lcfg, ids, lengths)
     n_lin = 7 * cfg.num_layers
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * (SERVE_NEW + 1),
+                           qmm_nf4_decode_dq=n_lin * SERVE_NEW,       # 4 rows: the decode kernel
                            decode_attention_cuda=cfg.num_layers * SERVE_NEW)
     decode_s = total_s - prefill_s
     print(f"serve: generated {tuple(toks.shape)} tokens in {total_s:.3f} s; prefill "
           f"{prefill_s * 1e3:.1f} ms (4 x 512 padded), decode {decode_s * 1e3:.1f} ms = "
           f"{toks.numel() / decode_s:.1f} tok/s, {decode_s / SERVE_NEW * 1e3:.2f} ms/step; "
           f"peak memory {peak_gib:.2f} GiB", flush=True)
-    print(f"serve: launches {counts} (expected {want}: {n_lin} qmm per forward, "
-          f"{cfg.num_layers} decode-attention per decode step)", flush=True)
+    print(f"serve: launches {counts} (expected {want}: {n_lin} qmm per forward, on the decode "
+          f"kernel in each decode step, {cfg.num_layers} decode-attention per decode step)",
+          flush=True)
     if counts != want:
         fail(f"serve launch counts {counts} != {want}")
     if toks.shape != (4, SERVE_NEW) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -1426,9 +1551,11 @@ def serve_paged_phase(dev, cfg, params, lora, lcfg):
                                             traffic, SERVE_PAGED_PAGES)
     fwds = st["decode"] + st["prefill"]
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
+                           qmm_nf4_decode_dq=n_lin * st["decode"],    # 8 rows a decode forward
                            paged_decode_attention_cuda=L * st["decode"])
-    print(f"serve-paged: launches {counts} (expected {want}: {n_lin} qmm per forward, {L} "
-          f"paged decode attention per decode forward)", flush=True)
+    print(f"serve-paged: launches {counts} (expected {want}: {n_lin} qmm per forward, on the "
+          f"decode kernel in each decode forward, {L} paged decode attention per decode "
+          "forward)", flush=True)
     if counts != want:
         fail(f"serve-paged launch counts {counts} != {want}")
     if pb.preemptions < 1:
@@ -1458,12 +1585,17 @@ def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
     to the random weights; the launch counts follow the counted forwards."""
     import torch
 
+    from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
+
     traffic = phrase_traffic(cfg.vocab_size, 5, SPEC_REQUESTS)
     L, n_lin = cfg.num_layers, 7 * cfg.num_layers
     pb, st, counts, stats = serve_paged_run("serve-paged-spec", dev, cfg, params, lora, lcfg,
                                             traffic, SPEC_PAGES, spec_draft_len=SPEC_DRAFT)
     fwds = st["decode"] + st["verify"] + st["prefill"]
+    verify_rows = SERVE_PAGED["num_slots"] * (SPEC_DRAFT + 1)
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
+                           qmm_nf4_decode_dq=n_lin * (st["decode"] + st["verify"] * (
+                               verify_rows <= DECODE_ROWS)),
                            paged_decode_attention_cuda=L * st["decode"],
                            paged_chunk_attention_cuda=L * st["verify"])
     per_chunk = pb.spec_tokens / max(pb.spec_chunks, 1)
@@ -1498,6 +1630,7 @@ def nodq_phase(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     want = expected_counts(qmm_nf4_fwd_f32=7 * cfg.num_layers * (new + 1),
+                           qmm_nf4_decode_f32=7 * cfg.num_layers * new,
                            decode_attention_cuda=cfg.num_layers * new)
     print(f"nodq: generated {tuple(toks.shape)} tokens; launches {counts} "
           f"(expected {want})", flush=True)
@@ -1741,10 +1874,10 @@ def train_split(results, per_step, stats, quant_type="nf4"):
                 **{f"{n}_ms": v for n, v in flash.items()})
 
 
-SOURCES = {
-    "qmm_nf4_fwd_dq": ("qlora_tpu_torch/csrc/qmm_nf4_fwd.cu",
+SOURCES = {    # the two NF4 forward entries: the decode kernel at their headline (M = 4)
+    "qmm_nf4_fwd_dq": ("qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
                        "qlora_tpu/ops/qmatmul.py:592 (_qmm_pallas_dq)"),
-    "qmm_nf4_fwd_f32": ("qlora_tpu_torch/csrc/qmm_nf4_fwd.cu",
+    "qmm_nf4_fwd_f32": ("qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
                         "qlora_tpu/ops/qmatmul.py:521 (_qmm_pallas)"),
     "decode_attention_cuda": ("qlora_tpu_torch/csrc/decode_attention.cu",
                               "qlora_tpu/ops/decode_attention.py:207 (fused_decode_attention)"),
@@ -1771,6 +1904,9 @@ SOURCES = {
                                    "qlora_tpu/ops/paged_attention.py:478 "
                                    "(fused_paged_chunk_attention)"),
 }
+# the NF4 forward's two sources, by rows (ops/qmatmul.py: DECODE_ROWS)
+NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
+               "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
 # the train step's micro-batch (M = 1024 rows; 2 x 32 heads x 512 tokens)
@@ -1805,7 +1941,7 @@ def serve_split(results, num_layers, stats):
     sampling) and the gaps between launches."""
     attn = num_layers * next(r["ms"] for r in results if r["name"] == "decode_attention_cuda")
     qmm_prefill = qmm_ms_per_forward(results, num_layers, QMM_ROWS[0])
-    qmm_step = qmm_ms_per_forward(results, num_layers, QMM_ROWS[-1])
+    qmm_step = qmm_ms_per_forward(results, num_layers, len(SERVE_LENGTHS))
     step = stats["decode_ms_per_step"]
     return dict(prefill_ms=stats["prefill_ms"], prefill_qmm_ms=qmm_prefill,
                 step_ms=step, step_qmm_ms=qmm_step, step_attention_ms=attn,
@@ -1936,6 +2072,12 @@ def main() -> int:
             # quantization (PyTorch ops), as the decode step pays it:
             **({"wrapper_ms": head["wrapper_ms"]} if "wrapper_ms" in head else {}),
         })
+    for entry, decode_key, run in ((summary[0], "qmm_nf4_decode_dq", serve_counts),
+                                   (summary[1], "qmm_nf4_decode_f32", nodq_counts)):
+        head = next(r for r in results if r["name"] == entry["name"]
+                    and r["shape"] == entry["shape"])
+        entry.update(sources=NF4_SOURCES, decode_launches=run[decode_key],
+                     tile_ms=head["tile_ms"])
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
     print(f"serve: prefill {split['prefill_ms']:.1f} ms, of which qmm kernels "
@@ -1953,9 +2095,11 @@ def main() -> int:
           f"NF4 step is {split['step_ms'] / s8['step_ms']:.2f} x as long in this run", flush=True)
     paged_attn = seven_b().num_layers * next(
         r["ms"] for r in results if r["name"] == "paged_decode_attention_cuda")
+    paged_qmm = qmm_ms_per_forward(results, seven_b().num_layers, PAGED_B)
     print(f"serve-paged: {PAGED_B} slots, {paged_stats['tok_s']:.1f} tok/s over the run "
-          f"(admissions included), {paged_stats['ms_per_step']:.2f} ms per decode step (paged "
-          f"attention ~{paged_attn:.2f} ms of it), against generate()'s 4 rows at "
+          f"(admissions included), {paged_stats['ms_per_step']:.2f} ms per decode step (qmm "
+          f"kernels ~{paged_qmm:.2f} ms and paged attention ~{paged_attn:.2f} ms of it, "
+          "kernel-phase times x launches), against generate()'s 4 rows at "
           f"{serve_stats['decode_tok_s']:.1f} tok/s and {serve_stats['decode_ms_per_step']:.2f} "
           f"ms/step; int8 decode and w8a8 prefill {paged8_stats['tok_s']:.1f} tok/s, "
           f"{paged8_stats['ms_per_step']:.2f} ms/step; speculation "

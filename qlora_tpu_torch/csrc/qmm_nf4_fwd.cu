@@ -24,9 +24,11 @@
 // element's own row block, so any block size, any number of meta-blocks and
 // any K and N that quantize() accepts run here; ragged M, N and K/2 edges are
 // masked.  Four warps contract the tiles with bf16 WMMA (m16n16k16) into f32
-// accumulators; the epilogue rounds to bf16.  Not yet done (later work): a
-// wgmma/TMA pipeline for prefill, and split-K for the few-row decode regime,
-// where ceil(N/64) blocks leave part of the 132 SMs idle.
+// accumulators; the epilogue rounds to bf16.  The dispatch (ops/qmatmul.py)
+// sends rows above DECODE_ROWS here; fewer rows go to the split-K decode
+// kernel of qmm_nf4_decode.cu, and the TM = 16 branch below is reached only
+// through this entry directly.  Not yet done (later work): a wgmma/TMA
+// pipeline for prefill and training rows.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -115,9 +115,9 @@ def _check_search(num_beams, num_beam_groups, penalty_alpha, decode_impl):
             "decode_impl composes with greedy/sampled decode only; "
             "beam/contrastive search runs the exact bf16 path")
     if penalty_alpha:
-        raise NotImplementedError("contrastive search is ROADMAP queue A, serving engines")
+        raise NotImplementedError("contrastive search is ROADMAP A4 (generation, the rest)")
     if searching:
-        raise NotImplementedError("beam search is ROADMAP queue A, serving engines")
+        raise NotImplementedError("beam search is ROADMAP A4 (generation, the rest)")
 
 
 def _decode_params(params, decode_impl, decode_params):

@@ -15,7 +15,10 @@ int8, blockwise        ``qmm_i8_fwd``              ``qmm_i8_fwd``
 =====================  ==========================  ========================
 
 The exact kernels multiply bf16 operands with f32 accumulation
-(``csrc/qmm_nf4_fwd.cu``, ``csrc/qmm_i8.cu``); the two ``w8a8`` kernels
+(``csrc/qmm_nf4_fwd.cu``, ``csrc/qmm_i8.cu``); the NF4 forward runs up to
+``DECODE_ROWS`` rows (decode) on a split-K weight-streaming kernel of its
+own (``csrc/qmm_nf4_decode.cu``, counted in ``decode_launches`` beside
+``launches``) and more rows on the tile kernel.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
 serving engines' decode path.  The kernels take every shape ``quantize``
@@ -30,6 +33,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -133,13 +138,87 @@ def _launch(lib: str, entry: str, a: torch.Tensor, qt: QuantizedTensor, outer: i
     return out
 
 
+# The NF4 forward at decode rows: ``csrc/qmm_nf4_decode.cu`` splits K across
+# the blocks of a thread-block cluster, each a strip of 128 columns and a run
+# of whole units of packed rows; its plan depends on (K, N, block size) and
+# the SM count, never on the rows, so a row's result does not depend on the
+# batch.
+DECODE_ROWS = 16
+_DECODE_COLS = 128           # output columns of one block of the decode kernel
+_DECODE_MAX_SPLITS = 16      # blocks of one cluster (the largest an H100 takes)
+_DECODE_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How ``qmm_nf4_decode`` cuts a [K/2, N] packed weight: ``strips`` of
+    128 columns times ``splits`` runs of whole ``unit``s of packed rows, one
+    block each; the splits of a strip are one cluster."""
+    splits: int
+    unit: int
+    strips: int
+
+    def split_rows(self, K: int) -> list:
+        """[(r0, r1)] packed rows of each split, as the kernel computes them."""
+        units = -(-(K // 2) // self.unit)
+        return [(s * units // self.splits * self.unit,
+                 min((s + 1) * units // self.splits * self.unit, K // 2))
+                for s in range(self.splits)]
+
+
+def decode_plan(K: int, N: int, block_size: int, sms: int) -> DecodePlan:
+    """The decode kernel's split of an NF4 weight: about
+    ``_DECODE_BLOCKS_PER_SM`` blocks per SM, at most one cluster of splits
+    per strip.  A unit is the least multiple of 8 packed rows (one k-step)
+    that holds whole absmax blocks (8 rows where that would exceed 512)."""
+    unit = math.lcm(block_size, 8)
+    unit = unit if unit <= 512 else 8
+    units = -(-(K // 2) // unit)
+    strips = -(-N // _DECODE_COLS)
+    splits = min(units, _DECODE_MAX_SPLITS, -(-_DECODE_BLOCKS_PER_SM * sms // strips))
+    return DecodePlan(splits, unit, strips)
+
+
+_PLANS: dict = {}
+_SMS: dict = {}
+
+
+def _decode_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset) -> torch.Tensor:
+    """Launch ``qmm_nf4_decode`` on checked operands: x [M, K] bf16 on the
+    card → y [M, N] bf16.  It takes any M (groups of 16 rows); the dispatch
+    sends it M <= ``DECODE_ROWS``."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    x = _aligned(x.to(torch.bfloat16))
+    M, dev = x.shape[0], x.device
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if M == 0:
+        return y
+    key = (K, N, qt.block_size, dev)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _PLANS[key] = decode_plan(K, N, qt.block_size, _SMS[dev])
+    fn = _build.kernel("qmm_nf4_decode", "qmm_nf4_decode", [_P] * 7 + [_I] * 7 + [_P])
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
+             None if scale is None else scale.data_ptr(),
+             None if offset is None else offset.data_ptr(),
+             _code_on(qt.quant_type, dev).data_ptr(), y.data_ptr(), M, K, N, qt.block_size,
+             int(qt.double_quant), plan.splits, plan.unit, _build.stream_ptr(x))
+    _build.check(err, "qmm_nf4_decode")
+    return y
+
+
 def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """Check the operands and launch the NF4 forward kernel: x [M, K] on the
-    card → y [M, N] bf16.  The variant follows ``qt.double_quant``."""
+    card → y [M, N] bf16, the decode kernel up to ``DECODE_ROWS`` rows and
+    the tile kernel above.  The variant follows ``qt.double_quant``."""
     if qt.quant_type == "int8":
         raise ValueError("the NF4 kernels do not read int8 storage")
     _check_rows(x, logical_k(qt), "x")
     K, N, scale, offset = _check_quantized(qt, x.device)
+    if x.shape[0] <= DECODE_ROWS:
+        return _decode_launch(x, qt, scale, offset)
     return _launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset)
 
 
@@ -149,6 +228,7 @@ def qmm_nf4_fwd_dq(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         raise ValueError("qmm_nf4_fwd_dq needs a double-quantized tensor")
     y = _qmm_launch(x, qt)
     qmm_nf4_fwd_dq.launches += x.shape[0] > 0
+    qmm_nf4_fwd_dq.decode_launches += 0 < x.shape[0] <= DECODE_ROWS
     return y
 
 
@@ -158,11 +238,14 @@ def qmm_nf4_fwd_f32(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         raise ValueError("qmm_nf4_fwd_f32 needs an f32-absmax tensor")
     y = _qmm_launch(x, qt)
     qmm_nf4_fwd_f32.launches += x.shape[0] > 0
+    qmm_nf4_fwd_f32.decode_launches += 0 < x.shape[0] <= DECODE_ROWS
     return y
 
 
-qmm_nf4_fwd_dq.launches = 0
-qmm_nf4_fwd_f32.launches = 0
+# launches: every call that ran a kernel; decode_launches: those of them
+# that took the decode kernel
+qmm_nf4_fwd_dq.launches = qmm_nf4_fwd_dq.decode_launches = 0
+qmm_nf4_fwd_f32.launches = qmm_nf4_fwd_f32.decode_launches = 0
 
 
 def qmatmul_bwd_plain(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:

@@ -5,13 +5,17 @@ CUDA device is present.  Run them on the H100 with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest``
 (``tests/conftest.py`` sets up JAX, which the port does not need).
 
-Tolerances: the qmm kernel decodes the same bf16 weights as the plain
-version and accumulates in f32 in another order, so outputs differ by at
-most one bf16 ulp of the output plus f32 reassociation: rtol 1e-2, atol
-2e-2.  The decode kernel rounds probabilities to bf16 against chunk-wise
-running maxima, so each probability may land one ulp (2^-8 relative)
-apart and an output element moves by up to 2^-8 of the attended values'
-scale, even where it cancels to near 0: each element within 2e-2 of its
+Tolerances: the qmm kernels (the decode kernel up to DECODE_ROWS rows, the
+tile kernel above) decode the same bf16 weights as the plain version and
+accumulate in f32 in another order, so outputs differ by at most one bf16
+ulp of the output plus f32 reassociation: rtol 1e-2, atol 2e-2.  The
+decode kernel is also held bit for bit: rows of the identity read out
+``dequantize``'s weight, two calls agree, and a row's result does not
+depend on the other rows.  The decode attention kernel rounds
+probabilities to bf16 against chunk-wise running maxima, so each
+probability may land one ulp (2^-8 relative) apart and an output element
+moves by up to 2^-8 of the attended values' scale, even where it cancels
+to near 0: each element within 2e-2 of its
 (row, head)'s largest |output|.  The planted cases make one key read too
 many or too few at a window edge move the output by O(1).  Caches
 byte-equal.
@@ -40,7 +44,7 @@ The chunk kernel at C = 1 is the decode kernel, bit for bit."""
 import pytest
 import torch
 
-from chip_smoke import paged_case, plant_edges, plant_flash_edges
+from chip_smoke import one_hot_rows, paged_case, plant_edges, plant_flash_edges
 from qlora_tpu_torch.generate import generate
 from qlora_tpu_torch.models import forward, get_config, init_params
 from qlora_tpu_torch.ops import decode_attention_cuda, decode_attention_plain
@@ -54,7 +58,7 @@ from qlora_tpu_torch.ops import qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows
 from qlora_tpu_torch.ops import w8a8_codes, w8a8_scales
 from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
 from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
-from qlora_tpu_torch.ops.qmatmul import _w8a8_accumulators
+from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
 from qlora_tpu_torch.quant import quantize
@@ -73,10 +77,18 @@ def cuda():
     return torch.device("cuda")
 
 
+# decode rows (the decode kernel): LLaMA-7B's up projection, ragged N, block
+# 32, three meta-blocks of absmax, block sizes that are no multiple of 8,
+# splits longer than the 2048 packed rows staged at once
+DECODE_CASES = [(M, K, N, B) for M in (1, 3, 8, 16) for K, N, B in (
+    (4096, 11008, 64), (384, 200, 64), (1024, 320, 32), (64 * 600, 96, 64))] + [
+    (5, 256, 72, 4), (16, 480, 50, 12), (4, 64 * 1100, 32, 64)]
+
+
 @pytest.mark.parametrize("M,K,N,block_size", [
     (1, 256, 64, 64), (4, 4096, 4096, 64), (37, 384, 200, 64),
-    (300, 1024, 320, 32), (2048, 11008, 512, 64), (16, 64 * 600, 96, 64),
-])
+    (300, 1024, 320, 32), (2048, 11008, 512, 64),
+] + DECODE_CASES)
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_qmm_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
@@ -84,10 +96,66 @@ def test_qmm_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
     qt = quantize(w, block_size=block_size, double_quant=double_quant)
     x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
     wrapper = qmm_nf4_fwd_dq if double_quant else qmm_nf4_fwd_f32
-    before = wrapper.launches
+    before, decode_before = wrapper.launches, wrapper.decode_launches
     y = qmatmul(x, qt)
     assert wrapper.launches == before + 1
+    assert wrapper.decode_launches == decode_before + (M <= DECODE_ROWS)
     torch.testing.assert_close(y.float(), qmatmul_plain(x, qt).float(), rtol=1e-2, atol=2e-2)
+
+
+def _decode_case(cuda, K, N, block_size, double_quant, M=16):
+    g = torch.Generator(device=cuda).manual_seed(K + N + block_size)
+    w = torch.randn(K, N, device=cuda, generator=g) * K ** -0.5
+    qt = quantize(w, block_size=block_size, double_quant=double_quant)
+    x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    return qt, x, qmm_nf4_fwd_dq if double_quant else qmm_nf4_fwd_f32
+
+
+@pytest.mark.parametrize("K,N,block_size", [(4096, 11008, 64), (64 * 600, 96, 64),
+                                            (1024, 320, 32), (480, 50, 12)])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_decode_kernel_one_hot_rows_read_out_the_weight(cuda, K, N, block_size, double_quant):
+    """16 rows of the identity, at k in both planes and on both sides of an
+    absmax-block and (64 * 600) a meta-block edge, give the rows of
+    ``dequantize``'s bf16 weight bit for bit: the kernel decodes the same
+    weight, and its f32 sums of one product and zeros are exact."""
+    qt, _, wrapper = _decode_case(cuda, K, N, block_size, double_quant)
+    ks = one_hot_rows(K, block_size, 16)
+    x = torch.zeros(16, K, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(16), torch.tensor(ks)] = 1
+    before = wrapper.decode_launches
+    y = wrapper(x, qt)
+    assert wrapper.decode_launches == before + 1
+    assert torch.equal(y, dequantize(qt, torch.bfloat16)[ks])
+
+
+@pytest.mark.parametrize("K,N,block_size", [(4096, 11008, 64), (11008, 4096, 64),
+                                            (384, 200, 64)])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_decode_kernel_deterministic_and_batch_invariant(cuda, K, N, block_size, double_quant):
+    """Two calls give the same bits, and each row alone gives its row of the
+    16-row batch bit for bit: the split plan and the order of the sums do
+    not depend on M."""
+    qt, x, wrapper = _decode_case(cuda, K, N, block_size, double_quant)
+    y = wrapper(x, qt)
+    assert torch.equal(y, wrapper(x, qt))
+    for i in range(x.shape[0]):
+        assert torch.equal(wrapper(x[i:i + 1], qt)[0], y[i]), i
+    for M in (3, 8):
+        assert torch.equal(wrapper(x[:M], qt), y[:M]), M
+
+
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_decode_dispatch_edge(cuda, double_quant):
+    """DECODE_ROWS rows take the decode kernel, one more the tile kernel."""
+    qt, x, wrapper = _decode_case(cuda, 1024, 320, 64, double_quant, M=DECODE_ROWS + 1)
+    for M, took_decode in ((DECODE_ROWS, 1), (DECODE_ROWS + 1, 0)):
+        before, decode_before = wrapper.launches, wrapper.decode_launches
+        y = wrapper(x[:M], qt)
+        assert (wrapper.launches, wrapper.decode_launches) == (before + 1,
+                                                               decode_before + took_decode)
+        torch.testing.assert_close(y.float(), qmatmul_plain(x[:M], qt).float(), rtol=1e-2,
+                                   atol=2e-2)
 
 
 def test_qmm_rejects_bad_input(cuda):
