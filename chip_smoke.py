@@ -17,7 +17,11 @@ them.  Phases, each failing the run on any mismatch or exception:
    kernel's M <= 16 branch (the "before") and, at 40, the decode kernel;
    up to 16 rows the decode kernel is also held bit for bit: two calls
    equal, each row alone equal to its row in the batch, rows of the
-   identity equal to ``dequantize``'s weight.
+   identity equal to ``dequantize``'s weight.  Above 16 rows (40, 1024,
+   2048) the wrapper runs the wgmma kernel, timed beside the tile kernel of
+   ``qmm_nf4_fwd.cu`` through its C entry (``tile_ms``, the "before", also
+   held to QMM_TOL) and held bit for bit the same way (sub-batches of at
+   least 17 rows, which the wgmma kernel takes too).
 3. parity: LLaMA-7B width, 2 layers — the same weights through the plain
    path on the CPU and through the kernels on the card, a 128-token prefill
    then 4 teacher-forced decode steps; logits must agree.
@@ -283,6 +287,30 @@ def decode_checks(name, wrapper, x, qt, w_bf16):
           f"{readout}", flush=True)
     if not (same and alone and readout):
         fail(f"{name} M={M} K={K}: deterministic {same}, batch-invariant {alone}, "
+             f"one-hot readout {readout}")
+
+
+def wgmma_checks(name, wrapper, x, qt, w_bf16):
+    """The wgmma path at x's rows (more than DECODE_ROWS), each check bit for
+    bit: two calls equal; sub-batches of at least 17 rows (which the wgmma
+    kernel takes too) equal to their rows in the batch; rows of the identity
+    read out ``dequantize``'s weight.  Fails the run if one is broken."""
+    import torch
+
+    M, K = x.shape
+    y = wrapper(x, qt)
+    same = torch.equal(y, wrapper(x, qt))
+    subs = [(0, 17), (M - 17, M), (max(0, M // 2 - 20), min(M, M // 2 + 20))]
+    alone = all(torch.equal(wrapper(x[a:b], qt), y[a:b]) for a, b in subs)
+    ks = one_hot_rows(K, qt.block_size, M)
+    eye = torch.zeros(len(ks), K, device=x.device, dtype=torch.bfloat16)
+    eye[torch.arange(len(ks)), torch.tensor(ks)] = 1
+    readout = torch.equal(wrapper(eye, qt), w_bf16[ks])
+    print(f"kernel {name} M={M} K={K} N={qt.packed.shape[-1]} (wgmma): two calls equal {same}, "
+          f"rows {subs} alone equal {alone}, {len(ks)} identity rows read out dequantize's "
+          f"weight {readout}", flush=True)
+    if not (same and alone and readout):
+        fail(f"{name} M={M} K={K} (wgmma): deterministic {same}, batch-invariant {alone}, "
              f"one-hot readout {readout}")
 
 
@@ -565,8 +593,15 @@ def kernel_phase(dev, results):
                 excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
                 name = wrapper.__name__
                 more = {}
+                if M > DECODE_ROWS:   # the tile kernel of qmm_nf4_fwd.cu: the "before"
+                    yt = tile(x, qt)
+                    torch.cuda.synchronize()
+                    dt = (yt.float() - ref.float()).abs()
+                    more["tile_err"] = dt.max().item()
+                    excess = max(excess, (dt - QMM_TOL[1] * ref.float().abs()).max().item())
                 if M > FEW_ROWS:
                     ms = cuda_ms(lambda i: wrapper(x, qts[i % len(qts)]), 20)
+                    more["tile_ms"] = cuda_ms(lambda i: tile(x, qts[i % len(qts)]), 5)
                     plain_ms = cuda_ms(lambda i: qmatmul_plain(x, qts[i % len(qts)]), 3)
                     lib_ms = cuda_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 20)
                 else:
@@ -597,8 +632,10 @@ def kernel_phase(dev, results):
                     fail(f"{name} M={M} K={K} N={N} differs from its plain version by {err}")
                 if M <= DECODE_ROWS:
                     decode_checks(name, wrapper, x, qt, w_bf16)
-                elif M <= FEW_ROWS:
-                    decode_checks(f"{name} (decode kernel)", decode, x, qt, w_bf16)
+                else:
+                    wgmma_checks(name, wrapper, x, qt, w_bf16)
+                    if M <= FEW_ROWS:
+                        decode_checks(f"{name} (decode kernel)", decode, x, qt, w_bf16)
             # the backward at the training micro-batch: dx = g @ dequant(W)^T
             M = QMM_BWD_ROWS
             gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
@@ -1259,26 +1296,31 @@ def counters():
 
 
 # the NF4 forward wrappers also count the launches that took the decode
-# kernel (M <= DECODE_ROWS), read as qmm_nf4_decode_dq / _f32
+# kernel (M <= DECODE_ROWS), read as qmm_nf4_decode_dq / _f32, and those that
+# took the wgmma kernel (more rows), read as qmm_nf4_wgmma_dq / _f32; the rest
+# took the tile kernel of qmm_nf4_fwd.cu, which no LLaMA linear takes
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32"}
+WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32"}
 
 
 def expected_counts(**nonzero):
     """Every counter at 0 except the ones named."""
-    return {**{w.__name__: 0 for w in counters()}, **{k: 0 for k in DECODE_COUNTS}, **nonzero}
+    return {**{w.__name__: 0 for w in counters()}, **{k: 0 for k in DECODE_COUNTS},
+            **{k: 0 for k in WGMMA_COUNTS}, **nonzero}
 
 
 def reset_counts():
     for w in counters():
         w.launches = 0
         if hasattr(w, "decode_launches"):
-            w.decode_launches = 0
+            w.decode_launches = w.wgmma_launches = 0
 
 
 def read_counts():
     by_name = {w.__name__: w for w in counters()}
     return {**{n: w.launches for n, w in by_name.items()},
-            **{k: by_name[n].decode_launches for k, n in DECODE_COUNTS.items()}}
+            **{k: by_name[n].decode_launches for k, n in DECODE_COUNTS.items()},
+            **{k: by_name[n].wgmma_launches for k, n in WGMMA_COUNTS.items()}}
 
 
 def padded_requests(lengths, S, vocab, seed):
@@ -1342,14 +1384,16 @@ def serve_phase(dev):
     n_lin = 7 * cfg.num_layers
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * (SERVE_NEW + 1),
                            qmm_nf4_decode_dq=n_lin * SERVE_NEW,       # 4 rows: the decode kernel
+                           qmm_nf4_wgmma_dq=n_lin,                    # the prefill: wgmma
                            decode_attention_cuda=cfg.num_layers * SERVE_NEW)
     decode_s = total_s - prefill_s
     print(f"serve: generated {tuple(toks.shape)} tokens in {total_s:.3f} s; prefill "
           f"{prefill_s * 1e3:.1f} ms (4 x 512 padded), decode {decode_s * 1e3:.1f} ms = "
           f"{toks.numel() / decode_s:.1f} tok/s, {decode_s / SERVE_NEW * 1e3:.2f} ms/step; "
           f"peak memory {peak_gib:.2f} GiB", flush=True)
-    print(f"serve: launches {counts} (expected {want}: {n_lin} qmm per forward, on the decode "
-          f"kernel in each decode step, {cfg.num_layers} decode-attention per decode step)",
+    print(f"serve: launches {counts} (expected {want}: {n_lin} qmm per forward, on the wgmma "
+          f"kernel in the prefill and on the decode kernel in each decode step, "
+          f"{cfg.num_layers} decode-attention per decode step)",
           flush=True)
     if counts != want:
         fail(f"serve launch counts {counts} != {want}")
@@ -1405,6 +1449,7 @@ def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
     prefill_s = timed_prefill(dev, cfg, params, lora, lcfg, ids, lengths)
     n_lin = 7 * cfg.num_layers
     want = expected_counts(qmm_nf4_fwd_dq=n_lin,                       # the prefill, exact
+                           qmm_nf4_wgmma_dq=n_lin,
                            qmm_i8_direct=(n_lin + 1) * SERVE_NEW,      # + 1: the lm_head
                            decode_attention_cuda=cfg.num_layers * SERVE_NEW)
     decode_s = total_s - prefill_s
@@ -1552,10 +1597,11 @@ def serve_paged_phase(dev, cfg, params, lora, lcfg):
     fwds = st["decode"] + st["prefill"]
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
                            qmm_nf4_decode_dq=n_lin * st["decode"],    # 8 rows a decode forward
+                           qmm_nf4_wgmma_dq=n_lin * st["prefill"],    # >= 128 rows a prefill
                            paged_decode_attention_cuda=L * st["decode"])
     print(f"serve-paged: launches {counts} (expected {want}: {n_lin} qmm per forward, on the "
-          f"decode kernel in each decode forward, {L} paged decode attention per decode "
-          "forward)", flush=True)
+          f"decode kernel in each decode forward and on the wgmma kernel in each prefill, {L} "
+          "paged decode attention per decode forward)", flush=True)
     if counts != want:
         fail(f"serve-paged launch counts {counts} != {want}")
     if pb.preemptions < 1:
@@ -1596,6 +1642,8 @@ def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
                            qmm_nf4_decode_dq=n_lin * (st["decode"] + st["verify"] * (
                                verify_rows <= DECODE_ROWS)),
+                           qmm_nf4_wgmma_dq=n_lin * (st["prefill"] + st["verify"] * (
+                               verify_rows > DECODE_ROWS)),
                            paged_decode_attention_cuda=L * st["decode"],
                            paged_chunk_attention_cuda=L * st["verify"])
     per_chunk = pb.spec_tokens / max(pb.spec_chunks, 1)
@@ -1631,6 +1679,7 @@ def nodq_phase(dev):
     counts = read_counts()
     want = expected_counts(qmm_nf4_fwd_f32=7 * cfg.num_layers * (new + 1),
                            qmm_nf4_decode_f32=7 * cfg.num_layers * new,
+                           qmm_nf4_wgmma_f32=7 * cfg.num_layers,       # the prefill
                            decode_attention_cuda=cfg.num_layers * new)
     print(f"nodq: generated {tuple(toks.shape)} tokens; launches {counts} "
           f"(expected {want})", flush=True)
@@ -1721,7 +1770,8 @@ def train_parity_phase(dev, quant_type="nf4"):
     # first layer's wq, wk, wv get an input without a gradient: no dx for them
     L = cfg.num_layers
     want = expected_counts(**{fwd_name: 2 * 7 * L, bwd_name: 7 * L - 3}, flash_fwd=2 * L,
-                           flash_bwd_dq=L, flash_bwd_dkv=L)
+                           flash_bwd_dq=L, flash_bwd_dkv=L,
+                           **({"qmm_nf4_wgmma_dq": 2 * 7 * L} if quant_type == "nf4" else {}))
     print(f"{tag}: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
           f"loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
           f"(tol {LOSS_TOL}); {len(names)} LoRA gradients, worst |g_card - g_cpu|/|g_cpu| = "
@@ -1812,7 +1862,9 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
            bwd_name: TRAIN_ACCUM * (7 * L - 3)},      # 2 * 221 = 442
         flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
         flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
-        flash_bwd_dkv=TRAIN_ACCUM * L)                # 64
+        flash_bwd_dkv=TRAIN_ACCUM * L,                # 64
+        # M = 1024 rows: every NF4 forward on the wgmma kernel
+        **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L} if quant_type == "nf4" else {}))
     want = {k: v * steps for k, v in per_step.items()}
     step_s = sum(secs[1:]) / (steps - 1)        # the first step warms the allocator
     losses = [m[0] for m in metrics]
@@ -1904,9 +1956,11 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                                    "qlora_tpu/ops/paged_attention.py:478 "
                                    "(fused_paged_chunk_attention)"),
 }
-# the NF4 forward's two sources, by rows (ops/qmatmul.py: DECODE_ROWS)
+# the NF4 forward's three sources, by shape (ops/qmatmul.py: DECODE_ROWS, tile_plan)
 NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
-               "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
+               "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_wgmma.cu",
+               "M > 16, K % 8 != 0": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
+TRAIN_HEADLINE = "M=1024 K=4096 N=4096"   # the wgmma kernel's entry: the train step's commonest
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
 # the train step's micro-batch (M = 1024 rows; 2 x 32 heads x 512 tokens)
@@ -2072,13 +2126,17 @@ def main() -> int:
             # quantization (PyTorch ops), as the decode step pays it:
             **({"wrapper_ms": head["wrapper_ms"]} if "wrapper_ms" in head else {}),
         })
-    for entry, decode_key, run in ((summary[0], "qmm_nf4_decode_dq", serve_counts),
-                                   (summary[1], "qmm_nf4_decode_f32", nodq_counts)):
+    for entry, v, run in ((summary[0], "dq", serve_counts), (summary[1], "f32", nodq_counts)):
         head = next(r for r in results if r["name"] == entry["name"]
                     and r["shape"] == entry["shape"])
-        entry.update(sources=NF4_SOURCES, decode_launches=run[decode_key],
-                     tile_ms=head["tile_ms"])
+        big = next(r for r in results if r["name"] == entry["name"]
+                   and r["shape"] == TRAIN_HEADLINE)
+        entry.update(sources=NF4_SOURCES, decode_launches=run[f"qmm_nf4_decode_{v}"],
+                     wgmma_launches=run[f"qmm_nf4_wgmma_{v}"], tile_ms=head["tile_ms"],
+                     wgmma={k: big[k] for k in ("shape", "ms", "tile_ms", "plain_ms",
+                                                "library_ms", "bound_ms", "bound_by")})
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
+    summary[0]["wgmma_launches_train"] = train_counts["qmm_nf4_wgmma_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
     print(f"serve: prefill {split['prefill_ms']:.1f} ms, of which qmm kernels "
           f"~{split['prefill_qmm_ms']:.1f} ms; decode step {split['step_ms']:.2f} ms = qmm "
@@ -2096,6 +2154,7 @@ def main() -> int:
     paged_attn = seven_b().num_layers * next(
         r["ms"] for r in results if r["name"] == "paged_decode_attention_cuda")
     paged_qmm = qmm_ms_per_forward(results, seven_b().num_layers, PAGED_B)
+    verify_qmm = qmm_ms_per_forward(results, seven_b().num_layers, PAGED_B * (SPEC_DRAFT + 1))
     print(f"serve-paged: {PAGED_B} slots, {paged_stats['tok_s']:.1f} tok/s over the run "
           f"(admissions included), {paged_stats['ms_per_step']:.2f} ms per decode step (qmm "
           f"kernels ~{paged_qmm:.2f} ms and paged attention ~{paged_attn:.2f} ms of it, "
@@ -2104,7 +2163,8 @@ def main() -> int:
           f"ms/step; int8 decode and w8a8 prefill {paged8_stats['tok_s']:.1f} tok/s, "
           f"{paged8_stats['ms_per_step']:.2f} ms/step; speculation "
           f"{spec_stats['tokens_per_chunk']:.3f} tokens per chunk, "
-          f"{spec_stats['ms_per_chunk']:.2f} ms per verify step", flush=True)
+          f"{spec_stats['ms_per_chunk']:.2f} ms per verify step (qmm kernels ~{verify_qmm:.2f} ms "
+          f"of it at M={PAGED_B * (SPEC_DRAFT + 1)})", flush=True)
     ts = train_split(results, train_per_step, train_stats)
     print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
           f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm "

@@ -15,10 +15,13 @@ int8, blockwise        ``qmm_i8_fwd``              ``qmm_i8_fwd``
 =====================  ==========================  ========================
 
 The exact kernels multiply bf16 operands with f32 accumulation
-(``csrc/qmm_nf4_fwd.cu``, ``csrc/qmm_i8.cu``); the NF4 forward runs up to
-``DECODE_ROWS`` rows (decode) on a split-K weight-streaming kernel of its
-own (``csrc/qmm_nf4_decode.cu``, counted in ``decode_launches`` beside
-``launches``) and more rows on the tile kernel.  The two ``w8a8`` kernels
+(``csrc/qmm_i8.cu``, and for NF4/FP4 three kernels by shape): up to
+``DECODE_ROWS`` rows (decode) a split-K weight-streaming kernel
+(``csrc/qmm_nf4_decode.cu``, counted in ``decode_launches``), more rows a
+warp-specialised wgmma kernel that decodes each weight tile once for 128
+or 256 rows (``csrc/qmm_nf4_wgmma.cu``, ``wgmma_launches``) wherever
+``tile_plan`` accepts the shape (K % 8 == 0), and the tile kernel of
+``csrc/qmm_nf4_fwd.cu`` for the rest.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
 serving engines' decode path.  The kernels take every shape ``quantize``
@@ -209,26 +212,134 @@ def _decode_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset) -> torch
     return y
 
 
-def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Check the operands and launch the NF4 forward kernel: x [M, K] on the
-    card → y [M, N] bf16, the decode kernel up to ``DECODE_ROWS`` rows and
-    the tile kernel above.  The variant follows ``qt.double_quant``."""
+# The NF4 forward at prefill and training rows: ``csrc/qmm_nf4_wgmma.cu``, a
+# warp-specialised kernel (two consumer warpgroups on wgmma, two producer
+# warpgroups decoding the weight) over output tiles of 128 or 256 rows by 128
+# columns.
+_TILE_N, _TILE_KP = 128, 64
+_TILE_STAGES = {128: 3, 256: 2}      # rows a CTA -> k-steps in the ring
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How ``qmm_nf4_wgmma`` cuts y [M, N]: one CTA per ``tm`` x ``tn``
+    output tile (``grid`` = (M tiles, N tiles), M fastest), each walking all
+    ``steps`` k-steps of ``tkp`` packed rows through a ring of ``stages``;
+    ``smem`` bytes of dynamic shared memory.  ``accepted`` says whether the
+    shape takes the kernel; ``reason`` says why not."""
+    accepted: bool
+    reason: str
+    tm: int = 128
+    tn: int = _TILE_N
+    tkp: int = _TILE_KP
+    stages: int = _TILE_STAGES[128]
+    grid: tuple = (0, 0)
+    steps: int = 0
+    smem: int = 0
+
+    def tiles(self, M: int, N: int) -> list:
+        """[(m0, m1, n0, n1)] output rows and columns of each CTA, clipped to
+        the edges, as the kernel masks them."""
+        return [(bm * self.tm, min((bm + 1) * self.tm, M), bn * self.tn,
+                 min((bn + 1) * self.tn, N))
+                for bn in range(self.grid[1]) for bm in range(self.grid[0])]
+
+
+def tile_smem(tm: int) -> int:
+    """Dynamic shared memory of the wgmma kernel at ``tm`` rows a CTA: the
+    ring (per k-step two x boxes [tm, 64] and two bf16 B tiles [64, 128]), the
+    two producer warpgroups' packed bytes (two k-steps each), 1024 bytes of
+    alignment and 1024 of barriers."""
+    stage = 2 * tm * _TILE_KP * 2 + 2 * _TILE_KP * _TILE_N * 2
+    return 1024 + _TILE_STAGES[tm] * stage + 4 * _TILE_KP * _TILE_N + 1024
+
+
+def tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePlan:
+    """The wgmma kernel's plan for x [M, K] @ W [K, N] on a card of ``sms``
+    SMs (an H100 SXM has 132).  It takes every shape that ``quantize``
+    accepts with K % 8 == 0: TMA reads x in boxes of [rows, 64 columns] and
+    needs its row stride (2K bytes) in multiples of 16.  Ragged M, N and K/2
+    are masked in the kernel (TMA zero-fills x past M and K; the weight rows
+    past K/2 are decoded as zeros).  Other restrictions: none by shape; block
+    sizes that are no multiple of 8 take a slower decode with each element's
+    own absmax.  A CTA takes 256 rows where 128-row tiles would need more than
+    one wave of CTAs (each decoded weight tile then serves twice the rows),
+    else 128.  The dispatch sends it more than ``DECODE_ROWS`` rows only."""
+    if K % 8:
+        return TilePlan(False, f"K={K} is no multiple of 8: TMA needs a 16-byte row stride")
+    if M <= 0 or N <= 0 or K % (2 * block_size):
+        return TilePlan(False, f"no NF4 shape: M={M} K={K} N={N} block {block_size}")
+    n_tiles = -(-N // _TILE_N)
+    tm = 256 if -(-M // 128) * n_tiles > sms else 128
+    return TilePlan(True, "", tm=tm, stages=_TILE_STAGES[tm], grid=(-(-M // tm), n_tiles),
+                    steps=-(-(K // 2) // _TILE_KP), smem=tile_smem(tm))
+
+
+_TILE_PLANS: dict = {}
+
+
+def _tile_plan_on(M: int, K: int, N: int, block_size: int, dev) -> TilePlan:
+    """``tile_plan`` for the card of ``dev``, cached per shape."""
+    key = (M, K, N, block_size, dev)
+    plan = _TILE_PLANS.get(key)
+    if plan is None:
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _TILE_PLANS[key] = tile_plan(M, K, N, block_size, _SMS[dev])
+    return plan
+
+
+def _wgmma_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset,
+                  plan: TilePlan) -> torch.Tensor:
+    """Launch ``qmm_nf4_wgmma`` on checked operands and an accepted plan:
+    x [M, K] bf16 on the card → y [M, N] bf16."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    x = _aligned(x.to(torch.bfloat16))
+    M, dev = x.shape[0], x.device
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    fn = _build.kernel("qmm_nf4_wgmma", "qmm_nf4_wgmma", [_P] * 7 + [_I] * 8 + [_P])
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
+             None if scale is None else scale.data_ptr(),
+             None if offset is None else offset.data_ptr(),
+             _code_on(qt.quant_type, dev).data_ptr(), y.data_ptr(), M, K, N, qt.block_size,
+             int(qt.double_quant), plan.tm, plan.stages, plan.smem, _build.stream_ptr(x))
+    _build.check(err, "qmm_nf4_wgmma")
+    return y
+
+
+def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
+    """Check the operands and launch the NF4 forward kernel that the shape
+    takes: x [M, K] on the card → (y [M, N] bf16, which kernel): "decode"
+    up to ``DECODE_ROWS`` rows, "wgmma" above where ``tile_plan`` accepts
+    the shape, else "tile" (``qmm_nf4_fwd.cu``).  No rows, no launch
+    ("none").  The variant follows ``qt.double_quant``."""
     if qt.quant_type == "int8":
         raise ValueError("the NF4 kernels do not read int8 storage")
     _check_rows(x, logical_k(qt), "x")
     K, N, scale, offset = _check_quantized(qt, x.device)
-    if x.shape[0] <= DECODE_ROWS:
-        return _decode_launch(x, qt, scale, offset)
-    return _launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset)
+    M = x.shape[0]
+    if M == 0:
+        return torch.empty((0, N), dtype=torch.bfloat16, device=x.device), "none"
+    if M <= DECODE_ROWS:
+        return _decode_launch(x, qt, scale, offset), "decode"
+    plan = _tile_plan_on(M, K, N, qt.block_size, x.device)
+    if plan.accepted:
+        return _wgmma_launch(x, qt, scale, offset, plan), "wgmma"
+    return _launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset), "tile"
+
+
+def _count(wrapper, took: str) -> None:
+    wrapper.launches += took != "none"
+    wrapper.decode_launches += took == "decode"
+    wrapper.wgmma_launches += took == "wgmma"
 
 
 def qmm_nf4_fwd_dq(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The kernel with int8 double-quantized absmax (TPU _qmm_pallas_dq)."""
     if not qt.double_quant:
         raise ValueError("qmm_nf4_fwd_dq needs a double-quantized tensor")
-    y = _qmm_launch(x, qt)
-    qmm_nf4_fwd_dq.launches += x.shape[0] > 0
-    qmm_nf4_fwd_dq.decode_launches += 0 < x.shape[0] <= DECODE_ROWS
+    y, took = _qmm_launch(x, qt)
+    _count(qmm_nf4_fwd_dq, took)
     return y
 
 
@@ -236,16 +347,16 @@ def qmm_nf4_fwd_f32(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The kernel with f32 absmax (TPU _qmm_pallas)."""
     if qt.double_quant:
         raise ValueError("qmm_nf4_fwd_f32 needs an f32-absmax tensor")
-    y = _qmm_launch(x, qt)
-    qmm_nf4_fwd_f32.launches += x.shape[0] > 0
-    qmm_nf4_fwd_f32.decode_launches += 0 < x.shape[0] <= DECODE_ROWS
+    y, took = _qmm_launch(x, qt)
+    _count(qmm_nf4_fwd_f32, took)
     return y
 
 
 # launches: every call that ran a kernel; decode_launches: those of them
-# that took the decode kernel
-qmm_nf4_fwd_dq.launches = qmm_nf4_fwd_dq.decode_launches = 0
-qmm_nf4_fwd_f32.launches = qmm_nf4_fwd_f32.decode_launches = 0
+# that took the decode kernel; wgmma_launches: those that took the wgmma
+# kernel (the rest took the tile kernel of qmm_nf4_fwd.cu)
+qmm_nf4_fwd_dq.launches = qmm_nf4_fwd_dq.decode_launches = qmm_nf4_fwd_dq.wgmma_launches = 0
+qmm_nf4_fwd_f32.launches = qmm_nf4_fwd_f32.decode_launches = qmm_nf4_fwd_f32.wgmma_launches = 0
 
 
 def qmatmul_bwd_plain(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:

@@ -6,10 +6,11 @@ CUDA device is present.  Run them on the H100 with
 (``tests/conftest.py`` sets up JAX, which the port does not need).
 
 Tolerances: the qmm kernels (the decode kernel up to DECODE_ROWS rows, the
-tile kernel above) decode the same bf16 weights as the plain version and
-accumulate in f32 in another order, so outputs differ by at most one bf16
-ulp of the output plus f32 reassociation: rtol 1e-2, atol 2e-2.  The
-decode kernel is also held bit for bit: rows of the identity read out
+wgmma kernel above, the tile kernel for shapes the wgmma kernel's plan
+refuses) decode the same bf16 weights as the plain version and accumulate
+in f32 in another order, so outputs differ by at most one bf16 ulp of the
+output plus f32 reassociation: rtol 1e-2, atol 2e-2.  The decode and wgmma
+kernels are also held bit for bit: rows of the identity read out
 ``dequantize``'s weight, two calls agree, and a row's result does not
 depend on the other rows.  The decode attention kernel rounds
 probabilities to bf16 against chunk-wise running maxima, so each
@@ -85,10 +86,20 @@ DECODE_CASES = [(M, K, N, B) for M in (1, 3, 8, 16) for K, N, B in (
     (5, 256, 72, 4), (16, 480, 50, 12), (4, 64 * 1100, 32, 64)]
 
 
+# more than DECODE_ROWS rows (the wgmma kernel): rows of a verify chunk, one
+# CTA's 128 and ragged edges of it, ragged N, block sizes 4, 12, 32 and 64,
+# K/2 = 96 not a multiple of the 64-row k-step, three and six meta-blocks of
+# absmax (quantize makes K/2 a multiple of the block size, so a block never
+# straddles the planes)
+WGMMA_CASES = [(M, 4096, 4096, 64) for M in (17, 40, 128)] + [
+    (37, 384, 200, 64), (300, 1024, 72, 32), (2048, 4096, 11008, 64), (50, 256, 72, 4),
+    (33, 480, 50, 12), (129, 192, 200, 32), (40, 64 * 600, 96, 64), (17, 64 * 1100, 72, 64)]
+
+
 @pytest.mark.parametrize("M,K,N,block_size", [
     (1, 256, 64, 64), (4, 4096, 4096, 64), (37, 384, 200, 64),
     (300, 1024, 320, 32), (2048, 11008, 512, 64),
-] + DECODE_CASES)
+] + DECODE_CASES + WGMMA_CASES)
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_qmm_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
@@ -96,10 +107,10 @@ def test_qmm_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
     qt = quantize(w, block_size=block_size, double_quant=double_quant)
     x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
     wrapper = qmm_nf4_fwd_dq if double_quant else qmm_nf4_fwd_f32
-    before, decode_before = wrapper.launches, wrapper.decode_launches
+    before = wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches
     y = qmatmul(x, qt)
-    assert wrapper.launches == before + 1
-    assert wrapper.decode_launches == decode_before + (M <= DECODE_ROWS)
+    assert (wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches) == (
+        before[0] + 1, before[1] + (M <= DECODE_ROWS), before[2] + (M > DECODE_ROWS))
     torch.testing.assert_close(y.float(), qmatmul_plain(x, qt).float(), rtol=1e-2, atol=2e-2)
 
 
@@ -155,6 +166,60 @@ def test_decode_dispatch_edge(cuda, double_quant):
         assert (wrapper.launches, wrapper.decode_launches) == (before + 1,
                                                                decode_before + took_decode)
         torch.testing.assert_close(y.float(), qmatmul_plain(x[:M], qt).float(), rtol=1e-2,
+                                   atol=2e-2)
+
+
+WGMMA_EXACT = [(4096, 11008, 64), (11008, 4096, 64), (64 * 600, 96, 64), (384, 200, 64),
+               (480, 50, 12), (256, 72, 4)]
+
+
+@pytest.mark.parametrize("K,N,block_size", WGMMA_EXACT)
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_wgmma_kernel_one_hot_rows_read_out_the_weight(cuda, K, N, block_size, double_quant):
+    """40 rows of the identity (both planes, both sides of absmax-block and,
+    at 64 * 600, meta-block edges) read out ``dequantize``'s bf16 weight bit
+    for bit through the wgmma kernel: it decodes the same weight, and f32 sums
+    of one product and zeros are exact."""
+    qt, _, wrapper = _decode_case(cuda, K, N, block_size, double_quant)
+    ks = one_hot_rows(K, block_size, 40)
+    x = torch.zeros(len(ks), K, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(len(ks)), torch.tensor(ks)] = 1
+    before = wrapper.wgmma_launches
+    y = wrapper(x, qt)
+    assert wrapper.wgmma_launches == before + 1
+    assert torch.equal(y, dequantize(qt, torch.bfloat16)[ks])
+
+
+@pytest.mark.parametrize("K,N,block_size", WGMMA_EXACT[:4])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_wgmma_kernel_deterministic_and_batch_invariant(cuda, K, N, block_size, double_quant):
+    """Two calls give the same bits, and a row gives the same bits in a batch
+    of 300 (three CTAs of rows), of 40 and of 17: every output element is one
+    CTA's sum over K in a fixed order, whatever the other rows."""
+    qt, x, wrapper = _decode_case(cuda, K, N, block_size, double_quant, M=300)
+    y = wrapper(x, qt)
+    assert torch.equal(y, wrapper(x, qt))
+    for lo, M in ((0, 40), (130, 17), (283, 17)):
+        assert torch.equal(wrapper(x[lo:lo + M], qt), y[lo:lo + M]), (lo, M)
+
+
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_wgmma_dispatch_edge(cuda, double_quant):
+    """DECODE_ROWS rows take the decode kernel, one more the wgmma kernel; a
+    shape ``tile_plan`` refuses (K % 8 != 0) takes the tile kernel of
+    qmm_nf4_fwd.cu, counted in neither."""
+    from qlora_tpu_torch.ops.qmatmul import tile_plan
+
+    cases = [(1024, 320, 64, DECODE_ROWS, (1, 0)), (1024, 320, 64, DECODE_ROWS + 1, (0, 1)),
+             (36, 40, 6, DECODE_ROWS + 4, (0, 0))]
+    assert not tile_plan(DECODE_ROWS + 4, 36, 40, 6).accepted
+    for K, N, B, M, (took_decode, took_wgmma) in cases:
+        qt, x, wrapper = _decode_case(cuda, K, N, B, double_quant, M=M)
+        before = wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches
+        y = wrapper(x, qt)
+        assert (wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches) == (
+            before[0] + 1, before[1] + took_decode, before[2] + took_wgmma), (K, M)
+        torch.testing.assert_close(y.float(), qmatmul_plain(x, qt).float(), rtol=1e-2,
                                    atol=2e-2)
 
 
