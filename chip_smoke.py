@@ -46,7 +46,11 @@ them.  Phases, each failing the run on any mismatch or exception:
    bit for bit, in the raw int32 accumulators and in the bf16 output;
    ``qmm_i8_fwd`` (M = 4, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024) within
    the NF4 kernels' tolerance, f32 and double-quantized absmax, and reading
-   out ``dequantize``'s weight bit for bit from identity operands.
+   out ``dequantize``'s weight bit for bit from identity operands.  Above 16
+   rows the wrappers run the wgmma kernel of ``qmm_i8_wgmma.cu``, timed
+   beside the tile kernel of ``qmm_i8.cu`` through its C entry (``tile_ms``,
+   the "before", also held to QMM_TOL) and held bit for bit as the NF4 wgmma
+   kernel (two calls, sub-batches of at least 17 rows, identity rows).
 9. parity-int8: LLaMA-7B width, 2 layers, the CPU's plain path against the
    card, at three seeds: 4 teacher-forced decode steps on the int8 serving
    tree and a 128-token prefill of the NF4 params, both under
@@ -59,8 +63,9 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``qmm_i8_direct``, the lm_head included), the first tokens equal to the NF4
    run's, both decode paths' times side by side.
 11. train-int8: train-parity and train again over an int8 base (``--bits 8``
-   storage), 3 optimizer steps, the NF4 phase's launch counts on the int8
-   kernels' counters and none on the NF4 ones.
+   storage), 5 optimizer steps, the NF4 phase's launch counts on the int8
+   kernels' counters (every one of them on the int8 wgmma kernel, forward
+   and dx) and none on the NF4 ones.
 12. kernels-paged: the paged decode and verify-chunk kernels against their
    plain versions at LLaMA-7B width (H 32, hd 128), pages of 64, 16 pages per
    sequence, 8 rows with scattered tables: an inactive row on page 0, lengths
@@ -130,7 +135,8 @@ SERVE_NEW = 64
 TRAIN_MICRO = (2, 512)    # micro-batch rows x padded length
 TRAIN_ACCUM = 2
 TRAIN_STEPS = 5
-TRAIN_INT8_STEPS = 3      # the int8 base's run: a zero step, a repeat, one that has moved
+TRAIN_INT8_STEPS = 5      # the int8 base's run: a zero step, a repeat, three that have moved
+                          # (the mean of steps 1..4, as the NF4 run's)
 TRAIN_LR = 2e-4
 
 # kernel phase: the LLaMA-7B block linears (K, N) at prefill (M = 4 x 512),
@@ -290,28 +296,38 @@ def decode_checks(name, wrapper, x, qt, w_bf16):
              f"one-hot readout {readout}")
 
 
-def wgmma_checks(name, wrapper, x, qt, w_bf16):
+def wgmma_checks(name, wrapper, x, qt, w_bf16, bwd=False):
     """The wgmma path at x's rows (more than DECODE_ROWS), each check bit for
     bit: two calls equal; sub-batches of at least 17 rows (which the wgmma
     kernel takes too) equal to their rows in the batch; rows of the identity
-    read out ``dequantize``'s weight.  Fails the run if one is broken."""
+    read out ``dequantize``'s weight: rows of W forward, columns of W as rows
+    of dx backward (``bwd``, x then being g [M, N]).  Fails the run if one is
+    broken."""
     import torch
 
-    M, K = x.shape
+    M, C = x.shape
     y = wrapper(x, qt)
     same = torch.equal(y, wrapper(x, qt))
     subs = [(0, 17), (M - 17, M), (max(0, M // 2 - 20), min(M, M // 2 + 20))]
     alone = all(torch.equal(wrapper(x[a:b], qt), y[a:b]) for a, b in subs)
-    ks = one_hot_rows(K, qt.block_size, M)
-    eye = torch.zeros(len(ks), K, device=x.device, dtype=torch.bfloat16)
+    ks = one_hot_cols(C, min(M, 64)) if bwd else one_hot_rows(C, qt.block_size, M)
+    eye = torch.zeros(len(ks), C, device=x.device, dtype=torch.bfloat16)
     eye[torch.arange(len(ks)), torch.tensor(ks)] = 1
-    readout = torch.equal(wrapper(eye, qt), w_bf16[ks])
-    print(f"kernel {name} M={M} K={K} N={qt.packed.shape[-1]} (wgmma): two calls equal {same}, "
+    readout = torch.equal(wrapper(eye, qt), w_bf16[:, ks].T if bwd else w_bf16[ks])
+    what = "columns" if bwd else "rows"
+    print(f"kernel {name} M={M} {'N' if bwd else 'K'}={C} (wgmma): two calls equal {same}, "
           f"rows {subs} alone equal {alone}, {len(ks)} identity rows read out dequantize's "
-          f"weight {readout}", flush=True)
+          f"weight ({what}) {readout}", flush=True)
     if not (same and alone and readout):
-        fail(f"{name} M={M} K={K} (wgmma): deterministic {same}, batch-invariant {alone}, "
-             f"one-hot readout {readout}")
+        fail(f"{name} M={M} {'N' if bwd else 'K'}={C} (wgmma): deterministic {same}, "
+             f"batch-invariant {alone}, one-hot readout {readout}")
+
+
+def one_hot_cols(N, n):
+    """n columns of W to read out through dx: both sides of a 64-column
+    k-step and of a 128-column tile, the last ones, then spread."""
+    cs = [c for c in dict.fromkeys((0, 1, 7, 8, 63, 64, 127, 128, N - 8, N - 1)) if 0 <= c < N]
+    return (cs + [c for c in range(2, N, max(1, N // n)) if c not in cs])[:n]
 
 
 def copies_past_l2(nbytes: int) -> int:
@@ -891,6 +907,7 @@ def int8_kernel_phase(dev, results):
         qmm_i8_fwd, qmm_i8_fwd_plain, qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows,
         w8a8_codes, w8a8_scales,
     )
+    from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
     from qlora_tpu_torch.quant import absmax_f32, dequantize, quantize
 
     # "ms" is the kernel alone on rows quantized beforehand, as bound_ms and library_ms
@@ -954,7 +971,18 @@ def int8_kernel_phase(dev, results):
                    wrapper_ms=wrapper_ms, of_exact=off)
         del qts, w8s, w8, qt
 
-    # qmm_i8_fwd, qmm_i8_bwd: the --bits 8 base, f32 and double-quantized absmax
+    # qmm_i8_fwd, qmm_i8_bwd: the --bits 8 base, f32 and double-quantized absmax;
+    # above DECODE_ROWS the wgmma kernel, with the tile kernel of qmm_i8.cu
+    # through its C entry beside it (the "before")
+    import importlib
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+
+    def i8_tile(a, q, fwd):
+        K, N, scale, offset = qm._check_quantized(q, a.device)
+        return qm._launch("qmm_i8", "qmm_i8_fwd" if fwd else "qmm_i8_bwd", a, q,
+                          N if fwd else K, scale, offset)
+
     tol = f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|"
     for dq in (True, False):
         for K, N in QMM_SHAPES:
@@ -979,15 +1007,26 @@ def int8_kernel_phase(dev, results):
                     err = diff.max().item()
                     excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
                     shape = f"M={M} K={K} N={N} {kind} absmax"
+                    more = {}
+                    if M > DECODE_ROWS:
+                        yt = i8_tile(a, qt, fwd)
+                        torch.cuda.synchronize()
+                        dt = (yt.float() - ref.float()).abs()
+                        more["tile_err"] = dt.max().item()
+                        excess = max(excess, (dt - QMM_TOL[1] * ref.float().abs()).max().item())
                     if excess > QMM_TOL[0]:
                         fail(f"{name} {shape} differs from its plain version by {err}")
                     iters = 20 if M > 16 else 200
                     ms = cuda_ms(lambda i: kernel(a, qts[i % len(qts)]), iters)
+                    if M > DECODE_ROWS:
+                        more["tile_ms"] = cuda_ms(lambda i: i8_tile(a, qts[i % len(qts)], fwd), 5)
                     plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3 if M > 16 else 20)
                     lib_ms = cuda_ms(lambda i: torch.matmul(
                         a, ws[i % len(ws)] if fwd else ws[i % len(ws)].T), iters)
                     record(results, name, shape, err, tol, ms, plain_ms, lib_ms,
-                           int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2))
+                           int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2), **more)
+                    if M > DECODE_ROWS:
+                        wgmma_checks(name, kernel, a, qt, w_bf16, bwd=not fwd)
             del qts, ws, w_bf16, qt
         # identity operands read the decoded weight out of both kernels: dequantize's, bit
         # for bit (two meta-blocks of absmax rows; a ragged shape)
@@ -1298,9 +1337,12 @@ def counters():
 # the NF4 forward wrappers also count the launches that took the decode
 # kernel (M <= DECODE_ROWS), read as qmm_nf4_decode_dq / _f32, and those that
 # took the wgmma kernel (more rows), read as qmm_nf4_wgmma_dq / _f32; the rest
-# took the tile kernel of qmm_nf4_fwd.cu, which no LLaMA linear takes
+# took the tile kernel of qmm_nf4_fwd.cu, which no LLaMA linear takes.  The
+# int8 forward and dx count those that took qmm_i8_wgmma.cu (more than
+# DECODE_ROWS rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took qmm_i8.cu
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32"}
-WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32"}
+WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
+                "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd"}
 
 
 def expected_counts(**nonzero):
@@ -1311,9 +1353,9 @@ def expected_counts(**nonzero):
 
 def reset_counts():
     for w in counters():
-        w.launches = 0
-        if hasattr(w, "decode_launches"):
-            w.decode_launches = w.wgmma_launches = 0
+        for attr in ("launches", "decode_launches", "wgmma_launches"):
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
 
 
 def read_counts():
@@ -1771,7 +1813,8 @@ def train_parity_phase(dev, quant_type="nf4"):
     L = cfg.num_layers
     want = expected_counts(**{fwd_name: 2 * 7 * L, bwd_name: 7 * L - 3}, flash_fwd=2 * L,
                            flash_bwd_dq=L, flash_bwd_dkv=L,
-                           **({"qmm_nf4_wgmma_dq": 2 * 7 * L} if quant_type == "nf4" else {}))
+                           **({"qmm_nf4_wgmma_dq": 2 * 7 * L} if quant_type == "nf4" else
+                              {"qmm_i8_wgmma_fwd": 2 * 7 * L, "qmm_i8_wgmma_bwd": 7 * L - 3}))
     print(f"{tag}: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
           f"loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
           f"(tol {LOSS_TOL}); {len(names)} LoRA gradients, worst |g_card - g_cpu|/|g_cpu| = "
@@ -1863,8 +1906,11 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
         flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
         flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
         flash_bwd_dkv=TRAIN_ACCUM * L,                # 64
-        # M = 1024 rows: every NF4 forward on the wgmma kernel
-        **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L} if quant_type == "nf4" else {}))
+        # M = 1024 rows: every NF4 forward, and every int8 forward and dx, on
+        # a wgmma kernel
+        **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L} if quant_type == "nf4" else
+           {"qmm_i8_wgmma_fwd": TRAIN_ACCUM * 2 * 7 * L,
+            "qmm_i8_wgmma_bwd": TRAIN_ACCUM * (7 * L - 3)}))
     want = {k: v * steps for k, v in per_step.items()}
     step_s = sum(secs[1:]) / (steps - 1)        # the first step warms the allocator
     losses = [m[0] for m in metrics]
@@ -1945,9 +1991,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                       "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct)"),
     "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
                      "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8)"),
-    "qmm_i8_fwd": ("qlora_tpu_torch/csrc/qmm_i8.cu",
+    # the int8 forward and dx: the wgmma kernel at their headline (M = 1024)
+    "qmm_i8_fwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8)"),
-    "qmm_i8_bwd": ("qlora_tpu_torch/csrc/qmm_i8.cu",
+    "qmm_i8_bwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:475 (_qmm_bwd_pallas_i8)"),
     "paged_decode_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
                                     "qlora_tpu/ops/paged_attention.py:217 "
@@ -1960,6 +2007,9 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
 NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
                "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_wgmma.cu",
                "M > 16, K % 8 != 0": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
+# the int8 forward's and dx's two sources, by shape (ops/qmatmul.py: i8_tile_plan)
+I8_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
+              "M <= 16, or a contraction % 8 != 0": "qlora_tpu_torch/csrc/qmm_i8.cu"}
 TRAIN_HEADLINE = "M=1024 K=4096 N=4096"   # the wgmma kernel's entry: the train step's commonest
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
@@ -2135,6 +2185,13 @@ def main() -> int:
                      wgmma_launches=run[f"qmm_nf4_wgmma_{v}"], tile_ms=head["tile_ms"],
                      wgmma={k: big[k] for k in ("shape", "ms", "tile_ms", "plain_ms",
                                                 "library_ms", "bound_ms", "bound_by")})
+    for entry in summary:
+        if entry["name"] in ("qmm_i8_fwd", "qmm_i8_bwd"):
+            head = next(r for r in results if r["name"] == entry["name"]
+                        and r["shape"] == entry["shape"])
+            d = "fwd" if entry["name"] == "qmm_i8_fwd" else "bwd"
+            entry.update(sources=I8_SOURCES, wgmma_launches=train8_counts[f"qmm_i8_wgmma_{d}"],
+                         tile_ms=head["tile_ms"])
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     summary[0]["wgmma_launches_train"] = train_counts["qmm_nf4_wgmma_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
@@ -2174,9 +2231,9 @@ def main() -> int:
           f"~{ts['flash_bwd_dkv_ms']:.1f} ms ({train_per_step['flash_bwd_dkv']}) + other "
           f"~{ts['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
     t8 = train_split(results, train8_per_step, train8_stats, "int8")
-    print(f"train-int8: optimizer step {t8['step_ms']:.0f} ms = qmm_i8_fwd kernel "
+    print(f"train-int8: optimizer step {t8['step_ms']:.0f} ms = qmm_i8_fwd wgmma kernel "
           f"~{t8['qmm_fwd_ms']:.0f} ms ({train8_per_step['qmm_i8_fwd']} launches) + qmm_i8_bwd "
-          f"kernel ~{t8['qmm_bwd_ms']:.0f} ms ({train8_per_step['qmm_i8_bwd']}) + flash "
+          f"wgmma kernel ~{t8['qmm_bwd_ms']:.0f} ms ({train8_per_step['qmm_i8_bwd']}) + flash "
           f"~{t8['flash_fwd_ms'] + t8['flash_bwd_dq_ms'] + t8['flash_bwd_dkv_ms']:.1f} ms + "
           f"other ~{t8['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
     print(json.dumps({"kernels": summary}))

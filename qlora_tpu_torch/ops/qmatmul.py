@@ -14,14 +14,18 @@ int8, per column       ``qmm_i8_fwd``              ``qmm_i8_direct``
 int8, blockwise        ``qmm_i8_fwd``              ``qmm_i8_fwd``
 =====================  ==========================  ========================
 
-The exact kernels multiply bf16 operands with f32 accumulation
-(``csrc/qmm_i8.cu``, and for NF4/FP4 three kernels by shape): up to
-``DECODE_ROWS`` rows (decode) a split-K weight-streaming kernel
-(``csrc/qmm_nf4_decode.cu``, counted in ``decode_launches``), more rows a
-warp-specialised wgmma kernel that decodes each weight tile once for 128
-or 256 rows (``csrc/qmm_nf4_wgmma.cu``, ``wgmma_launches``) wherever
-``tile_plan`` accepts the shape (K % 8 == 0), and the tile kernel of
-``csrc/qmm_nf4_fwd.cu`` for the rest.  The two ``w8a8`` kernels
+The exact kernels multiply bf16 operands with f32 accumulation.  For
+NF4/FP4, three kernels by shape: up to ``DECODE_ROWS`` rows (decode) a
+split-K weight-streaming kernel (``csrc/qmm_nf4_decode.cu``, counted in
+``decode_launches``), more rows a warp-specialised wgmma kernel that
+decodes each weight tile once for 128 or 256 rows
+(``csrc/qmm_nf4_wgmma.cu``, ``wgmma_launches``) wherever ``tile_plan``
+accepts the shape (K % 8 == 0), and the tile kernel of
+``csrc/qmm_nf4_fwd.cu`` for the rest.  For int8 storage, forward and dx
+alike, the same wgmma design (``csrc/qmm_i8_wgmma.cu``, ``wgmma_launches``)
+above ``DECODE_ROWS`` rows wherever ``i8_tile_plan`` accepts the shape (a
+row stride of the activation in multiples of 16 bytes), and the tile kernel
+of ``csrc/qmm_i8.cu`` for the rest.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
 serving engines' decode path.  The kernels take every shape ``quantize``
@@ -222,11 +226,12 @@ _TILE_STAGES = {128: 3, 256: 2}      # rows a CTA -> k-steps in the ring
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """How ``qmm_nf4_wgmma`` cuts y [M, N]: one CTA per ``tm`` x ``tn``
-    output tile (``grid`` = (M tiles, N tiles), M fastest), each walking all
-    ``steps`` k-steps of ``tkp`` packed rows through a ring of ``stages``;
-    ``smem`` bytes of dynamic shared memory.  ``accepted`` says whether the
-    shape takes the kernel; ``reason`` says why not."""
+    """How a wgmma kernel (``qmm_nf4_wgmma``, ``qmm_i8_wgmma_fwd`` or
+    ``_bwd``) cuts its output [M, O]: one CTA per ``tm`` x ``tn`` output tile
+    (``grid`` = (M tiles, O tiles), M fastest), each walking all ``steps``
+    k-steps of ``tkp`` contraction rows (packed rows for NF4) through a ring
+    of ``stages``; ``smem`` bytes of dynamic shared memory.  ``accepted``
+    says whether the shape takes the kernel; ``reason`` says why not."""
     accepted: bool
     reason: str
     tm: int = 128
@@ -278,14 +283,15 @@ def tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePl
 _TILE_PLANS: dict = {}
 
 
-def _tile_plan_on(M: int, K: int, N: int, block_size: int, dev) -> TilePlan:
-    """``tile_plan`` for the card of ``dev``, cached per shape."""
-    key = (M, K, N, block_size, dev)
+def _plan_on(plan_fn, dev, *args) -> TilePlan:
+    """``plan_fn(*args)`` (``tile_plan`` or ``i8_tile_plan``) for the card
+    of ``dev``, cached per shape."""
+    key = (plan_fn, args, dev)
     plan = _TILE_PLANS.get(key)
     if plan is None:
         if dev not in _SMS:
             _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = _TILE_PLANS[key] = tile_plan(M, K, N, block_size, _SMS[dev])
+        plan = _TILE_PLANS[key] = plan_fn(*args, sms=_SMS[dev])
     return plan
 
 
@@ -322,7 +328,7 @@ def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
         return torch.empty((0, N), dtype=torch.bfloat16, device=x.device), "none"
     if M <= DECODE_ROWS:
         return _decode_launch(x, qt, scale, offset), "decode"
-    plan = _tile_plan_on(M, K, N, qt.block_size, x.device)
+    plan = _plan_on(tile_plan, x.device, M, K, N, qt.block_size)
     if plan.accepted:
         return _wgmma_launch(x, qt, scale, offset, plan), "wgmma"
     return _launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset), "tile"
@@ -397,31 +403,108 @@ def _check_int8(qt: QuantizedTensor, what: str) -> None:
         raise ValueError(f"{what} reads int8 storage, not {qt.quant_type}")
 
 
+# The int8 forward and dx at prefill and training rows: ``csrc/qmm_i8_wgmma.cu``,
+# the NF4 wgmma kernel's pipeline over int8 codes, one TMA box of the
+# activation and one decoded weight tile per k-step of 64 contraction rows,
+# so the ring holds more k-steps than the NF4 kernel's.
+_I8_STAGES = {128: 6, 256: 4}      # rows a CTA -> k-steps in the ring
+
+
+def i8_tile_smem(tm: int) -> int:
+    """Dynamic shared memory of the int8 wgmma kernel at ``tm`` rows a CTA:
+    the ring (per k-step an activation box [tm, 64] and a bf16 B tile of
+    64 x 128), the two producer warpgroups' codes (two k-steps each), 1024
+    bytes of alignment and 1024 of barriers."""
+    stage = tm * _TILE_KP * 2 + _TILE_KP * _TILE_N * 2
+    return 1024 + _I8_STAGES[tm] * stage + 4 * _TILE_KP * _TILE_N + 1024
+
+
+def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
+                 sms: int = 132) -> TilePlan:
+    """The int8 wgmma kernel's plan on a card of ``sms`` SMs: the forward
+    x [M, K] @ W [K, N] (output [M, N], contraction K) or, with ``bwd``, dx
+    = g [M, N] @ Wᵀ (output [M, K], contraction N).  It refuses up to
+    ``DECODE_ROWS`` rows (``qmm_i8.cu`` keeps them) and a contraction that
+    is no multiple of 8: TMA reads the activation in boxes of [rows, 64
+    columns] and needs its row stride in multiples of 16 bytes.  Ragged M,
+    output and contraction are masked in the kernel; block sizes that are no
+    multiple of 8 take a slower decode, and N % 8 != 0 forward byte loads.
+    A CTA takes 256 rows where 128-row tiles would need more than one wave
+    of CTAs, else 128."""
+    C, O = (N, K) if bwd else (K, N)
+    if M <= DECODE_ROWS:
+        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} stay on qmm_i8.cu")
+    if C % 8:
+        return TilePlan(False, f"{'N' if bwd else 'K'}={C} is no multiple of 8: TMA needs a "
+                               "16-byte row stride")
+    if K <= 0 or N <= 0 or block_size <= 0 or K % block_size:
+        return TilePlan(False, f"no int8 shape: K={K} N={N} block {block_size}")
+    o_tiles = -(-O // _TILE_N)
+    tm = 256 if -(-M // 128) * o_tiles > sms else 128
+    return TilePlan(True, "", tm=tm, stages=_I8_STAGES[tm], grid=(-(-M // tm), o_tiles),
+                    steps=-(-C // _TILE_KP), smem=i8_tile_smem(tm))
+
+
+def _i8_wgmma_launch(a: torch.Tensor, qt: QuantizedTensor, scale, offset, plan: TilePlan,
+                     bwd: bool) -> torch.Tensor:
+    """Launch ``qmm_i8_wgmma_fwd`` or ``_bwd`` on checked operands and an
+    accepted plan: a [M, K] (x) or [M, N] (g) bf16 on the card → [M, N] or
+    [M, K] bf16."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    a = _aligned(a.to(torch.bfloat16))
+    out = torch.empty((a.shape[0], K if bwd else N), dtype=torch.bfloat16, device=a.device)
+    entry = "qmm_i8_wgmma_bwd" if bwd else "qmm_i8_wgmma_fwd"
+    fn = _build.kernel("qmm_i8_wgmma", entry, [_P] * 7 + [_I] * 8 + [_P])
+    err = fn(a.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
+             None if scale is None else scale.data_ptr(),
+             None if offset is None else offset.data_ptr(), None, out.data_ptr(),
+             a.shape[0], K, N, qt.block_size, int(qt.double_quant), plan.tm, plan.stages,
+             plan.smem, _build.stream_ptr(a))
+    _build.check(err, entry)
+    return out
+
+
+def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
+    """Check the operands and launch the int8 kernel that the shape takes:
+    x [M, K] (forward) or g [M, N] (``bwd``) on the card → (the output
+    bf16, which kernel): "wgmma" where ``i8_tile_plan`` accepts the shape,
+    else "tile" (``qmm_i8.cu``).  No rows, no launch ("none")."""
+    what = "qmm_i8_bwd" if bwd else "qmm_i8_fwd"
+    _check_int8(qt, what)
+    _check_rows(a, qt.packed.shape[-1] if bwd else logical_k(qt), "g" if bwd else "x")
+    K, N, scale, offset = _check_quantized(qt, a.device)
+    M = a.shape[0]
+    if M == 0:
+        return torch.empty((0, K if bwd else N), dtype=torch.bfloat16, device=a.device), "none"
+    plan = _plan_on(i8_tile_plan, a.device, M, K, N, qt.block_size, bwd)
+    if plan.accepted:
+        return _i8_wgmma_launch(a, qt, scale, offset, plan, bwd), "wgmma"
+    return _launch("qmm_i8", what, a, qt, K if bwd else N, scale, offset), "tile"
+
+
 def qmm_i8_fwd(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The forward kernel over int8 storage (TPU _qmm_pallas_i8): x [M, K]
     on the card → x @ dequant(qt) [M, N] bf16.  f32 or double-quantized
     absmax, decoded in the kernel."""
-    _check_int8(qt, "qmm_i8_fwd")
-    _check_rows(x, logical_k(qt), "x")
-    K, N, scale, offset = _check_quantized(qt, x.device)
-    y = _launch("qmm_i8", "qmm_i8_fwd", x, qt, N, scale, offset)
-    qmm_i8_fwd.launches += x.shape[0] > 0
+    y, took = _i8_launch(x, qt, bwd=False)
+    qmm_i8_fwd.launches += took != "none"
+    qmm_i8_fwd.wgmma_launches += took == "wgmma"
     return y
 
 
 def qmm_i8_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The backward kernel over int8 storage (TPU _qmm_bwd_pallas_i8):
     g [M, N] on the card → dx = g @ dequant(qt)ᵀ [M, K] bf16."""
-    _check_int8(qt, "qmm_i8_bwd")
-    _check_rows(g, qt.packed.shape[-1], "g")
-    K, N, scale, offset = _check_quantized(qt, g.device)
-    dx = _launch("qmm_i8", "qmm_i8_bwd", g, qt, K, scale, offset)
-    qmm_i8_bwd.launches += g.shape[0] > 0
+    dx, took = _i8_launch(g, qt, bwd=True)
+    qmm_i8_bwd.launches += took != "none"
+    qmm_i8_bwd.wgmma_launches += took == "wgmma"
     return dx
 
 
-qmm_i8_fwd.launches = 0
-qmm_i8_bwd.launches = 0
+# launches: every call that ran a kernel; wgmma_launches: those of them that
+# took qmm_i8_wgmma.cu (the rest took the tile kernel of qmm_i8.cu)
+qmm_i8_fwd.launches = qmm_i8_fwd.wgmma_launches = 0
+qmm_i8_bwd.launches = qmm_i8_bwd.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------

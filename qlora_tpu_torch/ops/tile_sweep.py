@@ -1,40 +1,49 @@
-"""Ablations of the NF4 forward at training and prefill rows on the card:
-the wgmma kernel (``csrc/qmm_nf4_wgmma.cu``) and, as the "before", the tile
-kernel of ``csrc/qmm_nf4_fwd.cu``.
+"""Ablations of the wgmma kernels at training and prefill rows on the card:
+the NF4 forward (``csrc/qmm_nf4_wgmma.cu``) with, as its "before", the tile
+kernel of ``csrc/qmm_nf4_fwd.cu``, and the int8 forward and dx
+(``csrc/qmm_i8_wgmma.cu``) with, as theirs, the tile kernel of
+``csrc/qmm_i8.cu``.
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.tile_sweep
+    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8]
 
 Each variant is a kernel's source with one part taken out, compiled into
-``build/sweep_tile/``, run on the LLaMA-7B block linears at M = 1024 (and 40)
-with double-quantized absmax, its weights rotated past the 50 MB L2, timed
-with CUDA events.  Variants that take parts out compute wrong sums: they
-time what is left.  The cuts follow ``benchmarks/ablate_kernel.py``:
+``build/sweep_tile/``, run on the LLaMA-7B block linears at M = 1024 (and,
+for NF4, 40) with double-quantized absmax, its weights rotated past the 50
+MB L2, timed with CUDA events.  Variants that take parts out compute wrong
+sums: they time what is left.  The cuts follow
+``benchmarks/ablate_kernel.py``:
 
 - ``no absmax multiply``: each weight is the code itself (no absmax read);
 - ``no codebook lookup``: the nibble cast to float in place of its code;
 - ``no unpack``: the first nibble of each packed word decoded for all its
   bytes;
 - ``products only``: no weight loads and no decode (x still arrives by TMA
-  in the wgmma kernel and is staged in the tile kernel);
+  in the wgmma kernels and is staged in the tile kernel);
 - ``loads only``: the weight and x loaded (and the weight decoded in the
-  tile kernel's staging loop), no products; the wgmma kernel's ``no
-  products`` keeps its decode and drops only the products, and ``loads
+  tile kernel's staging loop), no products; the wgmma kernels' ``no
+  products`` keeps their decode and drops only the products, and ``loads
   only`` drops both.
 
-and, for the wgmma kernel only: ``no fence`` (the proxy fence taken out) and
-``half rows`` (half of each thread's rows decoded, the rest stored as
-zeros).
+and, for the NF4 wgmma kernel only: ``no fence`` (the proxy fence taken out)
+and ``half rows`` (half of each thread's rows decoded, the rest stored as
+zeros).  The int8 kernel is cut as built, products only, no products and
+loads only, forward and backward, beside ``qmm_i8.cu`` as built, and run in
+the designs it was chosen against: codes made floats by int-to-float
+conversions, each ring stage released a k-step late (one k-step of wgmmas
+left in flight), 128-row CTAs.
 
-One line per shape and kernel; nothing here is used by the port.
+One line per shape, direction and kernel; nothing here is used by the port.
 
-``python -m qlora_tpu_torch.ops.tile_sweep --mutants`` instead copies the
-checkout once per mutant of the wgmma kernel into ``build/mutants/`` (the
-high plane reading the low plane's absmax row, the last k-step dropped, the
-high plane's x box taken at kp instead of K/2 + kp, the proxy fence taken
-out), runs the kernel's ``cuda`` tests in each copy and prints how many
-fail: each mutant must fail at least one.
+``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8]`` instead
+copies the checkout once per mutant of a wgmma kernel into
+``build/mutants/``, runs that kernel's ``cuda`` tests in each copy and
+prints how many fail: each mutant must fail at least one.  NF4: the high
+plane reading the low plane's absmax row, the last k-step dropped, the high
+plane's x box taken at kp instead of K/2 + kp, the proxy fence taken out.
+int8: the backward's absmax row taken one block off, the last k-step
+dropped, the proxy fence taken out.
 """
 
 from __future__ import annotations
@@ -102,21 +111,54 @@ MUTANTS = {
          "tma_load_2d(smem_u32(st + A_BYTES), &xmap, bar, kp, m0);")],
     "no proxy fence": [('      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");', "")],
 }
-MUTANT_TESTS = "qmm_kernel_matches_plain or wgmma"
+MUTANT_TESTS = "qmm_kernel_matches_plain or (wgmma and not i8)"
+
+_I8_DECODE = ("      decode_step<DQ, BWD, ALIGNED>(st + A_BYTES,",
+              "      if (false) decode_step<DQ, BWD, ALIGNED>(st + A_BYTES,")
+_I8_MMA = ("wgmma_m64n128k16<BWD ? 0 : 1>(acc[mt],", "if (false) wgmma_m64n128k16<BWD ? 0 : 1>(acc[mt],")
+I8 = {
+    "as built": [],
+    "products only": [_I8_DECODE, _W_LOADS],
+    "no products": [_I8_MMA],
+    "loads only": [_I8_DECODE, _I8_MMA],
+    # the designs the kernel chose against
+    "int-to-float codes": [(
+        "  return __int_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 | e)) - 8388736.f;",
+        "  return (float)(int8_t)(w >> (8 * e));")],
+    "stage released a k-step late": [(
+        "    wgmma_commit();\n    wgmma_wait_all();\n"
+        "    if (lane == 0) mbar_arrive(smem_u32(empty + stage));\n  }\n",
+        "    wgmma_commit();\n    asm volatile(\"wgmma.wait_group.sync.aligned 1;\" ::: \"memory\");\n"
+        "    if (s > 0 && lane == 0) mbar_arrive(smem_u32(empty + (s + STAGES - 1) % STAGES));\n"
+        "  }\n  wgmma_wait_all();\n")],
+}
+I8_MUTANTS = {
+    "backward absmax row one block off": [
+        ("        blk = row(0) / B;", "        blk = max(row(0) / B - 1, 0);")],
+    "last k-step dropped": MUTANTS["last k-step dropped"],
+    "no proxy fence": MUTANTS["no proxy fence"],
+}
+I8_MUTANT_TESTS = "i8_fwd_and_bwd or i8_kernels or i8_wgmma"
+# which source each set of mutants edits, and the cuda tests run against them
+MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
+               "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS)}
 
 
-def mutants() -> int:
+def mutants(sets) -> int:
     """Each mutant in a copy of the checkout, its cuda tests run there."""
     import shutil
 
     base = ROOT / "build" / "mutants"
     survived = []
-    for name, edits in MUTANTS.items():
+    todo = [(source, tests, name, edits) for source, table, tests in (MUTANT_SETS[k] for k in sets)
+            for name, edits in table.items()]
+    for source, tests, name, edits in todo:
+        name = f"{Path(source).stem} {name}"
         dst = base / name.replace(" ", "_").replace("'", "")
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
             "build", "chiprun_out", ".git", "__pycache__"))
-        src = dst / "qlora_tpu_torch" / "csrc" / "qmm_nf4_wgmma.cu"
+        src = dst / "qlora_tpu_torch" / "csrc" / source
         text = src.read_text()
         for old, new in edits:
             if old not in text:
@@ -125,7 +167,7 @@ def mutants() -> int:
         src.write_text(text)
         run = subprocess.run(
             [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda", "-q",
-             "--noconftest", "-p", "no:cacheprovider", "-k", MUTANT_TESTS],
+             "--noconftest", "-p", "no:cacheprovider", "-k", tests],
             cwd=dst, capture_output=True, text=True, timeout=900)
         tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else run.stderr[-300:]
         print(f"tile_sweep mutant {name!r}: {tail}", flush=True)
@@ -136,13 +178,13 @@ def mutants() -> int:
 
 
 def build(variants) -> dict:
-    """Compile every (source, name, edits, entry, argtypes) at once, one
-    nvcc each; {(source, name): typed C entry}."""
+    """Compile every (source, name, edits, entries, argtypes) at once, one
+    nvcc each; {(source, name, entry): typed C entry}."""
     from qlora_tpu_torch.ops import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     procs = []
-    for source, name, edits, entry, argtypes in variants:
+    for source, name, edits, entries, argtypes in variants:
         text = (CSRC / source).read_text()
         for old, new in edits:
             if old not in text:
@@ -151,16 +193,17 @@ def build(variants) -> dict:
         stem = f"{Path(source).stem}_{name.replace(' ', '_')}"
         (OUT / f"{stem}.cu").write_text(text)
         lib = OUT / f"lib{stem}.so"
-        procs.append((source, name, entry, argtypes, lib, subprocess.Popen(
+        procs.append((source, name, entries, argtypes, lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(OUT / f"{stem}.cu")])))
     fns = {}
-    for source, name, entry, argtypes, lib, proc in procs:
+    for source, name, entries, argtypes, lib, proc in procs:
         if proc.wait() != 0:
             raise RuntimeError(f"{source} {name!r}: nvcc failed")
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[(source, name)] = fn
+        for entry in entries:
+            fn = getattr(ctypes.CDLL(str(lib)), entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[(source, name, entry)] = fn
     return fns
 
 
@@ -179,7 +222,12 @@ def events_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def copies_past_l2(qt) -> list:
+    return [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
+                   for _ in range(max(1, -(-2 * L2_BYTES // qt.nbytes)) - 1)]
+
+
+def main(sets) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -188,45 +236,76 @@ def main() -> int:
     from qlora_tpu_torch.quant import quantize
 
     qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     P, I = ctypes.c_void_p, ctypes.c_int
-    built = build([("qmm_nf4_wgmma.cu", n, e, "qmm_nf4_wgmma", [P] * 7 + [I] * 8 + [P])
-                   for n, e in WGMMA.items()]
-                  + [("qmm_nf4_fwd.cu", n, e, "qmm_nf4_fwd", qm._ARGTYPES)
-                     for n, e in TILE.items()])
-    kernels = {"wgmma": {n: built[("qmm_nf4_wgmma.cu", n)] for n in WGMMA},
-               "tile (before)": {n: built[("qmm_nf4_fwd.cu", n)] for n in TILE}}
+    wgmma_args = [P] * 7 + [I] * 8 + [P]
+    variants = []
+    if "nf4" in sets:
+        variants += [("qmm_nf4_wgmma.cu", n, e, ["qmm_nf4_wgmma"], wgmma_args)
+                     for n, e in WGMMA.items()]
+        variants += [("qmm_nf4_fwd.cu", n, e, ["qmm_nf4_fwd"], qm._ARGTYPES) for n, e in TILE.items()]
+    if "int8" in sets:
+        variants += [("qmm_i8_wgmma.cu", n, e, ["qmm_i8_wgmma_fwd", "qmm_i8_wgmma_bwd"], wgmma_args)
+                     for n, e in I8.items()]
+        variants += [("qmm_i8.cu", "as built", [], ["qmm_i8_fwd", "qmm_i8_bwd"], qm._ARGTYPES)]
+    built = build(variants)
     g = torch.Generator(device=dev).manual_seed(6)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def run(fns, copies, a, out, M, K, N, plan, label):
+        # each copy's arguments, made once: the loop times the launches alone
+        argsets = []
+        for q in copies:
+            _, _, scale, offset = qm._check_quantized(q, dev)
+            code = None if q.quant_type == "int8" else qm._code_on(q.quant_type, dev).data_ptr()
+            argsets.append([a.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(),
+                            scale.data_ptr(), offset.data_ptr(), code, out.data_ptr(), M, K, N,
+                            q.block_size, 1] + ([] if plan is None else
+                                                [plan.tm, plan.stages, plan.smem]))
+        line = []
+        for name, fn in fns.items():
+            def launch(i, fn=fn):
+                err = fn(*argsets[i % len(argsets)], stream())
+                if err:
+                    raise RuntimeError(f"{label} {name}: cudaError_t {err}")
+            line.append(f"{name} {events_ms(launch):.4f}")
+        print(f"tile_sweep {label} M={M} K={K} N={N} (ms): " + ", ".join(line), flush=True)
+
     for K, N in SHAPES:
-        qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
-        copies = [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
-                         for _ in range(max(1, -(-2 * L2_BYTES // qt.nbytes)) - 1)]
-        _, _, scale, offset = qm._check_quantized(qt, qt.device)
-        code = qm._code_on(qt.quant_type, dev)
-        for M, kname in ((M, k) for M in ROWS for k in kernels):
-            fns = kernels[kname]
-            plan = qm.tile_plan(M, K, N, qt.block_size)
-            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-            y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-            line = []
-            for name, fn in fns.items():
-                def launch(i, fn=fn, wgmma=kname == "wgmma", M=M, plan=plan, x=x, y=y):
-                    q = copies[i % len(copies)]
-                    args = [x.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(),
-                            scale.data_ptr(), offset.data_ptr(), code.data_ptr(), y.data_ptr(),
-                            M, K, N, qt.block_size, 1]
-                    if wgmma:
-                        args += [plan.tm, plan.stages, plan.smem]
-                    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"{kname} {name}: cudaError_t {err}")
-                line.append(f"{name} {events_ms(launch):.4f}")
-            print(f"tile_sweep {kname} M={M} K={K} N={N} (ms): " + ", ".join(line), flush=True)
+        if "nf4" in sets:
+            qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
+            copies = copies_past_l2(qt)
+            for M in ROWS:
+                x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+                y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+                run({n: built[("qmm_nf4_wgmma.cu", n, "qmm_nf4_wgmma")] for n in WGMMA}, copies,
+                    x, y, M, K, N, qm.tile_plan(M, K, N, qt.block_size), "wgmma")
+                run({n: built[("qmm_nf4_fwd.cu", n, "qmm_nf4_fwd")] for n in TILE}, copies, x, y,
+                    M, K, N, None, "tile (before)")
+        if "int8" in sets:
+            qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5,
+                          quant_type="int8")
+            copies = copies_past_l2(qt)
+            M = ROWS[0]
+            for bwd, d in ((False, "fwd"), (True, "bwd")):
+                a = torch.randn(M, N if bwd else K, device=dev, generator=g).to(torch.bfloat16)
+                out = torch.empty(M, K if bwd else N, dtype=torch.bfloat16, device=dev)
+                plan = qm.i8_tile_plan(M, K, N, qt.block_size, bwd)
+                run({n: built[("qmm_i8_wgmma.cu", n, f"qmm_i8_wgmma_{d}")] for n in I8}, copies, a,
+                    out, M, K, N, plan, f"i8 wgmma {d}")
+                tm128 = dataclasses.replace(plan, tm=128, stages=qm._I8_STAGES[128],
+                                            smem=qm.i8_tile_smem(128))
+                run({"as built": built[("qmm_i8_wgmma.cu", "as built", f"qmm_i8_wgmma_{d}")]},
+                    copies, a, out, M, K, N, tm128, f"i8 wgmma {d} (128-row CTAs)")
+                run({"as built": built[("qmm_i8.cu", "as built", f"qmm_i8_{d}")]}, copies, a, out,
+                    M, K, N, None, f"i8 tile {d} (before)")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(mutants() if "--mutants" in sys.argv[1:] else main())
+    args = sys.argv[1:]
+    chosen = [k for k in ("nf4", "int8") if k in args] or ["nf4", "int8"]
+    sys.exit(mutants(chosen) if "--mutants" in args else main(chosen))

@@ -32,10 +32,13 @@ head) slice; rows and keys that must get exactly 0 are checked for 0.
 The two w8a8 kernels sum int8 products in int32, which is exact, and their
 epilogue is two f32 multiplications and two bf16 roundings that the plain
 version makes in the same order: the raw accumulators and the bf16 outputs
-are held equal bit for bit.  The int8-storage kernels (``--bits 8``) decode
-the weight as ``dequantize`` does and sum in f32 in another order: rtol
-1e-2, atol 2e-2 as the NF4 kernels, and an identity operand reads the
-decoded weight out of both, bit for bit.
+are held equal bit for bit.  The int8-storage kernels (``--bits 8``: the
+wgmma kernel above DECODE_ROWS rows, the tile kernel of ``qmm_i8.cu`` for
+fewer rows and the shapes the wgmma kernel's plan refuses) decode the
+weight as ``dequantize`` does and sum in f32 in another order: rtol 1e-2,
+atol 2e-2 as the NF4 kernels, and an identity operand reads the decoded
+weight out of the forward and the backward, bit for bit; the wgmma kernel
+is also held deterministic and batch-invariant, bit for bit.
 
 The paged kernels have the decode kernel's arithmetic over a page table:
 each output element within 2e-2 of its (row, head)'s largest |output|, the
@@ -45,7 +48,7 @@ The chunk kernel at C = 1 is the decode kernel, bit for bit."""
 import pytest
 import torch
 
-from chip_smoke import one_hot_rows, paged_case, plant_edges, plant_flash_edges
+from chip_smoke import one_hot_cols, one_hot_rows, paged_case, plant_edges, plant_flash_edges
 from qlora_tpu_torch.generate import generate
 from qlora_tpu_torch.models import forward, get_config, init_params
 from qlora_tpu_torch.ops import decode_attention_cuda, decode_attention_plain
@@ -59,7 +62,7 @@ from qlora_tpu_torch.ops import qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows
 from qlora_tpu_torch.ops import w8a8_codes, w8a8_scales
 from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
 from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
-from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators
+from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators, i8_tile_plan
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
 from qlora_tpu_torch.quant import quantize
@@ -484,23 +487,41 @@ def test_w8a8_kernels_round_half_to_even(cuda):
     assert (away != w8[64:].float()).float().mean() > 0.4
 
 
+# more than DECODE_ROWS rows of int8 storage (qmm_i8_wgmma.cu, forward and
+# dx), beside the cases above: one CTA's 128 rows and ragged edges of it,
+# 256-row CTAs (1024 and 2048 rows), ragged N and K, block sizes 2, 4, 8, 12,
+# 32 and 64, contractions that are no multiple of the 64-row k-step, two
+# meta-blocks of absmax; N = 50 sends the backward, and K = 36 the forward,
+# to qmm_i8.cu (a row stride TMA cannot take)
+I8_WGMMA_CASES = [(M, 4096, 4096, 64) for M in (17, 40, 128)] + [
+    (300, 1024, 72, 32), (2048, 4096, 11008, 64), (1024, 11008, 4096, 64), (50, 256, 72, 4),
+    (33, 480, 56, 12), (129, 192, 200, 32), (20, 64, 40, 2), (40, 64 * 260, 96, 64),
+    (300, 200, 64, 8), (33, 480, 50, 12), (20, 36, 40, 4)]
+
+
 @pytest.mark.parametrize("M,K,N,block_size", [
     (1, 256, 64, 64), (4, 4096, 4096, 64), (37, 384, 200, 64), (5, 192, 200, 64),
     (300, 1024, 320, 32), (1024, 11008, 512, 64), (16, 64 * 600, 96, 64),
-])
+] + I8_WGMMA_CASES)
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_i8_fwd_and_bwd_kernels_match_plain(cuda, M, K, N, block_size, double_quant):
+    """The forward and dx through ``qmatmul`` and autograd: each takes the
+    wgmma kernel exactly where ``i8_tile_plan`` accepts the shape, else
+    ``qmm_i8.cu``, and agrees with its plain version."""
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
     qt = quantize(w, block_size=block_size, quant_type="int8", double_quant=double_quant)
     x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16).requires_grad_()
     g = torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
+    took = [i8_tile_plan(M, K, N, block_size, bwd).accepted for bwd in (False, True)]
+    assert took == [M > DECODE_ROWS and K % 8 == 0, M > DECODE_ROWS and N % 8 == 0]
     n0 = (qmm_i8_fwd.launches, qmm_i8_bwd.launches, qmm_nf4_fwd_dq.launches,
-          qmm_nf4_bwd.launches)
+          qmm_nf4_bwd.launches, qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches)
     y = qmatmul(x, qt)
     y.backward(g)
     assert (qmm_i8_fwd.launches, qmm_i8_bwd.launches, qmm_nf4_fwd_dq.launches,
-            qmm_nf4_bwd.launches) == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+            qmm_nf4_bwd.launches, qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + took[0], n0[5] + took[1])
     torch.testing.assert_close(y.detach().float(), qmm_i8_fwd_plain(x.detach(), qt).float(),
                                rtol=1e-2, atol=2e-2)
     assert x.grad.dtype == torch.bfloat16 and x.grad.shape == (M, K)
@@ -522,6 +543,79 @@ def test_i8_kernels_read_out_the_decoded_weight(cuda):
             if K <= 256:
                 assert torch.equal(qmm_i8_fwd(torch.eye(K, device=cuda, dtype=torch.bfloat16),
                                               qt), w)
+
+
+def _i8_case(cuda, M, K, N, block_size, double_quant):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + block_size)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    qt = quantize(w, block_size=block_size, quant_type="int8", double_quant=double_quant)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    g = torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
+    return qt, x, g
+
+
+I8_EXACT = [(4096, 11008, 64), (11008, 4096, 64), (64 * 260, 64, 64), (192, 200, 64),
+            (480, 56, 12), (256, 72, 4)]
+
+
+@pytest.mark.parametrize("K,N,block_size", I8_EXACT)
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_wgmma_identity_reads_out_the_weight(cuda, K, N, block_size, double_quant):
+    """Rows of the identity read ``dequantize``'s bf16 weight out of the
+    wgmma kernel bit for bit: forward 40 rows of W (both sides of
+    absmax-block and, at 64 * 260, meta-block edges), backward 40 columns of
+    W as rows of dx.  It decodes the same weight, and f32 sums of one
+    product and zeros are exact."""
+    qt, _, _ = _i8_case(cuda, 40, K, N, block_size, double_quant)
+    w = dequantize(qt, torch.bfloat16)
+    ks = one_hot_rows(K, block_size, 40)
+    x = torch.zeros(len(ks), K, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(len(ks)), torch.tensor(ks)] = 1
+    cs = one_hot_cols(N, 40)
+    g = torch.zeros(len(cs), N, device=cuda, dtype=torch.bfloat16)
+    g[torch.arange(len(cs)), torch.tensor(cs)] = 1
+    before = qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches
+    y, dx = qmm_i8_fwd(x, qt), qmm_i8_bwd(g, qt)
+    assert (qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert torch.equal(y, w[ks])
+    assert torch.equal(dx, w[:, cs].T.contiguous())
+
+
+@pytest.mark.parametrize("K,N,block_size", I8_EXACT[:4])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_wgmma_deterministic_and_batch_invariant(cuda, K, N, block_size, double_quant):
+    """Two calls give the same bits, and a row gives the same bits in a batch
+    of 2048 (256-row CTAs at the LLaMA shapes), of 300, of 40 and of 17, in
+    the forward and in dx: every output element is one CTA's sum over the
+    contraction in a fixed order, whatever the other rows."""
+    qt, x, g = _i8_case(cuda, 2048, K, N, block_size, double_quant)
+    for wrapper, a in ((qmm_i8_fwd, x), (qmm_i8_bwd, g)):
+        y = wrapper(a, qt)
+        assert torch.equal(y, wrapper(a, qt))
+        for lo, M in ((0, 17), (1000, 40), (130, 300), (2048 - 17, 17)):
+            assert torch.equal(wrapper(a[lo:lo + M], qt), y[lo:lo + M]), (wrapper, lo, M)
+
+
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_wgmma_dispatch_edge(cuda, double_quant):
+    """DECODE_ROWS rows take qmm_i8.cu, one more the wgmma kernel, in both
+    directions; a contraction whose row stride TMA cannot take (K % 8 != 0
+    forward, N % 8 != 0 backward) takes qmm_i8.cu, and the other direction
+    of the same weight the wgmma kernel."""
+    cases = [(1024, 320, 64, DECODE_ROWS, False, 0), (1024, 320, 64, DECODE_ROWS + 1, False, 1),
+             (1024, 320, 64, DECODE_ROWS, True, 0), (1024, 320, 64, DECODE_ROWS + 1, True, 1),
+             (36, 40, 4, 20, False, 0), (36, 40, 4, 20, True, 1),
+             (480, 50, 12, 20, True, 0), (480, 50, 12, 20, False, 1)]
+    for K, N, B, M, bwd, took in cases:
+        qt, x, g = _i8_case(cuda, M, K, N, B, double_quant)
+        wrapper, plain, a = (qmm_i8_bwd, qmm_i8_bwd_plain, g) if bwd else (
+            qmm_i8_fwd, qmm_i8_fwd_plain, x)
+        before = wrapper.launches, wrapper.wgmma_launches
+        y = wrapper(a, qt)
+        assert (wrapper.launches, wrapper.wgmma_launches) == (before[0] + 1, before[1] + took), (
+            K, N, M, bwd)
+        torch.testing.assert_close(y.float(), plain(a, qt).float(), rtol=1e-2, atol=2e-2)
 
 
 def test_i8_no_backward_launch_without_input_grad(cuda):

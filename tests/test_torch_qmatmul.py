@@ -224,14 +224,19 @@ def test_tile_plan_refuses_k_not_multiple_of_8():
 def test_tile_sweep_edits_apply_to_the_sources():
     """Every ablation and mutant of ``ops/tile_sweep.py`` finds the text it
     replaces in the kernel source it edits (once), so the sweep and the
-    mutants run on the card against the sources as they are."""
+    mutants run on the card against the sources as they are; each set of
+    mutants names the source it edits."""
     from qlora_tpu_torch.ops import tile_sweep
 
     for source, table in (("qmm_nf4_wgmma.cu", tile_sweep.WGMMA),
                           ("qmm_nf4_wgmma.cu", tile_sweep.MUTANTS),
-                          ("qmm_nf4_fwd.cu", tile_sweep.TILE)):
+                          ("qmm_nf4_fwd.cu", tile_sweep.TILE),
+                          ("qmm_i8_wgmma.cu", tile_sweep.I8),
+                          ("qmm_i8_wgmma.cu", tile_sweep.I8_MUTANTS)):
         text = (tile_sweep.CSRC / source).read_text()
         for name, edits in table.items():
             for old, new in edits:
                 assert text.count(old) == 1, (source, name, old)
                 assert old != new
+    assert {k: v[0] for k, v in tile_sweep.MUTANT_SETS.items()} == {
+        "nf4": "qmm_nf4_wgmma.cu", "int8": "qmm_i8_wgmma.cu"}
