@@ -21,7 +21,12 @@ them.  Phases, each failing the run on any mismatch or exception:
    2048) the wrapper runs the wgmma kernel, timed beside the tile kernel of
    ``qmm_nf4_fwd.cu`` through its C entry (``tile_ms``, the "before", also
    held to QMM_TOL) and held bit for bit the same way (sub-batches of at
-   least 17 rows, which the wgmma kernel takes too).
+   least 17 rows, which the wgmma kernel takes too).  The NF4 dx at the
+   train step's 1024 rows, both absmax variants, runs the wgmma kernel of
+   ``qmm_nf4_bwd_wgmma.cu`` (each packed byte decoded once for both nibble
+   planes), timed beside ``qmm_nf4_bwd.cu`` through its C entry (``tile_ms``,
+   the "before", also held to QMM_TOL) and held bit for bit the same way
+   (identity rows of g read out columns of ``dequantize``'s weight).
 3. parity: LLaMA-7B width, 2 layers — the same weights through the plain
    path on the CPU and through the kernels on the card, a 128-token prefill
    then 4 teacher-forced decode steps; logits must agree.
@@ -39,7 +44,8 @@ them.  Phases, each failing the run on any mismatch or exception:
    tokens, remat "full", ``paged_adamw_32bit``) takes 5 optimizer steps on
    one batch: finite losses, no movement on the first step (its learning
    rate is 0), a lower loss at the end, frozen tensors byte-identical, and
-   exact launch counts read around the steps.
+   exact launch counts read around the steps: every NF4 forward and dx on a
+   wgmma kernel (train-parity too).
 8. kernels-int8: the four kernels of the int8 family against their plain
    versions: ``qmm_i8_direct`` (M = 4, the block linears and the padded
    lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128 and 2048) equal
@@ -242,10 +248,11 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def nf4_kernels():
-    """The two NF4 forward kernels launched through their C entries,
-    bypassing the dispatch and the counters: (decode, tile), each
-    (x, qt) -> y.  The tile kernel's M <= 16 branch is the "before" of the
-    decode kernel."""
+    """The NF4 kernels launched through their C entries, bypassing the
+    dispatch and the counters: (decode, tile, bwd_tile), the first two
+    (x, qt) -> y, the last (g, qt) -> dx.  The tile kernel's M <= 16 branch
+    is the "before" of the decode kernel, its other rows the wgmma kernel's;
+    ``qmm_nf4_bwd.cu`` is the "before" of the NF4 dx kernel."""
     import importlib
 
     qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
@@ -258,7 +265,11 @@ def nf4_kernels():
         _, N, scale, offset = qm._check_quantized(qt, x.device)
         return qm._launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset)
 
-    return decode, tile
+    def bwd_tile(g, qt):
+        K, _, scale, offset = qm._check_quantized(qt, g.device)
+        return qm._launch("qmm_nf4_bwd", "qmm_nf4_bwd", g, qt, K, scale, offset)
+
+    return decode, tile, bwd_tile
 
 
 def one_hot_rows(K, block_size, n):
@@ -585,7 +596,7 @@ def kernel_phase(dev, results):
     from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
     from qlora_tpu_torch.quant import dequantize, quantize
 
-    decode, tile = nf4_kernels()
+    decode, tile, bwd_tile = nf4_kernels()
     g = torch.Generator(device=dev).manual_seed(1234)
     for dq in (True, False):
         wrapper = qmm_nf4_fwd_dq if dq else qmm_nf4_fwd_f32
@@ -652,29 +663,41 @@ def kernel_phase(dev, results):
                     wgmma_checks(name, wrapper, x, qt, w_bf16)
                     if M <= FEW_ROWS:
                         decode_checks(f"{name} (decode kernel)", decode, x, qt, w_bf16)
-            # the backward at the training micro-batch: dx = g @ dequant(W)^T
+            # the backward at the training micro-batch: dx = g @ dequant(W)^T on
+            # the wgmma kernel, the tile kernel of qmm_nf4_bwd.cu through its C
+            # entry beside it (the "before")
             M = QMM_BWD_ROWS
             gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
+            before = qmm_nf4_bwd.wgmma_launches
             dx = qmm_nf4_bwd(gr, qt)
             ref = qmatmul_bwd_plain(gr, qt)
+            dt = bwd_tile(gr, qt)
             torch.cuda.synchronize()
+            if qmm_nf4_bwd.wgmma_launches != before + 1:
+                fail(f"qmm_nf4_bwd M={M} K={K} N={N} did not take the wgmma kernel")
             diff = (dx.float() - ref.float()).abs()
             err = diff.max().item()
             excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
+            tile_diff = (dt.float() - ref.float()).abs()
+            excess = max(excess, (tile_diff - QMM_TOL[1] * ref.float().abs()).max().item())
             ms = cuda_ms(lambda i: qmm_nf4_bwd(gr, qts[i % len(qts)]), 20)
+            tile_ms = cuda_ms(lambda i: bwd_tile(gr, qts[i % len(qts)]), 5)
             plain_ms = cuda_ms(lambda i: qmatmul_bwd_plain(gr, qts[i % len(qts)]), 3)
             lib_ms = cuda_ms(lambda i: torch.matmul(gr, ws[i % len(ws)].T), 20)
             bound_ms, bound_by = qmm_bound(M, K, N, dq)    # the same bytes and operations
             shape = f"M={M} K={K} N={N} {'dq' if dq else 'f32'} absmax"
             results.append(dict(name="qmm_nf4_bwd", shape=shape, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                                bound_by=bound_by))
+                                bound_by=bound_by, tile_ms=tile_ms,
+                                tile_err=tile_diff.max().item()))
             print(f"kernel qmm_nf4_bwd {shape}: max|d|={err:.3g} "
                   f"(tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|) ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) tile_ms={tile_ms:.4f} "
+                  f"tile_err={tile_diff.max().item():.4g}", flush=True)
             if excess > QMM_TOL[0]:
                 fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
+            wgmma_checks("qmm_nf4_bwd", qmm_nf4_bwd, gr, qt, w_bf16, bwd=True)
 
     for B, H, KVH, hd, T, lens, window, planted in ATTN_CASES:
         mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
@@ -1339,10 +1362,13 @@ def counters():
 # took the wgmma kernel (more rows), read as qmm_nf4_wgmma_dq / _f32; the rest
 # took the tile kernel of qmm_nf4_fwd.cu, which no LLaMA linear takes.  The
 # int8 forward and dx count those that took qmm_i8_wgmma.cu (more than
-# DECODE_ROWS rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took qmm_i8.cu
+# DECODE_ROWS rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took qmm_i8.cu.
+# The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
+# qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32"}
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
-                "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd"}
+                "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
+                "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd"}
 
 
 def expected_counts(**nonzero):
@@ -1813,7 +1839,8 @@ def train_parity_phase(dev, quant_type="nf4"):
     L = cfg.num_layers
     want = expected_counts(**{fwd_name: 2 * 7 * L, bwd_name: 7 * L - 3}, flash_fwd=2 * L,
                            flash_bwd_dq=L, flash_bwd_dkv=L,
-                           **({"qmm_nf4_wgmma_dq": 2 * 7 * L} if quant_type == "nf4" else
+                           **({"qmm_nf4_wgmma_dq": 2 * 7 * L, "qmm_nf4_wgmma_bwd": 7 * L - 3}
+                              if quant_type == "nf4" else
                               {"qmm_i8_wgmma_fwd": 2 * 7 * L, "qmm_i8_wgmma_bwd": 7 * L - 3}))
     print(f"{tag}: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
           f"loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
@@ -1906,9 +1933,9 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
         flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
         flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
         flash_bwd_dkv=TRAIN_ACCUM * L,                # 64
-        # M = 1024 rows: every NF4 forward, and every int8 forward and dx, on
-        # a wgmma kernel
-        **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L} if quant_type == "nf4" else
+        # M = 1024 rows: every forward and dx, NF4 and int8, on a wgmma kernel
+        **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L,
+            "qmm_nf4_wgmma_bwd": TRAIN_ACCUM * (7 * L - 3)} if quant_type == "nf4" else
            {"qmm_i8_wgmma_fwd": TRAIN_ACCUM * 2 * 7 * L,
             "qmm_i8_wgmma_bwd": TRAIN_ACCUM * (7 * L - 3)}))
     want = {k: v * steps for k, v in per_step.items()}
@@ -1979,7 +2006,8 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                         "qlora_tpu/ops/qmatmul.py:521 (_qmm_pallas)"),
     "decode_attention_cuda": ("qlora_tpu_torch/csrc/decode_attention.cu",
                               "qlora_tpu/ops/decode_attention.py:207 (fused_decode_attention)"),
-    "qmm_nf4_bwd": ("qlora_tpu_torch/csrc/qmm_nf4_bwd.cu",
+    # the NF4 dx: the wgmma kernel at its headline (M = 1024)
+    "qmm_nf4_bwd": ("qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
                     "qlora_tpu/ops/qmatmul.py:651 (_qmm_bwd_pallas)"),
     "flash_fwd": ("qlora_tpu_torch/csrc/flash_attention.cu",
                   "qlora_tpu/ops/flash_attention.py:196 (_flash_fwd)"),
@@ -2006,7 +2034,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
 # the NF4 forward's three sources, by shape (ops/qmatmul.py: DECODE_ROWS, tile_plan)
 NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
                "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_wgmma.cu",
-               "M > 16, K % 8 != 0": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
+               "M > 16, K % 16 != 0": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
+# the NF4 dx's two sources, by shape (ops/qmatmul.py: nf4_bwd_tile_plan)
+NF4_BWD_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
+                   "M <= 16, or N % 8 != 0": "qlora_tpu_torch/csrc/qmm_nf4_bwd.cu"}
 # the int8 forward's and dx's two sources, by shape (ops/qmatmul.py: i8_tile_plan)
 I8_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
               "M <= 16, or a contraction % 8 != 0": "qlora_tpu_torch/csrc/qmm_i8.cu"}
@@ -2186,6 +2217,12 @@ def main() -> int:
                      wgmma={k: big[k] for k in ("shape", "ms", "tile_ms", "plain_ms",
                                                 "library_ms", "bound_ms", "bound_by")})
     for entry in summary:
+        if entry["name"] == "qmm_nf4_bwd":
+            head = next(r for r in results if r["name"] == entry["name"]
+                        and r["shape"] == entry["shape"])
+            entry.update(sources=NF4_BWD_SOURCES,
+                         wgmma_launches=train_counts["qmm_nf4_wgmma_bwd"],
+                         tile_ms=head["tile_ms"])
         if entry["name"] in ("qmm_i8_fwd", "qmm_i8_bwd"):
             head = next(r for r in results if r["name"] == entry["name"]
                         and r["shape"] == entry["shape"])
@@ -2224,8 +2261,8 @@ def main() -> int:
           f"of it at M={PAGED_B * (SPEC_DRAFT + 1)})", flush=True)
     ts = train_split(results, train_per_step, train_stats)
     print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
-          f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm "
-          f"backward kernel ~{ts['qmm_bwd_ms']:.0f} ms ({train_per_step['qmm_nf4_bwd']}) + flash "
+          f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm_nf4_bwd "
+          f"wgmma kernel ~{ts['qmm_bwd_ms']:.0f} ms ({train_per_step['qmm_nf4_bwd']}) + flash "
           f"forward ~{ts['flash_fwd_ms']:.1f} ms ({train_per_step['flash_fwd']}) + flash dq "
           f"~{ts['flash_bwd_dq_ms']:.1f} ms ({train_per_step['flash_bwd_dq']}) + flash dk, dv "
           f"~{ts['flash_bwd_dkv_ms']:.1f} ms ({train_per_step['flash_bwd_dkv']}) + other "

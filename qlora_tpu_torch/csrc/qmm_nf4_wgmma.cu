@@ -6,8 +6,9 @@
 // (f32 absmax, pallas_call at :559) at more than 16 rows; fewer rows run the
 // split-K kernel of qmm_nf4_decode.cu.  One template, <bool DQ>, serves both
 // variants.  The dispatch (ops/qmatmul.py: tile_plan) sends every shape with
-// K % 8 == 0 here (TMA needs x's row stride in multiples of 16 bytes); other
-// shapes stay on the tile kernel of qmm_nf4_fwd.cu.
+// K % 16 == 0 here (TMA needs x's row stride, and the start of the high
+// plane's boxes at column K/2, in multiples of 16 bytes); other shapes stay
+// on the tile kernel of qmm_nf4_fwd.cu.
 //
 // Storage (qlora_tpu_torch/quant/blockwise.py): packed u8 [K/2, N], N
 // contiguous; packed row r holds logical row r in its low nibble and row
@@ -580,7 +581,7 @@ int launch_mt(bool dq, bool aligned, bool vec, const void* x, const void* packed
 
 }  // namespace
 
-// x bf16 [M, K] row-major, 16-byte aligned, K % 8 == 0; packed u8 [K/2, N];
+// x bf16 [M, K] row-major, 16-byte aligned, K % 16 == 0; packed u8 [K/2, N];
 // absmax int8 (dq) or f32 [K/B, N]; scale f32 [ceil((K/B)/256), N] and
 // offset f32 [1] when dq, else unused; code f32 [16]; y bf16 [M, N].  The
 // plan's constants (ops/qmatmul.py: tile_plan): `tm` rows a CTA (128 or
@@ -592,13 +593,13 @@ extern "C" int qmm_nf4_wgmma(const void* x, const void* packed, const void* absm
                              int M, int K, int N, int block_size, int dq, int tm, int stages,
                              int smem, void* stream) {
   const bool two = tm == Tile<2>::TM;
-  if (M <= 0 || K <= 0 || K % 8 || N <= 0 || block_size <= 0 ||
+  if (M <= 0 || K <= 0 || K % 16 || N <= 0 || block_size <= 0 ||
       (tm != Tile<1>::TM && !two) || stages != (two ? Tile<2>::STAGES : Tile<1>::STAGES) ||
       smem != (two ? Tile<2>::SMEM_BYTES : Tile<1>::SMEM_BYTES) ||
       reinterpret_cast<uintptr_t>(x) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = block_size % ROWS == 0;  // K / 2 % ROWS == 0 as K % 8 == 0
+  const bool aligned = block_size % ROWS == 0;  // K / 2 % ROWS == 0 as K % 16 == 0
   const bool vec = N % 8 == 0;
   return two ? launch_mt<2>(dq, aligned, vec, x, packed, absmax, scale, offset, code, y, M, K, N,
                             block_size, s)

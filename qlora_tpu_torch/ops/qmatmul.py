@@ -20,7 +20,7 @@ split-K weight-streaming kernel (``csrc/qmm_nf4_decode.cu``, counted in
 ``decode_launches``), more rows a warp-specialised wgmma kernel that
 decodes each weight tile once for 128 or 256 rows
 (``csrc/qmm_nf4_wgmma.cu``, ``wgmma_launches``) wherever ``tile_plan``
-accepts the shape (K % 8 == 0), and the tile kernel of
+accepts the shape (K % 16 == 0), and the tile kernel of
 ``csrc/qmm_nf4_fwd.cu`` for the rest.  For int8 storage, forward and dx
 alike, the same wgmma design (``csrc/qmm_i8_wgmma.cu``, ``wgmma_launches``)
 above ``DECODE_ROWS`` rows wherever ``i8_tile_plan`` accepts the shape (a
@@ -34,6 +34,10 @@ accepts: they have none of the TPU's tiling conditions.
 The quantized weight is frozen: the backward decodes it again, computes
 ``dx = g @ dequant(W)ᵀ`` exactly (``qmm_nf4_bwd``, ``qmm_i8_bwd``), also
 under ``"w8a8"``, and gives no leaf of the ``QuantizedTensor`` a gradient.
+The NF4/FP4 dx above ``DECODE_ROWS`` rows runs the same wgmma design, each
+packed byte decoded once for both nibble planes (``csrc/qmm_nf4_bwd_wgmma.cu``,
+``wgmma_launches``), wherever ``nf4_bwd_tile_plan`` accepts the shape (N %
+8 == 0); fewer rows and the rest take ``csrc/qmm_nf4_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -222,12 +226,16 @@ def _decode_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset) -> torch
 # columns.
 _TILE_N, _TILE_KP = 128, 64
 _TILE_STAGES = {128: 3, 256: 2}      # rows a CTA -> k-steps in the ring
+# the int8 forward and dx and the NF4 dx take one activation box and one B
+# tile a k-step, so their rings hold more k-steps
+_I8_STAGES = {128: 6, 256: 4}
 
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
     """How a wgmma kernel (``qmm_nf4_wgmma``, ``qmm_i8_wgmma_fwd`` or
-    ``_bwd``) cuts its output [M, O]: one CTA per ``tm`` x ``tn`` output tile
+    ``_bwd``; ``qmm_nf4_bwd_wgmma`` through :class:`SplitHalfPlan`) cuts its
+    output [M, O]: one CTA per ``tm`` x ``tn`` output tile
     (``grid`` = (M tiles, O tiles), M fastest), each walking all ``steps``
     k-steps of ``tkp`` contraction rows (packed rows for NF4) through a ring
     of ``stages``; ``smem`` bytes of dynamic shared memory.  ``accepted``
@@ -262,8 +270,10 @@ def tile_smem(tm: int) -> int:
 def tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePlan:
     """The wgmma kernel's plan for x [M, K] @ W [K, N] on a card of ``sms``
     SMs (an H100 SXM has 132).  It takes every shape that ``quantize``
-    accepts with K % 8 == 0: TMA reads x in boxes of [rows, 64 columns] and
-    needs its row stride (2K bytes) in multiples of 16.  Ragged M, N and K/2
+    accepts with K % 16 == 0: TMA reads x in boxes of [rows, 64 columns] and
+    needs its row stride (2K bytes) in multiples of 16, and the start of the
+    high plane's boxes (column K/2) on a 16-byte boundary (at K/2 % 8 != 0
+    the kernel faults with an illegal instruction).  Ragged M, N and K/2
     are masked in the kernel (TMA zero-fills x past M and K; the weight rows
     past K/2 are decoded as zeros).  Other restrictions: none by shape; block
     sizes that are no multiple of 8 take a slower decode with each element's
@@ -272,6 +282,9 @@ def tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePl
     else 128.  The dispatch sends it more than ``DECODE_ROWS`` rows only."""
     if K % 8:
         return TilePlan(False, f"K={K} is no multiple of 8: TMA needs a 16-byte row stride")
+    if K % 16:
+        return TilePlan(False, f"K/2={K // 2} is no multiple of 8: TMA starts the high plane's "
+                               "boxes of x at column K/2, on a 16-byte boundary")
     if M <= 0 or N <= 0 or K % (2 * block_size):
         return TilePlan(False, f"no NF4 shape: M={M} K={K} N={N} block {block_size}")
     n_tiles = -(-N // _TILE_N)
@@ -295,22 +308,24 @@ def _plan_on(plan_fn, dev, *args) -> TilePlan:
     return plan
 
 
-def _wgmma_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset,
-                  plan: TilePlan) -> torch.Tensor:
-    """Launch ``qmm_nf4_wgmma`` on checked operands and an accepted plan:
-    x [M, K] bf16 on the card → y [M, N] bf16."""
+def _wgmma_launch(lib: str, entry: str, a: torch.Tensor, qt: QuantizedTensor, outer: int,
+                  scale, offset, plan: TilePlan) -> torch.Tensor:
+    """Launch a wgmma kernel (``qmm_nf4_wgmma``, ``qmm_nf4_bwd_wgmma``,
+    ``qmm_i8_wgmma_fwd`` or ``_bwd``, which take the same argument list) on
+    checked operands and an accepted plan: a [M, ·] bf16 on the card → out
+    [M, outer] bf16."""
     K, N = logical_k(qt), qt.packed.shape[-1]
-    x = _aligned(x.to(torch.bfloat16))
-    M, dev = x.shape[0], x.device
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    fn = _build.kernel("qmm_nf4_wgmma", "qmm_nf4_wgmma", [_P] * 7 + [_I] * 8 + [_P])
-    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
+    a = _aligned(a.to(torch.bfloat16))
+    out = torch.empty((a.shape[0], outer), dtype=torch.bfloat16, device=a.device)
+    fn = _build.kernel(lib, entry, [_P] * 7 + [_I] * 8 + [_P])
+    code = None if qt.quant_type == "int8" else _code_on(qt.quant_type, a.device).data_ptr()
+    err = fn(a.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
              None if scale is None else scale.data_ptr(),
-             None if offset is None else offset.data_ptr(),
-             _code_on(qt.quant_type, dev).data_ptr(), y.data_ptr(), M, K, N, qt.block_size,
-             int(qt.double_quant), plan.tm, plan.stages, plan.smem, _build.stream_ptr(x))
-    _build.check(err, "qmm_nf4_wgmma")
-    return y
+             None if offset is None else offset.data_ptr(), code, out.data_ptr(),
+             a.shape[0], K, N, qt.block_size, int(qt.double_quant), plan.tm, plan.stages,
+             plan.smem, _build.stream_ptr(a))
+    _build.check(err, entry)
+    return out
 
 
 def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
@@ -330,7 +345,8 @@ def _qmm_launch(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
         return _decode_launch(x, qt, scale, offset), "decode"
     plan = _plan_on(tile_plan, x.device, M, K, N, qt.block_size)
     if plan.accepted:
-        return _wgmma_launch(x, qt, scale, offset, plan), "wgmma"
+        return _wgmma_launch("qmm_nf4_wgmma", "qmm_nf4_wgmma", x, qt, N, scale, offset,
+                             plan), "wgmma"
     return _launch("qmm_nf4_fwd", "qmm_nf4_fwd", x, qt, N, scale, offset), "tile"
 
 
@@ -371,20 +387,86 @@ def qmatmul_bwd_plain(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return bf16_matmul(g, dequantize(qt, torch.bfloat16).T).to(torch.bfloat16)
 
 
+# The NF4 dx at training rows: ``csrc/qmm_nf4_bwd_wgmma.cu``, the int8 dx's
+# pipeline (the ring of ``_I8_STAGES`` k-steps, each an activation box and
+# one B tile of 128 dx columns by 64 n) over split-half planes: a CTA owns 64
+# packed rows and writes the dx columns of both their nibbles, two runs of 64.
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitHalfPlan(TilePlan):
+    """``nf4_bwd_tile_plan``'s plan: CTA (bm, bp) owns the rows bm * tm ..
+    of dx and the packed rows bp * tn/2 .. bp * tn/2 + tn/2 - 1, whose two
+    nibble planes are two runs of tn/2 dx columns, at p and at K/2 + p."""
+
+    def tiles(self, M: int, K: int) -> list:
+        """[(m0, m1, k0, k1)] rows and dx columns of each CTA's low run, then
+        its high run, clipped as the kernel masks them (both runs at packed
+        row K/2): two entries a CTA."""
+        half, K2 = self.tn // 2, K // 2
+        out = []
+        for bp in range(self.grid[1]):
+            p0, p1 = bp * half, min((bp + 1) * half, K2)
+            for bm in range(self.grid[0]):
+                m0, m1 = bm * self.tm, min((bm + 1) * self.tm, M)
+                out += [(m0, m1, p0, p1), (m0, m1, K2 + p0, K2 + p1)]
+        return out
+
+
+def nf4_bwd_tile_smem(tm: int) -> int:
+    """Dynamic shared memory of the NF4 dx kernel at ``tm`` rows a CTA: the
+    ring (per k-step a box of g [tm, 64] and a bf16 B tile of 128 x 64), the
+    two producer warpgroups' packed bytes (two k-steps of 64 x 64 each), 1024
+    bytes of alignment and 1024 of barriers."""
+    stage = tm * _TILE_KP * 2 + _TILE_N * _TILE_KP * 2
+    return 1024 + _I8_STAGES[tm] * stage + 4 * (_TILE_N // 2) * _TILE_KP + 1024
+
+
+def nf4_bwd_tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePlan:
+    """The NF4 dx kernel's plan for dx = g [M, N] @ dequant(W)ᵀ [N, K] on a
+    card of ``sms`` SMs.  It refuses up to ``DECODE_ROWS`` rows and N % 8
+    != 0 (TMA reads g in boxes of [rows, 64 columns] and needs its row
+    stride in multiples of 16 bytes): ``qmm_nf4_bwd.cu`` keeps those.  Its
+    CTAs cover ceil((K/2) / 64) runs of packed rows; ragged M, N and K/2
+    are masked in the kernel; block sizes that are no multiple of 4 take a
+    slower decode.  A CTA takes 256 rows where 128-row tiles would need more
+    than one wave of CTAs, else 128."""
+    if M <= DECODE_ROWS:
+        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} stay on qmm_nf4_bwd.cu")
+    if N % 8:
+        return TilePlan(False, f"N={N} is no multiple of 8: TMA needs a 16-byte row stride")
+    if K <= 0 or N <= 0 or block_size <= 0 or K % (2 * block_size):
+        return TilePlan(False, f"no NF4 shape: K={K} N={N} block {block_size}")
+    o_tiles = -(-(K // 2) // (_TILE_N // 2))
+    tm = 256 if -(-M // 128) * o_tiles > sms else 128
+    return SplitHalfPlan(True, "", tm=tm, stages=_I8_STAGES[tm], grid=(-(-M // tm), o_tiles),
+                         steps=-(-N // _TILE_KP), smem=nf4_bwd_tile_smem(tm))
+
+
 def qmm_nf4_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The backward kernel (TPU _qmm_bwd_pallas): dx = g @ dequant(qt)ᵀ for
     g [M, N] on the card → [M, K] bf16.  Double-quantized absmax is decoded
-    in the kernel with the forward's arithmetic."""
+    in the kernel with the forward's arithmetic.  Above ``DECODE_ROWS`` rows,
+    where ``nf4_bwd_tile_plan`` accepts the shape, the wgmma kernel (counted
+    in ``wgmma_launches``); else ``qmm_nf4_bwd.cu``."""
     if qt.quant_type == "int8":
         raise ValueError("the NF4 kernels do not read int8 storage")
     _check_rows(g, qt.packed.shape[-1], "g")
     K, N, scale, offset = _check_quantized(qt, g.device)
-    dx = _launch("qmm_nf4_bwd", "qmm_nf4_bwd", g, qt, K, scale, offset)
+    plan = _plan_on(nf4_bwd_tile_plan, g.device, g.shape[0], K, N, qt.block_size)
+    if plan.accepted:
+        dx = _wgmma_launch("qmm_nf4_bwd_wgmma", "qmm_nf4_bwd_wgmma", g, qt, K, scale, offset,
+                           plan)
+    else:      # no rows: no launch
+        dx = _launch("qmm_nf4_bwd", "qmm_nf4_bwd", g, qt, K, scale, offset)
     qmm_nf4_bwd.launches += g.shape[0] > 0
+    qmm_nf4_bwd.wgmma_launches += plan.accepted
     return dx
 
 
-qmm_nf4_bwd.launches = 0
+# launches: every call that ran a kernel; wgmma_launches: those of them that
+# took qmm_nf4_bwd_wgmma.cu (the rest took qmm_nf4_bwd.cu)
+qmm_nf4_bwd.launches = qmm_nf4_bwd.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -405,9 +487,7 @@ def _check_int8(qt: QuantizedTensor, what: str) -> None:
 
 # The int8 forward and dx at prefill and training rows: ``csrc/qmm_i8_wgmma.cu``,
 # the NF4 wgmma kernel's pipeline over int8 codes, one TMA box of the
-# activation and one decoded weight tile per k-step of 64 contraction rows,
-# so the ring holds more k-steps than the NF4 kernel's.
-_I8_STAGES = {128: 6, 256: 4}      # rows a CTA -> k-steps in the ring
+# activation and one decoded weight tile per k-step of 64 contraction rows.
 
 
 def i8_tile_smem(tm: int) -> int:
@@ -445,25 +525,6 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
                     steps=-(-C // _TILE_KP), smem=i8_tile_smem(tm))
 
 
-def _i8_wgmma_launch(a: torch.Tensor, qt: QuantizedTensor, scale, offset, plan: TilePlan,
-                     bwd: bool) -> torch.Tensor:
-    """Launch ``qmm_i8_wgmma_fwd`` or ``_bwd`` on checked operands and an
-    accepted plan: a [M, K] (x) or [M, N] (g) bf16 on the card → [M, N] or
-    [M, K] bf16."""
-    K, N = logical_k(qt), qt.packed.shape[-1]
-    a = _aligned(a.to(torch.bfloat16))
-    out = torch.empty((a.shape[0], K if bwd else N), dtype=torch.bfloat16, device=a.device)
-    entry = "qmm_i8_wgmma_bwd" if bwd else "qmm_i8_wgmma_fwd"
-    fn = _build.kernel("qmm_i8_wgmma", entry, [_P] * 7 + [_I] * 8 + [_P])
-    err = fn(a.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
-             None if scale is None else scale.data_ptr(),
-             None if offset is None else offset.data_ptr(), None, out.data_ptr(),
-             a.shape[0], K, N, qt.block_size, int(qt.double_quant), plan.tm, plan.stages,
-             plan.smem, _build.stream_ptr(a))
-    _build.check(err, entry)
-    return out
-
-
 def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
     """Check the operands and launch the int8 kernel that the shape takes:
     x [M, K] (forward) or g [M, N] (``bwd``) on the card → (the output
@@ -478,7 +539,9 @@ def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
         return torch.empty((0, K if bwd else N), dtype=torch.bfloat16, device=a.device), "none"
     plan = _plan_on(i8_tile_plan, a.device, M, K, N, qt.block_size, bwd)
     if plan.accepted:
-        return _i8_wgmma_launch(a, qt, scale, offset, plan, bwd), "wgmma"
+        entry = "qmm_i8_wgmma_bwd" if bwd else "qmm_i8_wgmma_fwd"
+        return _wgmma_launch("qmm_i8_wgmma", entry, a, qt, K if bwd else N, scale, offset,
+                             plan), "wgmma"
     return _launch("qmm_i8", what, a, qt, K if bwd else N, scale, offset), "tile"
 
 

@@ -1,12 +1,13 @@
 """Ablations of the wgmma kernels at training and prefill rows on the card:
 the NF4 forward (``csrc/qmm_nf4_wgmma.cu``) with, as its "before", the tile
-kernel of ``csrc/qmm_nf4_fwd.cu``, and the int8 forward and dx
+kernel of ``csrc/qmm_nf4_fwd.cu``; the int8 forward and dx
 (``csrc/qmm_i8_wgmma.cu``) with, as theirs, the tile kernel of
-``csrc/qmm_i8.cu``.
+``csrc/qmm_i8.cu``; the NF4 dx (``csrc/qmm_nf4_bwd_wgmma.cu``) with, as its,
+``csrc/qmm_nf4_bwd.cu``.
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8]
+    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8 | nf4bwd]
 
 Each variant is a kernel's source with one part taken out, compiled into
 ``build/sweep_tile/``, run on the LLaMA-7B block linears at M = 1024 (and,
@@ -34,15 +35,21 @@ the designs it was chosen against: codes made floats by int-to-float
 conversions, each ring stage released a k-step late (one k-step of wgmmas
 left in flight), 128-row CTAs.
 
+The NF4 dx kernel is cut as built, products only, no products and loads
+only at M = 1024 with double-quantized absmax, and run with 128-row CTAs,
+beside ``qmm_nf4_bwd.cu`` as built.
+
 One line per shape, direction and kernel; nothing here is used by the port.
 
-``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8]`` instead
+``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd]`` instead
 copies the checkout once per mutant of a wgmma kernel into
 ``build/mutants/``, runs that kernel's ``cuda`` tests in each copy and
 prints how many fail: each mutant must fail at least one.  NF4: the high
 plane reading the low plane's absmax row, the last k-step dropped, the high
 plane's x box taken at kp instead of K/2 + kp, the proxy fence taken out.
 int8: the backward's absmax row taken one block off, the last k-step
+dropped, the proxy fence taken out.  NF4 dx: the high plane reading the low
+plane's absmax row, the low run's mask at K/2 dropped, the last k-step
 dropped, the proxy fence taken out.
 """
 
@@ -139,9 +146,31 @@ I8_MUTANTS = {
     "no proxy fence": MUTANTS["no proxy fence"],
 }
 I8_MUTANT_TESTS = "i8_fwd_and_bwd or i8_kernels or i8_wgmma"
+
+_NB_DECODE = ("      decode_step<DQ, ALIGNED>(st + A_BYTES,",
+              "      if (false) decode_step<DQ, ALIGNED>(st + A_BYTES,")
+_NB_LOADS = ("      issue(s + 2);\n", "")
+NF4_BWD = {
+    "as built": [],
+    "products only": [_NB_DECODE, _NB_LOADS],
+    "no products": [_W_MMA],
+    "loads only": [_NB_DECODE, _W_MMA],
+}
+NF4_BWD_MUTANTS = {
+    "high plane reads the low plane's absmax row": MUTANTS[
+        "high plane reads the low plane's absmax row"],
+    "low run's mask at K/2 dropped": [
+        ("    if (m >= M || p >= K2) continue;",
+         "    if (m >= M || (ch >= TP / 8 && p >= K2)) continue;")],
+    "last k-step dropped": MUTANTS["last k-step dropped"],
+    "no proxy fence": MUTANTS["no proxy fence"],
+}
+NF4_BWD_MUTANT_TESTS = "qmm_bwd or nf4_bwd_wgmma"
 # which source each set of mutants edits, and the cuda tests run against them
 MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
-               "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS)}
+               "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS),
+               "nf4bwd": ("qmm_nf4_bwd_wgmma.cu", NF4_BWD_MUTANTS, NF4_BWD_MUTANT_TESTS)}
+SETS = tuple(MUTANT_SETS)
 
 
 def mutants(sets) -> int:
@@ -251,6 +280,10 @@ def main(sets) -> int:
         variants += [("qmm_i8_wgmma.cu", n, e, ["qmm_i8_wgmma_fwd", "qmm_i8_wgmma_bwd"], wgmma_args)
                      for n, e in I8.items()]
         variants += [("qmm_i8.cu", "as built", [], ["qmm_i8_fwd", "qmm_i8_bwd"], qm._ARGTYPES)]
+    if "nf4bwd" in sets:
+        variants += [("qmm_nf4_bwd_wgmma.cu", n, e, ["qmm_nf4_bwd_wgmma"], wgmma_args)
+                     for n, e in NF4_BWD.items()]
+        variants += [("qmm_nf4_bwd.cu", "as built", [], ["qmm_nf4_bwd"], qm._ARGTYPES)]
     built = build(variants)
     g = torch.Generator(device=dev).manual_seed(6)
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -302,10 +335,25 @@ def main(sets) -> int:
                     copies, a, out, M, K, N, tm128, f"i8 wgmma {d} (128-row CTAs)")
                 run({"as built": built[("qmm_i8.cu", "as built", f"qmm_i8_{d}")]}, copies, a, out,
                     M, K, N, None, f"i8 tile {d} (before)")
+        if "nf4bwd" in sets:
+            qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
+            copies = copies_past_l2(qt)
+            M = ROWS[0]
+            a = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
+            out = torch.empty(M, K, dtype=torch.bfloat16, device=dev)
+            plan = qm.nf4_bwd_tile_plan(M, K, N, qt.block_size)
+            run({n: built[("qmm_nf4_bwd_wgmma.cu", n, "qmm_nf4_bwd_wgmma")] for n in NF4_BWD},
+                copies, a, out, M, K, N, plan, "nf4 wgmma bwd")
+            tm128 = dataclasses.replace(plan, tm=128, stages=qm._I8_STAGES[128],
+                                        smem=qm.nf4_bwd_tile_smem(128))
+            run({"as built": built[("qmm_nf4_bwd_wgmma.cu", "as built", "qmm_nf4_bwd_wgmma")]},
+                copies, a, out, M, K, N, tm128, "nf4 wgmma bwd (128-row CTAs)")
+            run({"as built": built[("qmm_nf4_bwd.cu", "as built", "qmm_nf4_bwd")]}, copies, a,
+                out, M, K, N, None, "nf4 bwd tile (before)")
     return 0
 
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    chosen = [k for k in ("nf4", "int8") if k in args] or ["nf4", "int8"]
+    chosen = [k for k in SETS if k in args] or list(SETS)
     sys.exit(mutants(chosen) if "--mutants" in args else main(chosen))

@@ -21,9 +21,12 @@ to near 0: each element within 2e-2 of its
 many or too few at a window edge move the output by O(1).  Caches
 byte-equal.
 
-The qmm backward kernel decodes the weight with the forward's arithmetic
-and sums g·Wᵀ in f32 in another order: rtol 1e-2, atol 2e-2, as the
-forward.  The flash kernels round the probabilities against tile-wise
+The qmm backward kernels (the wgmma kernel of ``qmm_nf4_bwd_wgmma.cu``
+above DECODE_ROWS rows where N % 8 == 0, ``qmm_nf4_bwd.cu`` for the rest)
+decode the weight with the forward's arithmetic and sum g·Wᵀ in f32 in
+another order: rtol 1e-2, atol 2e-2, as the forward.  The wgmma kernel is
+also held bit for bit: rows of the identity read out ``dequantize``'s
+weight, two calls agree, a row's result does not depend on the other rows.  The flash kernels round the probabilities against tile-wise
 running maxima where the plain version has the row's maximum, and sum in
 another order: o within 2e-2 of its (row, head)'s largest |o|, lse within
 1e-3, each gradient within 2e-2 of the largest |gradient| of its (batch,
@@ -208,14 +211,17 @@ def test_wgmma_kernel_deterministic_and_batch_invariant(cuda, K, N, block_size, 
 
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_wgmma_dispatch_edge(cuda, double_quant):
-    """DECODE_ROWS rows take the decode kernel, one more the wgmma kernel; a
-    shape ``tile_plan`` refuses (K % 8 != 0) takes the tile kernel of
-    qmm_nf4_fwd.cu, counted in neither."""
+    """DECODE_ROWS rows take the decode kernel, one more the wgmma kernel;
+    shapes ``tile_plan`` refuses (K % 8 != 0; K/2 % 8 != 0, where the wgmma
+    kernel's high-plane box would start off a 16-byte boundary) take the
+    tile kernel of qmm_nf4_fwd.cu, counted in neither."""
     from qlora_tpu_torch.ops.qmatmul import tile_plan
 
     cases = [(1024, 320, 64, DECODE_ROWS, (1, 0)), (1024, 320, 64, DECODE_ROWS + 1, (0, 1)),
-             (36, 40, 6, DECODE_ROWS + 4, (0, 0))]
+             (36, 40, 6, DECODE_ROWS + 4, (0, 0)), (200, 72, 2, 50, (0, 0)),
+             (216, 72, 4, 50, (0, 0)), (208, 72, 4, 50, (0, 1))]
     assert not tile_plan(DECODE_ROWS + 4, 36, 40, 6).accepted
+    assert not tile_plan(50, 200, 72, 2).accepted
     for K, N, B, M, (took_decode, took_wgmma) in cases:
         qt, x, wrapper = _decode_case(cuda, K, N, B, double_quant, M=M)
         before = wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches
@@ -285,20 +291,35 @@ def test_debug_model_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0.1)
 
 
+# more than DECODE_ROWS rows of NF4 dx (qmm_nf4_bwd_wgmma.cu): one past the
+# edge, 256-row CTAs (1024 and 2048 rows), K/2 % 64 != 0 (K = 320: 32 columns
+# into the last run; K = 200: K/2 % 8 != 0, scalar stores; K = 36), block
+# sizes 2 (each element's own absmax), 4, 12, 32 and 64, ragged N, the planes
+# in different meta-blocks of absmax (K = 64 * 520); N = 50 sends the shape to
+# qmm_nf4_bwd.cu (a row stride TMA cannot take)
+NF4_BWD_WGMMA_CASES = [
+    (17, 4096, 4096, 64), (40, 320, 64, 32), (50, 200, 72, 2), (33, 480, 56, 12),
+    (2048, 4096, 11008, 64), (1024, 11008, 4096, 64), (17, 64 * 520, 64, 64),
+    (300, 256, 72, 4), (20, 36, 40, 2), (33, 480, 50, 12)]
+
+
 @pytest.mark.parametrize("M,K,N,block_size", [
     (1, 256, 64, 64), (1024, 4096, 4096, 64), (37, 384, 200, 64),
     (300, 1024, 320, 32), (130, 11008, 512, 64), (16, 64 * 600, 96, 64),
-])
+] + NF4_BWD_WGMMA_CASES)
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_qmm_bwd_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
+    """dx through autograd: the wgmma kernel above DECODE_ROWS rows where N %
+    8 == 0, else qmm_nf4_bwd.cu, within the tolerance of the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
     qt = quantize(w, block_size=block_size, double_quant=double_quant)
     g = torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
     x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16).requires_grad_()
-    before = qmm_nf4_bwd.launches
+    before = qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches
     qmatmul(x, qt).backward(g)
-    assert qmm_nf4_bwd.launches == before + 1
+    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches) == (
+        before[0] + 1, before[1] + (M > DECODE_ROWS and N % 8 == 0))
     assert x.grad.dtype == torch.bfloat16 and x.grad.shape == (M, K)
     torch.testing.assert_close(x.grad.float(), qmatmul_bwd_plain(g, qt).float(),
                                rtol=1e-2, atol=2e-2)
@@ -320,6 +341,68 @@ def test_qmm_bwd_sees_the_forward_weight(cuda):
         assert torch.equal(qmatmul(eye_k, qt2), dequantize(qt2, torch.bfloat16))
         assert torch.equal(qmm_nf4_bwd(torch.eye(192, device=cuda, dtype=torch.bfloat16), qt2),
                            dequantize(qt2, torch.bfloat16).T.contiguous())
+
+
+def _nf4_bwd_case(cuda, M, K, N, block_size, double_quant):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + block_size)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    qt = quantize(w, block_size=block_size, double_quant=double_quant)
+    return qt, torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
+
+
+# the LLaMA shapes, the planes in different meta-blocks (K = 64 * 520), K/2 %
+# 64 != 0 with blocks of 32 (K = 320), 12 (K = 480, no multiple of 8) and 2
+# (K = 200, no multiple of 4: each element's own absmax; K/2 % 8 != 0)
+NF4_BWD_EXACT = [(4096, 11008, 64), (11008, 4096, 64), (64 * 520, 64, 64), (320, 64, 32),
+                 (480, 56, 12), (200, 72, 2)]
+
+
+@pytest.mark.parametrize("K,N,block_size", NF4_BWD_EXACT)
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_nf4_bwd_wgmma_identity_reads_out_the_weight(cuda, K, N, block_size, double_quant):
+    """Rows of the identity as g read ``dequantize``'s bf16 weight out of the
+    wgmma kernel bit for bit, as rows of dx: every column of dx, low and
+    high plane, both sides of the absmax-block and meta-block edges.  It
+    decodes the same weight, and f32 sums of one product and zeros are
+    exact."""
+    qt, _ = _nf4_bwd_case(cuda, 40, K, N, block_size, double_quant)
+    w = dequantize(qt, torch.bfloat16)
+    cs = one_hot_cols(N, 40)
+    g = torch.zeros(len(cs), N, device=cuda, dtype=torch.bfloat16)
+    g[torch.arange(len(cs)), torch.tensor(cs)] = 1
+    before = qmm_nf4_bwd.wgmma_launches
+    dx = qmm_nf4_bwd(g, qt)
+    assert qmm_nf4_bwd.wgmma_launches == before + (len(cs) > DECODE_ROWS)
+    assert torch.equal(dx, w[:, cs].T.contiguous())
+
+
+@pytest.mark.parametrize("K,N,block_size", NF4_BWD_EXACT)
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_nf4_bwd_wgmma_deterministic_and_batch_invariant(cuda, K, N, block_size, double_quant):
+    """Two calls give the same bits, and a row gives the same bits in a batch
+    of 2048 (256-row CTAs at the LLaMA shapes), of 300, of 40 and of 17:
+    every element of dx is one CTA's sum over n in ascending order, whatever
+    the other rows."""
+    qt, g = _nf4_bwd_case(cuda, 2048, K, N, block_size, double_quant)
+    dx = qmm_nf4_bwd(g, qt)
+    assert torch.equal(dx, qmm_nf4_bwd(g, qt))
+    for lo, M in ((0, 17), (1000, 40), (130, 300), (2048 - 17, 17)):
+        assert torch.equal(qmm_nf4_bwd(g[lo:lo + M], qt), dx[lo:lo + M]), (lo, M)
+
+
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_nf4_bwd_wgmma_dispatch_edge(cuda, double_quant):
+    """DECODE_ROWS rows take qmm_nf4_bwd.cu, one more the wgmma kernel; an N
+    whose row stride TMA cannot take (N % 8 != 0) takes qmm_nf4_bwd.cu."""
+    for K, N, B, M, took in ((320, 64, 32, DECODE_ROWS, 0), (320, 64, 32, DECODE_ROWS + 1, 1),
+                             (480, 50, 12, 40, 0), (480, 56, 12, 40, 1)):
+        qt, g = _nf4_bwd_case(cuda, M, K, N, B, double_quant)
+        before = qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches
+        dx = qmm_nf4_bwd(g, qt)
+        assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches) == (before[0] + 1,
+                                                                      before[1] + took), (K, N, M)
+        torch.testing.assert_close(dx.float(), qmatmul_bwd_plain(g, qt).float(), rtol=1e-2,
+                                   atol=2e-2)
 
 
 def test_qmm_no_backward_launch_without_input_grad(cuda):

@@ -212,13 +212,17 @@ def test_tile_plan_accepts_every_model_linear(name):
 
 
 def test_tile_plan_refuses_k_not_multiple_of_8():
-    """K % 8 != 0 (a 2K-byte row stride TMA cannot take): refused with the
-    reason, and the dispatch sends such shapes to the tile kernel."""
+    """K % 8 != 0 (a 2K-byte row stride TMA cannot take) and K/2 % 8 != 0 (a
+    high-plane box start at column K/2 off a 16-byte boundary, where the
+    kernel faults on the card): refused with the reason, and the dispatch
+    sends such shapes to the tile kernel."""
     from qlora_tpu_torch.ops.qmatmul import tile_plan
 
     plan = tile_plan(20, 36, 40, 6)
     assert not plan.accepted and "multiple of 8" in plan.reason
-    assert tile_plan(20, 40, 40, 4).accepted
+    plan = tile_plan(20, 40, 40, 4)
+    assert not plan.accepted and "K/2=20" in plan.reason and "16-byte" in plan.reason
+    assert tile_plan(20, 48, 40, 4).accepted
 
 
 def test_tile_sweep_edits_apply_to_the_sources():
@@ -232,11 +236,13 @@ def test_tile_sweep_edits_apply_to_the_sources():
                           ("qmm_nf4_wgmma.cu", tile_sweep.MUTANTS),
                           ("qmm_nf4_fwd.cu", tile_sweep.TILE),
                           ("qmm_i8_wgmma.cu", tile_sweep.I8),
-                          ("qmm_i8_wgmma.cu", tile_sweep.I8_MUTANTS)):
+                          ("qmm_i8_wgmma.cu", tile_sweep.I8_MUTANTS),
+                          ("qmm_nf4_bwd_wgmma.cu", tile_sweep.NF4_BWD),
+                          ("qmm_nf4_bwd_wgmma.cu", tile_sweep.NF4_BWD_MUTANTS)):
         text = (tile_sweep.CSRC / source).read_text()
         for name, edits in table.items():
             for old, new in edits:
                 assert text.count(old) == 1, (source, name, old)
                 assert old != new
     assert {k: v[0] for k, v in tile_sweep.MUTANT_SETS.items()} == {
-        "nf4": "qmm_nf4_wgmma.cu", "int8": "qmm_i8_wgmma.cu"}
+        "nf4": "qmm_nf4_wgmma.cu", "int8": "qmm_i8_wgmma.cu", "nf4bwd": "qmm_nf4_bwd_wgmma.cu"}
