@@ -26,7 +26,13 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``qmm_nf4_bwd_wgmma.cu`` (each packed byte decoded once for both nibble
    planes), timed beside ``qmm_nf4_bwd.cu`` through its C entry (``tile_ms``,
    the "before", also held to QMM_TOL) and held bit for bit the same way
-   (identity rows of g read out columns of ``dequantize``'s weight).
+   (identity rows of g read out columns of ``dequantize``'s weight).  Flash
+   attention's forward, dq and dk/dv at the train shapes run the wgmma
+   kernels of ``flash_attention_wgmma.cu``, each timed beside the kernel of
+   ``flash_attention.cu`` that it replaced (``tile_ms``, the "before", also
+   held to FLASH_TOL), SDPA with the same mask as the yardstick, and, at the
+   train shape with full lengths, SDPA with ``is_causal=True`` on a line of
+   its own.
 3. parity: LLaMA-7B width, 2 layers — the same weights through the plain
    path on the CPU and through the kernels on the card, a 128-token prefill
    then 4 teacher-forced decode steps; logits must agree.
@@ -44,8 +50,8 @@ them.  Phases, each failing the run on any mismatch or exception:
    tokens, remat "full", ``paged_adamw_32bit``) takes 5 optimizer steps on
    one batch: finite losses, no movement on the first step (its learning
    rate is 0), a lower loss at the end, frozen tensors byte-identical, and
-   exact launch counts read around the steps: every NF4 forward and dx on a
-   wgmma kernel (train-parity too).
+   exact launch counts read around the steps: every NF4 forward and dx and
+   every flash launch on a wgmma kernel (train-parity too).
 8. kernels-int8: the four kernels of the int8 family against their plain
    versions: ``qmm_i8_direct`` (M = 4, the block linears and the padded
    lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128 and 2048) equal
@@ -750,10 +756,14 @@ def kernel_phase(dev, results):
 
 
 def flash_phase(dev, results):
-    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain versions
-    at the training shapes.  The backward kernels get the plain forward's o
-    and lse, so that each kernel is held against the same function of the
-    same inputs."""
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv (the wgmma kernels of
+    ``flash_attention_wgmma.cu``) against their plain versions at the
+    training shapes, each beside the kernel of ``flash_attention.cu`` that it
+    replaced (``tile_ms``, the "before", held to the same tolerances).  The
+    backward kernels get the plain forward's o and lse, so that each kernel
+    is held against the same function of the same inputs."""
+    import importlib
+
     import torch
     import torch.nn.functional as F
 
@@ -761,6 +771,9 @@ def flash_phase(dev, results):
         flash_bwd_dkv, flash_bwd_dq, flash_bwd_plain, flash_fwd, flash_fwd_plain,
     )
 
+    fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
+    before = {"flash_fwd": fa._flash_fwd_before, "flash_bwd_dq": fa._flash_bwd_dq_before,
+              "flash_bwd_dkv": fa._flash_bwd_dkv_before}
     g = torch.Generator(device=dev).manual_seed(4321)
     for B, H, KVH, hd, S, lens, window, planted, with_dlse in FLASH_CASES:
         mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
@@ -773,31 +786,37 @@ def flash_phase(dev, results):
         shape = (f"B={B} H={H} KVH={KVH} hd={hd} S={S} lens={list(lens)} window={window}"
                  + (" planted edges" if planted else "") + (" dlse" if with_dlse else ""))
 
-        o, lse = flash_fwd(q, k, v, L, sm, True, window)
         o2, lse2 = flash_fwd_plain(q, k, v, L, sm, True, window)
         di = (o2.float() * do.float()).sum(-1)
         if dlse is not None:
             di = di - dlse
-        dq = flash_bwd_dq(q, k, v, L, do, lse2, di, sm, True, window)
-        dk, dv = flash_bwd_dkv(q, k, v, L, do, lse2, di, sm, True, window)
         rq, rk, rv = flash_bwd_plain(q, k, v, L, o2, lse2, do, sm, True, window, dlse=dlse)
-        torch.cuda.synchronize()
+        empty = lse2 > 1e37                                  # rows that see no key
 
         def excess(got, ref, dims):
             d = (got.float() - ref.float()).abs()
             tol = FLASH_TOL * ref.float().abs().amax(dims, keepdim=True)
             return d.max().item(), (d - tol).max().item()
 
-        errs = {"flash_fwd": excess(o, o2, -1)}
-        errs["flash_bwd_dq"] = excess(dq, rq, (-2, -1))
-        ek, ev = excess(dk, rk, (-2, -1)), excess(dv, rv, (-2, -1))
-        errs["flash_bwd_dkv"] = (max(ek[0], ev[0]), max(ek[1], ev[1]))
-        empty = lse2 > 1e37                                  # rows that see no key
-        lse_err = (lse - lse2)[~empty].abs().max().item()
-        exact = (bool((lse[empty] == 3e38).all()) and bool((o[empty] == 0).all())
-                 and bool((dq[empty] == 0).all())
-                 and all(bool((dk[b, :, n:] == 0).all()) and bool((dv[b, :, n:] == 0).all())
-                         for b, n in enumerate(lens)))
+        def check(fwd, bwd_dq, bwd_dkv):
+            """Max errors of each kernel, lse's, and whether empty rows and keys
+            past the length got exactly 0."""
+            o, lse = fwd(q, k, v, L, sm, True, window)
+            dq = bwd_dq(q, k, v, L, do, lse2, di, sm, True, window)
+            dk, dv = bwd_dkv(q, k, v, L, do, lse2, di, sm, True, window)
+            torch.cuda.synchronize()
+            errs = {"flash_fwd": excess(o, o2, -1), "flash_bwd_dq": excess(dq, rq, (-2, -1))}
+            ek, ev = excess(dk, rk, (-2, -1)), excess(dv, rv, (-2, -1))
+            errs["flash_bwd_dkv"] = (max(ek[0], ev[0]), max(ek[1], ev[1]))
+            lse_err = (lse - lse2)[~empty].abs().max().item()
+            exact = (bool((lse[empty] == 3e38).all()) and bool((o[empty] == 0).all())
+                     and bool((dq[empty] == 0).all())
+                     and all(bool((dk[b, :, n:] == 0).all()) and bool((dv[b, :, n:] == 0).all())
+                             for b, n in enumerate(lens)))
+            return errs, lse_err, exact
+
+        errs, lse_err, exact = check(flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+        tile_errs, tile_lse_err, tile_exact = check(*before.values())
         moved = None
         if planted:
             # the planted keys do what they are for: one more key in the window
@@ -809,13 +828,20 @@ def flash_phase(dev, results):
         sets = [(q, k, v, do)] + [(q.clone(), k.clone(), v.clone(), do.clone())
                                   for _ in range(n_sets - 1)]
         pick = lambda i: sets[i % n_sets]
-        ms = {
-            "flash_fwd": cuda_ms(lambda i: flash_fwd(*pick(i)[:3], L, sm, True, window), 50),
-            "flash_bwd_dq": cuda_ms(lambda i: flash_bwd_dq(*pick(i)[:3], L, pick(i)[3], lse2, di,
-                                                           sm, True, window), 50),
-            "flash_bwd_dkv": cuda_ms(lambda i: flash_bwd_dkv(*pick(i)[:3], L, pick(i)[3], lse2,
-                                                             di, sm, True, window), 50),
-        }
+
+        def times(fwd, bwd_dq, bwd_dkv, iters, timer=graph_ms):
+            return {"flash_fwd": timer(lambda i: fwd(*pick(i)[:3], L, sm, True, window), iters),
+                    "flash_bwd_dq": timer(lambda i: bwd_dq(*pick(i)[:3], L, pick(i)[3], lse2,
+                                                           di, sm, True, window), iters),
+                    "flash_bwd_dkv": timer(lambda i: bwd_dkv(*pick(i)[:3], L, pick(i)[3], lse2,
+                                                             di, sm, True, window), iters)}
+
+        # device times in CUDA graphs: a wrapper's host time (checks, tensor
+        # maps, the ctypes call) can exceed the new kernels' device time; the
+        # wrappers launched back to back, timed with events, beside them
+        ms = times(flash_fwd, flash_bwd_dq, flash_bwd_dkv, 50)
+        tile_ms = times(*before.values(), 20)
+        wrapper_ms = times(flash_fwd, flash_bwd_dq, flash_bwd_dkv, 50, cuda_ms)
         plain_fwd = cuda_ms(lambda i: flash_fwd_plain(*pick(i)[:3], L, sm, True, window), 5)
         plain_bwd = cuda_ms(lambda i: flash_bwd_plain(*pick(i)[:3], L, o2, lse2, pick(i)[3], sm,
                                                       True, window, dlse=dlse), 5)
@@ -831,6 +857,7 @@ def flash_phase(dev, results):
         sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mask, scale=sm, enable_gqa=KVH != H)
         lib_fwd = cuda_ms(lambda i: sdpa(*pick(i)[:3]), 50)
+        lib_fwd_graph = graph_ms(lambda i: sdpa(*pick(i)[:3]), 50)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = sdpa(*leaves)
         lib_bwd = cuda_ms(lambda i: torch.autograd.grad(out, leaves, pick(i)[3],
@@ -840,26 +867,72 @@ def flash_phase(dev, results):
             fwd = name == "flash_fwd"
             results.append(dict(
                 name=name, shape=shape, max_abs_err=errs[name][0], ms=ms[name],
+                tile_ms=tile_ms[name], tile_err=tile_errs[name][0], wrapper_ms=wrapper_ms[name],
                 plain_ms=plain_fwd if fwd else plain_bwd,
                 library_ms=lib_fwd if fwd else lib_bwd,
                 bound_ms=bounds[name][0], bound_by=bounds[name][1]))
             print(f"kernel {name} {shape}: max|d|={errs[name][0]:.3g} (tol {FLASH_TOL}*max|ref|"
-                  f"{' of the row' if fwd else ' of the slice'}) ms={ms[name]:.4f} "
-                  f"plain_ms={plain_fwd if fwd else plain_bwd:.4f} "
+                  f"{' of the row' if fwd else ' of the slice'}) ms={ms[name]:.4f} (graph; "
+                  f"wrapper_ms={wrapper_ms[name]:.4f} with events) "
+                  f"tile_ms={tile_ms[name]:.4f} (flash_attention.cu, max|d|="
+                  f"{tile_errs[name][0]:.3g}) plain_ms={plain_fwd if fwd else plain_bwd:.4f} "
                   f"library_ms={lib_fwd if fwd else lib_bwd:.4f} "
                   f"bound_ms={bounds[name][0]:.4f} ({bounds[name][1]})", flush=True)
-        print(f"  lse max|d|={lse_err:.3g} (tol {LSE_TOL}); empty rows and keys past the "
-              f"length exactly 0: {exact}; plain_ms of the backward is dq, dk and dv "
-              f"together, library_ms SDPA's whole backward"
+        bwd, bwd_tile = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+                         tile_ms["flash_bwd_dq"] + tile_ms["flash_bwd_dkv"])
+        print(f"  lse max|d|={lse_err:.3g} (before {tile_lse_err:.3g}; tol {LSE_TOL}); empty "
+              f"rows and keys past the length exactly 0: {exact} (before {tile_exact}); forward "
+              f"{tile_ms['flash_fwd'] / ms['flash_fwd']:.2f}x the before's speed, "
+              f"{ms['flash_fwd'] / lib_fwd:.2f}x SDPA's time (SDPA in a graph "
+              f"{lib_fwd_graph:.4f} ms); dq + dk/dv {bwd:.4f} ms, "
+              f"{bwd_tile / bwd:.2f}x the before's speed, {bwd / lib_bwd:.2f}x SDPA's whole "
+              f"backward; plain_ms of the backward is dq, dk and dv together"
               + (f"; one more key in the window moves the plain o by {moved:.3g}"
                  if planted else ""), flush=True)
-        bad = [n for n, (_, ex) in errs.items() if ex > 0]
-        if bad or lse_err > LSE_TOL or not exact:
-            fail(f"flash {shape}: {bad} differ from their plain versions ({errs}), "
-                 f"lse {lse_err}, exact zeros {exact}")
+        bad = ([n for n, (_, ex) in errs.items() if ex > 0]
+               + [f"{n} (before)" for n, (_, ex) in tile_errs.items() if ex > 0])
+        if bad or max(lse_err, tile_lse_err) > LSE_TOL or not (exact and tile_exact):
+            fail(f"flash {shape}: {bad} differ from their plain versions ({errs}, before "
+                 f"{tile_errs}), lse {lse_err} (before {tile_lse_err}), exact zeros {exact} "
+                 f"(before {tile_exact})")
         if planted and moved < 0.5:
             fail(f"flash {shape}: the planted edges move o by only {moved}")
+        if (B, H, KVH, hd, S, lens, window) == FLASH_CASES[0][:7]:
+            causal_sdpa(dev, sets, B, H, hd, S, sm)
         del sets, leaves, out
+
+
+def causal_sdpa(dev, sets, B, H, hd, S, sm):
+    """A second yardstick at the train shape with both lengths S: SDPA with
+    ``is_causal=True`` and no mask, which takes PyTorch's flash backend,
+    beside the wgmma kernels on the same inputs (their device times, in CUDA
+    graphs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from qlora_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+
+    L = torch.full((B,), S, device=dev, dtype=torch.int32)
+    pick = lambda i: sets[i % len(sets)]
+    o, lse = flash_fwd(*pick(0)[:3], L, sm, True, None)
+    di = (o.float() * pick(0)[3].float()).sum(-1)
+    fwd = graph_ms(lambda i: flash_fwd(*pick(i)[:3], L, sm, True, None), 50)
+    bwd = graph_ms(lambda i: flash_bwd_dq(*pick(i)[:3], L, pick(i)[3], lse, di, sm, True,
+                                          None), 50)
+    bwd += graph_ms(lambda i: flash_bwd_dkv(*pick(i)[:3], L, pick(i)[3], lse, di, sm, True,
+                                            None), 50)
+    sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                             scale=sm)
+    lib_fwd = cuda_ms(lambda i: sdpa(*pick(i)[:3]), 50)
+    lib_graph = graph_ms(lambda i: sdpa(*pick(i)[:3]), 50)
+    leaves = [t.clone().requires_grad_() for t in pick(0)[:3]]
+    out = sdpa(*leaves)
+    lib_bwd = cuda_ms(lambda i: torch.autograd.grad(out, leaves, pick(i)[3],
+                                                    retain_graph=True), 20)
+    print(f"  yardstick B={B} H={H} hd={hd} S={S} lens=[{S}] * {B}, SDPA is_causal=True with no "
+          f"mask (PyTorch's flash backend): forward {lib_fwd:.4f} ms with events, {lib_graph:.4f} "
+          f"in a graph, against the wgmma kernel's {fwd:.4f} (graph); whole backward "
+          f"{lib_bwd:.4f} ms (events) against dq + dk/dv {bwd:.4f} (graphs)", flush=True)
 
 
 def int8_bound(M, K, N, weight_bytes, peak_ops, act_bytes):
@@ -1364,11 +1437,14 @@ def counters():
 # int8 forward and dx count those that took qmm_i8_wgmma.cu (more than
 # DECODE_ROWS rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took qmm_i8.cu.
 # The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
-# qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu
+# qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The flash wrappers launch
+# only the wgmma kernels of flash_attention_wgmma.cu and count each launch in
+# wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32"}
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
                 "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
-                "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd"}
+                "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd", "flash_wgmma_fwd": "flash_fwd",
+                "flash_wgmma_bwd_dq": "flash_bwd_dq", "flash_wgmma_bwd_dkv": "flash_bwd_dkv"}
 
 
 def expected_counts(**nonzero):
@@ -1838,7 +1914,8 @@ def train_parity_phase(dev, quant_type="nf4"):
     # first layer's wq, wk, wv get an input without a gradient: no dx for them
     L = cfg.num_layers
     want = expected_counts(**{fwd_name: 2 * 7 * L, bwd_name: 7 * L - 3}, flash_fwd=2 * L,
-                           flash_bwd_dq=L, flash_bwd_dkv=L,
+                           flash_bwd_dq=L, flash_bwd_dkv=L, flash_wgmma_fwd=2 * L,
+                           flash_wgmma_bwd_dq=L, flash_wgmma_bwd_dkv=L,
                            **({"qmm_nf4_wgmma_dq": 2 * 7 * L, "qmm_nf4_wgmma_bwd": 7 * L - 3}
                               if quant_type == "nf4" else
                               {"qmm_i8_wgmma_fwd": 2 * 7 * L, "qmm_i8_wgmma_bwd": 7 * L - 3}))
@@ -1933,6 +2010,9 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
         flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
         flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
         flash_bwd_dkv=TRAIN_ACCUM * L,                # 64
+        # every flash launch on the wgmma kernels of flash_attention_wgmma.cu
+        flash_wgmma_fwd=TRAIN_ACCUM * 2 * L, flash_wgmma_bwd_dq=TRAIN_ACCUM * L,
+        flash_wgmma_bwd_dkv=TRAIN_ACCUM * L,
         # M = 1024 rows: every forward and dx, NF4 and int8, on a wgmma kernel
         **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L,
             "qmm_nf4_wgmma_bwd": TRAIN_ACCUM * (7 * L - 3)} if quant_type == "nf4" else
@@ -2009,11 +2089,11 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
     # the NF4 dx: the wgmma kernel at its headline (M = 1024)
     "qmm_nf4_bwd": ("qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
                     "qlora_tpu/ops/qmatmul.py:651 (_qmm_bwd_pallas)"),
-    "flash_fwd": ("qlora_tpu_torch/csrc/flash_attention.cu",
-                  "qlora_tpu/ops/flash_attention.py:196 (_flash_fwd)"),
-    "flash_bwd_dq": ("qlora_tpu_torch/csrc/flash_attention.cu",
+    "flash_fwd": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
+                  "qlora_tpu/ops/flash_attention.py:196 (_flash_fwd, pallas_call at :224)"),
+    "flash_bwd_dq": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
                      "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :449)"),
-    "flash_bwd_dkv": ("qlora_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
                       "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :476)"),
     "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
                       "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct)"),
@@ -2204,7 +2284,9 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],
             # the w8a8 kernels' "ms" is the kernel alone; with the wrapper's row
-            # quantization (PyTorch ops), as the decode step pays it:
+            # quantization (PyTorch ops), as the decode step pays it.  The flash
+            # kernels' "ms" is their device time in CUDA graphs; their wrappers
+            # launched back to back, timed with events:
             **({"wrapper_ms": head["wrapper_ms"]} if "wrapper_ms" in head else {}),
         })
     for entry, v, run in ((summary[0], "dq", serve_counts), (summary[1], "f32", nodq_counts)):
@@ -2222,6 +2304,13 @@ def main() -> int:
                         and r["shape"] == entry["shape"])
             entry.update(sources=NF4_BWD_SOURCES,
                          wgmma_launches=train_counts["qmm_nf4_wgmma_bwd"],
+                         tile_ms=head["tile_ms"])
+        if entry["name"].startswith("flash_"):
+            head = next(r for r in results if r["name"] == entry["name"]
+                        and r["shape"] == entry["shape"])
+            entry.update(before_source="qlora_tpu_torch/csrc/flash_attention.cu",
+                         wgmma_launches=train_counts[
+                             entry["name"].replace("flash_", "flash_wgmma_")],
                          tile_ms=head["tile_ms"])
         if entry["name"] in ("qmm_i8_fwd", "qmm_i8_bwd"):
             head = next(r for r in results if r["name"] == entry["name"]

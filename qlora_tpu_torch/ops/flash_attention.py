@@ -4,11 +4,15 @@ attention of the model.
 ``flash_attention(q, k, v, kv_lengths, sm_scale, causal, window)`` and
 ``flash_attention_lse`` (which also returns the row statistics ``lse`` and
 takes their cotangent) dispatch on the device of ``q``: a CUDA tensor
-launches the hand-written kernels of ``csrc/flash_attention.cu``
+launches the hand-written kernels of ``csrc/flash_attention_wgmma.cu``
 (:func:`flash_fwd` forward; :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
-backward) and raises if it cannot; a CPU tensor takes
-:func:`flash_fwd_plain` and :func:`flash_bwd_plain`, which repeat the
-kernels' arithmetic.
+backward; TMA-fed ``wgmma``, the scores kept in registers) and raises if it
+cannot; a CPU tensor takes :func:`flash_fwd_plain` and
+:func:`flash_bwd_plain`, which repeat the kernels' arithmetic.  The kernels
+take q, k, v and do by their strides (:func:`_tma_operand` copies only what
+a tensor map cannot read) and launch from :func:`flash_plan`.  The WMMA
+kernels of ``csrc/flash_attention.cu``, which they replaced, stay reachable
+through the private ``_flash_*_before`` wrappers, for timing and tests only.
 
 Layout, as the JAX package: ``q [B, H, Sq, D]``, ``k, v [B, KVH, Skv, D]``
 with ``KVH | H`` (query head ``h`` reads kv head ``h // (H // KVH)``),
@@ -24,6 +28,8 @@ consume them, as the TPU kernels round them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -31,7 +37,7 @@ import torch
 from . import _build
 
 EMPTY_LSE = 3e38          # lse of a row with no visible key
-HEAD_DIMS = (64, 128)     # what csrc/flash_attention.cu is instantiated for
+HEAD_DIMS = (64, 128)     # what the kernels are instantiated for
 
 
 def _visible(Sq: int, Skv: int, kv_lengths: torch.Tensor, causal: bool,
@@ -130,20 +136,176 @@ def flash_bwd_plain(q, k, v, kv_lengths, o, lse, do, sm_scale: float = 1.0,
 
 
 # ---------------------------------------------------------------------------
+# the plan of the wgmma kernels
+# ---------------------------------------------------------------------------
+
+# (query rows, keys, ring depth) of a tile, as csrc/flash_attention_wgmma.cu
+# defines them: forward and dq, a CTA's query rows and a kv tile's keys; dk,
+# dv, a step's query rows and a CTA's keys: 128 where each kv head has one
+# query head, else DKV_FEW_KEYS (a CTA then walks each query tile once per
+# query head of its group: fewer keys a CTA give twice the CTAs, and its two
+# consumer warpgroups take alternate steps over the same 64 keys).  The
+# choice depends on the heads only, never on B, so a batch row's dk and dv
+# are summed in one order whatever rows share its call
+FWD_TILE = (128, 64, 2)
+DQ_TILE = (128, 64, 3)
+DKV_TILE = (64, 128, 4)
+DKV_FEW_KEYS = 64
+THREADS = 384             # two consumer warpgroups and a producer
+BAR_BYTES = 256           # the mbarriers, after the tiles
+SMEM_PER_BLOCK = 232448   # 227 KB, what an H100 block may use
+
+
+def flash_smem(kernel: str, D: int, rows: int, cols: int, stages: int) -> int:
+    """Dynamic shared memory of a kernel: 1024 bytes of alignment, its
+    tiles (bf16), the ring, the barriers."""
+    if kernel == "fwd":      # Q; a stage holds K and V
+        return 1024 + rows * D * 2 + stages * 2 * cols * D * 2 + BAR_BYTES
+    if kernel == "dq":       # Q and dO; a stage holds K and V
+        return 1024 + 2 * rows * D * 2 + stages * 2 * cols * D * 2 + BAR_BYTES
+    if kernel == "dkv":      # K and V; a stage holds Q, dO and their rows' lse, di
+        return 1024 + 2 * cols * D * 2 + stages * (2 * rows * D * 2 + 2 * rows * 4) + BAR_BYTES
+    raise ValueError(f"no kernel {kernel!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    kernel: str        # "fwd", "dq" or "dkv"
+    rows: int          # query rows of a tile
+    cols: int          # keys of a tile
+    stages: int        # tiles (dk, dv: steps) in the ring
+    smem: int          # dynamic shared memory, bytes
+    grid: tuple        # fwd, dq: (B * H, query tiles); dkv: (B * KVH, key tiles)
+    threads: int = THREADS
+
+
+def _tile_full(r0, rows, c0, cols, Sq, n, causal, window) -> bool:
+    """Every (row, col) of the tile is visible: the kernel skips the mask."""
+    return (c0 + cols <= n and r0 + rows <= Sq and (not causal or c0 + cols - 1 <= r0)
+            and (not window or r0 + rows - 1 - c0 < window))
+
+
+def _kv_tiles(r0, rows, Sq, n, causal, window, bk):
+    """The kv tiles that query rows r0 .. r0 + rows - 1 can see: [first, last)."""
+    hi = min(n, r0 + rows, Sq) if causal else n
+    lo = max(0, r0 - window + 1) if window else 0
+    return lo // bk, (-(-hi // bk) if hi > lo else lo // bk)
+
+
+def _q_tiles(k0, keys, Sq, n, causal, window, bq):
+    """The query tiles that can see a key of k0 .. k0 + keys - 1: [first, last)."""
+    ce = min(k0 + keys, n)
+    lo = k0 if causal else 0
+    hi = min(Sq, ce - 1 + window) if window else Sq
+    return lo // bq, (-(-hi // bq) if ce > k0 and hi > lo else lo // bq)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How the three wgmma kernels cover one call.  ``visits`` replays, with
+    the kernels' own integer arithmetic, which tiles a CTA walks for a batch
+    row of `kv_len` keys and which of them need the mask."""
+    B: int
+    H: int
+    KVH: int
+    Sq: int
+    Skv: int
+    D: int
+    causal: bool
+    window: int        # 0: no sliding window
+    fwd: KernelPlan
+    dq: KernelPlan
+    dkv: KernelPlan
+
+    def order(self, kernel: str) -> list:
+        """(b, head, tile) of each CTA in launch order (x fastest): every
+        (b, head) at the last query tile first (fwd, dq: causal rows grow
+        with the tile), or at the first key tile (dkv: causal keys lose rows)."""
+        kp = getattr(self, kernel)
+        heads = self.KVH if kernel == "dkv" else self.H
+        gx, gy = kp.grid
+        return [(x // heads, x % heads, y if kernel == "dkv" else gy - 1 - y)
+                for y in range(gy) for x in range(gx)]
+
+    def visits(self, kernel: str, tile: int, kv_len: int) -> list:
+        """[(tile, "full" or "masked")]: the kv tiles that query tile `tile`
+        visits (fwd, dq), or the query tiles that key tile `tile` visits for
+        each of the G query heads of its kv head in turn (dkv)."""
+        kp = getattr(self, kernel)
+        n = min(max(int(kv_len), 0), self.Skv)
+        args = (self.Sq, n, self.causal, self.window)
+        if kernel == "dkv":
+            first, last = _q_tiles(tile * kp.cols, kp.cols, *args, kp.rows)
+            spans = [(t * kp.rows, tile * kp.cols, t) for t in range(first, last)]
+        else:
+            first, last = _kv_tiles(tile * kp.rows, kp.rows, *args, kp.cols)
+            spans = [(tile * kp.rows, t * kp.cols, t) for t in range(first, last)]
+        return [(t, "full" if _tile_full(r0, kp.rows, c0, kp.cols, *args) else "masked")
+                for r0, c0, t in spans]
+
+
+@functools.lru_cache(maxsize=256)
+def flash_plan(B: int, H: int, KVH: int, Sq: int, Skv: int, D: int, causal: bool,
+               window: Optional[int]) -> FlashPlan:
+    """The tiles, rings, grids and shared memory of the three kernels for one
+    shape (the lengths change only which tiles a CTA walks: ``visits``)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS} (head dim 256 is ROADMAP item A2)")
+    window = min(int(window), Sq + Skv) if window else 0   # wider sees the same keys
+    rows, keys, stages = DKV_TILE
+    if H != KVH:
+        keys = DKV_FEW_KEYS
+    plans = {}
+    for kernel, (rows, cols, stages) in (("fwd", FWD_TILE), ("dq", DQ_TILE),
+                                         ("dkv", (rows, keys, stages))):
+        grid = ((B * KVH, -(-Skv // cols)) if kernel == "dkv" else (B * H, -(-Sq // rows)))
+        plans[kernel] = KernelPlan(kernel, rows, cols, stages,
+                                   flash_smem(kernel, D, rows, cols, stages), grid)
+    return FlashPlan(B, H, KVH, Sq, Skv, D, bool(causal), window, **plans)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PLAN = [_I, _I, _I, _I, _P]                       # rows cols stages smem stream
+_DIMS = [_I] * 6 + [ctypes.c_float, _I, _I]       # B H KVH Sq Skv D scale causal window
+_WGMMA_ARGS = {"flash_wgmma_fwd": [_P] * 7 + _DIMS + _PLAN,      # ..., strides
+               "flash_wgmma_bwd_dq": [_P] * 9 + _DIMS + _PLAN,
+               "flash_wgmma_bwd_dkv": [_P] * 10 + _DIMS + _PLAN}
+_STRIDES = {n: ctypes.c_longlong * (3 * n) for n in (4, 5, 6)}   # (b, h, s) of n operands
 _TAIL = [_I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]   # B H KVH Sq Skv D scale causal window stream
 _FWD_ARGS = [_P] * 6 + _TAIL
 _DQ_ARGS = [_P] * 8 + _TAIL
 _DKV_ARGS = [_P] * 9 + _TAIL
 
 
-def _operands(q, k, v, kv_lengths, extra=()):
-    """Check shapes and devices; returns contiguous bf16 q, k, v (and
-    `extra`), int32 lengths on the device and the dims."""
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in bf16, itself where a TMA map can read it (the last dim
+    contiguous, every other stride of a dim longer than 1 a positive multiple
+    of 8 elements, 16-byte aligned), else a fresh contiguous copy (a
+    contiguous tensor at an odd offset stays misaligned).  The model's
+    [B, S, H, D] → [B, H, S, D] views go in as they are."""
+    if t.dtype != torch.bfloat16:
+        t = t.to(torch.bfloat16)
+    (sb, sh, ss, sd), (b, h, n, _) = t.stride(), t.shape
+    ok = (sd == 1 and t.data_ptr() % 16 == 0 and (b == 1 or (sb > 0 and sb % 8 == 0))
+          and (h == 1 or (sh > 0 and sh % 8 == 0)) and (n == 1 or (ss > 0 and ss % 8 == 0)))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """(b, h, s) strides of a [B, heads, S, D] operand, a contiguous one's
+    where a dim has length 1 (its stride is never used)."""
+    (sb, sh, ss, _), (b, h, n, d) = t.stride(), t.shape
+    return (sb if b > 1 else h * n * d, sh if h > 1 else n * d, ss if n > 1 else d)
+
+
+def _operands(q, k, v, kv_lengths, extra=(), prepare=_tma_operand):
+    """Check shapes and devices; returns bf16 q, k, v (and `extra`), each as
+    `prepare` leaves it, int32 lengths on the device and the dims."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: need "
                          "q [B, H, Sq, D] and k, v [B, KVH, Skv, D]")
@@ -153,14 +315,19 @@ def _operands(q, k, v, kv_lengths, extra=()):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair up "
                          "(same B and D, KVH dividing H)")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS} (head dim 256 is ROADMAP item A2)")
     if tuple(kv_lengths.shape) != (B,):
         raise ValueError(f"kv_lengths must be [B] = [{B}], got {tuple(kv_lengths.shape)}")
+    dev = q.device
     for t in (k, v, *extra):
-        if t.device != q.device:
-            raise ValueError(f"every operand must be on {q.device}")
-    ts = [t.to(torch.bfloat16).contiguous() for t in (q, k, v, *extra)]
-    lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
+        if t.device != dev:
+            raise ValueError(f"every operand must be on {dev}")
+    if extra and extra[0].shape != q.shape:
+        raise ValueError(f"do {tuple(extra[0].shape)} must be shaped like q {tuple(q.shape)}")
+    ts = [prepare(t) for t in (q, k, v, *extra)]
+    lens = kv_lengths
+    if lens.dtype != torch.int32 or lens.device != dev or not lens.is_contiguous():
+        lens = lens.to(device=dev, dtype=torch.int32).contiguous()
     return ts, lens, (B, H, KVH, Sq, Skv, D)
 
 
@@ -169,66 +336,131 @@ def _row_stats(lse, di, dims):
     for name, t in (("lse", lse), ("di", di)):
         if tuple(t.shape) != (B, H, Sq):
             raise ValueError(f"{name} must be [B, H, Sq] = {(B, H, Sq)}, got {tuple(t.shape)}")
-    return lse.float().contiguous(), di.float().contiguous()
+    return [t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+            for t in (lse, di)]
 
+
+def _launch(entry: str, tensors, strided, plan: FlashPlan, sm_scale, fn=None):
+    """One wgmma kernel through its C entry (or `fn`, a build of the same
+    entry from an edited source): the pointers of `tensors`, the strides of
+    the [B, heads, S, D] operands in `strided`, the dims and the constants of
+    its part of `plan`."""
+    kp = {"flash_wgmma_fwd": plan.fwd, "flash_wgmma_bwd_dq": plan.dq,
+          "flash_wgmma_bwd_dkv": plan.dkv}[entry]
+    fn = fn or _build.kernel("flash_attention_wgmma", entry, _WGMMA_ARGS[entry])
+    strides = _STRIDES[len(strided)](*(s for t in strided for s in _strides(t)))
+    err = fn(*(t.data_ptr() for t in tensors), strides, plan.B, plan.H, plan.KVH, plan.Sq,
+             plan.Skv, plan.D, float(sm_scale), int(plan.causal), plan.window, kp.rows, kp.cols,
+             kp.stages, kp.smem, _build.stream_ptr(tensors[0]))
+    _build.check(err, entry)
+
+
+def _count(wrapper) -> None:
+    wrapper.launches += 1
+    wrapper.wgmma_launches += 1
+
+
+def flash_fwd(q, k, v, kv_lengths, sm_scale: float = 1.0, causal: bool = True,
+              window: Optional[int] = None):
+    """The forward kernel (TPU _flash_fwd) of ``csrc/flash_attention_wgmma.cu``:
+    (o bf16 [B, H, Sq, D], a view of [B, Sq, H, D] memory; lse f32 [B, H, Sq])."""
+    (q, k, v), lens, dims = _operands(q, k, v, kv_lengths)
+    B, H, _, Sq, _, D = dims
+    o = torch.empty((B, Sq, H, D), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if o.numel():
+        _launch("flash_wgmma_fwd", (q, k, v, lens, o, lse), (q, k, v, o),
+                flash_plan(*dims, causal, window), sm_scale)
+        _count(flash_fwd)
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
+                 causal: bool = True, window: Optional[int] = None):
+    """The dq kernel (TPU _flash_bwd, first pallas_call): dq bf16, laid out
+    like q."""
+    (q, k, v, do), lens, dims = _operands(q, k, v, kv_lengths, (do,))
+    lse, di = _row_stats(lse, di, dims)
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _launch("flash_wgmma_bwd_dq", (q, k, v, lens, do, lse, di, dq), (q, k, v, do, dq),
+                flash_plan(*dims, causal, window), sm_scale)
+        _count(flash_bwd_dq)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
+                  causal: bool = True, window: Optional[int] = None):
+    """The dk, dv kernel (TPU _flash_bwd, second pallas_call): (dk, dv) bf16,
+    laid out like k and v, each group of query heads summed inside the
+    kernel."""
+    (q, k, v, do), lens, dims = _operands(q, k, v, kv_lengths, (do,))
+    lse, di = _row_stats(lse, di, dims)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _launch("flash_wgmma_bwd_dkv", (q, k, v, lens, do, lse, di, dk, dv),
+                (q, k, v, do, dk, dv), flash_plan(*dims, causal, window),
+                sm_scale)
+        _count(flash_bwd_dkv)
+    return dk, dv
+
+
+for _w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _w.launches = 0
+    _w.wgmma_launches = 0
+
+
+# ``csrc/flash_attention.cu``, the WMMA kernels that the wgmma kernels
+# replaced, through their C entries: the "before" that chip_smoke.py, the
+# sweep and the card's tests hold beside them.  Not on any path, not counted.
 
 def _tail(dims, sm_scale, causal, window, t):
     return (*dims, float(sm_scale), int(bool(causal)), int(window) if window else 0,
             _build.stream_ptr(t))
 
 
-def flash_fwd(q, k, v, kv_lengths, sm_scale: float = 1.0, causal: bool = True,
-              window: Optional[int] = None):
-    """The forward kernel (TPU _flash_fwd): (o bf16, lse f32 [B, H, Sq])."""
-    (q, k, v), lens, dims = _operands(q, k, v, kv_lengths)
+def _contiguous(t):
+    return t.to(torch.bfloat16).contiguous()
+
+
+def _flash_fwd_before(q, k, v, kv_lengths, sm_scale: float = 1.0, causal: bool = True,
+                      window: Optional[int] = None):
+    (q, k, v), lens, dims = _operands(q, k, v, kv_lengths, prepare=_contiguous)
     B, H, _, Sq, _, _ = dims
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel():
         fn = _build.kernel("flash_attention", "flash_fwd", _FWD_ARGS)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), *_tail(dims, sm_scale, causal, window, q))
-        _build.check(err, "flash_fwd")
-        flash_fwd.launches += 1
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
+                        lse.data_ptr(), *_tail(dims, sm_scale, causal, window, q)), "flash_fwd")
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
-                 causal: bool = True, window: Optional[int] = None):
-    """The dq kernel (TPU _flash_bwd, first pallas_call): dq bf16 like q."""
-    (q, k, v, do), lens, dims = _operands(q, k, v, kv_lengths, (do,))
+def _flash_bwd_dq_before(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
+                         causal: bool = True, window: Optional[int] = None):
+    (q, k, v, do), lens, dims = _operands(q, k, v, kv_lengths, (do,), prepare=_contiguous)
     lse, di = _row_stats(lse, di, dims)
     dq = torch.empty_like(q)
     if dq.numel():
         fn = _build.kernel("flash_attention", "flash_bwd_dq", _DQ_ARGS)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                 *_tail(dims, sm_scale, causal, window, q))
-        _build.check(err, "flash_bwd_dq")
-        flash_bwd_dq.launches += 1
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                        *_tail(dims, sm_scale, causal, window, q)), "flash_bwd_dq")
     return dq
 
 
-def flash_bwd_dkv(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
-                  causal: bool = True, window: Optional[int] = None):
-    """The dk, dv kernel (TPU _flash_bwd, second pallas_call): (dk, dv) bf16
-    like k, each group of query heads summed inside the kernel."""
-    (q, k, v, do), lens, dims = _operands(q, k, v, kv_lengths, (do,))
+def _flash_bwd_dkv_before(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
+                          causal: bool = True, window: Optional[int] = None):
+    (q, k, v, do), lens, dims = _operands(q, k, v, kv_lengths, (do,), prepare=_contiguous)
     lse, di = _row_stats(lse, di, dims)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
         fn = _build.kernel("flash_attention", "flash_bwd_dkv", _DKV_ARGS)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 *_tail(dims, sm_scale, causal, window, q))
-        _build.check(err, "flash_bwd_dkv")
-        flash_bwd_dkv.launches += 1
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), *_tail(dims, sm_scale, causal, window, q)),
+                     "flash_bwd_dkv")
     return dk, dv
-
-
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
 
 
 # ---------------------------------------------------------------------------

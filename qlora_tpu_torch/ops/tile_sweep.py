@@ -3,11 +3,13 @@ the NF4 forward (``csrc/qmm_nf4_wgmma.cu``) with, as its "before", the tile
 kernel of ``csrc/qmm_nf4_fwd.cu``; the int8 forward and dx
 (``csrc/qmm_i8_wgmma.cu``) with, as theirs, the tile kernel of
 ``csrc/qmm_i8.cu``; the NF4 dx (``csrc/qmm_nf4_bwd_wgmma.cu``) with, as its,
-``csrc/qmm_nf4_bwd.cu``.
+``csrc/qmm_nf4_bwd.cu``; flash attention's forward, dq and dk/dv
+(``csrc/flash_attention_wgmma.cu``) with, as theirs,
+``csrc/flash_attention.cu``.
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8 | nf4bwd]
+    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8 | nf4bwd | flash]
 
 Each variant is a kernel's source with one part taken out, compiled into
 ``build/sweep_tile/``, run on the LLaMA-7B block linears at M = 1024 (and,
@@ -39,6 +41,16 @@ The NF4 dx kernel is cut as built, products only, no products and loads
 only at M = 1024 with double-quantized absmax, and run with 128-row CTAs,
 beside ``qmm_nf4_bwd.cu`` as built.
 
+The flash kernels are cut as built, products only (no mask, no softmax: S
+rounded to bf16 as P), softmax only (no products: constant scores) and
+loads only, all three kernels at once, and run in the designs they were
+chosen against: forward kv tiles of 128 keys, or 3 or 4 stages; dq kv
+tiles of 128 keys (2 stages, to fit), or 2 stages; dk, dv CTAs of 64 and
+of 128 keys at every shape (the plan picks one by the heads: 128 where G =
+1), or 2 steps in the ring.  They run at chip_smoke.py's three timed
+shapes (hd 128, causal), each beside ``flash_attention.cu``, timed in CUDA
+graphs (their wrappers' host time exceeds the kernels' on the card's host).
+
 One line per shape, direction and kernel; nothing here is used by the port.
 
 ``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd]`` instead
@@ -50,7 +62,8 @@ plane's x box taken at kp instead of K/2 + kp, the proxy fence taken out.
 int8: the backward's absmax row taken one block off, the last k-step
 dropped, the proxy fence taken out.  NF4 dx: the high plane reading the low
 plane's absmax row, the low run's mask at K/2 dropped, the last k-step
-dropped, the proxy fence taken out.
+dropped, the proxy fence taken out.  Flash: the causal edge and the window
+edge off by one, the rescale of O dropped, the last kv tile skipped.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import importlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -166,10 +180,82 @@ NF4_BWD_MUTANTS = {
     "no proxy fence": MUTANTS["no proxy fence"],
 }
 NF4_BWD_MUTANT_TESTS = "qmm_bwd or nf4_bwd_wgmma"
+
+# flash attention's wgmma kernels: each cut edits all three at once
+_F_SS = ("    for (int kk = 0; kk < D / 16; ++kk)\n      Mma<BK>::ss(s, kmajor(qa, BQ, kk), kmajor(ka, BK, kk), kk);",
+         "    for (int kk = 0; kk < BK / 2; ++kk)\n      s[kk] = 0.01f * (kk + c0);")
+_F_MASK = ("    if (!tile_full(r0, BQ, c0, BK, Sq, n, causal, window))\n      mask_scores<BK>",
+           "    if (false)\n      mask_scores<BK>")
+_F_SOFTMAX = ("    fwd_softmax<BK, D>(s, acc, p, m, l, c);",
+              "    for (int e = 0; e < BK / 2; e += 2) p[e / 8][(e / 2) % 4] = pack_bf16(s[e], s[e + 1]);")
+_F_RS = ("    for (int kk = 0; kk < BK / 16; ++kk) Mma<D>::rs(acc, p[kk], mnmajor(va, BK, kk));",
+         "    for (int kk = 0; kk < BK / 16; ++kk) acc[kk] += __uint_as_float(p[kk][0]);")
+_Q_SS = ("      Mma<BK>::ss(s, kmajor(qa, BQ, kk), kmajor(ka, BK, kk), kk);\n"
+         "      Mma<BK>::ss(dp, kmajor(da, BQ, kk), kmajor(va, BK, kk), kk);",
+         "      if (kk == 0)\n        for (int e = 0; e < BK / 2; ++e) s[e] = dp[e] = 0.01f * (e + c0);")
+_Q_PROBS = ("    dq_probs<BK>(s, dp, ds, !tile_full(r0, BQ, c0, BK, Sq, n, causal, window), row,\n"
+            "                 c0 + 2 * q, lse2, dif, c, sm_scale, Sq, n, causal, window);",
+            "    for (int e = 0; e < BK / 2; e += 2) ds[e / 8][(e / 2) % 4] = pack_bf16(s[e], dp[e + 1]);")
+_Q_RS = ("    for (int kk = 0; kk < BK / 16; ++kk) Mma<D>::rs(acc, ds[kk], mnmajor(ka, BK, kk));",
+         "    for (int kk = 0; kk < BK / 16; ++kk) acc[kk] += __uint_as_float(ds[kk][0]);")
+_K_SS = ("      Mma<BQ>::ss(s, kmajor(ka, KEYS, kk), kmajor(qa, BQ, kk), kk);\n"
+         "      Mma<BQ>::ss(dp, kmajor(va, KEYS, kk), kmajor(da, BQ, kk), kk);",
+         "      if (kk == 0)\n        for (int e = 0; e < BQ / 2; ++e) s[e] = dp[e] = 0.01f * (e + r0);")
+_K_PROBS = ("    dkv_probs<BQ>(s, dp, pt, dst, !tile_full(r0, BQ, k0, KEYS, Sq, n, causal, window), key, r0,\n"
+            "                  q, ls, ls + BQ, c, sm_scale, Sq, n, causal, window);",
+            "    for (int e = 0; e < BQ / 2; e += 2) {\n"
+            "      pt[e / 8][(e / 2) % 4] = pack_bf16(s[e], s[e + 1]);\n"
+            "      dst[e / 8][(e / 2) % 4] = pack_bf16(dp[e], dp[e + 1]);\n    }")
+_K_RS = ("      Mma<D>::rs(dva, pt[kk], mnmajor(da, BQ, kk));\n"
+         "      Mma<D>::rs(dka, dst[kk], mnmajor(qa, BQ, kk));",
+         "      dva[kk] += __uint_as_float(pt[kk][0]);\n      dka[kk] += __uint_as_float(dst[kk][0]);")
+_SOFTMAXES = [_F_MASK, _F_SOFTMAX, _Q_PROBS, _K_PROBS]
+_PRODUCTS = [_F_SS, _F_RS, _Q_SS, _Q_RS, _K_SS, _K_RS]
+_ALL = ("fwd", "dq", "dkv")
+FLASH = {   # name: (edits, the kernels it concerns, their (rows, cols, stages) where changed)
+    "as built": ([], _ALL, {}),
+    "products only": (_SOFTMAXES, _ALL, {}),
+    "softmax only": (_PRODUCTS, _ALL, {}),
+    "loads only": (_SOFTMAXES + _PRODUCTS, _ALL, {}),
+    # the designs the kernels were chosen against (None: the plan's own value)
+    "128-key kv tiles": ([("constexpr int FWD_BK = 64;", "constexpr int FWD_BK = 128;")], ("fwd",),
+                         {"fwd": (128, 128, 2)}),
+    "3 stages": ([("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 3;")], ("fwd",),
+                 {"fwd": (128, 64, 3)}),
+    "4 stages": ([("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 4;")], ("fwd",),
+                 {"fwd": (128, 64, 4)}),
+    "128-key kv tiles, 2 stages": ([("constexpr int DQ_BK = 64;", "constexpr int DQ_BK = 128;"),
+                                    ("constexpr int DQ_STAGES = 3;", "constexpr int DQ_STAGES = 2;")],
+                                   ("dq",), {"dq": (128, 128, 2)}),
+    "2 stages": ([("constexpr int DQ_STAGES = 3;", "constexpr int DQ_STAGES = 2;")], ("dq",),
+                 {"dq": (128, 64, 2)}),
+    # both of the plan's choices of keys a CTA, each at every shape
+    "64 keys a CTA": ([], ("dkv",), {"dkv": (64, 64, 4)}),
+    "128 keys a CTA": ([], ("dkv",), {"dkv": (64, 128, 4)}),
+    "2 steps in the ring": ([("constexpr int DKV_STAGES = 4;", "constexpr int DKV_STAGES = 2;")],
+                            ("dkv",), {"dkv": (64, None, 2)}),
+}
+FLASH_ENTRIES = {"fwd": "flash_wgmma_fwd", "dq": "flash_wgmma_bwd_dq", "dkv": "flash_wgmma_bwd_dkv"}
+FLASH_SHAPES = (   # B, H, KVH, S, lengths, window: chip_smoke.py's timed shapes, hd 128, causal
+    (2, 32, 32, 512, (512, 300), None), (2, 32, 8, 512, (512, 300), 256),
+    (2, 32, 32, 600, (600, 333), None))
+_VISIBLE = ("  return row < Sq && col < n && (!causal || col <= row) && "
+            "(window <= 0 || row - col < window);")
+FLASH_MUTANTS = {
+    "causal edge off by one": [(_VISIBLE, _VISIBLE.replace("col <= row", "col < row"))],
+    "window edge off by one": [(_VISIBLE, _VISIBLE.replace("row - col < window",
+                                                           "row - col <= window"))],
+    "rescale of O dropped": [("    o[4 * j] *= alpha[0];\n    o[4 * j + 1] *= alpha[0];\n"
+                              "    o[4 * j + 2] *= alpha[1];\n    o[4 * j + 3] *= alpha[1];\n", "")],
+    "last kv tile skipped": [("  last = hi > lo ? (hi + bk - 1) / bk : first;",
+                              "  last = hi > lo ? max(first, (hi + bk - 1) / bk - 1) : first;")],
+}
+FLASH_MUTANT_TESTS = "flash"
 # which source each set of mutants edits, and the cuda tests run against them
 MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS),
-               "nf4bwd": ("qmm_nf4_bwd_wgmma.cu", NF4_BWD_MUTANTS, NF4_BWD_MUTANT_TESTS)}
+               "nf4bwd": ("qmm_nf4_bwd_wgmma.cu", NF4_BWD_MUTANTS, NF4_BWD_MUTANT_TESTS),
+               "flash": ("flash_attention_wgmma.cu", FLASH_MUTANTS, FLASH_MUTANT_TESTS)}
 SETS = tuple(MUTANT_SETS)
 
 
@@ -208,7 +294,8 @@ def mutants(sets) -> int:
 
 def build(variants) -> dict:
     """Compile every (source, name, edits, entries, argtypes) at once, one
-    nvcc each; {(source, name, entry): typed C entry}."""
+    nvcc each; {(source, name, entry): typed C entry}.  `argtypes` is one
+    list for every entry, or a dict by entry."""
     from qlora_tpu_torch.ops import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -219,7 +306,7 @@ def build(variants) -> dict:
             if old not in text:
                 raise RuntimeError(f"{source} {name!r}: the source no longer holds {old[:48]!r}")
             text = text.replace(old, new)
-        stem = f"{Path(source).stem}_{name.replace(' ', '_')}"
+        stem = f"{Path(source).stem}_{re.sub(r'[^A-Za-z0-9]+', '_', name)}"   # nvcc splits on commas
         (OUT / f"{stem}.cu").write_text(text)
         lib = OUT / f"lib{stem}.so"
         procs.append((source, name, entries, argtypes, lib, subprocess.Popen(
@@ -230,7 +317,7 @@ def build(variants) -> dict:
             raise RuntimeError(f"{source} {name!r}: nvcc failed")
         for entry in entries:
             fn = getattr(ctypes.CDLL(str(lib)), entry)
-            fn.argtypes = argtypes
+            fn.argtypes = argtypes[entry] if isinstance(argtypes, dict) else argtypes
             fn.restype = ctypes.c_int
             fns[(source, name, entry)] = fn
     return fns
@@ -246,6 +333,33 @@ def events_ms(fn, iters: int = 20) -> float:
     start.record()
     for i in range(iters):
         fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of fn(i) over `iters` launches captured in one CUDA graph:
+    the flash wrappers' host time exceeds their kernels' on the card's host,
+    so events around launches issued one by one would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -284,6 +398,11 @@ def main(sets) -> int:
         variants += [("qmm_nf4_bwd_wgmma.cu", n, e, ["qmm_nf4_bwd_wgmma"], wgmma_args)
                      for n, e in NF4_BWD.items()]
         variants += [("qmm_nf4_bwd.cu", "as built", [], ["qmm_nf4_bwd"], qm._ARGTYPES)]
+    if "flash" in sets:
+        fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
+        variants += [("flash_attention_wgmma.cu", n, e,
+                      [FLASH_ENTRIES[k] for k in kernels], fa._WGMMA_ARGS)
+                     for n, (e, kernels, _) in FLASH.items() if e or n == "as built"]
     built = build(variants)
     g = torch.Generator(device=dev).manual_seed(6)
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -350,7 +469,75 @@ def main(sets) -> int:
                 copies, a, out, M, K, N, tm128, "nf4 wgmma bwd (128-row CTAs)")
             run({"as built": built[("qmm_nf4_bwd.cu", "as built", "qmm_nf4_bwd")]}, copies, a,
                 out, M, K, N, None, "nf4 bwd tile (before)")
+    if "flash" in sets:
+        flash_sweep(built, dev, g)
     return 0
+
+
+def _replan(plan, kernel, tile):
+    """`plan` with one kernel's (rows, cols, stages) replaced (None keeps the
+    plan's), its shared memory and grid recomputed."""
+    fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
+    kp = getattr(plan, kernel)
+    rows, cols, stages = (new if new is not None else old
+                          for new, old in zip(tile, (kp.rows, kp.cols, kp.stages)))
+    grid = ((plan.B * plan.KVH, -(-plan.Skv // cols)) if kernel == "dkv"
+            else (plan.B * plan.H, -(-plan.Sq // rows)))
+    kp = fa.KernelPlan(kernel, rows, cols, stages,
+                       fa.flash_smem(kernel, plan.D, rows, cols, stages), grid)
+    return dataclasses.replace(plan, **{kernel: kp})
+
+
+def flash_sweep(built, dev, g) -> None:
+    """Every flash variant at chip_smoke.py's three timed shapes, each kernel
+    beside flash_attention.cu's (the "before"), operands rotated past L2,
+    device times in CUDA graphs."""
+    import torch
+
+    fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
+    D = 128
+    for B, H, KVH, S, lens, window in FLASH_SHAPES:
+        mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+        one = 3 * B * H * S * D * 2 + 2 * B * KVH * S * D * 2
+        sets = [(mk(B, H, S, D), mk(B, KVH, S, D), mk(B, KVH, S, D), mk(B, H, S, D))
+                for _ in range(max(1, -(-2 * L2_BYTES // one)))]
+        L = torch.tensor(lens, device=dev, dtype=torch.int32)
+        sm = D ** -0.5
+        q, k, v, do = sets[0]
+        o, lse = fa.flash_fwd(q, k, v, L, sm, True, window)
+        di = (o.float() * do.float()).sum(-1)
+        lse_out, dq = torch.empty_like(lse), torch.empty_like(q)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        plan = fa.flash_plan(B, H, KVH, S, S, D, True, window)
+
+        def operands(kernel, i):
+            q, k, v, do = sets[i % len(sets)]
+            if kernel == "fwd":
+                return (q, k, v, L, o, lse_out), (q, k, v, o)
+            if kernel == "dq":
+                return (q, k, v, L, do, lse, di, dq), (q, k, v, do, dq)
+            return (q, k, v, L, do, lse, di, dk, dv), (q, k, v, do, dk, dv)
+
+        before = {"fwd": lambda i: fa._flash_fwd_before(*sets[i % len(sets)][:3], L, sm, True,
+                                                        window),
+                  "dq": lambda i: fa._flash_bwd_dq_before(*sets[i % len(sets)][:3], L,
+                                                          sets[i % len(sets)][3], lse, di, sm,
+                                                          True, window),
+                  "dkv": lambda i: fa._flash_bwd_dkv_before(*sets[i % len(sets)][:3], L,
+                                                            sets[i % len(sets)][3], lse, di, sm,
+                                                            True, window)}
+        for kernel, entry in FLASH_ENTRIES.items():
+            line = []
+            for name, (edits, kernels, tiles) in FLASH.items():
+                if kernel not in kernels:
+                    continue
+                p = _replan(plan, kernel, tiles[kernel]) if kernel in tiles else plan
+                fn = built[("flash_attention_wgmma.cu", name if edits else "as built", entry)]
+                ms = graph_ms(lambda i: fa._launch(entry, *operands(kernel, i), p, sm, fn=fn))
+                line.append(f"{name} {ms:.4f}")
+            line.append(f"flash_attention.cu (before) {graph_ms(before[kernel]):.4f}")
+            print(f"tile_sweep flash {kernel} B={B} H={H} KVH={KVH} hd={D} S={S} "
+                  f"lens={list(lens)} window={window} (ms): " + ", ".join(line), flush=True)
 
 
 if __name__ == "__main__":

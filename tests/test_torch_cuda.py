@@ -26,11 +26,15 @@ above DECODE_ROWS rows where N % 8 == 0, ``qmm_nf4_bwd.cu`` for the rest)
 decode the weight with the forward's arithmetic and sum g·Wᵀ in f32 in
 another order: rtol 1e-2, atol 2e-2, as the forward.  The wgmma kernel is
 also held bit for bit: rows of the identity read out ``dequantize``'s
-weight, two calls agree, a row's result does not depend on the other rows.  The flash kernels round the probabilities against tile-wise
+weight, two calls agree, a row's result does not depend on the other rows.  The flash kernels (the wgmma kernels of
+``flash_attention_wgmma.cu``; ``flash_attention.cu``, which they replaced,
+through its private wrappers) round the probabilities against tile-wise
 running maxima where the plain version has the row's maximum, and sum in
 another order: o within 2e-2 of its (row, head)'s largest |o|, lse within
 1e-3, each gradient within 2e-2 of the largest |gradient| of its (batch,
-head) slice; rows and keys that must get exactly 0 are checked for 0.
+head) slice; rows and keys that must get exactly 0 are checked for 0.  The
+wgmma kernels are also held bit for bit across two calls and across batch
+rows, and take the model's transposed views without copies.
 
 The two w8a8 kernels sum int8 products in int32, which is exact, and their
 epilogue is two f32 multiplications and two bf16 roundings that the plain
@@ -47,6 +51,8 @@ The paged kernels have the decode kernel's arithmetic over a page table:
 each output element within 2e-2 of its (row, head)'s largest |output|, the
 pools byte-equal after the append (page 0 and untouched pages included).
 The chunk kernel at C = 1 is the decode kernel, bit for bit."""
+
+import importlib
 
 import pytest
 import torch
@@ -413,14 +419,20 @@ def test_qmm_no_backward_launch_without_input_grad(cuda):
     assert not y.requires_grad and qmm_nf4_bwd.launches == before
 
 
-FLASH_CASES = [   # B, H, KVH, D, S, lens, causal, window, planted
-    (2, 32, 32, 128, 512, [512, 300], True, None, False),
-    (2, 32, 8, 128, 512, [512, 300], True, 256, False),      # GQA G=4, sliding window
-    (2, 8, 8, 128, 600, [600, 77], True, None, False),       # S not a multiple of 64
-    (3, 4, 2, 64, 200, [200, 0, 1], True, 64, False),        # a row of length 0, D=64
-    (2, 4, 4, 64, 130, [130, 65], False, None, False),       # not causal
-    (2, 8, 2, 128, 384, [384, 200], True, 100, True),        # planted edges
-    (2, 4, 4, 64, 192, [192, 131], True, None, True),
+FLASH_CASES = [   # B, H, KVH, D, S, lens, causal, window, planted, the model's transposed views
+    (2, 32, 32, 128, 512, [512, 300], True, None, False, False),
+    (2, 32, 8, 128, 512, [512, 300], True, 256, False, False),    # GQA G=4, sliding window
+    (2, 8, 8, 128, 600, [600, 77], True, None, False, False),     # S not a multiple of 64
+    (3, 4, 2, 64, 200, [200, 0, 1], True, 64, False, False),      # a row of length 0, D=64
+    (2, 4, 4, 64, 130, [130, 65], False, None, False, False),     # not causal
+    (2, 8, 2, 128, 384, [384, 200], True, 100, True, False),      # planted edges
+    (2, 4, 4, 64, 192, [192, 131], True, None, True, False),
+    (2, 8, 4, 128, 256, [256, 100], True, None, False, False),    # GQA G=2
+    (3, 4, 2, 128, 200, [200, 1, 63], True, 1, False, False),     # window 1, lengths 1 and 63
+    (3, 4, 4, 64, 130, [64, 65, 63], False, None, False, False),  # lengths at a tile edge
+    (3, 4, 4, 128, 200, [65, 64, 1], True, None, False, False),
+    (2, 8, 2, 128, 384, [384, 200], True, 100, True, True),       # [B, S, H, D] memory
+    (2, 4, 2, 64, 50, [50, 17], True, None, False, True),         # S shorter than a tile
 ]
 
 
@@ -428,16 +440,32 @@ def _slice_tol(ref):
     return 2e-2 * ref.float().abs().amax((-2, -1), keepdim=True).clamp_min(1e-6)
 
 
-@pytest.mark.parametrize("B,H,KVH,D,S,lens,causal,window,planted", FLASH_CASES)
-def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, planted):
-    gen = torch.Generator(device=cuda).manual_seed(S + H)
-    mk = lambda *s: torch.randn(*s, device=cuda, generator=gen).to(torch.bfloat16)
+def _flash_inputs(cuda, B, H, KVH, D, S, lens, window, planted, transposed, seed):
+    """q, k, v, do bf16 [B, heads, S, D] (transposed: views of [B, S, heads,
+    D] memory, as the model hands them over), the lengths and the scale."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if transposed:
+        mk = lambda b, h, s, d: torch.randn(b, s, h, d, device=cuda, generator=gen).to(
+            torch.bfloat16).transpose(1, 2)
+    else:
+        mk = lambda *s: torch.randn(*s, device=cuda, generator=gen).to(torch.bfloat16)
     q, k, v, do = mk(B, H, S, D), mk(B, KVH, S, D), mk(B, KVH, S, D), mk(B, H, S, D)
     if planted:
         plant_flash_edges(q, k, v, lens, window)
-    L = torch.tensor(lens, device=cuda, dtype=torch.int32)
-    sm = D ** -0.5
-    n0 = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    return q, k, v, do, torch.tensor(lens, device=cuda, dtype=torch.int32), D ** -0.5
+
+
+def _flash_counts():
+    return tuple((w.launches, w.wgmma_launches) for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv))
+
+
+@pytest.mark.parametrize("B,H,KVH,D,S,lens,causal,window,planted,transposed", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, planted,
+                                   transposed):
+    q, k, v, do, L, sm = _flash_inputs(cuda, B, H, KVH, D, S, lens, window, planted,
+                                       transposed, S + H)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    n0 = _flash_counts()
     o, lse = flash_fwd(q, k, v, L, sm, causal, window)
     o2, lse2 = flash_fwd_plain(q, k, v, L, sm, causal, window)
     d = (o.float() - o2.float()).abs()
@@ -451,8 +479,8 @@ def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, 
     di = (o2.float() * do.float()).sum(-1) - dlse
     dq = flash_bwd_dq(q, k, v, L, do, lse2, di, sm, causal, window)
     dk, dv = flash_bwd_dkv(q, k, v, L, do, lse2, di, sm, causal, window)
-    n1 = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    assert n1 == tuple(n + 1 for n in n0)
+    # each call launched its wgmma kernel once
+    assert _flash_counts() == tuple((n + 1, w + 1) for n, w in n0)
     rq, rk, rv = flash_bwd_plain(q, k, v, L, o2, lse2, do, sm, causal, window, dlse=dlse)
     for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         d = (got.float() - ref.float()).abs()
@@ -460,6 +488,61 @@ def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, 
     for b, n in enumerate(lens):       # keys past the length get exactly nothing
         assert (dk[b, :, n:] == 0).all() and (dv[b, :, n:] == 0).all()
     assert (dq[empty] == 0).all()
+    if transposed:                     # outputs in the inputs' layout: no copies around
+        assert o.transpose(1, 2).is_contiguous() and dq.stride() == q.stride()
+        assert dk.stride() == k.stride() and dv.stride() == v.stride()
+
+
+@pytest.mark.parametrize("B,H,KVH,D,S,lens,causal,window", [
+    (3, 8, 2, 128, 384, [384, 200, 77], True, 100),
+    (3, 4, 4, 64, 200, [130, 200, 1], False, None),
+    (3, 32, 32, 128, 512, [512, 300, 0], True, None),
+])
+def test_flash_wgmma_deterministic_and_row_invariant(cuda, B, H, KVH, D, S, lens, causal,
+                                                     window):
+    """Two calls give the same bits for o, lse, dq, dk and dv (no atomics,
+    one order of summation), and a batch row's results do not depend on the
+    other rows: the middle row alone gives its bits again."""
+    q, k, v, do, L, sm = _flash_inputs(cuda, B, H, KVH, D, S, lens, window, False, False, 5)
+
+    def run(q, k, v, do, L):
+        o, lse = flash_fwd(q, k, v, L, sm, causal, window)
+        di = (o.float() * do.float()).sum(-1)
+        dq = flash_bwd_dq(q, k, v, L, do, lse, di, sm, causal, window)
+        return (o, lse, dq, *flash_bwd_dkv(q, k, v, L, do, lse, di, sm, causal, window))
+
+    first, second = run(q, k, v, do, L), run(q, k, v, do, L)
+    alone = run(*(t[1:2].clone() for t in (q, k, v, do, L)))
+    for name, a, b, c in zip(("o", "lse", "dq", "dk", "dv"), first, second, alone):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        assert torch.equal(a[1:2], c), f"{name} of row 1 depends on the other rows"
+
+
+@pytest.mark.parametrize("B,H,KVH,D,S,lens,causal,window,planted,transposed",
+                         [FLASH_CASES[i] for i in (1, 3, 4, 5)])
+def test_flash_before_kernels_still_match_plain(cuda, B, H, KVH, D, S, lens, causal, window,
+                                                planted, transposed):
+    """``csrc/flash_attention.cu``, the WMMA kernels the wgmma kernels
+    replaced, through their private wrappers (the "before" that
+    chip_smoke.py times): still within the same tolerances, uncounted."""
+    fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
+    q, k, v, do, L, sm = _flash_inputs(cuda, B, H, KVH, D, S, lens, window, planted,
+                                       transposed, S + H)
+    n0 = _flash_counts()
+    o, lse = fa._flash_fwd_before(q, k, v, L, sm, causal, window)
+    o2, lse2 = flash_fwd_plain(q, k, v, L, sm, causal, window)
+    d = (o.float() - o2.float()).abs()
+    assert (d <= 2e-2 * o2.float().abs().amax(-1, keepdim=True)).all()
+    torch.testing.assert_close(lse, lse2, rtol=1e-3, atol=1e-3)
+    dlse = torch.randn(B, H, S, device=cuda, generator=torch.Generator(device=cuda).manual_seed(
+        S)) * 0.1
+    di = (o2.float() * do.float()).sum(-1) - dlse
+    dq = fa._flash_bwd_dq_before(q, k, v, L, do, lse2, di, sm, causal, window)
+    dk, dv = fa._flash_bwd_dkv_before(q, k, v, L, do, lse2, di, sm, causal, window)
+    rq, rk, rv = flash_bwd_plain(q, k, v, L, o2, lse2, do, sm, causal, window, dlse=dlse)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert ((got.float() - ref.float()).abs() <= _slice_tol(ref)).all()
+    assert _flash_counts() == n0
 
 
 def test_flash_autograd_launches_all_three(cuda):

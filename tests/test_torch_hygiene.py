@@ -68,3 +68,15 @@ def test_cuda_sources_cover_paged_attention():
     assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {
         "paged_decode_attention", "paged_chunk_attention"}
     assert "fused_paged_decode_attention" in text and "fused_paged_chunk_attention" in text
+
+
+def test_cuda_sources_cover_flash_attention():
+    """The flash kernels' wgmma source is scanned like the rest, names the TPU
+    functions it replaces and has the three C entries the wrappers call; the
+    source it replaced stays beside it."""
+    path = ROOT / "qlora_tpu_torch" / "csrc" / "flash_attention_wgmma.cu"
+    assert path in SOURCES and ROOT / "qlora_tpu_torch" / "csrc" / "flash_attention.cu" in SOURCES
+    text = path.read_text()
+    assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {
+        "flash_wgmma_fwd", "flash_wgmma_bwd_dq", "flash_wgmma_bwd_dkv"}
+    assert "::_flash_fwd" in text and "::_flash_bwd" in text
