@@ -32,7 +32,13 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``flash_attention.cu`` that it replaced (``tile_ms``, the "before", also
    held to FLASH_TOL), SDPA with the same mask as the yardstick, and, at the
    train shape with full lengths, SDPA with ``is_causal=True`` on a line of
-   its own.
+   its own.  Decode attention runs the split-KV kernel of
+   ``decode_attention_split.cu`` at every ATTN_CASES entry and a long cache
+   (T = 2048), timed in CUDA graphs beside ``decode_attention.cu`` (its
+   "before", through a private wrapper: ``tile_ms``, held to ATTN_TOL) and
+   SDPA (``library_ms``, events; in a graph beside it), and held bit for bit
+   across two calls and with each row alone, caches byte-equal to the plain
+   version's after the append.
 3. parity: LLaMA-7B width, 2 layers — the same weights through the plain
    path on the CPU and through the kernels on the card, a 128-token prefill
    then 4 teacher-forced decode steps; logits must agree.
@@ -56,13 +62,18 @@ them.  Phases, each failing the run on any mismatch or exception:
    versions: ``qmm_i8_direct`` (M = 4, the block linears and the padded
    lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128 and 2048) equal
    bit for bit, in the raw int32 accumulators and in the bf16 output;
-   ``qmm_i8_fwd`` (M = 4, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024) within
-   the NF4 kernels' tolerance, f32 and double-quantized absmax, and reading
-   out ``dequantize``'s weight bit for bit from identity operands.  Above 16
-   rows the wrappers run the wgmma kernel of ``qmm_i8_wgmma.cu``, timed
-   beside the tile kernel of ``qmm_i8.cu`` through its C entry (``tile_ms``,
-   the "before", also held to QMM_TOL) and held bit for bit as the NF4 wgmma
-   kernel (two calls, sub-batches of at least 17 rows, identity rows).
+   ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024)
+   within the NF4 kernels' tolerance, f32 and double-quantized absmax, and
+   reading out ``dequantize``'s weight bit for bit from identity operands.
+   Up to 16 rows the forward runs the split-K kernel of
+   ``qmm_i8_decode.cu``, timed in CUDA graphs beside ``qmm_i8.cu``'s 16-row
+   branch through its C entry (``tile_ms``, the "before", held to QMM_TOL)
+   and held bit for bit as the NF4 decode kernel (two calls, each row alone,
+   identity rows).  Above 16 rows the wrappers run the wgmma kernel of
+   ``qmm_i8_wgmma.cu``, timed beside the tile kernel of ``qmm_i8.cu``
+   through its C entry (``tile_ms``, also held to QMM_TOL) and held bit for
+   bit as the NF4 wgmma kernel (two calls, sub-batches of at least 17 rows,
+   identity rows).
 9. parity-int8: LLaMA-7B width, 2 layers, the CPU's plain path against the
    card, at three seeds: 4 teacher-forced decode steps on the int8 serving
    tree and a 128-token prefill of the NF4 params, both under
@@ -96,6 +107,13 @@ them.  Phases, each failing the run on any mismatch or exception:
    prefill_impl="w8a8"``.
 15. serve-paged-spec: the same engine with 4 drafts per verify chunk on 8
    requests whose prompts repeat a 16-token phrase.
+16. parity-i8base: parity over an int8-stored base (``--bits 8``, double
+   quant): the prefill on the int8 wgmma kernel, the decode steps on the
+   int8 decode kernel, logits within LOGIT_TOL, exact launch counts.
+17. serve-i8base: the serve phase's requests through ``generate()`` over a
+   full-depth int8-stored base with a rank-64 LoRA: every decode step's 224
+   linears on ``qmm_i8_decode.cu``, exact launch counts, its decode ms/step
+   beside the NF4 serve phase's, peak memory.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 """
@@ -169,6 +187,8 @@ ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
     (4, 32, 32, 128, 600, (5, 300, 598, 599), None, False),   # T not a multiple of 128
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, True),       # an off-by-one moves it O(1)
 )
+ATTN_LONG = (4, 32, 32, 128, 2048, (0, 511, 1500, 2047), None, False)   # five splits of 448
+I8_DECODE_ROWS = (4, 8, 16)      # the int8 forward at decode rows: generate()'s 4, 8 slots, 16
 
 
 PAGE, PPS = 64, 16               # serve-paged's pages: 64 tokens, 16 per sequence (T = 1024)
@@ -596,8 +616,7 @@ def kernel_phase(dev, results):
     import torch.nn.functional as F
 
     from qlora_tpu_torch.ops import (
-        decode_attention_cuda, decode_attention_plain, qmatmul_bwd_plain, qmatmul_plain,
-        qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
+        qmatmul_bwd_plain, qmatmul_plain, qmm_nf4_bwd, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32,
     )
     from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
     from qlora_tpu_torch.quant import dequantize, quantize
@@ -705,54 +724,82 @@ def kernel_phase(dev, results):
                 fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
             wgmma_checks("qmm_nf4_bwd", qmm_nf4_bwd, gr, qt, w_bf16, bwd=True)
 
-    for B, H, KVH, hd, T, lens, window, planted in ATTN_CASES:
+    decode_attention_phase(dev, g, results)
+
+
+def decode_attention_phase(dev, g, results):
+    """The split-KV decode attention kernel (``decode_attention_split.cu``)
+    against its plain version at ATTN_CASES and ATTN_LONG, beside the kernel
+    it replaced (``decode_attention.cu`` through ``_decode_attention_before``:
+    ``tile_ms``, held to ATTN_TOL too) and SDPA; bit for bit across two calls
+    and with each row alone; caches byte-equal to the plain version's."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from qlora_tpu_torch.ops import decode_attention_cuda, decode_attention_plain
+
+    before = importlib.import_module("qlora_tpu_torch.ops.decode_attention")._decode_attention_before
+    for B, H, KVH, hd, T, lens, window, planted in ATTN_CASES + (ATTN_LONG,):
         mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
         q, nk, nv = mk(B, H, hd), mk(B, KVH, hd), mk(B, KVH, hd)
         kc, vc = mk(B, KVH, T, hd), mk(B, KVH, T, hd)
         if planted:
             plant_edges(q, kc, lens, window)
         L = torch.tensor(lens, device=dev, dtype=torch.int32)
+        kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
         k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-        o1, _, _ = decode_attention_cuda(q, nk, nv, k1, v1, L, sm_scale=hd ** -0.5,
-                                         sliding_window=window)
-        o2, _, _ = decode_attention_plain(q, nk, nv, k2, v2, L, sm_scale=hd ** -0.5,
-                                          sliding_window=window)
+        k3, v3 = kc.clone(), vc.clone()
+        o1, _, _ = decode_attention_cuda(q, nk, nv, k1, v1, L, **kw)
+        o2, _, _ = decode_attention_plain(q, nk, nv, k2, v2, L, **kw)
+        o3, _, _ = before(q, nk, nv, k3, v3, L, **kw)
         torch.cuda.synchronize()
+        tol = ATTN_TOL * o2.float().abs().amax(-1, keepdim=True)
         diff = (o1.float() - o2.float()).abs()
         err = diff.max().item()
-        excess = (diff - ATTN_TOL * o2.float().abs().amax(-1, keepdim=True)).max().item()
-        same = torch.equal(k1, k2) and torch.equal(v1, v2)
+        excess = (diff - tol).max().item()
+        tile_diff = (o3.float() - o2.float()).abs()
+        excess = max(excess, (tile_diff - tol).max().item())
+        same = all(torch.equal(a, b) for a, b in ((k1, k2), (v1, v2), (k3, k2), (v3, v2)))
+        # bit for bit: two calls, and each row alone against its row of the batch
+        twice = torch.equal(o1, decode_attention_cuda(q, nk, nv, k1, v1, L, **kw)[0])
+        alone = all(torch.equal(decode_attention_cuda(
+            q[b:b + 1], nk[b:b + 1], nv[b:b + 1], k1[b:b + 1], v1[b:b + 1], L[b:b + 1],
+            **kw)[0][0], o1[b]) for b in range(B))
         caches = [(k1, v1)] + [(k1.clone(), v1.clone())
                                for _ in range(copies_past_l2(2 * k1.nbytes) - 1)]
-        ms = cuda_ms(lambda i: decode_attention_cuda(
-            q, nk, nv, *caches[i % len(caches)], L, sm_scale=hd ** -0.5,
-            sliding_window=window), 200)
-        plain_ms = cuda_ms(lambda i: decode_attention_plain(
-            q, nk, nv, *caches[i % len(caches)], L, sm_scale=hd ** -0.5,
-            sliding_window=window), 20)
-        # yardstick: SDPA of the 4 queries over the cache, masked to each
-        # row's valid prefix (it reads all T slots and appends nothing)
+        # device times in CUDA graphs: the wrapper's host time exceeds the kernel's
+        ms = graph_ms(lambda i: decode_attention_cuda(q, nk, nv, *caches[i % len(caches)], L,
+                                                      **kw), 200)
+        tile_ms = graph_ms(lambda i: before(q, nk, nv, *caches[i % len(caches)], L, **kw), 100)
+        plain_ms = cuda_ms(lambda i: decode_attention_plain(q, nk, nv, *caches[i % len(caches)],
+                                                            L, **kw), 20)
+        # yardstick: SDPA of the queries over the cache, masked to each row's
+        # valid prefix (it reads all T slots and appends nothing)
         pos = torch.arange(T, device=dev)
         valid = pos[None, :] <= L[:, None].clamp(max=T - 1)
         if window:
             valid &= pos[None, :] > L[:, None] - window
         mask = valid[:, None, None, :]
         qs = q[:, :, None, :]
-        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-            qs, *caches[i % len(caches)], attn_mask=mask, scale=hd ** -0.5,
-            enable_gqa=KVH != H), 200)
+        sdpa = lambda i: F.scaled_dot_product_attention(
+            qs, *caches[i % len(caches)], attn_mask=mask, scale=hd ** -0.5, enable_gqa=KVH != H)
+        lib_ms = cuda_ms(sdpa, 200)
+        lib_graph_ms = graph_ms(sdpa, 200)
         bound_ms, bound_by = attn_bound(B, H, KVH, hd, lens, T, window)
         shape = (f"B={B} H={H} KVH={KVH} hd={hd} T={T} lens={list(lens)} window={window}"
                  + (" planted edges" if planted else ""))
-        results.append(dict(name="decode_attention_cuda", shape=shape, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                            bound_by=bound_by))
-        print(f"kernel decode_attention_cuda {shape}: max|d|={err:.3g} "
-              f"(tol {ATTN_TOL}*row max|ref|) "
-              f"cache bytes equal={same} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
-        if excess > 0 or not same:
-            fail(f"decode attention {shape}: max|d|={err}, cache bytes equal={same}")
+        record(results, "decode_attention_cuda", shape, err, f"tol {ATTN_TOL}*row max|ref|", ms,
+               plain_ms, lib_ms, (bound_ms, bound_by), tile_ms=tile_ms,
+               tile_err=tile_diff.max().item(), library_graph_ms=lib_graph_ms)
+        print(f"  caches byte-equal to the plain version's after the append: {same}; two calls "
+              f"equal {twice}; each row alone equal {alone}; {tile_ms / ms:.2f}x "
+              f"decode_attention.cu's speed, {ms / lib_ms:.2f}x SDPA's time", flush=True)
+        if excess > 0 or not (same and twice and alone):
+            fail(f"decode attention {shape}: max|d|={err} (before {tile_diff.max().item()}), "
+                 f"caches byte-equal {same}, deterministic {twice}, row-invariant {alone}")
+        del caches, k1, v1, k2, v2, k3, v3
 
 
 def flash_phase(dev, results):
@@ -1091,38 +1138,51 @@ def int8_kernel_phase(dev, results):
             am_bytes = qt.nbytes - K * N
             kind = "dq" if dq else "f32"
             for name, kernel, plain, rows in (("qmm_i8_fwd", qmm_i8_fwd, qmm_i8_fwd_plain,
-                                               (4, QMM_BWD_ROWS, 2048)),
+                                               I8_DECODE_ROWS + (QMM_BWD_ROWS, 2048)),
                                               ("qmm_i8_bwd", qmm_i8_bwd, qmm_i8_bwd_plain,
                                                (QMM_BWD_ROWS,))):
                 fwd = name == "qmm_i8_fwd"
                 for M in rows:
                     a = torch.randn(M, K if fwd else N, device=dev, generator=g).to(torch.bfloat16)
+                    took = qmm_i8_fwd.decode_launches
                     y, ref = kernel(a, qt), plain(a, qt)
+                    if qmm_i8_fwd.decode_launches != took + (fwd and M <= DECODE_ROWS):
+                        fail(f"{name} M={M} K={K} N={N}: the decode kernel took "
+                             f"{qmm_i8_fwd.decode_launches - took} launches")
+                    # qmm_i8.cu through its C entry: the "before" of both new kernels
+                    yt = i8_tile(a, qt, fwd)
                     torch.cuda.synchronize()
                     diff = (y.float() - ref.float()).abs()
                     err = diff.max().item()
                     excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
                     shape = f"M={M} K={K} N={N} {kind} absmax"
-                    more = {}
-                    if M > DECODE_ROWS:
-                        yt = i8_tile(a, qt, fwd)
-                        torch.cuda.synchronize()
-                        dt = (yt.float() - ref.float()).abs()
-                        more["tile_err"] = dt.max().item()
-                        excess = max(excess, (dt - QMM_TOL[1] * ref.float().abs()).max().item())
+                    dt = (yt.float() - ref.float()).abs()
+                    more = {"tile_err": dt.max().item()}
+                    excess = max(excess, (dt - QMM_TOL[1] * ref.float().abs()).max().item())
                     if excess > QMM_TOL[0]:
                         fail(f"{name} {shape} differs from its plain version by {err}")
-                    iters = 20 if M > 16 else 200
-                    ms = cuda_ms(lambda i: kernel(a, qts[i % len(qts)]), iters)
+                    mat = lambda i: torch.matmul(a, ws[i % len(ws)] if fwd else ws[i % len(ws)].T)
                     if M > DECODE_ROWS:
+                        ms = cuda_ms(lambda i: kernel(a, qts[i % len(qts)]), 20)
                         more["tile_ms"] = cuda_ms(lambda i: i8_tile(a, qts[i % len(qts)], fwd), 5)
-                    plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3 if M > 16 else 20)
-                    lib_ms = cuda_ms(lambda i: torch.matmul(
-                        a, ws[i % len(ws)] if fwd else ws[i % len(ws)].T), iters)
+                        plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3)
+                        lib_ms = cuda_ms(mat, 20)
+                    else:
+                        # device times in a graph: the decode kernel is shorter than its
+                        # wrapper's host time
+                        ms = graph_ms(lambda i: kernel(a, qts[i % len(qts)]), 200)
+                        more["tile_ms"] = graph_ms(lambda i: i8_tile(a, qts[i % len(qts)], fwd),
+                                                   20)
+                        plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 20)
+                        lib_ms = graph_ms(mat, 200)
                     record(results, name, shape, err, tol, ms, plain_ms, lib_ms,
                            int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2), **more)
                     if M > DECODE_ROWS:
                         wgmma_checks(name, kernel, a, qt, w_bf16, bwd=not fwd)
+                    else:
+                        print(f"  the decode kernel {more['tile_ms'] / ms:.1f}x qmm_i8.cu's "
+                              f"speed, {ms / lib_ms:.2f}x torch.matmul's time", flush=True)
+                        decode_checks(f"{name} (decode kernel)", kernel, a, qt, w_bf16)
             del qts, ws, w_bf16, qt
         # identity operands read the decoded weight out of both kernels: dequantize's, bit
         # for bit (two meta-blocks of absmax rows; a ragged shape)
@@ -1164,14 +1224,21 @@ def random_lora(cfg, dev, seed):
     return lora, lcfg
 
 
-def parity_phase(dev):
+def parity_phase(dev, quant_type="nf4"):
+    """LLaMA-7B width, 2 layers, the same weights (NF4, or with ``quant_type``
+    "int8" an int8-stored base, double quant) through the plain path on the
+    CPU and through the kernels on the card: a 128-token prefill, then 4
+    teacher-forced decode steps; logits within LOGIT_TOL.  The int8 base's
+    run also checks its launch counts: the prefill on the int8 wgmma kernel,
+    every decode step on the int8 decode kernel.  Returns the worst |d|."""
     import torch
 
     from qlora_tpu_torch.models import forward, init_cache, init_params
     from qlora_tpu_torch.utils import move_to
 
+    tag = "parity" if quant_type == "nf4" else "parity-i8base"
     cfg = seven_b(num_layers=2)
-    p_gpu = init_params(cfg, seed=1, device=dev)
+    p_gpu = init_params(cfg, seed=1, device=dev, quant_type=quant_type)
     lora_gpu, lcfg = random_lora(cfg, dev, seed=2)
     p_cpu, lora_cpu = move_to(p_gpu, "cpu"), move_to(lora_gpu, "cpu")
     S, steps = 128, 4
@@ -1181,25 +1248,37 @@ def parity_phase(dev):
     worst = 0.0
     with torch.inference_mode():
         lc, c_cpu = forward(p_cpu, lora_cpu, ids, cfg, lcfg, cache=c_cpu)
+        reset_counts()
         lg, c_dev = forward(p_gpu, lora_gpu, ids.to(dev), cfg, lcfg, cache=c_dev)
         for step in range(steps + 1):
             last_c, last_g = lc[:, -1], lg[:, -1].cpu()
             if not (torch.isfinite(last_c).all() and torch.isfinite(last_g).all()):
-                fail(f"parity: non-finite logits at step {step}")
+                fail(f"{tag}: non-finite logits at step {step}")
             err = (last_c - last_g).abs().max().item()
             if step == 0:      # the whole prefill, every position
                 err = max(err, (lc - lg.cpu()).abs().max().item())
             worst = max(worst, err)
-            print(f"parity step {step}: max|logits cpu - card|={err:.4g} "
+            print(f"{tag} step {step}: max|logits cpu - card|={err:.4g} "
                   f"(tol {LOGIT_TOL}, |logits| max {last_c.abs().max().item():.3g})",
                   flush=True)
             if err > LOGIT_TOL:
-                fail(f"parity: card logits differ from the CPU's by {err} at step {step}")
+                fail(f"{tag}: card logits differ from the CPU's by {err} at step {step}")
             if step == steps:
                 break
             tok = last_c.argmax(-1, keepdim=True)         # teacher-force the CPU's token
             lc, c_cpu = forward(p_cpu, lora_cpu, tok, cfg, lcfg, cache=c_cpu)
             lg, c_dev = forward(p_gpu, lora_gpu, tok.to(dev), cfg, lcfg, cache=c_dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if quant_type == "int8":
+        n_lin = 7 * cfg.num_layers
+        want = expected_counts(qmm_i8_fwd=n_lin * (steps + 1),
+                               qmm_i8_decode_fwd=n_lin * steps,     # 1 row: the decode kernel
+                               qmm_i8_wgmma_fwd=n_lin,              # the prefill's 128 rows
+                               decode_attention_cuda=cfg.num_layers * steps)
+        print(f"{tag}: launches {counts} (expected {want})", flush=True)
+        if counts != want:
+            fail(f"{tag} launch counts {counts} != {want}")
     del p_gpu, p_cpu, lora_gpu, lora_cpu, c_cpu, c_dev
     torch.cuda.empty_cache()
     return worst
@@ -1434,13 +1513,16 @@ def counters():
 # kernel (M <= DECODE_ROWS), read as qmm_nf4_decode_dq / _f32, and those that
 # took the wgmma kernel (more rows), read as qmm_nf4_wgmma_dq / _f32; the rest
 # took the tile kernel of qmm_nf4_fwd.cu, which no LLaMA linear takes.  The
-# int8 forward and dx count those that took qmm_i8_wgmma.cu (more than
-# DECODE_ROWS rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took qmm_i8.cu.
+# int8 forward counts those that took qmm_i8_decode.cu (M <= DECODE_ROWS),
+# read as qmm_i8_decode_fwd; the int8 forward and dx count those that took
+# qmm_i8_wgmma.cu (more rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took
+# qmm_i8.cu.
 # The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
 # qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The flash wrappers launch
 # only the wgmma kernels of flash_attention_wgmma.cu and count each launch in
 # wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv
-DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32"}
+DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32",
+                 "qmm_i8_decode_fwd": "qmm_i8_fwd"}
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
                 "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
                 "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd", "flash_wgmma_fwd": "flash_fwd",
@@ -1617,6 +1699,72 @@ def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
     return counts, dict(decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
                         decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib,
                         requantize_s=requant_s, tokens_equal=agree)
+
+
+def serve_i8base_phase(dev, nf4_stats):
+    """serve-i8base: the serve phase's requests through ``generate()`` over
+    a full-depth int8-stored base (``--bits 8``, double quant) with a rank-64
+    LoRA: the prefill's linears on the int8 wgmma kernel, every decode
+    step's on the int8 decode kernel; exact launch counts, the decode step's
+    time beside the NF4 serve phase's from the same run, peak memory."""
+    import gc
+
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.models import init_params
+
+    # the serving engines of the serve phase hold reference cycles (their
+    # methods wrapped by `instrument`): collect them, so that the peak below
+    # counts this run's memory and not theirs
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = seven_b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=7, device=dev, quant_type="int8")
+    lora, lcfg = random_lora(cfg, dev, seed=8)
+    torch.cuda.synchronize()
+    print(f"serve-i8base: LLaMA-7B {cfg.num_layers} layers, random int8 weights (double quant) "
+          f"+ rank-{lcfg.r} LoRA, made in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+    ids, lengths = padded_requests(SERVE_LENGTHS, max(SERVE_LENGTHS), cfg.vocab_size, 9)
+    generate(params, lora, ids[:, :16], torch.full((4,), 16), cfg, lcfg,
+             max_new_tokens=2, eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = generate(params, lora, ids, lengths, cfg, lcfg,
+                    max_new_tokens=SERVE_NEW, eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    prefill_s = timed_prefill(dev, cfg, params, lora, lcfg, ids, lengths)
+    n_lin = 7 * cfg.num_layers
+    want = expected_counts(qmm_i8_fwd=n_lin * (SERVE_NEW + 1),
+                           qmm_i8_decode_fwd=n_lin * SERVE_NEW,       # 4 rows: the decode kernel
+                           qmm_i8_wgmma_fwd=n_lin,                    # the prefill: wgmma
+                           decode_attention_cuda=cfg.num_layers * SERVE_NEW)
+    decode_s = total_s - prefill_s
+    stats = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
+                 decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib)
+    print(f"serve-i8base: generated {tuple(toks.shape)} tokens in {total_s:.3f} s; prefill "
+          f"{prefill_s * 1e3:.1f} ms, decode {decode_s * 1e3:.1f} ms = "
+          f"{stats['decode_tok_s']:.1f} tok/s, {stats['decode_ms_per_step']:.2f} ms/step (the "
+          f"NF4 serve phase: {nf4_stats['decode_ms_per_step']:.2f} ms/step, peak "
+          f"{nf4_stats['peak_gib']:.2f} GiB); peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"serve-i8base: launches {counts} (expected {want}: {n_lin} qmm_i8_fwd per forward, "
+          f"on the wgmma kernel in the prefill and on the decode kernel in each decode step, "
+          f"{cfg.num_layers} decode-attention per decode step)", flush=True)
+    if counts != want:
+        fail(f"serve-i8base launch counts {counts} != {want}")
+    if toks.shape != (4, SERVE_NEW) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("serve-i8base: tokens out of range or wrong shape")
+    del params, lora
+    torch.cuda.empty_cache()
+    return counts, stats
 
 
 def paged_traffic(vocab, seed, n):
@@ -2084,8 +2232,9 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                        "qlora_tpu/ops/qmatmul.py:592 (_qmm_pallas_dq)"),
     "qmm_nf4_fwd_f32": ("qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
                         "qlora_tpu/ops/qmatmul.py:521 (_qmm_pallas)"),
-    "decode_attention_cuda": ("qlora_tpu_torch/csrc/decode_attention.cu",
-                              "qlora_tpu/ops/decode_attention.py:207 (fused_decode_attention)"),
+    "decode_attention_cuda": ("qlora_tpu_torch/csrc/decode_attention_split.cu",
+                              "qlora_tpu/ops/decode_attention.py:207 (fused_decode_attention, "
+                              "pallas_call at :276)"),
     # the NF4 dx: the wgmma kernel at its headline (M = 1024)
     "qmm_nf4_bwd": ("qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
                     "qlora_tpu/ops/qmatmul.py:651 (_qmm_bwd_pallas)"),
@@ -2102,6 +2251,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
     # the int8 forward and dx: the wgmma kernel at their headline (M = 1024)
     "qmm_i8_fwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8)"),
+    # the int8 forward at decode rows: the same wrapper, its decode kernel's entry
+    "qmm_i8_fwd_decode": ("qlora_tpu_torch/csrc/qmm_i8_decode.cu",
+                          "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8, pallas_call at :446; "
+                          "M <= 16)"),
     "qmm_i8_bwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:475 (_qmm_bwd_pallas_i8)"),
     "paged_decode_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
@@ -2118,9 +2271,17 @@ NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
 # the NF4 dx's two sources, by shape (ops/qmatmul.py: nf4_bwd_tile_plan)
 NF4_BWD_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
                    "M <= 16, or N % 8 != 0": "qlora_tpu_torch/csrc/qmm_nf4_bwd.cu"}
-# the int8 forward's and dx's two sources, by shape (ops/qmatmul.py: i8_tile_plan)
-I8_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
-              "M <= 16, or a contraction % 8 != 0": "qlora_tpu_torch/csrc/qmm_i8.cu"}
+# the int8 forward's and dx's three sources, by shape (ops/qmatmul.py:
+# i8_decode_plan, i8_tile_plan)
+I8_SOURCES = {"M <= 16, forward": "qlora_tpu_torch/csrc/qmm_i8_decode.cu",
+              "M > 16": "qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
+              "M <= 16 backward, or M > 16 and a contraction % 8 != 0":
+                  "qlora_tpu_torch/csrc/qmm_i8.cu"}
+# summary entries read from another wrapper's rows, and the rows they keep
+# (by the row count in the shape): the int8 forward's decode kernel and its
+# wgmma kernel share the rows of qmm_i8_fwd
+RESULT_OF = {"qmm_i8_fwd_decode": ("qmm_i8_fwd", lambda m: m <= 16),
+             "qmm_i8_fwd": ("qmm_i8_fwd", lambda m: m > 16)}
 TRAIN_HEADLINE = "M=1024 K=4096 N=4096"   # the wgmma kernel's entry: the train step's commonest
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
@@ -2136,6 +2297,8 @@ HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=409
             # entry counts), the int8 base's train step
             "qmm_i8_direct": "M=4 K=4096 N=4096", "qmm_nf4_w8a8": "M=512 K=4096 N=4096",
             "qmm_i8_fwd": "M=1024 K=4096 N=4096 dq", "qmm_i8_bwd": "M=1024 K=4096 N=4096 dq",
+            # the int8 base's decode step (serve-i8base), its commonest launch
+            "qmm_i8_fwd_decode": "M=4 K=4096 N=4096 dq",
             # serve-paged's decode step and its verify chunk, full attention
             "paged_decode_attention_cuda": "B=8 H=32 KVH=32",
             "paged_chunk_attention_cuda": "B=8 C=5 H=32 KVH=32"}
@@ -2174,6 +2337,24 @@ def serve_int8_split(results, num_layers, stats):
     attn = num_layers * next(r["ms"] for r in results if r["name"] == "decode_attention_cuda")
     step = stats["decode_ms_per_step"]
     return dict(step_ms=step, step_qmm_ms=qmm, step_attention_ms=attn,
+                step_other_ms=step - qmm - attn)
+
+
+def serve_i8base_split(results, num_layers, stats):
+    """The int8 base's decode step by kernel, as :func:`serve_split`: 7
+    ``qmm_i8_fwd`` launches per layer at M = 4 on the decode kernel (and
+    what ``qmm_i8.cu``'s 16-row branch, the "before", takes for them), each
+    at its time alone in the kernel phase (double-quantized absmax), and
+    decode attention."""
+    rows = {r["shape"]: r for r in results if r["name"] == "qmm_i8_fwd"}
+    lin = {k: rows[f"M=4 K={k[0]} N={k[1]} dq absmax"] for k in QMM_SHAPES}
+    per_layer = lambda key: (4 * lin[(4096, 4096)][key] + 2 * lin[(4096, 11008)][key]
+                             + lin[(11008, 4096)][key])
+    attn = num_layers * next(r["ms"] for r in results if r["name"] == "decode_attention_cuda")
+    step = stats["decode_ms_per_step"]
+    qmm = num_layers * per_layer("ms")
+    return dict(prefill_ms=stats["prefill_ms"], step_ms=step, step_qmm_ms=qmm,
+                step_qmm_before_ms=num_layers * per_layer("tile_ms"), step_attention_ms=attn,
                 step_other_ms=step - qmm - attn)
 
 
@@ -2222,6 +2403,10 @@ def main() -> int:
     print(f"parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
+    worst = parity_phase(dev, "int8")
+    print(f"parity-i8base: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     worst = {}
     for seed in PARITY_INT8_SEEDS:
         w, _ = parity_int8_phase(dev, seed)
@@ -2241,6 +2426,9 @@ def main() -> int:
      (spec_counts, spec_stats)) = serve_phase(dev)
     print(f"serve, serve-int8, serve-paged and serve-paged-spec: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    i8base_counts, i8base_stats = serve_i8base_phase(dev, serve_stats)
+    print(f"serve-i8base: {time.perf_counter() - t0:.1f} s", flush=True)
     nodq_counts = nodq_phase(dev)
     t0 = time.perf_counter()
     worst = train_parity_phase(dev)
@@ -2266,6 +2454,7 @@ def main() -> int:
                     qmm_i8_direct=int8_counts["qmm_i8_direct"],
                     qmm_nf4_w8a8=paged8_counts["qmm_nf4_w8a8"],
                     qmm_i8_fwd=train8_counts["qmm_i8_fwd"],
+                    qmm_i8_fwd_decode=i8base_counts["qmm_i8_decode_fwd"],
                     qmm_i8_bwd=train8_counts["qmm_i8_bwd"],
                     paged_decode_attention_cuda=paged_counts["paged_decode_attention_cuda"],
                     paged_chunk_attention_cuda=spec_counts["paged_chunk_attention_cuda"])
@@ -2274,7 +2463,9 @@ def main() -> int:
         fail(f"kernels never launched on their main path: {idle}")
     summary = []
     for name, (source, replaces) in SOURCES.items():
-        rows = [r for r in results if r["name"] == name]
+        of, keep = RESULT_OF.get(name, (name, lambda m: True))
+        rows = [r for r in results if r["name"] == of
+                and keep(int(r["shape"].split()[0][2:]) if r["shape"].startswith("M=") else 0)]
         head = next(r for r in rows if r["shape"].startswith(HEADLINE[name]))
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2283,6 +2474,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],
+            **({"tile_ms": head["tile_ms"]} if "tile_ms" in head else {}),
             # the w8a8 kernels' "ms" is the kernel alone; with the wrapper's row
             # quantization (PyTorch ops), as the decode step pays it.  The flash
             # kernels' "ms" is their device time in CUDA graphs; their wrappers
@@ -2313,11 +2505,13 @@ def main() -> int:
                              entry["name"].replace("flash_", "flash_wgmma_")],
                          tile_ms=head["tile_ms"])
         if entry["name"] in ("qmm_i8_fwd", "qmm_i8_bwd"):
-            head = next(r for r in results if r["name"] == entry["name"]
-                        and r["shape"] == entry["shape"])
             d = "fwd" if entry["name"] == "qmm_i8_fwd" else "bwd"
-            entry.update(sources=I8_SOURCES, wgmma_launches=train8_counts[f"qmm_i8_wgmma_{d}"],
-                         tile_ms=head["tile_ms"])
+            entry.update(sources=I8_SOURCES, wgmma_launches=train8_counts[f"qmm_i8_wgmma_{d}"])
+        if entry["name"] == "qmm_i8_fwd_decode":
+            entry.update(sources=I8_SOURCES, before_source="qlora_tpu_torch/csrc/qmm_i8.cu",
+                         decode_launches=i8base_counts["qmm_i8_decode_fwd"])
+        if entry["name"] == "decode_attention_cuda":
+            entry.update(before_source="qlora_tpu_torch/csrc/decode_attention.cu")
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     summary[0]["wgmma_launches_train"] = train_counts["qmm_nf4_wgmma_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
@@ -2334,6 +2528,13 @@ def main() -> int:
           f"{s8['step_qmm_ms'] + s8['step_attention_ms']:.2f} ms against the NF4 path's "
           f"{split['step_qmm_ms'] + split['step_attention_ms']:.2f} ms; on the host's clock the "
           f"NF4 step is {split['step_ms'] / s8['step_ms']:.2f} x as long in this run", flush=True)
+    i8b = serve_i8base_split(results, seven_b().num_layers, i8base_stats)
+    print(f"serve-i8base: decode step {i8b['step_ms']:.2f} ms = qmm_i8_fwd decode kernels "
+          f"~{i8b['step_qmm_ms']:.2f} ms (before: qmm_i8.cu's 16-row branch ~"
+          f"{i8b['step_qmm_before_ms']:.2f} ms) + decode attention "
+          f"~{i8b['step_attention_ms']:.2f} ms + other ~{i8b['step_other_ms']:.2f} ms "
+          f"(kernel-phase times x launches); prefill {i8b['prefill_ms']:.1f} ms; against the NF4 "
+          f"step's {split['step_ms']:.2f} ms in this run", flush=True)
     paged_attn = seven_b().num_layers * next(
         r["ms"] for r in results if r["name"] == "paged_decode_attention_cuda")
     paged_qmm = qmm_ms_per_forward(results, seven_b().num_layers, PAGED_B)

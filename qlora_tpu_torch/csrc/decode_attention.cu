@@ -1,4 +1,8 @@
-// Fused decode attention over the contiguous KV cache, one new token per row.
+// Fused decode attention over the contiguous KV cache, one new token per row:
+// the "before" of decode_attention_split.cu, which the port runs.  This
+// kernel is reached only through ops/decode_attention.py:
+// _decode_attention_before, which chip_smoke.py times beside the split
+// kernel and the tests hold against the plain version.
 //
 // Replaces the TPU kernel qlora_tpu/ops/decode_attention.py::
 // fused_decode_attention (_kernel): masked online-softmax attention of each
@@ -21,9 +25,10 @@
 // does.  The new token's score and value merge analytically from the inputs,
 // with the den == 0 -> 1 guard.  Then the new k/v land at lengths[b] when
 // lengths[b] < T; at or past the capacity nothing is written, as the TPU
-// kernel behaves.  Any T runs; head_dim 64, 128 and 256, and G <= 32.  Not
-// yet done (later work): splitting long caches across blocks (B * KVH blocks
-// is about one wave of 132 SMs at the 7B serving shape).
+// kernel behaves.  Any T runs; head_dim 64, 128 and 256, and G <= 32.  What
+// held it back (one CTA per (row, kv head), the longest row's chunks walked
+// one after another with synchronous loads, a shuffle reduction per (key,
+// query row)) is what decode_attention_split.cu was designed against.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

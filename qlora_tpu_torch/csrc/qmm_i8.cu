@@ -5,7 +5,12 @@
 // The weight is frozen and gets no gradient; the backward decodes it again.
 //
 // Replaces the TPU kernels qlora_tpu/ops/qmatmul.py::_qmm_pallas_i8
-// (_i8_fwd_kernel) and ::_qmm_bwd_pallas_i8 (_i8_bwd_kernel).  Those take f32
+// (_i8_fwd_kernel) and ::_qmm_bwd_pallas_i8 (_i8_bwd_kernel) where no newer
+// kernel takes the shape: the dx at 16 rows or fewer, and above 16 rows a
+// contraction whose row stride TMA cannot take.  The forward at 16 rows or
+// fewer runs qmm_i8_decode.cu (split K over a cluster) and more rows run
+// qmm_i8_wgmma.cu; this kernel is their "before", which chip_smoke.py times
+// beside them through the C entries below.  Those TPU kernels take f32
 // absmax only and have double quantization undone before them; these also
 // decode int8 absmax themselves (<DQ>), with the arithmetic of the NF4 kernels
 // (absmax = q * (scale * (1/127)) + offset as one fused multiply-add), so no
@@ -21,7 +26,8 @@
 // hundreds or thousands) the bf16 tensor-core rate, 2*M*K*N operations; at a
 // handful of rows the bytes of the weight, K*N codes plus the absmax.
 //
-// Design: one template serves both directions.  A block owns a [TM, 64] tile of
+// Design (the "before" of both newer kernels): one template serves both
+// directions.  A block owns a [TM, 64] tile of
 // the output (TM = 128 with 8 warps, or 16 with 4 warps when M <= 16) and walks
 // the contraction (K forward, N backward) 64 at a time.  Each step stages the
 // activation tile (16-byte loads where the rows allow it) and the decoded
@@ -29,8 +35,10 @@
 // reads it as a row_major matrix_b fragment; the backward reads the same layout
 // as a col_major fragment, which is W^T with no transpose pass.  bf16 WMMA
 // (m16n16k16), f32 accumulators, bf16 output; every K, N and block size that
-// quantize() accepts runs, with masked tails.  Later work: vector loads of the
-// codes, a wgmma/TMA pipeline, decoding each weight tile once for more rows.
+// quantize() accepts runs, with masked tails.  What held it back at 16 rows
+// (64 blocks of 128 threads at N = 4096, each walking all of K and staging a
+// decoded 64 x 64 tile a step, no overlap of loads and products, a 16-row
+// product for 4 rows) is what qmm_i8_decode.cu was designed against.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,16 +1,23 @@
-"""Ablations of the decode kernel (``csrc/qmm_nf4_decode.cu``) on the card.
+"""Ablations of the decode-step kernels on the card: the NF4 decode kernel
+(``csrc/qmm_nf4_decode.cu``), the int8 decode kernel
+(``csrc/qmm_i8_decode.cu``) and split-KV decode attention
+(``csrc/decode_attention_split.cu``).
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.decode_sweep
+    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | attention]
 
-Each variant is the kernel's source with one part taken out or one
-constant changed, compiled into ``build/sweep/``; every variant runs the
-real kernel's split plan on the LLaMA-7B block linears (and a tiny weight,
-whose time is the launch's fixed cost) at M = 4 and 16, timed in a CUDA
-graph with its inputs rotated past the 50 MB L2.  Variants that take
-parts out compute wrong sums: they time what is left.  One line per
-shape and row count; nothing here is used by the port.
+Each variant is a kernel's source with one part taken out or one constant
+changed, compiled into ``build/sweep/``.  The qmm variants run the real
+kernel's split plan on the LLaMA-7B block linears (and a tiny weight, whose
+time is the launch's fixed cost) at M = 4 and 16, beside ``torch.matmul`` on
+the dequantized bf16 weight; the int8 kernel also runs as built on plans of
+1 to 4 blocks per SM (its splits are an argument).
+Attention runs chip_smoke.py's timed shapes and its long case, as built, cut
+and on plans of other keys per split (also an argument).  Every launch is
+timed in a CUDA graph with its inputs rotated past the 50 MB L2.  Variants
+that take parts out compute wrong sums: they time what is left.  One line
+per shape and row count; nothing here is used by the port.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-SOURCE = ROOT / "qlora_tpu_torch" / "csrc" / "qmm_nf4_decode.cu"
+CSRC = ROOT / "qlora_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "sweep"
 
 _DECODE = ("  const float lo = __fmul_rn(tab[b & 15], am_lo);\n"
@@ -43,29 +50,86 @@ VARIANTS = {
     "depth 2": [_DEPTH(2)],
     "depth 4": [_DEPTH(4)],
 }
+# the int8 kernel: its decode of two codes to a bf16 pair, and its products
+_I8_DECODE = ("  const float r = (float)(1.0 / 127.0);\n"
+              "  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(c_lo, r), am_lo),\n"
+              "                                                 __fmul_rn(__fmul_rn(c_hi, r), am_hi));\n"
+              "  return *reinterpret_cast<const uint32_t*>(&v);",
+              "  return __float_as_uint(c_lo + c_hi) ^ __float_as_uint(am_lo + am_hi);")
+I8_VARIANTS = {
+    "as built": [],
+    "no decode": [_I8_DECODE],              # codes go to the tensor cores undecoded
+    "no mma": [_MMA],
+    "loads only": [_I8_DECODE, _MMA],
+    "depth 2": [_DEPTH(2)],
+}
+I8_BLOCKS_PER_SM = (1, 2, 3, 4)             # the plan's; as built takes 2
+# split-KV attention: the products, the softmax, and the ring
+_A_QK = ("        mma_bf16(s[0], a, bk[0], bk[1]);\n        mma_bf16(s[1], a, bk[2], bk[3]);",
+         "        s[0][0] += __uint_as_float((a[0] ^ bk[0]) & 0x3effffff);\n"
+         "        s[1][0] += __uint_as_float((a[1] ^ bk[2]) & 0x3effffff);")
+_A_PV = ("        mma_bf16(acc[dn], pa, bv[0], bv[1]);\n        mma_bf16(acc[dn + 1], pa, bv[2], bv[3]);",
+         "        acc[dn][0] += __uint_as_float((pa[0] ^ bv[0]) & 0x3effffff);\n"
+         "        acc[dn + 1][0] += __uint_as_float((pa[1] ^ bv[2]) & 0x3effffff);")
+_A_ONE_COPY = [("  static constexpr int PITCH = HD + 8; ", "  static constexpr int PITCH = HD; "),
+               ("    for (int i = lane; i < n; i += 32) {\n"
+                "      bulk_copy(smem_u32(ks + i * C::PITCH * 2), kc + slab + (size_t)(first + i) * HD, HD * 2,\n"
+                "                bar);\n"
+                "      bulk_copy(smem_u32(vs + i * C::PITCH * 2), vc + slab + (size_t)(first + i) * HD, HD * 2,\n"
+                "                bar);\n    }",
+                "    if (lane == 0) {\n"
+                "      bulk_copy(smem_u32(ks), kc + slab + (size_t)first * HD, n * HD * 2, bar);\n"
+                "      bulk_copy(smem_u32(vs), vc + slab + (size_t)first * HD, n * HD * 2, bar);\n    }")]
+ATTN_VARIANTS = {
+    "as built": [],
+    "no products": [_A_QK, _A_PV],          # loads, softmax and merges
+    "3 stages": [("  static constexpr int STAGES = 2;", "  static constexpr int STAGES = 3;")],
+    # one bulk copy of K and one of V a chunk, rows unpadded (bank conflicts)
+    "one copy a chunk": _A_ONE_COPY,
+    "no loads": [("    mbar_wait(smem_u32(full + st), (ch / C::STAGES) & 1);\n", ""),
+                 ("    for (int ch = 0; ch < nchunks && ch < C::STAGES; ++ch) fetch(ch);",
+                  "    for (int ch = 0; ch < 0; ++ch) fetch(ch);"),
+                 ("    if (w == 0 && ch + C::STAGES < nchunks) fetch(ch + C::STAGES);\n", "")],
+}
+ATTN_KEYS = (64, 128, 256)                  # keys a split, against the plan's own
+ATTN_SHAPES = (   # B, H, KVH, hd, T, lengths, window: chip_smoke.py's timed ones, the long case
+    (4, 32, 32, 128, 640, (0, 97, 383, 639), None),
+    (4, 32, 8, 128, 640, (0, 97, 383, 639), 256),
+    (4, 32, 32, 128, 600, (5, 300, 598, 599), None),
+    (4, 32, 32, 128, 2048, (0, 511, 1500, 2047), None))
 SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096))
 ROWS = (4, 16)
 L2_BYTES = 50 * 2 ** 20
+SETS = ("nf4", "int8", "attention")
 
 
-def build(name: str, edits) -> ctypes._CFuncPtr:
+def build(source: str, variants: dict, entry: str, argtypes) -> dict:
+    """Every variant of `source` compiled at once, one nvcc each: {name:
+    typed C entry}."""
     from qlora_tpu_torch.ops import _build
 
-    text = SOURCE.read_text()
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"variant {name!r}: the source no longer holds {old[:40]!r}")
-        text = text.replace(old, new)
-    stem = name.replace(" ", "_")
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / f"{stem}.cu").write_text(text)
-    lib = OUT / f"lib{stem}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(OUT / f"{stem}.cu")],
-                   check=True)
-    fn = ctypes.CDLL(str(lib)).qmm_nf4_decode
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    procs = []
+    for name, edits in variants.items():
+        text = (CSRC / source).read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {name!r}: the source no longer holds {old[:40]!r}")
+            text = text.replace(old, new)
+        stem = f"{Path(source).stem}_{name.replace(' ', '_')}"
+        (OUT / f"{stem}.cu").write_text(text)
+        lib = OUT / f"lib{stem}.so"
+        procs.append((name, lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(OUT / f"{stem}.cu")])))
+    fns = {}
+    for name, lib, proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"{source} {name!r}: nvcc failed")
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
 def graph_ms(fn, iters: int = 100) -> float:
@@ -90,47 +154,119 @@ def graph_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def copies_past_l2(qt) -> list:
+    return [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
+                   for _ in range(max(1, -(-2 * L2_BYTES // qt.nbytes)) - 1)]
+
+
+def qmm_sweep(kind: str, dev, g, sms: int) -> None:
+    """The NF4 or int8 decode kernel's variants at SHAPES x ROWS."""
+    import torch
+
+    from qlora_tpu_torch.quant import dequantize, quantize
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    int8 = kind == "int8"
+    argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fns = (build("qmm_i8_decode.cu", I8_VARIANTS, "qmm_i8_decode", argtypes) if int8 else
+           build("qmm_nf4_decode.cu", VARIANTS, "qmm_nf4_decode", argtypes))
+    for K, N in SHAPES:
+        qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5,
+                      quant_type="int8" if int8 else "nf4")
+        copies = copies_past_l2(qt)
+        w = dequantize(qt, torch.bfloat16)
+        ws = [w] + [w.clone() for _ in range(max(1, -(-2 * L2_BYTES // w.nbytes)) - 1)]
+        _, _, scale, offset = qm._check_quantized(qt, qt.device)
+        code = None if int8 else qm._code_on(qt.quant_type, dev).data_ptr()
+        plan = (qm.i8_decode_plan if int8 else qm.decode_plan)(K, N, qt.block_size, sms)
+        plans = {"": plan}
+        if int8:   # the as-built kernel on other splits
+            for per_sm in I8_BLOCKS_PER_SM:
+                splits = min(-(-K // plan.unit), 16, -(-per_sm * sms // plan.strips))
+                plans[f" ({per_sm}/SM, {splits} splits)"] = dataclasses.replace(plan,
+                                                                                 splits=splits)
+        for M in ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+            line = []
+            runs = [(name, fn, plan) for name, fn in fns.items()] + [
+                (f"as built{tag}", fns["as built"], p) for tag, p in plans.items() if tag]
+            for name, fn, p in runs:
+                def launch(i, fn=fn, p=p):
+                    q = copies[i % len(copies)]
+                    err = fn(x.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(),
+                             scale.data_ptr(), offset.data_ptr(), code, y.data_ptr(),
+                             M, K, N, qt.block_size, 1, p.splits, p.unit,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError_t {err}")
+                line.append(f"{name} {graph_ms(launch):.4f}")
+            line.append(f"torch.matmul on the bf16 weight {graph_ms(lambda i: x @ ws[i % len(ws)]):.4f}")
+            print(f"decode_sweep {kind} K={K} N={N} M={M} splits={plan.splits} (ms): "
+                  + ", ".join(line), flush=True)
+
+
+def attention_sweep(dev, g, sms: int) -> None:
+    """Split-KV attention's variants and plans at ATTN_SHAPES, beside
+    decode_attention.cu (the "before")."""
+    import torch
+
+    da = importlib.import_module("qlora_tpu_torch.ops.decode_attention")
+    fns = build("decode_attention_split.cu", ATTN_VARIANTS, "decode_attention_split",
+                da._SPLIT_ARGTYPES)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for B, H, KVH, hd, T, lens, window in ATTN_SHAPES:
+        mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+        one = 2 * B * KVH * T * hd * 2
+        caches = [(mk(B, KVH, T, hd), mk(B, KVH, T, hd))
+                  for _ in range(max(1, -(-2 * L2_BYTES // one)))]
+        q, nk, nv = mk(B, H, hd), mk(B, KVH, hd), mk(B, KVH, hd)
+        L = torch.tensor(lens, device=dev, dtype=torch.int32)
+        out = torch.empty_like(q)
+        plan = da.decode_attention_plan(T, KVH, H // KVH, hd, window, sms)
+        ws = torch.empty(B * KVH * 16 * H // KVH * (hd + 2), device=dev)   # room for 16 splits
+        span = min(T, window - 1) if window else T
+        runs = [(name, fn, plan.keys, plan.splits) for name, fn in fns.items()] + [
+            (f"as built ({k} keys a split)", fns["as built"], k, -(-span // k))
+            for k in ATTN_KEYS if k != plan.keys and -(-span // k) <= 16]
+        line = []
+        for name, fn, keys, splits in runs:
+            def launch(i, fn=fn, keys=keys, splits=splits):
+                kc, vc = caches[i % len(caches)]
+                err = fn(q.data_ptr(), nk.data_ptr(), nv.data_ptr(), kc.data_ptr(),
+                         vc.data_ptr(), L.data_ptr(), ws.data_ptr(), out.data_ptr(), B, KVH,
+                         H // KVH, T, hd, hd ** -0.5, window or 0, keys, splits, stream())
+                if err:
+                    raise RuntimeError(f"{name}: cudaError_t {err}")
+            line.append(f"{name} {graph_ms(launch):.4f}")
+        before = graph_ms(lambda i: da._decode_attention_before(
+            q, nk, nv, *caches[i % len(caches)], L, sm_scale=hd ** -0.5, sliding_window=window))
+        line.append(f"decode_attention.cu (before) {before:.4f}")
+        print(f"decode_sweep attention B={B} H={H} KVH={KVH} hd={hd} T={T} lens={list(lens)} "
+              f"window={window} keys={plan.keys} splits={plan.splits} (ms): " + ", ".join(line),
+              flush=True)
+
+
+def main(sets) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("decode_sweep: no CUDA device", file=sys.stderr)
         return 2
-    from qlora_tpu_torch.quant import quantize
-
-    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    fns = {name: build(name, edits) for name, edits in VARIANTS.items()}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(5)
-    for K, N in SHAPES:
-        qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
-        copies = [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
-                         for _ in range(max(1, -(-2 * L2_BYTES // qt.nbytes)) - 1)]
-        _, _, scale, offset = qm._check_quantized(qt, qt.device)
-        code = qm._code_on(qt.quant_type, dev)
-        plan = qm.decode_plan(K, N, qt.block_size, sms)
-        for M in ROWS:
-            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-            y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-            line = []
-            for name, fn in fns.items():
-                def launch(i, fn=fn):
-                    q = copies[i % len(copies)]
-                    err = fn(x.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(),
-                             scale.data_ptr(), offset.data_ptr(), code.data_ptr(), y.data_ptr(),
-                             M, K, N, qt.block_size, 1, plan.splits, plan.unit,
-                             torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"{name}: cudaError_t {err}")
-                line.append(f"{name} {graph_ms(launch):.4f}")
-            print(f"decode_sweep K={K} N={N} M={M} splits={plan.splits} (ms): "
-                  + ", ".join(line), flush=True)
+    for kind in ("nf4", "int8"):
+        if kind in sets:
+            qmm_sweep(kind, dev, g, sms)
+    if "attention" in sets:
+        attention_sweep(dev, g, sms)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    args = sys.argv[1:]
+    sys.exit(main([k for k in SETS if k in args] or list(SETS)))

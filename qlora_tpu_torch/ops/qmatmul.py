@@ -21,11 +21,16 @@ split-K weight-streaming kernel (``csrc/qmm_nf4_decode.cu``, counted in
 decodes each weight tile once for 128 or 256 rows
 (``csrc/qmm_nf4_wgmma.cu``, ``wgmma_launches``) wherever ``tile_plan``
 accepts the shape (K % 16 == 0), and the tile kernel of
-``csrc/qmm_nf4_fwd.cu`` for the rest.  For int8 storage, forward and dx
-alike, the same wgmma design (``csrc/qmm_i8_wgmma.cu``, ``wgmma_launches``)
-above ``DECODE_ROWS`` rows wherever ``i8_tile_plan`` accepts the shape (a
-row stride of the activation in multiples of 16 bytes), and the tile kernel
-of ``csrc/qmm_i8.cu`` for the rest.  The two ``w8a8`` kernels
+``csrc/qmm_nf4_fwd.cu`` for the rest.  For int8 storage the forward takes
+the same split-K design up to ``DECODE_ROWS`` rows
+(``csrc/qmm_i8_decode.cu``, ``decode_launches``; ``i8_decode_plan``
+takes every shape ``quantize`` makes);
+forward and dx alike take the wgmma design (``csrc/qmm_i8_wgmma.cu``,
+``wgmma_launches``) above ``DECODE_ROWS`` rows wherever ``i8_tile_plan``
+accepts the shape (a row stride of the activation in multiples of 16
+bytes); the tile kernel of ``csrc/qmm_i8.cu``, the decode kernel's
+"before", takes the dx at ``DECODE_ROWS`` rows or fewer and the shapes
+``i8_tile_plan`` refuses.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
 serving engines' decode path.  The kernels take every shape ``quantize``
@@ -190,33 +195,96 @@ def decode_plan(K: int, N: int, block_size: int, sms: int) -> DecodePlan:
     return DecodePlan(splits, unit, strips)
 
 
+# The int8 forward at decode rows: ``csrc/qmm_i8_decode.cu``, the same
+# design over int8 codes (a k-step of 16 rows, each byte one weight).
+_I8_DECODE_KSTEP = 16        # rows of a k-step of the int8 decode kernel
+_I8_DECODE_MAX_UNIT = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class I8DecodePlan:
+    """How ``qmm_i8_decode`` cuts an int8 weight [K, N]: ``strips`` of 128
+    columns times ``splits`` runs of whole ``unit``s of rows, one block
+    each; the splits of a strip are one cluster.  ``accepted`` says whether
+    the shape takes the kernel; ``reason`` says why not."""
+    accepted: bool
+    reason: str
+    splits: int = 0
+    unit: int = 0
+    strips: int = 0
+
+    def split_rows(self, K: int) -> list:
+        """[(r0, r1)] rows of W of each split, as the kernel computes them."""
+        units = -(-K // self.unit)
+        return [(s * units // self.splits * self.unit,
+                 min((s + 1) * units // self.splits * self.unit, K))
+                for s in range(self.splits)]
+
+
+def i8_decode_plan(K: int, N: int, block_size: int, sms: int) -> I8DecodePlan:
+    """The int8 decode kernel's split of a weight [K, N], as
+    :func:`decode_plan`'s: about ``_DECODE_BLOCKS_PER_SM`` blocks per SM, at
+    most one cluster of splits per strip.  A unit is the least multiple of
+    16 rows (one k-step) that holds whole absmax blocks (16 rows where that
+    would exceed 1024; a block size that is no multiple of 16 then takes the
+    kernel's per-element absmax).  It depends on neither M nor the rows'
+    values; it refuses only what is no int8 shape."""
+    if K <= 0 or N <= 0 or block_size <= 0 or K % block_size:
+        return I8DecodePlan(False, f"no int8 shape: K={K} N={N} block {block_size}")
+    unit = math.lcm(block_size, _I8_DECODE_KSTEP)
+    unit = unit if unit <= _I8_DECODE_MAX_UNIT else _I8_DECODE_KSTEP
+    units = -(-K // unit)
+    strips = -(-N // _DECODE_COLS)
+    splits = min(units, _DECODE_MAX_SPLITS, -(-_DECODE_BLOCKS_PER_SM * sms // strips))
+    return I8DecodePlan(True, "", splits, unit, strips)
+
+
 _PLANS: dict = {}
 _SMS: dict = {}
 
 
-def _decode_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset) -> torch.Tensor:
-    """Launch ``qmm_nf4_decode`` on checked operands: x [M, K] bf16 on the
-    card → y [M, N] bf16.  It takes any M (groups of 16 rows); the dispatch
-    sends it M <= ``DECODE_ROWS``."""
+def _sms_on(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _decode_plan_on(qt: QuantizedTensor, dev):
+    """The decode kernel's plan for qt's storage and shape on the card of
+    ``dev``, cached per shape: :func:`i8_decode_plan` for int8 codes, else
+    :func:`decode_plan`."""
+    int8 = qt.quant_type == "int8"
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    key = (int8, K, N, qt.block_size, dev)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan_fn = i8_decode_plan if int8 else decode_plan
+        plan = _PLANS[key] = plan_fn(K, N, qt.block_size, _sms_on(dev))
+    return plan
+
+
+def _decode_launch(x: torch.Tensor, qt: QuantizedTensor, scale, offset,
+                   plan=None) -> torch.Tensor:
+    """Launch the decode kernel of qt's storage (``qmm_nf4_decode``, or
+    ``qmm_i8_decode`` on an accepted plan) on checked operands: x [M, K]
+    bf16 on the card → y [M, N] bf16.  It takes any M (groups of 16 rows);
+    the dispatch sends it M <= ``DECODE_ROWS``."""
     K, N = logical_k(qt), qt.packed.shape[-1]
     x = _aligned(x.to(torch.bfloat16))
     M, dev = x.shape[0], x.device
     y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     if M == 0:
         return y
-    key = (K, N, qt.block_size, dev)
-    plan = _PLANS.get(key)
-    if plan is None:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = _PLANS[key] = decode_plan(K, N, qt.block_size, _SMS[dev])
-    fn = _build.kernel("qmm_nf4_decode", "qmm_nf4_decode", [_P] * 7 + [_I] * 7 + [_P])
+    plan = plan or _decode_plan_on(qt, dev)
+    lib = "qmm_i8_decode" if qt.quant_type == "int8" else "qmm_nf4_decode"
+    fn = _build.kernel(lib, lib, [_P] * 7 + [_I] * 7 + [_P])
+    code = None if qt.quant_type == "int8" else _code_on(qt.quant_type, dev).data_ptr()
     err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
              None if scale is None else scale.data_ptr(),
              None if offset is None else offset.data_ptr(),
-             _code_on(qt.quant_type, dev).data_ptr(), y.data_ptr(), M, K, N, qt.block_size,
+             code, y.data_ptr(), M, K, N, qt.block_size,
              int(qt.double_quant), plan.splits, plan.unit, _build.stream_ptr(x))
-    _build.check(err, "qmm_nf4_decode")
+    _build.check(err, lib)
     return y
 
 
@@ -302,9 +370,7 @@ def _plan_on(plan_fn, dev, *args) -> TilePlan:
     key = (plan_fn, args, dev)
     plan = _TILE_PLANS.get(key)
     if plan is None:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = _TILE_PLANS[key] = plan_fn(*args, sms=_SMS[dev])
+        plan = _TILE_PLANS[key] = plan_fn(*args, sms=_sms_on(dev))
     return plan
 
 
@@ -504,7 +570,8 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
     """The int8 wgmma kernel's plan on a card of ``sms`` SMs: the forward
     x [M, K] @ W [K, N] (output [M, N], contraction K) or, with ``bwd``, dx
     = g [M, N] @ Wᵀ (output [M, K], contraction N).  It refuses up to
-    ``DECODE_ROWS`` rows (``qmm_i8.cu`` keeps them) and a contraction that
+    ``DECODE_ROWS`` rows (the decode kernel keeps the forward's, ``qmm_i8.cu``
+    the backward's) and a contraction that
     is no multiple of 8: TMA reads the activation in boxes of [rows, 64
     columns] and needs its row stride in multiples of 16 bytes.  Ragged M,
     output and contraction are masked in the kernel; block sizes that are no
@@ -513,7 +580,8 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
     of CTAs, else 128."""
     C, O = (N, K) if bwd else (K, N)
     if M <= DECODE_ROWS:
-        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} stay on qmm_i8.cu")
+        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} take qmm_i8_decode.cu "
+                               "forward and qmm_i8.cu backward")
     if C % 8:
         return TilePlan(False, f"{'N' if bwd else 'K'}={C} is no multiple of 8: TMA needs a "
                                "16-byte row stride")
@@ -528,8 +596,10 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
 def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
     """Check the operands and launch the int8 kernel that the shape takes:
     x [M, K] (forward) or g [M, N] (``bwd``) on the card → (the output
-    bf16, which kernel): "wgmma" where ``i8_tile_plan`` accepts the shape,
-    else "tile" (``qmm_i8.cu``).  No rows, no launch ("none")."""
+    bf16, which kernel): "decode" for the forward up to ``DECODE_ROWS``
+    rows (a shape ``i8_decode_plan`` refuses raises), "wgmma" where
+    ``i8_tile_plan`` accepts it, else "tile" (``qmm_i8.cu``).  No rows, no
+    launch ("none")."""
     what = "qmm_i8_bwd" if bwd else "qmm_i8_fwd"
     _check_int8(qt, what)
     _check_rows(a, qt.packed.shape[-1] if bwd else logical_k(qt), "g" if bwd else "x")
@@ -537,6 +607,11 @@ def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
     M = a.shape[0]
     if M == 0:
         return torch.empty((0, K if bwd else N), dtype=torch.bfloat16, device=a.device), "none"
+    if not bwd and M <= DECODE_ROWS:
+        plan = _decode_plan_on(qt, a.device)
+        if not plan.accepted:
+            raise ValueError(f"qmm_i8_fwd: {plan.reason}")
+        return _decode_launch(a, qt, scale, offset, plan), "decode"
     plan = _plan_on(i8_tile_plan, a.device, M, K, N, qt.block_size, bwd)
     if plan.accepted:
         entry = "qmm_i8_wgmma_bwd" if bwd else "qmm_i8_wgmma_fwd"
@@ -548,10 +623,11 @@ def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
 def qmm_i8_fwd(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The forward kernel over int8 storage (TPU _qmm_pallas_i8): x [M, K]
     on the card → x @ dequant(qt) [M, N] bf16.  f32 or double-quantized
-    absmax, decoded in the kernel."""
+    absmax, decoded in the kernel.  Up to ``DECODE_ROWS`` rows the decode
+    kernel (counted in ``decode_launches``), above the wgmma kernel
+    (``wgmma_launches``)."""
     y, took = _i8_launch(x, qt, bwd=False)
-    qmm_i8_fwd.launches += took != "none"
-    qmm_i8_fwd.wgmma_launches += took == "wgmma"
+    _count(qmm_i8_fwd, took)
     return y
 
 
@@ -564,9 +640,10 @@ def qmm_i8_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return dx
 
 
-# launches: every call that ran a kernel; wgmma_launches: those of them that
-# took qmm_i8_wgmma.cu (the rest took the tile kernel of qmm_i8.cu)
-qmm_i8_fwd.launches = qmm_i8_fwd.wgmma_launches = 0
+# launches: every call that ran a kernel; decode_launches (forward only):
+# those of them that took qmm_i8_decode.cu; wgmma_launches: those that took
+# qmm_i8_wgmma.cu (the rest took the tile kernel of qmm_i8.cu)
+qmm_i8_fwd.launches = qmm_i8_fwd.decode_launches = qmm_i8_fwd.wgmma_launches = 0
 qmm_i8_bwd.launches = qmm_i8_bwd.wgmma_launches = 0
 
 

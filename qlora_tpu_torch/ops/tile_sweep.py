@@ -53,7 +53,8 @@ graphs (their wrappers' host time exceeds the kernels' on the card's host).
 
 One line per shape, direction and kernel; nothing here is used by the port.
 
-``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd]`` instead
+``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd | flash |
+i8decode | attention]`` instead
 copies the checkout once per mutant of a wgmma kernel into
 ``build/mutants/``, runs that kernel's ``cuda`` tests in each copy and
 prints how many fail: each mutant must fail at least one.  NF4: the high
@@ -63,7 +64,11 @@ int8: the backward's absmax row taken one block off, the last k-step
 dropped, the proxy fence taken out.  NF4 dx: the high plane reading the low
 plane's absmax row, the low run's mask at K/2 dropped, the last k-step
 dropped, the proxy fence taken out.  Flash: the causal edge and the window
-edge off by one, the rescale of O dropped, the last kv tile skipped.
+edge off by one, the rescale of O dropped, the last kv tile skipped.  The
+decode-step kernels (``decode_sweep`` times them): the int8 decode kernel
+(``qmm_i8_decode.cu``) with a split boundary one unit off and with its last
+split dropped; split-KV attention (``decode_attention_split.cu``) with the
+window edge off by one and the splits' rescale dropped in the merge.
 """
 
 from __future__ import annotations
@@ -251,11 +256,30 @@ FLASH_MUTANTS = {
                               "  last = hi > lo ? max(first, (hi + bk - 1) / bk - 1) : first;")],
 }
 FLASH_MUTANT_TESTS = "flash"
+# the decode-step kernels: the int8 forward at decode rows and split-KV attention
+I8_DECODE_MUTANTS = {
+    "a split boundary one unit off": [
+        ("  const int r1 = min((int)((long long)(split + 1) * units / splits) * unit, K);",
+         "  const int r1 = min((int)((long long)(split + 1) * units / splits - 1) * unit, K);")],
+    "last split dropped": [
+        ("  for (int p0 = r0; p0 < r1; p0 += PASS_ROWS) {",
+         "  for (int p0 = r0; p0 < (split + 1 < splits ? r1 : r0); p0 += PASS_ROWS) {")],
+}
+I8_DECODE_MUTANT_TESTS = "i8_decode or i8_fwd_and_bwd"
+ATTN_MUTANTS = {
+    "window edge off by one": [("  lo = window > 0 ? max(0, len - window + 1) : 0;",
+                                "  lo = window > 0 ? max(0, len - window) : 0;")],
+    "a split's rescale dropped": [("        const float sc = expf(ms[sp] - M);",
+                                   "        const float sc = 1.f;")],
+}
+ATTN_MUTANT_TESTS = "decode_kernel_matches or decode_split"
 # which source each set of mutants edits, and the cuda tests run against them
 MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS),
                "nf4bwd": ("qmm_nf4_bwd_wgmma.cu", NF4_BWD_MUTANTS, NF4_BWD_MUTANT_TESTS),
-               "flash": ("flash_attention_wgmma.cu", FLASH_MUTANTS, FLASH_MUTANT_TESTS)}
+               "flash": ("flash_attention_wgmma.cu", FLASH_MUTANTS, FLASH_MUTANT_TESTS),
+               "i8decode": ("qmm_i8_decode.cu", I8_DECODE_MUTANTS, I8_DECODE_MUTANT_TESTS),
+               "attention": ("decode_attention_split.cu", ATTN_MUTANTS, ATTN_MUTANT_TESTS)}
 SETS = tuple(MUTANT_SETS)
 
 

@@ -246,6 +246,22 @@ def test_qmm_rejects_bad_input(cuda):
         qmm_nf4_fwd_f32(torch.zeros(4, 256, device=cuda, dtype=torch.bfloat16), qt)
 
 
+# the split kernel's edges: G = 1, 4 and 8 at head dims 64, 128 and 256;
+# windows of 1 (no cached key), 2 and 65 (one key past a 64-key chunk);
+# lengths 0, 1, at the capacity and past it; T = 2048 (five splits of 448
+# keys) and T = 100 (no multiple of a chunk); planted edges at every split
+# boundary a length crosses
+ATTN_SPLIT_CASES = [
+    (2, 8, 8, 64, 300, [299, 0], None, False),
+    (3, 16, 4, 128, 257, [1, 256, 257], 65, True),
+    (2, 16, 2, 256, 100, [100, 37], None, True),
+    (4, 32, 32, 128, 2048, [0, 511, 1500, 2047], None, False),
+    (2, 32, 4, 128, 640, [639, 129], 1, False),
+    (2, 32, 4, 128, 640, [640, 2], 2, True),
+    (3, 24, 3, 64, 513, [448, 449, 513], None, True),
+]
+
+
 @pytest.mark.parametrize("B,H,KVH,hd,T,lens,window,planted", [
     (4, 32, 32, 128, 640, [0, 97, 383, 639], None, False),
     (2, 32, 8, 128, 300, [5, 299], 256, False),
@@ -253,7 +269,7 @@ def test_qmm_rejects_bad_input(cuda):
     (2, 64, 2, 256, 70, [69, 3], 16, False),            # G = 32
     (4, 32, 8, 128, 640, [0, 97, 383, 639], 256, True),
     (3, 8, 2, 64, 130, [1, 64, 129], None, True),
-])
+] + ATTN_SPLIT_CASES)
 def test_decode_kernel_matches_plain(cuda, B, H, KVH, hd, T, lens, window, planted):
     g = torch.Generator(device=cuda).manual_seed(T)
     mk = lambda *s: torch.randn(*s, device=cuda, generator=g).to(torch.bfloat16)
@@ -272,6 +288,60 @@ def test_decode_kernel_matches_plain(cuda, B, H, KVH, hd, T, lens, window, plant
     d = (o1.float() - o2.float()).abs()
     tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
     assert (d <= tol).all(), f"max excess {(d - tol).max().item()}"
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def _attn_case(cuda, B, H, KVH, hd, T, lens, window, planted, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device=cuda, generator=g).to(torch.bfloat16)
+    q, nk, nv, kc, vc = mk(B, H, hd), mk(B, KVH, hd), mk(B, KVH, hd), \
+        mk(B, KVH, T, hd), mk(B, KVH, T, hd)
+    if planted:
+        plant_edges(q, kc, lens, window)
+    return q, nk, nv, kc, vc, torch.tensor(lens, device=cuda, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,T,lens,window", [
+    (4, 32, 32, 128, 640, [0, 97, 383, 639], None),
+    (4, 32, 8, 128, 640, [0, 97, 383, 639], 256),
+    (4, 32, 32, 128, 2048, [0, 511, 1500, 2047], None),
+    (3, 64, 2, 256, 130, [129, 1, 130], None),         # G = 32: two CTAs of query heads
+])
+def test_decode_split_deterministic_and_row_invariant(cuda, B, H, KVH, hd, T, lens, window):
+    """Two calls give the same bits, and each row alone gives its row of the
+    batch bit for bit: the plan depends on T and the heads, not on B or the
+    lengths, and the splits merge in a fixed order."""
+    q, nk, nv, kc, vc, L = _attn_case(cuda, B, H, KVH, hd, T, lens, window, False, T + B)
+    kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
+    o1, _, _ = decode_attention_cuda(q, nk, nv, kc, vc, L, **kw)
+    o2, _, _ = decode_attention_cuda(q, nk, nv, kc, vc, L, **kw)
+    assert torch.equal(o1, o2)
+    for b in range(B):
+        ob, _, _ = decode_attention_cuda(q[b:b + 1], nk[b:b + 1], nv[b:b + 1], kc[b:b + 1],
+                                         vc[b:b + 1], L[b:b + 1], **kw)
+        assert torch.equal(ob[0], o1[b]), b
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,T,lens,window,planted", [
+    (4, 32, 32, 128, 640, [0, 97, 383, 639], None, False),
+    (4, 32, 8, 128, 640, [0, 97, 383, 639], 256, True),
+    (2, 64, 2, 256, 70, [69, 3], 16, False),
+])
+def test_decode_attention_before_still_matches_plain(cuda, B, H, KVH, hd, T, lens, window,
+                                                     planted):
+    """The kernel the split kernel replaced (decode_attention.cu, through its
+    private wrapper, uncounted) holds the plain version as it did."""
+    da = importlib.import_module("qlora_tpu_torch.ops.decode_attention")
+    q, nk, nv, kc, vc, L = _attn_case(cuda, B, H, KVH, hd, T, lens, window, planted, T)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = decode_attention_cuda.launches
+    o1, _, _ = da._decode_attention_before(q, nk, nv, k1, v1, L, sm_scale=hd ** -0.5,
+                                           sliding_window=window)
+    o2, _, _ = decode_attention_plain(q, nk, nv, k2, v2, L, sm_scale=hd ** -0.5,
+                                      sliding_window=window)
+    assert decode_attention_cuda.launches == before
+    d = (o1.float() - o2.float()).abs()
+    assert (d <= 2e-2 * o2.float().abs().amax(-1, keepdim=True)).all()
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
@@ -665,15 +735,27 @@ I8_WGMMA_CASES = [(M, 4096, 4096, 64) for M in (17, 40, 128)] + [
     (300, 200, 64, 8), (33, 480, 50, 12), (20, 36, 40, 4)]
 
 
+# decode rows (the int8 decode kernel): LLaMA-7B's up projection, ragged N
+# (byte loads), block 256, block sizes that are no multiple of the 16-row
+# k-step (4, 8, 24: each element's own absmax), three meta-blocks of absmax
+# (64 * 600), K % 16 != 0 (K = 36: x staged element by element), splits
+# longer than the 4096 rows staged at once (64 * 1100)
+I8_DECODE_CASES = [(M, K, N, B) for M in (1, 3, 8, 9, 16) for K, N, B in (
+    (4096, 11008, 64), (384, 200, 64), (2048, 320, 256), (64 * 600, 96, 64))] + [
+    (5, 256, 72, 4), (16, 480, 50, 24), (2, 36, 40, 4), (12, 192, 136, 8),
+    (4, 64 * 1100, 32, 64), (7, 11008, 4096, 64)]
+
+
 @pytest.mark.parametrize("M,K,N,block_size", [
     (1, 256, 64, 64), (4, 4096, 4096, 64), (37, 384, 200, 64), (5, 192, 200, 64),
     (300, 1024, 320, 32), (1024, 11008, 512, 64), (16, 64 * 600, 96, 64),
-] + I8_WGMMA_CASES)
+] + I8_WGMMA_CASES + I8_DECODE_CASES)
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_i8_fwd_and_bwd_kernels_match_plain(cuda, M, K, N, block_size, double_quant):
-    """The forward and dx through ``qmatmul`` and autograd: each takes the
-    wgmma kernel exactly where ``i8_tile_plan`` accepts the shape, else
-    ``qmm_i8.cu``, and agrees with its plain version."""
+    """The forward and dx through ``qmatmul`` and autograd: the forward takes
+    the decode kernel up to DECODE_ROWS rows (counted in ``decode_launches``),
+    each takes the wgmma kernel exactly where ``i8_tile_plan`` accepts the
+    shape, else ``qmm_i8.cu``, and agrees with its plain version."""
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
     qt = quantize(w, block_size=block_size, quant_type="int8", double_quant=double_quant)
@@ -682,12 +764,15 @@ def test_i8_fwd_and_bwd_kernels_match_plain(cuda, M, K, N, block_size, double_qu
     took = [i8_tile_plan(M, K, N, block_size, bwd).accepted for bwd in (False, True)]
     assert took == [M > DECODE_ROWS and K % 8 == 0, M > DECODE_ROWS and N % 8 == 0]
     n0 = (qmm_i8_fwd.launches, qmm_i8_bwd.launches, qmm_nf4_fwd_dq.launches,
-          qmm_nf4_bwd.launches, qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches)
+          qmm_nf4_bwd.launches, qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches,
+          qmm_i8_fwd.decode_launches)
     y = qmatmul(x, qt)
     y.backward(g)
     assert (qmm_i8_fwd.launches, qmm_i8_bwd.launches, qmm_nf4_fwd_dq.launches,
-            qmm_nf4_bwd.launches, qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches) == (
-        n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + took[0], n0[5] + took[1])
+            qmm_nf4_bwd.launches, qmm_i8_fwd.wgmma_launches, qmm_i8_bwd.wgmma_launches,
+            qmm_i8_fwd.decode_launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + took[0], n0[5] + took[1],
+        n0[6] + (M <= DECODE_ROWS))
     torch.testing.assert_close(y.detach().float(), qmm_i8_fwd_plain(x.detach(), qt).float(),
                                rtol=1e-2, atol=2e-2)
     assert x.grad.dtype == torch.bfloat16 and x.grad.shape == (M, K)
@@ -765,10 +850,11 @@ def test_i8_wgmma_deterministic_and_batch_invariant(cuda, K, N, block_size, doub
 
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_i8_wgmma_dispatch_edge(cuda, double_quant):
-    """DECODE_ROWS rows take qmm_i8.cu, one more the wgmma kernel, in both
-    directions; a contraction whose row stride TMA cannot take (K % 8 != 0
-    forward, N % 8 != 0 backward) takes qmm_i8.cu, and the other direction
-    of the same weight the wgmma kernel."""
+    """DECODE_ROWS rows take the decode kernel forward and qmm_i8.cu
+    backward, one more the wgmma kernel, in both directions; a contraction
+    whose row stride TMA cannot take (K % 8 != 0 forward, N % 8 != 0
+    backward) above DECODE_ROWS rows takes qmm_i8.cu, and the other
+    direction of the same weight the wgmma kernel."""
     cases = [(1024, 320, 64, DECODE_ROWS, False, 0), (1024, 320, 64, DECODE_ROWS + 1, False, 1),
              (1024, 320, 64, DECODE_ROWS, True, 0), (1024, 320, 64, DECODE_ROWS + 1, True, 1),
              (36, 40, 4, 20, False, 0), (36, 40, 4, 20, True, 1),
@@ -777,11 +863,64 @@ def test_i8_wgmma_dispatch_edge(cuda, double_quant):
         qt, x, g = _i8_case(cuda, M, K, N, B, double_quant)
         wrapper, plain, a = (qmm_i8_bwd, qmm_i8_bwd_plain, g) if bwd else (
             qmm_i8_fwd, qmm_i8_fwd_plain, x)
-        before = wrapper.launches, wrapper.wgmma_launches
+        before = wrapper.launches, wrapper.wgmma_launches, qmm_i8_fwd.decode_launches
         y = wrapper(a, qt)
         assert (wrapper.launches, wrapper.wgmma_launches) == (before[0] + 1, before[1] + took), (
             K, N, M, bwd)
+        assert qmm_i8_fwd.decode_launches == before[2] + (not bwd and M <= DECODE_ROWS)
         torch.testing.assert_close(y.float(), plain(a, qt).float(), rtol=1e-2, atol=2e-2)
+
+
+I8_DECODE_EXACT = [(4096, 11008, 64), (64 * 260, 64, 64), (2048, 320, 256), (384, 200, 64),
+                   (480, 56, 24), (256, 72, 4), (36, 40, 4)]
+
+
+@pytest.mark.parametrize("K,N,block_size", I8_DECODE_EXACT)
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_decode_identity_reads_out_the_weight(cuda, K, N, block_size, double_quant):
+    """16 rows of the identity (both sides of absmax-block and, at 64 * 260,
+    meta-block edges) read ``dequantize``'s bf16 weight out of the decode
+    kernel bit for bit: it decodes the same weight, and its f32 sums of one
+    product and zeros are exact."""
+    qt, _, _ = _i8_case(cuda, 16, K, N, block_size, double_quant)
+    ks = one_hot_rows(K, block_size, 16)
+    x = torch.zeros(len(ks), K, device=cuda, dtype=torch.bfloat16)
+    x[torch.arange(len(ks)), torch.tensor(ks)] = 1
+    before = qmm_i8_fwd.decode_launches
+    y = qmm_i8_fwd(x, qt)
+    assert qmm_i8_fwd.decode_launches == before + 1
+    assert torch.equal(y, dequantize(qt, torch.bfloat16)[ks])
+
+
+@pytest.mark.parametrize("K,N,block_size", I8_DECODE_EXACT[:4] + [(11008, 4096, 64)])
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_decode_deterministic_and_batch_invariant(cuda, K, N, block_size, double_quant):
+    """Two calls give the same bits, and each row alone, and the first 3 and
+    8 rows, give their rows of the 16-row batch bit for bit: the split plan
+    and the order of the sums do not depend on M."""
+    qt, x, _ = _i8_case(cuda, 16, K, N, block_size, double_quant)
+    y = qmm_i8_fwd(x, qt)
+    assert torch.equal(y, qmm_i8_fwd(x, qt))
+    for i in range(x.shape[0]):
+        assert torch.equal(qmm_i8_fwd(x[i:i + 1], qt)[0], y[i]), i
+    for M in (3, 8):
+        assert torch.equal(qmm_i8_fwd(x[:M], qt), y[:M]), M
+
+
+@pytest.mark.parametrize("double_quant", [True, False])
+def test_i8_decode_dispatch_edge(cuda, double_quant):
+    """DECODE_ROWS rows take the decode kernel, one more the wgmma kernel;
+    the dx at DECODE_ROWS rows takes qmm_i8.cu, counted in neither."""
+    qt, x, g = _i8_case(cuda, DECODE_ROWS + 1, 1024, 320, 64, double_quant)
+    for M, bwd, took in ((DECODE_ROWS, False, "decode"), (DECODE_ROWS + 1, False, "wgmma"),
+                         (DECODE_ROWS, True, "tile")):
+        wrapper, plain, a = (qmm_i8_bwd, qmm_i8_bwd_plain, g) if bwd else (
+            qmm_i8_fwd, qmm_i8_fwd_plain, x)
+        before = (wrapper.launches, qmm_i8_fwd.decode_launches, wrapper.wgmma_launches)
+        y = wrapper(a[:M], qt)
+        assert (wrapper.launches, qmm_i8_fwd.decode_launches, wrapper.wgmma_launches) == (
+            before[0] + 1, before[1] + (took == "decode"), before[2] + (took == "wgmma")), M
+        torch.testing.assert_close(y.float(), plain(a[:M], qt).float(), rtol=1e-2, atol=2e-2)
 
 
 def test_i8_no_backward_launch_without_input_grad(cuda):

@@ -80,3 +80,20 @@ def test_cuda_sources_cover_flash_attention():
     assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {
         "flash_wgmma_fwd", "flash_wgmma_bwd_dq", "flash_wgmma_bwd_dkv"}
     assert "::_flash_fwd" in text and "::_flash_bwd" in text
+
+
+def test_cuda_sources_cover_the_decode_step_kernels():
+    """The int8 forward at decode rows and split-KV decode attention have
+    sources of their own, scanned like the rest, with the C entries their
+    wrappers call and the TPU functions they replace named; the kernels they
+    replaced stay beside them as the "before"."""
+    csrc = ROOT / "qlora_tpu_torch" / "csrc"
+    for name, entries, tpu in (("qmm_i8_decode.cu", {"qmm_i8_decode"}, "::_qmm_pallas_i8"),
+                               ("decode_attention_split.cu", {"decode_attention_split"},
+                                "::\nfused_decode_attention")):
+        path = csrc / name
+        assert path in SOURCES
+        text = path.read_text()
+        assert set(re.findall(r'extern "C" int (\w+)\(', text)) == entries
+        assert tpu.replace("\n", "") in text.replace("\n// ", "")
+    assert csrc / "qmm_i8.cu" in SOURCES and csrc / "decode_attention.cu" in SOURCES

@@ -241,7 +241,9 @@ def test_tile_sweep_edits_apply_to_the_sources():
                           ("qmm_nf4_bwd_wgmma.cu", tile_sweep.NF4_BWD_MUTANTS),
                           ("flash_attention_wgmma.cu",
                            {n: v[0] for n, v in tile_sweep.FLASH.items()}),
-                          ("flash_attention_wgmma.cu", tile_sweep.FLASH_MUTANTS)):
+                          ("flash_attention_wgmma.cu", tile_sweep.FLASH_MUTANTS),
+                          ("qmm_i8_decode.cu", tile_sweep.I8_DECODE_MUTANTS),
+                          ("decode_attention_split.cu", tile_sweep.ATTN_MUTANTS)):
         text = (tile_sweep.CSRC / source).read_text()
         for name, edits in table.items():
             for old, new in edits:
@@ -249,4 +251,5 @@ def test_tile_sweep_edits_apply_to_the_sources():
                 assert old != new
     assert {k: v[0] for k, v in tile_sweep.MUTANT_SETS.items()} == {
         "nf4": "qmm_nf4_wgmma.cu", "int8": "qmm_i8_wgmma.cu", "nf4bwd": "qmm_nf4_bwd_wgmma.cu",
-        "flash": "flash_attention_wgmma.cu"}
+        "flash": "flash_attention_wgmma.cu", "i8decode": "qmm_i8_decode.cu",
+        "attention": "decode_attention_split.cu"}
