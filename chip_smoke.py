@@ -60,7 +60,7 @@ them.  Phases, each failing the run on any mismatch or exception:
    every flash launch on a wgmma kernel (train-parity too).
 8. kernels-int8: the four kernels of the int8 family against their plain
    versions: ``qmm_i8_direct`` (M = 4, the block linears and the padded
-   lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128 and 2048) equal
+   lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128, 512, 2048) equal
    bit for bit, in the raw int32 accumulators and in the bf16 output;
    ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024)
    within the NF4 kernels' tolerance, f32 and double-quantized absmax, and
@@ -73,7 +73,13 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``qmm_i8_wgmma.cu``, timed beside the tile kernel of ``qmm_i8.cu``
    through its C entry (``tile_ms``, also held to QMM_TOL) and held bit for
    bit as the NF4 wgmma kernel (two calls, sub-batches of at least 17 rows,
-   identity rows).
+   identity rows).  ``qmm_nf4_w8a8`` above 16 rows (128, 512, 2048) runs
+   the int8 wgmma kernel of ``qmm_nf4_w8a8_wgmma.cu``, timed in CUDA graphs
+   beside
+   ``qmm_i8_direct.cu``'s NF4 path through its C entry (``tile_ms``, the
+   "before", held bit for bit too), ``torch._int_mm`` (``library_ms``) and
+   the exact NF4 wgmma kernel at the same rows (``exact_ms``), and held bit
+   for bit across two calls and with rows in other batches.
 9. parity-int8: LLaMA-7B width, 2 layers, the CPU's plain path against the
    card, at three seeds: 4 teacher-forced decode steps on the int8 serving
    tree and a 128-token prefill of the NF4 params, both under
@@ -95,7 +101,11 @@ them.  Phases, each failing the run on any mismatch or exception:
    on both sides of page edges, GQA with a sliding window and entries behind
    it evicted to page 0, planted edges, a chunk across a page and up to the
    table's end, the chunk of one token against the decode kernel; outputs
-   within ATTN_TOL, pools byte-equal after the append.
+   within ATTN_TOL, pools byte-equal after the append.  Chunks (C = 5) run
+   the split-KV kernel of ``paged_attention_split.cu``, timed in CUDA graphs
+   beside ``paged_attention.cu``'s chunk entry (``tile_ms``, the "before",
+   held to ATTN_TOL with its pools byte-equal) and SDPA, and held bit for
+   bit across two calls and with each row alone.
 13. paged-parity: LLaMA-7B width, 2 layers — a 126-token prompt prefilled
    into pages with ``PagedPool.write_prefill``, 4 teacher-forced decode steps
    and a 5-token verify chunk through ``forward(cache=paged)``; logits of the
@@ -104,7 +114,8 @@ them.  Phases, each failing the run on any mismatch or exception:
    slots over a pool small enough to preempt, 16 requests of 64-512 prompt
    and 16-64 new tokens; exact launch counts from the counted forwards, the
    pool recycled; then the same requests with ``decode_impl="int8",
-   prefill_impl="w8a8"``.
+   prefill_impl="w8a8"`` (every prefill's qmm_nf4_w8a8 on the wgmma kernel;
+   its prefill forwards timed).
 15. serve-paged-spec: the same engine with 4 drafts per verify chunk on 8
    requests whose prompts repeat a 16-token phrase.
 16. parity-i8base: parity over an int8-stored base (``--bits 8``, double
@@ -521,10 +532,43 @@ def paged_bound(B, C, H, KVH, hd, lens, window, T, pps):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), sum(keys)
 
 
+def paged_chunk_checks(shape, kernel, before, q, nk, nv, kp, vp, L, tables, kw, o1, o2):
+    """The split chunk kernel (C >= 2): it took the call; paged_attention.cu's
+    chunk entry (the "before") within ATTN_TOL of the plain version with the
+    same pools after the append; two calls and each row alone bit for bit.
+    Every call starts from the pools as they were (a clamped append may
+    overwrite keys a later call would read).  Returns the before's max|d|."""
+    import torch
+
+    took = kernel.split_launches
+    k3, v3 = kp.clone(), vp.clone()
+    ob, _, _ = before(q, nk, nv, k3, v3, L, tables, **kw)
+    k4, v4 = kp.clone(), vp.clone()
+    twice = torch.equal(kernel(q, nk, nv, k4, v4, L, tables, **kw)[0], o1)
+    alone = all(torch.equal(kernel(q[b:b + 1], nk[b:b + 1], nv[b:b + 1], kp.clone(), vp.clone(),
+                                   L[b:b + 1], tables[b:b + 1], **kw)[0][0], o1[b])
+                for b in range(q.shape[0]))
+    torch.cuda.synchronize()
+    diff = (ob.float() - o2.float()).abs()
+    excess = (diff - ATTN_TOL * o2.float().abs().amax(-1, keepdim=True)).max().item()
+    same = torch.equal(k3, k4) and torch.equal(v3, v4)
+    split = kernel.split_launches - took == 1 + q.shape[0]
+    print(f"  split kernel took every call {split}; two calls equal {twice}; each row alone "
+          f"equal {alone}; paged_attention.cu (before) max|d| {diff.max().item():.3g}, its pools "
+          f"equal {same}", flush=True)
+    if not (split and twice and alone and same) or excess > 0:
+        fail(f"paged_chunk_attention_cuda {shape}: split {split}, deterministic {twice}, "
+             f"row-invariant {alone}, before's pools {same}, before's excess {excess}")
+    return diff.max().item()
+
+
 def paged_kernel_phase(dev, results):
     """The two paged kernels against their plain versions at the serve-paged
     shapes (PAGED_CASES), and the chunk of one token against the decode
-    kernel."""
+    kernel.  Chunks of C >= 2 run the split kernel (``paged_attention_split.cu``),
+    timed in CUDA graphs beside paged_attention.cu's chunk entry (``tile_ms``)."""
+    import importlib
+
     import torch
     import torch.nn.functional as F
 
@@ -532,6 +576,8 @@ def paged_kernel_phase(dev, results):
         paged_chunk_attention_cuda, paged_chunk_plain, paged_decode_attention_cuda,
         paged_decode_plain,
     )
+
+    before = importlib.import_module("qlora_tpu_torch.ops.paged_attention")._paged_chunk_before
 
     g = torch.Generator(device=dev).manual_seed(8642)
     H, hd, B, T = 32, 128, PAGED_B, PAGE * PPS
@@ -557,10 +603,25 @@ def paged_kernel_phase(dev, results):
                              sliding_window=window + 1)
             moved = (o3.float() - o2.float()).abs().max().item()
         Cq = C or 1
+        shape = (f"B={B}{'' if C is None else f' C={C}'} H={H} KVH={KVH} hd={hd} page={PAGE} "
+                 f"pps={PPS} lens={list(lens)} window={window}"
+                 + (" evicted" if evict else "") + (" planted edges" if planted else ""))
+        more = {}
+        if C is not None:
+            more["tile_err"] = paged_chunk_checks(shape, kernel, before, q, nk, nv, kp, vp, L,
+                                                  tables, kw, o1, o2)
         bound_ms, bound_by, keys = paged_bound(B, Cq, H, KVH, hd, lens, window, T, PPS)
         pools = [(k1, v1)] + [(k1.clone(), v1.clone())
                               for _ in range(copies_past_l2(2 * KVH * hd * 2 * keys) - 1)]
-        ms = cuda_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw), 200)
+        if C is None:
+            ms = cuda_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
+                         200)
+        else:
+            # device times in CUDA graphs: the wrapper's host time exceeds the split kernel's
+            ms = graph_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
+                          200)
+            more["tile_ms"] = graph_ms(lambda i: before(q, nk, nv, *pools[i % len(pools)], L,
+                                                        tables, **kw), 50)
         plain_ms = cuda_ms(lambda i: plain(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
                            5)
         # yardstick: index_select of each row's pages into [B, KVH, T, hd], then
@@ -581,11 +642,11 @@ def paged_kernel_phase(dev, results):
         lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
             qs, gathered(pools[i % len(pools)][0]), gathered(pools[i % len(pools)][1]),
             attn_mask=mask, scale=hd ** -0.5, enable_gqa=KVH != H), 200)
-        shape = (f"B={B}{'' if C is None else f' C={C}'} H={H} KVH={KVH} hd={hd} page={PAGE} "
-                 f"pps={PPS} lens={list(lens)} window={window}"
-                 + (" evicted" if evict else "") + (" planted edges" if planted else ""))
         record(results, name, shape, err, f"tol {ATTN_TOL}*row max|ref|", ms, plain_ms, lib_ms,
-               (bound_ms, bound_by))
+               (bound_ms, bound_by), **more)
+        if C is not None:
+            print(f"  the split kernel {more['tile_ms'] / ms:.2f}x paged_attention.cu's speed, "
+                  f"{ms / lib_ms:.2f}x SDPA's time", flush=True)
         print(f"  pools byte-equal after the append: {same}"
               + (f"; one more key in the window moves the plain output by {moved:.3g}"
                  if planted else ""), flush=True)
@@ -1001,10 +1062,11 @@ def record(results, name, shape, err, tol, ms, plain_ms, lib_ms, bound, **more):
           f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}){extra}", flush=True)
 
 
-def int_mm_ms(x8, w8s, s_out, xs, iters):
+def int_mm_ms(x8, w8s, s_out, xs, iters, timer=None):
     """The yardstick of the w8a8 kernels: ``torch._int_mm`` (cuBLAS int8,
     rows padded to 32: it wants more than 16) and the epilogue in PyTorch
-    ops.  It takes every shape of this script once its rows are padded."""
+    ops.  It takes every shape of this script once its rows are padded.
+    Timed by ``timer`` (``cuda_ms`` unless given)."""
     import torch
 
     M = x8.shape[0]
@@ -1014,7 +1076,7 @@ def int_mm_ms(x8, w8s, s_out, xs, iters):
         acc = torch._int_mm(xp, w8s[i % len(w8s)])[:M]
         return (acc.float() * s_out[None, :]).to(torch.bfloat16) * xs.to(torch.bfloat16)
 
-    return cuda_ms(call, iters)
+    return (timer or cuda_ms)(call, iters)
 
 
 def w8a8_check(name, shape, wrapper, plain, x, qt, w8):
@@ -1041,14 +1103,47 @@ def w8a8_check(name, shape, wrapper, plain, x, qt, w8):
     return err, y
 
 
+def w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y):
+    """qmm_i8_direct.cu's NF4 path through its C entry, the "before" of the
+    w8a8 wgmma kernel: its accumulators equal the exact integer product and
+    its bf16 output the new kernel's, bit for bit."""
+    import torch
+
+    from qlora_tpu_torch.ops import int8_matmul_plain
+
+    acc = launch_w8a8("qmm_nf4_w8a8", x8, qt, ratio, None, None, None)
+    yt = launch_w8a8("qmm_nf4_w8a8", x8, qt, ratio, s_out, xs, None)
+    torch.cuda.synchronize()
+    if not (torch.equal(acc, int8_matmul_plain(x8, w8).to(torch.int32)) and torch.equal(yt, y)):
+        fail(f"qmm_nf4_w8a8 {shape}: qmm_i8_direct.cu's NF4 path differs from the wgmma kernel")
+
+
+def w8a8_invariance_check(shape, wrapper, x, qt, y):
+    """The w8a8 wgmma kernel bit for bit across two calls, and rows alone
+    (sub-batches of at least 17 rows, which it takes too) equal to their
+    rows of the batch."""
+    import torch
+
+    from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
+
+    M = x.shape[0]
+    cuts = [(0, DECODE_ROWS + 1), (M - DECODE_ROWS - 1, M), (M // 3, M // 3 + 40)]
+    twice = torch.equal(wrapper(x, qt), y)
+    alone = all(torch.equal(wrapper(x[a:b], qt), y[a:b]) for a, b in cuts if 0 <= a < b <= M)
+    print(f"  qmm_nf4_w8a8 {shape}: two calls equal {twice}; rows alone equal {alone}",
+          flush=True)
+    if not (twice and alone):
+        fail(f"qmm_nf4_w8a8 {shape}: not deterministic ({twice}) or not batch-invariant ({alone})")
+
+
 def int8_kernel_phase(dev, results):
     """The int8 family against its plain versions, at the LLaMA-7B shapes."""
     import torch
 
     from qlora_tpu_torch.ops import (
         qmatmul_plain, qmm_i8_bwd, qmm_i8_bwd_plain, qmm_i8_direct, qmm_i8_direct_plain,
-        qmm_i8_fwd, qmm_i8_fwd_plain, qmm_nf4_w8a8, qmm_nf4_w8a8_plain, quantize_rows,
-        w8a8_codes, w8a8_scales,
+        qmm_i8_fwd, qmm_i8_fwd_plain, qmm_nf4_fwd_dq, qmm_nf4_fwd_f32, qmm_nf4_w8a8,
+        qmm_nf4_w8a8_plain, quantize_rows, w8a8_codes, w8a8_scales,
     )
     from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
     from qlora_tpu_torch.quant import absmax_f32, dequantize, quantize
@@ -1083,7 +1178,12 @@ def int8_kernel_phase(dev, results):
                int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1), wrapper_ms=wrapper_ms)
         del qts, qt
 
-    # qmm_nf4_w8a8: NF4 storage (double quant), decode and prefill rows
+    # qmm_nf4_w8a8: NF4 storage (double quant), decode and prefill rows; above
+    # DECODE_ROWS the int8 wgmma kernel, with qmm_i8_direct.cu's NF4 path through
+    # its C entry beside it (the "before") and the exact NF4 wgmma kernel at the
+    # same rows
+    from qlora_tpu_torch.ops.qmatmul import _w8a8_nf4_entry as w8a8_entry
+
     for K, N in QMM_SHAPES:
         w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
         qt = quantize(w)
@@ -1095,23 +1195,43 @@ def int8_kernel_phase(dev, results):
         for M in W8A8_ROWS:
             x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
             shape = f"M={M} K={K} N={N}"
+            took = qmm_nf4_w8a8.wgmma_launches
             err, y = w8a8_check("qmm_nf4_w8a8", shape, qmm_nf4_w8a8, qmm_nf4_w8a8_plain, x, qt,
                                 w8)
+            if qmm_nf4_w8a8.wgmma_launches != took + (M > DECODE_ROWS):
+                fail(f"qmm_nf4_w8a8 {shape}: the wgmma kernel took "
+                     f"{qmm_nf4_w8a8.wgmma_launches - took} launches")
             exact = qmatmul_plain(x, qt).float()
             off = (y.float() - exact).abs().max().item() / exact.abs().max().item()
             if not 0 < off < INT8_BAND:
                 fail(f"qmm_nf4_w8a8 {shape}: {off:.4f} of the largest |value| away from the "
                      f"exact product (band {INT8_BAND})")
             x8, xs = quantize_rows(x)
-            iters = 20 if M > 16 else 200
-            ms = cuda_ms(lambda i: launch_w8a8("qmm_nf4_w8a8", x8, qts[i % len(qts)], ratio,
-                                               s_out, xs), iters)
-            wrapper_ms = cuda_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]), iters)
+            entry, plan = w8a8_entry(x8, qt)
+            # above DECODE_ROWS device times in CUDA graphs: at 128 and 512 rows the
+            # wgmma kernel is no longer than a launch's host cost through its wrapper
+            timer, iters = (graph_ms, 50) if M > DECODE_ROWS else (cuda_ms, 200)
+            ms = timer(lambda i: launch_w8a8(entry, x8, qts[i % len(qts)], ratio, s_out, xs,
+                                             plan), iters)
+            more = {}
+            if M > DECODE_ROWS:
+                w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y)
+                w8a8_invariance_check(shape, qmm_nf4_w8a8, x, qt, y)
+                more["tile_ms"] = graph_ms(lambda i: launch_w8a8(
+                    "qmm_nf4_w8a8", x8, qts[i % len(qts)], ratio, s_out, xs), 10)
+                exact_fn = qmm_nf4_fwd_dq if qt.double_quant else qmm_nf4_fwd_f32
+                more["exact_ms"] = graph_ms(lambda i: exact_fn(x, qts[i % len(qts)]), iters)
+            more["wrapper_ms"] = cuda_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]),
+                                         20 if M > DECODE_ROWS else 200)
             plain_ms = cuda_ms(lambda i: qmm_nf4_w8a8_plain(x, qts[i % len(qts)]), 2)
-            lib_ms = int_mm_ms(x8, w8s, s_out, xs, iters)
+            lib_ms = int_mm_ms(x8, w8s, s_out, xs, iters, timer)
             record(results, "qmm_nf4_w8a8", shape, err, exact_tol, ms, plain_ms, lib_ms,
                    int8_bound(M, K, N, K * N // 2 + ratio.nbytes + N * 4 + M * 4, PEAK_INT8, 1),
-                   wrapper_ms=wrapper_ms, of_exact=off)
+                   of_exact=off, **more)
+            if M > DECODE_ROWS:
+                print(f"  the wgmma kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
+                      f"{ms / lib_ms:.2f}x torch._int_mm's time, {ms / more['exact_ms']:.2f}x "
+                      "the exact NF4 wgmma kernel's", flush=True)
         del qts, w8s, w8, qt
 
     # qmm_i8_fwd, qmm_i8_bwd: the --bits 8 base, f32 and double-quantized absmax;
@@ -1385,7 +1505,8 @@ def parity_int8_phase(dev, seed):
             with row_codes(tape, dev):
                 l_rep, _ = forward(p_gpu, lora_gpu, ids.to(dev), cfg, lcfg,
                                    cache=init_cache(cfg, 1, S, device=dev))
-        want = expected_counts(qmm_nf4_w8a8=7 * cfg.num_layers)
+        want = expected_counts(qmm_nf4_w8a8=7 * cfg.num_layers,
+                               qmm_nf4_w8a8_wgmma=7 * cfg.num_layers)    # 128 rows
         if counts != want:
             fail(f"parity-int8 prefill launch counts {counts} != {want}")
         # the exact prefill fills the caches the decode steps start from
@@ -1488,7 +1609,8 @@ def paged_parity_phase(dev):
     L = cfg.num_layers
     want = expected_counts(qmm_nf4_fwd_dq=7 * L * (steps + 1),      # 1 row, then the chunk of C
                            qmm_nf4_decode_dq=7 * L * (steps + 1),
-                           paged_decode_attention_cuda=L * steps, paged_chunk_attention_cuda=L)
+                           paged_decode_attention_cuda=L * steps, paged_chunk_attention_cuda=L,
+                           paged_chunk_split=L)
     print(f"paged-parity: launches {counts} (expected {want})", flush=True)
     if counts != want:
         fail(f"paged-parity launch counts {counts} != {want}")
@@ -1518,7 +1640,11 @@ def counters():
 # qmm_i8_wgmma.cu (more rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took
 # qmm_i8.cu.
 # The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
-# qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The flash wrappers launch
+# qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The w8a8 forward over NF4
+# counts those that took qmm_nf4_w8a8_wgmma.cu (more rows), read as
+# qmm_nf4_w8a8_wgmma; the rest took qmm_i8_direct.cu.  The chunk attention
+# counts those that took paged_attention_split.cu (C >= 2), read as
+# paged_chunk_split; the rest (C = 1) took paged_attention.cu.  The flash wrappers launch
 # only the wgmma kernels of flash_attention_wgmma.cu and count each launch in
 # wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32",
@@ -1526,18 +1652,20 @@ DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "q
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
                 "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
                 "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd", "flash_wgmma_fwd": "flash_fwd",
-                "flash_wgmma_bwd_dq": "flash_bwd_dq", "flash_wgmma_bwd_dkv": "flash_bwd_dkv"}
+                "flash_wgmma_bwd_dq": "flash_bwd_dq", "flash_wgmma_bwd_dkv": "flash_bwd_dkv",
+                "qmm_nf4_w8a8_wgmma": "qmm_nf4_w8a8"}
+SPLIT_COUNTS = {"paged_chunk_split": "paged_chunk_attention_cuda"}
 
 
 def expected_counts(**nonzero):
     """Every counter at 0 except the ones named."""
     return {**{w.__name__: 0 for w in counters()}, **{k: 0 for k in DECODE_COUNTS},
-            **{k: 0 for k in WGMMA_COUNTS}, **nonzero}
+            **{k: 0 for k in WGMMA_COUNTS}, **{k: 0 for k in SPLIT_COUNTS}, **nonzero}
 
 
 def reset_counts():
     for w in counters():
-        for attr in ("launches", "decode_launches", "wgmma_launches"):
+        for attr in ("launches", "decode_launches", "wgmma_launches", "split_launches"):
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
@@ -1546,7 +1674,8 @@ def read_counts():
     by_name = {w.__name__: w for w in counters()}
     return {**{n: w.launches for n, w in by_name.items()},
             **{k: by_name[n].decode_launches for k, n in DECODE_COUNTS.items()},
-            **{k: by_name[n].wgmma_launches for k, n in WGMMA_COUNTS.items()}}
+            **{k: by_name[n].wgmma_launches for k, n in WGMMA_COUNTS.items()},
+            **{k: by_name[n].split_launches for k, n in SPLIT_COUNTS.items()}}
 
 
 def padded_requests(lengths, S, vocab, seed):
@@ -1793,8 +1922,8 @@ def instrument(pb):
     of the sampled tokens; a synchronize closes it), by wrapping its methods."""
     import torch
 
-    st = dict(decode=0, verify=0, prefill=0, prefill_rows=[], steps=0, step_s=0.0,
-              verify_steps=0, verify_s=0.0, admit_s=0.0)
+    st = dict(decode=0, verify=0, prefill=0, prefill_rows=[], prefill_s=0.0, steps=0,
+              step_s=0.0, verify_steps=0, verify_s=0.0, admit_s=0.0)
     fwd, pre, step, admit = pb._decode_forward, pb._prefill_rows, pb._decode_step, pb._admit
 
     def decode_forward(toks, cache):
@@ -1804,7 +1933,12 @@ def instrument(pb):
     def prefill_rows(ids, *a):
         st["prefill"] += 1
         st["prefill_rows"].append(ids.numel())
-        return pre(ids, *a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pre(ids, *a)
+        torch.cuda.synchronize()
+        st["prefill_s"] += time.perf_counter() - t0
+        return out
 
     def decode_step():
         t0, v0 = time.perf_counter(), st["verify"]
@@ -1864,12 +1998,14 @@ def serve_paged_run(tag, dev, cfg, params, lora, lcfg, traffic, n_pages, **kw):
                  ms_per_step=st["step_s"] / max(st["steps"], 1) * 1e3,
                  admit_s=st["admit_s"], peak_gib=peak_gib, preemptions=pb.preemptions,
                  decode_forwards=st["decode"], verify_forwards=st["verify"],
-                 prefill_forwards=st["prefill"])
+                 prefill_forwards=st["prefill"], prefill_rows=list(st["prefill_rows"]),
+                 prefill_ms=st["prefill_s"] / max(st["prefill"], 1) * 1e3)
     rows = {m: st["prefill_rows"].count(m) for m in sorted(set(st["prefill_rows"]))}
     print(f"{tag}: {len(reqs)} requests, {tokens} tokens in {total_s:.3f} s = "
           f"{stats['tok_s']:.1f} tok/s; {st['steps']} decode steps, "
           f"{stats['ms_per_step']:.2f} ms/step; admissions {st['admit_s'] * 1e3:.1f} ms "
-          f"({st['prefill']} prefill forwards, token rows: count {rows}); {pb.preemptions} "
+          f"({st['prefill']} prefill forwards of {stats['prefill_ms']:.2f} ms each, token rows: "
+          f"count {rows}); {pb.preemptions} "
           f"preemptions; pool {n_pages} pages, recycled; peak memory {peak_gib:.2f} GiB",
           flush=True)
     return pb, st, counts, stats
@@ -1905,10 +2041,12 @@ def serve_paged_phase(dev, cfg, params, lora, lcfg):
         "serve-paged-int8", dev, cfg, params, lora, lcfg, traffic, SERVE_PAGED_PAGES,
         decode_impl="int8", prefill_impl="w8a8")
     want8 = expected_counts(qmm_i8_direct=(n_lin + 1) * st8["decode"],    # + 1: the lm_head
-                            qmm_nf4_w8a8=n_lin * st8["prefill"],
+                            qmm_nf4_w8a8=n_lin * st8["prefill"],       # >= 128 rows a prefill
+                            qmm_nf4_w8a8_wgmma=n_lin * st8["prefill"],
                             paged_decode_attention_cuda=L * st8["decode"])
     print(f"serve-paged-int8: launches {counts8} (expected {want8}: {n_lin} + 1 qmm_i8_direct "
-          f"per decode forward, {n_lin} qmm_nf4_w8a8 per prefill forward, no NF4 qmm)",
+          f"per decode forward, {n_lin} qmm_nf4_w8a8 per prefill forward, all on the wgmma "
+          "kernel, no NF4 qmm)",
           flush=True)
     if counts8 != want8:
         fail(f"serve-paged-int8 launch counts {counts8} != {want8}")
@@ -1937,7 +2075,8 @@ def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
                            qmm_nf4_wgmma_dq=n_lin * (st["prefill"] + st["verify"] * (
                                verify_rows > DECODE_ROWS)),
                            paged_decode_attention_cuda=L * st["decode"],
-                           paged_chunk_attention_cuda=L * st["verify"])
+                           paged_chunk_attention_cuda=L * st["verify"],
+                           paged_chunk_split=L * st["verify"])
     per_chunk = pb.spec_tokens / max(pb.spec_chunks, 1)
     ms_chunk = st["verify_s"] / max(st["verify_steps"], 1) * 1e3
     stats.update(tokens_per_chunk=per_chunk, ms_per_chunk=ms_chunk, chunks=pb.spec_chunks)
@@ -2246,8 +2385,9 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                       "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :476)"),
     "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
                       "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct)"),
-    "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
-                     "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8)"),
+    # the w8a8 forward over NF4: the int8 wgmma kernel at its headline (M = 512)
+    "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
+                     "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8, pallas_call at :270)"),
     # the int8 forward and dx: the wgmma kernel at their headline (M = 1024)
     "qmm_i8_fwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8)"),
@@ -2260,9 +2400,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
     "paged_decode_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
                                     "qlora_tpu/ops/paged_attention.py:217 "
                                     "(fused_paged_decode_attention)"),
-    "paged_chunk_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
+    # the verify chunk (C = 5): the split kernel
+    "paged_chunk_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention_split.cu",
                                    "qlora_tpu/ops/paged_attention.py:478 "
-                                   "(fused_paged_chunk_attention)"),
+                                   "(fused_paged_chunk_attention, pallas_call at :544)"),
 }
 # the NF4 forward's three sources, by shape (ops/qmatmul.py: DECODE_ROWS, tile_plan)
 NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
@@ -2277,6 +2418,13 @@ I8_SOURCES = {"M <= 16, forward": "qlora_tpu_torch/csrc/qmm_i8_decode.cu",
               "M > 16": "qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
               "M <= 16 backward, or M > 16 and a contraction % 8 != 0":
                   "qlora_tpu_torch/csrc/qmm_i8.cu"}
+# the w8a8 forward's two sources over NF4, by shape (ops/qmatmul.py: w8a8_tile_plan)
+W8A8_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
+                "M <= 16, or K % 32, N % 8 or the block size % 8 not 0":
+                    "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
+# the chunk attention's two sources, by the chunk's tokens
+CHUNK_SOURCES = {"C >= 2": "qlora_tpu_torch/csrc/paged_attention_split.cu",
+                 "C = 1": "qlora_tpu_torch/csrc/paged_attention.cu"}
 # summary entries read from another wrapper's rows, and the rows they keep
 # (by the row count in the shape): the int8 forward's decode kernel and its
 # wgmma kernel share the rows of qmm_i8_fwd
@@ -2338,6 +2486,35 @@ def serve_int8_split(results, num_layers, stats):
     step = stats["decode_ms_per_step"]
     return dict(step_ms=step, step_qmm_ms=qmm, step_attention_ms=attn,
                 step_other_ms=step - qmm - attn)
+
+
+def w8a8_prefill_split(results, num_layers, stats):
+    """serve-paged-int8's w8a8 prefill forwards by kernel: 7 ``qmm_nf4_w8a8``
+    launches a layer per forward, each at its kernel-phase time at the nearest
+    timed row count (W8A8_ROWS), on the wgmma kernel (``ms``) and on
+    qmm_i8_direct.cu (``tile_ms``, the "before")."""
+    rows = {r["shape"]: r for r in results if r["name"] == "qmm_nf4_w8a8"}
+    timed = [m for m in W8A8_ROWS if m > 16]
+    total = dict(ms=0.0, tile_ms=0.0)
+    for m in stats["prefill_rows"]:
+        near = min(timed, key=lambda t: abs(t - m))
+        for key in total:
+            total[key] += num_layers * (
+                4 * rows[f"M={near} K=4096 N=4096"][key] + 2 * rows[f"M={near} K=4096 N=11008"][key]
+                + rows[f"M={near} K=11008 N=4096"][key])
+    n = max(stats["prefill_forwards"], 1)
+    return dict(prefill_ms=stats["prefill_ms"], qmm_ms=total["ms"] / n,
+                qmm_before_ms=total["tile_ms"] / n)
+
+
+def chunk_split(results, num_layers, stats):
+    """serve-paged-spec's verify step: one chunk attention launch a layer at
+    the kernel phase's full-attention chunk time (the split kernel, and
+    paged_attention.cu's chunk entry, the "before")."""
+    head = next(r for r in results if r["name"] == "paged_chunk_attention_cuda"
+                and r["shape"].startswith(HEADLINE["paged_chunk_attention_cuda"]))
+    return dict(step_ms=stats["ms_per_chunk"], attention_ms=num_layers * head["ms"],
+                attention_before_ms=num_layers * head["tile_ms"])
 
 
 def serve_i8base_split(results, num_layers, stats):
@@ -2512,6 +2689,17 @@ def main() -> int:
                          decode_launches=i8base_counts["qmm_i8_decode_fwd"])
         if entry["name"] == "decode_attention_cuda":
             entry.update(before_source="qlora_tpu_torch/csrc/decode_attention.cu")
+        if entry["name"] == "qmm_nf4_w8a8":
+            head = next(r for r in results if r["name"] == entry["name"]
+                        and r["shape"] == entry["shape"])
+            entry.update(sources=W8A8_SOURCES,
+                         before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
+                         wgmma_launches=paged8_counts["qmm_nf4_w8a8_wgmma"],
+                         exact_ms=head["exact_ms"])
+        if entry["name"] == "paged_chunk_attention_cuda":
+            entry.update(sources=CHUNK_SOURCES,
+                         before_source="qlora_tpu_torch/csrc/paged_attention.cu",
+                         split_launches=spec_counts["paged_chunk_split"])
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     summary[0]["wgmma_launches_train"] = train_counts["qmm_nf4_wgmma_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
@@ -2549,6 +2737,15 @@ def main() -> int:
           f"{spec_stats['tokens_per_chunk']:.3f} tokens per chunk, "
           f"{spec_stats['ms_per_chunk']:.2f} ms per verify step (qmm kernels ~{verify_qmm:.2f} ms "
           f"of it at M={PAGED_B * (SPEC_DRAFT + 1)})", flush=True)
+    w8 = w8a8_prefill_split(results, seven_b().num_layers, paged8_stats)
+    ch = chunk_split(results, seven_b().num_layers, spec_stats)
+    print(f"serve-paged-int8: w8a8 prefill {w8['prefill_ms']:.2f} ms per prefill forward "
+          f"({paged8_stats['prefill_forwards']} forwards), of which qmm_nf4_w8a8 kernels "
+          f"~{w8['qmm_ms']:.2f} ms (on qmm_i8_direct.cu, the before: ~{w8['qmm_before_ms']:.2f} "
+          f"ms); serve-paged-spec: verify step {ch['step_ms']:.2f} ms, of which chunk attention "
+          f"~{ch['attention_ms']:.2f} ms (on paged_attention.cu, the before: "
+          f"~{ch['attention_before_ms']:.2f} ms) and qmm kernels ~{verify_qmm:.2f} ms "
+          "(kernel-phase times x launches)", flush=True)
     ts = train_split(results, train_per_step, train_stats)
     print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
           f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm_nf4_bwd "

@@ -4,7 +4,10 @@
 //   qmm_nf4_w8a8:   the same, w8 decoded here from NF4/FP4 nibbles
 //
 // Replaces the TPU kernels qlora_tpu/ops/qmatmul.py::_qmm_pallas_i8_direct
-// (_i8_direct_kernel) and ::_qmm_pallas_w8a8 (_w8a8_fwd_kernel).  As there, the
+// (_i8_direct_kernel) and ::_qmm_pallas_w8a8 (_w8a8_fwd_kernel).  Above 16
+// rows the NF4 entry is reached only where ops/qmatmul.py: w8a8_tile_plan
+// refuses the shape (K % 32 != 0) and as the "before" that chip_smoke.py
+// times beside qmm_nf4_w8a8_wgmma.cu, which takes those rows.  As there, the
 // rows of x are quantized to int8 before the kernel (xs = max|x| / 127,
 // x8 = round(x / xs)) and the per-column scales are made before it
 // (s_out = col / 127; for NF4, ratio = absmax * (127 / col) with col the

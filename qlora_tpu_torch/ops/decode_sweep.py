@@ -5,7 +5,7 @@
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | attention]
+    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | attention | paged]
 
 Each variant is a kernel's source with one part taken out or one constant
 changed, compiled into ``build/sweep/``.  The qmm variants run the real
@@ -14,7 +14,9 @@ time is the launch's fixed cost) at M = 4 and 16, beside ``torch.matmul`` on
 the dequantized bf16 weight; the int8 kernel also runs as built on plans of
 1 to 4 blocks per SM (its splits are an argument).
 Attention runs chip_smoke.py's timed shapes and its long case, as built, cut
-and on plans of other keys per split (also an argument).  Every launch is
+and on plans of other keys per split (also an argument); the verify chunk's
+split-KV kernel (``csrc/paged_attention_split.cu``) likewise at
+chip_smoke.py's chunk shapes, beside ``paged_attention.cu``'s chunk entry.  Every launch is
 timed in a CUDA graph with its inputs rotated past the 50 MB L2.  Variants
 that take parts out compute wrong sums: they time what is left.  One line
 per shape and row count; nothing here is used by the port.
@@ -97,10 +99,23 @@ ATTN_SHAPES = (   # B, H, KVH, hd, T, lengths, window: chip_smoke.py's timed one
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256),
     (4, 32, 32, 128, 600, (5, 300, 598, 599), None),
     (4, 32, 32, 128, 2048, (0, 511, 1500, 2047), None))
+# the verify chunk's split-KV attention (paged_attention_split.cu): the same
+# cuts, on the chunk shapes of chip_smoke.py
+PAGED_VARIANTS = {
+    "as built": [],
+    "no products": [_A_QK, _A_PV],
+    "no loads": [("    mbar_wait(smem_u32(full + st), (ch / Cf::STAGES) & 1);\n", ""),
+                 ("    for (int ch = 0; ch < nchunks && ch < Cf::STAGES; ++ch) fetch(ch);",
+                  "    for (int ch = 0; ch < 0; ++ch) fetch(ch);"),
+                 ("    if (w == 0 && ch + Cf::STAGES < nchunks) fetch(ch + Cf::STAGES);\n", "")],
+}
+PAGED_SHAPES = (  # B, C, H, KVH, hd, page, pps, lengths, window, evicted: chip_smoke.py's chunks
+    (8, 5, 32, 32, 128, 64, 16, (0, 1, 63, 64, 65, 300, 510, 1019), None, False),
+    (8, 5, 32, 8, 128, 64, 16, (0, 1, 63, 64, 65, 300, 510, 1019), 256, True))
 SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096))
 ROWS = (4, 16)
 L2_BYTES = 50 * 2 ** 20
-SETS = ("nf4", "int8", "attention")
+SETS = ("nf4", "int8", "attention", "paged")
 
 
 def build(source: str, variants: dict, entry: str, argtypes) -> dict:
@@ -247,6 +262,50 @@ def attention_sweep(dev, g, sms: int) -> None:
               flush=True)
 
 
+def paged_sweep(dev, g, sms: int) -> None:
+    """The split chunk kernel's variants and plans at PAGED_SHAPES, beside
+    paged_attention.cu's chunk entry (the "before"); pools rotated past L2;
+    every launch appends, so each run writes the same rows again."""
+    import torch
+
+    from chip_smoke import paged_case
+
+    pa = importlib.import_module("qlora_tpu_torch.ops.paged_attention")
+    fns = build("paged_attention_split.cu", PAGED_VARIANTS, "paged_chunk_attention_split",
+                pa._SPLIT_ARGS)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for B, C, H, KVH, hd, page, pps, lens, window, evict in PAGED_SHAPES:
+        q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, C, H, KVH, hd, page, pps, lens,
+                                                  window, evict)
+        pools = [(kp, vp)] + [(kp.clone(), vp.clone())
+                              for _ in range(max(1, -(-2 * L2_BYTES // (2 * kp.nbytes))) - 1)]
+        out = torch.empty_like(q)
+        G, T = H // KVH, page * pps
+        plan = pa.paged_chunk_plan(T, KVH, G, C, hd, window, sms)
+        ws = torch.empty(B * KVH * 16 * C * G * (hd + 2), device=dev)   # room for 16 splits
+        span = min(T, window - 1) if window else T
+        runs = [(name, fn, plan.keys, plan.splits) for name, fn in fns.items()] + [
+            (f"as built ({k} keys a split)", fns["as built"], k, -(-span // k))
+            for k in ATTN_KEYS if k != plan.keys and -(-span // k) <= 16]
+        line = []
+        for name, fn, keys, splits in runs:
+            def launch(i, fn=fn, keys=keys, splits=splits):
+                k, v = pools[i % len(pools)]
+                err = fn(q.data_ptr(), nk.data_ptr(), nv.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         L.data_ptr(), tables.data_ptr(), ws.data_ptr(), out.data_ptr(), B, C,
+                         KVH, G, page, pps, hd, hd ** -0.5, window or 0, keys, splits, stream())
+                if err:
+                    raise RuntimeError(f"{name}: cudaError_t {err}")
+            line.append(f"{name} {graph_ms(launch):.4f}")
+        before = graph_ms(lambda i: pa._paged_chunk_before(
+            q, nk, nv, *pools[i % len(pools)], L, tables, sm_scale=hd ** -0.5,
+            sliding_window=window))
+        line.append(f"paged_attention.cu (before) {before:.4f}")
+        print(f"decode_sweep paged B={B} C={C} H={H} KVH={KVH} hd={hd} page={page} pps={pps} "
+              f"lens={list(lens)} window={window} keys={plan.keys} splits={plan.splits} "
+              f"mtiles={plan.mtiles} (ms): " + ", ".join(line), flush=True)
+
+
 def main(sets) -> int:
     import torch
 
@@ -264,6 +323,8 @@ def main(sets) -> int:
             qmm_sweep(kind, dev, g, sms)
     if "attention" in sets:
         attention_sweep(dev, g, sms)
+    if "paged" in sets:
+        paged_sweep(dev, g, sms)
     return 0
 
 

@@ -5,9 +5,13 @@ step).
 
 The pool is page-major, ``[n_pages, KVH, page, hd]`` bf16 per layer, shared
 by every sequence; ``tables[b]`` maps sequence b's logical pages to pool
-pages.  A CUDA tensor launches the hand-written kernel
-(``csrc/paged_attention.cu``) and raises if it cannot; a CPU tensor takes the
-plain version.  Both follow the TPU kernels' semantics, not the JAX package's
+pages.  A CUDA tensor launches a hand-written kernel and raises if it
+cannot; a CPU tensor takes the plain version.  The decode step, and a chunk
+of one token, run ``csrc/paged_attention.cu``; a chunk of C >= 2 tokens runs
+the split-KV kernel of ``csrc/paged_attention_split.cu`` (cut by
+:func:`paged_chunk_plan`, counted in ``split_launches``), and
+``paged_attention.cu``'s chunk entry at C >= 2 is reached only through the
+private ``_paged_chunk_before``, for timing and as a second reference.  Both follow the TPU kernels' semantics, not the JAX package's
 jnp fallback: masked logits are ``MASK``, the softmax is by ``exp`` from the
 row's maximum (the new tokens' scores included), the pool probabilities are
 rounded to bf16 for the value product while the chunk's own terms stay f32,
@@ -20,11 +24,12 @@ shape: there is no buffer-size or ``C > page`` fallback.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from . import _build
-from .decode_attention import MASK, _window
+from .decode_attention import MASK, AttentionPlan, _window, decode_attention_plan
 
 
 def _gather(pages, tables):
@@ -131,12 +136,42 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DECODE_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]
 _CHUNK_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]
+_SPLIT_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _I, _P]
+_CHUNK_ROWS = 16          # query rows a CTA of the split kernel: one mma tile
 
 
-def _launch(entry, q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
-            sliding_window):
+def paged_chunk_plan(T: int, KVH: int, G: int, C: int, hd: int, window,
+                     sms: int = 132) -> AttentionPlan:
+    """The split chunk kernel's plan for pools of ``T`` = pages_per_seq *
+    page positions a sequence, KVH kv heads of G query heads and chunks of C
+    tokens, on a card of ``sms`` SMs: the keys a split and the splits of
+    :func:`decode_attention_plan` (a sequence's rows see at most ``span``
+    pool keys, T or window - 1, their union), and ``mtiles`` CTA rows of 16
+    of the C * G query rows (row c * G + g) per kv head.  It depends on the
+    capacity, the heads, C, hd and the window, never on the batch or the
+    lengths, so a row's result does not depend on the other rows."""
+    if C < 2 or G < 1 or C * G > 64:
+        raise ValueError(f"C={C}, G={G}: the split kernel takes 2 <= C and C * G <= 64")
+    plan = decode_attention_plan(T, KVH, 1, hd, window, sms)
+    return dataclasses.replace(plan, mtiles=-(-C * G // _CHUNK_ROWS))
+
+
+_CHUNK_PLANS: dict = {}
+
+
+def _chunk_plan_on(T, KVH, G, C, hd, window, dev) -> AttentionPlan:
+    key = (T, KVH, G, C, hd, _window(window), dev)
+    plan = _CHUNK_PLANS.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _CHUNK_PLANS[key] = paged_chunk_plan(T, KVH, G, C, hd, window, sms)
+    return plan
+
+
+def _checked(q, new_k, new_v, k_pages, v_pages, lengths, tables):
     """Check the operands ([B, C, H, hd] queries, [B, C, KVH, hd] new rows)
-    and launch one of the two entries; returns out [B, C, H, hd] bf16."""
+    against the kernels' contract; returns (q, new_k, new_v as contiguous
+    bf16, lengths and tables int32 on the card, out [B, C, H, hd] bf16)."""
     B, C, H, hd = q.shape
     n_pages, KVH, page, _ = k_pages.shape
     dev = q.device
@@ -147,9 +182,9 @@ def _launch(entry, q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
         raise ValueError(f"head_dim {hd} not in (64, 128, 256)")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if (t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != dev
-                or tuple(t.shape) != (n_pages, KVH, page, hd)):
+                or tuple(t.shape) != (n_pages, KVH, page, hd) or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous bf16 [n_pages, KVH, page, hd] "
-                             f"= {(n_pages, KVH, page, hd)} on {dev}")
+                             f"= {(n_pages, KVH, page, hd)} at a 16-byte address on {dev}")
     for name, t in (("new_k", new_k), ("new_v", new_v)):
         if tuple(t.shape) != (B, C, KVH, hd) or t.device != dev:
             raise ValueError(f"{name} must be [B, C, KVH, hd] = {(B, C, KVH, hd)} on {dev}")
@@ -157,12 +192,23 @@ def _launch(entry, q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
         raise ValueError(f"lengths must be [B] = [{B}], got {tuple(lengths.shape)}")
     if tables.ndim != 2 or tables.shape[0] != B or tables.shape[1] < 1:
         raise ValueError(f"tables must be [B, pages_per_seq], got {tuple(tables.shape)}")
-    qb = q.to(torch.bfloat16).contiguous()
-    nk = new_k.to(torch.bfloat16).contiguous()
-    nv = new_v.to(torch.bfloat16).contiguous()
+    aligned = lambda t: t.clone() if t.data_ptr() % 16 else t
+    qb = aligned(q.to(torch.bfloat16).contiguous())
+    nk = aligned(new_k.to(torch.bfloat16).contiguous())
+    nv = aligned(new_v.to(torch.bfloat16).contiguous())
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     tabs = tables.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((B, C, H, hd), dtype=torch.bfloat16, device=dev)
+    return qb, nk, nv, lens, tabs, out
+
+
+def _launch(entry, q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
+            sliding_window):
+    """Check the operands and launch one of ``paged_attention.cu``'s two
+    entries; returns out [B, C, H, hd] bf16."""
+    B, C, H, hd = q.shape
+    KVH, page = k_pages.shape[1], k_pages.shape[2]
+    qb, nk, nv, lens, tabs, out = _checked(q, new_k, new_v, k_pages, v_pages, lengths, tables)
     ptrs = (qb.data_ptr(), nk.data_ptr(), nv.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), lens.data_ptr(), tabs.data_ptr(), out.data_ptr())
     shape = (B, KVH, H // KVH) if entry == "paged_decode_attention" else (B, C, KVH, H // KVH)
@@ -171,6 +217,27 @@ def _launch(entry, q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
     err = fn(*ptrs, *shape, page, tables.shape[1], hd, float(sm_scale),
              _window(sliding_window), _build.stream_ptr(q))
     _build.check(err, entry)
+    return out
+
+
+def _launch_split(q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
+                  sliding_window):
+    """Check the operands and launch the split chunk kernel (C >= 2) on its
+    plan, with an f32 workspace of the splits' partials; returns out [B, C,
+    H, hd] bf16."""
+    B, C, H, hd = q.shape
+    KVH, page = k_pages.shape[1], k_pages.shape[2]
+    pps, G = tables.shape[1], H // KVH
+    qb, nk, nv, lens, tabs, out = _checked(q, new_k, new_v, k_pages, v_pages, lengths, tables)
+    plan = _chunk_plan_on(page * pps, KVH, G, C, hd, sliding_window, q.device)
+    ws = torch.empty(B * KVH * plan.splits * C * G * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    fn = _build.kernel("paged_attention_split", "paged_chunk_attention_split", _SPLIT_ARGS)
+    err = fn(qb.data_ptr(), nk.data_ptr(), nv.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), lens.data_ptr(), tabs.data_ptr(), ws.data_ptr(),
+             out.data_ptr(), B, C, KVH, G, page, pps, hd, float(sm_scale),
+             _window(sliding_window), plan.keys, plan.splits, _build.stream_ptr(q))
+    _build.check(err, "paged_chunk_attention_split")
     return out
 
 
@@ -187,17 +254,39 @@ def paged_decode_attention_cuda(q, new_k, new_v, k_pages, v_pages, lengths, tabl
 
 def paged_chunk_attention_cuda(q, new_k, new_v, k_pages, v_pages, lengths, tables, *,
                                sm_scale: float = 1.0, sliding_window=None):
-    """Launch the chunk kernel; same contract as :func:`fused_paged_chunk_attention`."""
+    """Launch the chunk kernel; same contract as :func:`fused_paged_chunk_attention`.
+    A chunk of C >= 2 tokens takes the split kernel (its two launches, the
+    splits and their merge with the append, count as one call in
+    ``launches`` and ``split_launches``); a chunk of one token takes
+    ``paged_attention.cu``'s chunk entry, which is its decode kernel."""
     if q.ndim != 4:
         raise ValueError(f"q must be [B, C, H, hd], got {tuple(q.shape)}")
-    out = _launch("paged_chunk_attention", q, new_k, new_v, k_pages, v_pages, lengths,
-                  tables, sm_scale, sliding_window)
+    split = q.shape[1] >= 2
+    if split:
+        out = _launch_split(q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
+                            sliding_window)
+    else:
+        out = _launch("paged_chunk_attention", q, new_k, new_v, k_pages, v_pages, lengths,
+                      tables, sm_scale, sliding_window)
     paged_chunk_attention_cuda.launches += 1
+    paged_chunk_attention_cuda.split_launches += split
     return out.to(q.dtype), k_pages, v_pages
 
 
+# launches: every call; split_launches (chunks): those that took
+# paged_attention_split.cu (the rest, chunks of one token, paged_attention.cu)
 paged_decode_attention_cuda.launches = 0
-paged_chunk_attention_cuda.launches = 0
+paged_chunk_attention_cuda.launches = paged_chunk_attention_cuda.split_launches = 0
+
+
+def _paged_chunk_before(q, new_k, new_v, k_pages, v_pages, lengths, tables, *,
+                        sm_scale: float = 1.0, sliding_window=None):
+    """The kernel the split kernel replaced at C >= 2 (``paged_attention.cu``'s
+    chunk entry: one CTA per (sequence, kv head)), for timing and as a second
+    reference; same contract, not counted."""
+    out = _launch("paged_chunk_attention", q, new_k, new_v, k_pages, v_pages, lengths, tables,
+                  sm_scale, sliding_window)
+    return out.to(q.dtype), k_pages, v_pages
 
 
 def _dispatch(cuda_fn, plain_fn, q, *args, **kw):
@@ -228,7 +317,8 @@ def fused_paged_chunk_attention(q, new_k, new_v, k_pages, v_pages, lengths, tabl
     [B, C, KVH, hd]; the rest as :func:`fused_paged_decode_attention`.  Query
     c attends pool positions 0..lengths[b]-1 and chunk tokens 0..c; the chunk
     lands at lengths[b]..lengths[b]+C-1.  Returns (out [B, C, H, hd],
-    k_pages, v_pages).  Precondition: lengths[b] + C <= pps * page."""
+    k_pages, v_pages).  Precondition: lengths[b] + C <= pps * page.  On the
+    card C >= 2 runs ``csrc/paged_attention_split.cu``."""
     return _dispatch(paged_chunk_attention_cuda, paged_chunk_plain, q, new_k, new_v,
                      k_pages, v_pages, lengths, tables, sm_scale=sm_scale,
                      sliding_window=sliding_window)

@@ -33,8 +33,13 @@ bytes); the tile kernel of ``csrc/qmm_i8.cu``, the decode kernel's
 ``i8_tile_plan`` refuses.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
-serving engines' decode path.  The kernels take every shape ``quantize``
-accepts: they have none of the TPU's tiling conditions.
+serving engines' decode path.  Over NF4/FP4 storage above ``DECODE_ROWS``
+rows (the w8a8 prefill), wherever ``w8a8_tile_plan`` accepts the shape
+(K % 32, N % 8 and the block size % 8 all 0: every model linear), the w8a8
+product runs an int8 wgmma kernel that decodes and transposes each weight
+tile once for 128 or 256 rows (``csrc/qmm_nf4_w8a8_wgmma.cu``,
+``wgmma_launches``).  The kernels take every shape ``quantize`` accepts:
+they have none of the TPU's tiling conditions.
 
 The quantized weight is frozen: the backward decodes it again, computes
 ``dx = g @ dequant(W)ᵀ`` exactly (``qmm_nf4_bwd``, ``qmm_i8_bwd``), also
@@ -715,8 +720,53 @@ def _per_column(qt: QuantizedTensor) -> bool:
     return qt.quant_type == "int8" and qt.block_size == logical_k(qt)
 
 
-def _launch_w8a8(entry: str, x8: torch.Tensor, qt: QuantizedTensor, ratio, s_out, xs):
-    """Launch ``qmm_i8_direct`` or ``qmm_nf4_w8a8`` on x8 int8 [M, K].  With
+# The w8a8 forward over NF4/FP4 storage above ``DECODE_ROWS`` rows:
+# ``csrc/qmm_nf4_w8a8_wgmma.cu``, the NF4 wgmma kernel's pipeline on int8
+# wgmma (x8 in two TMA boxes a k-step, the weight decoded to int8 codes and
+# transposed into K-major B tiles by two producer warpgroups).
+_W8A8_STAGES = {128: 6, 256: 4}       # rows a CTA -> k-steps in the ring
+
+
+def w8a8_tile_smem(tm: int) -> int:
+    """Dynamic shared memory of the w8a8 wgmma kernel at ``tm`` rows a CTA:
+    the ring (per k-step two x8 boxes [tm, 64] and two int8 B tiles of 128
+    columns by 64 k), the two producer warpgroups' packed bytes (two k-steps
+    each), 1024 bytes of alignment and 1024 of barriers."""
+    stage = 2 * tm * _TILE_KP + 2 * _TILE_N * _TILE_KP
+    return 1024 + _W8A8_STAGES[tm] * stage + 4 * _TILE_KP * _TILE_N + 1024
+
+
+def w8a8_tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePlan:
+    """The w8a8 wgmma kernel's plan for x8 [M, K] @ w8 [K, N] decoded from
+    NF4/FP4 nibbles, on a card of ``sms`` SMs.  It refuses, and
+    ``qmm_i8_direct.cu`` keeps: up to ``DECODE_ROWS`` rows; K % 32 != 0 (TMA
+    reads x8 in boxes of [rows, 64 bytes] from column kp and from K/2 + kp,
+    and needs the high plane's start on a 16-byte boundary); N % 8 != 0 (a
+    producer thread loads 8 packed bytes and two 16-byte runs of ratios a
+    row); block sizes that are no multiple of 8 (a thread's 8 rows must lie
+    in one block).  Every model linear passes.  Ragged M, N and K/2 are
+    masked in the kernel.  A CTA takes 256 rows where 128-row tiles would
+    need more than one wave of CTAs, else 128."""
+    if M <= DECODE_ROWS:
+        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} stay on qmm_i8_direct.cu")
+    if K % 32:
+        return TilePlan(False, f"K={K} is no multiple of 32: TMA starts the high plane's boxes "
+                               "of x8 at column K/2, on a 16-byte boundary")
+    if N <= 0 or block_size <= 0 or K % (2 * block_size):
+        return TilePlan(False, f"no NF4 shape: K={K} N={N} block {block_size}")
+    if N % 8 or block_size % 8:
+        return TilePlan(False, f"N={N}, block {block_size}: the producers take 8 columns and "
+                               "8 rows of one block a thread; qmm_i8_direct.cu keeps the rest")
+    n_tiles = -(-N // _TILE_N)
+    tm = 256 if -(-M // 128) * n_tiles > sms else 128
+    return TilePlan(True, "", tm=tm, stages=_W8A8_STAGES[tm], grid=(-(-M // tm), n_tiles),
+                    steps=-(-(K // 2) // _TILE_KP), smem=w8a8_tile_smem(tm))
+
+
+def _launch_w8a8(entry: str, x8: torch.Tensor, qt: QuantizedTensor, ratio, s_out, xs,
+                 plan: Optional[TilePlan] = None):
+    """Launch ``qmm_i8_direct``, ``qmm_nf4_w8a8`` (``qmm_i8_direct.cu``) or
+    ``qmm_nf4_w8a8_wgmma`` (on an accepted ``plan``) on x8 int8 [M, K].  With
     scales, y bf16 [M, N] as :func:`_w8a8_epilogue`; with ``s_out`` None, the
     int32 accumulators [M, N] (:func:`_w8a8_accumulators`)."""
     K, N = logical_k(qt), qt.packed.shape[-1]
@@ -736,27 +786,43 @@ def _launch_w8a8(entry: str, x8: torch.Tensor, qt: QuantizedTensor, ratio, s_out
     else:
         s_out = s_out.to(torch.float32).contiguous()
         xs = xs.to(torch.float32).contiguous()
+    stream = _build.stream_ptr(x8)
     if entry == "qmm_i8_direct":
         fn = _build.kernel("qmm_i8_direct", entry, [_P, _P, _P, _P, _P, _I, _I, _I, _P])
         err = fn(x8.data_ptr(), qt.packed.data_ptr(), ptr(s_out), ptr(xs), out.data_ptr(),
-                 M, K, N, _build.stream_ptr(x8))
-    else:
+                 M, K, N, stream)
+    elif entry == "qmm_nf4_w8a8":
         fn = _build.kernel("qmm_i8_direct", entry,
                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
         err = fn(x8.data_ptr(), qt.packed.data_ptr(), ratio.data_ptr(), ptr(s_out), ptr(xs),
                  _code_on(qt.quant_type, x8.device).data_ptr(), out.data_ptr(),
-                 M, K, N, qt.block_size, _build.stream_ptr(x8))
+                 M, K, N, qt.block_size, stream)
+    else:
+        fn = _build.kernel("qmm_nf4_w8a8_wgmma", entry, [_P] * 7 + [_I] * 7 + [_P])
+        err = fn(x8.data_ptr(), qt.packed.data_ptr(), ratio.data_ptr(), ptr(s_out), ptr(xs),
+                 _code_on(qt.quant_type, x8.device).data_ptr(), out.data_ptr(),
+                 M, K, N, qt.block_size, plan.tm, plan.stages, plan.smem, stream)
     _build.check(err, entry)
     return out
 
 
+def _w8a8_nf4_entry(x8: torch.Tensor, qt: QuantizedTensor) -> tuple:
+    """Which kernel takes an NF4/FP4 w8a8 product of x8's rows: (entry,
+    plan) -- ``qmm_nf4_w8a8_wgmma`` where :func:`w8a8_tile_plan` accepts the
+    shape, else ``qmm_nf4_w8a8`` (``qmm_i8_direct.cu``) with no plan."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    plan = _plan_on(w8a8_tile_plan, x8.device, x8.shape[0], K, N, qt.block_size)
+    return ("qmm_nf4_w8a8_wgmma", plan) if plan.accepted else ("qmm_nf4_w8a8", None)
+
+
 def _w8a8_accumulators(x8: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """For the checks only: the int32 accumulators [M, N] that the w8a8 kernel
-    of qt's storage sums for x8 int8 [M, K], before its epilogue.  No launch
-    is counted."""
+    of qt's storage and x8's rows sums for x8 int8 [M, K], before its
+    epilogue.  No launch is counted."""
     if _per_column(qt):
         return _launch_w8a8("qmm_i8_direct", x8, qt, None, None, None)
-    return _launch_w8a8("qmm_nf4_w8a8", x8, qt, w8a8_scales(qt)[0], None, None)
+    entry, plan = _w8a8_nf4_entry(x8, qt)
+    return _launch_w8a8(entry, x8, qt, w8a8_scales(qt)[0], None, None, plan)
 
 
 def qmm_i8_direct(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -777,19 +843,25 @@ def qmm_nf4_w8a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The w8a8 kernel over NF4/FP4 storage (TPU _qmm_pallas_w8a8): each
     nibble decoded in the kernel to ``round(code * absmax * 127 / col)``
     int8, then as :func:`qmm_i8_direct`.  Double quant is undone before the
-    kernel, where the per-column scales are made."""
+    kernel, where the per-column scales are made.  Above ``DECODE_ROWS``
+    rows, where ``w8a8_tile_plan`` accepts the shape, the int8 wgmma kernel
+    (counted in ``wgmma_launches``); else ``qmm_i8_direct.cu``."""
     if qt.quant_type == "int8":
         raise ValueError("qmm_nf4_w8a8 reads NF4/FP4 storage")
     _check_rows(x, logical_k(qt), "x")
     x8, xs = quantize_rows(x)
     ratio, s_out = w8a8_scales(qt)
-    y = _launch_w8a8("qmm_nf4_w8a8", x8, qt, ratio, s_out, xs)
+    entry, plan = _w8a8_nf4_entry(x8, qt)
+    y = _launch_w8a8(entry, x8, qt, ratio, s_out, xs, plan)
     qmm_nf4_w8a8.launches += x.shape[0] > 0
+    qmm_nf4_w8a8.wgmma_launches += plan is not None
     return y
 
 
+# launches: every call that ran a kernel; wgmma_launches (qmm_nf4_w8a8): those
+# of them that took qmm_nf4_w8a8_wgmma.cu (the rest took qmm_i8_direct.cu)
 qmm_i8_direct.launches = 0
-qmm_nf4_w8a8.launches = 0
+qmm_nf4_w8a8.launches = qmm_nf4_w8a8.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------

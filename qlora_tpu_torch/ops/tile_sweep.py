@@ -5,11 +5,13 @@ kernel of ``csrc/qmm_nf4_fwd.cu``; the int8 forward and dx
 ``csrc/qmm_i8.cu``; the NF4 dx (``csrc/qmm_nf4_bwd_wgmma.cu``) with, as its,
 ``csrc/qmm_nf4_bwd.cu``; flash attention's forward, dq and dk/dv
 (``csrc/flash_attention_wgmma.cu``) with, as theirs,
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu``; the w8a8 forward at prefill rows
+(``csrc/qmm_nf4_w8a8_wgmma.cu``) with, as its, ``qmm_i8_direct.cu``'s NF4
+path.
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8 | nf4bwd | flash]
+    python -m qlora_tpu_torch.ops.tile_sweep [nf4 | int8 | nf4bwd | flash | w8a8]
 
 Each variant is a kernel's source with one part taken out, compiled into
 ``build/sweep_tile/``, run on the LLaMA-7B block linears at M = 1024 (and,
@@ -51,10 +53,19 @@ of 128 keys at every shape (the plan picks one by the heads: 128 where G =
 shapes (hd 128, causal), each beside ``flash_attention.cu``, timed in CUDA
 graphs (their wrappers' host time exceeds the kernels' on the card's host).
 
+The w8a8 kernel is cut as built, products only, no products and loads only
+at M = 512 and 2048 on NF4 storage with double quant, and run in the
+designs it was chosen against: rounding by ``__float2int_rn`` on the
+conversion unit, the 8-byte stores of a half-warp in one column order (bank
+conflicts), table addresses formed by one prmt, the packed bytes fetched
+two of a warpgroup's k-steps ahead (one k-step fewer in the ring), 128-row
+CTAs; beside ``qmm_i8_direct.cu``'s NF4 path and ``torch._int_mm`` on the
+decoded codes.
+
 One line per shape, direction and kernel; nothing here is used by the port.
 
 ``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd | flash |
-i8decode | attention]`` instead
+i8decode | attention | w8a8 | paged]`` instead
 copies the checkout once per mutant of a wgmma kernel into
 ``build/mutants/``, runs that kernel's ``cuda`` tests in each copy and
 prints how many fail: each mutant must fail at least one.  NF4: the high
@@ -68,7 +79,11 @@ edge off by one, the rescale of O dropped, the last kv tile skipped.  The
 decode-step kernels (``decode_sweep`` times them): the int8 decode kernel
 (``qmm_i8_decode.cu``) with a split boundary one unit off and with its last
 split dropped; split-KV attention (``decode_attention_split.cu``) with the
-window edge off by one and the splits' rescale dropped in the merge.
+window edge off by one and the splits' rescale dropped in the merge.  The
+w8a8 kernel: the transposed store 8 k off, the last k-step dropped, the
+proxy fence taken out.  The verify chunk's split-KV attention
+(``paged_attention_split.cu``): row c's window edge taken from row 0, a key
+row read from the previous page, the splits' rescale dropped.
 """
 
 from __future__ import annotations
@@ -273,13 +288,85 @@ ATTN_MUTANTS = {
                                    "        const float sc = 1.f;")],
 }
 ATTN_MUTANT_TESTS = "decode_kernel_matches or decode_split"
+# the w8a8 forward at prefill rows (qmm_nf4_w8a8_wgmma.cu): cut as the int8
+# kernel is, and in the designs it was chosen against
+_Q_DECODE = ("      decode_step(st + 2 * A_BYTES,", "      if (false) decode_step(st + 2 * A_BYTES,")
+_Q_LOADS = [("      issue(s + 2);\n", ""), ("      load_ratios(s + 2);\n", "")]
+_Q_MMA = ("wgmma_m64n128k32(acc[mt], gmma_desc(", "if (false) wgmma_m64n128k32(acc[mt], gmma_desc(")
+_Q_STORE = "  const int at = nl * TKP + ((((rg >> 1) ^ (nl >> 1)) & 3) << 4) + ((rg & 1) << 3);"
+W8A8 = {
+    "as built": [],
+    "products only": [_Q_DECODE] + _Q_LOADS,
+    "no products": [_Q_MMA],
+    "loads only": [_Q_DECODE, _Q_MMA],
+    # rounding on the conversion unit, and the stores of a half-warp in one column order
+    "float2int rounding": [(
+        "  return __float_as_uint(__fadd_rn(__fmul_rn(c, ratio), ROUNDER));",
+        "  return (uint32_t)__float2int_rn(__fmul_rn(c, ratio));")],
+    "stores in one column order": [("  const bool odd = cg & 1;", "  const bool odd = false;")],
+    # the codebook at a 256-byte boundary, each entry's shared address formed by
+    # one prmt of the nibble's byte offset into the table's address (no add)
+    "table address by prmt": [
+        ("  __shared__ float tab[16];", "  __shared__ __align__(256) float tab[16];"),
+        ("  const float c = *reinterpret_cast<const float*>(reinterpret_cast<const char*>(tab) + o);",
+         '  float c;\n  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(c) : "r"(o));'),
+        ("      ml[i] = code8(tab, byte_at(offs_lo(word), e & 3), lane_of(rl, e));\n"
+         "      mh[i] = code8(tab, byte_at(offs_hi(word), e & 3), lane_of(rh, e));",
+         "      ml[i] = code8(tab, __byte_perm(offs_lo(word), smem_u32(tab), 0x7650 | (e & 3)),\n"
+         "                    lane_of(rl, e));\n"
+         "      mh[i] = code8(tab, __byte_perm(offs_hi(word), smem_u32(tab), 0x7650 | (e & 3)),\n"
+         "                    lane_of(rh, e));")],
+    # the packed bytes fetched two of a warpgroup's k-steps ahead: three staging
+    # slots a warpgroup, one k-step fewer in the ring (W8A8_RINGS)
+    "bytes two k-steps ahead": [
+        ("  static constexpr int STAGES = MT == 1 ? 6 : 4;",
+         "  static constexpr int STAGES = MT == 1 ? 5 : 3;"),
+        ("  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 4 * W_STAGE_BYTES + 1024;",
+         "  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 6 * W_STAGE_BYTES + 1024;"),
+        ("  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 4 * W_STAGE_BYTES);",
+         "  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 6 * W_STAGE_BYTES);"),
+        ("    uint8_t* mine = staging + pw * 2 * W_STAGE_BYTES + pt * 8;",
+         "    uint8_t* mine = staging + pw * 3 * W_STAGE_BYTES + pt * 8;"),
+        ("                             mine + ((s >> 1) & 1) * W_STAGE_BYTES + i * 128 * 8)),",
+         "                             mine + ((s >> 1) % 3) * W_STAGE_BYTES + i * 128 * 8)),"),
+        ("                     ? *reinterpret_cast<const uint2*>(mine + ((s >> 1) & 1) * W_STAGE_BYTES +",
+         "                     ? *reinterpret_cast<const uint2*>(mine + ((s >> 1) % 3) * W_STAGE_BYTES +"),
+        ("    issue(pw);\n", "    issue(pw);\n    issue(pw + 2);\n"),
+        ("      issue(s + 2);\n      asm volatile(\"cp.async.wait_group 1;\" ::: \"memory\");",
+         "      issue(s + 4);\n      asm volatile(\"cp.async.wait_group 2;\" ::: \"memory\");")],
+}
+# variants whose ring differs from the plan's: ({rows a CTA: k-steps in the
+# ring}, staged k-steps of packed bytes)
+W8A8_RINGS = {"bytes two k-steps ahead": ({128: 5, 256: 3}, 6)}
+W8A8_ROWS = (512, 2048)   # serve-paged's commonest w8a8 prefill; a 4 x 512 group
+W8A8_MUTANTS = {
+    "transposed store 8 k off": [(_Q_STORE, _Q_STORE.replace("((rg & 1) << 3)",
+                                                             "(((rg & 1) ^ 1) << 3)"))],
+    "last k-step dropped": MUTANTS["last k-step dropped"],
+    "no proxy fence": MUTANTS["no proxy fence"],
+}
+W8A8_MUTANT_TESTS = "w8a8"
+# the verify chunk's split-KV attention (paged_attention_split.cu)
+PAGED_MUTANTS = {
+    "row c's window edge taken from row 0": [(
+        "    first_vis[i] = r >= R ? INT_MAX : window > 0 ? len + r / G - window + 1 : 0;",
+        "    first_vis[i] = r >= R ? INT_MAX : window > 0 ? len - window + 1 : 0;")],
+    "a key row read from the previous page": [("      const int pg = pos / page;\n",
+                                               "      const int pg = max(pos / page - 1, 0);\n")],
+    "the splits' rescale dropped": [(
+        "      const float sc = expf(__ldg(ws + n_parts * HD + part + sp * R + r) - M);",
+        "      const float sc = 1.f;")],
+}
+PAGED_MUTANT_TESTS = "paged"
 # which source each set of mutants edits, and the cuda tests run against them
 MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS),
                "nf4bwd": ("qmm_nf4_bwd_wgmma.cu", NF4_BWD_MUTANTS, NF4_BWD_MUTANT_TESTS),
                "flash": ("flash_attention_wgmma.cu", FLASH_MUTANTS, FLASH_MUTANT_TESTS),
                "i8decode": ("qmm_i8_decode.cu", I8_DECODE_MUTANTS, I8_DECODE_MUTANT_TESTS),
-               "attention": ("decode_attention_split.cu", ATTN_MUTANTS, ATTN_MUTANT_TESTS)}
+               "attention": ("decode_attention_split.cu", ATTN_MUTANTS, ATTN_MUTANT_TESTS),
+               "w8a8": ("qmm_nf4_w8a8_wgmma.cu", W8A8_MUTANTS, W8A8_MUTANT_TESTS),
+               "paged": ("paged_attention_split.cu", PAGED_MUTANTS, PAGED_MUTANT_TESTS)}
 SETS = tuple(MUTANT_SETS)
 
 
@@ -422,6 +509,10 @@ def main(sets) -> int:
         variants += [("qmm_nf4_bwd_wgmma.cu", n, e, ["qmm_nf4_bwd_wgmma"], wgmma_args)
                      for n, e in NF4_BWD.items()]
         variants += [("qmm_nf4_bwd.cu", "as built", [], ["qmm_nf4_bwd"], qm._ARGTYPES)]
+    w8a8_args = [P] * 7 + [I] * 7 + [P]
+    if "w8a8" in sets:
+        variants += [("qmm_nf4_w8a8_wgmma.cu", n, e, ["qmm_nf4_w8a8_wgmma"], w8a8_args)
+                     for n, e in W8A8.items()]
     if "flash" in sets:
         fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
         variants += [("flash_attention_wgmma.cu", n, e,
@@ -493,9 +584,63 @@ def main(sets) -> int:
                 copies, a, out, M, K, N, tm128, "nf4 wgmma bwd (128-row CTAs)")
             run({"as built": built[("qmm_nf4_bwd.cu", "as built", "qmm_nf4_bwd")]}, copies, a,
                 out, M, K, N, None, "nf4 bwd tile (before)")
+        if "w8a8" in sets:
+            w8a8_sweep(built, dev, g, K, N)
     if "flash" in sets:
         flash_sweep(built, dev, g)
     return 0
+
+
+def w8a8_sweep(built, dev, g, K, N) -> None:
+    """The w8a8 kernel's variants at W8A8_ROWS, and as built on 128-row CTAs,
+    beside qmm_i8_direct.cu's NF4 path (the "before") and torch._int_mm on
+    the decoded int8 weight (rows padded to 32); NF4 storage with double
+    quant, operands rotated past L2, CUDA events."""
+    import torch
+
+    from qlora_tpu_torch.quant import quantize
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
+    copies = copies_past_l2(qt)
+    ratio, s_out = qm.w8a8_scales(qt)
+    code = qm._code_on(qt.quant_type, dev)
+    w8s = [qm.w8a8_codes(q, ratio) for q in copies]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for M in W8A8_ROWS:
+        x8, xs = qm.quantize_rows(torch.randn(M, K, device=dev, generator=g))
+        y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        plan = qm.w8a8_tile_plan(M, K, N, qt.block_size)
+        tm128 = dataclasses.replace(plan, tm=128, stages=qm._W8A8_STAGES[128],
+                                    smem=qm.w8a8_tile_smem(128))
+        def ring(name):
+            if name not in W8A8_RINGS:
+                return plan
+            stages, staged = W8A8_RINGS[name]
+            st = stages[plan.tm]
+            return dataclasses.replace(plan, stages=st, smem=1024 + st * (
+                2 * plan.tm * plan.tkp + 2 * plan.tn * plan.tkp) + staged * plan.tkp * plan.tn + 1024)
+
+        runs = [(n, built[("qmm_nf4_w8a8_wgmma.cu", n, "qmm_nf4_w8a8_wgmma")], ring(n))
+                for n in W8A8] + [("as built, 128-row CTAs", built[(
+                    "qmm_nf4_w8a8_wgmma.cu", "as built", "qmm_nf4_w8a8_wgmma")], tm128)]
+        line = []
+        for name, fn, p in runs:
+            def launch(i, fn=fn, p=p):
+                q = copies[i % len(copies)]
+                err = fn(x8.data_ptr(), q.packed.data_ptr(), ratio.data_ptr(), s_out.data_ptr(),
+                         xs.data_ptr(), code.data_ptr(), y.data_ptr(), M, K, N, q.block_size,
+                         p.tm, p.stages, p.smem, stream())
+                if err:
+                    raise RuntimeError(f"w8a8 {name}: cudaError_t {err}")
+            line.append(f"{name} {events_ms(launch):.4f}")
+        before = events_ms(lambda i: qm._launch_w8a8("qmm_nf4_w8a8", x8, copies[i % len(copies)],
+                                                     ratio, s_out, xs))
+        xp = torch.nn.functional.pad(x8, (0, 0, 0, (-M) % 32))
+        int_mm = events_ms(lambda i: torch._int_mm(xp, w8s[i % len(w8s)]))
+        line += [f"qmm_i8_direct.cu (before) {before:.4f}", f"torch._int_mm {int_mm:.4f}"]
+        print(f"tile_sweep w8a8 M={M} K={K} N={N} tm={plan.tm} (ms): " + ", ".join(line),
+              flush=True)
 
 
 def _replan(plan, kernel, tile):

@@ -47,10 +47,19 @@ atol 2e-2 as the NF4 kernels, and an identity operand reads the decoded
 weight out of the forward and the backward, bit for bit; the wgmma kernel
 is also held deterministic and batch-invariant, bit for bit.
 
+The w8a8 forward over NF4 above DECODE_ROWS rows runs the int8 wgmma
+kernel of ``qmm_nf4_w8a8_wgmma.cu`` wherever ``w8a8_tile_plan`` accepts the
+shape (K % 32 == 0), ``qmm_i8_direct.cu`` below and elsewhere: both held bit
+for bit, accumulators and outputs, and the wgmma kernel across two calls and
+batch rows.
+
 The paged kernels have the decode kernel's arithmetic over a page table:
 each output element within 2e-2 of its (row, head)'s largest |output|, the
 pools byte-equal after the append (page 0 and untouched pages included).
-The chunk kernel at C = 1 is the decode kernel, bit for bit."""
+Chunks of C >= 2 run the split kernel of ``paged_attention_split.cu``, also
+held bit for bit across two calls and with each row alone; the chunk entry
+of ``paged_attention.cu`` it replaced is held to the same tolerance.  The
+chunk kernel at C = 1 is the decode kernel, bit for bit."""
 
 import importlib
 
@@ -72,6 +81,7 @@ from qlora_tpu_torch.ops import w8a8_codes, w8a8_scales
 from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
 from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
 from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators, i8_tile_plan
+from qlora_tpu_torch.ops.qmatmul import w8a8_tile_plan
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
 from qlora_tpu_torch.quant import quantize
@@ -673,27 +683,76 @@ def test_i8_direct_kernel_equals_plain(cuda, M, K, N):
     assert (y[M - 1] == 0).all() and (y[:, N // 2] == 0).all()
 
 
+# above DECODE_ROWS rows the w8a8 wgmma kernel (qmm_nf4_w8a8_wgmma.cu) wherever
+# w8a8_tile_plan accepts the shape: one past DECODE_ROWS, parity-int8's 128
+# rows and serve-paged's 512 on the LLaMA-7B linears, 256-row CTAs, block
+# sizes 8 and 32, ragged N and M, K/2 no multiple of the 64-row k-step, three
+# meta-blocks of absmax; then shapes it refuses, which stay on
+# qmm_i8_direct.cu: block sizes 12 and 4, N % 8 != 0, K = 200
+W8A8_WGMMA_CASES = [
+    (17, 4096, 4096, 64, "nf4", True), (128, 4096, 11008, 64, "nf4", True),
+    (512, 11008, 4096, 64, "nf4", True), (50, 256, 72, 8, "nf4", False),
+    (129, 192, 200, 32, "fp4", False), (40, 64 * 600, 96, 64, "nf4", True),
+    (33, 480, 50, 12, "fp4", True), (20, 64, 36, 4, "nf4", True),
+    (40, 200, 24, 4, "nf4", False), (50, 256, 72, 4, "nf4", False)]
+
+
 @pytest.mark.parametrize("M,K,N,block_size,quant_type,dq", [
     (1, 256, 64, 64, "nf4", True), (4, 4096, 4096, 64, "nf4", True),
     (37, 384, 200, 64, "nf4", False), (300, 1024, 320, 32, "fp4", True),
     (2048, 11008, 512, 64, "nf4", True), (16, 64 * 600, 96, 64, "nf4", True),
     (5, 200, 24, 4, "nf4", False),                     # K/2 = 100: no 16-byte row chunks
-])
+] + W8A8_WGMMA_CASES)
 def test_nf4_w8a8_kernel_equals_plain(cuda, M, K, N, block_size, quant_type, dq):
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
     qt = quantize(w, block_size=block_size, quant_type=quant_type, double_quant=dq)
     x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
-    before = qmm_nf4_w8a8.launches
+    before, wgmma = qmm_nf4_w8a8.launches, qmm_nf4_w8a8.wgmma_launches
     with default_impl("w8a8"):
         y = qmatmul(x, qt)
     assert qmm_nf4_w8a8.launches == before + 1
+    took = w8a8_tile_plan(M, K, N, block_size).accepted
+    assert took == (M > DECODE_ROWS and K % 32 == 0 and N % 8 == 0 and block_size % 8 == 0)
+    assert qmm_nf4_w8a8.wgmma_launches == wgmma + took
     x8, _ = quantize_rows(x)
     w8 = w8a8_codes(qt, w8a8_scales(qt)[0])
     assert torch.equal(_w8a8_accumulators(x8, qt), int8_matmul_plain(x8, w8).to(torch.int32))
     assert torch.equal(y, qmm_nf4_w8a8_plain(x, qt))
     exact = qmatmul_plain(x, qt).float()
     assert (y.float() - exact).abs().max() < 0.05 * exact.abs().max()
+
+
+@pytest.mark.parametrize("M,K,N,block_size,quant_type,dq", W8A8_WGMMA_CASES[:6])
+def test_nf4_w8a8_wgmma_deterministic_and_batch_invariant(cuda, M, K, N, block_size,
+                                                          quant_type, dq):
+    """The w8a8 wgmma kernel bit for bit across two calls, and rows in other
+    batches (sub-batches of at least 17 rows, which it takes too, and a row
+    alone, which qmm_i8_direct.cu takes) equal to their rows of the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(M * K + N)
+    qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5,
+                  block_size=block_size, quant_type=quant_type, double_quant=dq)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    y = qmm_nf4_w8a8(x, qt)
+    assert torch.equal(qmm_nf4_w8a8(x, qt), y)
+    for a, b in ((0, 17), (M - 17, M), (max(0, M // 2 - 9), M // 2 + 9), (M - 1, M)):
+        assert torch.equal(qmm_nf4_w8a8(x[a:b], qt), y[a:b]), (a, b)
+
+
+def test_nf4_w8a8_dispatch_edge(cuda):
+    """16 rows stay on qmm_i8_direct.cu, 17 take the wgmma kernel; K = 200
+    (K % 32 != 0), N = 36 and blocks of 4 stay on qmm_i8_direct.cu at any
+    row count; every call equals its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for M, K, N, B, wgmma in ((16, 4096, 256, 64, 0), (17, 4096, 256, 64, 1),
+                              (300, 200, 64, 4, 0), (17, 224, 64, 8, 1), (40, 256, 36, 8, 0),
+                              (40, 256, 64, 4, 0)):
+        qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5, block_size=B)
+        x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+        before = qmm_nf4_w8a8.wgmma_launches
+        y = qmm_nf4_w8a8(x, qt)
+        assert qmm_nf4_w8a8.wgmma_launches == before + wgmma, (M, K)
+        assert torch.equal(y, qmm_nf4_w8a8_plain(x, qt))
 
 
 def test_w8a8_kernels_round_half_to_even(cuda):
@@ -991,14 +1050,62 @@ def test_paged_kernels_match_plain(cuda, B, C, H, KVH, hd, page, pps, lens, wind
                      else (paged_chunk_attention_cuda, paged_chunk_plain))
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     before = kernel.launches
+    split = paged_chunk_attention_cuda.split_launches
     o1, _, _ = kernel(q, nk, nv, k1, v1, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
     o2, _, _ = plain(q, nk, nv, k2, v2, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
     assert kernel.launches == before + 1
+    # every chunk here (C >= 2) runs the split kernel of paged_attention_split.cu
+    assert paged_chunk_attention_cuda.split_launches == split + (C is not None)
     d = (o1.float() - o2.float()).abs()
     tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
     assert (d <= tol).all(), f"max excess {(d - tol).max().item()}"
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     assert not torch.equal(k1, kp)                      # the append happened
+
+
+PAGED_CHUNK_CASES = [c for c in PAGED_CASES if c[1] is not None]
+
+
+@pytest.mark.parametrize("B,C,H,KVH,hd,page,pps,lens,window,evict,planted", PAGED_CHUNK_CASES)
+def test_paged_chunk_split_deterministic_and_row_invariant(cuda, B, C, H, KVH, hd, page, pps,
+                                                           lens, window, evict, planted):
+    """The split chunk kernel bit for bit across two calls and with each row
+    alone, outputs and pools; every call starts from the pools as they were
+    (a clamped append may overwrite keys that a later call would read)."""
+    g = torch.Generator(device=cuda).manual_seed(B * 10 + page + C)
+    q, nk, nv, kp, vp, L, tables = paged_case(g, cuda, B, C, H, KVH, hd, page, pps, lens,
+                                              window, evict, planted)
+    kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
+    runs = [paged_chunk_attention_cuda(q, nk, nv, kp.clone(), vp.clone(), L, tables, **kw)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    o = runs[0][0]
+    for b in range(B):
+        ob, _, _ = paged_chunk_attention_cuda(q[b:b + 1], nk[b:b + 1], nv[b:b + 1], kp.clone(),
+                                              vp.clone(), L[b:b + 1], tables[b:b + 1], **kw)
+        assert torch.equal(ob[0], o[b]), b
+
+
+@pytest.mark.parametrize("B,C,H,KVH,hd,page,pps,lens,window,evict,planted", PAGED_CHUNK_CASES)
+def test_paged_chunk_before_still_matches_plain(cuda, B, C, H, KVH, hd, page, pps, lens, window,
+                                                evict, planted):
+    """paged_attention.cu's chunk entry, the split kernel's "before" (reached
+    through the private ``_paged_chunk_before``), within the same tolerance
+    of the plain version, the same pools after the append; not counted."""
+    before = importlib.import_module("qlora_tpu_torch.ops.paged_attention")._paged_chunk_before
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + page + C)
+    q, nk, nv, kp, vp, L, tables = paged_case(g, cuda, B, C, H, KVH, hd, page, pps, lens,
+                                              window, evict, planted)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    n = paged_chunk_attention_cuda.launches
+    o1, _, _ = before(q, nk, nv, k1, v1, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
+    o2, _, _ = paged_chunk_plain(q, nk, nv, k2, v2, L, tables, sm_scale=hd ** -0.5,
+                                 sliding_window=window)
+    assert paged_chunk_attention_cuda.launches == n
+    d = (o1.float() - o2.float()).abs()
+    tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
+    assert (d <= tol).all(), f"max excess {(d - tol).max().item()}"
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
 def test_paged_chunk_of_one_is_the_decode_kernel(cuda):

@@ -70,6 +70,23 @@ def test_cuda_sources_cover_paged_attention():
     assert "fused_paged_decode_attention" in text and "fused_paged_chunk_attention" in text
 
 
+def test_cuda_sources_cover_the_w8a8_prefill_and_the_split_chunk():
+    """The w8a8 forward's int8 wgmma source and the verify chunk's split-KV
+    source are scanned like the rest, each names the TPU function it
+    replaces and has the C entry its wrapper calls; the sources they
+    replaced stay beside them."""
+    csrc = ROOT / "qlora_tpu_torch" / "csrc"
+    for name, entry, replaces, before in (
+            ("qmm_nf4_w8a8_wgmma.cu", "qmm_nf4_w8a8_wgmma", "_qmm_pallas_w8a8",
+             "qmm_i8_direct.cu"),
+            ("paged_attention_split.cu", "paged_chunk_attention_split",
+             "fused_paged_chunk_attention", "paged_attention.cu")):
+        assert csrc / name in SOURCES and csrc / before in SOURCES
+        text = (csrc / name).read_text()
+        assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {entry}
+        assert replaces in text and before in text
+
+
 def test_cuda_sources_cover_flash_attention():
     """The flash kernels' wgmma source is scanned like the rest, names the TPU
     functions it replaces and has the three C entries the wrappers call; the
