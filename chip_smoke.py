@@ -59,9 +59,17 @@ them.  Phases, each failing the run on any mismatch or exception:
    exact launch counts read around the steps: every NF4 forward and dx and
    every flash launch on a wgmma kernel (train-parity too).
 8. kernels-int8: the four kernels of the int8 family against their plain
-   versions: ``qmm_i8_direct`` (M = 4, the block linears and the padded
-   lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128, 512, 2048) equal
-   bit for bit, in the raw int32 accumulators and in the bf16 output;
+   versions: ``qmm_i8_direct`` (M = 4, 8, 16 on the block linears and the
+   padded lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128, 512,
+   2048) equal bit for bit, in the raw int32 accumulators and in the bf16
+   output.  ``qmm_i8_direct`` up to 16 rows runs the split-K kernel of
+   ``qmm_i8_direct_decode.cu``, which quantizes the rows itself: its x8 and
+   xs equal ``quantize_rows``' on the card, two calls and each row alone bit
+   for bit; timed in CUDA graphs beside ``qmm_i8_direct.cu`` through its C
+   entry on rows quantized beforehand (``tile_ms``, the "before", equal bit
+   for bit), ``torch._int_mm`` (``library_ms``, in a graph) and the wrapper
+   back to back (``wrapper_ms``, events); the ragged shape stays on
+   ``qmm_i8_direct.cu``.
    ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024)
    within the NF4 kernels' tolerance, f32 and double-quantized absmax, and
    reading out ``dequantize``'s weight bit for bit from identity operands.
@@ -89,8 +97,9 @@ them.  Phases, each failing the run on any mismatch or exception:
 10. serve-int8 (inside serve, on its weights): the same 4 requests through
    ``generate(..., decode_impl="int8")`` on a serving tree requantized once;
    exact launch counts (the prefill on the NF4 kernel, every decode step on
-   ``qmm_i8_direct``, the lm_head included), the first tokens equal to the NF4
-   run's, both decode paths' times side by side.
+   ``qmm_i8_direct``, the lm_head included, all on ``qmm_i8_direct_decode.cu``),
+   the first tokens equal to the NF4 run's, both decode paths' times side by
+   side.
 11. train-int8: train-parity and train again over an int8 base (``--bits 8``
    storage), 5 optimizer steps, the NF4 phase's launch counts on the int8
    kernels' counters (every one of them on the int8 wgmma kernel, forward
@@ -101,10 +110,11 @@ them.  Phases, each failing the run on any mismatch or exception:
    on both sides of page edges, GQA with a sliding window and entries behind
    it evicted to page 0, planted edges, a chunk across a page and up to the
    table's end, the chunk of one token against the decode kernel; outputs
-   within ATTN_TOL, pools byte-equal after the append.  Chunks (C = 5) run
-   the split-KV kernel of ``paged_attention_split.cu``, timed in CUDA graphs
-   beside ``paged_attention.cu``'s chunk entry (``tile_ms``, the "before",
-   held to ATTN_TOL with its pools byte-equal) and SDPA, and held bit for
+   within ATTN_TOL, pools byte-equal after the append.  The decode step and
+   the chunks (C = 5) run the split-KV kernel of ``paged_attention_split.cu``
+   (the decode as the chunk of one token), timed in CUDA graphs beside
+   ``paged_attention.cu``'s decode or chunk entry (``tile_ms``, the "befores",
+   held to ATTN_TOL with their pools byte-equal) and SDPA, and held bit for
    bit across two calls and with each row alone.
 13. paged-parity: LLaMA-7B width, 2 layers — a 126-token prompt prefilled
    into pages with ``PagedPool.write_prefill``, 4 teacher-forced decode steps
@@ -112,10 +122,11 @@ them.  Phases, each failing the run on any mismatch or exception:
    card against the CPU and against the card's contiguous cache.
 14. serve-paged (inside serve, on its weights): ``PagedBatcher`` with 8
    slots over a pool small enough to preempt, 16 requests of 64-512 prompt
-   and 16-64 new tokens; exact launch counts from the counted forwards, the
-   pool recycled; then the same requests with ``decode_impl="int8",
-   prefill_impl="w8a8"`` (every prefill's qmm_nf4_w8a8 on the wgmma kernel;
-   its prefill forwards timed).
+   and 16-64 new tokens; exact launch counts from the counted forwards (every
+   paged decode on the split kernel), the pool recycled; then the same
+   requests with ``decode_impl="int8", prefill_impl="w8a8"`` (every decode
+   forward's qmm_i8_direct on its decode kernel, every prefill's
+   qmm_nf4_w8a8 on the wgmma kernel; its prefill forwards timed).
 15. serve-paged-spec: the same engine with 4 drafts per verify chunk on 8
    requests whose prompts repeat a 16-token phrase.
 16. parity-i8base: parity over an int8-stored base (``--bits 8``, double
@@ -532,12 +543,13 @@ def paged_bound(B, C, H, KVH, hd, lens, window, T, pps):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), sum(keys)
 
 
-def paged_chunk_checks(shape, kernel, before, q, nk, nv, kp, vp, L, tables, kw, o1, o2):
-    """The split chunk kernel (C >= 2): it took the call; paged_attention.cu's
-    chunk entry (the "before") within ATTN_TOL of the plain version with the
-    same pools after the append; two calls and each row alone bit for bit.
-    Every call starts from the pools as they were (a clamped append may
-    overwrite keys a later call would read).  Returns the before's max|d|."""
+def paged_split_checks(shape, kernel, before, q, nk, nv, kp, vp, L, tables, kw, o1, o2):
+    """The split kernel, at the decode step or a chunk: it took the call;
+    paged_attention.cu's decode or chunk entry (the "before") within ATTN_TOL
+    of the plain version with the same pools after the append; two calls and
+    each row alone bit for bit.  Every call starts from the pools as they
+    were (a clamped append may overwrite keys a later call would read).
+    Returns the before's max|d|."""
     import torch
 
     took = kernel.split_launches
@@ -557,16 +569,17 @@ def paged_chunk_checks(shape, kernel, before, q, nk, nv, kp, vp, L, tables, kw, 
           f"equal {alone}; paged_attention.cu (before) max|d| {diff.max().item():.3g}, its pools "
           f"equal {same}", flush=True)
     if not (split and twice and alone and same) or excess > 0:
-        fail(f"paged_chunk_attention_cuda {shape}: split {split}, deterministic {twice}, "
+        fail(f"{kernel.__name__} {shape}: split {split}, deterministic {twice}, "
              f"row-invariant {alone}, before's pools {same}, before's excess {excess}")
     return diff.max().item()
 
 
 def paged_kernel_phase(dev, results):
-    """The two paged kernels against their plain versions at the serve-paged
-    shapes (PAGED_CASES), and the chunk of one token against the decode
-    kernel.  Chunks of C >= 2 run the split kernel (``paged_attention_split.cu``),
-    timed in CUDA graphs beside paged_attention.cu's chunk entry (``tile_ms``)."""
+    """The two paged wrappers against their plain versions at the serve-paged
+    shapes (PAGED_CASES), and the chunk of one token against the decode step.
+    Both run the split kernel (``paged_attention_split.cu``, the decode step
+    as the chunk of one token), timed in CUDA graphs beside paged_attention.cu's
+    decode or chunk entry (``tile_ms``, the "befores")."""
     import importlib
 
     import torch
@@ -577,7 +590,7 @@ def paged_kernel_phase(dev, results):
         paged_decode_plain,
     )
 
-    before = importlib.import_module("qlora_tpu_torch.ops.paged_attention")._paged_chunk_before
+    pa = importlib.import_module("qlora_tpu_torch.ops.paged_attention")
 
     g = torch.Generator(device=dev).manual_seed(8642)
     H, hd, B, T = 32, 128, PAGED_B, PAGE * PPS
@@ -585,8 +598,9 @@ def paged_kernel_phase(dev, results):
         q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, C, H, KVH, hd, PAGE, PPS, lens,
                                                   window, evict, planted)
         name = "paged_decode_attention_cuda" if C is None else "paged_chunk_attention_cuda"
-        kernel, plain = ((paged_decode_attention_cuda, paged_decode_plain) if C is None
-                         else (paged_chunk_attention_cuda, paged_chunk_plain))
+        kernel, plain, before = (
+            (paged_decode_attention_cuda, paged_decode_plain, pa._paged_decode_before) if C is None
+            else (paged_chunk_attention_cuda, paged_chunk_plain, pa._paged_chunk_before))
         kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
         k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
         o1, _, _ = kernel(q, nk, nv, k1, v1, L, tables, **kw)
@@ -606,22 +620,21 @@ def paged_kernel_phase(dev, results):
         shape = (f"B={B}{'' if C is None else f' C={C}'} H={H} KVH={KVH} hd={hd} page={PAGE} "
                  f"pps={PPS} lens={list(lens)} window={window}"
                  + (" evicted" if evict else "") + (" planted edges" if planted else ""))
-        more = {}
-        if C is not None:
-            more["tile_err"] = paged_chunk_checks(shape, kernel, before, q, nk, nv, kp, vp, L,
-                                                  tables, kw, o1, o2)
+        more = {"tile_err": paged_split_checks(shape, kernel, before, q, nk, nv, kp, vp, L,
+                                               tables, kw, o1, o2)}
         bound_ms, bound_by, keys = paged_bound(B, Cq, H, KVH, hd, lens, window, T, PPS)
         pools = [(k1, v1)] + [(k1.clone(), v1.clone())
                               for _ in range(copies_past_l2(2 * KVH * hd * 2 * keys) - 1)]
+        # device times in CUDA graphs: the wrapper's host time exceeds the split kernel's
+        ms = graph_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw), 200)
+        more["tile_ms"] = graph_ms(lambda i: before(q, nk, nv, *pools[i % len(pools)], L,
+                                                    tables, **kw), 50)
         if C is None:
-            ms = cuda_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
-                         200)
-        else:
-            # device times in CUDA graphs: the wrapper's host time exceeds the split kernel's
-            ms = graph_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
-                          200)
-            more["tile_ms"] = graph_ms(lambda i: before(q, nk, nv, *pools[i % len(pools)], L,
-                                                        tables, **kw), 50)
+            # the decode step's host cost a call: the wrappers back to back, with events
+            more["wrapper_ms"] = cuda_ms(lambda i: kernel(q, nk, nv, *pools[i % len(pools)], L,
+                                                          tables, **kw), 200)
+            more["tile_wrapper_ms"] = cuda_ms(lambda i: before(q, nk, nv, *pools[i % len(pools)],
+                                                               L, tables, **kw), 200)
         plain_ms = cuda_ms(lambda i: plain(q, nk, nv, *pools[i % len(pools)], L, tables, **kw),
                            5)
         # yardstick: index_select of each row's pages into [B, KVH, T, hd], then
@@ -644,9 +657,8 @@ def paged_kernel_phase(dev, results):
             attn_mask=mask, scale=hd ** -0.5, enable_gqa=KVH != H), 200)
         record(results, name, shape, err, f"tol {ATTN_TOL}*row max|ref|", ms, plain_ms, lib_ms,
                (bound_ms, bound_by), **more)
-        if C is not None:
-            print(f"  the split kernel {more['tile_ms'] / ms:.2f}x paged_attention.cu's speed, "
-                  f"{ms / lib_ms:.2f}x SDPA's time", flush=True)
+        print(f"  the split kernel {more['tile_ms'] / ms:.2f}x paged_attention.cu's speed, "
+              f"{ms / lib_ms:.2f}x SDPA's time", flush=True)
         print(f"  pools byte-equal after the append: {same}"
               + (f"; one more key in the window moves the plain output by {moved:.3g}"
                  if planted else ""), flush=True)
@@ -656,20 +668,23 @@ def paged_kernel_phase(dev, results):
             fail(f"{name} {shape}: the planted edges move the output by only {moved}")
         del pools, k1, v1, k2, v2
 
-    # the chunk of one token is the decode step
+    # the chunk of one token is the decode step, both on the split kernel
     q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, None, H, 8, hd, PAGE, PPS,
                                               DECODE_LENS, 256, True, True)
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     kw = dict(sm_scale=hd ** -0.5, sliding_window=256)
+    took = (paged_chunk_attention_cuda.split_launches, paged_decode_attention_cuda.split_launches)
     oc, _, _ = paged_chunk_attention_cuda(q[:, None], nk[:, None], nv[:, None], k1, v1, L,
                                           tables, **kw)
     od, _, _ = paged_decode_attention_cuda(q, nk, nv, k2, v2, L, tables, **kw)
     torch.cuda.synchronize()
     same = torch.equal(oc[:, 0], od) and torch.equal(k1, k2) and torch.equal(v1, v2)
+    split = (paged_chunk_attention_cuda.split_launches - took[0],
+             paged_decode_attention_cuda.split_launches - took[1]) == (1, 1)
     print(f"kernel paged_chunk_attention_cuda C=1 against paged_decode_attention_cuda: outputs "
-          f"and pools equal bit for bit: {same}", flush=True)
-    if not same:
-        fail("the chunk kernel at C=1 differs from the decode kernel")
+          f"and pools equal bit for bit: {same}; both on the split kernel: {split}", flush=True)
+    if not (same and split):
+        fail("the chunk kernel at C=1 differs from the decode step")
 
 
 def kernel_phase(dev, results):
@@ -1103,6 +1118,40 @@ def w8a8_check(name, shape, wrapper, plain, x, qt, w8):
     return err, y
 
 
+def i8_direct_decode_check(shape, x, qt):
+    """``qmm_i8_direct`` at decode rows: the decode kernel took the call; its
+    x8 and xs equal ``quantize_rows``' on the card, its int32 accumulators the
+    exact integer product and its bf16 output the plain version's, bit for
+    bit; two calls equal, and each row alone equal to its row of the batch.
+    Returns (0.0 or a failure, y)."""
+    import torch
+
+    from qlora_tpu_torch.ops import int8_matmul_plain, qmm_i8_direct, qmm_i8_direct_plain
+    from qlora_tpu_torch.ops import quantize_rows
+    from qlora_tpu_torch.ops.qmatmul import _i8_direct_decode_outputs
+
+    took = qmm_i8_direct.decode_launches
+    y = qmm_i8_direct(x, qt)
+    if qmm_i8_direct.decode_launches != took + 1:
+        fail(f"qmm_i8_direct {shape}: qmm_i8_direct_decode.cu did not take the call")
+    acc, x8, xs = _i8_direct_decode_outputs(x, qt)
+    rx8, rxs = quantize_rows(x)
+    ref = qmm_i8_direct_plain(x, qt)
+    twice = torch.equal(qmm_i8_direct(x, qt), y)
+    alone = all(torch.equal(qmm_i8_direct(x[m:m + 1], qt), y[m:m + 1]) for m in range(x.shape[0]))
+    torch.cuda.synchronize()
+    codes = torch.equal(x8, rx8) and torch.equal(xs, rxs)
+    sums = torch.equal(acc, int8_matmul_plain(rx8, qt.packed).to(torch.int32))
+    err = (y.float() - ref.float()).abs().max().item()
+    print(f"  qmm_i8_direct {shape} (decode kernel): x8 and xs equal quantize_rows' {codes}; "
+          f"int32 sums exact {sums}; output equal {torch.equal(y, ref)}; two calls equal "
+          f"{twice}; rows alone equal {alone}", flush=True)
+    if not (codes and sums and torch.equal(y, ref) and twice and alone):
+        fail(f"qmm_i8_direct {shape}: the decode kernel differs from its plain version "
+             f"(codes {codes}, sums {sums}, max|d| {err}, two calls {twice}, rows alone {alone})")
+    return err, y
+
+
 def w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y):
     """qmm_i8_direct.cu's NF4 path through its C entry, the "before" of the
     w8a8 wgmma kernel: its accumulators equal the exact integer product and
@@ -1157,26 +1206,61 @@ def int8_kernel_phase(dev, results):
                                 for _ in range(copies_past_l2(qt.nbytes) - 1)]
     exact_tol = "equal bit for bit, int32 accumulators and bf16 output"
 
-    # qmm_i8_direct: the decode step's launches (M = 4) and a ragged shape
-    for M, (K, N) in [(4, s) for s in QMM_SHAPES + (LM_HEAD_SHAPE,)] + [(5, (200, 328))]:
+    # qmm_i8_direct: the decode steps' launches (M = 4 in serve-int8, 8 in
+    # serve-paged-int8, and 16) on qmm_i8_direct_decode.cu, which quantizes the
+    # rows itself, timed in CUDA graphs beside qmm_i8_direct.cu through its C
+    # entry on rows quantized beforehand (tile_ms, the "before"); then a ragged
+    # shape, which the decode kernel's plan refuses (qmm_i8_direct.cu, events)
+    for K, N in QMM_SHAPES + (LM_HEAD_SHAPE,):
         w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
         qt = quantize(w, block_size=K, quant_type="int8", double_quant=False)
         del w
-        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-        shape = f"M={M} K={K} N={N}"
-        err, _ = w8a8_check("qmm_i8_direct", shape, qmm_i8_direct, qmm_i8_direct_plain, x, qt,
-                            qt.packed)
         qts = clones(qt)
-        x8, xs = quantize_rows(x)
         s_out = absmax_f32(qt).reshape(-1) / 127.0
-        ms = cuda_ms(lambda i: launch_w8a8("qmm_i8_direct", x8, qts[i % len(qts)], None, s_out,
-                                           xs), 200)
-        wrapper_ms = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 200)
-        plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
-        lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200)
-        record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms,
-               int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1), wrapper_ms=wrapper_ms)
+        for M in I8_DECODE_ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            shape = f"M={M} K={K} N={N}"
+            err, y = i8_direct_decode_check(shape, x, qt)
+            x8, xs = quantize_rows(x)
+            yt = launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
+            torch.cuda.synchronize()
+            if not torch.equal(yt, y):
+                fail(f"qmm_i8_direct {shape}: qmm_i8_direct.cu (the before) differs from the "
+                     "decode kernel")
+            ms = graph_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 200)
+            more = dict(tile_ms=graph_ms(lambda i: launch_w8a8(
+                "qmm_i8_direct", x8, qts[i % len(qts)], None, s_out, xs), 50))
+            more["wrapper_ms"] = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 200)
+            plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
+            lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200, graph_ms)
+            # bf16 x in, its rows quantized inside the kernel: x, the codes and the
+            # column scales read once, y written once
+            record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms,
+                   int8_bound(M, K, N, K * N + N * 4, PEAK_INT8, 2), **more)
+            print(f"  the decode kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
+                  f"{ms / lib_ms:.2f}x torch._int_mm's time", flush=True)
         del qts, qt
+    M, K, N = 5, 200, 328
+    qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5, block_size=K,
+                  quant_type="int8", double_quant=False)
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    shape = f"M={M} K={K} N={N}"
+    took = qmm_i8_direct.decode_launches
+    err, _ = w8a8_check("qmm_i8_direct", shape, qmm_i8_direct, qmm_i8_direct_plain, x, qt,
+                        qt.packed)
+    if qmm_i8_direct.decode_launches != took:
+        fail(f"qmm_i8_direct {shape}: the decode kernel took a shape its plan refuses")
+    qts = clones(qt)
+    x8, xs = quantize_rows(x)
+    s_out = absmax_f32(qt).reshape(-1) / 127.0
+    ms = cuda_ms(lambda i: launch_w8a8("qmm_i8_direct", x8, qts[i % len(qts)], None, s_out,
+                                       xs), 200)
+    wrapper_ms = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 200)
+    plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
+    lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200)
+    record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms,
+           int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1), wrapper_ms=wrapper_ms)
+    del qts, qt
 
     # qmm_nf4_w8a8: NF4 storage (double quant), decode and prefill rows; above
     # DECODE_ROWS the int8 wgmma kernel, with qmm_i8_direct.cu's NF4 path through
@@ -1415,11 +1499,14 @@ def row_codes(tape, replay_on=None):
     (x8, xs) to `tape`, or, with `replay_on` a device, hands back the tape's
     entries there in the same order of calls instead of quantizing what it is
     given: a second run of the same model then multiplies the first run's
-    int8 codes."""
+    int8 codes.  On the card the direct decode kernel, which quantizes its
+    rows itself, takes the tape's codes as its given rows.  Recording reads
+    ``quantize_rows`` only: it runs on the CPU's plain path."""
     import importlib
 
     qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
     real, left = qm.quantize_rows, iter(tape)
+    real_decode = qm._i8_direct_decode_launch
 
     def record(x):
         tape.append(real(x))
@@ -1431,11 +1518,19 @@ def row_codes(tape, replay_on=None):
             fail(f"row_codes: call of shape {tuple(x.shape)} meets a tape entry {tuple(x8.shape)}")
         return x8.to(replay_on), xs.to(replay_on)
 
+    def replay_decode(x, qt, plan, raw=False, rows=None):
+        # qmm_i8_direct_decode.cu quantizes the rows itself: it is handed the
+        # tape's codes instead (its `given` rows)
+        return real_decode(x, qt, plan, raw, replay(x))
+
     qm.quantize_rows = record if replay_on is None else replay
+    if replay_on is not None:
+        qm._i8_direct_decode_launch = replay_decode
     try:
         yield
     finally:
         qm.quantize_rows = real
+        qm._i8_direct_decode_launch = real_decode
     if replay_on is not None and next(left, None) is not None:
         fail("row_codes: the replaying run quantized fewer rows than the recording one")
 
@@ -1609,8 +1704,8 @@ def paged_parity_phase(dev):
     L = cfg.num_layers
     want = expected_counts(qmm_nf4_fwd_dq=7 * L * (steps + 1),      # 1 row, then the chunk of C
                            qmm_nf4_decode_dq=7 * L * (steps + 1),
-                           paged_decode_attention_cuda=L * steps, paged_chunk_attention_cuda=L,
-                           paged_chunk_split=L)
+                           paged_decode_attention_cuda=L * steps, paged_decode_split=L * steps,
+                           paged_chunk_attention_cuda=L, paged_chunk_split=L)
     print(f"paged-parity: launches {counts} (expected {want})", flush=True)
     if counts != want:
         fail(f"paged-parity launch counts {counts} != {want}")
@@ -1642,19 +1737,23 @@ def counters():
 # The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
 # qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The w8a8 forward over NF4
 # counts those that took qmm_nf4_w8a8_wgmma.cu (more rows), read as
-# qmm_nf4_w8a8_wgmma; the rest took qmm_i8_direct.cu.  The chunk attention
-# counts those that took paged_attention_split.cu (C >= 2), read as
-# paged_chunk_split; the rest (C = 1) took paged_attention.cu.  The flash wrappers launch
+# qmm_nf4_w8a8_wgmma; the rest took qmm_i8_direct.cu.  The direct int8 w8a8
+# forward counts those that took qmm_i8_direct_decode.cu (M <= DECODE_ROWS),
+# read as qmm_i8_direct_decode; the rest took qmm_i8_direct.cu.  The paged
+# decode and chunk attention count those that took paged_attention_split.cu,
+# read as paged_decode_split and paged_chunk_split: every call (paged_attention.cu
+# is reached only through the uncounted "befores").  The flash wrappers launch
 # only the wgmma kernels of flash_attention_wgmma.cu and count each launch in
 # wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32",
-                 "qmm_i8_decode_fwd": "qmm_i8_fwd"}
+                 "qmm_i8_decode_fwd": "qmm_i8_fwd", "qmm_i8_direct_decode": "qmm_i8_direct"}
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
                 "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
                 "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd", "flash_wgmma_fwd": "flash_fwd",
                 "flash_wgmma_bwd_dq": "flash_bwd_dq", "flash_wgmma_bwd_dkv": "flash_bwd_dkv",
                 "qmm_nf4_w8a8_wgmma": "qmm_nf4_w8a8"}
-SPLIT_COUNTS = {"paged_chunk_split": "paged_chunk_attention_cuda"}
+SPLIT_COUNTS = {"paged_chunk_split": "paged_chunk_attention_cuda",
+                "paged_decode_split": "paged_decode_attention_cuda"}
 
 
 def expected_counts(**nonzero):
@@ -1806,6 +1905,7 @@ def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
     want = expected_counts(qmm_nf4_fwd_dq=n_lin,                       # the prefill, exact
                            qmm_nf4_wgmma_dq=n_lin,
                            qmm_i8_direct=(n_lin + 1) * SERVE_NEW,      # + 1: the lm_head
+                           qmm_i8_direct_decode=(n_lin + 1) * SERVE_NEW,   # 4 rows: all of them
                            decode_attention_cuda=cfg.num_layers * SERVE_NEW)
     decode_s = total_s - prefill_s
     agree = (toks == nf4_toks).float().mean().item()
@@ -1815,8 +1915,8 @@ def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
           f"{prefill_s * 1e3:.1f} ms); peak memory {peak_gib:.2f} GiB; {agree:.2f} of the tokens equal "
           "the NF4 run's", flush=True)
     print(f"serve-int8: launches {counts} (expected {want}: the prefill's {n_lin} on the NF4 "
-          f"kernel, {n_lin} + 1 qmm_i8_direct and {cfg.num_layers} decode-attention per decode "
-          "step)", flush=True)
+          f"kernel, {n_lin} + 1 qmm_i8_direct, all on qmm_i8_direct_decode.cu, and "
+          f"{cfg.num_layers} decode-attention per decode step)", flush=True)
     if counts != want:
         fail(f"serve-int8 launch counts {counts} != {want}")
     if toks.shape != (4, SERVE_NEW) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -2026,10 +2126,11 @@ def serve_paged_phase(dev, cfg, params, lora, lcfg):
     want = expected_counts(qmm_nf4_fwd_dq=n_lin * fwds,
                            qmm_nf4_decode_dq=n_lin * st["decode"],    # 8 rows a decode forward
                            qmm_nf4_wgmma_dq=n_lin * st["prefill"],    # >= 128 rows a prefill
-                           paged_decode_attention_cuda=L * st["decode"])
+                           paged_decode_attention_cuda=L * st["decode"],
+                           paged_decode_split=L * st["decode"])
     print(f"serve-paged: launches {counts} (expected {want}: {n_lin} qmm per forward, on the "
           f"decode kernel in each decode forward and on the wgmma kernel in each prefill, {L} "
-          "paged decode attention per decode forward)", flush=True)
+          "paged decode attention per decode forward, all on the split kernel)", flush=True)
     if counts != want:
         fail(f"serve-paged launch counts {counts} != {want}")
     if pb.preemptions < 1:
@@ -2041,12 +2142,14 @@ def serve_paged_phase(dev, cfg, params, lora, lcfg):
         "serve-paged-int8", dev, cfg, params, lora, lcfg, traffic, SERVE_PAGED_PAGES,
         decode_impl="int8", prefill_impl="w8a8")
     want8 = expected_counts(qmm_i8_direct=(n_lin + 1) * st8["decode"],    # + 1: the lm_head
+                            qmm_i8_direct_decode=(n_lin + 1) * st8["decode"],   # 8 rows
                             qmm_nf4_w8a8=n_lin * st8["prefill"],       # >= 128 rows a prefill
                             qmm_nf4_w8a8_wgmma=n_lin * st8["prefill"],
-                            paged_decode_attention_cuda=L * st8["decode"])
+                            paged_decode_attention_cuda=L * st8["decode"],
+                            paged_decode_split=L * st8["decode"])
     print(f"serve-paged-int8: launches {counts8} (expected {want8}: {n_lin} + 1 qmm_i8_direct "
-          f"per decode forward, {n_lin} qmm_nf4_w8a8 per prefill forward, all on the wgmma "
-          "kernel, no NF4 qmm)",
+          f"per decode forward, all on qmm_i8_direct_decode.cu, {n_lin} qmm_nf4_w8a8 per prefill "
+          "forward, all on the wgmma kernel, no NF4 qmm)",
           flush=True)
     if counts8 != want8:
         fail(f"serve-paged-int8 launch counts {counts8} != {want8}")
@@ -2075,6 +2178,7 @@ def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
                            qmm_nf4_wgmma_dq=n_lin * (st["prefill"] + st["verify"] * (
                                verify_rows > DECODE_ROWS)),
                            paged_decode_attention_cuda=L * st["decode"],
+                           paged_decode_split=L * st["decode"],
                            paged_chunk_attention_cuda=L * st["verify"],
                            paged_chunk_split=L * st["verify"])
     per_chunk = pb.spec_tokens / max(pb.spec_chunks, 1)
@@ -2383,8 +2487,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                      "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :449)"),
     "flash_bwd_dkv": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
                       "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :476)"),
-    "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct.cu",
-                      "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct)"),
+    # the direct int8 w8a8 forward: the decode kernel at its headline (M = 4)
+    "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
+                      "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct, pallas_call at "
+                      ":358; M <= 16)"),
     # the w8a8 forward over NF4: the int8 wgmma kernel at its headline (M = 512)
     "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
                      "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8, pallas_call at :270)"),
@@ -2397,9 +2503,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                           "M <= 16)"),
     "qmm_i8_bwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:475 (_qmm_bwd_pallas_i8)"),
-    "paged_decode_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention.cu",
+    # the paged decode step: the split kernel, at the chunk of one token
+    "paged_decode_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention_split.cu",
                                     "qlora_tpu/ops/paged_attention.py:217 "
-                                    "(fused_paged_decode_attention)"),
+                                    "(fused_paged_decode_attention, pallas_call at :277)"),
     # the verify chunk (C = 5): the split kernel
     "paged_chunk_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention_split.cu",
                                    "qlora_tpu/ops/paged_attention.py:478 "
@@ -2422,9 +2529,10 @@ I8_SOURCES = {"M <= 16, forward": "qlora_tpu_torch/csrc/qmm_i8_decode.cu",
 W8A8_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
                 "M <= 16, or K % 32, N % 8 or the block size % 8 not 0":
                     "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
-# the chunk attention's two sources, by the chunk's tokens
-CHUNK_SOURCES = {"C >= 2": "qlora_tpu_torch/csrc/paged_attention_split.cu",
-                 "C = 1": "qlora_tpu_torch/csrc/paged_attention.cu"}
+# the direct int8 w8a8 forward's two sources, by shape (ops/qmatmul.py:
+# i8_direct_decode_plan)
+I8_DIRECT_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
+                     "M > 16, or K % 32 or N % 16 not 0": "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
 # summary entries read from another wrapper's rows, and the rows they keep
 # (by the row count in the shape): the int8 forward's decode kernel and its
 # wgmma kernel share the rows of qmm_i8_fwd
@@ -2477,15 +2585,18 @@ def serve_split(results, num_layers, stats):
 def serve_int8_split(results, num_layers, stats):
     """The int8 decode step by kernel, as :func:`serve_split`: 7 launches of
     ``qmm_i8_direct`` per layer and the lm_head's, each at its time alone in
-    the kernel phase (the kernel without its wrapper's row quantization)."""
-    ms = {r["shape"]: r["ms"] for r in results if r["name"] == "qmm_i8_direct"}
-    lin = {k: ms[f"M=4 K={k[0]} N={k[1]}"] for k in QMM_SHAPES + (LM_HEAD_SHAPE,)}
-    qmm = num_layers * (4 * lin[(4096, 4096)] + 2 * lin[(4096, 11008)]
-                        + lin[(11008, 4096)]) + lin[LM_HEAD_SHAPE]
+    the kernel phase on the decode kernel (its rows quantized inside it), and
+    what qmm_i8_direct.cu, the "before", takes for them on rows quantized
+    beforehand."""
+    rows = {r["shape"]: r for r in results if r["name"] == "qmm_i8_direct"}
+    lin = {k: rows[f"M=4 K={k[0]} N={k[1]}"] for k in QMM_SHAPES + (LM_HEAD_SHAPE,)}
+    per_step = lambda key: num_layers * (4 * lin[(4096, 4096)][key] + 2 * lin[(4096, 11008)][key]
+                                         + lin[(11008, 4096)][key]) + lin[LM_HEAD_SHAPE][key]
+    qmm = per_step("ms")
     attn = num_layers * next(r["ms"] for r in results if r["name"] == "decode_attention_cuda")
     step = stats["decode_ms_per_step"]
-    return dict(step_ms=step, step_qmm_ms=qmm, step_attention_ms=attn,
-                step_other_ms=step - qmm - attn)
+    return dict(step_ms=step, step_qmm_ms=qmm, step_qmm_before_ms=per_step("tile_ms"),
+                step_attention_ms=attn, step_other_ms=step - qmm - attn)
 
 
 def w8a8_prefill_split(results, num_layers, stats):
@@ -2657,6 +2768,7 @@ def main() -> int:
             # kernels' "ms" is their device time in CUDA graphs; their wrappers
             # launched back to back, timed with events:
             **({"wrapper_ms": head["wrapper_ms"]} if "wrapper_ms" in head else {}),
+            **({"tile_wrapper_ms": head["tile_wrapper_ms"]} if "tile_wrapper_ms" in head else {}),
         })
     for entry, v, run in ((summary[0], "dq", serve_counts), (summary[1], "f32", nodq_counts)):
         head = next(r for r in results if r["name"] == entry["name"]
@@ -2697,9 +2809,15 @@ def main() -> int:
                          wgmma_launches=paged8_counts["qmm_nf4_w8a8_wgmma"],
                          exact_ms=head["exact_ms"])
         if entry["name"] == "paged_chunk_attention_cuda":
-            entry.update(sources=CHUNK_SOURCES,
-                         before_source="qlora_tpu_torch/csrc/paged_attention.cu",
+            entry.update(before_source="qlora_tpu_torch/csrc/paged_attention.cu",
                          split_launches=spec_counts["paged_chunk_split"])
+        if entry["name"] == "paged_decode_attention_cuda":
+            entry.update(before_source="qlora_tpu_torch/csrc/paged_attention.cu",
+                         split_launches=paged_counts["paged_decode_split"])
+        if entry["name"] == "qmm_i8_direct":
+            entry.update(sources=I8_DIRECT_SOURCES,
+                         before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
+                         decode_launches=int8_counts["qmm_i8_direct_decode"])
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     summary[0]["wgmma_launches_train"] = train_counts["qmm_nf4_wgmma_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
@@ -2709,10 +2827,11 @@ def main() -> int:
           f"~{split['step_attention_ms']:.2f} ms + other ~{split['step_other_ms']:.2f} ms "
           "(kernel-phase times x launches)", flush=True)
     s8 = serve_int8_split(results, seven_b().num_layers, int8_stats)
-    print(f"serve-int8: decode step {s8['step_ms']:.2f} ms = qmm_i8_direct kernels "
-          f"~{s8['step_qmm_ms']:.2f} ms + decode attention ~{s8['step_attention_ms']:.2f} ms + "
-          f"other ~{s8['step_other_ms']:.2f} ms (row quantization in PyTorch ops included, issued "
-          f"by the host: it differs from call to call); kernel time of a step "
+    print(f"serve-int8: decode step {s8['step_ms']:.2f} ms = qmm_i8_direct decode kernels "
+          f"~{s8['step_qmm_ms']:.2f} ms (before: qmm_i8_direct.cu ~{s8['step_qmm_before_ms']:.2f} "
+          f"ms) + decode attention ~{s8['step_attention_ms']:.2f} ms + "
+          f"other ~{s8['step_other_ms']:.2f} ms (the host launching the kernels, and the small "
+          f"PyTorch ops: it differs from call to call); kernel time of a step "
           f"{s8['step_qmm_ms'] + s8['step_attention_ms']:.2f} ms against the NF4 path's "
           f"{split['step_qmm_ms'] + split['step_attention_ms']:.2f} ms; on the host's clock the "
           f"NF4 step is {split['step_ms'] / s8['step_ms']:.2f} x as long in this run", flush=True)
@@ -2723,14 +2842,15 @@ def main() -> int:
           f"~{i8b['step_attention_ms']:.2f} ms + other ~{i8b['step_other_ms']:.2f} ms "
           f"(kernel-phase times x launches); prefill {i8b['prefill_ms']:.1f} ms; against the NF4 "
           f"step's {split['step_ms']:.2f} ms in this run", flush=True)
-    paged_attn = seven_b().num_layers * next(
-        r["ms"] for r in results if r["name"] == "paged_decode_attention_cuda")
+    paged_head = next(r for r in results if r["name"] == "paged_decode_attention_cuda")
+    paged_attn = seven_b().num_layers * paged_head["ms"]
     paged_qmm = qmm_ms_per_forward(results, seven_b().num_layers, PAGED_B)
     verify_qmm = qmm_ms_per_forward(results, seven_b().num_layers, PAGED_B * (SPEC_DRAFT + 1))
     print(f"serve-paged: {PAGED_B} slots, {paged_stats['tok_s']:.1f} tok/s over the run "
           f"(admissions included), {paged_stats['ms_per_step']:.2f} ms per decode step (qmm "
-          f"kernels ~{paged_qmm:.2f} ms and paged attention ~{paged_attn:.2f} ms of it, "
-          "kernel-phase times x launches), against generate()'s 4 rows at "
+          f"kernels ~{paged_qmm:.2f} ms and paged attention ~{paged_attn:.2f} ms of it, on "
+          f"paged_attention.cu, the before: ~{seven_b().num_layers * paged_head['tile_ms']:.2f} "
+          "ms; kernel-phase times x launches), against generate()'s 4 rows at "
           f"{serve_stats['decode_tok_s']:.1f} tok/s and {serve_stats['decode_ms_per_step']:.2f} "
           f"ms/step; int8 decode and w8a8 prefill {paged8_stats['tok_s']:.1f} tok/s, "
           f"{paged8_stats['ms_per_step']:.2f} ms/step; speculation "

@@ -4,10 +4,11 @@
 //
 // Replaces the TPU kernels qlora_tpu/ops/paged_attention.py::
 // fused_paged_decode_attention (_kernel) and fused_paged_chunk_attention
-// (_chunk_kernel).  The decode step and a chunk of one token run here; a
-// chunk of C >= 2 tokens runs paged_attention_split.cu, and this file's chunk
-// entry is reached at C >= 2 only as its "before" (ops/paged_attention.py:
-// _paged_chunk_before).  The pool is page-major, [n_pages, KVH, page, hd] bf16 per
+// (_chunk_kernel).  Both entries are "befores" now: the decode step and
+// every chunk run paged_attention_split.cu, and this file's decode and chunk
+// entries are reached only through ops/paged_attention.py:
+// _paged_decode_before and _paged_chunk_before, for timing and as a second
+// reference.  The pool is page-major, [n_pages, KVH, page, hd] bf16 per
 // layer; tables[b] maps sequence b's logical pages to pool pages.  Query row
 // c of a chunk sits at position lengths[b] + c and attends the pool keys
 // 0..lengths[b]-1 (and, with a sliding window, only those with
@@ -41,9 +42,8 @@
 // there and evicted entries point there.  An active sequence's walked range
 // holds only its own pages, so whatever races on page 0 reaches only the
 // dropped outputs of inactive rows.  Any page size and table width run;
-// head_dim 64, 128 and 256; C * G <= 64.  Not yet done here (later work):
-// splitting long sequences across blocks for the decode step, as
-// paged_attention_split.cu does for chunks.
+// head_dim 64, 128 and 256; C * G <= 64.  paged_attention_split.cu, which
+// took both entries' place, splits each sequence's keys across blocks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

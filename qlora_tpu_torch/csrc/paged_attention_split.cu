@@ -1,13 +1,18 @@
-// Split-KV attention of a chunk of C >= 2 query tokens per sequence over the
+// Split-KV attention of a chunk of C >= 1 query tokens per sequence over the
 // shared paged KV pool, with the chunk's k/v rows appended in place: the
-// speculative verify step.
+// speculative verify step (C >= 2) and the decode step (C = 1).
 //
-// Replaces the TPU kernel qlora_tpu/ops/paged_attention.py::
+// Replaces the TPU kernels qlora_tpu/ops/paged_attention.py::
 // fused_paged_chunk_attention (body _chunk_kernel, pallas_call at
-// paged_attention.py:544) at C >= 2.  It takes the place of
-// paged_attention.cu's chunk entry (one block per (sequence, kv head), one
-// warp shuffle-reduction per (key, row)), which stays as the "before" and
-// keeps the chunk of one token, which is the decode step.
+// paged_attention.py:544) and ::fused_paged_decode_attention (pallas_call at
+// paged_attention.py:277), the decode step being the chunk of one token.  It
+// takes the place of both entries of paged_attention.cu (one block per
+// (sequence, kv head), one warp shuffle-reduction per (key, row)), which stay
+// as the "befores".  At C = 1 a CTA row holds the G query heads of one kv
+// head (one row of 16 at G = 1, which costs nothing where the key stream sets
+// the pace), and the merge launch appends the one new row at the clamped
+// position, as the decode kernel did: inactive rows and evicted entries write
+// to or point at page 0.
 //
 // The function: the pool is page-major, [n_pages, KVH, page, hd] bf16 per
 // layer; tables[b] maps sequence b's logical pages to pool pages.  Query row
@@ -559,7 +564,7 @@ int launch(const void* q, const void* nk, const void* nv, void* kp, void* vp,
 // lengths int32 [B]; tables int32 [B, pps]; window <= 0: none; ws f32
 // workspace of B * KVH * splits * C * G * (hd + 2) floats.  The plan:
 // `splits` (1 to 16) CTAs of `keys` keys (a multiple of 64) per (sequence,
-// kv head, 16 rows).  hd in {64, 128, 256}, 2 <= C, C * G <= 64.  Two
+// kv head, 16 rows).  hd in {64, 128, 256}, 1 <= C, C * G <= 64.  Two
 // launches on `stream`.  Returns the first failing launch's cudaError_t
 // (cudaErrorInvalidValue for an unsupported shape or plan).
 extern "C" int paged_chunk_attention_split(const void* q, const void* nk, const void* nv,
@@ -569,7 +574,7 @@ extern "C" int paged_chunk_attention_split(const void* q, const void* nk, const 
                                            float sm_scale, int window, int keys, int splits,
                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || C < 2 || KVH < 1 || G < 1 || C * G > MAX_ROWS || page < 1 || pps < 1 ||
+  if (B < 1 || C < 1 || KVH < 1 || G < 1 || C * G > MAX_ROWS || page < 1 || pps < 1 ||
       splits < 1 || splits > MAX_SPLITS || keys < TK || keys % TK)
     return (int)cudaErrorInvalidValue;
   switch (hd) {

@@ -18,8 +18,8 @@ import torch
 from qlora_tpu_torch.quant.blockwise import QuantizedTensor
 
 from .qmatmul import (
-    _launch_w8a8, _w8a8_epilogue, int8_matmul_plain, qmatmul_bwd_plain, qmatmul_plain,
-    qmm_nf4_bwd, qmm_nf4_fwd_f32,
+    _i8_direct_decode_launch, _i8_direct_decode_plan_on, _launch_w8a8, _w8a8_epilogue,
+    int8_matmul_plain, qmatmul_bwd_plain, qmatmul_plain, qmm_nf4_bwd, qmm_nf4_fwd_f32,
 )
 
 
@@ -51,14 +51,23 @@ def qmm_bwd_repeat(g, packed, am, shape, block_size, quant_type, reps=32):
 
 def i8_direct_repeat(x8, w8, s_out, shape, reps=32):
     """(x8 @ w8) * s_out[n] rounded to bf16 for int8 x8 [M, K] and per-column
-    int8 w8 [K, N], `reps` times through the ``qmm_i8_direct`` kernel (the
-    TPU kernel ``_qmm_pallas_i8_direct``) with every row scale xs = 1."""
+    int8 w8 [K, N], `reps` times through the kernel that ``qmm_i8_direct``'s
+    dispatch takes for these rows (the TPU kernel ``_qmm_pallas_i8_direct``)
+    with every row scale xs = 1: up to ``DECODE_ROWS`` rows of a shape its
+    plan accepts ``qmm_i8_direct_decode.cu``, handed x8 and xs as its rows
+    (it makes the column scales from the stored absmax, here s_out * 127, as
+    col * (1/127)); else ``qmm_i8_direct.cu``."""
     K, N = shape
     s_out = s_out.reshape(-1).to(torch.float32)
     xs = torch.ones((x8.shape[0], 1), dtype=torch.float32, device=x8.device)
     if x8.is_cuda:
         qt = _f32_absmax_tensor(w8, (s_out * 127.0).reshape(1, N), shape, K, "int8")
-        run = lambda: _launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
+        x = torch.empty((x8.shape[0], K), dtype=torch.bfloat16, device=x8.device)  # unread
+        plan = _i8_direct_decode_plan_on(x, qt)
+        if plan is not None:
+            run = lambda: _i8_direct_decode_launch(x, qt, plan, rows=(x8, xs))
+        else:
+            run = lambda: _launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
     else:
         run = lambda: _w8a8_epilogue(int8_matmul_plain(x8, w8), s_out, xs)
     for _ in range(reps):

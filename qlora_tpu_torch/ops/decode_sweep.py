@@ -1,22 +1,28 @@
 """Ablations of the decode-step kernels on the card: the NF4 decode kernel
 (``csrc/qmm_nf4_decode.cu``), the int8 decode kernel
-(``csrc/qmm_i8_decode.cu``) and split-KV decode attention
+(``csrc/qmm_i8_decode.cu``), the direct int8 (w8a8) decode kernel
+(``csrc/qmm_i8_direct_decode.cu``) and split-KV decode attention
 (``csrc/decode_attention_split.cu``).
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | attention | paged]
+    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | w8a8 | attention | paged]
 
 Each variant is a kernel's source with one part taken out or one constant
 changed, compiled into ``build/sweep/``.  The qmm variants run the real
 kernel's split plan on the LLaMA-7B block linears (and a tiny weight, whose
 time is the launch's fixed cost) at M = 4 and 16, beside ``torch.matmul`` on
 the dequantized bf16 weight; the int8 kernel also runs as built on plans of
-1 to 4 blocks per SM (its splits are an argument).
+1 to 4 blocks per SM (its splits are an argument).  The w8a8 kernel runs as
+built, with no products, with loads only (no transposes, no products), with
+the rows quantized outside the kernel (its x8 and xs given: what the wrapper
+did before) and on plans of 1 to 3 blocks per SM, on the block linears and
+the padded lm_head at M = 4 and 8, beside ``qmm_i8_direct.cu`` (rows
+quantized beforehand) and ``torch._int_mm`` with the epilogue.
 Attention runs chip_smoke.py's timed shapes and its long case, as built, cut
-and on plans of other keys per split (also an argument); the verify chunk's
-split-KV kernel (``csrc/paged_attention_split.cu``) likewise at
-chip_smoke.py's chunk shapes, beside ``paged_attention.cu``'s chunk entry.  Every launch is
+and on plans of other keys per split (also an argument); the paged split-KV
+kernel (``csrc/paged_attention_split.cu``) likewise at chip_smoke.py's chunk
+and decode shapes, beside ``paged_attention.cu``'s chunk or decode entry.  Every launch is
 timed in a CUDA graph with its inputs rotated past the 50 MB L2.  Variants
 that take parts out compute wrong sums: they time what is left.  One line
 per shape and row count; nothing here is used by the port.
@@ -66,6 +72,21 @@ I8_VARIANTS = {
     "depth 2": [_DEPTH(2)],
 }
 I8_BLOCKS_PER_SM = (1, 2, 3, 4)             # the plan's; as built takes 2
+# the direct int8 (w8a8) decode kernel: its products and its transposes
+_W_MMA = ("for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][i], a, bx[mt][0], bx[mt][1]);",
+          "for (int mt = 0; mt < MT; ++mt) acc[mt][i][0] += "
+          "(int)((a[0] ^ a[1] ^ a[2] ^ a[3] ^ bx[mt][0] ^ bx[mt][1]) & 0xff);")
+_W_TRANSPOSE = ("  t[0] = __byte_perm(p0, p2, 0x5410);\n  t[1] = __byte_perm(p0, p2, 0x7632);\n"
+                "  t[2] = __byte_perm(p1, p3, 0x5410);\n  t[3] = __byte_perm(p1, p3, 0x7632);",
+                "  t[0] = w[0];\n  t[1] = w[1];\n  t[2] = w[2];\n  t[3] = w[3];")
+W8A8_VARIANTS = {
+    "as built": [],
+    "no products": [_W_MMA],                # streamed and transposed, not multiplied
+    "loads only": [_W_TRANSPOSE, _W_MMA],   # the codes streamed, little else
+}
+W8A8_BLOCKS_PER_SM = (1, 2, 3)              # the plan's; as built takes 2
+W8A8_SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32768))
+W8A8_ROWS = (4, 8)                          # serve-int8's decode step, serve-paged-int8's
 # split-KV attention: the products, the softmax, and the ring
 _A_QK = ("        mma_bf16(s[0], a, bk[0], bk[1]);\n        mma_bf16(s[1], a, bk[2], bk[3]);",
          "        s[0][0] += __uint_as_float((a[0] ^ bk[0]) & 0x3effffff);\n"
@@ -109,13 +130,15 @@ PAGED_VARIANTS = {
                   "    for (int ch = 0; ch < 0; ++ch) fetch(ch);"),
                  ("    if (w == 0 && ch + Cf::STAGES < nchunks) fetch(ch + Cf::STAGES);\n", "")],
 }
-PAGED_SHAPES = (  # B, C, H, KVH, hd, page, pps, lengths, window, evicted: chip_smoke.py's chunks
-    (8, 5, 32, 32, 128, 64, 16, (0, 1, 63, 64, 65, 300, 510, 1019), None, False),
-    (8, 5, 32, 8, 128, 64, 16, (0, 1, 63, 64, 65, 300, 510, 1019), 256, True))
+PAGED_SHAPES = (  # B, C, H, KVH, hd, page, pps, lengths, window, evicted: chip_smoke.py's
+    (8, 5, 32, 32, 128, 64, 16, (0, 1, 63, 64, 65, 300, 510, 1019), None, False),   # chunks
+    (8, 5, 32, 8, 128, 64, 16, (0, 1, 63, 64, 65, 300, 510, 1019), 256, True),
+    (8, 1, 32, 32, 128, 64, 16, (0, 1, 63, 64, 65, 300, 511, 1022), None, False),   # decode
+    (8, 1, 32, 8, 128, 64, 16, (0, 1, 63, 64, 65, 300, 511, 1022), 256, True))
 SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096))
 ROWS = (4, 16)
 L2_BYTES = 50 * 2 ** 20
-SETS = ("nf4", "int8", "attention", "paged")
+SETS = ("nf4", "int8", "w8a8", "attention", "paged")
 
 
 def build(source: str, variants: dict, entry: str, argtypes) -> dict:
@@ -221,6 +244,62 @@ def qmm_sweep(kind: str, dev, g, sms: int) -> None:
                   + ", ".join(line), flush=True)
 
 
+def w8a8_sweep(dev, g, sms: int) -> None:
+    """The direct int8 decode kernel's variants and plans at W8A8_SHAPES x
+    W8A8_ROWS, beside qmm_i8_direct.cu and torch._int_mm."""
+    import torch
+
+    from qlora_tpu_torch.quant import quantize
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = build("qmm_i8_direct_decode.cu", W8A8_VARIANTS, "qmm_i8_direct_decode",
+                [P] * 6 + [I] * 5 + [P])
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for K, N in W8A8_SHAPES:
+        qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5, block_size=K,
+                      quant_type="int8", double_quant=False)
+        copies = copies_past_l2(qt)
+        col = qt.absmax.reshape(-1)
+        s_out = col / 127.0
+        plan = qm.i8_direct_decode_plan(K, N, sms)
+        plans = {}
+        for per_sm in W8A8_BLOCKS_PER_SM:
+            splits = min(K // 32, 16, max(-(-per_sm * sms // plan.strips), -(-K // 4096)))
+            plans[f" ({per_sm}/SM, {splits} splits)"] = splits
+        for M in W8A8_ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            x8, xs = qm.quantize_rows(x)
+            xs1 = xs.reshape(-1).contiguous()
+            y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+            runs = [(name, fn, plan.splits, 0) for name, fn in fns.items()]
+            runs.append(("rows quantized outside", fns["as built"], plan.splits, 1))
+            runs += [(f"as built{tag}", fns["as built"], sp, 0) for tag, sp in plans.items()
+                     if sp != plan.splits]
+            line = []
+            for name, fn, splits, given in runs:
+                def launch(i, fn=fn, splits=splits, given=given):
+                    q = copies[i % len(copies)]
+                    err = fn(x.data_ptr(), q.packed.data_ptr(), col.data_ptr(), y.data_ptr(),
+                             x8.data_ptr() if given else None, xs1.data_ptr() if given else None,
+                             M, K, N, splits, given, stream())
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError_t {err}")
+                line.append(f"{name} {graph_ms(launch):.4f}")
+            before = graph_ms(lambda i: qm._launch_w8a8(
+                "qmm_i8_direct", x8, copies[i % len(copies)], None, s_out, xs))
+            xp = torch.nn.functional.pad(x8, (0, 0, 0, (-M) % 32))
+
+            def int_mm(i):
+                acc = torch._int_mm(xp, copies[i % len(copies)].packed)[:M]
+                return (acc.float() * s_out[None, :]).to(torch.bfloat16) * xs.to(torch.bfloat16)
+
+            line.append(f"qmm_i8_direct.cu (before) {before:.4f}")
+            line.append(f"torch._int_mm {graph_ms(int_mm):.4f}")
+            print(f"decode_sweep w8a8 K={K} N={N} M={M} splits={plan.splits} (ms): "
+                  + ", ".join(line), flush=True)
+
+
 def attention_sweep(dev, g, sms: int) -> None:
     """Split-KV attention's variants and plans at ATTN_SHAPES, beside
     decode_attention.cu (the "before")."""
@@ -263,9 +342,10 @@ def attention_sweep(dev, g, sms: int) -> None:
 
 
 def paged_sweep(dev, g, sms: int) -> None:
-    """The split chunk kernel's variants and plans at PAGED_SHAPES, beside
-    paged_attention.cu's chunk entry (the "before"); pools rotated past L2;
-    every launch appends, so each run writes the same rows again."""
+    """The split kernel's variants and plans at PAGED_SHAPES (chunks of 5 and
+    the decode step, C = 1), beside paged_attention.cu's chunk or decode
+    entry (the "before"); pools rotated past L2; every launch appends, so
+    each run writes the same rows again."""
     import torch
 
     from chip_smoke import paged_case
@@ -297,9 +377,14 @@ def paged_sweep(dev, g, sms: int) -> None:
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")
             line.append(f"{name} {graph_ms(launch):.4f}")
-        before = graph_ms(lambda i: pa._paged_chunk_before(
-            q, nk, nv, *pools[i % len(pools)], L, tables, sm_scale=hd ** -0.5,
-            sliding_window=window))
+        if C == 1:   # the decode step: paged_attention.cu's decode entry
+            before = graph_ms(lambda i: pa._paged_decode_before(
+                q[:, 0], nk[:, 0], nv[:, 0], *pools[i % len(pools)], L, tables,
+                sm_scale=hd ** -0.5, sliding_window=window))
+        else:
+            before = graph_ms(lambda i: pa._paged_chunk_before(
+                q, nk, nv, *pools[i % len(pools)], L, tables, sm_scale=hd ** -0.5,
+                sliding_window=window))
         line.append(f"paged_attention.cu (before) {before:.4f}")
         print(f"decode_sweep paged B={B} C={C} H={H} KVH={KVH} hd={hd} page={page} pps={pps} "
               f"lens={list(lens)} window={window} keys={plan.keys} splits={plan.splits} "
@@ -321,6 +406,8 @@ def main(sets) -> int:
     for kind in ("nf4", "int8"):
         if kind in sets:
             qmm_sweep(kind, dev, g, sms)
+    if "w8a8" in sets:
+        w8a8_sweep(dev, g, sms)
     if "attention" in sets:
         attention_sweep(dev, g, sms)
     if "paged" in sets:

@@ -6,14 +6,15 @@ step).
 The pool is page-major, ``[n_pages, KVH, page, hd]`` bf16 per layer, shared
 by every sequence; ``tables[b]`` maps sequence b's logical pages to pool
 pages.  A CUDA tensor launches a hand-written kernel and raises if it
-cannot; a CPU tensor takes the plain version.  The decode step, and a chunk
-of one token, run ``csrc/paged_attention.cu``; a chunk of C >= 2 tokens runs
-the split-KV kernel of ``csrc/paged_attention_split.cu`` (cut by
-:func:`paged_chunk_plan`, counted in ``split_launches``), and
-``paged_attention.cu``'s chunk entry at C >= 2 is reached only through the
-private ``_paged_chunk_before``, for timing and as a second reference.  Both follow the TPU kernels' semantics, not the JAX package's
-jnp fallback: masked logits are ``MASK``, the softmax is by ``exp`` from the
-row's maximum (the new tokens' scores included), the pool probabilities are
+cannot; a CPU tensor takes the plain version.  The decode step and every
+chunk run the split-KV kernel of ``csrc/paged_attention_split.cu`` (cut by
+:func:`paged_chunk_plan`, the decode as the chunk of one token; counted in
+``split_launches``).  ``csrc/paged_attention.cu``, which it replaced, is
+reached only through the private ``_paged_decode_before`` and
+``_paged_chunk_before``, for timing and as a second reference.  Both
+follow the TPU kernels' semantics, not the JAX package's jnp fallback:
+masked logits are ``MASK``, the softmax is by ``exp`` from the row's
+maximum (the new tokens' scores included), the pool probabilities are
 rounded to bf16 for the value product while the chunk's own terms stay f32,
 ``l == 0`` divides by 1, and position ``pos`` is written to page
 ``tables[b, min(pos // page, pps - 1)]`` at offset ``pos % page`` (the
@@ -144,14 +145,15 @@ def paged_chunk_plan(T: int, KVH: int, G: int, C: int, hd: int, window,
                      sms: int = 132) -> AttentionPlan:
     """The split chunk kernel's plan for pools of ``T`` = pages_per_seq *
     page positions a sequence, KVH kv heads of G query heads and chunks of C
-    tokens, on a card of ``sms`` SMs: the keys a split and the splits of
-    :func:`decode_attention_plan` (a sequence's rows see at most ``span``
-    pool keys, T or window - 1, their union), and ``mtiles`` CTA rows of 16
-    of the C * G query rows (row c * G + g) per kv head.  It depends on the
-    capacity, the heads, C, hd and the window, never on the batch or the
-    lengths, so a row's result does not depend on the other rows."""
-    if C < 2 or G < 1 or C * G > 64:
-        raise ValueError(f"C={C}, G={G}: the split kernel takes 2 <= C and C * G <= 64")
+    tokens (C = 1: the decode step), on a card of ``sms`` SMs: the keys a
+    split and the splits of :func:`decode_attention_plan` (a sequence's rows
+    see at most ``span`` pool keys, T or window - 1, their union), and
+    ``mtiles`` CTA rows of 16 of the C * G query rows (row c * G + g) per kv
+    head.  It depends on the capacity, the heads, C, hd and the window,
+    never on the batch or the lengths, so a row's result does not depend on
+    the other rows."""
+    if C < 1 or G < 1 or C * G > 64:
+        raise ValueError(f"C={C}, G={G}: the split kernel takes 1 <= C and C * G <= 64")
     plan = decode_attention_plan(T, KVH, 1, hd, window, sms)
     return dataclasses.replace(plan, mtiles=-(-C * G // _CHUNK_ROWS))
 
@@ -222,9 +224,9 @@ def _launch(entry, q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
 
 def _launch_split(q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
                   sliding_window):
-    """Check the operands and launch the split chunk kernel (C >= 2) on its
-    plan, with an f32 workspace of the splits' partials; returns out [B, C,
-    H, hd] bf16."""
+    """Check the operands and launch the split chunk kernel on its plan,
+    with an f32 workspace of the splits' partials; returns out [B, C, H, hd]
+    bf16."""
     B, C, H, hd = q.shape
     KVH, page = k_pages.shape[1], k_pages.shape[2]
     pps, G = tables.shape[1], H // KVH
@@ -243,45 +245,57 @@ def _launch_split(q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
 
 def paged_decode_attention_cuda(q, new_k, new_v, k_pages, v_pages, lengths, tables, *,
                                 sm_scale: float = 1.0, sliding_window=None):
-    """Launch the decode kernel; same contract as :func:`fused_paged_decode_attention`."""
+    """Launch the split kernel on the chunk of one token; same contract as
+    :func:`fused_paged_decode_attention`.  Its two launches, the splits and
+    their merge with the append, count as one call in ``launches`` and
+    ``split_launches``."""
     if q.ndim != 3:
         raise ValueError(f"q must be [B, H, hd], got {tuple(q.shape)}")
-    out = _launch("paged_decode_attention", q[:, None], new_k[:, None], new_v[:, None],
-                  k_pages, v_pages, lengths, tables, sm_scale, sliding_window)
+    out = _launch_split(q[:, None], new_k[:, None], new_v[:, None], k_pages, v_pages, lengths,
+                        tables, sm_scale, sliding_window)
     paged_decode_attention_cuda.launches += 1
+    paged_decode_attention_cuda.split_launches += 1
     return out[:, 0].to(q.dtype), k_pages, v_pages
 
 
 def paged_chunk_attention_cuda(q, new_k, new_v, k_pages, v_pages, lengths, tables, *,
                                sm_scale: float = 1.0, sliding_window=None):
-    """Launch the chunk kernel; same contract as :func:`fused_paged_chunk_attention`.
-    A chunk of C >= 2 tokens takes the split kernel (its two launches, the
-    splits and their merge with the append, count as one call in
-    ``launches`` and ``split_launches``); a chunk of one token takes
-    ``paged_attention.cu``'s chunk entry, which is its decode kernel."""
+    """Launch the split kernel; same contract as
+    :func:`fused_paged_chunk_attention`.  Its two launches, the splits and
+    their merge with the append, count as one call in ``launches`` and
+    ``split_launches``; a chunk of one token is the decode step's call."""
     if q.ndim != 4:
         raise ValueError(f"q must be [B, C, H, hd], got {tuple(q.shape)}")
-    split = q.shape[1] >= 2
-    if split:
-        out = _launch_split(q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
-                            sliding_window)
-    else:
-        out = _launch("paged_chunk_attention", q, new_k, new_v, k_pages, v_pages, lengths,
-                      tables, sm_scale, sliding_window)
+    out = _launch_split(q, new_k, new_v, k_pages, v_pages, lengths, tables, sm_scale,
+                        sliding_window)
     paged_chunk_attention_cuda.launches += 1
-    paged_chunk_attention_cuda.split_launches += split
+    paged_chunk_attention_cuda.split_launches += 1
     return out.to(q.dtype), k_pages, v_pages
 
 
-# launches: every call; split_launches (chunks): those that took
-# paged_attention_split.cu (the rest, chunks of one token, paged_attention.cu)
-paged_decode_attention_cuda.launches = 0
+# launches: every call; split_launches: those that took
+# paged_attention_split.cu, which is every call (paged_attention.cu is
+# reached only through the "befores" below, which count nothing)
+paged_decode_attention_cuda.launches = paged_decode_attention_cuda.split_launches = 0
 paged_chunk_attention_cuda.launches = paged_chunk_attention_cuda.split_launches = 0
+
+
+def _paged_decode_before(q, new_k, new_v, k_pages, v_pages, lengths, tables, *,
+                         sm_scale: float = 1.0, sliding_window=None):
+    """The kernel the split kernel replaced at the decode step
+    (``paged_attention.cu``'s decode entry: one CTA per (sequence, kv
+    head)), for timing and as a second reference; same contract, not
+    counted."""
+    if q.ndim != 3:
+        raise ValueError(f"q must be [B, H, hd], got {tuple(q.shape)}")
+    out = _launch("paged_decode_attention", q[:, None], new_k[:, None], new_v[:, None],
+                  k_pages, v_pages, lengths, tables, sm_scale, sliding_window)
+    return out[:, 0].to(q.dtype), k_pages, v_pages
 
 
 def _paged_chunk_before(q, new_k, new_v, k_pages, v_pages, lengths, tables, *,
                         sm_scale: float = 1.0, sliding_window=None):
-    """The kernel the split kernel replaced at C >= 2 (``paged_attention.cu``'s
+    """The kernel the split kernel replaced at chunks (``paged_attention.cu``'s
     chunk entry: one CTA per (sequence, kv head)), for timing and as a second
     reference; same contract, not counted."""
     out = _launch("paged_chunk_attention", q, new_k, new_v, k_pages, v_pages, lengths, tables,
@@ -318,7 +332,7 @@ def fused_paged_chunk_attention(q, new_k, new_v, k_pages, v_pages, lengths, tabl
     c attends pool positions 0..lengths[b]-1 and chunk tokens 0..c; the chunk
     lands at lengths[b]..lengths[b]+C-1.  Returns (out [B, C, H, hd],
     k_pages, v_pages).  Precondition: lengths[b] + C <= pps * page.  On the
-    card C >= 2 runs ``csrc/paged_attention_split.cu``."""
+    card it runs ``csrc/paged_attention_split.cu``, as the decode step does."""
     return _dispatch(paged_chunk_attention_cuda, paged_chunk_plain, q, new_k, new_v,
                      k_pages, v_pages, lengths, tables, sm_scale=sm_scale,
                      sliding_window=sliding_window)

@@ -32,9 +32,16 @@ bytes); the tile kernel of ``csrc/qmm_i8.cu``, the decode kernel's
 "before", takes the dx at ``DECODE_ROWS`` rows or fewer and the shapes
 ``i8_tile_plan`` refuses.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
-tensor cores and scale in the epilogue (``csrc/qmm_i8_direct.cu``): the
-serving engines' decode path.  Over NF4/FP4 storage above ``DECODE_ROWS``
-rows (the w8a8 prefill), wherever ``w8a8_tile_plan`` accepts the shape
+tensor cores and scale in the epilogue: the serving engines' decode path.
+Over per-column int8 storage up to ``DECODE_ROWS`` rows, wherever
+``i8_direct_decode_plan`` accepts the shape (K % 32 and N % 16 both 0: every
+model linear and the padded lm_head), a split-K kernel on int8 mma.sync
+quantizes the rows itself (``csrc/qmm_i8_direct_decode.cu``,
+``decode_launches``); more rows, refused shapes and the NF4/FP4 w8a8 product
+up to ``DECODE_ROWS`` rows take ``quantize_rows`` and the tile kernel of
+``csrc/qmm_i8_direct.cu``, the decode kernel's "before".  Over NF4/FP4
+storage above ``DECODE_ROWS`` rows (the w8a8 prefill), wherever
+``w8a8_tile_plan`` accepts the shape
 (K % 32, N % 8 and the block size % 8 all 0: every model linear), the w8a8
 product runs an int8 wgmma kernel that decodes and transposes each weight
 tile once for 128 or 256 rows (``csrc/qmm_nf4_w8a8_wgmma.cu``,
@@ -720,6 +727,96 @@ def _per_column(qt: QuantizedTensor) -> bool:
     return qt.quant_type == "int8" and qt.block_size == logical_k(qt)
 
 
+# The direct int8 forward at decode rows: ``csrc/qmm_i8_direct_decode.cu``,
+# the int8 decode kernel's split-K cluster design on int8 mma.sync
+# (m16n8k32), the rows of x quantized inside the kernel.
+_I8_DIRECT_KSTEP = 32        # rows of a k-step: one m16n8k32's depth
+_I8_DIRECT_MAX_ROWS = 4096   # rows of W a split: its slice of x is staged whole
+
+
+@dataclasses.dataclass(frozen=True)
+class I8DirectDecodePlan:
+    """How ``qmm_i8_direct_decode`` cuts a per-column int8 weight [K, N]:
+    ``strips`` of 128 columns times ``splits`` runs of whole 32-row
+    k-steps, one block each; the splits of a strip are one cluster.
+    ``accepted`` says whether the shape takes the kernel; ``reason`` says
+    why not."""
+    accepted: bool
+    reason: str
+    splits: int = 0
+    strips: int = 0
+
+    def split_rows(self, K: int) -> list:
+        """[(r0, r1)] rows of W of each split, as the kernel computes them."""
+        steps = K // _I8_DIRECT_KSTEP
+        return [(s * steps // self.splits * _I8_DIRECT_KSTEP,
+                 (s + 1) * steps // self.splits * _I8_DIRECT_KSTEP) for s in range(self.splits)]
+
+
+def i8_direct_decode_plan(K: int, N: int, sms: int) -> I8DirectDecodePlan:
+    """The direct int8 decode kernel's split of a weight [K, N] on a card of
+    ``sms`` SMs, as :func:`i8_decode_plan`'s: about
+    ``_DECODE_BLOCKS_PER_SM`` blocks per SM, at most one cluster of splits
+    per strip, more splits where a split would pass 4096 rows (whose slice
+    of x a block stages whole).  It depends on neither M nor the rows'
+    values.  It refuses, and ``qmm_i8_direct.cu`` keeps: K % 32 != 0 (a
+    k-step is one m16n8k32's depth), N % 16 != 0 (a lane streams 16
+    columns) and K past 16 splits of 4096 rows.  Every LLaMA-7B linear
+    passes, and so does the lm_head padded to 32768 columns."""
+    if K <= 0 or N <= 0:
+        return I8DirectDecodePlan(False, f"no int8 shape: K={K} N={N}")
+    if K % _I8_DIRECT_KSTEP:
+        return I8DirectDecodePlan(False, f"K={K} is no multiple of 32: a k-step is one "
+                                         "m16n8k32's depth; qmm_i8_direct.cu keeps it")
+    if N % 16:
+        return I8DirectDecodePlan(False, f"N={N} is no multiple of 16: a lane streams 16 "
+                                         "columns; qmm_i8_direct.cu keeps it")
+    steps = K // _I8_DIRECT_KSTEP
+    strips = -(-N // _DECODE_COLS)
+    longest = -(-K // _I8_DIRECT_MAX_ROWS)
+    splits = min(steps, _DECODE_MAX_SPLITS,
+                 max(-(-_DECODE_BLOCKS_PER_SM * sms // strips), longest))
+    if -(-steps // splits) * _I8_DIRECT_KSTEP > _I8_DIRECT_MAX_ROWS:
+        return I8DirectDecodePlan(False, f"K={K}: 16 splits of at most 4096 rows cannot "
+                                         "cover it; qmm_i8_direct.cu keeps it")
+    return I8DirectDecodePlan(True, "", splits, strips)
+
+
+def _i8_direct_decode_launch(x: torch.Tensor, qt: QuantizedTensor, plan: I8DirectDecodePlan,
+                             raw: bool = False, rows=None):
+    """Launch ``qmm_i8_direct_decode`` on x [M <= 16, K] bf16 on the card
+    (checked by the caller) over per-column int8 storage, on an accepted
+    plan: y bf16 [M, N], or with ``raw`` the int32 accumulators [M, N].
+    ``rows`` None: the kernel quantizes x's rows itself; "out": it also
+    writes the x8 int8 [M, K] and xs f32 [M, 1] it made, and the call
+    returns (y, x8, xs); a pair (x8, xs): it multiplies those instead of
+    quantizing x."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    x = _aligned(x.to(torch.bfloat16))
+    M, dev = x.shape[0], x.device
+    col = None
+    if not raw:
+        col = qt.absmax if not qt.double_quant else absmax_f32(qt)
+        col = _aligned(col.reshape(-1).to(torch.float32))
+    y = torch.empty((M, N), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
+    given = isinstance(rows, tuple)
+    if given:
+        x8 = _aligned(rows[0].to(dev, torch.int8))
+        xs = rows[1].to(dev, torch.float32).reshape(-1).contiguous()
+    elif rows == "out":
+        x8 = torch.empty((M, K), dtype=torch.int8, device=dev)
+        xs = torch.empty((M,), dtype=torch.float32, device=dev)
+    else:
+        x8 = xs = None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.kernel("qmm_i8_direct_decode", "qmm_i8_direct_decode",
+                       [_P] * 6 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), ptr(col), y.data_ptr(), ptr(x8), ptr(xs),
+             M, K, N, plan.splits, int(given), _build.stream_ptr(x))
+    _build.check(err, "qmm_i8_direct_decode")
+    return (y, x8, xs.reshape(M, 1)) if rows == "out" else y
+
+
 # The w8a8 forward over NF4/FP4 storage above ``DECODE_ROWS`` rows:
 # ``csrc/qmm_nf4_w8a8_wgmma.cu``, the NF4 wgmma kernel's pipeline on int8
 # wgmma (x8 in two TMA boxes a k-step, the weight decoded to int8 codes and
@@ -825,17 +922,48 @@ def _w8a8_accumulators(x8: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return _launch_w8a8(entry, x8, qt, w8a8_scales(qt)[0], None, None, plan)
 
 
+def _i8_direct_decode_plan_on(x: torch.Tensor, qt: QuantizedTensor):
+    """The direct decode kernel's plan for x's rows, or None where they stay
+    on ``qmm_i8_direct.cu``: no rows, more than ``DECODE_ROWS``, or a shape
+    :func:`i8_direct_decode_plan` refuses."""
+    if not 0 < x.shape[0] <= DECODE_ROWS:
+        return None
+    plan = _plan_on(i8_direct_decode_plan, x.device, logical_k(qt), qt.packed.shape[-1])
+    return plan if plan.accepted else None
+
+
+def _i8_direct_decode_outputs(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
+    """For the checks only: (int32 accumulators [M, N], x8 int8 [M, K], xs f32
+    [M, 1]) as the direct decode kernel makes them from x [M <= 16, K] on the
+    card.  No launch is counted."""
+    _check_quantized(qt, x.device)
+    plan = _i8_direct_decode_plan_on(x, qt)
+    if plan is None:
+        raise ValueError(f"qmm_i8_direct_decode does not take x {tuple(x.shape)} @ "
+                         f"{tuple(qt.packed.shape)}")
+    return _i8_direct_decode_launch(x, qt, plan, raw=True, rows="out")
+
+
 def qmm_i8_direct(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The direct int8 kernel (TPU _qmm_pallas_i8_direct) over a per-column
     int8 tensor (``block_size == K``): x [M, K] on the card → [M, N] bf16,
-    ``(x8 @ codes) * xs[m] * (col[n] / 127)`` with the int32 sum exact."""
+    ``(x8 @ codes) * xs[m] * (col[n] / 127)`` with the int32 sum exact.  Up
+    to ``DECODE_ROWS`` rows, where ``i8_direct_decode_plan`` accepts the
+    shape, ``qmm_i8_direct_decode.cu`` quantizes the rows itself (counted in
+    ``decode_launches``); else ``quantize_rows`` and ``qmm_i8_direct.cu``."""
     if not _per_column(qt):
         raise ValueError("qmm_i8_direct needs per-column int8 storage (block_size == K)")
     _check_rows(x, logical_k(qt), "x")
-    x8, xs = quantize_rows(x)
-    s_out = absmax_f32(qt).reshape(-1) / 127.0
-    y = _launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
+    plan = _i8_direct_decode_plan_on(x, qt)
+    if plan is not None:
+        _check_quantized(qt, x.device)
+        y = _i8_direct_decode_launch(x, qt, plan)
+    else:
+        x8, xs = quantize_rows(x)
+        s_out = absmax_f32(qt).reshape(-1) / 127.0
+        y = _launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
     qmm_i8_direct.launches += x.shape[0] > 0
+    qmm_i8_direct.decode_launches += plan is not None
     return y
 
 
@@ -858,9 +986,11 @@ def qmm_nf4_w8a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return y
 
 
-# launches: every call that ran a kernel; wgmma_launches (qmm_nf4_w8a8): those
-# of them that took qmm_nf4_w8a8_wgmma.cu (the rest took qmm_i8_direct.cu)
-qmm_i8_direct.launches = 0
+# launches: every call that ran a kernel; decode_launches (qmm_i8_direct):
+# those of them that took qmm_i8_direct_decode.cu; wgmma_launches
+# (qmm_nf4_w8a8): those that took qmm_nf4_w8a8_wgmma.cu (the rest of both
+# took qmm_i8_direct.cu)
+qmm_i8_direct.launches = qmm_i8_direct.decode_launches = 0
 qmm_nf4_w8a8.launches = qmm_nf4_w8a8.wgmma_launches = 0
 
 

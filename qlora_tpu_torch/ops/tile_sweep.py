@@ -65,7 +65,7 @@ decoded codes.
 One line per shape, direction and kernel; nothing here is used by the port.
 
 ``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd | flash |
-i8decode | attention | w8a8 | paged]`` instead
+i8decode | attention | w8a8 | paged | i8direct]`` instead
 copies the checkout once per mutant of a wgmma kernel into
 ``build/mutants/``, runs that kernel's ``cuda`` tests in each copy and
 prints how many fail: each mutant must fail at least one.  NF4: the high
@@ -82,8 +82,11 @@ split dropped; split-KV attention (``decode_attention_split.cu``) with the
 window edge off by one and the splits' rescale dropped in the merge.  The
 w8a8 kernel: the transposed store 8 k off, the last k-step dropped, the
 proxy fence taken out.  The verify chunk's split-KV attention
-(``paged_attention_split.cu``): row c's window edge taken from row 0, a key
-row read from the previous page, the splits' rescale dropped.
+(``paged_attention_split.cu``): the decode step (C = 1) appending one slot
+late, row c's window edge taken from row 0, a key row read from the previous
+page, the splits' rescale dropped.  The direct int8 decode kernel
+(``qmm_i8_direct_decode.cu``): a split boundary one k-step off, a row's
+largest |x| taken from its own split only (no cluster maximum).
 """
 
 from __future__ import annotations
@@ -348,6 +351,9 @@ W8A8_MUTANTS = {
 W8A8_MUTANT_TESTS = "w8a8"
 # the verify chunk's split-KV attention (paged_attention_split.cu)
 PAGED_MUTANTS = {
+    "the decode at C = 1 appending one slot late": [(
+        "      const int pos = len + j;\n",
+        "      const int pos = len + j + (C == 1);\n")],
     "row c's window edge taken from row 0": [(
         "    first_vis[i] = r >= R ? INT_MAX : window > 0 ? len + r / G - window + 1 : 0;",
         "    first_vis[i] = r >= R ? INT_MAX : window > 0 ? len - window + 1 : 0;")],
@@ -358,6 +364,16 @@ PAGED_MUTANTS = {
         "      const float sc = 1.f;")],
 }
 PAGED_MUTANT_TESTS = "paged"
+# the direct int8 forward at decode rows (qmm_i8_direct_decode.cu)
+I8_DIRECT_MUTANTS = {
+    "a split boundary one k-step off": [
+        ("  const int s_hi = (int)((long long)(split + 1) * ksteps / splits);",
+         "  const int s_hi = (int)((long long)(split + 1) * ksteps / splits) - 1;")],
+    "a row's max from its own split only": [
+        ("      for (int sp = 0; sp < splits; ++sp) amax = max(amax, *cluster.map_shared_rank(pmax + tid, sp));",
+         "      amax = pmax[tid];")],
+}
+I8_DIRECT_MUTANT_TESTS = "i8_direct"
 # which source each set of mutants edits, and the cuda tests run against them
 MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS),
@@ -366,7 +382,9 @@ MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "i8decode": ("qmm_i8_decode.cu", I8_DECODE_MUTANTS, I8_DECODE_MUTANT_TESTS),
                "attention": ("decode_attention_split.cu", ATTN_MUTANTS, ATTN_MUTANT_TESTS),
                "w8a8": ("qmm_nf4_w8a8_wgmma.cu", W8A8_MUTANTS, W8A8_MUTANT_TESTS),
-               "paged": ("paged_attention_split.cu", PAGED_MUTANTS, PAGED_MUTANT_TESTS)}
+               "paged": ("paged_attention_split.cu", PAGED_MUTANTS, PAGED_MUTANT_TESTS),
+               "i8direct": ("qmm_i8_direct_decode.cu", I8_DIRECT_MUTANTS,
+                            I8_DIRECT_MUTANT_TESTS)}
 SETS = tuple(MUTANT_SETS)
 
 

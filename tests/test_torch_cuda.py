@@ -47,6 +47,13 @@ atol 2e-2 as the NF4 kernels, and an identity operand reads the decoded
 weight out of the forward and the backward, bit for bit; the wgmma kernel
 is also held deterministic and batch-invariant, bit for bit.
 
+The direct int8 w8a8 forward up to DECODE_ROWS rows runs the split-K kernel
+of ``qmm_i8_direct_decode.cu`` wherever ``i8_direct_decode_plan`` accepts the
+shape (K % 32 == 0, N % 16 == 0): it quantizes the rows itself, and its x8,
+xs, int32 accumulators and bf16 output are held bit for bit to the plain
+version's on the card, across two calls and with each row alone;
+``qmm_i8_direct.cu`` keeps more rows and the refused shapes.
+
 The w8a8 forward over NF4 above DECODE_ROWS rows runs the int8 wgmma
 kernel of ``qmm_nf4_w8a8_wgmma.cu`` wherever ``w8a8_tile_plan`` accepts the
 shape (K % 32 == 0), ``qmm_i8_direct.cu`` below and elsewhere: both held bit
@@ -56,10 +63,11 @@ batch rows.
 The paged kernels have the decode kernel's arithmetic over a page table:
 each output element within 2e-2 of its (row, head)'s largest |output|, the
 pools byte-equal after the append (page 0 and untouched pages included).
-Chunks of C >= 2 run the split kernel of ``paged_attention_split.cu``, also
-held bit for bit across two calls and with each row alone; the chunk entry
-of ``paged_attention.cu`` it replaced is held to the same tolerance.  The
-chunk kernel at C = 1 is the decode kernel, bit for bit."""
+The decode step and every chunk run the split kernel of
+``paged_attention_split.cu``, also held bit for bit across two calls and with
+each row alone; the decode and chunk entries of ``paged_attention.cu`` it
+replaced are held to the same tolerance.  The chunk kernel at C = 1 is the
+decode kernel, bit for bit."""
 
 import importlib
 
@@ -81,6 +89,7 @@ from qlora_tpu_torch.ops import w8a8_codes, w8a8_scales
 from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
 from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
 from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators, i8_tile_plan
+from qlora_tpu_torch.ops.qmatmul import _i8_direct_decode_outputs, i8_direct_decode_plan
 from qlora_tpu_torch.ops.qmatmul import w8a8_tile_plan
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
@@ -671,16 +680,130 @@ def test_i8_direct_kernel_equals_plain(cuda, M, K, N):
     qt = quantize(w, block_size=K, quant_type="int8", double_quant=False)
     x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
     x[M - 1] = 0                                       # a zero row
-    before = qmm_i8_direct.launches
+    before, decode = qmm_i8_direct.launches, qmm_i8_direct.decode_launches
     with default_impl("w8a8"):
         y = qmatmul(x, qt)
     assert qmm_i8_direct.launches == before + 1
-    x8, _ = quantize_rows(x)
-    acc = _w8a8_accumulators(x8, qt)
+    # up to DECODE_ROWS rows of an accepted shape: qmm_i8_direct_decode.cu
+    took = M <= DECODE_ROWS and i8_direct_decode_plan(K, N, 132).accepted
+    assert qmm_i8_direct.decode_launches == decode + took
+    x8, xs = quantize_rows(x)
+    acc = _w8a8_accumulators(x8, qt)                   # qmm_i8_direct.cu, the before
     assert acc.dtype == torch.int32
     assert torch.equal(acc, int8_matmul_plain(x8, qt.packed).to(torch.int32))
+    if took:
+        got = _i8_direct_decode_outputs(x, qt)
+        assert torch.equal(got[0], acc) and torch.equal(got[1], x8) and torch.equal(got[2], xs)
     assert torch.equal(y, qmm_i8_direct_plain(x, qt))
     assert (y[M - 1] == 0).all() and (y[:, N // 2] == 0).all()
+
+
+# qmm_i8_direct_decode.cu: the LLaMA-7B linears and the padded lm_head, one
+# strip, a ragged strip (N = 144), one k-step (K = 32), double-quantized
+# per-column storage; then shapes it refuses, which stay on qmm_i8_direct.cu
+I8_DIRECT_DECODE_SHAPES = [(4096, 4096, False), (4096, 11008, False), (11008, 4096, False),
+                           (4096, 32768, False), (256, 64, False), (1024, 144, False),
+                           (32, 16, False), (512, 96, True)]
+_I8_DIRECT_QT: dict = {}
+
+
+def _i8_direct_qt(cuda, K, N, dq):
+    """A per-column int8 weight of [K, N] (one per shape, made once), with a
+    zero column."""
+    if (K, N, dq) not in _I8_DIRECT_QT:
+        gen = torch.Generator(device=cuda).manual_seed(K + N + dq)
+        w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+        w[:, N // 2] = 0
+        _I8_DIRECT_QT.clear()
+        _I8_DIRECT_QT[K, N, dq] = quantize(w, block_size=K, quant_type="int8", double_quant=dq)
+    return _I8_DIRECT_QT[K, N, dq]
+
+
+@pytest.mark.parametrize("K,N,dq", I8_DIRECT_DECODE_SHAPES)
+def test_i8_direct_decode_kernel_equals_plain(cuda, K, N, dq):
+    """At 1 to 16 rows the decode kernel took the call, and its x8 and xs
+    equal ``quantize_rows``' on the card, its int32 accumulators the exact
+    integer product and its bf16 output ``qmm_i8_direct_plain``'s, bit for
+    bit; rows of another scale and a zero row included."""
+    qt = _i8_direct_qt(cuda, K, N, dq)
+    gen = torch.Generator(device=cuda).manual_seed(K * 3 + N)
+    for M in range(1, DECODE_ROWS + 1):
+        x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+        x[0, K // 3:] *= 50                            # row 0's max in a later split
+        if M > 2:
+            x[M - 1] = 0
+        n = qmm_i8_direct.decode_launches
+        y = qmm_i8_direct(x, qt)
+        assert qmm_i8_direct.decode_launches == n + 1
+        acc, x8, xs = _i8_direct_decode_outputs(x, qt)
+        rx8, rxs = quantize_rows(x)
+        assert torch.equal(x8, rx8) and torch.equal(xs, rxs), M
+        assert torch.equal(acc, int8_matmul_plain(rx8, qt.packed).to(torch.int32)), M
+        assert torch.equal(y, qmm_i8_direct_plain(x, qt)), M
+        assert (y[:, N // 2] == 0).all() and (M <= 2 or (y[M - 1] == 0).all())
+
+
+@pytest.mark.parametrize("K,N,M", [(4096, 4096, 16), (11008, 4096, 5), (4096, 32768, 8),
+                                   (1024, 144, 9)])
+def test_i8_direct_decode_deterministic_and_batch_invariant(cuda, K, N, M):
+    """The decode kernel bit for bit across two calls, with each row alone
+    and with the rows in other batches (8 and 9 rows: one and two B tiles);
+    the rows of another run's codes (``given``) give that run's output."""
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    qt = _i8_direct_qt(cuda, K, N, False)
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    y = qmm_i8_direct(x, qt)
+    assert torch.equal(qmm_i8_direct(x, qt), y)
+    for m in range(M):
+        assert torch.equal(qmm_i8_direct(x[m:m + 1], qt), y[m:m + 1]), m
+    for a, b in ((0, min(M, 9)), (max(0, M - 8), M)):
+        assert torch.equal(qmm_i8_direct(x[a:b], qt), y[a:b]), (a, b)
+    plan = i8_direct_decode_plan(K, N, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    x8, xs = quantize_rows(x)
+    assert torch.equal(qm._i8_direct_decode_launch(torch.zeros_like(x), qt, plan,
+                                                   rows=(x8, xs)), y)
+
+
+@pytest.mark.parametrize("M,K,N,decode", [(4, 4096, 4096, 1), (17, 256, 64, 0), (4, 200, 64, 0)])
+def test_i8_direct_repeat_times_the_dispatch_kernel(cuda, M, K, N, decode):
+    """``bench_kernels.i8_direct_repeat`` runs the kernel the dispatch takes
+    for its rows (the decode kernel up to 16 rows of an accepted shape, with
+    x8 and xs = 1 as its given rows; qmm_i8_direct.cu else) and gives that
+    kernel's result: the exact sum times the column scale the kernel makes
+    from s_out * 127."""
+    from qlora_tpu_torch.ops.bench_kernels import i8_direct_repeat
+
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5, block_size=K,
+                  quant_type="int8", double_quant=False)
+    x8, _ = quantize_rows(torch.randn(M, K, device=cuda, generator=gen))
+    s_out = qt.absmax.reshape(-1) / 127.0
+    n = qmm_i8_direct.decode_launches
+    y = i8_direct_repeat(x8, qt.packed, s_out, (K, N), reps=2)
+    assert qmm_i8_direct.decode_launches == n                  # a timing helper counts nothing
+    scale = (s_out * 127.0) / 127.0 if decode else s_out
+    epilogue = importlib.import_module("qlora_tpu_torch.ops.qmatmul")._w8a8_epilogue
+    ones = torch.ones(M, 1, device=cuda)
+    assert torch.equal(y, epilogue(int8_matmul_plain(x8, qt.packed), scale, ones))
+    assert (i8_direct_decode_plan(K, N, 132).accepted and M <= DECODE_ROWS) == bool(decode)
+
+
+def test_i8_direct_decode_dispatch_edge(cuda):
+    """16 rows take the decode kernel, 17 qmm_i8_direct.cu; K % 32 != 0 and N
+    % 16 != 0 stay on qmm_i8_direct.cu at any row count; every call equals
+    its plain version bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    for M, K, N, decode in ((16, 4096, 256, 1), (17, 4096, 256, 0), (4, 200, 64, 0),
+                            (4, 256, 24, 0), (1, 1000, 24, 0), (16, 64, 16, 1)):
+        qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5, block_size=K,
+                      quant_type="int8", double_quant=False)
+        x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+        n = (qmm_i8_direct.launches, qmm_i8_direct.decode_launches)
+        y = qmm_i8_direct(x, qt)
+        assert (qmm_i8_direct.launches, qmm_i8_direct.decode_launches) == (n[0] + 1,
+                                                                           n[1] + decode)
+        assert torch.equal(y, qmm_i8_direct_plain(x, qt)), (M, K, N)
 
 
 # above DECODE_ROWS rows the w8a8 wgmma kernel (qmm_nf4_w8a8_wgmma.cu) wherever
@@ -1050,12 +1173,12 @@ def test_paged_kernels_match_plain(cuda, B, C, H, KVH, hd, page, pps, lens, wind
                      else (paged_chunk_attention_cuda, paged_chunk_plain))
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     before = kernel.launches
-    split = paged_chunk_attention_cuda.split_launches
+    split = kernel.split_launches
     o1, _, _ = kernel(q, nk, nv, k1, v1, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
     o2, _, _ = plain(q, nk, nv, k2, v2, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
     assert kernel.launches == before + 1
-    # every chunk here (C >= 2) runs the split kernel of paged_attention_split.cu
-    assert paged_chunk_attention_cuda.split_launches == split + (C is not None)
+    # the decode step and every chunk run the split kernel of paged_attention_split.cu
+    assert kernel.split_launches == split + 1
     d = (o1.float() - o2.float()).abs()
     tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
     assert (d <= tol).all(), f"max excess {(d - tol).max().item()}"
@@ -1064,6 +1187,50 @@ def test_paged_kernels_match_plain(cuda, B, C, H, KVH, hd, page, pps, lens, wind
 
 
 PAGED_CHUNK_CASES = [c for c in PAGED_CASES if c[1] is not None]
+PAGED_DECODE_CASES = [c for c in PAGED_CASES if c[1] is None]
+
+
+@pytest.mark.parametrize("B,C,H,KVH,hd,page,pps,lens,window,evict,planted", PAGED_DECODE_CASES)
+def test_paged_decode_split_deterministic_and_row_invariant(cuda, B, C, H, KVH, hd, page, pps,
+                                                            lens, window, evict, planted):
+    """The decode step on the split kernel bit for bit across two calls and
+    with each row alone, outputs and pools, each call from fresh pools."""
+    g = torch.Generator(device=cuda).manual_seed(B * 10 + page)
+    q, nk, nv, kp, vp, L, tables = paged_case(g, cuda, B, C, H, KVH, hd, page, pps, lens,
+                                              window, evict, planted)
+    kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
+    runs = [paged_decode_attention_cuda(q, nk, nv, kp.clone(), vp.clone(), L, tables, **kw)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    o = runs[0][0]
+    for b in range(B):
+        ob, _, _ = paged_decode_attention_cuda(q[b:b + 1], nk[b:b + 1], nv[b:b + 1], kp.clone(),
+                                               vp.clone(), L[b:b + 1], tables[b:b + 1], **kw)
+        assert torch.equal(ob[0], o[b]), b
+
+
+@pytest.mark.parametrize("B,C,H,KVH,hd,page,pps,lens,window,evict,planted", PAGED_DECODE_CASES)
+def test_paged_decode_before_still_matches_plain(cuda, B, C, H, KVH, hd, page, pps, lens,
+                                                 window, evict, planted):
+    """paged_attention.cu's decode entry, the split kernel's "before" at the
+    decode step (reached through the private ``_paged_decode_before``),
+    within the same tolerance of the plain version, the same pools after the
+    append; not counted."""
+    before = importlib.import_module("qlora_tpu_torch.ops.paged_attention")._paged_decode_before
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + page)
+    q, nk, nv, kp, vp, L, tables = paged_case(g, cuda, B, C, H, KVH, hd, page, pps, lens,
+                                              window, evict, planted)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    n = (paged_decode_attention_cuda.launches, paged_decode_attention_cuda.split_launches)
+    o1, _, _ = before(q, nk, nv, k1, v1, L, tables, sm_scale=hd ** -0.5, sliding_window=window)
+    o2, _, _ = paged_decode_plain(q, nk, nv, k2, v2, L, tables, sm_scale=hd ** -0.5,
+                                  sliding_window=window)
+    assert (paged_decode_attention_cuda.launches,
+            paged_decode_attention_cuda.split_launches) == n
+    d = (o1.float() - o2.float()).abs()
+    tol = 2e-2 * o2.float().abs().amax(-1, keepdim=True)
+    assert (d <= tol).all(), f"max excess {(d - tol).max().item()}"
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
 @pytest.mark.parametrize("B,C,H,KVH,hd,page,pps,lens,window,evict,planted", PAGED_CHUNK_CASES)

@@ -114,3 +114,22 @@ def test_cuda_sources_cover_the_decode_step_kernels():
         assert set(re.findall(r'extern "C" int (\w+)\(', text)) == entries
         assert tpu.replace("\n", "") in text.replace("\n// ", "")
     assert csrc / "qmm_i8.cu" in SOURCES and csrc / "decode_attention.cu" in SOURCES
+
+
+def test_cuda_sources_cover_the_w8a8_decode_kernel():
+    """The direct int8 forward at decode rows has a source of its own,
+    scanned like the rest, with the C entry its wrapper calls and the TPU
+    function it replaces named; qmm_i8_direct.cu, which it replaced there,
+    stays beside it and says it is the "before"; the split paged kernel
+    names the decode kernel it took over too."""
+    csrc = ROOT / "qlora_tpu_torch" / "csrc"
+    path = csrc / "qmm_i8_direct_decode.cu"
+    assert path in SOURCES and csrc / "qmm_i8_direct.cu" in SOURCES
+    text = path.read_text()
+    assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {"qmm_i8_direct_decode"}
+    assert "::_qmm_pallas_i8_direct" in text and "qmm_i8_direct.cu" in text
+    assert "--use_fast_math" in text and "__fdiv_rn" in text    # the header says which division
+    assert "qmm_i8_direct_decode.cu" in (csrc / "qmm_i8_direct.cu").read_text()
+    split = (csrc / "paged_attention_split.cu").read_text()
+    assert "fused_paged_decode_attention" in split and "C >= 1" in split
+    assert "_paged_decode_before" in (csrc / "paged_attention.cu").read_text()

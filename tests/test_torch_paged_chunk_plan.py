@@ -7,7 +7,10 @@ hands the C entry; and the kernel's arithmetic (per-warp online softmax over
 16-key slices with each (row, key) pair masked on its own, warps merged in
 warp order, splits in split order, then the chunk's own keys) written out in
 numpy against ``paged_chunk_plain`` and the JAX kernel in interpret mode.
-The kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+The decode step is the chunk of one token (C = 1): the same plan, what the
+decode wrapper hands the C entry, and the emulated kernel against
+``paged_decode_plain`` and the JAX decode kernel.  The kernel itself runs
+only on the card (``tests/test_torch_cuda.py``).
 
 Tolerance: as tests/test_torch_paged_attention.py and the card's checks,
 each output element within 2e-2 of its (row, head)'s largest |output|: the
@@ -25,9 +28,11 @@ import pytest
 import torch
 
 from qlora_tpu.ops.paged_attention import fused_paged_chunk_attention as jchunk
+from qlora_tpu.ops.paged_attention import fused_paged_decode_attention as jdecode
 
 from chip_smoke import plant_paged_edges
 from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
+from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
 from qlora_tpu_torch.ops.decode_attention import MASK
 
 pa = importlib.import_module("qlora_tpu_torch.ops.paged_attention")
@@ -50,7 +55,7 @@ def _first_visible(length, c, window):
 
 @pytest.mark.parametrize("page,pps", [(8, 3), (16, 4), (64, 16), (16, 40)])
 @pytest.mark.parametrize("window", [None, 1, 12, 256])
-@pytest.mark.parametrize("C,G", [(2, 1), (5, 4), (16, 2), (5, 1)])
+@pytest.mark.parametrize("C,G", [(2, 1), (5, 4), (16, 2), (5, 1), (1, 1), (1, 4)])
 def test_plan_reads_every_visible_pair_once(page, pps, window, C, G):
     """For lengths at page edges, mid-page and at capacity - C: the splits'
     key ranges are disjoint; a key is counted for a row exactly when it lies
@@ -88,7 +93,10 @@ def test_plan_depends_on_the_capacity_heads_chunk_and_window_only():
         d = da.decode_attention_plan(T, KVH, 1, hd, w)
         p = pa.paged_chunk_plan(T, KVH, G, C, hd, w)
         assert (p.keys, p.splits) == (d.keys, d.splits)
-    for C, G in ((1, 4), (17, 4), (65, 1)):
+    # the decode step, the chunk of one token: one CTA row of its G query heads
+    assert pa.paged_chunk_plan(1024, 32, 1, 1, 128, None) == da.AttentionPlan(256, 4, 1)
+    assert pa.paged_chunk_plan(1024, 8, 4, 1, 128, 256) == da.AttentionPlan(64, 4, 1)
+    for C, G in ((0, 4), (17, 4), (65, 1), (1, 65)):
         with pytest.raises(ValueError):
             pa.paged_chunk_plan(1024, 8, G, C, 128, None)
 
@@ -125,12 +133,9 @@ def _inputs(B, C, H, KVH, hd, page, pps, lens, window, planted, seed):
     return q, nk, nv, kp, vp, torch.tensor(lens, dtype=torch.int32), tables
 
 
-def test_wrapper_hands_the_kernel_one_plan_whatever_the_batch(monkeypatch):
-    """What ``paged_chunk_attention_cuda`` hands the split kernel's C entry,
-    with recording stand-ins for the entries: the same (keys, splits) at B =
-    1 and 8 and whatever the lengths, the shape and the window as given, one
-    count a call in ``launches`` and ``split_launches``; a chunk of one token
-    goes to paged_attention.cu's chunk entry and counts no split."""
+def _recording_entries(monkeypatch):
+    """Replace the C entries by recording stand-ins; returns the record of
+    (library, entry, arguments)."""
     calls = []
 
     def kernel(lib, fn, argtypes):
@@ -141,6 +146,16 @@ def test_wrapper_hands_the_kernel_one_plan_whatever_the_batch(monkeypatch):
     monkeypatch.setattr(pa._build, "kernel", kernel)
     monkeypatch.setattr(pa._build, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(pa, "_CHUNK_PLANS", {})
+    return calls
+
+
+def test_wrapper_hands_the_kernel_one_plan_whatever_the_batch(monkeypatch):
+    """What ``paged_chunk_attention_cuda`` hands the split kernel's C entry,
+    with recording stand-ins for the entries: the same (keys, splits) at B =
+    1 and 8 and whatever the lengths, the shape and the window as given, one
+    count a call in ``launches`` and ``split_launches``; a chunk of one token
+    goes to the split kernel too, on the plan of C = 1."""
+    calls = _recording_entries(monkeypatch)
     H, KVH, hd, page, pps, C = 8, 2, 64, 16, 8, 5
     launches, split = paged_chunk_attention_cuda.launches, paged_chunk_attention_cuda.split_launches
     cases = ((8, [0, 1, 15, 16, 17, 60, 100, 123]), (1, [123]), (1, [3]), (8, [7] * 8))
@@ -150,14 +165,46 @@ def test_wrapper_hands_the_kernel_one_plan_whatever_the_batch(monkeypatch):
     t = _inputs(2, 1, H, KVH, hd, page, pps, [4, 9], 12, False, 1)
     paged_chunk_attention_cuda(*t, sm_scale=hd ** -0.5, sliding_window=12)
     plan = pa.paged_chunk_plan(page * pps, KVH, H // KVH, C, hd, 12)
-    for (lib, fn, args), (B, _) in zip(calls, cases):
+    one = pa.paged_chunk_plan(page * pps, KVH, H // KVH, 1, hd, 12)
+    for (lib, fn, args), (B, C_, p) in zip(calls, [(B, C, plan) for B, _ in cases] + [(2, 1, one)]):
         assert (lib, fn) == ("paged_attention_split", "paged_chunk_attention_split")
-        assert args[9:16] == (B, C, KVH, H // KVH, page, pps, hd)
-        assert args[16] == pytest.approx(hd ** -0.5) and args[17:20] == (12, plan.keys,
-                                                                         plan.splits)
-    assert calls[-1][:2] == ("paged_attention", "paged_chunk_attention")
+        assert args[9:16] == (B, C_, KVH, H // KVH, page, pps, hd)
+        assert args[16] == pytest.approx(hd ** -0.5) and args[17:20] == (12, p.keys, p.splits)
+    assert len(calls) == 5
     assert paged_chunk_attention_cuda.launches == launches + 5
-    assert paged_chunk_attention_cuda.split_launches == split + 4
+    assert paged_chunk_attention_cuda.split_launches == split + 5
+
+
+@pytest.mark.parametrize("window", [None, 12])
+def test_decode_wrapper_hands_the_split_kernel_the_chunk_of_one(monkeypatch, window):
+    """``paged_decode_attention_cuda`` at B = 1 and 8 hands the split
+    kernel's C entry the chunk of one token: its q, new_k and new_v with a
+    chunk axis of 1, the plan of C = 1 whatever the batch and the lengths, a
+    workspace for that plan; one count a call in ``launches`` and
+    ``split_launches``.  ``paged_attention.cu``'s decode entry is reached
+    only through ``_paged_decode_before``, which counts nothing."""
+    calls = _recording_entries(monkeypatch)
+    H, KVH, hd, page, pps = 8, 2, 64, 16, 8
+    n0 = (paged_decode_attention_cuda.launches, paged_decode_attention_cuda.split_launches)
+    plan = pa.paged_chunk_plan(page * pps, KVH, H // KVH, 1, hd, window)
+    for B, lens in ((8, [0, 1, 15, 16, 17, 60, 100, 126]), (1, [126]), (1, [3])):
+        q, nk, nv, kp, vp, L, tables = _inputs(B, 1, H, KVH, hd, page, pps, lens, window, False,
+                                               B)
+        out, k, v = paged_decode_attention_cuda(q[:, 0], nk[:, 0], nv[:, 0], kp, vp, L, tables,
+                                                sm_scale=hd ** -0.5, sliding_window=window)
+        assert tuple(out.shape) == (B, H, hd) and k is kp and v is vp
+        lib, fn, args = calls[-1]
+        assert (lib, fn) == ("paged_attention_split", "paged_chunk_attention_split")
+        assert args[9:16] == (B, 1, KVH, H // KVH, page, pps, hd)
+        assert args[17:20] == (window or 0, plan.keys, plan.splits)
+        assert args[3] == kp.data_ptr() and args[4] == vp.data_ptr()
+    assert len(calls) == 3
+    assert (paged_decode_attention_cuda.launches,
+            paged_decode_attention_cuda.split_launches) == (n0[0] + 3, n0[1] + 3)
+    pa._paged_decode_before(q[:, 0], nk[:, 0], nv[:, 0], kp, vp, L, tables,
+                            sm_scale=hd ** -0.5, sliding_window=window)
+    assert calls[-1][:2] == ("paged_attention", "paged_decode_attention")
+    assert paged_decode_attention_cuda.launches == n0[0] + 3
 
 
 def _emulate(q, nk, nv, kp, vp, lens, tables, sm_scale, window):
@@ -256,6 +303,35 @@ def test_split_merge_matches_plain_and_jax(B, C, H, KVH, hd, page, pps, lens, wi
     j = [jnp.asarray(t.view(torch.uint16).numpy()).view(jnp.bfloat16) for t in (q, nk, nv, kp, vp)]
     jo, jk, jv = jchunk(*j, jnp.asarray(lens, jnp.int32), jnp.asarray(tables.numpy()),
                         sm_scale=hd ** -0.5, sliding_window=window)
+    _close(got, ref.float().numpy())
+    _close(got, np.asarray(jo, np.float32))
+    for a, jt in ((k2, jk), (v2, jv)):
+        np.testing.assert_array_equal(a.view(torch.uint16).numpy(), np.asarray(jt).view(np.uint16))
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,page,pps,lens,window,planted", [
+    (3, 4, 4, 128, 16, 4, [63, 15, 0], None, False),      # the table's last slot, mid-page, empty
+    (3, 8, 2, 64, 16, 4, [40, 22, 9], 12, True),          # window edges planted, G = 4
+    (2, 8, 2, 64, 16, 2, [32, 3], None, False),           # the append clamped into the last page
+])
+def test_split_merge_at_one_token_matches_decode_plain_and_jax(B, H, KVH, hd, page, pps, lens,
+                                                               window, planted):
+    """The decode step on the split kernel: the emulated kernel at C = 1
+    agrees with ``paged_decode_plain`` and the JAX decode kernel (interpret
+    mode on the CPU) on the same bf16 inputs, and the plain version's pools
+    take the append as JAX's do, the clamped one included (length = pps *
+    page breaks the precondition: the row lands in the sequence's own last
+    page)."""
+    q, nk, nv, kp, vp, L, tables = _inputs(B, 1, H, KVH, hd, page, pps, lens, window, planted,
+                                           page + B)
+    got = _emulate(q, nk, nv, kp, vp, lens, tables, hd ** -0.5, window)[:, 0]
+    k2, v2 = kp.clone(), vp.clone()
+    ref, _, _ = paged_decode_plain(q[:, 0], nk[:, 0], nv[:, 0], k2, v2, L, tables,
+                                   sm_scale=hd ** -0.5, sliding_window=window)
+    j = [jnp.asarray(t.view(torch.uint16).numpy()).view(jnp.bfloat16)
+         for t in (q[:, 0], nk[:, 0], nv[:, 0], kp, vp)]
+    jo, jk, jv = jdecode(*j, jnp.asarray(lens, jnp.int32), jnp.asarray(tables.numpy()),
+                         sm_scale=hd ** -0.5, sliding_window=window)
     _close(got, ref.float().numpy())
     _close(got, np.asarray(jo, np.float32))
     for a, jt in ((k2, jk), (v2, jv)):
