@@ -60,18 +60,28 @@ them.  Phases, each failing the run on any mismatch or exception:
    every flash launch on a wgmma kernel (train-parity too).
 8. kernels-int8: the four kernels of the int8 family against their plain
    versions: ``qmm_i8_direct`` (M = 4, 8, 16 on the block linears and the
-   padded lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 128, 512,
-   2048) equal bit for bit, in the raw int32 accumulators and in the bf16
-   output.  ``qmm_i8_direct`` up to 16 rows runs the split-K kernel of
-   ``qmm_i8_direct_decode.cu``, which quantizes the rows itself: its x8 and
+   padded lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 8, 16,
+   128, 512, 2048) equal bit for bit, in the raw int32 accumulators and in
+   the bf16 output.  ``qmm_nf4_w8a8`` up to 16 rows runs the split-K kernel
+   of ``qmm_nf4_w8a8_decode.cu``, which quantizes the rows and makes the
+   per-column scales itself (NF4 with double quant on the three block
+   linears, f32 absmax and FP4 once at M = 4): its x8 and xs equal
+   ``quantize_rows``' on the card, two calls and each row alone bit for bit;
+   timed in CUDA graphs beside ``qmm_i8_direct.cu``'s NF4 entry through its C
+   entry on rows quantized and scales made beforehand (``tile_ms``, the
+   "before", equal bit for bit), ``torch._int_mm`` (``library_ms``), the exact
+   NF4 decode kernel at the same rows (``exact_ms``) and the wrapper back to
+   back (``wrapper_ms``, events).  ``qmm_i8_direct`` up to 16 rows runs the
+   split-K kernel of ``qmm_i8_direct_decode.cu``, which quantizes the rows itself: its x8 and
    xs equal ``quantize_rows``' on the card, two calls and each row alone bit
    for bit; timed in CUDA graphs beside ``qmm_i8_direct.cu`` through its C
    entry on rows quantized beforehand (``tile_ms``, the "before", equal bit
    for bit), ``torch._int_mm`` (``library_ms``, in a graph) and the wrapper
    back to back (``wrapper_ms``, events); the ragged shape stays on
    ``qmm_i8_direct.cu``.
-   ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 1024)
-   within the NF4 kernels' tolerance, f32 and double-quantized absmax, and
+   ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 4, 8,
+   16 on ``qmm_i8.cu``, which no path runs, and 1024) within the NF4 kernels'
+   tolerance, f32 and double-quantized absmax, and
    reading out ``dequantize``'s weight bit for bit from identity operands.
    Up to 16 rows the forward runs the split-K kernel of
    ``qmm_i8_decode.cu``, timed in CUDA graphs beside ``qmm_i8.cu``'s 16-row
@@ -126,7 +136,11 @@ them.  Phases, each failing the run on any mismatch or exception:
    paged decode on the split kernel), the pool recycled; then the same
    requests with ``decode_impl="int8", prefill_impl="w8a8"`` (every decode
    forward's qmm_i8_direct on its decode kernel, every prefill's
-   qmm_nf4_w8a8 on the wgmma kernel; its prefill forwards timed).
+   qmm_nf4_w8a8 on the wgmma kernel; its prefill forwards timed); then
+   serve-paged-w8a8: the same requests with ``decode_impl="w8a8"`` on the NF4
+   weights as stored (every decode forward's 224 qmm_nf4_w8a8 on
+   ``qmm_nf4_w8a8_decode.cu``, the prefill exact), its decode step split into
+   kernels and the rest.
 15. serve-paged-spec: the same engine with 4 drafts per verify chunk on 8
    requests whose prompts repeat a 16-token phrase.
 16. parity-i8base: parity over an int8-stored base (``--bits 8``, double
@@ -138,6 +152,10 @@ them.  Phases, each failing the run on any mismatch or exception:
    beside the NF4 serve phase's, peak memory.
 
 The last two lines are the ``kernels`` JSON object and the result line.
+
+``python3 chip_smoke.py serve-paged-w8a8`` builds the kernels and runs the
+serve weights through serve-paged-w8a8 alone, to time the route in turns
+with a checkout of another commit that this script is copied into.
 """
 
 from __future__ import annotations
@@ -201,8 +219,8 @@ FEW_ROWS = 64             # up to here a row count is timed in a CUDA graph, wit
                           # kernel ("before") and the decode kernel beside it
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
 LM_HEAD_SHAPE = (4096, 32768)     # the int8 serving copy pads 32000 columns to 32768
-W8A8_ROWS = (4, 128, 512, 2048)  # decode, the parity-int8 prefill (1 x 128), the serve-paged
-                                 # prefill of one row at bucket 512 (its commonest), a 4 x 512 group
+W8A8_ROWS = (128, 512, 2048)     # the parity-int8 prefill (1 x 128), the serve-paged prefill of
+                                 # one row at bucket 512 (its commonest), a 4 x 512 group
 ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
     (4, 32, 32, 128, 640, (0, 97, 383, 639), None, False),
     (4, 32, 8, 128, 640, (0, 97, 383, 639), 256, False),      # GQA G=4, sliding window
@@ -1152,6 +1170,40 @@ def i8_direct_decode_check(shape, x, qt):
     return err, y
 
 
+def nf4_w8a8_decode_check(shape, x, qt, w8):
+    """``qmm_nf4_w8a8`` at decode rows: the decode kernel took the call; its
+    x8 and xs equal ``quantize_rows``' on the card, its int32 accumulators the
+    exact integer product with ``w8a8_codes`` and its bf16 output the plain
+    version's, bit for bit; two calls equal, and each row alone equal to its
+    row of the batch.  Returns (0.0 or a failure, y)."""
+    import torch
+
+    from qlora_tpu_torch.ops import int8_matmul_plain, qmm_nf4_w8a8, qmm_nf4_w8a8_plain
+    from qlora_tpu_torch.ops import quantize_rows
+    from qlora_tpu_torch.ops.qmatmul import _nf4_w8a8_decode_outputs
+
+    took = qmm_nf4_w8a8.decode_launches
+    y = qmm_nf4_w8a8(x, qt)
+    if qmm_nf4_w8a8.decode_launches != took + 1:
+        fail(f"qmm_nf4_w8a8 {shape}: qmm_nf4_w8a8_decode.cu did not take the call")
+    acc, x8, xs = _nf4_w8a8_decode_outputs(x, qt)
+    rx8, rxs = quantize_rows(x)
+    ref = qmm_nf4_w8a8_plain(x, qt)
+    twice = torch.equal(qmm_nf4_w8a8(x, qt), y)
+    alone = all(torch.equal(qmm_nf4_w8a8(x[m:m + 1], qt), y[m:m + 1]) for m in range(x.shape[0]))
+    torch.cuda.synchronize()
+    codes = torch.equal(x8, rx8) and torch.equal(xs, rxs)
+    sums = torch.equal(acc, int8_matmul_plain(rx8, w8).to(torch.int32))
+    err = (y.float() - ref.float()).abs().max().item()
+    print(f"  qmm_nf4_w8a8 {shape} (decode kernel): x8 and xs equal quantize_rows' {codes}; "
+          f"int32 sums exact {sums}; output equal {torch.equal(y, ref)}; two calls equal "
+          f"{twice}; rows alone equal {alone}", flush=True)
+    if not (codes and sums and torch.equal(y, ref) and twice and alone):
+        fail(f"qmm_nf4_w8a8 {shape}: the decode kernel differs from its plain version "
+             f"(codes {codes}, sums {sums}, max|d| {err}, two calls {twice}, rows alone {alone})")
+    return err, y
+
+
 def w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y):
     """qmm_i8_direct.cu's NF4 path through its C entry, the "before" of the
     w8a8 wgmma kernel: its accumulators equal the exact integer product and
@@ -1262,10 +1314,57 @@ def int8_kernel_phase(dev, results):
            int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1), wrapper_ms=wrapper_ms)
     del qts, qt
 
-    # qmm_nf4_w8a8: NF4 storage (double quant), decode and prefill rows; above
-    # DECODE_ROWS the int8 wgmma kernel, with qmm_i8_direct.cu's NF4 path through
-    # its C entry beside it (the "before") and the exact NF4 wgmma kernel at the
-    # same rows
+    # qmm_nf4_w8a8 at decode rows (M = 4 in generate(), 8 in serve-paged-w8a8, and
+    # 16) on qmm_nf4_w8a8_decode.cu, which quantizes the rows and makes the
+    # per-column scales itself, timed in CUDA graphs beside qmm_i8_direct.cu's NF4
+    # entry through its C entry on rows quantized and scales made beforehand
+    # (tile_ms, the "before", equal bit for bit), torch._int_mm (library_ms) and
+    # the exact NF4 decode kernel at the same rows (exact_ms), and the wrapper back
+    # to back (wrapper_ms, events); NF4 with double quant on the three shapes, then
+    # f32 absmax and FP4 once
+    exact_fns = {True: qmm_nf4_fwd_dq, False: qmm_nf4_fwd_f32}
+    for K, N, quant_type, dq, rows in [(K, N, "nf4", True, I8_DECODE_ROWS)
+                                       for K, N in QMM_SHAPES] + [
+            (4096, 4096, "nf4", False, (4,)), (4096, 4096, "fp4", True, (4,))]:
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        qt = quantize(w, quant_type=quant_type, double_quant=dq)
+        del w
+        ratio, s_out = w8a8_scales(qt)
+        w8 = w8a8_codes(qt, ratio)
+        qts = clones(qt)
+        w8s = [w8] + [w8.clone() for _ in range(copies_past_l2(w8.nbytes) - 1)]
+        kind = {(True, "nf4"): "", (False, "nf4"): " f32 absmax", (True, "fp4"): " fp4"}[
+            dq, quant_type]
+        for M in rows:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            shape = f"M={M} K={K} N={N}{kind}"
+            err, y = nf4_w8a8_decode_check(shape, x, qt, w8)
+            exact = qmatmul_plain(x, qt).float()
+            off = (y.float() - exact).abs().max().item() / exact.abs().max().item()
+            if not 0 < off < INT8_BAND:
+                fail(f"qmm_nf4_w8a8 {shape}: {off:.4f} of the largest |value| away from the "
+                     f"exact product (band {INT8_BAND})")
+            x8, xs = quantize_rows(x)
+            w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y)
+            ms = graph_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]), 200)
+            more = dict(tile_ms=graph_ms(lambda i: launch_w8a8(
+                "qmm_nf4_w8a8", x8, qts[i % len(qts)], ratio, s_out, xs), 20))
+            more["exact_ms"] = graph_ms(lambda i: exact_fns[dq](x, qts[i % len(qts)]), 200)
+            more["wrapper_ms"] = cuda_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]), 200)
+            plain_ms = cuda_ms(lambda i: qmm_nf4_w8a8_plain(x, qts[i % len(qts)]), 2)
+            lib_ms = int_mm_ms(x8, w8s, s_out, xs, 200, graph_ms)
+            # bf16 x in, its rows quantized inside the kernel: x, the packed weight and
+            # its absmax read once, y written once (row 1's bound)
+            record(results, "qmm_nf4_w8a8", shape, err, exact_tol, ms, plain_ms, lib_ms,
+                   qmm_bound(M, K, N, dq), of_exact=off, **more)
+            print(f"  the decode kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
+                  f"{ms / lib_ms:.2f}x torch._int_mm's time, {ms / more['exact_ms']:.2f}x the "
+                  "exact NF4 decode kernel's", flush=True)
+        del qts, w8s, w8, qt
+
+    # qmm_nf4_w8a8 above DECODE_ROWS: NF4 storage (double quant), the int8 wgmma
+    # kernel, with qmm_i8_direct.cu's NF4 path through its C entry beside it (the
+    # "before") and the exact NF4 wgmma kernel at the same rows
     from qlora_tpu_torch.ops.qmatmul import _w8a8_nf4_entry as w8a8_entry
 
     for K, N in QMM_SHAPES:
@@ -1282,7 +1381,7 @@ def int8_kernel_phase(dev, results):
             took = qmm_nf4_w8a8.wgmma_launches
             err, y = w8a8_check("qmm_nf4_w8a8", shape, qmm_nf4_w8a8, qmm_nf4_w8a8_plain, x, qt,
                                 w8)
-            if qmm_nf4_w8a8.wgmma_launches != took + (M > DECODE_ROWS):
+            if qmm_nf4_w8a8.wgmma_launches != took + 1:
                 fail(f"qmm_nf4_w8a8 {shape}: the wgmma kernel took "
                      f"{qmm_nf4_w8a8.wgmma_launches - took} launches")
             exact = qmatmul_plain(x, qt).float()
@@ -1292,30 +1391,24 @@ def int8_kernel_phase(dev, results):
                      f"exact product (band {INT8_BAND})")
             x8, xs = quantize_rows(x)
             entry, plan = w8a8_entry(x8, qt)
-            # above DECODE_ROWS device times in CUDA graphs: at 128 and 512 rows the
-            # wgmma kernel is no longer than a launch's host cost through its wrapper
-            timer, iters = (graph_ms, 50) if M > DECODE_ROWS else (cuda_ms, 200)
-            ms = timer(lambda i: launch_w8a8(entry, x8, qts[i % len(qts)], ratio, s_out, xs,
-                                             plan), iters)
-            more = {}
-            if M > DECODE_ROWS:
-                w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y)
-                w8a8_invariance_check(shape, qmm_nf4_w8a8, x, qt, y)
-                more["tile_ms"] = graph_ms(lambda i: launch_w8a8(
-                    "qmm_nf4_w8a8", x8, qts[i % len(qts)], ratio, s_out, xs), 10)
-                exact_fn = qmm_nf4_fwd_dq if qt.double_quant else qmm_nf4_fwd_f32
-                more["exact_ms"] = graph_ms(lambda i: exact_fn(x, qts[i % len(qts)]), iters)
-            more["wrapper_ms"] = cuda_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]),
-                                         20 if M > DECODE_ROWS else 200)
+            # device times in CUDA graphs: at 128 and 512 rows the wgmma kernel is no
+            # longer than a launch's host cost through its wrapper
+            ms = graph_ms(lambda i: launch_w8a8(entry, x8, qts[i % len(qts)], ratio, s_out, xs,
+                                                plan), 50)
+            w8a8_before_check(shape, launch_w8a8, x8, qt, ratio, s_out, xs, w8, y)
+            w8a8_invariance_check(shape, qmm_nf4_w8a8, x, qt, y)
+            more = dict(tile_ms=graph_ms(lambda i: launch_w8a8(
+                "qmm_nf4_w8a8", x8, qts[i % len(qts)], ratio, s_out, xs), 10))
+            more["exact_ms"] = graph_ms(lambda i: qmm_nf4_fwd_dq(x, qts[i % len(qts)]), 50)
+            more["wrapper_ms"] = cuda_ms(lambda i: qmm_nf4_w8a8(x, qts[i % len(qts)]), 20)
             plain_ms = cuda_ms(lambda i: qmm_nf4_w8a8_plain(x, qts[i % len(qts)]), 2)
-            lib_ms = int_mm_ms(x8, w8s, s_out, xs, iters, timer)
+            lib_ms = int_mm_ms(x8, w8s, s_out, xs, 50, graph_ms)
             record(results, "qmm_nf4_w8a8", shape, err, exact_tol, ms, plain_ms, lib_ms,
                    int8_bound(M, K, N, K * N // 2 + ratio.nbytes + N * 4 + M * 4, PEAK_INT8, 1),
                    of_exact=off, **more)
-            if M > DECODE_ROWS:
-                print(f"  the wgmma kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
-                      f"{ms / lib_ms:.2f}x torch._int_mm's time, {ms / more['exact_ms']:.2f}x "
-                      "the exact NF4 wgmma kernel's", flush=True)
+            print(f"  the wgmma kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
+                  f"{ms / lib_ms:.2f}x torch._int_mm's time, {ms / more['exact_ms']:.2f}x "
+                  "the exact NF4 wgmma kernel's", flush=True)
         del qts, w8s, w8, qt
 
     # qmm_i8_fwd, qmm_i8_bwd: the --bits 8 base, f32 and double-quantized absmax;
@@ -1344,7 +1437,7 @@ def int8_kernel_phase(dev, results):
             for name, kernel, plain, rows in (("qmm_i8_fwd", qmm_i8_fwd, qmm_i8_fwd_plain,
                                                I8_DECODE_ROWS + (QMM_BWD_ROWS, 2048)),
                                               ("qmm_i8_bwd", qmm_i8_bwd, qmm_i8_bwd_plain,
-                                               (QMM_BWD_ROWS,))):
+                                               I8_DECODE_ROWS + (QMM_BWD_ROWS,))):
                 fwd = name == "qmm_i8_fwd"
                 for M in rows:
                     a = torch.randn(M, K if fwd else N, device=dev, generator=g).to(torch.bfloat16)
@@ -1371,6 +1464,12 @@ def int8_kernel_phase(dev, results):
                         more["tile_ms"] = cuda_ms(lambda i: i8_tile(a, qts[i % len(qts)], fwd), 5)
                         plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3)
                         lib_ms = cuda_ms(mat, 20)
+                    elif not fwd:
+                        # the dx at decode rows: qmm_i8.cu itself (no path runs it), in a
+                        # graph beside g @ Wᵀ on the dequantized weight
+                        ms = graph_ms(lambda i: kernel(a, qts[i % len(qts)]), 50)
+                        plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 20)
+                        lib_ms = graph_ms(mat, 200)
                     else:
                         # device times in a graph: the decode kernel is shorter than its
                         # wrapper's host time
@@ -1383,6 +1482,9 @@ def int8_kernel_phase(dev, results):
                            int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2), **more)
                     if M > DECODE_ROWS:
                         wgmma_checks(name, kernel, a, qt, w_bf16, bwd=not fwd)
+                    elif not fwd:
+                        print(f"  qmm_i8.cu's dx at {M} rows {ms / lib_ms:.2f}x torch.matmul's "
+                              "time", flush=True)
                     else:
                         print(f"  the decode kernel {more['tile_ms'] / ms:.1f}x qmm_i8.cu's "
                               f"speed, {ms / lib_ms:.2f}x torch.matmul's time", flush=True)
@@ -1737,7 +1839,9 @@ def counters():
 # The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
 # qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The w8a8 forward over NF4
 # counts those that took qmm_nf4_w8a8_wgmma.cu (more rows), read as
-# qmm_nf4_w8a8_wgmma; the rest took qmm_i8_direct.cu.  The direct int8 w8a8
+# qmm_nf4_w8a8_wgmma, and those that took qmm_nf4_w8a8_decode.cu (M <=
+# DECODE_ROWS), read as qmm_nf4_w8a8_decode; the rest took qmm_i8_direct.cu.
+# The direct int8 w8a8
 # forward counts those that took qmm_i8_direct_decode.cu (M <= DECODE_ROWS),
 # read as qmm_i8_direct_decode; the rest took qmm_i8_direct.cu.  The paged
 # decode and chunk attention count those that took paged_attention_split.cu,
@@ -1746,7 +1850,8 @@ def counters():
 # only the wgmma kernels of flash_attention_wgmma.cu and count each launch in
 # wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32",
-                 "qmm_i8_decode_fwd": "qmm_i8_fwd", "qmm_i8_direct_decode": "qmm_i8_direct"}
+                 "qmm_i8_decode_fwd": "qmm_i8_fwd", "qmm_i8_direct_decode": "qmm_i8_direct",
+                 "qmm_nf4_w8a8_decode": "qmm_nf4_w8a8"}
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
                 "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
                 "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd", "flash_wgmma_fwd": "flash_fwd",
@@ -1772,7 +1877,8 @@ def reset_counts():
 def read_counts():
     by_name = {w.__name__: w for w in counters()}
     return {**{n: w.launches for n, w in by_name.items()},
-            **{k: by_name[n].decode_launches for k, n in DECODE_COUNTS.items()},
+            # 0 where a checkout's wrapper has no decode kernel (serve_w8a8_only)
+            **{k: getattr(by_name[n], "decode_launches", 0) for k, n in DECODE_COUNTS.items()},
             **{k: by_name[n].wgmma_launches for k, n in WGMMA_COUNTS.items()},
             **{k: by_name[n].split_launches for k, n in SPLIT_COUNTS.items()}}
 
@@ -2155,7 +2261,38 @@ def serve_paged_phase(dev, cfg, params, lora, lcfg):
         fail(f"serve-paged-int8 launch counts {counts8} != {want8}")
     del pb
     torch.cuda.empty_cache()
-    return counts, stats, counts8, stats8
+    countsw, statsw = serve_paged_w8a8(dev, cfg, params, lora, lcfg, traffic)
+    return counts, stats, counts8, stats8, countsw, statsw
+
+
+def serve_paged_w8a8(dev, cfg, params, lora, lcfg, traffic, check=True):
+    """serve-paged-w8a8: the same requests through ``PagedBatcher(decode_impl=
+    "w8a8")``, the NF4 weights as stored: every decode forward's 7 block
+    linears a layer through ``qmm_nf4_w8a8`` on its decode kernel (8 rows),
+    the prefill exact NF4 (on the wgmma kernel), every paged decode on the
+    split kernel; exact launch counts (printed only, without ``check``: a
+    checkout whose ``qmm_nf4_w8a8`` has no decode kernel, timed beside this
+    one)."""
+    import torch
+
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+    pb, st, counts, stats = serve_paged_run("serve-paged-w8a8", dev, cfg, params, lora, lcfg,
+                                            traffic, SERVE_PAGED_PAGES, decode_impl="w8a8")
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin * st["prefill"],
+                           qmm_nf4_wgmma_dq=n_lin * st["prefill"],     # >= 128 rows a prefill
+                           qmm_nf4_w8a8=n_lin * st["decode"],
+                           qmm_nf4_w8a8_decode=n_lin * st["decode"],  # 8 rows a decode forward
+                           paged_decode_attention_cuda=L * st["decode"],
+                           paged_decode_split=L * st["decode"])
+    print(f"serve-paged-w8a8: launches {counts} (expected {want}: {n_lin} qmm_nf4_w8a8 per "
+          "decode forward, all on qmm_nf4_w8a8_decode.cu, the prefill exact on the NF4 wgmma "
+          f"kernel, {L} paged decode attention per decode forward, all on the split kernel)",
+          flush=True)
+    if check and counts != want:
+        fail(f"serve-paged-w8a8 launch counts {counts} != {want}")
+    del pb
+    torch.cuda.empty_cache()
+    return counts, stats
 
 
 def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
@@ -2494,6 +2631,10 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
     # the w8a8 forward over NF4: the int8 wgmma kernel at its headline (M = 512)
     "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
                      "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8, pallas_call at :270)"),
+    # the w8a8 forward over NF4 at decode rows: its decode kernel at its headline (M = 4)
+    "qmm_nf4_w8a8_decode": ("qlora_tpu_torch/csrc/qmm_nf4_w8a8_decode.cu",
+                            "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8, pallas_call at "
+                            ":270; M <= 16)"),
     # the int8 forward and dx: the wgmma kernel at their headline (M = 1024)
     "qmm_i8_fwd": ("qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
                    "qlora_tpu/ops/qmatmul.py:432 (_qmm_pallas_i8)"),
@@ -2526,9 +2667,10 @@ I8_SOURCES = {"M <= 16, forward": "qlora_tpu_torch/csrc/qmm_i8_decode.cu",
               "M <= 16 backward, or M > 16 and a contraction % 8 != 0":
                   "qlora_tpu_torch/csrc/qmm_i8.cu"}
 # the w8a8 forward's two sources over NF4, by shape (ops/qmatmul.py: w8a8_tile_plan)
-W8A8_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
-                "M <= 16, or K % 32, N % 8 or the block size % 8 not 0":
-                    "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
+W8A8_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_decode.cu",
+                "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
+                "M <= 16 and K % 64, N % 16 or the block size % 32 not 0; M > 16 and K % 32, "
+                "N % 8 or the block size % 8 not 0": "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
 # the direct int8 w8a8 forward's two sources, by shape (ops/qmatmul.py:
 # i8_direct_decode_plan)
 I8_DIRECT_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
@@ -2537,7 +2679,9 @@ I8_DIRECT_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
 # (by the row count in the shape): the int8 forward's decode kernel and its
 # wgmma kernel share the rows of qmm_i8_fwd
 RESULT_OF = {"qmm_i8_fwd_decode": ("qmm_i8_fwd", lambda m: m <= 16),
-             "qmm_i8_fwd": ("qmm_i8_fwd", lambda m: m > 16)}
+             "qmm_i8_fwd": ("qmm_i8_fwd", lambda m: m > 16),
+             "qmm_nf4_w8a8_decode": ("qmm_nf4_w8a8", lambda m: m <= 16),
+             "qmm_nf4_w8a8": ("qmm_nf4_w8a8", lambda m: m > 16)}
 TRAIN_HEADLINE = "M=1024 K=4096 N=4096"   # the wgmma kernel's entry: the train step's commonest
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
@@ -2552,6 +2696,8 @@ HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=409
             # commonest (one row at bucket 512; the run whose launches the w8a8 kernel's
             # entry counts), the int8 base's train step
             "qmm_i8_direct": "M=4 K=4096 N=4096", "qmm_nf4_w8a8": "M=512 K=4096 N=4096",
+            # the w8a8 decode step over NF4 (serve-paged-w8a8), at generate()'s batch
+            "qmm_nf4_w8a8_decode": "M=4 K=4096 N=4096",
             "qmm_i8_fwd": "M=1024 K=4096 N=4096 dq", "qmm_i8_bwd": "M=1024 K=4096 N=4096 dq",
             # the int8 base's decode step (serve-i8base), its commonest launch
             "qmm_i8_fwd_decode": "M=4 K=4096 N=4096 dq",
@@ -2595,6 +2741,24 @@ def serve_int8_split(results, num_layers, stats):
     qmm = per_step("ms")
     attn = num_layers * next(r["ms"] for r in results if r["name"] == "decode_attention_cuda")
     step = stats["decode_ms_per_step"]
+    return dict(step_ms=step, step_qmm_ms=qmm, step_qmm_before_ms=per_step("tile_ms"),
+                step_attention_ms=attn, step_other_ms=step - qmm - attn)
+
+
+def serve_w8a8_split(results, num_layers, stats):
+    """serve-paged-w8a8's decode step by kernel, as :func:`serve_split`: 7
+    ``qmm_nf4_w8a8`` launches a layer at M = 8 (the batcher's slots) on the
+    decode kernel, each at its time alone in the kernel phase, and what
+    qmm_i8_direct.cu's NF4 entry, the "before", takes for them on rows
+    quantized beforehand; one paged decode attention a layer at the kernel
+    phase's headline."""
+    rows = {r["shape"]: r for r in results if r["name"] == "qmm_nf4_w8a8"}
+    lin = {k: rows[f"M={PAGED_B} K={k[0]} N={k[1]}"] for k in QMM_SHAPES}
+    per_step = lambda key: num_layers * (4 * lin[(4096, 4096)][key] + 2 * lin[(4096, 11008)][key]
+                                         + lin[(11008, 4096)][key])
+    attn = num_layers * next(r["ms"] for r in results
+                             if r["name"] == "paged_decode_attention_cuda")
+    qmm, step = per_step("ms"), stats["ms_per_step"]
     return dict(step_ms=step, step_qmm_ms=qmm, step_qmm_before_ms=per_step("tile_ms"),
                 step_attention_ms=attn, step_other_ms=step - qmm - attn)
 
@@ -2646,6 +2810,31 @@ def serve_i8base_split(results, num_layers, stats):
                 step_other_ms=step - qmm - attn)
 
 
+def serve_w8a8_only(dev) -> None:
+    """``python3 chip_smoke.py serve-paged-w8a8``: the serve weights and
+    serve-paged-w8a8 alone, to time the route in turns with another checkout
+    (its parent) that this script is copied into; the launch counts are
+    checked where the checkout's ``qmm_nf4_w8a8`` has its decode kernel."""
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.models import init_params
+    from qlora_tpu_torch.ops import qmm_nf4_w8a8
+
+    cfg = seven_b()
+    params = init_params(cfg, seed=7, device=dev)
+    lora, lcfg = random_lora(cfg, dev, seed=8)
+    ids, lengths = padded_requests(SERVE_LENGTHS, max(SERVE_LENGTHS), cfg.vocab_size, 9)
+    generate(params, lora, ids[:, :16], torch.full((4,), 16), cfg, lcfg,
+             max_new_tokens=2, eos_id=-1, device=dev)
+    traffic = paged_traffic(cfg.vocab_size, SERVE_PAGED_SEED, SERVE_PAGED_REQUESTS)
+    decode = hasattr(qmm_nf4_w8a8, "decode_launches")
+    _, stats = serve_paged_w8a8(dev, cfg, params, lora, lcfg, traffic, check=decode)
+    print(f"serve-paged-w8a8 only ({'qmm_nf4_w8a8_decode.cu' if decode else 'qmm_i8_direct.cu'}"
+          f" at decode rows): {stats['ms_per_step']:.2f} ms per decode step, "
+          f"{stats['tok_s']:.1f} tok/s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2675,6 +2864,12 @@ def main() -> int:
     libs = _build.build_all(verbose=True)
     print(f"build: {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if sys.argv[1:] == ["serve-paged-w8a8"]:
+        serve_w8a8_only(dev)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     results = []
     t0 = time.perf_counter()
     kernel_phase(dev, results)
@@ -2710,7 +2905,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     (serve_counts, serve_stats, int8_counts, int8_stats,
-     (paged_counts, paged_stats, paged8_counts, paged8_stats),
+     (paged_counts, paged_stats, paged8_counts, paged8_stats, pagedw_counts, pagedw_stats),
      (spec_counts, spec_stats)) = serve_phase(dev)
     print(f"serve, serve-int8, serve-paged and serve-paged-spec: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2741,6 +2936,7 @@ def main() -> int:
                     qmm_nf4_fwd_f32=nodq_counts["qmm_nf4_fwd_f32"],
                     qmm_i8_direct=int8_counts["qmm_i8_direct"],
                     qmm_nf4_w8a8=paged8_counts["qmm_nf4_w8a8"],
+                    qmm_nf4_w8a8_decode=pagedw_counts["qmm_nf4_w8a8_decode"],
                     qmm_i8_fwd=train8_counts["qmm_i8_fwd"],
                     qmm_i8_fwd_decode=i8base_counts["qmm_i8_decode_fwd"],
                     qmm_i8_bwd=train8_counts["qmm_i8_bwd"],
@@ -2763,6 +2959,7 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],
             **({"tile_ms": head["tile_ms"]} if "tile_ms" in head else {}),
+            **({"exact_ms": head["exact_ms"]} if "exact_ms" in head else {}),
             # the w8a8 kernels' "ms" is the kernel alone; with the wrapper's row
             # quantization (PyTorch ops), as the decode step pays it.  The flash
             # kernels' "ms" is their device time in CUDA graphs; their wrappers
@@ -2806,8 +3003,11 @@ def main() -> int:
                         and r["shape"] == entry["shape"])
             entry.update(sources=W8A8_SOURCES,
                          before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
-                         wgmma_launches=paged8_counts["qmm_nf4_w8a8_wgmma"],
-                         exact_ms=head["exact_ms"])
+                         wgmma_launches=paged8_counts["qmm_nf4_w8a8_wgmma"])
+        if entry["name"] == "qmm_nf4_w8a8_decode":
+            entry.update(sources=W8A8_SOURCES,
+                         before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
+                         decode_launches=pagedw_counts["qmm_nf4_w8a8_decode"])
         if entry["name"] == "paged_chunk_attention_cuda":
             entry.update(before_source="qlora_tpu_torch/csrc/paged_attention.cu",
                          split_launches=spec_counts["paged_chunk_split"])
@@ -2857,6 +3057,15 @@ def main() -> int:
           f"{spec_stats['tokens_per_chunk']:.3f} tokens per chunk, "
           f"{spec_stats['ms_per_chunk']:.2f} ms per verify step (qmm kernels ~{verify_qmm:.2f} ms "
           f"of it at M={PAGED_B * (SPEC_DRAFT + 1)})", flush=True)
+    sw = serve_w8a8_split(results, seven_b().num_layers, pagedw_stats)
+    print(f"serve-paged-w8a8: {pagedw_stats['tok_s']:.1f} tok/s over the run (admissions "
+          f"included); decode step {sw['step_ms']:.2f} ms = qmm_nf4_w8a8 decode kernels "
+          f"~{sw['step_qmm_ms']:.2f} ms (before: qmm_i8_direct.cu's NF4 entry "
+          f"~{sw['step_qmm_before_ms']:.2f} ms on rows quantized and scales made beforehand) + "
+          f"paged decode attention ~{sw['step_attention_ms']:.2f} ms + other "
+          f"~{sw['step_other_ms']:.2f} ms (kernel-phase times x launches); serve-paged's NF4 step "
+          f"{paged_stats['ms_per_step']:.2f} ms and serve-paged-int8's "
+          f"{paged8_stats['ms_per_step']:.2f} ms in this run", flush=True)
     w8 = w8a8_prefill_split(results, seven_b().num_layers, paged8_stats)
     ch = chunk_split(results, seven_b().num_layers, spec_stats)
     print(f"serve-paged-int8: w8a8 prefill {w8['prefill_ms']:.2f} ms per prefill forward "

@@ -7,11 +7,14 @@
 // (_i8_direct_kernel) and ::_qmm_pallas_w8a8 (_w8a8_fwd_kernel).  Above 16
 // rows the NF4 entry is reached only where ops/qmatmul.py: w8a8_tile_plan
 // refuses the shape (K % 32 != 0) and as the "before" that chip_smoke.py
-// times beside qmm_nf4_w8a8_wgmma.cu, which takes those rows.  The direct
+// times beside qmm_nf4_w8a8_wgmma.cu, which takes those rows; at 16 rows or
+// fewer only where ops/qmatmul.py: nf4_w8a8_decode_plan refuses the shape (K
+// % 64, N % 16 or the block size % 32 not 0) and as the "before" of
+// qmm_nf4_w8a8_decode.cu, which takes those rows.  The direct
 // (per-column) entry is the "before" of qmm_i8_direct_decode.cu at 16 rows
 // or fewer, which it times through this C entry: it keeps more rows and the
 // shapes ops/qmatmul.py: i8_direct_decode_plan refuses (K % 32 != 0, N % 16
-// != 0), and the NF4 entry keeps 16 rows or fewer.  As there, the
+// != 0).  As there, the
 // rows of x are quantized to int8 before the kernel (xs = max|x| / 127,
 // x8 = round(x / xs)) and the per-column scales are made before it
 // (s_out = col / 127; for NF4, ratio = absmax * (127 / col) with col the

@@ -4,10 +4,10 @@
 //
 // Replaces the TPU kernel qlora_tpu/ops/qmatmul.py::_qmm_pallas_w8a8 (body
 // _w8a8_fwd_kernel, pallas_call at qmatmul.py:270) above 16 rows.  Fewer
-// rows, and shapes its plan refuses (ops/qmatmul.py: w8a8_tile_plan: K % 32,
-// N % 8 or the block size % 8 not 0; no model linear), stay on
-// qmm_i8_direct.cu's NF4 path, which this kernel replaced at these rows and
-// which stays beside it as the "before".
+// rows run qmm_nf4_w8a8_decode.cu; shapes its plan refuses (ops/qmatmul.py:
+// w8a8_tile_plan: K % 32, N % 8 or the block size % 8 not 0; no model
+// linear) stay on qmm_i8_direct.cu's NF4 path, which this kernel replaced at
+// these rows and which stays beside it as the "before".
 //
 // The function is qmm_i8_direct.cu's: rows of x quantized to int8 before the
 // kernel (x8, xs), per-column scales made before it (ratio f32 [K/B, N] =

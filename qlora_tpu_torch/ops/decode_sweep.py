@@ -1,12 +1,13 @@
 """Ablations of the decode-step kernels on the card: the NF4 decode kernel
 (``csrc/qmm_nf4_decode.cu``), the int8 decode kernel
 (``csrc/qmm_i8_decode.cu``), the direct int8 (w8a8) decode kernel
-(``csrc/qmm_i8_direct_decode.cu``) and split-KV decode attention
+(``csrc/qmm_i8_direct_decode.cu``), the w8a8 decode kernel over NF4
+(``csrc/qmm_nf4_w8a8_decode.cu``) and split-KV decode attention
 (``csrc/decode_attention_split.cu``).
 
 Run on a machine with an H100 and ``nvcc``, from the root of a checkout:
 
-    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | w8a8 | attention | paged]
+    python -m qlora_tpu_torch.ops.decode_sweep [nf4 | int8 | w8a8 | nf4w8a8 | attention | paged]
 
 Each variant is a kernel's source with one part taken out or one constant
 changed, compiled into ``build/sweep/``.  The qmm variants run the real
@@ -18,7 +19,15 @@ built, with no products, with loads only (no transposes, no products), with
 the rows quantized outside the kernel (its x8 and xs given: what the wrapper
 did before) and on plans of 1 to 3 blocks per SM, on the block linears and
 the padded lm_head at M = 4 and 8, beside ``qmm_i8_direct.cu`` (rows
-quantized beforehand) and ``torch._int_mm`` with the epilogue.
+quantized beforehand) and ``torch._int_mm`` with the epilogue.  The w8a8
+kernel over NF4 runs as built, with no products, with no decode (the packed
+words go to the products as they are), with loads only (no transposes, no
+decode, no products), with the rows quantized outside the kernel, with its
+registers bounded for 2 or 4 blocks an SM (3 as built), each of these three
+also on plans of about 1 and 3 blocks an SM and of 2 to 4 rounded down, on
+the block linears (double quant) at M = 4, 8 and 16, beside ``qmm_i8_direct.cu``'s
+NF4 entry (rows quantized and scales made beforehand), the exact NF4 decode
+kernel at the same rows and ``torch._int_mm`` on the decoded codes.
 Attention runs chip_smoke.py's timed shapes and its long case, as built, cut
 and on plans of other keys per split (also an argument); the paged split-KV
 kernel (``csrc/paged_attention_split.cu``) likewise at chip_smoke.py's chunk
@@ -87,6 +96,28 @@ W8A8_VARIANTS = {
 W8A8_BLOCKS_PER_SM = (1, 2, 3)              # the plan's; as built takes 2
 W8A8_SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32768))
 W8A8_ROWS = (4, 8)                          # serve-int8's decode step, serve-paged-int8's
+# the w8a8 decode kernel over NF4: its two planes' products, its decode of a
+# word of packed bytes to one plane's codes, and the transposes
+_N_MMA = [(f"for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][i], a{p}, b{p}[mt][0], b{p}[mt][1]);",
+           f"for (int mt = 0; mt < MT; ++mt) acc[mt][i][0] += "
+           f"(int)((a{p}[0] ^ a{p}[1] ^ a{p}[2] ^ a{p}[3] ^ b{p}[mt][0] ^ b{p}[mt][1]) & 0xff);")
+          for p in ("l", "h")]
+_N_DECODE = ("  const uint32_t o = HI ? offs_hi(w) : offs_lo(w);\n"
+             "  return pack4(code8(tab, byte_at(o, 0), ratio), code8(tab, byte_at(o, 1), ratio),\n"
+             "               code8(tab, byte_at(o, 2), ratio), code8(tab, byte_at(o, 3), ratio));",
+             "  return (HI ? w >> 4 : w) ^ __float_as_uint(ratio);")
+NF4_W8A8_VARIANTS = {
+    "as built": [],
+    "no products": _N_MMA,                  # streamed, transposed and decoded, not multiplied
+    "no decode": [_N_DECODE],               # the packed words multiplied as they are
+    "loads only": [_W_TRANSPOSE, _N_DECODE] + _N_MMA,   # the bytes streamed, little else
+    # registers bounded for 2 or 4 blocks an SM (3 as built)
+    **{f"{n} blocks an SM": [("__global__ void __launch_bounds__(WARPS * 32, 3)",
+                              f"__global__ void __launch_bounds__(WARPS * 32, {n})")]
+       for n in (2, 4)},
+}
+NF4_W8A8_ROWS = (4, 8, 16)                  # generate()'s batch, serve-paged's 8 slots, 16
+NF4_W8A8_BLOCKS_PER_SM = (1, 2, 3)          # the as-built kernel on these plans; the plan takes 2
 # split-KV attention: the products, the softmax, and the ring
 _A_QK = ("        mma_bf16(s[0], a, bk[0], bk[1]);\n        mma_bf16(s[1], a, bk[2], bk[3]);",
          "        s[0][0] += __uint_as_float((a[0] ^ bk[0]) & 0x3effffff);\n"
@@ -138,7 +169,7 @@ PAGED_SHAPES = (  # B, C, H, KVH, hd, page, pps, lengths, window, evicted: chip_
 SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096))
 ROWS = (4, 16)
 L2_BYTES = 50 * 2 ** 20
-SETS = ("nf4", "int8", "w8a8", "attention", "paged")
+SETS = ("nf4", "int8", "w8a8", "nf4w8a8", "attention", "paged")
 
 
 def build(source: str, variants: dict, entry: str, argtypes) -> dict:
@@ -300,6 +331,75 @@ def w8a8_sweep(dev, g, sms: int) -> None:
                   + ", ".join(line), flush=True)
 
 
+def nf4_w8a8_sweep(dev, g, sms: int) -> None:
+    """The w8a8 decode kernel over NF4's variants at the block linears x
+    NF4_W8A8_ROWS, beside qmm_i8_direct.cu's NF4 entry, the exact NF4 decode
+    kernel and torch._int_mm."""
+    import torch
+
+    from qlora_tpu_torch.quant import quantize
+
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = build("qmm_nf4_w8a8_decode.cu", NF4_W8A8_VARIANTS, "qmm_nf4_w8a8_decode",
+                [P] * 9 + [I] * 8 + [P])
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for K, N in SHAPES[1:]:
+        qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
+        copies = copies_past_l2(qt)
+        _, _, scale, offset = qm._check_quantized(qt, qt.device)
+        code = qm._code_on(qt.quant_type, qt.device)
+        ratio, s_out = qm.w8a8_scales(qt)
+        w8 = qm.w8a8_codes(qt, ratio)
+        w8s = [w8] + [w8.clone() for _ in range(max(1, -(-2 * L2_BYTES // w8.nbytes)) - 1)]
+        plan = qm.nf4_w8a8_decode_plan(K, N, qt.block_size, sms)
+        # other splits: about 1 and 3 blocks an SM, and 2 an SM rounded down (one
+        # wave of two-block SMs)
+        plans = {}
+        for per_sm, up in [(n, True) for n in NF4_W8A8_BLOCKS_PER_SM] + [(n, False)
+                                                                        for n in (2, 3, 4)]:
+            want = -(-per_sm * sms // plan.strips) if up else per_sm * sms // plan.strips
+            splits = max(1, min(K // 64, 16, want))
+            if splits != plan.splits and -(-(K // 64) // splits) * 32 <= 2048:
+                plans[f" ({splits} splits, {plan.strips * splits} blocks)"] = splits
+        for M in NF4_W8A8_ROWS:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            x8, xs = qm.quantize_rows(x)
+            xs1 = xs.reshape(-1).contiguous()
+            y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+            runs = [(name, fn, 0, plan.splits) for name, fn in fns.items()]
+            runs.append(("rows quantized outside", fns["as built"], 1, plan.splits))
+            runs += [(f"{name}{tag}", fns[name], 0, sp) for tag, sp in plans.items()
+                     for name in ("as built", "2 blocks an SM", "4 blocks an SM")]
+            line = []
+            for name, fn, given, splits in runs:
+                def launch(i, fn=fn, given=given, splits=splits):
+                    q = copies[i % len(copies)]
+                    err = fn(x.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(),
+                             scale.data_ptr(), offset.data_ptr(), code.data_ptr(), y.data_ptr(),
+                             x8.data_ptr() if given else None, xs1.data_ptr() if given else None,
+                             M, K, N, qt.block_size, 1, splits, given, 0, stream())
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError_t {err}")
+                line.append(f"{name} {graph_ms(launch):.4f}")
+            before = graph_ms(lambda i: qm._launch_w8a8(
+                "qmm_nf4_w8a8", x8, copies[i % len(copies)], ratio, s_out, xs), 20)
+            exact = graph_ms(lambda i: qm._decode_launch(x, copies[i % len(copies)], scale,
+                                                         offset))
+            xp = torch.nn.functional.pad(x8, (0, 0, 0, (-M) % 32))
+
+            def int_mm(i):
+                acc = torch._int_mm(xp, w8s[i % len(w8s)])[:M]
+                return (acc.float() * s_out[None, :]).to(torch.bfloat16) * xs.to(torch.bfloat16)
+
+            line.append(f"qmm_i8_direct.cu NF4 entry (before) {before:.4f}")
+            line.append(f"exact NF4 decode kernel {exact:.4f}")
+            line.append(f"torch._int_mm {graph_ms(int_mm):.4f}")
+            print(f"decode_sweep nf4w8a8 K={K} N={N} M={M} splits={plan.splits} "
+                  f"strips={plan.strips} (ms): "
+                  + ", ".join(line), flush=True)
+
+
 def attention_sweep(dev, g, sms: int) -> None:
     """Split-KV attention's variants and plans at ATTN_SHAPES, beside
     decode_attention.cu (the "before")."""
@@ -408,6 +508,8 @@ def main(sets) -> int:
             qmm_sweep(kind, dev, g, sms)
     if "w8a8" in sets:
         w8a8_sweep(dev, g, sms)
+    if "nf4w8a8" in sets:
+        nf4_w8a8_sweep(dev, g, sms)
     if "attention" in sets:
         attention_sweep(dev, g, sms)
     if "paged" in sets:

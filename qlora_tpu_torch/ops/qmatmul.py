@@ -37,9 +37,13 @@ Over per-column int8 storage up to ``DECODE_ROWS`` rows, wherever
 ``i8_direct_decode_plan`` accepts the shape (K % 32 and N % 16 both 0: every
 model linear and the padded lm_head), a split-K kernel on int8 mma.sync
 quantizes the rows itself (``csrc/qmm_i8_direct_decode.cu``,
-``decode_launches``); more rows, refused shapes and the NF4/FP4 w8a8 product
-up to ``DECODE_ROWS`` rows take ``quantize_rows`` and the tile kernel of
-``csrc/qmm_i8_direct.cu``, the decode kernel's "before".  Over NF4/FP4
+``decode_launches``); over NF4/FP4 storage up to ``DECODE_ROWS`` rows,
+wherever ``nf4_w8a8_decode_plan`` accepts the shape (K % 64, N % 16 and the
+block size % 32 all 0: every model linear), the same design decodes the
+nibbles to int8 codes in the stream and makes the per-column scales itself
+(``csrc/qmm_nf4_w8a8_decode.cu``, ``decode_launches``).  More rows and
+refused shapes take ``quantize_rows`` and the tile kernel of
+``csrc/qmm_i8_direct.cu``, the decode kernels' "before".  Over NF4/FP4
 storage above ``DECODE_ROWS`` rows (the w8a8 prefill), wherever
 ``w8a8_tile_plan`` accepts the shape
 (K % 32, N % 8 and the block size % 8 all 0: every model linear), the w8a8
@@ -681,7 +685,10 @@ def w8a8_scales(qt: QuantizedTensor):
     am = absmax_f32(qt)
     col = am.amax(dim=0)
     col = torch.where(col == 0, torch.ones_like(col), col)
-    return (am * (127.0 / col)[None, :]).contiguous(), col / 127.0
+    # 127 / col as a tensor divided by a tensor: a true division, as JAX's
+    # (a Python scalar over a tensor would be col.reciprocal() * 127)
+    inv = torch.full_like(col, 127.0) / col
+    return (am * inv[None, :]).contiguous(), col / 127.0
 
 
 def w8a8_codes(qt: QuantizedTensor, ratio: torch.Tensor) -> torch.Tensor:
@@ -799,21 +806,95 @@ def _i8_direct_decode_launch(x: torch.Tensor, qt: QuantizedTensor, plan: I8Direc
         col = qt.absmax if not qt.double_quant else absmax_f32(qt)
         col = _aligned(col.reshape(-1).to(torch.float32))
     y = torch.empty((M, N), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
-    given = isinstance(rows, tuple)
-    if given:
-        x8 = _aligned(rows[0].to(dev, torch.int8))
-        xs = rows[1].to(dev, torch.float32).reshape(-1).contiguous()
-    elif rows == "out":
-        x8 = torch.empty((M, K), dtype=torch.int8, device=dev)
-        xs = torch.empty((M,), dtype=torch.float32, device=dev)
-    else:
-        x8 = xs = None
+    given, x8, xs = _row_buffers(rows, M, K, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = _build.kernel("qmm_i8_direct_decode", "qmm_i8_direct_decode",
                        [_P] * 6 + [_I] * 5 + [_P])
     err = fn(x.data_ptr(), qt.packed.data_ptr(), ptr(col), y.data_ptr(), ptr(x8), ptr(xs),
              M, K, N, plan.splits, int(given), _build.stream_ptr(x))
     _build.check(err, "qmm_i8_direct_decode")
+    return (y, x8, xs.reshape(M, 1)) if rows == "out" else y
+
+
+def _row_buffers(rows, M: int, K: int, dev) -> tuple:
+    """(given, x8, xs) for a decode kernel that quantizes its rows itself:
+    ``rows`` None: no buffers; "out": empty x8 int8 [M, K] and xs f32 [M]
+    for the kernel to write; a pair (x8, xs): those, for it to read."""
+    if isinstance(rows, tuple):
+        return (True, _aligned(rows[0].to(dev, torch.int8)),
+                rows[1].to(dev, torch.float32).reshape(-1).contiguous())
+    if rows == "out":
+        return (False, torch.empty((M, K), dtype=torch.int8, device=dev),
+                torch.empty((M,), dtype=torch.float32, device=dev))
+    return False, None, None
+
+
+# The w8a8 forward over NF4/FP4 storage at decode rows:
+# ``csrc/qmm_nf4_w8a8_decode.cu``, the direct decode kernel's design over
+# packed nibbles (a k-step of 32 packed rows, each byte two codes of one
+# column, one in each plane), the rows quantized and the per-column scales
+# made inside the kernel.  Its plan is an :class:`I8DirectDecodePlan` over
+# the K/2 packed rows.
+_NF4_W8A8_MAX_ROWS = 2048    # packed rows a split: its two runs of x are staged whole
+
+
+def nf4_w8a8_decode_plan(K: int, N: int, block_size: int, sms: int) -> I8DirectDecodePlan:
+    """The NF4 w8a8 decode kernel's split of a packed weight [K/2, N] on a
+    card of ``sms`` SMs, as :func:`i8_direct_decode_plan`'s over K/2 packed
+    rows (``split_rows(K // 2)`` gives each split's packed rows): about
+    ``_DECODE_BLOCKS_PER_SM`` blocks per SM, at most one cluster of splits
+    per strip, more splits where a split would pass 2048 packed rows (whose
+    two runs of x a block stages whole).  It depends on neither M nor the
+    rows' values.  It refuses, and ``qmm_i8_direct.cu`` keeps: K % 64 != 0
+    (whole k-steps of 32 packed rows), N % 16 != 0 (a lane streams 16
+    columns), block sizes that are no multiple of 32 (a k-step must lie in
+    one absmax block) and K past 16 splits of 2048 packed rows.  Every
+    LLaMA-7B block linear passes."""
+    if K <= 0 or N <= 0 or block_size <= 0 or K % (2 * block_size):
+        return I8DirectDecodePlan(False, f"no NF4 shape: K={K} N={N} block {block_size}")
+    if K % (2 * _I8_DIRECT_KSTEP):
+        return I8DirectDecodePlan(False, f"K={K} is no multiple of 64: a k-step is 32 packed "
+                                         "rows, one m16n8k32's depth in each plane; "
+                                         "qmm_i8_direct.cu keeps it")
+    if N % 16:
+        return I8DirectDecodePlan(False, f"N={N} is no multiple of 16: a lane streams 16 "
+                                         "columns; qmm_i8_direct.cu keeps it")
+    if block_size % _I8_DIRECT_KSTEP:
+        return I8DirectDecodePlan(False, f"block {block_size} is no multiple of 32: a k-step "
+                                         "of 32 packed rows must lie in one absmax block; "
+                                         "qmm_i8_direct.cu keeps it")
+    steps = K // 2 // _I8_DIRECT_KSTEP
+    strips = -(-N // _DECODE_COLS)
+    longest = -(-(K // 2) // _NF4_W8A8_MAX_ROWS)
+    splits = min(steps, _DECODE_MAX_SPLITS,
+                 max(-(-_DECODE_BLOCKS_PER_SM * sms // strips), longest))
+    if -(-steps // splits) * _I8_DIRECT_KSTEP > _NF4_W8A8_MAX_ROWS:
+        return I8DirectDecodePlan(False, f"K={K}: 16 splits of at most 2048 packed rows cannot "
+                                         "cover it; qmm_i8_direct.cu keeps it")
+    return I8DirectDecodePlan(True, "", splits, strips)
+
+
+def _nf4_w8a8_decode_launch(x: torch.Tensor, qt: QuantizedTensor, plan: I8DirectDecodePlan,
+                            raw: bool = False, rows=None):
+    """Launch ``qmm_nf4_w8a8_decode`` on x [M <= 16, K] bf16 on the card over
+    NF4/FP4 storage (checked here), on an accepted plan: y bf16 [M, N], or
+    with ``raw`` the int32 accumulators [M, N].  The kernel makes the
+    per-column scales from the stored absmax itself.  ``rows`` None: it
+    quantizes x's rows itself; "out": it also writes the x8 int8 [M, K] and
+    xs f32 [M, 1] it made, and the call returns (y, x8, xs); a pair (x8,
+    xs): it multiplies those instead of quantizing x."""
+    K, N, scale, offset = _check_quantized(qt, x.device)
+    x = _aligned(x.to(torch.bfloat16))
+    M, dev = x.shape[0], x.device
+    y = torch.empty((M, N), dtype=torch.int32 if raw else torch.bfloat16, device=dev)
+    given, x8, xs = _row_buffers(rows, M, K, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.kernel("qmm_nf4_w8a8_decode", "qmm_nf4_w8a8_decode", [_P] * 9 + [_I] * 8 + [_P])
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(), ptr(scale), ptr(offset),
+             _code_on(qt.quant_type, dev).data_ptr(), y.data_ptr(), ptr(x8), ptr(xs),
+             M, K, N, qt.block_size, int(qt.double_quant), plan.splits, int(given), int(raw),
+             _build.stream_ptr(x))
+    _build.check(err, "qmm_nf4_w8a8_decode")
     return (y, x8, xs.reshape(M, 1)) if rows == "out" else y
 
 
@@ -923,12 +1004,18 @@ def _w8a8_accumulators(x8: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def _i8_direct_decode_plan_on(x: torch.Tensor, qt: QuantizedTensor):
-    """The direct decode kernel's plan for x's rows, or None where they stay
-    on ``qmm_i8_direct.cu``: no rows, more than ``DECODE_ROWS``, or a shape
-    :func:`i8_direct_decode_plan` refuses."""
+    """The decode kernel's plan for x's rows over qt's storage (per-column
+    int8: :func:`i8_direct_decode_plan`; NF4/FP4:
+    :func:`nf4_w8a8_decode_plan`), or None where they stay on
+    ``qmm_i8_direct.cu``: no rows, more than ``DECODE_ROWS``, or a shape the
+    plan refuses."""
     if not 0 < x.shape[0] <= DECODE_ROWS:
         return None
-    plan = _plan_on(i8_direct_decode_plan, x.device, logical_k(qt), qt.packed.shape[-1])
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    if qt.quant_type == "int8":
+        plan = _plan_on(i8_direct_decode_plan, x.device, K, N)
+    else:
+        plan = _plan_on(nf4_w8a8_decode_plan, x.device, K, N, qt.block_size)
     return plan if plan.accepted else None
 
 
@@ -942,6 +1029,17 @@ def _i8_direct_decode_outputs(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
         raise ValueError(f"qmm_i8_direct_decode does not take x {tuple(x.shape)} @ "
                          f"{tuple(qt.packed.shape)}")
     return _i8_direct_decode_launch(x, qt, plan, raw=True, rows="out")
+
+
+def _nf4_w8a8_decode_outputs(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
+    """For the checks only: (int32 accumulators [M, N], x8 int8 [M, K], xs f32
+    [M, 1]) as the NF4 w8a8 decode kernel makes them from x [M <= 16, K] on
+    the card.  No launch is counted."""
+    plan = _i8_direct_decode_plan_on(x, qt)
+    if qt.quant_type == "int8" or plan is None:
+        raise ValueError(f"qmm_nf4_w8a8_decode does not take x {tuple(x.shape)} @ "
+                         f"{qt.quant_type} {tuple(qt.packed.shape)} block {qt.block_size}")
+    return _nf4_w8a8_decode_launch(x, qt, plan, raw=True, rows="out")
 
 
 def qmm_i8_direct(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -970,28 +1068,38 @@ def qmm_i8_direct(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 def qmm_nf4_w8a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The w8a8 kernel over NF4/FP4 storage (TPU _qmm_pallas_w8a8): each
     nibble decoded in the kernel to ``round(code * absmax * 127 / col)``
-    int8, then as :func:`qmm_i8_direct`.  Double quant is undone before the
-    kernel, where the per-column scales are made.  Above ``DECODE_ROWS``
-    rows, where ``w8a8_tile_plan`` accepts the shape, the int8 wgmma kernel
-    (counted in ``wgmma_launches``); else ``qmm_i8_direct.cu``."""
+    int8, then as :func:`qmm_i8_direct`.  Up to ``DECODE_ROWS`` rows, where
+    ``nf4_w8a8_decode_plan`` accepts the shape, ``qmm_nf4_w8a8_decode.cu``
+    quantizes the rows and makes the per-column scales itself, from the
+    stored absmax (counted in ``decode_launches``).  Otherwise the rows are
+    quantized and the scales made (double quant undone) by PyTorch ops before
+    the kernel: above ``DECODE_ROWS`` rows, where ``w8a8_tile_plan`` accepts
+    the shape, the int8 wgmma kernel (``wgmma_launches``); else
+    ``qmm_i8_direct.cu``."""
     if qt.quant_type == "int8":
         raise ValueError("qmm_nf4_w8a8 reads NF4/FP4 storage")
     _check_rows(x, logical_k(qt), "x")
-    x8, xs = quantize_rows(x)
-    ratio, s_out = w8a8_scales(qt)
-    entry, plan = _w8a8_nf4_entry(x8, qt)
-    y = _launch_w8a8(entry, x8, qt, ratio, s_out, xs, plan)
+    decode = _i8_direct_decode_plan_on(x, qt)
+    plan = None
+    if decode is not None:
+        y = _nf4_w8a8_decode_launch(x, qt, decode)
+    else:
+        x8, xs = quantize_rows(x)
+        ratio, s_out = w8a8_scales(qt)
+        entry, plan = _w8a8_nf4_entry(x8, qt)
+        y = _launch_w8a8(entry, x8, qt, ratio, s_out, xs, plan)
     qmm_nf4_w8a8.launches += x.shape[0] > 0
+    qmm_nf4_w8a8.decode_launches += decode is not None
     qmm_nf4_w8a8.wgmma_launches += plan is not None
     return y
 
 
-# launches: every call that ran a kernel; decode_launches (qmm_i8_direct):
-# those of them that took qmm_i8_direct_decode.cu; wgmma_launches
-# (qmm_nf4_w8a8): those that took qmm_nf4_w8a8_wgmma.cu (the rest of both
-# took qmm_i8_direct.cu)
+# launches: every call that ran a kernel; decode_launches: those of them that
+# took qmm_i8_direct_decode.cu (qmm_i8_direct) or qmm_nf4_w8a8_decode.cu
+# (qmm_nf4_w8a8); wgmma_launches (qmm_nf4_w8a8): those that took
+# qmm_nf4_w8a8_wgmma.cu (the rest of both took qmm_i8_direct.cu)
 qmm_i8_direct.launches = qmm_i8_direct.decode_launches = 0
-qmm_nf4_w8a8.launches = qmm_nf4_w8a8.wgmma_launches = 0
+qmm_nf4_w8a8.launches = qmm_nf4_w8a8.decode_launches = qmm_nf4_w8a8.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,7 @@ decoded codes.
 One line per shape, direction and kernel; nothing here is used by the port.
 
 ``python -m qlora_tpu_torch.ops.tile_sweep --mutants [nf4 | int8 | nf4bwd | flash |
-i8decode | attention | w8a8 | paged | i8direct]`` instead
+i8decode | attention | w8a8 | paged | i8direct | nf4w8a8]`` instead
 copies the checkout once per mutant of a wgmma kernel into
 ``build/mutants/``, runs that kernel's ``cuda`` tests in each copy and
 prints how many fail: each mutant must fail at least one.  NF4: the high
@@ -86,7 +86,10 @@ proxy fence taken out.  The verify chunk's split-KV attention
 late, row c's window edge taken from row 0, a key row read from the previous
 page, the splits' rescale dropped.  The direct int8 decode kernel
 (``qmm_i8_direct_decode.cu``): a split boundary one k-step off, a row's
-largest |x| taken from its own split only (no cluster maximum).
+largest |x| taken from its own split only (no cluster maximum).  The w8a8
+decode kernel over NF4 (``qmm_nf4_w8a8_decode.cu``): a column's largest
+absmax taken from its own split only, the high plane reading the low
+plane's absmax row, a split boundary one k-step off.
 """
 
 from __future__ import annotations
@@ -374,6 +377,20 @@ I8_DIRECT_MUTANTS = {
          "      amax = pmax[tid];")],
 }
 I8_DIRECT_MUTANT_TESTS = "i8_direct"
+# the w8a8 forward over NF4 at decode rows (qmm_nf4_w8a8_decode.cu)
+NF4_W8A8_MUTANTS = {
+    "a column's max from its own split only": [
+        ("    float col = *cluster.map_shared_rank(pcol + tid, 0);\n"
+         "    for (int sp = 1; sp < splits; ++sp) col = fmaxf(col, *cluster.map_shared_rank(pcol + tid, sp));",
+         "    float col = pcol[tid];")],
+    "the high plane reads the low plane's absmax row": [
+        ("absmax_row<DQ>(am, absmax, scale, off, K2 / B + blk, c, N);",
+         "absmax_row<DQ>(am, absmax, scale, off, blk, c, N);")],
+    "a split boundary one k-step off": [
+        ("  const int s_hi = (int)((long long)(split + 1) * ksteps / splits);",
+         "  const int s_hi = (int)((long long)(split + 1) * ksteps / splits) - 1;")],
+}
+NF4_W8A8_MUTANT_TESTS = "nf4_w8a8_decode"
 # which source each set of mutants edits, and the cuda tests run against them
 MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "int8": ("qmm_i8_wgmma.cu", I8_MUTANTS, I8_MUTANT_TESTS),
@@ -384,7 +401,8 @@ MUTANT_SETS = {"nf4": ("qmm_nf4_wgmma.cu", MUTANTS, MUTANT_TESTS),
                "w8a8": ("qmm_nf4_w8a8_wgmma.cu", W8A8_MUTANTS, W8A8_MUTANT_TESTS),
                "paged": ("paged_attention_split.cu", PAGED_MUTANTS, PAGED_MUTANT_TESTS),
                "i8direct": ("qmm_i8_direct_decode.cu", I8_DIRECT_MUTANTS,
-                            I8_DIRECT_MUTANT_TESTS)}
+                            I8_DIRECT_MUTANT_TESTS),
+               "nf4w8a8": ("qmm_nf4_w8a8_decode.cu", NF4_W8A8_MUTANTS, NF4_W8A8_MUTANT_TESTS)}
 SETS = tuple(MUTANT_SETS)
 
 

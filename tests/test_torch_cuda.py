@@ -56,9 +56,14 @@ version's on the card, across two calls and with each row alone;
 
 The w8a8 forward over NF4 above DECODE_ROWS rows runs the int8 wgmma
 kernel of ``qmm_nf4_w8a8_wgmma.cu`` wherever ``w8a8_tile_plan`` accepts the
-shape (K % 32 == 0), ``qmm_i8_direct.cu`` below and elsewhere: both held bit
-for bit, accumulators and outputs, and the wgmma kernel across two calls and
-batch rows.
+shape (K % 32 == 0); up to DECODE_ROWS rows the split-K kernel of
+``qmm_nf4_w8a8_decode.cu`` wherever ``nf4_w8a8_decode_plan`` accepts it (K %
+64, N % 16 and the block size % 32 all 0), which quantizes the rows and
+makes the per-column scales itself: its x8, xs, int32 accumulators and bf16
+output are held bit for bit to the plain version's on the card, across two
+calls and with each row alone; ``qmm_i8_direct.cu`` keeps the rest.  All
+held bit for bit, accumulators and outputs, and the wgmma kernel across two
+calls and batch rows.
 
 The paged kernels have the decode kernel's arithmetic over a page table:
 each output element within 2e-2 of its (row, head)'s largest |output|, the
@@ -90,6 +95,7 @@ from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
 from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
 from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators, i8_tile_plan
 from qlora_tpu_torch.ops.qmatmul import _i8_direct_decode_outputs, i8_direct_decode_plan
+from qlora_tpu_torch.ops.qmatmul import _nf4_w8a8_decode_outputs, nf4_w8a8_decode_plan
 from qlora_tpu_torch.ops.qmatmul import w8a8_tile_plan
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 from qlora_tpu_torch.quant import dequantize
@@ -832,12 +838,16 @@ def test_nf4_w8a8_kernel_equals_plain(cuda, M, K, N, block_size, quant_type, dq)
     qt = quantize(w, block_size=block_size, quant_type=quant_type, double_quant=dq)
     x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
     before, wgmma = qmm_nf4_w8a8.launches, qmm_nf4_w8a8.wgmma_launches
+    decode = qmm_nf4_w8a8.decode_launches
     with default_impl("w8a8"):
         y = qmatmul(x, qt)
     assert qmm_nf4_w8a8.launches == before + 1
     took = w8a8_tile_plan(M, K, N, block_size).accepted
     assert took == (M > DECODE_ROWS and K % 32 == 0 and N % 8 == 0 and block_size % 8 == 0)
     assert qmm_nf4_w8a8.wgmma_launches == wgmma + took
+    # up to DECODE_ROWS rows of an accepted shape: qmm_nf4_w8a8_decode.cu
+    took = M <= DECODE_ROWS and nf4_w8a8_decode_plan(K, N, block_size, 132).accepted
+    assert qmm_nf4_w8a8.decode_launches == decode + took
     x8, _ = quantize_rows(x)
     w8 = w8a8_codes(qt, w8a8_scales(qt)[0])
     assert torch.equal(_w8a8_accumulators(x8, qt), int8_matmul_plain(x8, w8).to(torch.int32))
@@ -851,7 +861,8 @@ def test_nf4_w8a8_wgmma_deterministic_and_batch_invariant(cuda, M, K, N, block_s
                                                           quant_type, dq):
     """The w8a8 wgmma kernel bit for bit across two calls, and rows in other
     batches (sub-batches of at least 17 rows, which it takes too, and a row
-    alone, which qmm_i8_direct.cu takes) equal to their rows of the batch."""
+    alone, which the decode kernel or qmm_i8_direct.cu takes) equal to their
+    rows of the batch."""
     gen = torch.Generator(device=cuda).manual_seed(M * K + N)
     qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5,
                   block_size=block_size, quant_type=quant_type, double_quant=dq)
@@ -863,19 +874,151 @@ def test_nf4_w8a8_wgmma_deterministic_and_batch_invariant(cuda, M, K, N, block_s
 
 
 def test_nf4_w8a8_dispatch_edge(cuda):
-    """16 rows stay on qmm_i8_direct.cu, 17 take the wgmma kernel; K = 200
-    (K % 32 != 0), N = 36 and blocks of 4 stay on qmm_i8_direct.cu at any
-    row count; every call equals its plain version."""
+    """16 rows take the decode kernel, 17 the wgmma kernel; K = 200 (K % 32
+    != 0), N = 36 and blocks of 4 stay on qmm_i8_direct.cu at any row count;
+    every call equals its plain version."""
     gen = torch.Generator(device=cuda).manual_seed(12)
-    for M, K, N, B, wgmma in ((16, 4096, 256, 64, 0), (17, 4096, 256, 64, 1),
-                              (300, 200, 64, 4, 0), (17, 224, 64, 8, 1), (40, 256, 36, 8, 0),
-                              (40, 256, 64, 4, 0)):
+    for M, K, N, B, wgmma, decode in ((16, 4096, 256, 64, 0, 1), (17, 4096, 256, 64, 1, 0),
+                                      (300, 200, 64, 4, 0, 0), (17, 224, 64, 8, 1, 0),
+                                      (40, 256, 36, 8, 0, 0), (40, 256, 64, 4, 0, 0),
+                                      (4, 200, 64, 4, 0, 0)):
         qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5, block_size=B)
         x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
-        before = qmm_nf4_w8a8.wgmma_launches
+        before = (qmm_nf4_w8a8.wgmma_launches, qmm_nf4_w8a8.decode_launches)
         y = qmm_nf4_w8a8(x, qt)
-        assert qmm_nf4_w8a8.wgmma_launches == before + wgmma, (M, K)
+        assert (qmm_nf4_w8a8.wgmma_launches, qmm_nf4_w8a8.decode_launches) == (
+            before[0] + wgmma, before[1] + decode), (M, K)
         assert torch.equal(y, qmm_nf4_w8a8_plain(x, qt))
+
+
+# qmm_nf4_w8a8_decode.cu: the LLaMA-7B linears (double quant), f32 absmax and
+# FP4 at 7B width, blocks of 32 and 128, a ragged strip (N = 144), one k-step
+# (K = 64), 16 splits of up to 2016 packed rows (K = 64 * 1000); then shapes it
+# refuses, which stay on qmm_i8_direct.cu (N % 16, block size % 32, K % 64)
+NF4_W8A8_DECODE_CASES = [(4096, 4096, 64, "nf4", True), (4096, 11008, 64, "nf4", True),
+                         (11008, 4096, 64, "nf4", True), (4096, 4096, 64, "nf4", False),
+                         (11008, 4096, 64, "fp4", True), (512, 144, 32, "fp4", False),
+                         (1024, 256, 128, "nf4", True), (64, 16, 32, "nf4", False),
+                         (64 * 1000, 32, 64, "nf4", True)]
+_NF4_W8A8_QT: dict = {}
+
+
+def _nf4_w8a8_qt(cuda, K, N, B, quant_type, dq):
+    """A weight of [K, N] (one per case, made once) with a zero column and a
+    column whose largest absmax lies in the high plane's last block."""
+    key = (K, N, B, quant_type, dq)
+    if key not in _NF4_W8A8_QT:
+        gen = torch.Generator(device=cuda).manual_seed(K + N + B + dq)
+        w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+        w[:, N // 2] = 0
+        w[K - 3, 1] = 4.0
+        _NF4_W8A8_QT.clear()
+        _NF4_W8A8_QT[key] = quantize(w, block_size=B, quant_type=quant_type, double_quant=dq)
+    return _NF4_W8A8_QT[key]
+
+
+@pytest.mark.parametrize("K,N,B,quant_type,dq", NF4_W8A8_DECODE_CASES)
+def test_nf4_w8a8_decode_kernel_equals_plain(cuda, K, N, B, quant_type, dq):
+    """At 1 to 16 rows the decode kernel took the call, and its x8 and xs
+    equal ``quantize_rows``' on the card, its int32 accumulators the exact
+    integer product with ``w8a8_codes`` (and qmm_i8_direct.cu's, the
+    "before") and its bf16 output ``qmm_nf4_w8a8_plain``'s, bit for bit; a
+    row whose largest |x| lies in the high plane, a zero row and a zero
+    column included."""
+    qt = _nf4_w8a8_qt(cuda, K, N, B, quant_type, dq)
+    w8 = w8a8_codes(qt, w8a8_scales(qt)[0])
+    gen = torch.Generator(device=cuda).manual_seed(K * 3 + N)
+    for M in range(1, DECODE_ROWS + 1):
+        x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+        x[0, K // 2 + K // 3:] *= 50                   # row 0's max in the high plane
+        if M > 2:
+            x[M - 1] = 0
+        n = qmm_nf4_w8a8.decode_launches
+        y = qmm_nf4_w8a8(x, qt)
+        assert qmm_nf4_w8a8.decode_launches == n + 1
+        acc, x8, xs = _nf4_w8a8_decode_outputs(x, qt)
+        rx8, rxs = quantize_rows(x)
+        assert torch.equal(x8, rx8) and torch.equal(xs, rxs), M
+        assert torch.equal(acc, int8_matmul_plain(rx8, w8).to(torch.int32)), M
+        if M in (1, 9, 16):
+            assert torch.equal(_w8a8_accumulators(rx8, qt), acc), M
+        assert torch.equal(y, qmm_nf4_w8a8_plain(x, qt)), M
+        assert (y[:, N // 2] == 0).all() and (M <= 2 or (y[M - 1] == 0).all())
+
+
+@pytest.mark.parametrize("K,N,M", [(4096, 4096, 16), (11008, 4096, 5), (4096, 11008, 8),
+                                   (512, 144, 9)])
+def test_nf4_w8a8_decode_deterministic_and_batch_invariant(cuda, K, N, M):
+    """The decode kernel bit for bit across two calls, with each row alone
+    and with the rows in other batches (8 and 9 rows: one and two B tiles);
+    the rows of another run's codes (``given``) give that run's output."""
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    qt = _nf4_w8a8_qt(cuda, K, N, 32 if K == 512 else 64, "nf4", True)
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    y = qmm_nf4_w8a8(x, qt)
+    assert torch.equal(qmm_nf4_w8a8(x, qt), y)
+    for m in range(M):
+        assert torch.equal(qmm_nf4_w8a8(x[m:m + 1], qt), y[m:m + 1]), m
+    for a, b in ((0, min(M, 9)), (max(0, M - 8), M)):
+        assert torch.equal(qmm_nf4_w8a8(x[a:b], qt), y[a:b]), (a, b)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = nf4_w8a8_decode_plan(K, N, qt.block_size, sms)
+    x8, xs = quantize_rows(x)
+    assert torch.equal(qm._nf4_w8a8_decode_launch(torch.zeros_like(x), qt, plan,
+                                                  rows=(x8, xs)), y)
+
+
+def test_nf4_w8a8_decode_dispatch_edge(cuda):
+    """1 and 16 rows take the decode kernel at every LLaMA-7B linear's shape,
+    17 the wgmma kernel; N % 16 != 0, blocks of 16 and K % 64 != 0 stay on
+    qmm_i8_direct.cu; every call equals its plain version bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    for M, K, N, B, decode in ((16, 4096, 256, 64, 1), (17, 4096, 256, 64, 0),
+                               (1, 11008, 128, 64, 1), (4, 256, 72, 64, 0),
+                               (4, 4096, 64, 16, 0), (4, 224, 64, 16, 0), (16, 64, 16, 32, 1)):
+        qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5, block_size=B)
+        x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+        n = (qmm_nf4_w8a8.launches, qmm_nf4_w8a8.decode_launches)
+        y = qmm_nf4_w8a8(x, qt)
+        assert (qmm_nf4_w8a8.launches, qmm_nf4_w8a8.decode_launches) == (n[0] + 1,
+                                                                         n[1] + decode)
+        assert torch.equal(y, qmm_nf4_w8a8_plain(x, qt)), (M, K, N, B)
+    with pytest.raises(ValueError, match="does not take"):
+        _nf4_w8a8_decode_outputs(torch.zeros(17, 256, device=cuda), quantize(
+            torch.randn(256, 64, device=cuda)))
+
+
+def test_debug_model_nf4_w8a8_decode_card_matches_cpu(cuda):
+    """``PagedBatcher(decode_impl="w8a8")`` on the card takes every decode
+    forward's 7 block linears a layer on the decode kernel; one decode step
+    of the debug model under ``default_impl("w8a8")``, teacher-forced, gives
+    the CPU's plain path's logits within atol 0.2 (as the int8 decode step)."""
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+    from qlora_tpu_torch.models import init_cache
+
+    cfg = get_config("debug")
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = move_to(p_cpu, cuda)
+    pb = PagedBatcher(p_gpu, None, cfg, num_slots=2, n_pages=32, page_size=8,
+                      max_pages_per_seq=8, prefill_buckets=(16,), eos_id=-1, decode_impl="w8a8")
+    n0 = (qmm_nf4_w8a8.launches, qmm_nf4_w8a8.decode_launches)
+    reqs = [pb.submit(p, max_new_tokens=n) for p, n in (([3, 17, 5, 9], 6), ([4, 7], 5))]
+    pb.run_to_completion()
+    assert [len(r.generated) for r in reqs] == [6, 5]
+    grown = qmm_nf4_w8a8.launches - n0[0]              # the decode forwards (prefill: exact)
+    assert grown > 0 and grown % (7 * cfg.num_layers) == 0
+    assert qmm_nf4_w8a8.decode_launches - n0[1] == grown
+    ids = torch.tensor([[3, 17, 5, 9], [4, 7, 0, 0]])
+    with torch.inference_mode():
+        c_cpu, c_gpu = init_cache(cfg, 2, 8, device="cpu"), init_cache(cfg, 2, 8, device=cuda)
+        _, c_cpu = forward(p_cpu, None, ids, cfg, cache=c_cpu)
+        _, c_gpu = forward(p_gpu, None, ids.to(cuda), cfg, cache=c_gpu)
+        tok = torch.tensor([[5], [9]])
+        with default_impl("w8a8"):
+            want, _ = forward(p_cpu, None, tok, cfg, cache=c_cpu)
+            got, _ = forward(p_gpu, None, tok.to(cuda), cfg, cache=c_gpu)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0.2)
 
 
 def test_w8a8_kernels_round_half_to_even(cuda):

@@ -133,3 +133,20 @@ def test_cuda_sources_cover_the_w8a8_decode_kernel():
     split = (csrc / "paged_attention_split.cu").read_text()
     assert "fused_paged_decode_attention" in split and "C >= 1" in split
     assert "_paged_decode_before" in (csrc / "paged_attention.cu").read_text()
+
+
+def test_cuda_sources_cover_the_nf4_w8a8_decode_kernel():
+    """The w8a8 forward over NF4 at decode rows has a source of its own,
+    scanned like the rest, with the C entry its wrapper calls and the TPU
+    function it replaces named; qmm_i8_direct.cu, whose NF4 entry it replaced
+    there, stays beside it and says it is that kernel's "before", and the
+    w8a8 prefill kernel names it for the rows below its own."""
+    csrc = ROOT / "qlora_tpu_torch" / "csrc"
+    path = csrc / "qmm_nf4_w8a8_decode.cu"
+    assert path in SOURCES and csrc / "qmm_i8_direct.cu" in SOURCES
+    text = path.read_text()
+    assert set(re.findall(r'extern "C" int (\w+)\(', text)) == {"qmm_nf4_w8a8_decode"}
+    assert "::_qmm_pallas_w8a8" in text and "qmm_i8_direct.cu" in text
+    assert "--use_fast_math" in text and "__fdiv_rn" in text    # the header says which division
+    assert "qmm_nf4_w8a8_decode.cu" in (csrc / "qmm_i8_direct.cu").read_text()
+    assert "qmm_nf4_w8a8_decode.cu" in (csrc / "qmm_nf4_w8a8_wgmma.cu").read_text()

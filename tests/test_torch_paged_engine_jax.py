@@ -1,7 +1,9 @@
 """The port's ``PagedBatcher`` against the JAX package's on the same weights
-(the ``debug`` config, JAX params carried across), in two configurations:
-optimistic admission over a pool that preempts, and speculative verify
-chunks of 4 drafts.
+(the ``debug`` config, JAX params carried across), in three configurations:
+optimistic admission over a pool that preempts, the same with
+``decode_impl="w8a8"`` (every decode step's linears on the int8 codes the
+w8a8 kernel decodes from the NF4 weights), and speculative verify chunks of
+4 drafts.
 
 Every request runs to its budget (no eos), so without speculation the
 schedule depends only on lengths: the engine steps, the preemptions and the
@@ -23,6 +25,7 @@ from qlora_tpu.models import init_params as jinit_params
 
 from qlora_tpu_torch.generate.paged import PagedBatcher
 from qlora_tpu_torch.models import forward, get_config
+from qlora_tpu_torch.ops import default_impl
 from test_torch_convert import bridge
 
 torch.set_num_threads(2)
@@ -52,23 +55,27 @@ def _both(traffic, **kw):
     return params, cfg, engines
 
 
-def _clear_prefix(params, cfg, prompt, generated):
-    """How many generated tokens precede the first near-tie."""
+def _clear_prefix(params, cfg, prompt, generated, impls=(None,)):
+    """How many generated tokens precede the first near-tie of the forward
+    under any of ``impls`` (None: exact; "w8a8": the w8a8 route)."""
     ids = torch.tensor([list(prompt) + list(generated)])
-    with torch.inference_mode():
-        logits = forward(params, None, ids, cfg)[0].float()
-    top2 = logits[0, len(prompt) - 1:-1].topk(2, dim=-1).values
-    ties = ((top2[:, 0] - top2[:, 1]) <= MARGIN).nonzero()
-    return int(ties[0]) if len(ties) else len(generated)
+    first = len(generated)
+    for impl in impls:
+        with torch.inference_mode(), default_impl(impl):
+            logits = forward(params, None, ids, cfg)[0].float()
+        top2 = logits[0, len(prompt) - 1:-1].topk(2, dim=-1).values
+        ties = ((top2[:, 0] - top2[:, 1]) <= MARGIN).nonzero()
+        first = min(first, int(ties[0]) if len(ties) else first)
+    return first
 
 
-def _compare_tokens(params, cfg, traffic, jreqs, reqs):
+def _compare_tokens(params, cfg, traffic, jreqs, reqs, impls=(None,)):
     """Tokens equal up to each request's first near-tie; True where no
     request met one."""
     clear = True
     for (prompt, n), jr, r in zip(traffic, jreqs, reqs):
         assert len(jr.generated) == len(r.generated) == n
-        upto = _clear_prefix(params, cfg, prompt, jr.generated)
+        upto = _clear_prefix(params, cfg, prompt, jr.generated, impls)
         assert r.generated[:upto] == jr.generated[:upto], (prompt, upto)
         clear &= upto == n
     return clear
@@ -81,6 +88,24 @@ def test_optimistic_admission_with_preemption_matches_jax_engine():
     want, got = _run(jpb), _run(pb)
     assert got == want and want[1] > 0          # steps, preemptions, log; it preempted
     _compare_tokens(params, cfg, traffic, jpb._test_reqs, pb._test_reqs)
+
+
+def test_w8a8_decode_with_preemption_matches_jax_engine():
+    """``decode_impl="w8a8"`` over the same preempting pool: the decode steps
+    run ``qmm_nf4_w8a8``'s plain version against the JAX engine's
+    ``_qmm_pallas_w8a8`` (interpret mode), the prefills exact NF4 on both.
+    Steps, preemptions and the log equal; tokens equal up to the first
+    near-tie of the exact or the w8a8 forward (seed 5's traffic: one request
+    has none, and 31 of its 112 tokens are compared; seed 21's has a near-tie
+    at every request's first token)."""
+    rng = np.random.default_rng(5)
+    traffic = [(rng.integers(1, 64, size=10).tolist(), 28) for _ in range(4)]
+    params, cfg, (jpb, pb) = _both(traffic, num_slots=4, n_pages=17, admission="optimistic",
+                                   decode_impl="w8a8")
+    want, got = _run(jpb), _run(pb)
+    assert got == want and want[1] > 0          # steps, preemptions, log; it preempted
+    _compare_tokens(params, cfg, traffic, jpb._test_reqs, pb._test_reqs, impls=(None, "w8a8"))
+    assert pb._test_reqs[0].generated == jpb._test_reqs[0].generated
 
 
 def test_speculative_chunks_match_jax_engine():

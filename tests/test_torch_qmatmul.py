@@ -247,7 +247,8 @@ def test_tile_sweep_edits_apply_to_the_sources():
                           ("qmm_nf4_w8a8_wgmma.cu", tile_sweep.W8A8),
                           ("qmm_nf4_w8a8_wgmma.cu", tile_sweep.W8A8_MUTANTS),
                           ("paged_attention_split.cu", tile_sweep.PAGED_MUTANTS),
-                          ("qmm_i8_direct_decode.cu", tile_sweep.I8_DIRECT_MUTANTS)):
+                          ("qmm_i8_direct_decode.cu", tile_sweep.I8_DIRECT_MUTANTS),
+                          ("qmm_nf4_w8a8_decode.cu", tile_sweep.NF4_W8A8_MUTANTS)):
         text = (tile_sweep.CSRC / source).read_text()
         for name, edits in table.items():
             for old, new in edits:
@@ -257,4 +258,5 @@ def test_tile_sweep_edits_apply_to_the_sources():
         "nf4": "qmm_nf4_wgmma.cu", "int8": "qmm_i8_wgmma.cu", "nf4bwd": "qmm_nf4_bwd_wgmma.cu",
         "flash": "flash_attention_wgmma.cu", "i8decode": "qmm_i8_decode.cu",
         "attention": "decode_attention_split.cu", "w8a8": "qmm_nf4_w8a8_wgmma.cu",
-        "paged": "paged_attention_split.cu", "i8direct": "qmm_i8_direct_decode.cu"}
+        "paged": "paged_attention_split.cu", "i8direct": "qmm_i8_direct_decode.cu",
+        "nf4w8a8": "qmm_nf4_w8a8_decode.cu"}
