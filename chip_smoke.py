@@ -32,7 +32,13 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``flash_attention.cu`` that it replaced (``tile_ms``, the "before", also
    held to FLASH_TOL), SDPA with the same mask as the yardstick, and, at the
    train shape with full lengths, SDPA with ``is_causal=True`` on a line of
-   its own.  Decode attention runs the split-KV kernel of
+   its own; each call once on its wgmma kernel and bit-equal across two
+   calls.  At head dim 256 (the Gemma presets: gemma-7b's shape, gemma-2b's
+   MQA with a window and planted edges, S = 600) the same kernels on their
+   WIDE_D tiles (dq 32-key kv tiles; dk and dv split over the consumer
+   warpgroups), counted in ``wide_launches``, with no "before".  The NF4
+   forward and dx at 1024 rows also on gemma-7b's four block-linear shapes.
+   Decode attention runs the split-KV kernel of
    ``decode_attention_split.cu`` at every ATTN_CASES entry and a long cache
    (T = 2048), timed in CUDA graphs beside ``decode_attention.cu`` (its
    "before", through a private wrapper: ``tile_ms``, held to ATTN_TOL) and
@@ -53,11 +59,17 @@ them.  Phases, each failing the run on any mismatch or exception:
    on the card; the loss and every LoRA gradient must agree.
 7. train: LLaMA-7B at full width and depth, random NF4 weights and a fresh
    rank-64 LoRA; ``make_train_step`` (2 micro-batches of 2 x 512 collated
-   tokens, remat "full", ``paged_adamw_32bit``) takes 5 optimizer steps on
-   one batch: finite losses, no movement on the first step (its learning
-   rate is 0), a lower loss at the end, frozen tensors byte-identical, and
-   exact launch counts read around the steps: every NF4 forward and dx and
-   every flash launch on a wgmma kernel (train-parity too).
+   tokens, remat "save_linear", the default, ``paged_adamw_32bit``) takes 5
+   optimizer steps on one batch: finite losses, no movement on the first
+   step (its learning rate is 0), a lower loss at the end, frozen tensors
+   byte-identical, and exact launch counts read around the steps: every NF4
+   forward and dx and every flash launch on a wgmma kernel (train-parity
+   too, under remat "full"), 448 NF4 forward and 64 flash forward a step
+   (the backward's recomputed blocks read them back).  Then train remat: the
+   same weights under remat "full" (3 steps, 896 and 128) and no remat (2
+   steps); step times and peaks of the three, peak("full") <
+   peak("save_linear") < peak(False), and "save_linear"'s losses and
+   gradient norms within 1e-3 and GRAD_TOL of "full"'s.
 8. kernels-int8: the four kernels of the int8 family against their plain
    versions: ``qmm_i8_direct`` (M = 4, 8, 16 on the block linears and the
    padded lm_head, and a ragged shape) and ``qmm_nf4_w8a8`` (M = 4, 8, 16,
@@ -150,12 +162,25 @@ them.  Phases, each failing the run on any mismatch or exception:
    full-depth int8-stored base with a rank-64 LoRA: every decode step's 224
    linears on ``qmm_i8_decode.cu``, exact launch counts, its decode ms/step
    beside the NF4 serve phase's, peak memory.
+18. train-gemma: ``google/gemma-7b`` (28 layers, hidden 3072, 16 heads of
+   256, vocabulary 256000): train-parity-gemma (2 layers, 2 x 512 tokens,
+   "save_linear", card against CPU), then 3 optimizer steps at full depth as
+   train's (random NF4 weights, a fresh rank-64 LoRA, "save_linear"): 56
+   flash forward, dq and dk/dv a step, all on the head-dim-256 tiles, 392 NF4
+   forward and 386 dx.
+19. train-full: ``mode="full"`` (every tensor of an unquantized model
+   trained) at LLaMA-7B width, 16 layers (the f32 gradient sum and AdamW
+   moments fit 80 GB), 3 steps: remat "full", flash counts exact, no qmm,
+   the loss falling, every tensor moved.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 
 ``python3 chip_smoke.py serve-paged-w8a8`` builds the kernels and runs the
 serve weights through serve-paged-w8a8 alone, to time the route in turns
-with a checkout of another commit that this script is copied into.
+with a checkout of another commit that this script is copied into;
+``python3 chip_smoke.py train`` does the same for the train phase (at the
+checkout's default remat) and ``python3 chip_smoke.py train-gemma`` runs
+train-gemma alone.
 """
 
 from __future__ import annotations
@@ -259,7 +284,20 @@ FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse
     (2, 32, 32, 128, 600, (600, 333), None, False, False),   # S no multiple of 64
     (2, 32, 32, 128, 512, (512, 0), None, False, True),      # a row of length 0
     (2, 32, 8, 128, 512, (512, 300), 256, True, False),      # an off-by-one moves it O(1)
+    # head dim 256: the Gemma presets' training shapes (no "before": flash_attention.cu
+    # has no head dim 256)
+    (2, 16, 16, 256, 512, (512, 300), None, False, False),   # gemma-7b
+    (2, 8, 1, 256, 512, (512, 300), 256, True, False),       # gemma-2b's MQA, planted edges
+    (2, 16, 16, 256, 600, (600, 333), None, False, False),   # S no multiple of 64
 )
+GEMMA = "google/gemma-7b"
+# gemma-7b's block linears (K, N): wq, wk, wv; wo; w_gate, w_up; w_down
+GEMMA_QMM_SHAPES = ((3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072))
+TRAIN_REMAT_STEPS = (("full", 3), (False, 2))   # beside the default's TRAIN_STEPS, same call
+TRAIN_GEMMA_STEPS = 3
+TRAIN_FULL_LAYERS = 16    # mode "full" at LLaMA-7B width: bf16 weights, an f32 gradient sum
+                          # and f32 AdamW moments (14 bytes a parameter) fit 80 GB at 16 layers
+TRAIN_FULL_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -821,6 +859,51 @@ def kernel_phase(dev, results):
     decode_attention_phase(dev, g, results)
 
 
+def gemma_qmm_phase(dev, results):
+    """The NF4 forward and dx (double quant) at the train micro-batch's 1024
+    rows on gemma-7b's four block-linear shapes, which train-gemma runs: each
+    against its plain version (QMM_TOL) on the wgmma kernels, held bit for
+    bit as at LLaMA's shapes, timed beside ``torch.matmul`` on the
+    dequantized weight."""
+    import torch
+
+    from qlora_tpu_torch.ops import qmatmul_bwd_plain, qmatmul_plain, qmm_nf4_bwd, qmm_nf4_fwd_dq
+    from qlora_tpu_torch.quant import dequantize, quantize
+
+    g = torch.Generator(device=dev).manual_seed(4242)
+    M = QMM_BWD_ROWS
+    for K, N in GEMMA_QMM_SHAPES:
+        qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
+        w_bf16 = dequantize(qt, torch.bfloat16)
+        qts = [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
+                      for _ in range(copies_past_l2(qt.nbytes) - 1)]
+        ws = [w_bf16] + [w_bf16.clone() for _ in range(copies_past_l2(w_bf16.nbytes) - 1)]
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
+        for name, wrapper, plain, inp, lib, tag in (
+                ("qmm_nf4_fwd_dq", qmm_nf4_fwd_dq, qmatmul_plain, x,
+                 lambda i: torch.matmul(x, ws[i % len(ws)]), ""),
+                ("qmm_nf4_bwd", qmm_nf4_bwd, qmatmul_bwd_plain, gr,
+                 lambda i: torch.matmul(gr, ws[i % len(ws)].T), " dq absmax")):
+            before = wrapper.wgmma_launches
+            y = wrapper(inp, qt)
+            ref = plain(inp, qt)
+            torch.cuda.synchronize()
+            if wrapper.wgmma_launches != before + 1:
+                fail(f"{name} M={M} K={K} N={N} (gemma-7b) did not take the wgmma kernel")
+            diff = (y.float() - ref.float()).abs()
+            err = diff.max().item()
+            if (diff - QMM_TOL[1] * ref.float().abs()).max().item() > QMM_TOL[0]:
+                fail(f"{name} M={M} K={K} N={N} (gemma-7b) differs from its plain version by {err}")
+            wgmma_checks(f"{name} (gemma-7b)", wrapper, inp, qt, w_bf16, bwd=name == "qmm_nf4_bwd")
+            record(results, name, f"M={M} K={K} N={N}{tag} (gemma-7b)", err,
+                   f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|",
+                   cuda_ms(lambda i: wrapper(inp, qts[i % len(qts)]), 20),
+                   cuda_ms(lambda i: plain(inp, qts[i % len(qts)]), 3), cuda_ms(lib, 20),
+                   qmm_bound(M, K, N, True))
+        del qts, ws
+
+
 def decode_attention_phase(dev, g, results):
     """The split-KV decode attention kernel (``decode_attention_split.cu``)
     against its plain version at ATTN_CASES and ATTN_LONG, beside the kernel
@@ -900,9 +983,12 @@ def flash_phase(dev, results):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv (the wgmma kernels of
     ``flash_attention_wgmma.cu``) against their plain versions at the
     training shapes, each beside the kernel of ``flash_attention.cu`` that it
-    replaced (``tile_ms``, the "before", held to the same tolerances).  The
-    backward kernels get the plain forward's o and lse, so that each kernel
-    is held against the same function of the same inputs."""
+    replaced (``tile_ms``, the "before", held to the same tolerances; head
+    dims 64 and 128 only).  The backward kernels get the plain forward's o
+    and lse, so that each kernel is held against the same function of the
+    same inputs.  Each call must launch its wgmma kernel once (at head dim
+    256 on the WIDE_D tiles, ``wide_launches``) and give the same bits
+    twice."""
     import importlib
 
     import torch
@@ -940,8 +1026,8 @@ def flash_phase(dev, results):
             return d.max().item(), (d - tol).max().item()
 
         def check(fwd, bwd_dq, bwd_dkv):
-            """Max errors of each kernel, lse's, and whether empty rows and keys
-            past the length got exactly 0."""
+            """Max errors of each kernel, lse's, whether empty rows and keys
+            past the length got exactly 0, and the outputs."""
             o, lse = fwd(q, k, v, L, sm, True, window)
             dq = bwd_dq(q, k, v, L, do, lse2, di, sm, True, window)
             dk, dv = bwd_dkv(q, k, v, L, do, lse2, di, sm, True, window)
@@ -954,10 +1040,21 @@ def flash_phase(dev, results):
                      and bool((dq[empty] == 0).all())
                      and all(bool((dk[b, :, n:] == 0).all()) and bool((dv[b, :, n:] == 0).all())
                              for b, n in enumerate(lens)))
-            return errs, lse_err, exact
+            return errs, lse_err, exact, (o, lse, dq, dk, dv)
 
-        errs, lse_err, exact = check(flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-        tile_errs, tile_lse_err, tile_exact = check(*before.values())
+        wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+        n0 = [(w.wgmma_launches, w.wide_launches) for w in wrappers]
+        errs, lse_err, exact, first = check(*wrappers)
+        took = [(w.wgmma_launches - a, w.wide_launches - b) for w, (a, b) in zip(wrappers, n0)]
+        if took != [(1, int(hd == 256))] * 3:
+            fail(f"flash {shape}: launches (wgmma, head dim 256) {took}, want one each on the "
+                 f"{'WIDE_D ' if hd == 256 else ''}wgmma kernels")
+        same = all(torch.equal(a, b) for a, b in zip(first, check(*wrappers)[3]))
+        if not same:
+            fail(f"flash {shape}: two calls gave other bits")
+        has_before = hd in (64, 128)      # flash_attention.cu's head dims
+        tile_errs, tile_lse_err, tile_exact, _ = (check(*before.values()) if has_before
+                                                  else ({}, 0.0, True, None))
         moved = None
         if planted:
             # the planted keys do what they are for: one more key in the window
@@ -981,7 +1078,7 @@ def flash_phase(dev, results):
         # maps, the ctypes call) can exceed the new kernels' device time; the
         # wrappers launched back to back, timed with events, beside them
         ms = times(flash_fwd, flash_bwd_dq, flash_bwd_dkv, 50)
-        tile_ms = times(*before.values(), 20)
+        tile_ms = times(*before.values(), 20) if has_before else {}
         wrapper_ms = times(flash_fwd, flash_bwd_dq, flash_bwd_dkv, 50, cuda_ms)
         plain_fwd = cuda_ms(lambda i: flash_fwd_plain(*pick(i)[:3], L, sm, True, window), 5)
         plain_bwd = cuda_ms(lambda i: flash_bwd_plain(*pick(i)[:3], L, o2, lse2, pick(i)[3], sm,
@@ -1008,26 +1105,31 @@ def flash_phase(dev, results):
             fwd = name == "flash_fwd"
             results.append(dict(
                 name=name, shape=shape, max_abs_err=errs[name][0], ms=ms[name],
-                tile_ms=tile_ms[name], tile_err=tile_errs[name][0], wrapper_ms=wrapper_ms[name],
-                plain_ms=plain_fwd if fwd else plain_bwd,
+                **({"tile_ms": tile_ms[name], "tile_err": tile_errs[name][0]}
+                   if has_before else {}),
+                wrapper_ms=wrapper_ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
                 library_ms=lib_fwd if fwd else lib_bwd,
                 bound_ms=bounds[name][0], bound_by=bounds[name][1]))
+            tile = (f"tile_ms={tile_ms[name]:.4f} (flash_attention.cu, max|d|="
+                    f"{tile_errs[name][0]:.3g})" if has_before else "no before at this head dim")
             print(f"kernel {name} {shape}: max|d|={errs[name][0]:.3g} (tol {FLASH_TOL}*max|ref|"
                   f"{' of the row' if fwd else ' of the slice'}) ms={ms[name]:.4f} (graph; "
                   f"wrapper_ms={wrapper_ms[name]:.4f} with events) "
-                  f"tile_ms={tile_ms[name]:.4f} (flash_attention.cu, max|d|="
-                  f"{tile_errs[name][0]:.3g}) plain_ms={plain_fwd if fwd else plain_bwd:.4f} "
+                  f"{tile} plain_ms={plain_fwd if fwd else plain_bwd:.4f} "
                   f"library_ms={lib_fwd if fwd else lib_bwd:.4f} "
                   f"bound_ms={bounds[name][0]:.4f} ({bounds[name][1]})", flush=True)
-        bwd, bwd_tile = (ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
-                         tile_ms["flash_bwd_dq"] + tile_ms["flash_bwd_dkv"])
+        bwd = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+        speed = lambda n: (f"{tile_ms[n] / ms[n]:.2f}x the before's speed, " if has_before
+                           else "")
+        tile_ms["bwd"], ms["bwd"] = (tile_ms["flash_bwd_dq"] + tile_ms["flash_bwd_dkv"]
+                                     if has_before else None), bwd
         print(f"  lse max|d|={lse_err:.3g} (before {tile_lse_err:.3g}; tol {LSE_TOL}); empty "
-              f"rows and keys past the length exactly 0: {exact} (before {tile_exact}); forward "
-              f"{tile_ms['flash_fwd'] / ms['flash_fwd']:.2f}x the before's speed, "
-              f"{ms['flash_fwd'] / lib_fwd:.2f}x SDPA's time (SDPA in a graph "
-              f"{lib_fwd_graph:.4f} ms); dq + dk/dv {bwd:.4f} ms, "
-              f"{bwd_tile / bwd:.2f}x the before's speed, {bwd / lib_bwd:.2f}x SDPA's whole "
-              f"backward; plain_ms of the backward is dq, dk and dv together"
+              f"rows and keys past the length exactly 0: {exact} (before {tile_exact}); two "
+              f"calls bit-equal: {same}; one launch each on the wgmma kernels {took}; forward "
+              f"{speed('flash_fwd')}{ms['flash_fwd'] / lib_fwd:.2f}x SDPA's time (SDPA in a "
+              f"graph {lib_fwd_graph:.4f} ms); dq + dk/dv {bwd:.4f} ms, {speed('bwd')}"
+              f"{bwd / lib_bwd:.2f}x SDPA's whole backward; plain_ms of the backward is dq, dk "
+              f"and dv together"
               + (f"; one more key in the window moves the plain o by {moved:.3g}"
                  if planted else ""), flush=True)
         bad = ([n for n, (_, ex) in errs.items() if ex > 0]
@@ -1848,7 +1950,9 @@ def counters():
 # read as paged_decode_split and paged_chunk_split: every call (paged_attention.cu
 # is reached only through the uncounted "befores").  The flash wrappers launch
 # only the wgmma kernels of flash_attention_wgmma.cu and count each launch in
-# wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv
+# wgmma_launches too, read as flash_wgmma_fwd / _bwd_dq / _bwd_dkv, and those at
+# head dim 256 (the WIDE_D tiles) in wide_launches, read as flash_wide_fwd /
+# _bwd_dq / _bwd_dkv (0 where a checkout's wrappers have no such counter)
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32",
                  "qmm_i8_decode_fwd": "qmm_i8_fwd", "qmm_i8_direct_decode": "qmm_i8_direct",
                  "qmm_nf4_w8a8_decode": "qmm_nf4_w8a8"}
@@ -1859,17 +1963,21 @@ WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_
                 "qmm_nf4_w8a8_wgmma": "qmm_nf4_w8a8"}
 SPLIT_COUNTS = {"paged_chunk_split": "paged_chunk_attention_cuda",
                 "paged_decode_split": "paged_decode_attention_cuda"}
+WIDE_COUNTS = {"flash_wide_fwd": "flash_fwd", "flash_wide_bwd_dq": "flash_bwd_dq",
+               "flash_wide_bwd_dkv": "flash_bwd_dkv"}
 
 
 def expected_counts(**nonzero):
     """Every counter at 0 except the ones named."""
     return {**{w.__name__: 0 for w in counters()}, **{k: 0 for k in DECODE_COUNTS},
-            **{k: 0 for k in WGMMA_COUNTS}, **{k: 0 for k in SPLIT_COUNTS}, **nonzero}
+            **{k: 0 for k in WGMMA_COUNTS}, **{k: 0 for k in SPLIT_COUNTS},
+            **{k: 0 for k in WIDE_COUNTS}, **nonzero}
 
 
 def reset_counts():
     for w in counters():
-        for attr in ("launches", "decode_launches", "wgmma_launches", "split_launches"):
+        for attr in ("launches", "decode_launches", "wgmma_launches", "split_launches",
+                     "wide_launches"):
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
@@ -1880,7 +1988,8 @@ def read_counts():
             # 0 where a checkout's wrapper has no decode kernel (serve_w8a8_only)
             **{k: getattr(by_name[n], "decode_launches", 0) for k, n in DECODE_COUNTS.items()},
             **{k: by_name[n].wgmma_launches for k, n in WGMMA_COUNTS.items()},
-            **{k: by_name[n].split_launches for k, n in SPLIT_COUNTS.items()}}
+            **{k: by_name[n].split_launches for k, n in SPLIT_COUNTS.items()},
+            **{k: getattr(by_name[n], "wide_launches", 0) for k, n in WIDE_COUNTS.items()}}
 
 
 def padded_requests(lengths, S, vocab, seed):
@@ -2399,7 +2508,36 @@ def qmm_counters(quant_type):
         "qmm_nf4_fwd_dq", "qmm_nf4_bwd")
 
 
-def train_parity_phase(dev, quant_type="nf4"):
+def train_counts(L, quant_type="nf4", remat="save_linear", mode="lora", micro=TRAIN_ACCUM,
+                 wide=False):
+    """The launches of `micro` micro-batches' forward and backward over L
+    layers (block linears M = rows x S > 16: every NF4 or int8 forward and dx
+    on a wgmma kernel).  Per micro-batch: the 7 L block linears' forward once,
+    twice under remat "full" (the backward's recomputed forward; "save_linear"
+    reads them back); their dx 7 L - 3 times (layer 0's wq, wk, wv see the
+    embeddings, which need no gradient in LoRA training); flash forward L
+    times, 2 L under "full", flash dq and dk, dv L times each, at head dim
+    256 (`wide`) all on the WIDE_D tiles.  Mode "full" has no qmm."""
+    runs = 2 if remat in ("full", True) else 1
+    fwd_name, bwd_name = qmm_counters(quant_type)
+    flash = {"flash_fwd": micro * runs * L, "flash_bwd_dq": micro * L,
+             "flash_bwd_dkv": micro * L}
+    counts = {**flash, **{k: flash[n] for k, n in WGMMA_COUNTS.items() if n in flash}}
+    if wide:
+        counts.update({k: flash[n] for k, n in WIDE_COUNTS.items()})
+    if mode == "lora":
+        fwd, bwd = micro * runs * 7 * L, micro * (7 * L - 3)
+        counts.update({fwd_name: fwd, bwd_name: bwd})
+        counts.update({"qmm_nf4_wgmma_dq": fwd, "qmm_nf4_wgmma_bwd": bwd} if quant_type == "nf4"
+                      else {"qmm_i8_wgmma_fwd": fwd, "qmm_i8_wgmma_bwd": bwd})
+    return expected_counts(**counts)
+
+
+def train_parity_phase(dev, quant_type="nf4", cfg=None, S=256, remat="full", tag=None):
+    """One collated micro-batch of 2 rows through ``loss_fn`` on 2 layers at
+    full width, the plain path on the CPU against the kernels on the card:
+    the loss and every LoRA gradient must agree, and the card's launches be
+    exactly ``train_counts``'."""
     import torch
 
     from qlora_tpu_torch.models import init_params
@@ -2407,20 +2545,19 @@ def train_parity_phase(dev, quant_type="nf4"):
     from qlora_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
     from qlora_tpu_torch.utils import move_to
 
-    tag = "train-parity" if quant_type == "nf4" else f"train-parity-{quant_type}"
-    fwd_name, bwd_name = qmm_counters(quant_type)
-    cfg = seven_b(num_layers=2)
+    tag = tag or ("train-parity" if quant_type == "nf4" else f"train-parity-{quant_type}")
+    cfg = dataclasses.replace(cfg, num_layers=2) if cfg else seven_b(num_layers=2)
     p_gpu = init_params(cfg, seed=21, device=dev, quant_type=quant_type)
     lora_gpu, lcfg = random_lora(cfg, dev, seed=22)
     p_cpu, lora_cpu = move_to(p_gpu, "cpu"), move_to(lora_gpu, "cpu")
-    batch = collated_batch(cfg.vocab_size, 2, 256, seed=23, stacked=0)
+    batch = collated_batch(cfg.vocab_size, 2, S, seed=23, stacked=0)
     lengths = batch["attention_mask"].sum(-1).tolist()
 
     def run(params, lora, device):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(lora)]
         mb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         loss, n = loss_fn(tree_unflatten(lora, leaves), params, mb, cfg, lcfg, None, True,
-                          "lora", "full")
+                          "lora", remat)
         return loss.detach(), int(n), torch.autograd.grad(loss, leaves)
 
     reset_counts()
@@ -2438,17 +2575,9 @@ def train_parity_phase(dev, quant_type="nf4"):
         if rel > worst:
             worst, worst_name = rel, name
     d_loss = abs(loss_g.item() - loss_c.item())
-    # one forward, one recomputed forward and one backward over 2 layers; the
-    # first layer's wq, wk, wv get an input without a gradient: no dx for them
-    L = cfg.num_layers
-    want = expected_counts(**{fwd_name: 2 * 7 * L, bwd_name: 7 * L - 3}, flash_fwd=2 * L,
-                           flash_bwd_dq=L, flash_bwd_dkv=L, flash_wgmma_fwd=2 * L,
-                           flash_wgmma_bwd_dq=L, flash_wgmma_bwd_dkv=L,
-                           **({"qmm_nf4_wgmma_dq": 2 * 7 * L, "qmm_nf4_wgmma_bwd": 7 * L - 3}
-                              if quant_type == "nf4" else
-                              {"qmm_i8_wgmma_fwd": 2 * 7 * L, "qmm_i8_wgmma_bwd": 7 * L - 3}))
-    print(f"{tag}: 2 x 256 collated tokens (lengths {lengths}, {n_c} target tokens); "
-          f"loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
+    want = train_counts(cfg.num_layers, quant_type, remat, micro=1, wide=cfg.head_dim == 256)
+    print(f"{tag}: 2 x {S} collated tokens (lengths {lengths}, {n_c} target tokens), remat "
+          f"{remat!r}; loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
           f"(tol {LOSS_TOL}); {len(names)} LoRA gradients, worst |g_card - g_cpu|/|g_cpu| = "
           f"{worst:.4g} at {worst_name} (tol {GRAD_TOL}); launches {counts}", flush=True)
     if n_g != n_c or d_loss > LOSS_TOL or worst > GRAD_TOL:
@@ -2484,25 +2613,53 @@ def frozen_tensors(params):
     return out
 
 
-def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
+def default_remat():
+    """The checkout's ``make_train_step`` default (this script may run in a
+    checkout of another commit: ``python3 chip_smoke.py train``)."""
+    import inspect
+
+    from qlora_tpu_torch.train import make_train_step
+
+    return inspect.signature(make_train_step).parameters["remat"].default
+
+
+def train_model(dev, cfg, quant_type="nf4", seed=31):
+    """Random weights (double quant) and a fresh rank-64 LoRA on all 7 block
+    linears (B = 0)."""
     import torch
 
-    from qlora_tpu_torch.lora import LoraConfig, count_lora_params
+    from qlora_tpu_torch.lora import LoraConfig
     from qlora_tpu_torch.models import init_lora_params, init_params
+
+    params = init_params(cfg, seed=seed, device=dev, quant_type=quant_type)
+    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0)
+    lora = init_lora_params(cfg, lcfg, seed=seed + 1, device=dev)
+    torch.cuda.synchronize()
+    return params, lora, lcfg
+
+
+def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS, remat=None, cfg=None, made=None,
+                tag=None, name="LLaMA-7B"):
+    """``make_train_step`` over full-depth random weights (``made``, or new
+    ones): `steps` optimizer steps of TRAIN_ACCUM micro-batches on one
+    collated batch, launch counts exact, the first step moving nothing, the
+    loss falling, frozen tensors byte-identical.  Returns (counts, per-step
+    counts, stats, made)."""
+    import torch
+
+    from qlora_tpu_torch.lora import count_lora_params
     from qlora_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 
-    tag = "train" if quant_type == "nf4" else f"train-{quant_type}"
-    fwd_name, bwd_name = qmm_counters(quant_type)
-    cfg = seven_b()
+    remat = default_remat() if remat is None else remat
+    tag = tag or ("train" if quant_type == "nf4" else f"train-{quant_type}")
+    cfg = cfg or seven_b()
     rows, S = TRAIN_MICRO
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=31, device=dev, quant_type=quant_type)
-    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0)
-    lora = init_lora_params(cfg, lcfg, seed=32, device=dev)          # B = 0: a fresh adapter
-    torch.cuda.synchronize()
-    print(f"{tag}: LLaMA-7B {cfg.num_layers} layers, random {quant_type} weights (double "
+    params, lora, lcfg = made or train_model(dev, cfg, quant_type)
+    print(f"{tag}: {name} {cfg.num_layers} layers, random {quant_type} weights (double "
           f"quant) + a fresh rank-{lcfg.r} LoRA on all 7 block linears ({count_lora_params(lora) / 1e6:.1f}"
-          f" M parameters), made in {time.perf_counter() - t0:.1f} s", flush=True)
+          f" M parameters){'' if made else f', made in {time.perf_counter() - t0:.1f} s'}; "
+          f"remat {remat!r}", flush=True)
     frozen = frozen_tensors(params)
     if any(t.requires_grad for t in frozen):
         fail(f"{tag}: a frozen tensor asks for a gradient")
@@ -2510,11 +2667,13 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
 
     opt = make_optimizer("paged_adamw_32bit", TRAIN_LR, total_steps=steps)
     state = init_train_state(lora, opt, device=dev)
-    step = make_train_step(cfg, lcfg, opt, accum_steps=TRAIN_ACCUM, remat="full", device=dev)
+    step = make_train_step(cfg, lcfg, opt, accum_steps=TRAIN_ACCUM, remat=remat, device=dev)
     batch = collated_batch(cfg.vocab_size, rows, S, seed=33, stacked=TRAIN_ACCUM)
     real = int(batch["attention_mask"].sum())
     targets = int((batch["labels"][..., 1:] != -100).sum())
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     metrics, secs = [], []
@@ -2527,32 +2686,14 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # per optimizer step, TRAIN_ACCUM micro-batches, L layers, 7 block linears each:
-    #   qmm forward   7 L in the forward + 7 L in the backward's recomputed forward (remat)
-    #   qmm backward  7 L - 3: layer 0's wq, wk, wv see the embeddings, which need no gradient
-    #   flash forward L + L recomputed; flash dq L; flash dk, dv L
-    L = cfg.num_layers
-    per_step = expected_counts(
-        **{fwd_name: TRAIN_ACCUM * 2 * 7 * L,         # 2 * 448 = 896
-           bwd_name: TRAIN_ACCUM * (7 * L - 3)},      # 2 * 221 = 442
-        flash_fwd=TRAIN_ACCUM * 2 * L,                # 128
-        flash_bwd_dq=TRAIN_ACCUM * L,                 # 64
-        flash_bwd_dkv=TRAIN_ACCUM * L,                # 64
-        # every flash launch on the wgmma kernels of flash_attention_wgmma.cu
-        flash_wgmma_fwd=TRAIN_ACCUM * 2 * L, flash_wgmma_bwd_dq=TRAIN_ACCUM * L,
-        flash_wgmma_bwd_dkv=TRAIN_ACCUM * L,
-        # M = 1024 rows: every forward and dx, NF4 and int8, on a wgmma kernel
-        **({"qmm_nf4_wgmma_dq": TRAIN_ACCUM * 2 * 7 * L,
-            "qmm_nf4_wgmma_bwd": TRAIN_ACCUM * (7 * L - 3)} if quant_type == "nf4" else
-           {"qmm_i8_wgmma_fwd": TRAIN_ACCUM * 2 * 7 * L,
-            "qmm_i8_wgmma_bwd": TRAIN_ACCUM * (7 * L - 3)}))
+    per_step = train_counts(cfg.num_layers, quant_type, remat, wide=cfg.head_dim == 256)
     want = {k: v * steps for k, v in per_step.items()}
     step_s = sum(secs[1:]) / (steps - 1)        # the first step warms the allocator
     losses = [m[0] for m in metrics]
     print(f"{tag}: " + "; ".join(f"step {i} loss {l:.5f} grad_norm {g:.5f} {t:.2f} s"
                                 for i, ((l, g), t) in enumerate(zip(metrics, secs))), flush=True)
     print(f"{tag}: {step_s:.3f} s per optimizer step (mean of steps 1..{steps - 1}; "
-          f"{TRAIN_ACCUM} micro-batches of {rows} x {S}) = "
+          f"{TRAIN_ACCUM} micro-batches of {rows} x {S}, remat {remat!r}) = "
           f"{TRAIN_ACCUM * rows * S / step_s:.1f} padded tokens/s, {real / step_s:.1f} real "
           f"tokens/s ({real} real, {targets} target tokens per step); peak memory "
           f"{peak_gib:.2f} GiB", flush=True)
@@ -2566,7 +2707,7 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
     # the schedule's first learning rate is 0: step 1 sees the weights of step 0
     if abs(losses[1] - losses[0]) > 1e-3:
         fail(f"{tag}: the first step moved the loss ({losses[0]} -> {losses[1]})")
-    if not losses[-1] < losses[0]:
+    if steps > 2 and not losses[-1] < losses[0]:
         fail(f"{tag}: the loss did not fall ({losses})")
     if state.step != steps:
         fail(f"{tag}: state.step is {state.step}")
@@ -2575,10 +2716,136 @@ def train_phase(dev, quant_type="nf4", steps=TRAIN_STEPS):
           f"{changed == 0}", flush=True)
     if changed:
         fail(f"{tag}: {changed} frozen tensors changed")
-    del params, lora, state, before
+    del state, before
     torch.cuda.empty_cache()
     return counts, per_step, dict(step_s=step_s, padded_tok_s=TRAIN_ACCUM * rows * S / step_s,
-                                  real_tok_s=real / step_s, peak_gib=peak_gib, losses=losses)
+                                  real_tok_s=real / step_s, peak_gib=peak_gib, losses=losses,
+                                  grad_norms=[m[1] for m in metrics], secs=secs,
+                                  remat=remat), (params, lora, lcfg)
+
+
+def train_remat_phase(dev, made, stats):
+    """The train run's weights again under remat "full" and with no remat
+    (TRAIN_REMAT_STEPS), beside the default "save_linear" run (`stats`): the
+    step times and peaks of all three; peak("full") < peak("save_linear") <
+    peak(False); the losses and gradient norms of "save_linear" and "full"
+    within 1e-3 and GRAD_TOL of each other (the tape hands back the bits a
+    recomputation gives, so they are expected bit-equal)."""
+    runs = {stats["remat"]: stats}
+    for remat, steps in TRAIN_REMAT_STEPS:
+        _, _, runs[remat], _ = train_phase(dev, steps=steps, remat=remat, made=made,
+                                           tag=f"train remat={remat}")
+    base, full, none = runs["save_linear"], runs["full"], runs[False]
+    n = len(full["losses"])
+    d_loss = max(abs(a - b) for a, b in zip(base["losses"][:n], full["losses"]))
+    d_norm = max(abs(a - b) / b for a, b in zip(base["grad_norms"][:n], full["grad_norms"]))
+    bits = base["losses"][:n] == full["losses"] and base["grad_norms"][:n] == full["grad_norms"]
+    print("train remat: " + "; ".join(
+        f"{r!r} {runs[r]['step_s']:.3f} s/step (steps {', '.join(f'{t:.3f}' for t in runs[r]['secs'])})"
+        f" peak {runs[r]['peak_gib']:.2f} GiB" for r in ("save_linear", "full", False))
+        + f"; save_linear against full over {n} steps: max |d loss| {d_loss:.3g} (tol 1e-3), "
+        f"max |d grad_norm| / grad_norm {d_norm:.3g} (tol {GRAD_TOL}), bit-equal {bits}; "
+        f"save_linear saves {full['step_s'] - base['step_s']:.3f} s a step "
+        f"({1 - base['step_s'] / full['step_s']:.1%}) for "
+        f"{base['peak_gib'] - full['peak_gib']:.2f} GiB", flush=True)
+    if not full["peak_gib"] < base["peak_gib"] < none["peak_gib"]:
+        fail(f"train remat: peaks full {full['peak_gib']}, save_linear {base['peak_gib']}, "
+             f"no remat {none['peak_gib']} are not in that order")
+    if d_loss > 1e-3 or d_norm > GRAD_TOL:
+        fail(f"train remat: save_linear and full differ (loss {d_loss}, grad_norm {d_norm})")
+    return runs
+
+
+def train_gemma_phase(dev):
+    """gemma-7b (``google/gemma-7b``: 28 layers, hidden 3072, 16 heads of
+    256, vocabulary 256000): train-parity at 2 layers and S = 512 under
+    "save_linear", then TRAIN_GEMMA_STEPS steps at full depth, every flash
+    launch on the head-dim-256 tiles."""
+    import torch
+
+    from qlora_tpu_torch.models import get_config
+
+    cfg = get_config(GEMMA)
+    t0 = time.perf_counter()
+    worst = train_parity_phase(dev, cfg=cfg, S=TRAIN_MICRO[1], remat="save_linear",
+                               tag="train-parity-gemma")
+    print(f"train-parity-gemma: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts, per_step, stats, made = train_phase(dev, steps=TRAIN_GEMMA_STEPS, cfg=cfg,
+                                                tag="train-gemma", name="gemma-7b")
+    del made
+    torch.cuda.empty_cache()
+    return counts, per_step, stats
+
+
+def train_full_phase(dev):
+    """``mode="full"``: every tensor of an unquantized LLaMA-7B-width model
+    (TRAIN_FULL_LAYERS layers: bf16 weights, their f32 gradient sum and f32
+    AdamW moments, 14 bytes a parameter, fit 80 GB), ``paged_adamw_32bit``,
+    TRAIN_ACCUM micro-batches of TRAIN_MICRO, TRAIN_FULL_STEPS steps:
+    remat "full" (forced), flash counts exact, no qmm, the first step moving
+    nothing, the loss falling, every tensor moved (its sum or sum of squares,
+    in f64, changed)."""
+    import torch
+
+    from qlora_tpu_torch.lora import LoraConfig
+    from qlora_tpu_torch.models import init_params
+    from qlora_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+
+    tag = "train-full"
+    cfg = seven_b(TRAIN_FULL_LAYERS)
+    rows, S = TRAIN_MICRO
+    steps = TRAIN_FULL_STEPS
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=41, quantized=False, device=dev)
+    fingerprint = lambda tree: [(t.double().sum().item(), t.double().square().sum().item())
+                                for t in tree_leaves(tree)]
+    before = fingerprint(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = make_optimizer("paged_adamw_32bit", TRAIN_LR, total_steps=steps)
+    state = init_train_state(params, opt, device=dev)
+    del params                # the state holds the only copy: each step makes new tensors
+    step = make_train_step(cfg, LoraConfig(), opt, accum_steps=TRAIN_ACCUM, mode="full",
+                           device=dev)
+    batch = collated_batch(cfg.vocab_size, rows, S, seed=43, stacked=TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    print(f"{tag}: LLaMA-7B width, {cfg.num_layers} layers, unquantized bf16 weights "
+          f"({n_params / 1e9:.3f} B parameters, {len(before)} tensors, all trainable), made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, secs = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, m = step(state, None, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = train_counts(cfg.num_layers, remat="full", mode="full")
+    want = {k: v * steps for k, v in per_step.items()}
+    moved = sum(a != b for a, b in zip(before, fingerprint(state.trainable)))
+    losses = [m[0] for m in metrics]
+    step_s = sum(secs[1:]) / (steps - 1)
+    print(f"{tag}: " + "; ".join(f"step {i} loss {l:.5f} grad_norm {g:.5f} {t:.2f} s"
+                                for i, ((l, g), t) in enumerate(zip(metrics, secs))), flush=True)
+    print(f"{tag}: {step_s:.3f} s per optimizer step (mean of steps 1..{steps - 1}); peak "
+          f"memory {peak_gib:.2f} GiB; {moved} of {len(before)} tensors moved; launches "
+          f"{counts} (expected {steps} x {per_step})", flush=True)
+    if counts != want:
+        fail(f"{tag} launch counts {counts} != {want}")
+    if not torch.isfinite(torch.tensor(metrics)).all() or min(m[1] for m in metrics) <= 0:
+        fail(f"{tag}: a loss or gradient norm is not finite or 0: {metrics}")
+    if abs(losses[1] - losses[0]) > 1e-3 or not losses[-1] < losses[0]:
+        fail(f"{tag}: the first step moved the loss or the loss did not fall ({losses})")
+    if moved != len(before):
+        fail(f"{tag}: only {moved} of {len(before)} tensors moved")
+    del state
+    torch.cuda.empty_cache()
+    return counts, dict(step_s=step_s, peak_gib=peak_gib, losses=losses)
 
 
 def train_split(results, per_step, stats, quant_type="nf4"):
@@ -2624,6 +2891,16 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
                      "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :449)"),
     "flash_bwd_dkv": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
                       "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at :476)"),
+    # the same three at head dim 256 (the WIDE_D tiles; launches from train-gemma)
+    "flash_fwd_hd256": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
+                        "qlora_tpu/ops/flash_attention.py:196 (_flash_fwd, pallas_call at :224; "
+                        "head_dim 256)"),
+    "flash_bwd_dq_hd256": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
+                           "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at "
+                           ":449; head_dim 256)"),
+    "flash_bwd_dkv_hd256": ("qlora_tpu_torch/csrc/flash_attention_wgmma.cu",
+                            "qlora_tpu/ops/flash_attention.py:419 (_flash_bwd, pallas_call at "
+                            ":476; head_dim 256)"),
     # the direct int8 w8a8 forward: the decode kernel at its headline (M = 4)
     "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
                       "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct, pallas_call at "
@@ -2678,10 +2955,16 @@ I8_DIRECT_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
 # summary entries read from another wrapper's rows, and the rows they keep
 # (by the row count in the shape): the int8 forward's decode kernel and its
 # wgmma kernel share the rows of qmm_i8_fwd
-RESULT_OF = {"qmm_i8_fwd_decode": ("qmm_i8_fwd", lambda m: m <= 16),
-             "qmm_i8_fwd": ("qmm_i8_fwd", lambda m: m > 16),
-             "qmm_nf4_w8a8_decode": ("qmm_nf4_w8a8", lambda m: m <= 16),
-             "qmm_nf4_w8a8": ("qmm_nf4_w8a8", lambda m: m > 16)}
+def _rows(shape):
+    return int(shape.split()[0][2:]) if shape.startswith("M=") else 0
+
+
+RESULT_OF = {"qmm_i8_fwd_decode": ("qmm_i8_fwd", lambda s: _rows(s) <= 16),
+             "qmm_i8_fwd": ("qmm_i8_fwd", lambda s: _rows(s) > 16),
+             "qmm_nf4_w8a8_decode": ("qmm_nf4_w8a8", lambda s: _rows(s) <= 16),
+             "qmm_nf4_w8a8": ("qmm_nf4_w8a8", lambda s: _rows(s) > 16),
+             **{f"{n}{hd}": (n, (lambda s: "hd=256" in s) if hd else (lambda s: "hd=256" not in s))
+                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") for hd in ("", "_hd256")}}
 TRAIN_HEADLINE = "M=1024 K=4096 N=4096"   # the wgmma kernel's entry: the train step's commonest
 # the shape each kernel's summary entry reports: the decode step's most
 # common launch (4096 -> 4096 at batch 4), the serving-shape attention, and
@@ -2692,6 +2975,9 @@ HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=409
             "flash_fwd": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
             "flash_bwd_dq": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
             "flash_bwd_dkv": "B=2 H=32 KVH=32 hd=128 S=512 lens=[512, 300]",
+            # train-gemma's micro-batch: 2 x 16 heads of 256 x 512 tokens
+            **{f"flash_{k}_hd256": "B=2 H=16 KVH=16 hd=256 S=512 lens=[512, 300]"
+               for k in ("fwd", "bwd_dq", "bwd_dkv")},
             # the int8 decode step's most common launch, the serve-paged w8a8 prefill's
             # commonest (one row at bucket 512; the run whose launches the w8a8 kernel's
             # entry counts), the int8 base's train step
@@ -2810,6 +3096,15 @@ def serve_i8base_split(results, num_layers, stats):
                 step_other_ms=step - qmm - attn)
 
 
+def train_only(dev) -> None:
+    """``python3 chip_smoke.py train``: the train phase alone, at the
+    checkout's default remat, to time it in turns with another checkout (its
+    parent) that this script is copied into."""
+    _, _, stats, _ = train_phase(dev)
+    print(f"train only (remat {stats['remat']!r}): {stats['step_s']:.3f} s per optimizer step, "
+          f"peak {stats['peak_gib']:.2f} GiB", flush=True)
+
+
 def serve_w8a8_only(dev) -> None:
     """``python3 chip_smoke.py serve-paged-w8a8``: the serve weights and
     serve-paged-w8a8 alone, to time the route in turns with another checkout
@@ -2864,8 +3159,13 @@ def main() -> int:
     libs = _build.build_all(verbose=True)
     print(f"build: {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if sys.argv[1:] == ["serve-paged-w8a8"]:
-        serve_w8a8_only(dev)
+    single = {"serve-paged-w8a8": serve_w8a8_only, "train": train_only,
+              "train-gemma": lambda dev: train_gemma_phase(dev)}
+    if sys.argv[1:]:
+        if len(sys.argv) != 2 or sys.argv[1] not in single:
+            print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
+            return 2
+        single[sys.argv[1]](dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -2874,6 +3174,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_phase(dev, results)
     flash_phase(dev, results)
+    gemma_qmm_phase(dev, results)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     int8_kernel_phase(dev, results)
@@ -2918,13 +3219,25 @@ def main() -> int:
     print(f"train-parity: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    train_counts, train_per_step, train_stats = train_phase(dev)
+    train_counts, train_per_step, train_stats, made = train_phase(dev)
     print(f"train: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    remat_runs = train_remat_phase(dev, made, train_stats)
+    del made
+    torch.cuda.empty_cache()
+    print(f"train remat: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     worst = train_parity_phase(dev, "int8")
-    train8_counts, train8_per_step, train8_stats = train_phase(dev, "int8", TRAIN_INT8_STEPS)
+    train8_counts, train8_per_step, train8_stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)
     print(f"train-int8: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gemma_counts, gemma_per_step, gemma_stats = train_gemma_phase(dev)
+    print(f"train-gemma: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    full_counts, full_stats = train_full_phase(dev)
+    print(f"train-full: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # each kernel's launches on the main path that runs it: serve for the
     # serving kernels (nodq for the f32-absmax variant), train for the rest.
@@ -2941,15 +3254,17 @@ def main() -> int:
                     qmm_i8_fwd_decode=i8base_counts["qmm_i8_decode_fwd"],
                     qmm_i8_bwd=train8_counts["qmm_i8_bwd"],
                     paged_decode_attention_cuda=paged_counts["paged_decode_attention_cuda"],
-                    paged_chunk_attention_cuda=spec_counts["paged_chunk_attention_cuda"])
+                    paged_chunk_attention_cuda=spec_counts["paged_chunk_attention_cuda"],
+                    flash_fwd_hd256=gemma_counts["flash_wide_fwd"],
+                    flash_bwd_dq_hd256=gemma_counts["flash_wide_bwd_dq"],
+                    flash_bwd_dkv_hd256=gemma_counts["flash_wide_bwd_dkv"])
     idle = [name for name in SOURCES if launches[name] <= 0]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")
     summary = []
     for name, (source, replaces) in SOURCES.items():
-        of, keep = RESULT_OF.get(name, (name, lambda m: True))
-        rows = [r for r in results if r["name"] == of
-                and keep(int(r["shape"].split()[0][2:]) if r["shape"].startswith("M=") else 0)]
+        of, keep = RESULT_OF.get(name, (name, lambda s: True))
+        rows = [r for r in results if r["name"] == of and keep(r["shape"])]
         head = next(r for r in rows if r["shape"].startswith(HEADLINE[name]))
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2983,7 +3298,10 @@ def main() -> int:
             entry.update(sources=NF4_BWD_SOURCES,
                          wgmma_launches=train_counts["qmm_nf4_wgmma_bwd"],
                          tile_ms=head["tile_ms"])
-        if entry["name"].startswith("flash_"):
+        if entry["name"].startswith("flash_") and entry["name"].endswith("_hd256"):
+            entry.update(wide_launches=gemma_counts[
+                entry["name"].replace("flash_", "flash_wide_").replace("_hd256", "")])
+        elif entry["name"].startswith("flash_"):
             head = next(r for r in results if r["name"] == entry["name"]
                         and r["shape"] == entry["shape"])
             entry.update(before_source="qlora_tpu_torch/csrc/flash_attention.cu",
@@ -3083,6 +3401,12 @@ def main() -> int:
           f"~{ts['flash_bwd_dq_ms']:.1f} ms ({train_per_step['flash_bwd_dq']}) + flash dk, dv "
           f"~{ts['flash_bwd_dkv_ms']:.1f} ms ({train_per_step['flash_bwd_dkv']}) + other "
           f"~{ts['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
+    print(f"train remat: step {', '.join(f'{r!r} {v['step_s']:.3f} s' for r, v in remat_runs.items())}"
+          f"; peak {', '.join(f'{r!r} {v['peak_gib']:.2f} GiB' for r, v in remat_runs.items())}"
+          f"; train-gemma {gemma_stats['step_s']:.3f} s/step, peak {gemma_stats['peak_gib']:.2f} "
+          f"GiB ({gemma_per_step['flash_wide_fwd']} flash forward, "
+          f"{gemma_per_step['qmm_nf4_fwd_dq']} NF4 forward a step); train-full "
+          f"{full_stats['step_s']:.3f} s/step, peak {full_stats['peak_gib']:.2f} GiB", flush=True)
     t8 = train_split(results, train8_per_step, train8_stats, "int8")
     print(f"train-int8: optimizer step {t8['step_ms']:.0f} ms = qmm_i8_fwd wgmma kernel "
           f"~{t8['qmm_fwd_ms']:.0f} ms ({train8_per_step['qmm_i8_fwd']} launches) + qmm_i8_bwd "

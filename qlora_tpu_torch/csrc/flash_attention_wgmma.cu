@@ -74,6 +74,16 @@
 //   registers), so no proxy fence is needed.  The epilogue rounds to bf16,
 //   stages a warpgroup's 64 rows in the shared memory its Q (or K, V) tile
 //   held and stores them with 16-byte stores, masked at the sequence end.
+// - Head dim 256 (the Gemma presets): a warpgroup's 64 x 256 f32 accumulator
+//   is 128 registers a thread, so each kernel keeps one accumulator of that
+//   width a thread.  The forward is the same kernel (O is m64n256).  dq keeps
+//   its 128 query rows a CTA but takes kv tiles of 32 keys, so that Q, dO
+//   and three stages fit in shared memory (230,656 bytes).  dk, dv cannot hold
+//   both sums (256 registers): a CTA owns 64 keys and both consumer
+//   warpgroups walk every step, warpgroup 0 summing dV += P^T dO and
+//   warpgroup 1 dK += dS^T Q, each recomputing S^T = K Q^T (warpgroup 1
+//   also dP^T); a ring of 2 steps, whose lse and di rows sit after the
+//   tiles.  Still no atomics and one order of summation.
 // - The tile sizes and ring depths below are checked against the plan the
 //   caller launches from (ops/flash_attention.py: flash_plan).
 
@@ -99,6 +109,10 @@ constexpr int DKV_BQ = 64;              // dk, dv: query rows of a step
 constexpr int DKV_FEW_KEYS = 64;        // dk, dv: keys of a CTA with grouped query heads
 constexpr int DKV_MANY_KEYS = 128;      // dk, dv: keys of a CTA with one query head a kv head
 constexpr int DKV_STAGES = 4;           // dk, dv: steps in the ring
+constexpr int WIDE_D = 256;             // the head dim whose kernels take the tiles below
+constexpr int DQ_WIDE_BK = 32;          // dq at WIDE_D: keys of a kv tile
+constexpr int DKV_WIDE_KEYS = 64;       // dk, dv at WIDE_D: keys of a CTA, dV and dK split
+constexpr int DKV_WIDE_STAGES = 2;      // dk, dv at WIDE_D: steps in the ring
 constexpr int BAR_BYTES = 256;          // the mbarriers, after the tiles
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -118,8 +132,9 @@ struct Fwd {
 
 template <int D>
 struct Dq {
+  static constexpr int BK = D == WIDE_D ? DQ_WIDE_BK : DQ_BK;   // keys of a kv tile
   static constexpr int Q_BYTES = DQ_BQ * D * 2;     // Q, and dO beside it
-  static constexpr int KV_BYTES = DQ_BK * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + DQ_STAGES * STAGE_BYTES + BAR_BYTES;
   static_assert(SMEM <= 232448, "227 KB a block");
@@ -137,6 +152,21 @@ struct Dkv {
   static_assert(KEYS == 64 || KEYS == 128, "one or two warpgroups of keys");
   // the second warpgroup's dK and dV sums, f32, reuse the ring
   static_assert(KEYS != 64 || D * 512 <= DKV_STAGES * STAGE_BYTES, "partial sums");
+};
+
+// dk, dv at WIDE_D: the ring holds 1024-aligned tiles, the steps' lse and di
+// rows follow it
+template <int D>
+struct DkvWide {
+  static constexpr int KV_BYTES = DKV_WIDE_KEYS * D * 2;   // K, and V beside it
+  static constexpr int T_BYTES = DKV_BQ * D * 2;           // a step's Q, and its dO
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int ROW_BYTES = 2 * DKV_BQ * 4;         // a step's lse and di
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + DKV_WIDE_STAGES * (STAGE_BYTES + ROW_BYTES) + BAR_BYTES;
+  static_assert(SMEM <= 232448, "227 KB a block");
+  static_assert((2 * DKV_WIDE_STAGES + 1) * 8 <= BAR_BYTES, "barriers");
+  static_assert(STAGE_BYTES % 1024 == 0, "tiles aligned to the swizzle's period");
 };
 
 struct Strides {   // of a [B, heads, S, D] operand, in elements
@@ -316,6 +346,21 @@ template <int N>
 struct Mma;
 
 template <>
+struct Mma<32> {
+  // d[16] (+)= A (64 x 16, K-major in shared memory) * B (16 x 32, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
 struct Mma<64> {
   // d[32] (+)= A (64 x 16, K-major in shared memory) * B (16 x 64, K-major)
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
@@ -382,6 +427,35 @@ struct Mma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+template <>
+struct Mma<256> {
+  // d[128] += A (64 x 16, bf16 pairs in registers) * B (16 x 256, MN-major: transposed)
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 // the online softmax of one kv tile, in the registers of S: row maxima and
 // sums over the quad of lanes that shares a row, p = exp2(s c - m) with m
 // in units of log2, the sums and O rescaled by exp2(m_old - m_new), and P
@@ -472,6 +546,26 @@ __device__ __forceinline__ void dkv_probs(const float (&s)[BQ / 2], const float 
     pt[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
     dst[j / 2][(j & 1) * 2] = pack_bf16(dv[0], dv[1]);
     dst[j / 2][(j & 1) * 2 + 1] = pack_bf16(dv[2], dv[3]);
+  }
+}
+
+// P^T alone (dk, dv at WIDE_D: the warpgroup that sums dV needs no dP^T)
+template <int BQ>
+__device__ __forceinline__ void dkv_p(const float (&s)[BQ / 2], uint32_t (&pt)[BQ / 16][4],
+                                      bool masked, int key, int qrow0, int q, const float* lse2,
+                                      float c, int Sq, int n, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    float pv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * q + (e & 1);
+      float p = ex2(fmaf(s[4 * j + e], c, -lse2[col]));
+      if (masked && !visible(qrow0 + col, key + 8 * (e >> 1), Sq, n, causal, window)) p = 0.f;
+      pv[e] = p;
+    }
+    pt[j / 2][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
+    pt[j / 2][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
   }
 }
 
@@ -628,7 +722,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
                 const float* __restrict__ di, bf16* __restrict__ dq, Strides dqs, int H, int KVH,
                 int Sq, int Skv, float sm_scale, int causal, int window) {
   using L = Dq<D>;
-  constexpr int BQ = DQ_BQ, BK = DQ_BK, ST = DQ_STAGES;
+  constexpr int BQ = DQ_BQ, BK = L::BK, ST = DQ_STAGES;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);
   uint8_t* dos = qs + L::Q_BYTES;
@@ -883,6 +977,156 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   store_rows<D>(dva, vs, KEYS, krow, dv + b * dvs.b + kvh * dvs.h, dvs.s, k0 + krow, Skv, wg);
 }
 
+// dk, dv at WIDE_D: 64 keys a CTA; every step goes to both consumer
+// warpgroups, warpgroup 0 summing dV and warpgroup 1 dK, so that each holds
+// one 64 x D accumulator
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap, const int* __restrict__ kv_lengths,
+                      const float* __restrict__ lse, const float* __restrict__ di,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, Strides dks, Strides dvs, int H,
+                      int KVH, int Sq, int Skv, float sm_scale, int causal, int window) {
+  using L = DkvWide<D>;
+  constexpr int BQ = DKV_BQ, KEYS = DKV_WIDE_KEYS, ST = DKV_WIDE_STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + L::KV_BYTES;
+  uint8_t* ring = vs + L::KV_BYTES;
+  float* stats = reinterpret_cast<float*>(ring + ST * L::STAGE_BYTES);   // [ST][lse, di][BQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + ST * 2 * BQ);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  const int k0 = blockIdx.y * KEYS;
+  const int G = H / KVH;
+  const int n = min(max(__ldg(kv_lengths + b), 0), Skv);
+  int first, last;
+  q_tiles(k0, KEYS, Sq, n, causal, window, BQ, first, last);
+  const int nt = last - first;
+  const int nsteps = G * nt;   // step i: query head kvh G + i / nt, tile first + i % nt
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(smem_u32(full + s), 32);   // the producer warp's lanes
+      mbar_init(smem_u32(empty + s), 8);   // one lane of each consumer warp
+    }
+    mbar_init(smem_u32(kvbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---- producer warp: K and V once, then each step's Q, dO (TMA) and
+    // lse (times log2 e) and di (its lanes) ----
+    regs_dec<24>();
+    if (tid < 288 && nsteps > 0) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        mbar_arrive_tx(smem_u32(kvbar), 2 * L::KV_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(smem_u32(ks + c * KEYS * 128), &kmap, smem_u32(kvbar), 64 * c, k0, kvh, b);
+          tma_load_4d(smem_u32(vs + c * KEYS * 128), &vmap, smem_u32(kvbar), 64 * c, k0, kvh, b);
+        }
+      }
+      for (int i = 0; i < nsteps; ++i) {
+        const int st = i % ST;
+        const int hq = kvh * G + i / nt, r0 = (first + i % nt) * BQ;
+        mbar_wait(smem_u32(empty + st), ((i / ST) & 1) ^ 1);
+        uint8_t* qt = ring + st * L::STAGE_BYTES;
+        float* ls = stats + st * 2 * BQ;
+        const size_t off = ((size_t)b * H + hq) * Sq;
+#pragma unroll
+        for (int k = 0; k < BQ / 32; ++k) {   // rows past Sq: p = 0
+          const int rr = lane + 32 * k, row = r0 + rr;
+          ls[rr] = row < Sq ? __ldg(lse + off + row) * LOG2E : INFINITY;
+          ls[BQ + rr] = row < Sq ? __ldg(di + off + row) : 0.f;
+        }
+        const uint32_t bar = smem_u32(full + st);
+        if (lane == 0) {
+          mbar_arrive_tx(bar, L::STAGE_BYTES);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(smem_u32(qt + c * BQ * 128), &qmap, bar, 64 * c, r0, hq, b);
+            tma_load_4d(smem_u32(qt + L::T_BYTES + c * BQ * 128), &domap, bar, 64 * c, r0, hq, b);
+          }
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: the same 64 keys, every step; 0 sums dV, 1 dK ----
+  regs_inc<240>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int key = k0 + 16 * warp + g;   // and key + 8
+  const float c = sm_scale * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (nsteps > 0) mbar_wait(smem_u32(kvbar), 0);
+  const uint32_t ka = smem_u32(ks), va = smem_u32(vs);
+  for (int i = 0; i < nsteps; ++i) {
+    const int st = i % ST;
+    const int r0 = (first + i % nt) * BQ;
+    mbar_wait(smem_u32(full + st), (i / ST) & 1);
+    const uint32_t qa = smem_u32(ring + st * L::STAGE_BYTES), da = qa + L::T_BYTES;
+    const float* ls = stats + st * 2 * BQ;
+    const bool masked = !tile_full(r0, BQ, k0, KEYS, Sq, n, causal, window);
+    float s[BQ / 2];
+    uint32_t a[BQ / 16][4];
+    if (wg == 0) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<BQ>::ss(s, kmajor(ka, KEYS, kk), kmajor(qa, BQ, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      dkv_p<BQ>(s, a, masked, key, r0, q, ls, c, Sq, n, causal, window);
+      pin(acc);
+      pin(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) Mma<D>::rs(acc, a[kk], mnmajor(da, BQ, kk));
+    } else {
+      float dp[BQ / 2];
+      uint32_t pt[BQ / 16][4];   // unused: dV is the other warpgroup's
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Mma<BQ>::ss(s, kmajor(ka, KEYS, kk), kmajor(qa, BQ, kk), kk);
+        Mma<BQ>::ss(dp, kmajor(va, KEYS, kk), kmajor(da, BQ, kk), kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      pin(dp);
+      dkv_probs<BQ>(s, dp, pt, a, masked, key, r0, q, ls, ls + BQ, c, sm_scale, Sq, n, causal,
+                    window);
+      pin(acc);
+      pin(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) Mma<D>::rs(acc, a[kk], mnmajor(qa, BQ, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    if (lane == 0) mbar_arrive(smem_u32(empty + st));
+  }
+
+  named_sync(3, 256);   // both are done reading K and V: their tiles stage the sums
+  if (wg == 0)
+    store_rows<D>(acc, vs, KEYS, 0, dv + b * dvs.b + kvh * dvs.h, dvs.s, k0, Skv, wg);
+  else
+    store_rows<D>(acc, ks, KEYS, 0, dk + b * dks.b + kvh * dks.h, dks.s, k0, Skv, wg);
+}
+
 // cuTensorMapEncodeTiled from the driver library that the process has loaded,
 // found once, so that the library needs no link against libcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -958,12 +1202,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* lens, con
               int KVH, int Sq, int Skv, float sm_scale, int causal, int window, int rows,
               int cols, int stages, int smem, cudaStream_t stream) {
   using L = Dq<D>;
-  if (rows != DQ_BQ || cols != DQ_BK || stages != DQ_STAGES || smem != L::SMEM ||
+  if (rows != DQ_BQ || cols != L::BK || stages != DQ_STAGES || smem != L::SMEM ||
       !out_ok(dq, st + 12))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm, dom;
-  if (!make_map(&qm, q, B, H, Sq, D, st, DQ_BQ) || !make_map(&km, k, B, KVH, Skv, D, st + 3, DQ_BK) ||
-      !make_map(&vm, v, B, KVH, Skv, D, st + 6, DQ_BK) ||
+  if (!make_map(&qm, q, B, H, Sq, D, st, DQ_BQ) || !make_map(&km, k, B, KVH, Skv, D, st + 3, L::BK) ||
+      !make_map(&vm, v, B, KVH, Skv, D, st + 6, L::BK) ||
       !make_map(&dom, dout, B, H, Sq, D, st + 9, DQ_BQ))
     return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = allow_smem(flash_dq_kernel<D>, L::SMEM);
@@ -1017,6 +1261,34 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* lens, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// dk, dv at WIDE_D: 64 keys a CTA, dV and dK on the two consumer warpgroups
+template <int D>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* lens,
+                    const void* dout, const void* lse, const void* di, void* dk, void* dv,
+                    const long long* st, int B, int H, int KVH, int Sq, int Skv, float sm_scale,
+                    int causal, int window, int rows, int cols, int stages, int smem,
+                    cudaStream_t stream) {
+  using L = DkvWide<D>;
+  if (rows != DKV_BQ || cols != DKV_WIDE_KEYS || stages != DKV_WIDE_STAGES || smem != L::SMEM ||
+      !out_ok(dk, st + 12) || !out_ok(dv, st + 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm, dom;
+  if (!make_map(&qm, q, B, H, Sq, D, st, DKV_BQ) ||
+      !make_map(&km, k, B, KVH, Skv, D, st + 3, DKV_WIDE_KEYS) ||
+      !make_map(&vm, v, B, KVH, Skv, D, st + 6, DKV_WIDE_KEYS) ||
+      !make_map(&dom, dout, B, H, Sq, D, st + 9, DKV_BQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = allow_smem(flash_dkv_wide_kernel<D>, L::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B * KVH, (Skv + DKV_WIDE_KEYS - 1) / DKV_WIDE_KEYS);
+  flash_dkv_wide_kernel<D><<<grid, THREADS, L::SMEM, stream>>>(
+      qm, km, vm, dom, static_cast<const int*>(lens), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]}, H, KVH, Sq, Skv, sm_scale,
+      causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool dims_ok(int B, int H, int KVH, int Sq, int Skv) {
   return B > 0 && H > 0 && KVH > 0 && H % KVH == 0 && Sq > 0 && Skv >= 0 &&
          (long long)B * H < (1ll << 31) && (Sq + 63) / 64 < 65536 && (Skv + 63) / 64 < 65536;
@@ -1032,7 +1304,7 @@ bool dims_ok(int B, int H, int KVH, int Sq, int Skv) {
 // plan's (ops/flash_attention.py: flash_plan): a tile's query rows and keys,
 // the ring's depth and the dynamic shared memory, checked against the
 // kernel's own.  Every entry returns the launch's cudaError_t
-// (cudaErrorInvalidValue for a head dim other than 64 or 128, a plan,
+// (cudaErrorInvalidValue for a head dim other than 64, 128 or 256, a plan,
 // stride or alignment the kernel does not take, or a tensor map that cannot
 // be made).
 
@@ -1049,6 +1321,9 @@ extern "C" int flash_wgmma_fwd(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_fwd<128>(q, k, v, kv_lengths, o, lse, strides, B, H, KVH, Sq, Skv, sm_scale,
                            causal, window, rows, cols, stages, smem, s);
+  if (D == WIDE_D)
+    return launch_fwd<WIDE_D>(q, k, v, kv_lengths, o, lse, strides, B, H, KVH, Sq, Skv, sm_scale,
+                              causal, window, rows, cols, stages, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1066,6 +1341,9 @@ extern "C" int flash_wgmma_bwd_dq(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_dq<128>(q, k, v, kv_lengths, dout, lse, di, dq, strides, B, H, KVH, Sq, Skv,
                           sm_scale, causal, window, rows, cols, stages, smem, s);
+  if (D == WIDE_D)
+    return launch_dq<WIDE_D>(q, k, v, kv_lengths, dout, lse, di, dq, strides, B, H, KVH, Sq, Skv,
+                             sm_scale, causal, window, rows, cols, stages, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1083,5 +1361,8 @@ extern "C" int flash_wgmma_bwd_dkv(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_dkv<128>(q, k, v, kv_lengths, dout, lse, di, dk, dv, strides, B, H, KVH, Sq,
                            Skv, sm_scale, causal, window, rows, cols, stages, smem, s);
+  if (D == WIDE_D)
+    return launch_dkv_wide<WIDE_D>(q, k, v, kv_lengths, dout, lse, di, dk, dv, strides, B, H, KVH,
+                                   Sq, Skv, sm_scale, causal, window, rows, cols, stages, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -52,6 +52,7 @@ from qlora_tpu_torch.ops import (
     flash_attention, fused_decode_attention, fused_paged_chunk_attention,
     fused_paged_decode_attention,
 )
+from qlora_tpu_torch.ops.tape import Tape
 from qlora_tpu_torch.quant.blockwise import quantize
 
 LLAMA_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -205,20 +206,23 @@ def block_forward(cfg, lcfg, x, block, lora, cos, sin, mask, cache_kv, pos, seed
     return x + _mlp(cfg, block, lora, lcfg, h2, seed)
 
 
-def _check_remat(remat) -> bool:
-    """Per-layer gradient checkpointing.  ``True`` / ``"full"`` keeps only
-    the layer boundaries: the backward runs each block's whole forward
-    again, every NF4 matmul and attention kernel included (least memory).
-    The JAX package's ``"save_linear"`` names residuals for a JAX checkpoint
-    policy, which has no counterpart for ``autograd.Function``s here."""
-    if remat == "save_linear":
-        raise NotImplementedError(
-            "remat='save_linear' (keep the linear and attention outputs, recompute "
-            "the rest) is not ported: ROADMAP queue A2, remat=\"save_linear\"; use "
-            "remat='full'")
-    if remat not in (False, True, "full"):
+def _check_remat(remat):
+    """Per-layer gradient checkpointing, as the JAX package's ``_remat_wrap``:
+    False, "full" (``True`` too) or "save_linear".
+
+    "full" keeps only the layer boundaries: the backward runs each block's
+    whole forward again, every NF4 matmul and attention kernel included
+    (least memory).  "save_linear" also keeps, on the block's tape
+    (``ops/tape.py``), the base matmul output of each block linear (JAX's
+    ``linear_out``, before the LoRA term) and flash attention's o and lse
+    (JAX's ``attn_out``; JAX keeps no lse, so its re-forward may run the
+    kernel again): the recomputed forward runs the norms, RoPE, the gated
+    activation, the residuals and the LoRA products, and no qmm or flash
+    forward kernel.  The plain attention (no flash) is recomputed.  The
+    gradients are the same under every policy."""
+    if remat not in (False, True, "full", "save_linear"):
         raise ValueError(f"remat must be False, True, 'full' or 'save_linear', got {remat!r}")
-    return bool(remat)
+    return "full" if remat is True else remat
 
 
 def forward(
@@ -233,7 +237,7 @@ def forward(
     cache: Optional[dict] = None,
     use_flash: str = "auto",                    # "auto" | "never" | "always"
     generator: Optional[torch.Generator] = None,   # LoRA dropout (lcfg.dropout > 0)
-    remat=False,                                # False | True / "full"
+    remat=False,                                # False | True / "full" | "save_linear"
 ):
     """Returns (logits [B, S, V] f32, cache or None).  The cache's K/V
     buffers are updated in place; the returned dict carries the new lengths.
@@ -290,7 +294,9 @@ def forward(
         # one draw per forward; layer i's masks come from seed0 + i
         seed0 = int(torch.randint(0, 2 ** 40, (1,), generator=generator,
                                   device=generator.device).item())
-    remat = _check_remat(remat) and cache is None and torch.is_grad_enabled()
+    remat = _check_remat(remat)
+    if cache is not None or not torch.is_grad_enabled():
+        remat = False
     for i, block in enumerate(params["blocks"]):
         lora_l = None if lora is None else lora[i]
         if paged:
@@ -303,7 +309,12 @@ def forward(
             return block_forward(cfg, lcfg, x, block, lora_l, cos, sin, mask, cache_l,
                                  positions, seed, flash_lengths)
 
-        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+        if remat == "save_linear":
+            x = checkpoint(body, x, use_reentrant=False, context_fn=Tape().contexts)
+        elif remat:
+            x = checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
 
     if cfg.arch == "llama":
         x = rms_norm(x, _nscale(cfg, params["final_norm"]["scale"]), cfg.norm_eps)

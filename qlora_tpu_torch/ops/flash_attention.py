@@ -35,9 +35,10 @@ from typing import Optional
 import torch
 
 from . import _build
+from .tape import taped
 
 EMPTY_LSE = 3e38          # lse of a row with no visible key
-HEAD_DIMS = (64, 128)     # what the kernels are instantiated for
+HEAD_DIMS = (64, 128, 256)   # what the kernels are instantiated for
 
 
 def _visible(Sq: int, Skv: int, kv_lengths: torch.Tensor, causal: bool,
@@ -151,6 +152,13 @@ FWD_TILE = (128, 64, 2)
 DQ_TILE = (128, 64, 3)
 DKV_TILE = (64, 128, 4)
 DKV_FEW_KEYS = 64
+# head dim 256 (WIDE_D): a warpgroup's 64 x 256 f32 accumulator takes 128
+# registers a thread.  The forward keeps its tiles; dq takes kv tiles of 32
+# keys (Q, dO and 3 stages then fit in 227 KB); a dk, dv CTA owns 64 keys and
+# its two consumer warpgroups walk every step, one summing dV, the other dK
+WIDE_D = 256
+DQ_WIDE_TILE = (128, 32, 3)
+DKV_WIDE_TILE = (64, 64, 2)
 THREADS = 384             # two consumer warpgroups and a producer
 BAR_BYTES = 256           # the mbarriers, after the tiles
 SMEM_PER_BLOCK = 232448   # 227 KB, what an H100 block may use
@@ -165,6 +173,20 @@ def flash_smem(kernel: str, D: int, rows: int, cols: int, stages: int) -> int:
         return 1024 + 2 * rows * D * 2 + stages * 2 * cols * D * 2 + BAR_BYTES
     if kernel == "dkv":      # K and V; a stage holds Q, dO and their rows' lse, di
         return 1024 + 2 * cols * D * 2 + stages * (2 * rows * D * 2 + 2 * rows * 4) + BAR_BYTES
+    raise ValueError(f"no kernel {kernel!r}")
+
+
+def acc_regs(kernel: str, D: int, rows: int, cols: int) -> int:
+    """f32 accumulator registers a consumer thread holds at once (a
+    warpgroup's 64 x n wgmma accumulator is n / 2 a thread): forward O and
+    S; dq dQ, S and dP; dk, dv both sums and S^T, dP^T, or at head dim 256
+    one sum (its warpgroup's) and S^T, dP^T.  Of the 240 a consumer gets."""
+    if kernel == "fwd":
+        return D // 2 + cols // 2
+    if kernel == "dq":
+        return D // 2 + cols
+    if kernel == "dkv":
+        return (1 if D == WIDE_D else 2) * D // 2 + rows
     raise ValueError(f"no kernel {kernel!r}")
 
 
@@ -244,20 +266,26 @@ class FlashPlan:
                 for r0, c0, t in spans]
 
 
+def _check_head_dim(D: int) -> None:
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}: the kernels are instantiated for "
+                         "these only (ROADMAP.md, queue B: other head dims)")
+
+
 @functools.lru_cache(maxsize=256)
 def flash_plan(B: int, H: int, KVH: int, Sq: int, Skv: int, D: int, causal: bool,
                window: Optional[int]) -> FlashPlan:
     """The tiles, rings, grids and shared memory of the three kernels for one
     shape (the lengths change only which tiles a CTA walks: ``visits``)."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS} (head dim 256 is ROADMAP item A2)")
+    _check_head_dim(D)
     window = min(int(window), Sq + Skv) if window else 0   # wider sees the same keys
     rows, keys, stages = DKV_TILE
     if H != KVH:
         keys = DKV_FEW_KEYS
+    tiles = ((FWD_TILE, DQ_TILE, (rows, keys, stages)) if D != WIDE_D
+             else (FWD_TILE, DQ_WIDE_TILE, DKV_WIDE_TILE))
     plans = {}
-    for kernel, (rows, cols, stages) in (("fwd", FWD_TILE), ("dq", DQ_TILE),
-                                         ("dkv", (rows, keys, stages))):
+    for kernel, (rows, cols, stages) in zip(("fwd", "dq", "dkv"), tiles):
         grid = ((B * KVH, -(-Skv // cols)) if kernel == "dkv" else (B * H, -(-Sq // rows)))
         plans[kernel] = KernelPlan(kernel, rows, cols, stages,
                                    flash_smem(kernel, D, rows, cols, stages), grid)
@@ -314,8 +342,7 @@ def _operands(q, k, v, kv_lengths, extra=(), prepare=_tma_operand):
     if k.shape[0] != B or k.shape[3] != D or KVH == 0 or H % KVH:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair up "
                          "(same B and D, KVH dividing H)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS} (head dim 256 is ROADMAP item A2)")
+    _check_head_dim(D)
     if tuple(kv_lengths.shape) != (B,):
         raise ValueError(f"kv_lengths must be [B] = [{B}], got {tuple(kv_lengths.shape)}")
     dev = q.device
@@ -355,9 +382,12 @@ def _launch(entry: str, tensors, strided, plan: FlashPlan, sm_scale, fn=None):
     _build.check(err, entry)
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, D: int) -> None:
+    """One launch of `wrapper`'s wgmma kernel; ``wide_launches`` counts those
+    at head dim 256, which take the WIDE_D tiles."""
     wrapper.launches += 1
     wrapper.wgmma_launches += 1
+    wrapper.wide_launches += D == WIDE_D
 
 
 def flash_fwd(q, k, v, kv_lengths, sm_scale: float = 1.0, causal: bool = True,
@@ -371,7 +401,7 @@ def flash_fwd(q, k, v, kv_lengths, sm_scale: float = 1.0, causal: bool = True,
     if o.numel():
         _launch("flash_wgmma_fwd", (q, k, v, lens, o, lse), (q, k, v, o),
                 flash_plan(*dims, causal, window), sm_scale)
-        _count(flash_fwd)
+        _count(flash_fwd, D)
     return o, lse
 
 
@@ -385,7 +415,7 @@ def flash_bwd_dq(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
     if dq.numel():
         _launch("flash_wgmma_bwd_dq", (q, k, v, lens, do, lse, di, dq), (q, k, v, do, dq),
                 flash_plan(*dims, causal, window), sm_scale)
-        _count(flash_bwd_dq)
+        _count(flash_bwd_dq, dims[5])
     return dq
 
 
@@ -401,13 +431,14 @@ def flash_bwd_dkv(q, k, v, kv_lengths, do, lse, di, sm_scale: float = 1.0,
         _launch("flash_wgmma_bwd_dkv", (q, k, v, lens, do, lse, di, dk, dv),
                 (q, k, v, do, dk, dv), flash_plan(*dims, causal, window),
                 sm_scale)
-        _count(flash_bwd_dkv)
+        _count(flash_bwd_dkv, dims[5])
     return dk, dv
 
 
 for _w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
     _w.launches = 0
     _w.wgmma_launches = 0
+    _w.wide_launches = 0
 
 
 # ``csrc/flash_attention.cu``, the WMMA kernels that the wgmma kernels
@@ -483,7 +514,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, sm_scale, causal, window):
         fwd = flash_fwd_plain if _on_cpu(q) else flash_fwd
-        o, lse = fwd(q, k, v, kv_lengths, sm_scale, causal, window)
+        # under remat="save_linear" the recomputed block reads o and lse back
+        o, lse = taped(fwd, q, k, v, kv_lengths, sm_scale, causal, window)
         ctx.save_for_backward(q, k, v, kv_lengths, o, lse)
         ctx.args = (sm_scale, causal, window)
         ctx.set_materialize_grads(False)

@@ -77,6 +77,7 @@ from qlora_tpu_torch.quant.blockwise import (
 from qlora_tpu_torch.quant.codebooks import get_code
 
 from . import _build
+from .tape import taped
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1160,7 +1161,7 @@ class _QMatmul(torch.autograd.Function):
     def forward(ctx, x, qt):
         ctx.qt = qt
         ctx.x_dtype = x.dtype
-        return _forward(x, qt)
+        return taped(_forward, x, qt)
 
     @staticmethod
     def backward(ctx, g):
@@ -1173,7 +1174,10 @@ def qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """``x @ dequant(qt)`` for 2-D x [M, K] → [M, N] (bf16 out, f32 accum).
 
     Differentiable in x only.  An x that needs no gradient skips autograd
-    altogether, so nothing is kept and no backward kernel is launched."""
+    altogether, so nothing is kept and no backward kernel is launched.
+    Inside a block checkpointed with ``remat="save_linear"`` the product is
+    kept on the block's tape and read back when the block is recomputed
+    (``ops/tape.py``)."""
     if x.requires_grad and torch.is_grad_enabled():
         return _QMatmul.apply(x, qt)
-    return _forward(x, qt)
+    return taped(_forward, x, qt)

@@ -2,10 +2,13 @@
 
 An optimizer is a pair ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)`` over trees of tensors
-(nested lists, tuples and dicts, as the LoRA adapters are), in the manner
-of the optax chains the JAX package builds, so that the two can be held
-against each other step by step.  State tensors live on their parameter's
-device; the step count and the learning rate are Python numbers.
+(nested lists, tuples, dicts and dataclasses: the LoRA adapters, or a whole
+model's parameters in full finetuning), in the manner of the optax chains
+the JAX package builds, so that the two can be held against each other step
+by step.  State tensors live on their parameter's device; the step count
+and the learning rate are Python numbers.  ``adamw`` updates its moments in
+place, leaf by leaf: the state handed to ``update`` is consumed, as the JAX
+train step donates it, and a step holds one leaf's temporaries at a time.
 
 * ``adamw``: clip the gradients to a global norm (0.3), then AdamW.
 * ``adam8bit``: AdamW whose m and sqrt(v) are stored as int8 in blocks of
@@ -21,6 +24,7 @@ device; the step count and the learning rate are Python numbers.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
@@ -38,10 +42,17 @@ class Optimizer(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _is_dataclass(tree) -> bool:
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+
+
 def tree_leaves(tree) -> list:
-    """The tensors of a tree, dicts in insertion order."""
+    """The tensors of a tree, dicts in insertion order, dataclasses in the
+    order of their fields."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if _is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in tree_leaves(getattr(tree, f.name))]
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
@@ -54,6 +65,10 @@ def tree_map(fn, tree, *rest):
     anything that is not a tensor or a container is kept as it is."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
+    if _is_dataclass(tree):
+        return type(tree)(**{f.name: tree_map(fn, getattr(tree, f.name),
+                                              *(getattr(r, f.name) for r in rest))
+                             for f in dataclasses.fields(tree) if f.init})
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -115,14 +130,16 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         norm = global_norm(grads)
         clip = max_grad_norm / torch.clamp(norm, min=max_grad_norm)
         bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
-        g = tree_map(lambda g: g.float() * clip, grads)
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], g)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["nu"], g)
-        updates = tree_map(
-            lambda m, v, p: -step_lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
-                                        + weight_decay * p.float()),
-            mu, nu, params)
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        updates = []
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"]), tree_leaves(params)):
+            g = g.float() * clip
+            torch.add(b1 * m, (1 - b1) * g, out=m)          # in place: the state is consumed
+            torch.add(b2 * v, (1 - b2) * g * g, out=v)
+            updates.append(-step_lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                                       + weight_decay * p.float()))
+        return tree_unflatten(grads, updates), {"count": count, "mu": state["mu"],
+                                                "nu": state["nu"]}
 
     return Optimizer(init, update)
 

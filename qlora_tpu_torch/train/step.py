@@ -1,9 +1,10 @@
 """The QLoRA training and eval step: loss and gradients with respect to the
-LoRA adapters only, gradient accumulation over micro-batches, the optimizer
-update.
+LoRA adapters only (or, with ``mode="full"``, every tensor of an unquantized
+model), gradient accumulation over micro-batches, the optimizer update.
 
-The base model is frozen: its tensors do not require gradients, the NF4
-matmul gives its weight none, and the step never writes to them.
+In ``mode="lora"`` the base model is frozen: its tensors do not require
+gradients, the NF4 matmul gives its weight none, and the step never writes
+to them.
 """
 
 from __future__ import annotations
@@ -26,16 +27,13 @@ from qlora_tpu_torch.train.optimizer import (
 @dataclasses.dataclass
 class TrainState:
     step: int
-    trainable: Any            # the LoRA tree: a list over layers of {name: {"a", "b"}}
+    trainable: Any            # the LoRA tree: a list over layers of {name: {"a", "b"}}, or
+                              # in mode "full" the model's params (dense linears)
     opt_state: Any
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "full":
-        raise NotImplementedError(
-            "mode='full' (full finetuning of an unquantized model) is not ported: "
-            "ROADMAP queue A2, mode=\"full\"")
-    if mode != "lora":
+    if mode not in ("lora", "full"):
         raise ValueError(f"mode must be 'lora' or 'full', got {mode!r}")
 
 
@@ -46,9 +44,11 @@ def _on_device(batch: dict, device) -> dict:
 def loss_fn(trainable, frozen, batch, cfg, lcfg, generator=None, train=True, mode="lora",
             remat="full"):
     """Next-token loss of one micro-batch (tensors on the model's device):
-    logits[:, t] predicts labels[:, t + 1].  Returns (loss, n_valid)."""
+    logits[:, t] predicts labels[:, t + 1].  Returns (loss, n_valid).  In
+    mode "full" `trainable` is the whole model and `frozen` is ignored."""
     _check_mode(mode)
-    logits, _ = forward(frozen, trainable, batch["input_ids"], cfg, lcfg,
+    params, lora = (frozen, trainable) if mode == "lora" else (trainable, None)
+    logits, _ = forward(params, lora, batch["input_ids"], cfg, lcfg,
                         attn_mask=batch.get("attention_mask"),
                         generator=generator if train else None,
                         remat=remat if train else False)
@@ -56,7 +56,8 @@ def loss_fn(trainable, frozen, batch, cfg, lcfg, generator=None, train=True, mod
 
 
 def make_train_step(cfg: ModelConfig, lcfg: LoraConfig, optimizer: Optimizer,
-                    accum_steps: int = 1, mode: str = "lora", remat="full", device=None):
+                    accum_steps: int = 1, mode: str = "lora", remat="save_linear",
+                    device=None):
     """Returns ``train_step(state, frozen_params, batch, generator=None) ->
     (state, metrics)``, which runs on `device` (CUDA unless the caller names
     one; the state and the parameters must already be there).
@@ -68,12 +69,23 @@ def make_train_step(cfg: ModelConfig, lcfg: LoraConfig, optimizer: Optimizer,
     ``grad_norm`` (of the gradients before clipping) as 0-dim tensors.
     ``generator`` feeds LoRA dropout when ``lcfg.dropout > 0``.
 
-    ``remat``: ``"full"`` (default) keeps only the layer boundaries and runs
-    each block's forward again in the backward; False keeps everything.  The
-    JAX package defaults to ``"save_linear"``, a checkpoint policy that keeps
-    the matmul and attention outputs; it has no counterpart here yet and
-    raises.  The gradients are the same under every policy."""
+    ``mode``: "lora" trains the adapters over the frozen params; "full"
+    trains every tensor of an unquantized model (``init_params(...,
+    quantized=False)``: the embedding, the norms, each ``DenseLinear`` and
+    the lm_head), ``state.trainable`` is that tree and ``frozen_params`` is
+    ignored.  The state handed in is consumed (the optimizer updates its
+    moments in place), as the JAX step donates it.
+
+    ``remat``: ``"save_linear"`` (default, as JAX's) keeps each block
+    linear's base matmul output and flash attention's output and recomputes
+    the rest (``models/transformer.py: _check_remat``); ``"full"`` keeps only
+    the layer boundaries and runs each block's forward again in the
+    backward; False keeps everything.  Mode "full" runs "full" in place of
+    "save_linear", as JAX does.  The gradients are the same under every
+    policy."""
     _check_mode(mode)
+    if mode == "full" and remat == "save_linear":
+        remat = "full"
     device = resolve_device(device)
 
     def micro(leaves, like, frozen, mb, generator):
@@ -89,25 +101,30 @@ def make_train_step(cfg: ModelConfig, lcfg: LoraConfig, optimizer: Optimizer,
             loss, _, grads = micro(leaves, state.trainable, frozen, batch, generator)
             grads = [g.float() for g in grads]
         else:
-            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+            # summed in place in f32: one micro-batch's gradients alive beside the sum
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
             n_sum = torch.zeros((), dtype=torch.int64, device=device)
             for i in range(accum_steps):
                 mb = {k: v[i] for k, v in batch.items()}
                 loss_i, n, g = micro(leaves, state.trainable, frozen, mb, generator)
-                gsum = [a + b.float() for a, b in zip(gsum, g)]
+                for a, b in zip(grads, g):
+                    a.add_(b)
+                del g
                 loss_sum = loss_sum + loss_i * n
                 n_sum = n_sum + n
-            grads = [g / accum_steps for g in gsum]
+            for g in grads:
+                g.div_(accum_steps)
             loss = loss_sum / n_sum.clamp(min=1)
         grads = tree_unflatten(state.trainable, grads)
         with torch.no_grad():
+            metrics = {"loss": loss, "grad_norm": global_norm(grads)}
             params = tree_map(lambda p: p.detach(), state.trainable)
             updates, opt_state = optimizer.update(grads, state.opt_state, params)
+            del grads        # the f32 sum goes before the new parameters are made
             new_state = TrainState(step=state.step + 1,
                                    trainable=apply_updates(params, updates),
                                    opt_state=opt_state)
-            metrics = {"loss": loss, "grad_norm": global_norm(grads)}
         return new_state, metrics
 
     return train_step
@@ -115,7 +132,8 @@ def make_train_step(cfg: ModelConfig, lcfg: LoraConfig, optimizer: Optimizer,
 
 def make_eval_step(cfg: ModelConfig, lcfg: LoraConfig, mode: str = "lora", device=None):
     """Returns ``eval_step(trainable, frozen, batch) -> (loss, n_valid)``:
-    no dropout, no remat, no gradients."""
+    no dropout, no remat, no gradients (mode "full": `trainable` is the
+    model, `frozen` ignored)."""
     _check_mode(mode)
     device = resolve_device(device)
 

@@ -528,6 +528,13 @@ FLASH_CASES = [   # B, H, KVH, D, S, lens, causal, window, planted, the model's 
     (3, 4, 4, 128, 200, [65, 64, 1], True, None, False, False),
     (2, 8, 2, 128, 384, [384, 200], True, 100, True, True),       # [B, S, H, D] memory
     (2, 4, 2, 64, 50, [50, 17], True, None, False, True),         # S shorter than a tile
+    # head dim 256 (the Gemma presets): its own dq and dk, dv tiles
+    (2, 16, 16, 256, 512, [512, 300], True, None, False, False),  # gemma-7b's train shape
+    (2, 8, 1, 256, 512, [512, 300], True, 256, True, False),      # gemma-2b's MQA, planted
+    (2, 4, 4, 256, 600, [600, 77], True, None, False, True),      # S % 64 != 0, [B, S, H, D]
+    (3, 4, 2, 256, 200, [200, 0, 1], True, 64, False, False),     # a row of length 0
+    (2, 4, 4, 256, 130, [130, 65], False, None, False, False),    # not causal
+    (3, 4, 2, 256, 200, [65, 64, 1], True, 1, False, False),      # window 1, tile edges
 ]
 
 
@@ -554,13 +561,17 @@ def _flash_counts():
     return tuple((w.launches, w.wgmma_launches) for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv))
 
 
+def _wide_counts():
+    return tuple(w.wide_launches for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv))
+
+
 @pytest.mark.parametrize("B,H,KVH,D,S,lens,causal,window,planted,transposed", FLASH_CASES)
 def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, planted,
                                    transposed):
     q, k, v, do, L, sm = _flash_inputs(cuda, B, H, KVH, D, S, lens, window, planted,
                                        transposed, S + H)
     gen = torch.Generator(device=cuda).manual_seed(S)
-    n0 = _flash_counts()
+    n0, w0 = _flash_counts(), _wide_counts()
     o, lse = flash_fwd(q, k, v, L, sm, causal, window)
     o2, lse2 = flash_fwd_plain(q, k, v, L, sm, causal, window)
     d = (o.float() - o2.float()).abs()
@@ -574,8 +585,9 @@ def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, 
     di = (o2.float() * do.float()).sum(-1) - dlse
     dq = flash_bwd_dq(q, k, v, L, do, lse2, di, sm, causal, window)
     dk, dv = flash_bwd_dkv(q, k, v, L, do, lse2, di, sm, causal, window)
-    # each call launched its wgmma kernel once
+    # each call launched its wgmma kernel once, at head dim 256 the WIDE_D tiles'
     assert _flash_counts() == tuple((n + 1, w + 1) for n, w in n0)
+    assert _wide_counts() == tuple(w + (D == 256) for w in w0)
     rq, rk, rv = flash_bwd_plain(q, k, v, L, o2, lse2, do, sm, causal, window, dlse=dlse)
     for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         d = (got.float() - ref.float()).abs()
@@ -592,6 +604,8 @@ def test_flash_kernels_match_plain(cuda, B, H, KVH, D, S, lens, causal, window, 
     (3, 8, 2, 128, 384, [384, 200, 77], True, 100),
     (3, 4, 4, 64, 200, [130, 200, 1], False, None),
     (3, 32, 32, 128, 512, [512, 300, 0], True, None),
+    (3, 8, 1, 256, 384, [384, 200, 77], True, 100),
+    (3, 16, 16, 256, 512, [512, 300, 0], True, None),
 ])
 def test_flash_wgmma_deterministic_and_row_invariant(cuda, B, H, KVH, D, S, lens, causal,
                                                      window):
@@ -662,6 +676,9 @@ def test_flash_autograd_launches_all_three(cuda):
 def test_flash_rejects_bad_input(cuda):
     q = torch.zeros(1, 4, 64, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd(q, q, q, torch.tensor([64], device=cuda))
+    q = torch.zeros(1, 4, 64, 192, device=cuda, dtype=torch.bfloat16)   # 192 % 64 == 0
+    with pytest.raises(ValueError, match="head_dim 192"):
         flash_fwd(q, q, q, torch.tensor([64], device=cuda))
     q = torch.zeros(1, 4, 64, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="pair up"):

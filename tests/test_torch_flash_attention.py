@@ -49,6 +49,9 @@ CASES = {   # B, H, KVH, S, D, lengths, causal, window
     "window200_gqa": (1, 4, 1, 256, 64, (256,), True, 200),
     "empty_row": (2, 1, 1, 128, 64, (128, 0), False, None),
     "hd128": (1, 2, 2, 128, 128, (90,), True, None),
+    # head dim 256 (the Gemma presets), MQA as gemma-2b
+    "hd256": (1, 2, 1, 256, 256, (256,), True, None),
+    "hd256_window": (1, 2, 1, 256, 256, (200,), True, 64),
 }
 
 
@@ -154,7 +157,8 @@ def test_grads_with_lse_cotangent_match_jax(name):
     assert (q.grad.float() - q2.grad.float()).abs().max() > 1e-2
 
 
-@pytest.mark.parametrize("name", ["causal", "gqa", "window64", "not_causal_padded", "hd128"])
+@pytest.mark.parametrize("name", ["causal", "gqa", "window64", "not_causal_padded", "hd128",
+                                  "hd256_window"])
 def test_plain_backward_matches_autograd_of_reference(name):
     """The explicit dq/dk/dv formulas against torch.autograd through the
     f32 oracle, with an lse cotangent through logsumexp of the same scores."""

@@ -41,6 +41,12 @@ SHAPES = [
     (2, 4, 4, 384, 384, 128, True, 100, (384, 200)),
     (2, 2, 1, 128, 200, 64, True, None, (200, 129)),
     (2, 4, 4, 200, 64, 128, False, None, (64, 1)),
+    # head dim 256: dq's 32-key tiles, dk and dv's 64 keys a CTA at G = 1 and 8
+    (2, 16, 16, 512, 512, 256, True, None, (512, 300)),
+    (2, 8, 1, 512, 512, 256, True, 256, (512, 300)),
+    (2, 4, 4, 600, 600, 256, True, None, (600, 77)),
+    (3, 4, 2, 200, 200, 256, True, 64, (200, 0, 1)),
+    (2, 4, 4, 130, 130, 256, False, 1, (130, 65)),
 ]
 
 
@@ -63,7 +69,7 @@ def test_plan_visits_every_visible_pair_once(shape, kernel):
     no visited tile is wholly invisible; a tile marked "full" lies inside
     both sequences and holds no invisible pair (the kernel skips its mask);
     the grid covers every query tile (fwd, dq) or key tile (dkv: 128-key
-    CTAs where G = 1, 64-key ones where G > 1)."""
+    CTAs where G = 1, 64-key ones where G > 1 or the head dim is 256)."""
     B, H, KVH, Sq, Skv, D, causal, window, lens = shape
     plan = FA.flash_plan(B, H, KVH, Sq, Skv, D, causal, window)
     kp = getattr(plan, kernel)
@@ -132,13 +138,23 @@ def test_plan_matches_the_kernel_and_fits_shared_memory():
     """The plan's tiles, rings, threads and barrier bytes are the kernel
     source's own constants; its shared memory is the source's formula
     (alignment, tiles, ring, barriers) and stays within the 227 KB an H100
-    block may use at both head dims and both dk, dv CTA sizes; the C
-    entries the wrapper names exist and dispatch on both CTA sizes."""
+    block may use at every head dim and both dk, dv CTA sizes; the C
+    entries the wrapper names exist and dispatch on both CTA sizes and, at
+    head dim 256, on the kernel that splits dV and dK over the warpgroups."""
     assert FA.FWD_TILE == (_constant("FWD_BQ"), _constant("FWD_BK"), _constant("FWD_STAGES"))
     assert FA.DQ_TILE == (_constant("DQ_BQ"), _constant("DQ_BK"), _constant("DQ_STAGES"))
     assert FA.DKV_TILE == (_constant("DKV_BQ"), _constant("DKV_MANY_KEYS"),
                            _constant("DKV_STAGES"))
     assert FA.DKV_FEW_KEYS == _constant("DKV_FEW_KEYS")
+    assert FA.WIDE_D == _constant("WIDE_D") == FA.HEAD_DIMS[-1]
+    assert FA.DQ_WIDE_TILE == (_constant("DQ_BQ"), _constant("DQ_WIDE_BK"),
+                               _constant("DQ_STAGES"))
+    assert FA.DKV_WIDE_TILE == (_constant("DKV_BQ"), _constant("DKV_WIDE_KEYS"),
+                                _constant("DKV_WIDE_STAGES"))
+    assert "static constexpr int BK = D == WIDE_D ? DQ_WIDE_BK : DQ_BK;" in SRC
+    assert "1024 + 2 * KV_BYTES + DKV_WIDE_STAGES * (STAGE_BYTES + ROW_BYTES) + BAR_BYTES;" in SRC
+    for fn in ("launch_fwd", "launch_dq", "launch_dkv_wide"):
+        assert f"return {fn}<WIDE_D>(" in SRC, fn
     assert {"DKV_FEW_KEYS", "DKV_MANY_KEYS"} == set(re.findall(r"launch_dkv_keys<D, (\w+)>", SRC))
     assert (FA.THREADS, FA.BAR_BYTES) == (_constant("THREADS"), _constant("BAR_BYTES"))
     for text in ("SMEM = 1024 + Q_BYTES + FWD_STAGES * STAGE_BYTES + BAR_BYTES;",
@@ -150,9 +166,12 @@ def test_plan_matches_the_kernel_and_fits_shared_memory():
     for D in FA.HEAD_DIMS:
         for keys, KVH in ((64, 8), (128, 32)):
             plan = FA.flash_plan(2, 32, KVH, 512, 512, D, True, 256)
+            # head dim 256: dq's kv tiles of 32 keys, dk and dv 64 keys a CTA, 2 steps
+            bk, keys, stages = (32, 64, 2) if D == 256 else (64, keys, 4)
             want = {"fwd": 1024 + 128 * D * 2 + 2 * (2 * 64 * D * 2) + 256,
-                    "dq": 1024 + 2 * 128 * D * 2 + 3 * (2 * 64 * D * 2) + 256,
-                    "dkv": 1024 + 2 * keys * D * 2 + 4 * (2 * 64 * D * 2 + 2 * 64 * 4) + 256}
+                    "dq": 1024 + 2 * 128 * D * 2 + 3 * (2 * bk * D * 2) + 256,
+                    "dkv": 1024 + 2 * keys * D * 2
+                           + stages * (2 * 64 * D * 2 + 2 * 64 * 4) + 256}
             assert plan.dkv.cols == keys
             for kernel, smem in want.items():
                 kp = getattr(plan, kernel)
@@ -182,13 +201,47 @@ def test_plan_takes_128_key_dkv_ctas_with_one_query_head_a_kv_head():
 
 
 def test_plan_refuses_other_head_dims():
-    """Head dim 256 (the Gemma presets) is not instantiated: a ValueError
-    that names the roadmap item, from the plan and from the wrappers."""
-    with pytest.raises(ValueError, match="A2"):
-        FA.flash_plan(1, 2, 2, 128, 128, 256, True, None)
-    q = torch.zeros(1, 2, 16, 256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        flash_fwd(q, q, q, torch.tensor([16]))
+    """The kernels are instantiated for head dims 64, 128 and 256 (the Gemma
+    presets).  Any other, 192 too (a multiple of 64, which the model's flash
+    gate takes but no preset uses), is a ValueError that names the roadmap,
+    from the plan and from the wrappers, before anything is launched."""
+    assert FA.HEAD_DIMS == (64, 128, 256)
+    for D in (32, 192, 320):
+        with pytest.raises(ValueError, match=f"head_dim {D} .*ROADMAP"):
+            FA.flash_plan(1, 2, 2, 128, 128, D, True, None)
+        q = torch.zeros(1, 2, 16, D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            flash_fwd(q, q, q, torch.tensor([16]))
+    assert FA.flash_plan(1, 2, 2, 128, 128, 256, True, None).D == 256
+
+
+def test_plan_at_head_dim_256_fits_registers_and_shared_memory():
+    """At head dim 256 a warpgroup's 64 x 256 f32 accumulator is 128
+    registers a thread.  The hd-128 tiles would not do: dq's Q, dO and 3
+    stages of 64-key K and V take 320 KB, and dk, dv's two sums 256 registers
+    (the hardware's most is 255).  The plan's tiles keep every kernel's
+    accumulators within what the hd-128 kernels already hold (192 of the 240
+    registers a consumer thread gets) and its shared memory within 227 KB,
+    at G = 1 and G = 8 alike."""
+    assert FA.flash_smem("dq", 256, *FA.DQ_TILE) > SMEM_PER_BLOCK
+    assert FA.acc_regs("dkv", 128, 64, 128) == 192
+    assert 2 * 256 // 2 + 64 > 255                     # dK and dV in one warpgroup
+    for KVH in (16, 1):
+        plan = FA.flash_plan(2, 16 if KVH == 16 else 8, KVH, 512, 512, 256, True, None)
+        for kernel in ("fwd", "dq", "dkv"):
+            kp = getattr(plan, kernel)
+            assert kp.smem <= SMEM_PER_BLOCK, kernel
+            assert FA.acc_regs(kernel, 256, kp.rows, kp.cols) <= 192, kernel
+        assert (plan.fwd.rows, plan.fwd.cols, plan.fwd.stages) == FA.FWD_TILE
+        assert (plan.dq.rows, plan.dq.cols, plan.dq.stages) == FA.DQ_WIDE_TILE
+        assert (plan.dkv.rows, plan.dkv.cols, plan.dkv.stages) == FA.DKV_WIDE_TILE
+        assert plan.dkv.grid == (2 * KVH, 8)
+    for D in (64, 128):
+        for KVH in (8, 32):
+            plan = FA.flash_plan(2, 32, KVH, 512, 512, D, True, None)
+            for kernel in ("fwd", "dq", "dkv"):
+                kp = getattr(plan, kernel)
+                assert FA.acc_regs(kernel, D, kp.rows, kp.cols) <= 192
 
 
 def test_tma_operand_takes_model_views_and_copies_the_rest():
@@ -246,6 +299,7 @@ def test_wrappers_launch_from_the_plan(monkeypatch):
     for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
         monkeypatch.setattr(w, "launches", 0)
         monkeypatch.setattr(w, "wgmma_launches", 0)
+        monkeypatch.setattr(w, "wide_launches", 0)
     B, S, H, KVH, D = 2, 200, 8, 2, 64
     mk = lambda heads: torch.randn(B, S, heads, D).to(torch.bfloat16).transpose(1, 2)
     q, k, v, do = mk(H), mk(KVH), mk(KVH), mk(H)
@@ -285,3 +339,16 @@ def test_wrappers_launch_from_the_plan(monkeypatch):
     assert list(ctypes.cast(args[6], ctypes.POINTER(ctypes.c_longlong))[:3]) == [H * S * D, S * D, D]
     flash_fwd(q[:, :, :0], k, v, L)           # no rows: no launch
     assert flash_fwd.launches == 2
+    assert all(w.wide_launches == 0 for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv))
+    # head dim 256: the WIDE_D tiles, counted in wide_launches as well
+    q, k, v, do = (t[..., :1].expand(*t.shape[:-1], 256).contiguous() for t in (q, k, v, do))
+    plan = FA.flash_plan(B, H, KVH, S, S, 256, True, 64)
+    o, lse = flash_fwd(q, k, v, L, 0.0625, True, 64)
+    assert rec.calls[-1][1][7:] == (B, H, KVH, S, S, 256, 0.0625, 1, 64, 128, 64, 2,
+                                    plan.fwd.smem, 7)
+    flash_bwd_dq(q, k, v, L, do, lse, di, 0.0625, True, 64)
+    assert rec.calls[-1][1][-5:] == (128, 32, 3, plan.dq.smem, 7)
+    flash_bwd_dkv(q, k, v, L, do, lse, di, 0.0625, True, 64)
+    assert rec.calls[-1][1][-5:] == (64, 64, 2, plan.dkv.smem, 7)
+    assert [(w.launches, w.wide_launches) for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv)] \
+        == [(3, 1), (2, 1), (2, 1)]

@@ -1,5 +1,10 @@
 """Port model forward against the JAX package's, on ``debug`` (LLaMA) and
-``debug-neox`` (GPT-NeoX), with a nonzero LoRA on every block linear.
+``debug-neox`` (GPT-NeoX), with a nonzero LoRA on every block linear; the
+no-cache forward and the cached prefill with its decode steps also on the
+other families the presets name: ``debug-gemma`` (GeGLU, (1 + w) RMSNorm,
+scaled embeddings, head_dim 32, tied lm_head) and ``debug`` with the qkv
+biases of Qwen2, the sliding window of Mistral (5 tokens) or tied
+embeddings.
 
 JAX parameters are carried across byte for byte.  Tolerance atol 0.1 on
 logits of magnitude ~4: both sides compute the same bf16-rounded
@@ -10,6 +15,8 @@ package's CPU backend computes attention in f32 while the port rounds the
 probabilities to bf16, as on the TPU; that stays inside the same bound.
 At S = 128 both packages take their flash attention without a cache (JAX:
 the Pallas kernel in interpret mode), inside the same bound again."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -45,11 +52,45 @@ def model(request):
     return (jcfg, jparams, jlora, jlcfg), (cfg, params, lora, lcfg)
 
 
+# the other families: (preset, the fields changed on both packages' configs)
+FAMILIES = {
+    "debug-gemma": ("debug-gemma", {}),
+    "qwen2-bias": ("debug", {"attention_bias": True}),
+    "mistral-window5": ("debug", {"sliding_window": 5}),
+    "tied": ("debug", {"tie_word_embeddings": True}),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def family(request):
+    name, fields = FAMILIES[request.param]
+    jcfg = dataclasses.replace(jget_config(name), **fields)
+    jparams = jinit_params(jax.random.PRNGKey(0), jcfg)
+    jlora, jlcfg = nonzero_lora(jcfg)
+    cfg = dataclasses.replace(get_config(name), **fields)
+    params, lora = bridge(jparams, jlora, cfg)
+    lcfg = LoraConfig(r=jlcfg.r, alpha=jlcfg.alpha)
+    return (jcfg, jparams, jlora, jlcfg), (cfg, params, lora, lcfg)
+
+
 def _close(t, j):
     np.testing.assert_allclose(t.numpy(), np.asarray(j, np.float32), atol=ATOL, rtol=0)
 
 
 def test_forward_no_cache(model):
+    _no_cache(model)
+
+
+def test_family_forward_no_cache(family):
+    _no_cache(family)
+    (_, jp, _, _), (cfg, p, _, _) = family
+    head = p["blocks"][0]["wq"]
+    assert (head.bias is not None) == cfg.attention_bias
+    if cfg.tie_word_embeddings:        # the lm_head a copy of embed^T, as JAX makes it
+        assert torch.equal(p["lm_head"].w, p["embed"].T)
+
+
+def _no_cache(model):
     (jcfg, jp, jl, jlc), (cfg, p, lo, lc) = model
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
     mask = np.ones((2, 12), np.int32)
@@ -65,6 +106,17 @@ def test_forward_no_cache(model):
 def test_cached_prefill_then_decode(model):
     """Prefill 12 tokens into a 128-slot cache (so JAX's decode runs its
     Pallas kernel), then 3 decode steps; logits and caches agree."""
+    _prefill_then_decode(model)
+
+
+def test_family_cached_prefill_then_decode(family):
+    """The same on the other families, one decode step (the 5-token window
+    slides past the first tokens within the 12; each JAX decode step runs
+    its Pallas kernel in interpret mode, seconds a step)."""
+    _prefill_then_decode(family, steps=1)
+
+
+def _prefill_then_decode(model, steps=3):
     (jcfg, jp, jl, jlc), (cfg, p, lo, lc) = model
     rng = np.random.default_rng(1)
     ids = rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
@@ -73,7 +125,7 @@ def test_cached_prefill_then_decode(model):
     tc = init_cache(cfg, 2, 128, device="cpu")
     got, tc = forward(p, lo, torch.from_numpy(ids), cfg, lc, cache=tc)
     _close(got, want)
-    for _ in range(3):
+    for _ in range(steps):
         tok = rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32)
         want, jc = jforward(jp, jl, jnp.asarray(tok), jcfg, jlc, cache=jc)
         got, tc = forward(p, lo, torch.from_numpy(tok), cfg, lc, cache=tc)

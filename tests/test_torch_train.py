@@ -1,6 +1,8 @@
 """The port's training step against the JAX package's: loss, schedule, both
-optimizers against the optax chains, and N-step trajectories of
-``make_train_step`` from one adapter carried into both trainers.
+optimizers against the optax chains, N-step trajectories of
+``make_train_step`` from one adapter carried into both trainers, the remat
+policies (``"save_linear"``, the default, against ``"full"``, no remat and
+JAX's), and full finetuning (``mode="full"``) of the unquantized model.
 
 Everything random is made with numpy from a seed; JAX parameters are carried
 across byte for byte.  The model is ``debug`` (LLaMA, 2 layers, hidden 256,
@@ -9,6 +11,7 @@ head_dim 64) at S = 128, where both packages take their flash attention
 test."""
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -33,10 +36,10 @@ from qlora_tpu_torch.train import (
     make_eval_step, make_optimizer, make_train_step, masked_cross_entropy,
     warmup_constant_schedule,
 )
-from qlora_tpu_torch.train.optimizer import _dq8, tree_leaves, tree_map
+from qlora_tpu_torch.train.optimizer import _dq8, tree_leaves, tree_map, tree_unflatten
 from qlora_tpu_torch.utils import lora_to_numpy
 from chip_smoke import frozen_tensors
-from test_torch_convert import bridge, nonzero_lora
+from test_torch_convert import bridge, jax_to_numpy, nonzero_lora
 
 torch.set_num_threads(2)
 
@@ -410,13 +413,21 @@ def test_remat_full_gives_the_gradients_of_no_remat(model):
 
 
 def test_what_is_left_out_raises_with_its_roadmap_item(model):
+    """Nothing of ROADMAP item A2 is left out any more: ``remat="save_linear"``
+    (now the default) and ``mode="full"`` build and run; what still raises is
+    a mode or policy that does not exist, and an entry point asked for the
+    card where there is none."""
     _, (cfg, p, lo, lc) = model
     opt = make_optimizer("adamw", 1e-3, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A2.*save_linear"):
-        make_train_step(cfg, lc, opt, remat="save_linear", device="cpu")(
+    state, m = make_train_step(cfg, lc, opt, remat="save_linear", device="cpu")(
+        init_train_state(lo, opt, device="cpu"), p, _batch(cfg, 0))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    make_train_step(cfg, lc, opt, mode="full", device="cpu")
+    with pytest.raises(ValueError, match="mode must be"):
+        make_train_step(cfg, lc, opt, mode="qlora", device="cpu")
+    with pytest.raises(ValueError, match="remat must be"):
+        make_train_step(cfg, lc, opt, remat="save_all", device="cpu")(
             init_train_state(lo, opt, device="cpu"), p, _batch(cfg, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A2.*full"):
-        make_train_step(cfg, lc, opt, mode="full", device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(cfg, lc, opt)               # the card unless the caller names the CPU
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -436,3 +447,175 @@ def test_eval_step_matches_jax(model):
     assert isinstance(init_train_state(lo, make_optimizer("adamw", 1e-3, 10), device="cpu"),
                       TrainState)
     assert float(global_norm(lo)) > 0
+
+
+# ---------------------------------------------------------------------------
+# remat="save_linear"
+# ---------------------------------------------------------------------------
+
+
+def test_save_linear_gives_the_gradients_of_full_no_remat_and_jax(model):
+    """``"save_linear"`` replays the kept matmul and attention outputs, which
+    are the bits a recomputation would give: its loss and every gradient
+    equal ``"full"``'s and no remat's exactly, with dropout too (the same
+    masks are drawn again).  Against JAX's ``loss_fn`` under its default
+    ``"save_linear"`` policy (the Pallas kernels in interpret mode), as the
+    int8 case: the loss within 1 %, every LoRA gradient within 5 % of its
+    norm."""
+    from qlora_tpu.train.step import loss_fn as jloss_fn
+
+    for dropout, seed in ((0.0, None), (0.1, 3)):
+        l0, g0 = _grads(model, False, dropout, seed)
+        for remat in ("full", "save_linear"):
+            l1, g1 = _grads(model, remat, dropout, seed)
+            assert l1 == l0
+            assert all(torch.equal(a, b) for a, b in zip(g0, g1)), remat
+    (jcfg, jp, jl, jlc), (cfg, p, lo, lc) = model
+    batch = _batch(cfg, 11)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda t: jloss_fn(t, jp, jbatch, jcfg, jlc, None, True, "lora", "save_linear"),
+        has_aux=True)(jl)
+    loss, grads = _grads(model, "save_linear")
+    np.testing.assert_allclose(loss, float(jloss), rtol=1e-2)
+    it = iter(grads)
+    got = lora_to_numpy(tree_map(lambda _: next(it), lo))
+    for name in jgrads:
+        for k in ("a", "b"):
+            want = np.asarray(jgrads[name][k])
+            for layer in range(cfg.num_layers):
+                err = np.linalg.norm(got[name][k][layer] - want[layer]) / np.linalg.norm(
+                    want[layer])
+                assert err < 0.05, (name, k, layer, err)
+
+
+def _counted(monkeypatch):
+    """Count the plain NF4 forward and flash forward (the CPU's versions of
+    the kernels) as the model calls them."""
+    qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
+    fa = importlib.import_module("qlora_tpu_torch.ops.flash_attention")
+    calls = {"qmm": 0, "flash": 0}
+
+    def wrap(mod, name, key):
+        fn = getattr(mod, name)
+
+        def counted(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+
+    wrap(qm, "qmatmul_plain", "qmm")
+    wrap(fa, "flash_fwd_plain", "flash")
+    return calls
+
+
+@pytest.mark.parametrize("remat,per_layer", [("save_linear", 1), ("full", 2), (False, 1)])
+def test_save_linear_runs_each_forward_kernel_once(model, monkeypatch, remat, per_layer):
+    """A micro-batch runs the NF4 forward 7 L times and flash forward L times
+    under ``"save_linear"`` (the backward's recomputed blocks read them back),
+    14 L and 2 L under ``"full"`` (each block's forward runs again), 7 L and L
+    without remat: over a train step of 2 micro-batches, twice that."""
+    _, (cfg, p, lo, lc) = model
+    calls = _counted(monkeypatch)
+    opt = make_optimizer("paged_adamw_32bit", 1e-3, total_steps=3)
+    step = make_train_step(cfg, lc, opt, accum_steps=2, remat=remat, device="cpu")
+    mb = _batch(cfg, 5)
+    step(init_train_state(lo, opt, device="cpu"), p, {k: np.stack([v, v]) for k, v in mb.items()})
+    L = cfg.num_layers
+    assert calls == {"qmm": 2 * 7 * L * per_layer, "flash": 2 * L * per_layer}
+
+
+# ---------------------------------------------------------------------------
+# mode="full": full finetuning of the unquantized model
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dense_model():
+    """The debug model unquantized (bf16 dense linears), made by JAX and
+    carried across."""
+    jcfg = jget_config("debug")
+    jparams = jinit_params(jax.random.PRNGKey(0), jcfg, quantized=False)
+    cfg = get_config("debug")
+    params, _ = bridge(jparams, None, cfg)
+    return (jcfg, jparams), (cfg, params)
+
+
+def test_full_finetune_loss_grads_and_update_match_jax(dense_model):
+    """``mode="full"``: one micro-batch through both ``loss_fn``s (JAX: its
+    flash kernels in interpret mode, remat "full") and one AdamW update of
+    every tensor (embedding, norms, each dense linear, lm_head).  bf16
+    activations with f32 sums in other orders, as the LoRA case: the loss
+    within 1 %, every gradient within 5 % of its norm.  The update, both
+    optimizers on JAX's gradients: optax's AdamW keeps the moments in the
+    parameters' dtype (bf16 for the weights), the port's ``paged_adamw_32bit``
+    in f32 (as its name says), so each update lies within 2 % of its norm of
+    JAX's (bf16 rounding of the moments), and the parameters after it within
+    1e-3 of theirs."""
+    from qlora_tpu.train.optimizer import adamw as jadamw
+    from qlora_tpu.train.step import loss_fn as jloss_fn
+    from qlora_tpu_torch.train.optimizer import adamw
+    from qlora_tpu_torch.utils.convert import params_from_numpy
+
+    (jcfg, jp), (cfg, p) = dense_model
+    batch = _batch(cfg, 17)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda t: jloss_fn(t, None, jbatch, jcfg, None, None, True, "full", "full"),
+        has_aux=True)(jp)
+    leaves = [t.detach().clone().requires_grad_() for t in tree_leaves(p)]
+    loss, n = loss_fn(tree_unflatten(p, leaves), None, {k: torch.from_numpy(v) for k, v in batch.items()},
+                      cfg, LoraConfig(), None, True, "full", "full")
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-2)
+    want = tree_leaves(params_from_numpy(jax_to_numpy(jgrads), cfg, "cpu"))
+    assert len(want) == len(grads) == 2 + 9 * cfg.num_layers + 1
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        err = (g.float() - w.float()).norm() / w.float().norm()
+        assert err < 0.05, (i, tuple(g.shape), float(err))
+
+    # one AdamW update of both optimizers on the same (JAX's) gradients
+    lr = 1e-3
+    jopt, topt = jadamw(lr), adamw(lr)
+    jup, _ = jopt.update(jgrads, jopt.init(jp), jp)
+    tup, _ = topt.update(tree_unflatten(p, want), topt.init(p), p)
+    jnew = tree_leaves(params_from_numpy(jax_to_numpy(optax.apply_updates(jp, jup)), cfg, "cpu"))
+    jup = tree_leaves(params_from_numpy(jax_to_numpy(jup), cfg, "cpu"))
+    for i, (u, w, new, got) in enumerate(zip(tree_leaves(tup), jup, jnew,
+                                              tree_leaves(apply_updates(p, tup)))):
+        err = (u.float() - w.float()).norm() / w.float().norm()
+        assert err < 0.02, (i, float(err))
+        assert got.dtype == new.dtype
+        assert (got.float() - new.float()).norm() <= 1e-3 * new.float().norm(), i
+
+
+def test_full_finetune_trains_every_tensor_and_forces_full_remat(dense_model, monkeypatch):
+    """3 steps of ``mode="full"`` with 2 micro-batches: the first moves
+    nothing (learning rate 0), the loss then falls, every tensor of the model
+    has moved, the parameters handed in are not written to; remat
+    "save_linear" (the default) runs "full" here, as JAX's step does: each
+    block's flash forward twice a micro-batch.  The eval step takes the same
+    tree."""
+    _, (cfg, p) = dense_model
+    before = [t.clone() for t in tree_leaves(p)]
+    calls = _counted(monkeypatch)
+    opt = make_optimizer("paged_adamw_32bit", 2e-3, total_steps=3)
+    state = init_train_state(p, opt, device="cpu")
+    step = make_train_step(cfg, LoraConfig(), opt, accum_steps=2, mode="full", device="cpu")
+    mbs = [_batch(cfg, s) for s in (21, 22)]
+    batch = {k: np.stack([m[k] for m in mbs]) for k in mbs[0]}
+    losses = []
+    for _ in range(3):
+        state, m = step(state, None, batch)
+        losses.append(float(m["loss"]))
+    L = cfg.num_layers
+    assert calls == {"qmm": 0, "flash": 3 * 2 * 2 * L}
+    assert losses[1] == losses[0] and losses[2] < losses[0], losses
+    after = tree_leaves(state.trainable)
+    assert len(after) == len(before) == 2 + 9 * L + 1
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), before))
+    got, n = make_eval_step(cfg, LoraConfig(), mode="full", device="cpu")(
+        state.trainable, None, mbs[0])
+    assert int(n) > 0 and float(got) < losses[0]
