@@ -172,6 +172,28 @@ them.  Phases, each failing the run on any mismatch or exception:
    trained) at LLaMA-7B width, 16 layers (the f32 gradient sum and AdamW
    moments fit 80 GB), 3 steps: remat "full", flash counts exact, no qmm,
    the loss falling, every tensor moved.
+20. train-data (after train remat, on the train phase's weights): the
+   training run's data and state.  A seeded alpaca-format .jsonl of 64 examples
+   in a temporary directory through ``make_dataset`` (8 held out) and the
+   collator (``FakeTokenizer``: no ``transformers`` on the card; source 384,
+   target 128, padded to 512; truncation and source masking both checked
+   to occur), micro-batches of 2 x 512 in ``bucket_batches``' seeded order,
+   2 a step; a fresh rank-64 LoRA (dropout 0), ``paged_adamw_32bit`` warming
+   up over 4 of 5 steps.  Run A takes 5 steps, each logged through
+   ``MetricsLogger`` and ``StepTimer``, step 2 under ``maybe_profile`` (the
+   10 CUDA operations with the most device time and the step's device-busy
+   time against its wall time, printed only), and checkpoints after step 3;
+   run B finds ``checkpoint-3`` with ``get_last_checkpoint``, loads it into
+   a fresh LoRA and optimizer state and takes steps 4 and 5 on the same
+   micro-batches: losses, gradient norms and every LoRA tensor equal run
+   A's bit for bit, launch counts exact in both runs, then the completed
+   sentinel.  The 32-layer NF4 base through ``save_quantized`` and
+   ``load_quantized`` onto the card: every tensor byte-equal, a 128-token
+   prefill's logits and 8 greedy tokens of ``generate()`` bit-equal.  A
+   2-layer LLaMA-7B-width checkpoint in HF's names, bf16 safetensors
+   written by a few lines here, through ``load_hf_model`` onto the card and
+   onto the CPU: prefill logits within LOGIT_TOL.  Sizes and seconds are
+   printed beside the card's name and power limit.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 
@@ -179,8 +201,9 @@ The last two lines are the ``kernels`` JSON object and the result line.
 serve weights through serve-paged-w8a8 alone, to time the route in turns
 with a checkout of another commit that this script is copied into;
 ``python3 chip_smoke.py train`` does the same for the train phase (at the
-checkout's default remat) and ``python3 chip_smoke.py train-gemma`` runs
-train-gemma alone.
+checkout's default remat), ``python3 chip_smoke.py train-gemma`` runs
+train-gemma alone and ``python3 chip_smoke.py train-data`` train-data alone
+(on weights of its own).
 """
 
 from __future__ import annotations
@@ -298,6 +321,18 @@ TRAIN_GEMMA_STEPS = 3
 TRAIN_FULL_LAYERS = 16    # mode "full" at LLaMA-7B width: bf16 weights, an f32 gradient sum
                           # and f32 AdamW moments (14 bytes a parameter) fit 80 GB at 16 layers
 TRAIN_FULL_STEPS = 3
+
+# train-data: the train phase's weights trained from an alpaca .jsonl file, then resumed
+DATA_EXAMPLES, DATA_EVAL = 64, 8
+DATA_SOURCE, DATA_TARGET = 384, 128      # the collator's limits; rows padded to their sum, 512
+DATA_STEPS, DATA_SAVE_AT, DATA_PROFILE_STEP = 5, 3, 2
+DATA_WARMUP = 0.8                        # warmup over 4 of the 5 steps: the resumed count sets
+                                         # step 4's learning rate
+DATA_WORDS = ("the", "model", "weights", "quantized", "adapter", "gradient", "token", "layer",
+              "memory", "card", "batch", "answer", "question", "explain", "briefly", "why",
+              "loss", "falls", "ranks", "résumé", "naïve", "données")
+STORE_PROMPT, STORE_NEW = 128, 8         # the reloaded store's prefill and greedy tokens
+HF_LAYERS = 2                            # the HF checkpoint written at LLaMA-7B width
 
 
 def fail(msg: str) -> None:
@@ -2848,6 +2883,380 @@ def train_full_phase(dev):
     return counts, dict(step_s=step_s, peak_gib=peak_gib, losses=losses)
 
 
+def alpaca_jsonl(path, n, seed):
+    """`n` seeded alpaca-format examples from DATA_WORDS, one JSON object a
+    line: an instruction, an input on two in three, an output.  Under
+    FakeTokenizer (a token a byte) prompt and output span ~200-1000 tokens,
+    so that both of the collator's limits cut some examples."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    text = lambda lo, hi: " ".join(rng.choice(DATA_WORDS, int(rng.integers(lo, hi))))
+    with open(path, "w") as f:
+        for i in range(n):
+            ex = {"instruction": text(3, 20), "input": text(8, 45) if i % 3 else "",
+                  "output": text(2, 70)}
+            f.write(json.dumps(ex) + "\n")
+
+
+def data_micro_batches(path):
+    """The file through ``make_dataset`` and the collator (FakeTokenizer,
+    source 384, target 128, padded to 512), grouped by ``bucket_batches``
+    into micro-batches of TRAIN_MICRO[0] rows in its seeded order.  Returns
+    (micro-batches, stats)."""
+    import numpy as np
+
+    from qlora_tpu_torch.train import CausalCollator, bucket_batches, example_length, make_dataset
+    from qlora_tpu_torch.utils import FakeTokenizer
+
+    tok = FakeTokenizer()
+    train, evals = make_dataset(path, dataset_format="alpaca", do_eval=True,
+                                eval_dataset_size=DATA_EVAL)
+    collate = CausalCollator(tok, source_max_len=DATA_SOURCE, target_max_len=DATA_TARGET,
+                             train_on_source=False, pad_to=TRAIN_MICRO[1])
+    lengths = [example_length(tok, ex) for ex in train]
+    order = bucket_batches(lengths, TRAIN_MICRO[0], buckets=(TRAIN_MICRO[1],), seed=5,
+                           drop_last=True)
+    micro = [collate([train[i] for i in idx]) for idx, _ in order]
+    cut = sum(1 + len(tok.encode(ex["input"])) > DATA_SOURCE
+              or len(tok.encode(ex["output"])) + 1 > DATA_TARGET for ex in train)
+    used = micro[:DATA_STEPS * TRAIN_ACCUM]
+    real = sum(int(m["attention_mask"].sum()) for m in used)
+    masked = sum(int(((m["labels"] == -100) & (m["attention_mask"] == 1)).sum()) for m in used)
+    return micro, dict(train=len(train), eval=len(evals), min_len=min(lengths),
+                       max_len=max(lengths), truncated=cut, masked_share=masked / real,
+                       micro=len(micro), real=real,
+                       lens=np.percentile(lengths, [50, 90]).tolist())
+
+
+def profile_top(prof, wall_s, card):
+    """The profiled step's 10 CUDA operations with the most device time and
+    its device-busy time (the kernels' summed time) against its wall time.
+    Printed only: it gates nothing."""
+    from torch.autograd import DeviceType
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
+        e, "self_cuda_time_total", 0)
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    rows = rows or [e for e in prof.key_averages() if dev_us(e) > 0]
+    if not rows:
+        print(f"train-data profile: no device time recorded ({card})", flush=True)
+        return
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    top = sorted(rows, key=dev_us, reverse=True)[:10]
+    print(f"train-data profile of step {DATA_PROFILE_STEP} ({card}): device busy "
+          f"{busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall ({busy_ms / (wall_s * 1e3):.1%}); "
+          "top 10 by device time:", flush=True)
+    for e in top:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:5d} calls  {e.key[:110]}", flush=True)
+
+
+def tensor_bits(t):
+    """A tensor's bytes, for byte-for-byte comparisons (bf16, 0-d included)."""
+    import torch
+
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def same_bytes(a, b):
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(tensor_bits(a),
+                                                                     tensor_bits(b))
+
+
+def store_phase(dev, cfg, params, tmp, card):
+    """save_quantized the 32-layer base, load_quantized it onto the card:
+    every tensor byte-equal; a STORE_PROMPT-token prefill's logits and
+    STORE_NEW greedy tokens through ``generate()`` equal on the originals
+    and the reloaded, bit for bit, with the launches of both exact (as
+    nodq's: the prefills on the NF4 wgmma kernel, every decode step on the
+    decode kernels)."""
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.models import forward, init_cache
+    from qlora_tpu_torch.utils import load_quantized, save_quantized
+
+    path = str(Path(tmp) / "store")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_quantized(path, params, cfg)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    back, cfg2 = load_quantized(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if cfg2 != cfg:
+        fail(f"train-data store: the config came back as {cfg2}")
+    n = 0
+    for i, (blk, want) in enumerate(zip(back["blocks"], params["blocks"])):
+        if sorted(blk) != sorted(want):
+            fail(f"train-data store: layer {i} came back with {sorted(blk)}")
+        for name in blk:
+            got_t, want_t = frozen_tensors(blk[name]), frozen_tensors(want[name])
+            if len(got_t) != len(want_t) or not all(
+                    a.is_cuda and same_bytes(a, b) for a, b in zip(got_t, want_t)):
+                fail(f"train-data store: layer {i} {name} did not come back byte-equal")
+            n += len(got_t)
+    for key in ("embed", "final_norm", "lm_head"):
+        got_t, want_t = frozen_tensors(back[key]), frozen_tensors(params[key])
+        if not all(a.is_cuda and same_bytes(a, b) for a, b in zip(got_t, want_t)):
+            fail(f"train-data store: {key} did not come back byte-equal")
+        n += len(got_t)
+    ids, lengths = padded_requests((STORE_PROMPT,), STORE_PROMPT, cfg.vocab_size, 61)
+    outs = []
+    reset_counts()
+    with torch.inference_mode():
+        for p in (params, back):
+            cache = init_cache(cfg, 1, STORE_PROMPT, device=dev)
+            logits, _ = forward(p, None, ids.to(dev), cfg, cache=cache)
+            toks = generate(p, None, ids, lengths, cfg, max_new_tokens=STORE_NEW, eos_id=-1,
+                            device=dev)
+            outs.append((logits, toks))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_lin, L = 7 * cfg.num_layers, cfg.num_layers        # each of the two: a prefill + generate()
+    want = expected_counts(qmm_nf4_fwd_dq=2 * n_lin * (STORE_NEW + 2),
+                           qmm_nf4_decode_dq=2 * n_lin * STORE_NEW,
+                           qmm_nf4_wgmma_dq=2 * 2 * n_lin,
+                           decode_attention_cuda=2 * L * STORE_NEW)
+    if counts != want:
+        fail(f"train-data store launch counts {counts} != {want}")
+    (l0, t0_), (l1, t1_) = outs
+    print(f"train-data store ({card}): {nbytes / 1e9:.3f} GB written in {save_s:.2f} s, read "
+          f"onto the card in {load_s:.2f} s; {n} tensors byte-equal; prefill logits "
+          f"bit-equal {torch.equal(l0, l1)}, {STORE_NEW} greedy tokens {t0_.tolist()} and "
+          f"{t1_.tolist()}; launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    if not (torch.isfinite(l0).all() and torch.equal(l0, l1) and torch.equal(t0_, t1_)):
+        fail("train-data store: the reloaded base gives other logits or tokens")
+    del back
+    torch.cuda.empty_cache()
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file of bf16 tensors, in the format's own terms: an
+    8-byte little-endian header length, a JSON header of each tensor's
+    dtype, shape and data_offsets (padded with spaces to 8 bytes), the raw
+    bytes."""
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        b = t.to(torch.bfloat16).contiguous().view(torch.int16).numpy().tobytes()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(b)]}
+        blobs.append(b)
+        offset += len(b)
+    head = json.dumps({"__metadata__": {"format": "pt"}, **header}).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def hf_import_phase(dev, tmp, card):
+    """A HF_LAYERS-layer checkpoint at LLaMA-7B width in HF's LLaMA names,
+    random bf16 weights from a seed, written as model.safetensors; the
+    port's ``load_hf_model`` (its own reader; NF4, double quant) onto the
+    card and onto the CPU: a STORE_PROMPT-token prefill through the kernels
+    within LOGIT_TOL of the plain path's."""
+    import torch
+
+    from qlora_tpu_torch.models import forward, init_cache
+    from qlora_tpu_torch.utils import load_hf_model
+
+    cfg = seven_b(HF_LAYERS)
+    path = Path(tmp) / "hf"
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": HF_LAYERS,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "max_position_embeddings": cfg.max_position_embeddings, "rms_norm_eps": cfg.norm_eps,
+        "tie_word_embeddings": False}))
+    g = torch.Generator().manual_seed(71)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    rand = lambda out_dim, in_dim: torch.randn(out_dim, in_dim, generator=g) * in_dim ** -0.5
+    tensors = {"model.embed_tokens.weight": torch.randn(V, D, generator=g) * 0.02,
+               "model.norm.weight": 1 + 0.1 * torch.randn(D, generator=g),
+               "lm_head.weight": rand(V, D)}
+    for i in range(HF_LAYERS):
+        pre = f"model.layers.{i}."
+        for name, (o, n) in {"self_attn.q_proj": (D, D), "self_attn.k_proj": (D, D),
+                             "self_attn.v_proj": (D, D), "self_attn.o_proj": (D, D),
+                             "mlp.gate_proj": (I, D), "mlp.up_proj": (I, D),
+                             "mlp.down_proj": (D, I)}.items():
+            tensors[f"{pre}{name}.weight"] = rand(o, n)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{pre}{name}.weight"] = 1 + 0.1 * torch.randn(D, generator=g)
+    write_safetensors(path / "model.safetensors", tensors)
+    del tensors
+    nbytes = (path / "model.safetensors").stat().st_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_gpu, cfg_gpu = load_hf_model(str(path), device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    p_cpu, cfg_cpu = load_hf_model(str(path), device="cpu")
+    if not cfg_gpu == cfg_cpu == cfg:
+        fail(f"hf import: config {cfg_gpu} / {cfg_cpu}, expected {cfg}")
+    ids = torch.randint(3, V, (1, STORE_PROMPT), generator=torch.Generator().manual_seed(72))
+    with torch.inference_mode():
+        lg, _ = forward(p_gpu, None, ids.to(dev), cfg,
+                        cache=init_cache(cfg, 1, STORE_PROMPT, device=dev))
+        lc, _ = forward(p_cpu, None, ids, cfg,
+                        cache=init_cache(cfg, 1, STORE_PROMPT, device="cpu"))
+    err = (lg.cpu() - lc).abs().max().item()
+    print(f"train-data hf import ({card}): {HF_LAYERS} layers at LLaMA-7B width, "
+          f"{nbytes / 1e9:.3f} GB of bf16 safetensors, imported (NF4, double quant) onto the "
+          f"card in {import_s:.2f} s; prefill max|logits card - cpu| = {err:.4g} (tol "
+          f"{LOGIT_TOL}, |logits| max {lc.abs().max().item():.3g})", flush=True)
+    if not torch.isfinite(lg).all() or err > LOGIT_TOL:
+        fail(f"hf import: card logits differ from the CPU's by {err}")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def train_data_phase(dev, made=None, card=""):
+    """train-data: the train phase's weights (``made``, or new ones) and a
+    fresh rank-64 LoRA (dropout 0) trained from an alpaca .jsonl file in a
+    temporary directory: run A takes DATA_STEPS steps (each logged through
+    MetricsLogger and StepTimer, step DATA_PROFILE_STEP under maybe_profile)
+    and checkpoints after DATA_SAVE_AT; run B resumes from that checkpoint
+    into fresh trees and takes the rest on the same micro-batches: its
+    losses and final LoRA equal run A's bit for bit.  Then the quantized
+    store and the HF import (``store_phase``, ``hf_import_phase``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qlora_tpu_torch.models import init_lora_params
+    from qlora_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+    from qlora_tpu_torch.utils import (
+        MetricsLogger, StepTimer, get_last_checkpoint, load_checkpoint, mark_completed,
+        maybe_profile, save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = seven_b()
+    params, _, lcfg = made or train_model(dev, cfg)
+    if lcfg.dropout != 0:
+        fail("train-data: a resumed run equals an uninterrupted one only without dropout")
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_file = str(Path(tmp) / "alpaca.jsonl")
+        alpaca_jsonl(data_file, DATA_EXAMPLES, seed=51)
+        micro, ds = data_micro_batches(data_file)
+        need = DATA_STEPS * TRAIN_ACCUM
+        print(f"train-data: {DATA_EXAMPLES} alpaca examples in a .jsonl -> {ds['train']} train, "
+              f"{ds['eval']} eval; example lengths {ds['min_len']}..{ds['max_len']} tokens "
+              f"(median, p90 {ds['lens']}), {ds['truncated']} of {ds['train']} truncated by the "
+              f"collator (source {DATA_SOURCE}, target {DATA_TARGET}); {ds['micro']} "
+              f"micro-batches of {TRAIN_MICRO[0]} x {TRAIN_MICRO[1]}, the first {need} used: "
+              f"{ds['real']} real tokens, {ds['masked_share']:.1%} of their labels masked",
+              flush=True)
+        if ds["truncated"] == 0 or not 0 < ds["masked_share"] < 1 or ds["micro"] < need:
+            fail(f"train-data: the data does not exercise truncation and masking: {ds}")
+        step_batch = lambda i: {k: np.stack([m[k] for m in micro[TRAIN_ACCUM * i:
+                                                                 TRAIN_ACCUM * (i + 1)]])
+                                for k in micro[0]}
+        opt = make_optimizer("paged_adamw_32bit", TRAIN_LR, total_steps=DATA_STEPS,
+                             warmup_ratio=DATA_WARMUP)
+        step = make_train_step(cfg, lcfg, opt, accum_steps=TRAIN_ACCUM, device=dev)
+        out = str(Path(tmp) / "run")
+        per_step = train_counts(cfg.num_layers)
+
+        def run(state, first, last, tag, logger, timer):
+            """Optimizer steps first..last (1-based) on their micro-batches."""
+            metrics, prof, wall = [], None, None
+            reset_counts()
+            for i in range(first, last + 1):
+                profiled = i == DATA_PROFILE_STEP and tag == "A"
+                with maybe_profile(out, profiled) as p:
+                    timer.tick()
+                    state, m = step(state, params, step_batch(i - 1))
+                    dt = timer.tock()
+                if profiled:
+                    prof, wall = p, dt
+                loss, norm = m["loss"].item(), m["grad_norm"].item()
+                logger.log({"loss": loss, "grad_norm": norm, "step_s": dt, "run": tag}, step=i)
+                metrics.append((loss, norm))
+                if tag == "A" and i == DATA_SAVE_AT:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ckpt = save_checkpoint(out, i, state.trainable, state.opt_state,
+                                           data_state={"micro_batches": TRAIN_ACCUM * i})
+                    stats["ckpt_save_s"] = time.perf_counter() - t0
+                    stats["ckpt_bytes"] = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
+                                              if f.is_file())
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = {k: v * (last - first + 1) for k, v in per_step.items()}
+            if counts != want:
+                fail(f"train-data run {tag} launch counts {counts} != {want}")
+            return state, metrics, counts, prof, wall
+
+        # the first step warms the allocator, the second runs under the profiler
+        logger, timer = MetricsLogger(out), StepTimer(skip_first=DATA_PROFILE_STEP, device=dev)
+        fresh = lambda seed: init_lora_params(cfg, lcfg, seed=seed, device=dev)
+        a_state, a_metrics, a_counts, prof, wall = run(
+            init_train_state(fresh(53), opt, device=dev), 1, DATA_STEPS, "A", logger, timer)
+        ckpt, done = get_last_checkpoint(out)
+        if done or ckpt is None or not ckpt.endswith(f"checkpoint-{DATA_SAVE_AT}"):
+            fail(f"train-data: get_last_checkpoint gave {ckpt}, completed {done}")
+        t0 = time.perf_counter()
+        like = init_train_state(fresh(54), opt, device=dev)
+        lora, opt_state, info = load_checkpoint(ckpt, like.trainable, like.opt_state)
+        torch.cuda.synchronize()
+        stats["ckpt_load_s"] = time.perf_counter() - t0
+        if info.get("data_state") != {"micro_batches": TRAIN_ACCUM * DATA_SAVE_AT} or \
+                opt_state["count"] != DATA_SAVE_AT:
+            fail(f"train-data: the checkpoint's state is {info}, count {opt_state['count']}")
+        b_state, b_metrics, b_counts, _, _ = run(
+            type(like)(step=info["step"], trainable=lora, opt_state=opt_state),
+            DATA_SAVE_AT + 1, DATA_STEPS, "B", logger, timer)
+        logger.close()
+        mark_completed(out)
+        logged = [json.loads(line) for line in open(Path(out) / "train_log.jsonl")]
+        same = sum(torch.equal(a, b) for a, b in zip(tree_leaves(a_state.trainable),
+                                                     tree_leaves(b_state.trainable)))
+        n_lora = len(tree_leaves(a_state.trainable))
+        print(f"train-data ({card}): run A losses "
+              + ", ".join(f"{l:.6f}" for l, _ in a_metrics) + "; run B (steps "
+              f"{DATA_SAVE_AT + 1}..{DATA_STEPS}, resumed) " + ", ".join(
+                  f"{l:.6f}" for l, _ in b_metrics) + f"; bit-equal losses and gradient norms "
+              f"{b_metrics == a_metrics[DATA_SAVE_AT:]}, LoRA tensors {same} of {n_lora}; step "
+              f"times (StepTimer, run A's steps {DATA_PROFILE_STEP + 1}.. and run B's) "
+              f"{', '.join(f'{t:.3f}' for t in timer.times)} s, mean {timer.mean:.3f} s; "
+              f"{len(logged)} lines in train_log.jsonl", flush=True)
+        print(f"train-data checkpoint ({card}): {stats['ckpt_bytes'] / 1e6:.1f} MB (LoRA, AdamW "
+              f"state, trainer_state.json), saved in {stats['ckpt_save_s']:.2f} s, loaded onto "
+              f"the card in {stats['ckpt_load_s']:.2f} s", flush=True)
+        nonzero = lambda c: {k: v for k, v in c.items() if v}
+        print(f"train-data: launches run A {nonzero(a_counts)}; run B {nonzero(b_counts)} "
+              f"(expected {DATA_STEPS} and {DATA_STEPS - DATA_SAVE_AT} x {nonzero(per_step)}, "
+              "every other counter 0)", flush=True)
+        if b_metrics != a_metrics[DATA_SAVE_AT:] or same != n_lora:
+            fail("train-data: the resumed run differs from the uninterrupted one")
+        if get_last_checkpoint(out) != (None, True) or len(logged) != DATA_STEPS + (
+                DATA_STEPS - DATA_SAVE_AT):
+            fail("train-data: the completed sentinel or the metrics log is wrong")
+        if not np.isfinite(a_metrics).all():      # each step has batches of its own
+            fail(f"train-data: run A's losses or gradient norms {a_metrics}")
+        profile_top(prof, wall, card)
+        del a_state, b_state, like, lora, opt_state
+        torch.cuda.empty_cache()
+        store_phase(dev, cfg, params, tmp, card)
+        hf_import_phase(dev, tmp, card)
+    print(f"train-data ({card}): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def train_split(results, per_step, stats, quant_type="nf4"):
     """Split the optimizer step by kernel: each kernel's launches per step
     times its kernel-phase time at the train shape (M = 1024, S = 512).  What
@@ -3160,7 +3569,8 @@ def main() -> int:
     print(f"build: {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
 
     single = {"serve-paged-w8a8": serve_w8a8_only, "train": train_only,
-              "train-gemma": lambda dev: train_gemma_phase(dev)}
+              "train-gemma": lambda dev: train_gemma_phase(dev),
+              "train-data": lambda dev: train_data_phase(dev, card=card)}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -3223,9 +3633,10 @@ def main() -> int:
     print(f"train: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     remat_runs = train_remat_phase(dev, made, train_stats)
+    print(f"train remat: {time.perf_counter() - t0:.1f} s", flush=True)
+    train_data_phase(dev, made, card)
     del made
     torch.cuda.empty_cache()
-    print(f"train remat: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     worst = train_parity_phase(dev, "int8")
     train8_counts, train8_per_step, train8_stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)

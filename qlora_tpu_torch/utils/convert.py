@@ -1,7 +1,8 @@
 """Carry the JAX package's parameters into the port's layout.
 
 The input is a nested dict of numpy arrays (the JAX tree with each leaf
-passed through ``np.asarray``): a ``QuantizedTensor`` as a dict of
+passed through ``np.asarray``) or of CPU tensors (a file read by
+``utils/checkpoint.read_arrays``): a ``QuantizedTensor`` as a dict of
 ``packed``, ``absmax``, ``absmax_scale``, ``absmax_offset`` plus its static
 ``shape``, ``block_size`` and ``quant_type``; a ``QLinear`` as
 ``{"qt": ..., "bias": ...}``; a ``DenseLinear`` as ``{"w": ..., "bias": ...}``.
@@ -22,9 +23,12 @@ from qlora_tpu_torch.quant.blockwise import QuantizedTensor
 
 
 def to_tensor(a, device=None):
-    """numpy array (any dtype, bfloat16 included) → tensor, bytes unchanged."""
+    """numpy array (any dtype, bfloat16 included) or tensor → a tensor of
+    its own on `device`, bytes unchanged."""
     if a is None:
         return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(
@@ -33,7 +37,9 @@ def to_tensor(a, device=None):
 
 
 def _layer(a, i):
-    return None if a is None else np.asarray(a)[i]
+    if a is None:
+        return None
+    return a[i] if isinstance(a, torch.Tensor) else np.asarray(a)[i]
 
 
 def _quantized(d: dict, i, device) -> QuantizedTensor:
@@ -41,8 +47,8 @@ def _quantized(d: dict, i, device) -> QuantizedTensor:
     return QuantizedTensor(
         packed=to_tensor(pick(d["packed"]), device),
         absmax=to_tensor(pick(d["absmax"]), device),
-        absmax_scale=to_tensor(pick(d["absmax_scale"]), device),
-        absmax_offset=to_tensor(pick(d["absmax_offset"]), device),
+        absmax_scale=to_tensor(pick(d.get("absmax_scale")), device),
+        absmax_offset=to_tensor(pick(d.get("absmax_offset")), device),
         shape=tuple(d["shape"]), block_size=int(d["block_size"]),
         quant_type=str(d["quant_type"]))
 

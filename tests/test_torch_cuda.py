@@ -1470,3 +1470,49 @@ def test_paged_batcher_on_card(cuda):
         assert grown[1 if spec else 0] > 0 and grown[1 if spec else 0] % cfg.num_layers == 0
         if not spec:
             assert grown[1] == 0
+
+
+def test_checkpoint_and_store_round_trip_card_tensors(cuda, tmp_path):
+    """A checkpoint (LoRA and AdamW state after one step) and a quantized
+    store written from tensors on the card load back onto the card byte for
+    byte; a host-offloaded state loads back onto the host, pinned; a forward
+    over the reloaded store equals the original's."""
+    from qlora_tpu_torch.lora import LoraConfig
+    from qlora_tpu_torch.models import init_lora_params
+    from qlora_tpu_torch.train import make_optimizer
+    from qlora_tpu_torch.train.optimizer import tree_leaves, tree_map
+    from qlora_tpu_torch.utils import (
+        load_checkpoint, load_quantized, save_checkpoint, save_quantized,
+    )
+
+    cfg = get_config("debug")
+    params = init_params(cfg, seed=0, device=cuda)
+    lora = init_lora_params(cfg, LoraConfig(r=4), seed=1, device=cuda)
+    for offload in (False, True):
+        opt = make_optimizer("paged_adamw_32bit", 1e-3, total_steps=10, offload_state=offload)
+        state = opt.init(lora)
+        grads = tree_map(lambda t: torch.randn_like(t), lora)
+        _, state = opt.update(grads, state, lora)
+        out = str(tmp_path / f"run{int(offload)}")
+        save_checkpoint(out, 1, lora, state)
+        fresh = init_lora_params(cfg, LoraConfig(r=4), seed=2, device=cuda)
+        lo, st, info = load_checkpoint(f"{out}/checkpoint-1", fresh, opt.init(fresh))
+        assert info["step"] == 1 and st["count"] == 1
+        for a, b in zip(tree_leaves(lo), tree_leaves(lora)):
+            assert a.is_cuda and torch.equal(a, b)
+        for a, b in zip(tree_leaves(st), tree_leaves(state)):
+            assert a.device == b.device and torch.equal(a, b)
+            assert a.is_pinned() == offload
+    save_quantized(str(tmp_path / "store"), params, cfg)
+    back, cfg2 = load_quantized(str(tmp_path / "store"))
+    assert cfg2 == cfg
+    for i, (blk, want) in enumerate(zip(back["blocks"], params["blocks"])):
+        assert sorted(blk) == sorted(want)
+        for name in blk:                      # the reloaded dicts' order is the file's
+            for a, b in zip(tree_leaves(blk[name]), tree_leaves(want[name])):
+                assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), (i, name)
+    for key in ("embed", "final_norm", "lm_head"):
+        for a, b in zip(tree_leaves(back[key]), tree_leaves(params[key])):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), key
+    ids = torch.tensor([[3, 17, 5, 9]], device=cuda)
+    assert torch.equal(forward(back, None, ids, cfg)[0], forward(params, None, ids, cfg)[0])

@@ -32,6 +32,41 @@ def test_scan_covers_the_port():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     assert ROOT / "qlora_tpu_torch" / "generate" / "serve_int8.py" in FILES
     assert ROOT / "qlora_tpu_torch" / "generate" / "paged.py" in FILES
+    assert ROOT / "qlora_tpu_torch" / "utils" / "checkpoint.py" in FILES
+    assert ROOT / "qlora_tpu_torch" / "utils" / "hf_import.py" in FILES
+
+
+# what the card's machine lacks: imported only inside the function that needs it
+LAZY = ("transformers", "safetensors", "ml_dtypes", "datasets", "wandb")
+
+
+def _module_level_imports(path: Path):
+    """Imports outside every function body (module level, class bodies,
+    module-level conditionals and try blocks)."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module
+            yield from walk(child)
+
+    return list(walk(ast.parse(path.read_text(), filename=str(path))))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_card_path_needs_no_optional_package_at_import(path):
+    bad = [m for m in _module_level_imports(path) if m.split(".")[0] in LAZY]
+    assert not bad, f"{path.name} imports {bad} at module level"
+
+
+def test_lazy_import_scan_sees_module_level_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\ntry:\n    import wandb\nexcept ImportError:\n    pass\n"
+                   "def f():\n    import transformers\n")
+    assert _module_level_imports(src) == ["os", "wandb"]
 
 
 SOURCES = sorted((ROOT / "qlora_tpu_torch" / "csrc").glob("*.cu*"))
