@@ -26,7 +26,9 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``qmm_nf4_bwd_wgmma.cu`` (each packed byte decoded once for both nibble
    planes), timed beside ``qmm_nf4_bwd.cu`` through its C entry (``tile_ms``,
    the "before", also held to QMM_TOL) and held bit for bit the same way
-   (identity rows of g read out columns of ``dequantize``'s weight).  Flash
+   (identity rows of g read out columns of ``dequantize``'s weight).  At 4, 8
+   and 16 rows the NF4 dx stays on ``qmm_nf4_bwd.cu`` (no path runs it):
+   held to QMM_TOL and timed in CUDA graphs beside ``g @ Wᵀ``.  Flash
    attention's forward, dq and dk/dv at the train shapes run the wgmma
    kernels of ``flash_attention_wgmma.cu``, each timed beside the kernel of
    ``flash_attention.cu`` that it replaced (``tile_ms``, the "before", also
@@ -194,6 +196,41 @@ them.  Phases, each failing the run on any mismatch or exception:
    written by a few lines here, through ``load_hf_model`` onto the card and
    onto the CPU: prefill logits within LOGIT_TOL.  Sizes and seconds are
    printed beside the card's name and power limit.
+21. cli (after train-data): the driver, ``qlora_tpu_torch.cli.main(argv)``
+   in process, on ``huggyllama/llama-7b`` at full width and depth
+   (``--init_random --fake_tokenizer``, dropout 0) over an alpaca .jsonl of
+   64 examples (8 held out), on the train cell's shapes (2 x 512: source 384
+   + target 128, 2 micro-batches a step, no length grouping).  Run A takes 6
+   steps (checkpoints every 2, 2 kept), evaluates at step 6 and at the end,
+   scores 16 rows of the bundled five-shot MMLU file at
+   ``--mmlu_source_max_len 2032`` (S = 2048: flash) and predicts the 8 eval
+   prompts (32 tokens): exact launch counts (every NF4 forward and dx and
+   every flash launch on the wgmma kernels, the predict decode on the NF4
+   decode kernel and split-KV decode attention), finite losses that fall,
+   eval and MMLU in range, one prediction an example, ``metrics.json``.  Run
+   B trains 4 steps in a fresh directory, then resumes from
+   ``checkpoint-4`` to 6: losses and final LoRA bit-equal to run A's.  Then
+   ``python3 -m qlora_tpu_torch.cli`` on run A's directory exits 0 with
+   "training already completed".
+22. serve-http: ``qlora_tpu_torch.serve_openai.ServingEngine`` over the serve
+   phase's kind of model (32 layers, random NF4, a rank-64 LoRA) with
+   serve-paged's engine (8 slots, pages of 64, buckets 128/256/512, admit 4,
+   32 pages: it preempts; greedy), behind ``ThreadingHTTPServer`` on
+   127.0.0.1: 16 concurrent clients (12 completions, 4 chats, half of each
+   streamed; prompts of 64-512 tokens and budgets of 16-64 from
+   serve-paged's seed), the last refused with 400 for its temperature;
+   admission starts once the other 15 are in, in the clients' order, so
+   that the schedule is the direct run's below whatever order the threads
+   ran in (with arrivals racing, this traffic preempts in some orders and
+   not in others).  Every
+   other answer 200, within its budget, each stream ending in ``[DONE]``,
+   ``engine.error`` None, exact launch counts (the paged split kernels, the
+   NF4 decode and wgmma kernels), and each completion's tokens equal to a
+   direct ``PagedBatcher``'s with the same arguments (the requests submitted
+   in the order the engine took them, since a request's uid picks which
+   sequence a preemption evicts, and admitted in client order) up to the first
+   position whose top-2 margin is under NEAR_TIE.  Requests/s, tokens/s and
+   the median and p90 time to first token, host clock.
 
 The last two lines are the ``kernels`` JSON object and the result line.
 
@@ -202,8 +239,9 @@ serve weights through serve-paged-w8a8 alone, to time the route in turns
 with a checkout of another commit that this script is copied into;
 ``python3 chip_smoke.py train`` does the same for the train phase (at the
 checkout's default remat), ``python3 chip_smoke.py train-gemma`` runs
-train-gemma alone and ``python3 chip_smoke.py train-data`` train-data alone
-(on weights of its own).
+train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
+(on weights of its own), and ``python3 chip_smoke.py cli`` and
+``python3 chip_smoke.py serve-http`` those phases alone.
 """
 
 from __future__ import annotations
@@ -266,6 +304,7 @@ QMM_ROWS = (2048, 1024, 4, 8, 16, 40)   # + decode: generate()'s 4 rows, serve-p
 FEW_ROWS = 64             # up to here a row count is timed in a CUDA graph, with the tile
                           # kernel ("before") and the decode kernel beside it
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
+NF4_BWD_FEW_ROWS = (4, 8, 16)    # the NF4 dx up to DECODE_ROWS: qmm_nf4_bwd.cu, no path runs it
 LM_HEAD_SHAPE = (4096, 32768)     # the int8 serving copy pads 32000 columns to 32768
 W8A8_ROWS = (128, 512, 2048)     # the parity-int8 prefill (1 x 128), the serve-paged prefill of
                                  # one row at bucket 512 (its commonest), a 4 x 512 group
@@ -333,6 +372,19 @@ DATA_WORDS = ("the", "model", "weights", "quantized", "adapter", "gradient", "to
               "loss", "falls", "ranks", "résumé", "naïve", "données")
 STORE_PROMPT, STORE_NEW = 128, 8         # the reloaded store's prefill and greedy tokens
 HF_LAYERS = 2                            # the HF checkpoint written at LLaMA-7B width
+
+# cli: the driver's command line in process, at LLaMA-7B, on the train cell's shapes
+CLI_MODEL = "huggyllama/llama-7b"
+CLI_STEPS, CLI_RESUME_AT, CLI_SAVE, CLI_KEEP = 6, 4, 2, 2
+CLI_EVAL_BATCH, CLI_MMLU, CLI_MMLU_LEN, CLI_NEW = 4, 16, 2032, 32   # 2032 + 16: S = 2048, flash
+# serve-http: the OpenAI-compatible endpoint over PagedBatcher, 16 clients at once
+HTTP_REQUESTS, HTTP_CHAT = 16, 4         # 12 completions and 4 chats, half of each streamed
+NEAR_TIE = 2 * LOGIT_TOL                 # a top-2 margin (teacher-forced, no cache) under
+                                         # which bf16 rounded in another order (a cached
+                                         # decode, another batch) may pick the other token:
+                                         # parity holds the card's logits within LOGIT_TOL
+                                         # of another order's, so two runs differ by up to
+                                         # twice that
 
 
 def fail(msg: str) -> None:
@@ -890,6 +942,28 @@ def kernel_phase(dev, results):
             if excess > QMM_TOL[0]:
                 fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
             wgmma_checks("qmm_nf4_bwd", qmm_nf4_bwd, gr, qt, w_bf16, bwd=True)
+            # the dx at decode rows: qmm_nf4_bwd.cu itself (no path runs it), in a
+            # graph beside g @ Wᵀ on the dequantized weight
+            for M in NF4_BWD_FEW_ROWS:
+                gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
+                before = qmm_nf4_bwd.wgmma_launches
+                dx, ref = qmm_nf4_bwd(gr, qt), qmatmul_bwd_plain(gr, qt)
+                torch.cuda.synchronize()
+                if qmm_nf4_bwd.wgmma_launches != before:
+                    fail(f"qmm_nf4_bwd M={M} K={K} N={N} took the wgmma kernel")
+                diff = (dx.float() - ref.float()).abs()
+                err = diff.max().item()
+                shape = f"M={M} K={K} N={N} {'dq' if dq else 'f32'} absmax"
+                if (diff - QMM_TOL[1] * ref.float().abs()).max().item() > QMM_TOL[0]:
+                    fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
+                ms = graph_ms(lambda i: qmm_nf4_bwd(gr, qts[i % len(qts)]), 50)
+                plain_ms = cuda_ms(lambda i: qmatmul_bwd_plain(gr, qts[i % len(qts)]), 20)
+                lib_ms = graph_ms(lambda i: torch.matmul(gr, ws[i % len(ws)].T), 200)
+                record(results, "qmm_nf4_bwd", shape, err,
+                       f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|", ms, plain_ms, lib_ms,
+                       qmm_bound(M, K, N, dq))
+                print(f"  qmm_nf4_bwd.cu's dx at {M} rows {ms / lib_ms:.2f}x torch.matmul's "
+                      "time", flush=True)
 
     decode_attention_phase(dev, g, results)
 
@@ -3257,6 +3331,450 @@ def train_data_phase(dev, made=None, card=""):
     print(f"train-data ({card}): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def cli_argv(data, out, steps, dev, *extra):
+    """The driver's command line for the cli phase: LLaMA-7B with random
+    weights, FakeTokenizer, the alpaca file, the train cell's micro-batches
+    (2 x 512 = source 384 + target 128, 2 a step, no length grouping)."""
+    return ["--model_name_or_path", CLI_MODEL, "--init_random", "--fake_tokenizer",
+            "--dataset", data, "--output_dir", out, "--device", str(dev),
+            "--eval_dataset_size", str(DATA_EVAL), "--max_eval_samples", str(DATA_EVAL),
+            "--per_device_train_batch_size", str(TRAIN_MICRO[0]),
+            "--gradient_accumulation_steps", str(TRAIN_ACCUM),
+            "--source_max_len", str(DATA_SOURCE), "--target_max_len", str(DATA_TARGET),
+            "--group_by_length", "false", "--lora_dropout", "0", "--max_steps", str(steps),
+            "--save_steps", str(CLI_SAVE), "--save_total_limit", str(CLI_KEEP),
+            "--logging_steps", "1", "--do_eval", "--per_device_eval_batch_size",
+            str(CLI_EVAL_BATCH), *extra]
+
+
+def counted_generate_forwards():
+    """Wrap ``generate``'s forward to count its decode forwards (one token
+    over a cache); returns (counter, undo)."""
+    import qlora_tpu_torch.generate.engine as engine
+
+    real, seen = engine.forward, {"decode": 0}
+
+    def forward(params, lora, ids, *a, **kw):
+        if kw.get("cache") is not None and ids.shape[1] == 1:
+            seen["decode"] += 1
+        return real(params, lora, ids, *a, **kw)
+
+    engine.forward = forward
+    return seen, lambda: setattr(engine, "forward", real)
+
+
+def cli_phase(dev, card=""):
+    """cli: ``qlora_tpu_torch.cli.main`` in process at LLaMA-7B full width and
+    depth.  Run A trains CLI_STEPS steps from an alpaca .jsonl (checkpoints
+    every CLI_SAVE, CLI_KEEP kept), evaluates at its last step and at the
+    end, scores MMLU (the bundled five-shot file, S = 2048: flash) and
+    predicts the eval split; run B trains CLI_RESUME_AT steps in a fresh
+    directory, then resumes to CLI_STEPS: its logged losses and final LoRA
+    equal run A's bit for bit.  Launch counts exact; then ``python3 -m
+    qlora_tpu_torch.cli`` on run A's directory skips the completed run."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qlora_tpu_torch import cli
+    from qlora_tpu_torch.utils.checkpoint import read_arrays
+
+    t_phase = time.perf_counter()
+    L = seven_b().num_layers
+    n_lin = 7 * L
+    with tempfile.TemporaryDirectory() as tmp:
+        data = str(Path(tmp) / "alpaca.jsonl")
+        alpaca_jsonl(data, DATA_EXAMPLES, seed=51)
+        out_a, out_b = str(Path(tmp) / "a"), str(Path(tmp) / "b")
+        argv_a = cli_argv(data, out_a, CLI_STEPS, dev, "--eval_steps", str(CLI_STEPS),
+                          "--do_mmlu_eval", "--mmlu_dataset", "mmlu-fs",
+                          "--max_mmlu_samples", str(CLI_MMLU),
+                          "--mmlu_source_max_len", str(CLI_MMLU_LEN), "--do_predict",
+                          "--max_new_tokens", str(CLI_NEW))
+
+        def run(argv):
+            torch.cuda.synchronize()
+            reset_counts()
+            seen, undo = counted_generate_forwards()
+            t0 = time.perf_counter()
+            try:
+                metrics = cli.main(argv)
+            finally:
+                undo()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            gc_cuda()
+            return metrics, read_counts(), seen["decode"], secs
+
+        a, a_counts, a_decode, a_s = run(argv_a)
+        eval_fwds = 2 * -(-DATA_EVAL // CLI_EVAL_BATCH)        # at step CLI_STEPS and at the end
+        mmlu_fwds = -(-CLI_MMLU // CLI_EVAL_BATCH)
+        predict_fwds = -(-DATA_EVAL // CLI_EVAL_BATCH)         # one prefill a batch
+        step = train_counts(L)
+        fwd_wgmma = CLI_STEPS * step["qmm_nf4_fwd_dq"] + n_lin * (eval_fwds + mmlu_fwds
+                                                                  + predict_fwds)
+        flash_fwd = CLI_STEPS * step["flash_fwd"] + L * (eval_fwds + mmlu_fwds)
+        want_a = expected_counts(**{
+            **{k: CLI_STEPS * v for k, v in step.items() if v},
+            "qmm_nf4_fwd_dq": fwd_wgmma + n_lin * a_decode, "qmm_nf4_wgmma_dq": fwd_wgmma,
+            "qmm_nf4_decode_dq": n_lin * a_decode, "decode_attention_cuda": L * a_decode,
+            "flash_fwd": flash_fwd, "flash_wgmma_fwd": flash_fwd})
+        nonzero = lambda c: {k: v for k, v in c.items() if v}
+        print(f"cli run A ({CLI_STEPS} steps, eval at step {CLI_STEPS} and at the end, MMLU "
+              f"{CLI_MMLU} five-shot rows at S = {CLI_MMLU_LEN + 16}, predict {DATA_EVAL} "
+              f"prompts x {CLI_NEW} tokens: {a_decode} decode forwards): launches "
+              f"{nonzero(a_counts)} (expected {nonzero(want_a)}: {step['qmm_nf4_fwd_dq']} NF4 "
+              f"forward, {step['qmm_nf4_bwd']} dx and {step['flash_fwd']} of each flash kernel "
+              f"a step, all on the wgmma kernels; {n_lin} NF4 forward and {L} flash forward "
+              f"an eval or MMLU forward, {n_lin} a prefill, {n_lin} on the decode kernel and "
+              f"{L} decode attention a decode forward)", flush=True)
+        if a_counts != want_a:
+            fail(f"cli run A launch counts {a_counts} != {want_a}")
+        if a_decode != predict_fwds * CLI_NEW:
+            print(f"cli run A: {a_decode} decode forwards, not {predict_fwds * CLI_NEW}: every "
+                  "row of a batch met eos early", flush=True)
+        hist = a.get("train_metrics", [])
+        losses = [h["loss"] for h in hist]
+        preds = [json.loads(line) for line in open(Path(out_a) / "predictions.jsonl")]
+        kept = sorted(n for n in os.listdir(out_a) if n.startswith("checkpoint-"))
+        saved = json.load(open(Path(out_a) / "metrics.json"))
+        logged = [json.loads(line) for line in open(Path(out_a) / "train_log.jsonl")]
+        print(f"cli run A ({card}): {a_s:.1f} s; losses " + ", ".join(f"{v:.6f}" for v in losses)
+              + f"; logged s/step " + ", ".join(f"{h['seconds_per_step']:.3f}" for h in hist)
+              + f"; eval_loss {a.get('eval_loss', float('nan')):.6f}, mmlu_loss "
+              f"{a.get('mmlu_loss', float('nan')):.6f}, mmlu_eval_accuracy "
+              f"{a.get('mmlu_eval_accuracy', float('nan')):.4f}; {len(preds)} predictions; "
+              f"checkpoints kept {kept}", flush=True)
+        if (len(losses) != CLI_STEPS or not np.isfinite(losses).all()
+                or not losses[-1] < losses[0]):
+            fail(f"cli run A: the losses {losses} are not finite and falling")
+        if not (0 < a.get("eval_loss", -1) < 2 * np.log(seven_b().vocab_size)
+                and 0 <= a.get("mmlu_eval_accuracy", -1) <= 1
+                and np.isfinite(a.get("mmlu_loss", np.nan))):
+            fail(f"cli run A: eval or MMLU out of range: {a}")
+        if len(preds) != DATA_EVAL or not all("prediction" in p for p in preds):
+            fail(f"cli run A: {len(preds)} predictions for {DATA_EVAL} eval examples")
+        if kept != [f"checkpoint-{CLI_STEPS - CLI_SAVE}", f"checkpoint-{CLI_STEPS}"]:
+            fail(f"cli run A: checkpoints {kept} kept, not the last {CLI_KEEP}")
+        if saved.keys() != a.keys() or not {"train_metrics", "eval_loss", "mmlu_eval_accuracy",
+                                            "predictions_path"} <= saved.keys():
+            fail(f"cli run A: metrics.json holds {sorted(saved)}")
+        if not (any("eval_loss" in r for r in logged)
+                and any("mmlu_eval_accuracy" in r for r in logged)):
+            fail("cli run A: the in-training eval or MMLU is missing from train_log.jsonl")
+
+        b1, _, _, b1_s = run(cli_argv(data, out_b, CLI_RESUME_AT, dev))
+        os.remove(Path(out_b) / "completed")       # an interrupted longer run
+        b2, b_counts, _, b2_s = run(cli_argv(data, out_b, CLI_STEPS, dev))
+        rest = CLI_STEPS - CLI_RESUME_AT
+        eval_b = -(-DATA_EVAL // CLI_EVAL_BATCH)
+        want_b = expected_counts(**{
+            **{k: rest * v for k, v in step.items() if v},
+            "qmm_nf4_fwd_dq": rest * step["qmm_nf4_fwd_dq"] + n_lin * eval_b,
+            "qmm_nf4_wgmma_dq": rest * step["qmm_nf4_fwd_dq"] + n_lin * eval_b,
+            "flash_fwd": rest * step["flash_fwd"] + L * eval_b,
+            "flash_wgmma_fwd": rest * step["flash_fwd"] + L * eval_b})
+        if b_counts != want_b:
+            fail(f"cli run B (resumed) launch counts {b_counts} != {want_b}")
+        pick = lambda m: [(h["step"], h["loss"], h["grad_norm"]) for h in m["train_metrics"]]
+        lora_a = read_arrays(str(Path(out_a) / f"checkpoint-{CLI_STEPS}" / "adapter_model"
+                                 / "adapter_weights.npz"))
+        lora_b = read_arrays(str(Path(out_b) / f"checkpoint-{CLI_STEPS}" / "adapter_model"
+                                 / "adapter_weights.npz"))
+        same = sum(torch.equal(lora_a[k], lora_b[k]) for k in lora_a)
+        print(f"cli run B: {CLI_RESUME_AT} steps in {b1_s:.1f} s, then resumed from "
+              f"checkpoint-{CLI_RESUME_AT} to step {CLI_STEPS} in {b2_s:.1f} s; losses of steps "
+              f"{CLI_RESUME_AT + 1}..{CLI_STEPS} " + ", ".join(f"{h[1]:.6f}" for h in pick(b2))
+              + f" (run A's " + ", ".join(f"{h[1]:.6f}" for h in pick(a)[CLI_RESUME_AT:])
+              + f"); bit-equal {pick(b2) == pick(a)[CLI_RESUME_AT:]}, steps 1..{CLI_RESUME_AT} "
+              f"bit-equal {pick(b1) == pick(a)[:CLI_RESUME_AT]}; final LoRA {same} of "
+              f"{len(lora_a)} arrays equal", flush=True)
+        if (pick(b2) != pick(a)[CLI_RESUME_AT:] or pick(b1) != pick(a)[:CLI_RESUME_AT]
+                or same != len(lora_a) or lora_a.keys() != lora_b.keys()):
+            fail("cli: the resumed run B differs from run A")
+
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "qlora_tpu_torch.cli", *argv_a],
+                              cwd=ROOT, capture_output=True, text=True, timeout=300)
+        sub_s = time.perf_counter() - t0
+        print(f"cli: python3 -m qlora_tpu_torch.cli on run A's directory: exit "
+              f"{done.returncode} in {sub_s:.1f} s, "
+              f"{'training already completed' in done.stderr and 'skipped' or 'not skipped'}",
+              flush=True)
+        if done.returncode != 0 or "training already completed" not in done.stderr:
+            fail(f"cli: the completed run was not skipped: {done.stderr[-2000:]}")
+    steady = [h["seconds_per_step"] for h in hist[1::2]]    # steps 2, 4, 6: no save before them
+    print(f"cli ({card}): run A {a_s:.1f} s, run B {b1_s:.1f} + {b2_s:.1f} s, the skipped "
+          f"run {sub_s:.1f} s; run A's steps 2, 4, 6 {', '.join(f'{t:.3f}' for t in steady)} "
+          f"s/step (logged: the host clock between two loss reads), mean "
+          f"{sum(steady) / len(steady):.3f}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return a_counts, dict(step_s=sum(steady) / len(steady), run_a_s=a_s)
+
+
+def gc_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def http_traffic(seed, n, chat):
+    """`n` requests, paged_traffic's lengths and budgets from `seed`: each
+    prompt printable ASCII (a FakeTokenizer token a byte) of its length;
+    the last `chat` are chats whose Guanaco prompt has that length.
+    Returns [(path, body, prompt token ids)]."""
+    from qlora_tpu_torch.serve_openai import guanaco_prompt
+    from qlora_tpu_torch.utils import FakeTokenizer
+
+    tok = FakeTokenizer()
+    out = []
+    for i, (ids, budget) in enumerate(paged_traffic(95, seed, n)):
+        text = "".join(chr(32 + t % 95) for t in ids)
+        stream = i % 2 == 1
+        if i < n - chat:
+            body = {"prompt": text, "max_tokens": budget, "stream": stream}
+            prompt = text
+        else:
+            room = len(text) - len(guanaco_prompt([{"role": "user", "content": ""}]))
+            messages = [{"role": "user", "content": text[:room]}]
+            body = {"messages": messages, "max_tokens": budget, "stream": stream}
+            prompt = guanaco_prompt(messages)
+        if len(tok.encode(prompt)) != len(ids):
+            fail("serve-http: a prompt's length is not its traffic's")
+        out.append(("/v1/chat/completions" if i >= n - chat else "/v1/completions", body,
+                    tok.encode(prompt)))
+    return out
+
+
+def http_client(url, path, body, results, i):
+    """One client: POST, then read the whole answer (SSE events for a
+    stream); records status, the parsed answer and its host times."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            text = r.read().decode()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        text, status = e.read().decode(), e.code
+    results[i] = dict(status=status, text=text, sent=t0, done=time.perf_counter())
+
+
+def http_engine_run(dev, cfg, params, lora, lcfg, tok, traffic, engine_kw):
+    """The endpoint's half of serve-http: ``ServingEngine`` behind
+    ThreadingHTTPServer on 127.0.0.1, one client thread a request of
+    `traffic` (the last refused for its temperature), the engine's forwards
+    counted and timed by ``instrument``.  Returns plain data: the answers,
+    each served request's generated tokens and first-token time, the launch
+    counts, the instrument stats, the preemptions and the engine's error;
+    the engine, its batcher and the server are gone when it returns."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from qlora_tpu_torch.serve_openai import ServingEngine, make_handler
+
+    engine = ServingEngine(params, lora, cfg, tok, lcfg=lcfg, model_id="llama-7b", device=dev,
+                           **engine_kw)
+    pb = engine.pb
+    st = instrument(pb)
+    reqs, first = {}, {}
+    submit = pb.submit
+
+    def recorded_submit(prompt, max_new_tokens=128, on_token=None):
+        key = tuple(prompt)
+
+        def on_tok(uid, t):
+            first.setdefault(key, time.perf_counter())
+            on_token(uid, t)
+
+        reqs[key] = submit(prompt, max_new_tokens=max_new_tokens, on_token=on_tok)
+        return reqs[key]
+
+    refused = len(traffic) - 1
+    order = {tuple(ids): i for i, (_, _, ids) in enumerate(traffic)}
+    admit, gate = pb._admit, threading.Event()
+
+    def gated_admit():
+        # admission starts once every served client's request is in, in the
+        # clients' order: the schedule (and its preemptions) is then the
+        # direct PagedBatcher's, whatever order the threads ran in
+        if not gate.is_set():
+            if len(reqs) < refused:
+                time.sleep(0.001)
+                return
+            pb.queue.sort(key=lambda r: order[tuple(r.prompt)])
+            gate.set()
+        admit()
+
+    pb.submit, pb._admit = recorded_submit, gated_admit
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    results = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=http_client, args=(url, path, body, results, i))
+               for i, (path, body, _) in enumerate(traffic)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_counts()
+    srv.shutdown()
+    srv.server_close()
+    engine.shutdown()
+    generated = {k: list(r.generated) for k, r in reqs.items() if r.done}
+    return dict(results=results, generated=generated, first=first, counts=counts,
+                arrival=list(reqs),     # the prompts in the order the engine took them
+                st=dict(st), wall=wall, preemptions=pb.preemptions, error=engine.error,
+                sparams=engine.sparams,
+                alive=engine.thread.is_alive() or any(c.is_alive() for c in clients))
+
+
+def serve_http_phase(dev, card=""):
+    """serve-http: ``ServingEngine`` over the serve phase's kind of model
+    (32 layers, random NF4 weights, a rank-64 LoRA) behind ThreadingHTTPServer
+    on 127.0.0.1, 16 concurrent clients; every answer checked, the launch
+    counts exact from the engine's counted forwards, and each completion's
+    tokens against a direct ``PagedBatcher`` with the same arguments up to
+    the first near-tie."""
+    import numpy as np
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+    from qlora_tpu_torch.models import forward, init_params
+    from qlora_tpu_torch.utils import FakeTokenizer
+
+    t_phase = time.perf_counter()
+    cfg = seven_b()
+    params = init_params(cfg, seed=7, device=dev)
+    lora, lcfg = random_lora(cfg, dev, seed=8)
+    # warm-up outside the counted run: allocator and cuBLAS handles
+    generate(params, lora, torch.randint(3, 200, (4, 16)), torch.full((4,), 16), cfg, lcfg,
+             max_new_tokens=2, eos_id=-1, device=dev)
+    tok = FakeTokenizer()
+    engine_kw = dict(slots=SERVE_PAGED["num_slots"], n_pages=SERVE_PAGED_PAGES,
+                     page_size=PAGE, max_pages_per_seq=PPS,
+                     prefill_buckets=SERVE_PAGED["prefill_buckets"],
+                     admit_batch=SERVE_PAGED["admit_batch"], steps_per_dispatch=1,
+                     temperature=0.0)
+    traffic = http_traffic(SERVE_PAGED_SEED, HTTP_REQUESTS, HTTP_CHAT)
+    traffic[-1][1]["temperature"] = 0.7          # the engine samples greedily: a 400
+    refused = len(traffic) - 1
+    run = http_engine_run(dev, cfg, params, lora, lcfg, tok, traffic, engine_kw)
+    gc_cuda()
+    results, st, counts, wall = run["results"], run["st"], run["counts"], run["wall"]
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+
+    if run["error"] is not None or run["alive"]:
+        fail(f"serve-http: the engine thread failed ({run['error']!r}) or a thread hangs")
+    if len(results) != HTTP_REQUESTS or results[refused]["status"] != 400:
+        fail(f"serve-http: {len(results)} answers; the mismatched temperature got "
+             f"{results.get(refused, {}).get('status')}")
+    served = []
+    for i, (path, body, ids) in enumerate(traffic[:refused]):
+        r = results[i]
+        if r["status"] != 200:
+            fail(f"serve-http: request {i} got {r['status']}: {r['text'][:500]}")
+        gen = run["generated"].get(tuple(ids))
+        if gen is None or len(gen) > body["max_tokens"]:
+            fail(f"serve-http: request {i} did not end within its max_tokens")
+        if body["stream"]:
+            events = [ln[6:] for ln in r["text"].splitlines() if ln.startswith("data: ")]
+            if not events or events[-1] != "[DONE]":
+                fail(f"serve-http: the stream of request {i} does not end in [DONE]")
+        else:
+            usage = json.loads(r["text"])["usage"]
+            if (usage["completion_tokens"] > body["max_tokens"]
+                    or usage["prompt_tokens"] != len(ids)):
+                fail(f"serve-http: request {i}'s usage {usage}")
+        served.append((ids, body["max_tokens"], gen, r, run["first"].get(tuple(ids))))
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin * (st["decode"] + st["prefill"]),
+                           qmm_nf4_decode_dq=n_lin * st["decode"],    # 8 rows a decode forward
+                           qmm_nf4_wgmma_dq=n_lin * st["prefill"],    # >= 128 rows a prefill
+                           paged_decode_attention_cuda=L * st["decode"],
+                           paged_decode_split=L * st["decode"])
+    tokens = sum(len(g) for _, _, g, _, _ in served)
+    ttft = sorted((f - r["sent"]) * 1e3 for _, _, _, r, f in served if f is not None)
+    print(f"serve-http ({card}): {HTTP_REQUESTS} clients (1 refused with 400), {len(served)} "
+          f"served, {tokens} tokens in {wall:.3f} s = {len(served) / wall:.2f} requests/s, "
+          f"{tokens / wall:.1f} tok/s; time to first token median "
+          f"{np.percentile(ttft, 50):.1f} ms, p90 {np.percentile(ttft, 90):.1f} ms (host clock, "
+          f"from the client's send to the engine's first token; admission starts once the 15 are "
+          f"in); {st['decode']} decode forwards, "
+          f"{st['step_s'] / max(st['steps'], 1) * 1e3:.2f} ms a decode step, {st['prefill']} "
+          f"prefills, admissions {st['admit_s']:.3f} s, {run['preemptions']} preemptions; "
+          f"launches { {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} })", flush=True)
+    if counts != want:
+        fail(f"serve-http launch counts {counts} != {want}")
+    if run["preemptions"] < 1:
+        fail("serve-http: no preemption; the pool is not small enough for this traffic")
+
+    # the same prompts straight into a PagedBatcher with the engine's arguments,
+    # submitted in the engine's arrival order (a request's uid decides which
+    # sequence a preemption evicts) and admitted in the clients' order
+    direct = PagedBatcher(params, lora, cfg, lcfg, num_slots=engine_kw["slots"],
+                          n_pages=SERVE_PAGED_PAGES, page_size=PAGE, max_pages_per_seq=PPS,
+                          prefill_buckets=engine_kw["prefill_buckets"], eos_id=tok.eos_token_id,
+                          sparams=run["sparams"], admit_batch=engine_kw["admit_batch"], device=dev)
+    st = instrument(direct)
+    budget = {tuple(ids): n for ids, n, _, _, _ in served}
+    took = {key: direct.submit(list(key), max_new_tokens=budget[key]) for key in run["arrival"]}
+    mine = [took[tuple(ids)] for ids, _, _, _, _ in served]
+    direct.queue = list(mine)
+    t1 = time.perf_counter()
+    direct.run_to_completion()
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t1
+    direct_tokens = sum(len(r.generated) for r in mine)
+
+    # near-ties of the direct run's tokens, teacher-forced without a cache
+    equal, clear_upto, compared = 0, 0, 0
+    for (ids, _, got, _, _), r in zip(served, mine):
+        ref = r.generated
+        seq = torch.tensor([ids + ref], device=dev)
+        with torch.inference_mode():
+            logits = forward(params, lora, seq, cfg, lcfg)[0][0, len(ids) - 1:-1].float()
+        top2 = logits.topk(2, dim=-1).values
+        ties = ((top2[:, 0] - top2[:, 1]) < NEAR_TIE).nonzero()
+        upto = min(int(ties[0]) if len(ties) else len(ref), len(got))
+        if got[:upto] != ref[:upto]:
+            fail(f"serve-http: a completion differs from the direct PagedBatcher's before its "
+                 f"first near-tie ({upto} of {len(ref)} tokens)")
+        equal += got == ref
+        clear_upto += upto
+        compared += len(ref)
+    print(f"serve-http: tokens against a direct PagedBatcher (same arguments, {direct_tokens} "
+          f"tokens in {direct_s:.3f} s = {direct_tokens / direct_s:.1f} tok/s, "
+          f"{st['step_s'] / max(st['steps'], 1) * 1e3:.2f} ms a decode step, admissions "
+          f"{st['admit_s']:.3f} s, {direct.preemptions} preemptions): {equal} of {len(served)} "
+          f"completions equal in "
+          f"full; {clear_upto} of {compared} tokens before each one's first top-2 margin under "
+          f"{NEAR_TIE}, all equal; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del direct, params, lora
+    gc_cuda()
+    return counts, dict(tok_s=tokens / wall, req_s=len(served) / wall, wall_s=wall,
+                        ttft_ms=(float(np.percentile(ttft, 50)), float(np.percentile(ttft, 90))),
+                        direct_tok_s=direct_tokens / direct_s, equal=equal)
+
+
 def train_split(results, per_step, stats, quant_type="nf4"):
     """Split the optimizer step by kernel: each kernel's launches per step
     times its kernel-phase time at the train shape (M = 1024, S = 512).  What
@@ -3570,7 +4088,9 @@ def main() -> int:
 
     single = {"serve-paged-w8a8": serve_w8a8_only, "train": train_only,
               "train-gemma": lambda dev: train_gemma_phase(dev),
-              "train-data": lambda dev: train_data_phase(dev, card=card)}
+              "train-data": lambda dev: train_data_phase(dev, card=card),
+              "cli": lambda dev: cli_phase(dev, card),
+              "serve-http": lambda dev: serve_http_phase(dev, card)}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -3637,6 +4157,10 @@ def main() -> int:
     train_data_phase(dev, made, card)
     del made
     torch.cuda.empty_cache()
+    cli_counts, cli_stats = cli_phase(dev, card)
+    gc_cuda()
+    http_counts, http_stats = serve_http_phase(dev, card)
+    gc_cuda()
     t0 = time.perf_counter()
     worst = train_parity_phase(dev, "int8")
     train8_counts, train8_per_step, train8_stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)
@@ -3747,6 +4271,10 @@ def main() -> int:
             entry.update(sources=I8_DIRECT_SOURCES,
                          before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
                          decode_launches=int8_counts["qmm_i8_direct_decode"])
+    for entry in summary:     # the driver's entry points: the cli and serve-http phases
+        for tag, run in (("cli", cli_counts), ("http", http_counts)):
+            if run.get(entry["name"]):
+                entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
     summary[0]["wgmma_launches_train"] = train_counts["qmm_nf4_wgmma_dq"]
     split = serve_split(results, seven_b().num_layers, serve_stats)
@@ -3824,6 +4352,12 @@ def main() -> int:
           f"wgmma kernel ~{t8['qmm_bwd_ms']:.0f} ms ({train8_per_step['qmm_i8_bwd']}) + flash "
           f"~{t8['flash_fwd_ms'] + t8['flash_bwd_dq_ms'] + t8['flash_bwd_dkv_ms']:.1f} ms + "
           f"other ~{t8['other_ms']:.0f} ms (kernel-phase times x launches)", flush=True)
+    print(f"cli ({card}): {cli_stats['step_s']:.3f} s/step through the driver (run A's steps "
+          f"2, 4, 6) against the train cell's {train_stats['step_s']:.3f} in this run; "
+          f"serve-http: {http_stats['req_s']:.2f} requests/s, {http_stats['tok_s']:.1f} tok/s "
+          f"against {http_stats['direct_tok_s']:.1f} tok/s for a direct PagedBatcher on the same "
+          f"prompts and serve-paged's {paged_stats['tok_s']:.1f}; time to first token median "
+          f"{http_stats['ttft_ms'][0]:.1f} ms, p90 {http_stats['ttft_ms'][1]:.1f} ms", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

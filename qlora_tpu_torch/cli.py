@@ -1,0 +1,590 @@
+"""CLI and train / eval / predict driver: the qlora.py ``train()``
+equivalent, on one device.
+
+The flags are the JAX package's (``qlora_tpu/cli.py``), name for name and
+default for default, plus ``--device`` (CUDA unless given; ``cpu`` runs the
+plain PyTorch path).  Unknown flags are an error.  What the port does not
+run yet raises ``NotImplementedError`` naming its ROADMAP item: a mesh or
+several processes (A7), ``--predict_speculative`` (A5), beam, group-beam
+and contrastive search and their penalties (A4).
+
+Order of work: resume detection, model build, data, the train loop
+(logging and save cadence, in-training eval and MMLU), eval, standalone
+MMLU, predict (``predictions.jsonl``), ``metrics.json``.
+
+    python -m qlora_tpu_torch.cli --model_name_or_path huggyllama/llama-7b \\
+        --init_random --fake_tokenizer --dataset data.jsonl --output_dir out
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import re
+import shutil
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from qlora_tpu_torch import resolve_device
+
+logger = logging.getLogger("qlora_tpu_torch")
+
+
+@dataclasses.dataclass
+class Args:
+    # ModelArguments
+    model_name_or_path: str = "EleutherAI/pythia-12b"
+    trust_remote_code: bool = False
+    use_auth_token: bool = False
+    # DataArguments
+    eval_dataset_size: int = 1024
+    max_train_samples: Optional[int] = None
+    max_eval_samples: Optional[int] = None
+    source_max_len: int = 1024
+    target_max_len: int = 256
+    dataset: str = "alpaca"
+    dataset_format: Optional[str] = None
+    # TrainingArguments
+    output_dir: str = "./output"
+    train_on_source: bool = False
+    mmlu_split: str = "eval"
+    mmlu_dataset: str = "mmlu-fs"
+    do_mmlu_eval: bool = False
+    max_mmlu_samples: Optional[int] = None
+    mmlu_source_max_len: int = 2048
+    full_finetune: bool = False
+    adam8bit: bool = False
+    double_quant: bool = True
+    quant_type: str = "nf4"
+    bits: int = 4
+    lora_r: int = 64
+    lora_alpha: float = 16.0
+    lora_dropout: float = 0.0
+    max_memory_MB: int = 80000
+    report_to: str = "none"
+    optim: str = "paged_adamw_32bit"
+    per_device_train_batch_size: int = 1
+    per_device_eval_batch_size: int = 1
+    gradient_accumulation_steps: int = 16
+    max_steps: int = 10000
+    weight_decay: float = 0.0
+    learning_rate: float = 2e-4
+    max_grad_norm: float = 0.3
+    gradient_checkpointing: bool = True
+    # the remat policy when gradient_checkpointing is on: "save_linear" keeps
+    # each block linear's base matmul output, "full" only the layer boundaries
+    remat_policy: str = "save_linear"
+    do_train: bool = True
+    do_eval: bool = False
+    do_predict: bool = False
+    lr_scheduler_type: str = "constant"
+    warmup_ratio: float = 0.03
+    logging_steps: int = 10
+    group_by_length: bool = True
+    save_strategy: str = "steps"
+    save_steps: int = 250
+    save_total_limit: int = 40
+    eval_steps: Optional[int] = None
+    seed: int = 0
+    predict_with_generate: bool = False
+    # GenerationArguments
+    max_new_tokens: int = 256
+    min_new_tokens: Optional[int] = None
+    do_sample: bool = False
+    num_beams: int = 1
+    temperature: float = 1.0
+    top_k: int = 50
+    top_p: float = 1.0
+    typical_p: float = 1.0
+    repetition_penalty: float = 1.0
+    no_repeat_ngram_size: int = 0
+    length_penalty: float = 1.0
+    diversity_penalty: float = 0.0
+    num_beam_groups: int = 1
+    penalty_alpha: Optional[float] = None
+    use_cache: bool = True
+    # the predict token loop on the int8 serving copy (the prefill stays exact)
+    predict_decode_impl: Optional[str] = None
+    # prompt-lookup speculative decoding for do_predict: draft length (0 = off)
+    predict_speculative: int = 0
+    # flags kept for script parity (the trainer always computes in bf16)
+    cache_dir: Optional[str] = None
+    bf16: bool = True
+    fp16: bool = False                         # unsupported: warns, uses bf16
+    adam_beta2: float = 0.999
+    data_seed: Optional[int] = None            # seed for the train/eval split
+    evaluation_strategy: str = "steps"
+    logging_strategy: str = "steps"
+    dataloader_num_workers: int = 0
+    remove_unused_columns: bool = False
+    lora_modules: str = "all"                  # every block linear
+    use_auth: bool = False
+    # extensions of the framework
+    mmlu_data_path: Optional[str] = None      # path to a zero/five-shot json
+    init_random: bool = False                 # random weights (tests, smoke runs)
+    fake_tokenizer: bool = False              # byte tokenizer (tests, smoke runs)
+    report_profile: bool = False              # a profiler trace of step start + 5
+    mesh_dp: int = 1
+    mesh_fsdp: int = 1
+    mesh_tp: int = 1
+    mesh_sp: int = 1
+    # rest the optimizer state in host memory between steps
+    optim_host_offload: bool = False
+    tp_style: str = "gather"
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    # the port's entry points take a device: CUDA unless given
+    device: Optional[str] = None
+
+
+def _str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes"):
+        return True
+    if v.lower() in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected bool, got {v!r}")
+
+
+def parse_args(argv=None) -> Args:
+    p = argparse.ArgumentParser("qlora_tpu_torch", allow_abbrev=False)
+    for f in dataclasses.fields(Args):
+        t = f.type
+        opt = f"--{f.name}"
+        if t in ("bool", bool):
+            p.add_argument(opt, type=_str2bool, nargs="?", const=True, default=f.default)
+        elif t in ("Optional[int]", "int", int):
+            p.add_argument(opt, type=int, default=f.default)
+        elif t in ("float", float):
+            p.add_argument(opt, type=float, default=f.default)
+        else:
+            p.add_argument(opt, type=str, default=f.default)
+    ns = p.parse_args(argv)  # unknown flags: an argparse error
+    return Args(**vars(ns))
+
+
+def check_supported(args: Args) -> None:
+    """Raise for every flag whose path is not ported yet, naming its item."""
+    mesh = {k: getattr(args, k) for k in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp")}
+    if any(v > 1 for v in mesh.values()):
+        raise NotImplementedError(
+            f"a device mesh ({mesh}) is not ported: ROADMAP A7, parallelism")
+    if args.coordinator_address or (args.num_processes or 0) > 1:
+        raise NotImplementedError(
+            "several processes (coordinator_address / num_processes) are not ported: "
+            "ROADMAP A7, parallelism")
+    if args.predict_speculative > 0:
+        raise NotImplementedError(
+            "predict_speculative (single-stream speculation) is not ported: ROADMAP A5")
+    search = {"num_beams": args.num_beams > 1, "num_beam_groups": args.num_beam_groups > 1,
+              "penalty_alpha": bool(args.penalty_alpha),
+              "length_penalty": args.length_penalty != 1.0,
+              "diversity_penalty": args.diversity_penalty != 0.0}
+    asked = [k for k, v in search.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: beam, group-beam and contrastive search are not ported: "
+            "ROADMAP A4, generation")
+
+
+def build_model_and_tokenizer(args: Args, device):
+    """(params, lora or None, cfg, lcfg, tokenizer) on `device`: random
+    weights from the seed, a store written by ``save_quantized``, or an HF
+    checkpoint directory."""
+    from qlora_tpu_torch.lora import LoraConfig
+    from qlora_tpu_torch.models import get_config, init_lora_params, init_params
+
+    lcfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
+    quantize_base = args.bits in (4, 8) and not args.full_finetune
+    if args.bits not in (4, 8, 16, 32):
+        raise ValueError(f"bits={args.bits} not supported (4, 8, 16, 32)")
+    quant_type = "int8" if args.bits == 8 else args.quant_type
+
+    if not args.init_random and os.path.isdir(args.model_name_or_path):
+        from qlora_tpu_torch.utils.quantized_store import CONFIG_FILE, load_quantized
+
+        if os.path.exists(os.path.join(args.model_name_or_path, CONFIG_FILE)):
+            params, cfg = load_quantized(args.model_name_or_path, device=device)
+        else:
+            from qlora_tpu_torch.utils.hf_import import load_hf_model
+
+            params, cfg = load_hf_model(args.model_name_or_path, quantize_base=quantize_base,
+                                        quant_type=quant_type, double_quant=args.double_quant,
+                                        device=device)
+    else:
+        cfg = get_config(args.model_name_or_path)
+        params = init_params(cfg, seed=args.seed, quantized=quantize_base, device=device,
+                             quant_type=quant_type)
+
+    if args.fake_tokenizer:
+        from qlora_tpu_torch.utils.testing import FakeTokenizer
+
+        tokenizer = FakeTokenizer()
+    else:
+        from qlora_tpu_torch.utils.tokenizer import load_tokenizer
+
+        tokenizer, _ = load_tokenizer(args.model_name_or_path)
+
+    lora = None
+    if not args.full_finetune:
+        lora = init_lora_params(cfg, lcfg, seed=args.seed + 1, device=device)
+    return params, lora, cfg, lcfg, tokenizer
+
+
+def _iter_batches(examples, collator, batch_size, accum, seed, group_by_length,
+                  tokenizer, max_len, skip_steps=0):
+    """Yields stacked [accum, bs, S] numpy batches forever (cycling epochs).
+
+    ``skip_steps``: fast-forward this many optimizer steps without collating
+    (a resume picks up at its data position: each epoch's plan is a pure
+    function of seed + epoch).  Partial accumulation groups carry across
+    epochs.  A group holds its micro-batches' indices and collates them when
+    it fills, so a group still partial where the skipping ends completes as
+    it would have in the uninterrupted run (the JAX driver keeps a
+    placeholder there and fails on it, ROADMAP C10)."""
+    from qlora_tpu_torch.train.collator import bucket_batches, example_length
+
+    epoch = 0
+    to_skip = skip_steps
+    lengths = ([example_length(tokenizer, e) for e in examples]
+               if group_by_length else None)
+    groups: dict = {}       # bucket length -> pending micro-batches
+    while True:
+        if group_by_length:
+            buckets = [b for b in (64, 128, 256, 512, 1024, 2048, 4096) if b <= max_len]
+            buckets = buckets or [max_len]
+            if buckets[-1] != max_len:
+                buckets.append(max_len)
+            plan = bucket_batches(lengths, batch_size, buckets, seed=seed + epoch)
+        else:
+            rng = np.random.default_rng(seed + epoch)
+            order = rng.permutation(len(examples))
+            plan = [(order[i: i + batch_size].tolist(), max_len)
+                    for i in range(0, len(examples), batch_size)]
+        made_progress = False
+        for idx, blen in plan:
+            if len(idx) < batch_size:
+                continue  # keep shapes static
+            made_progress = True
+            group = groups.setdefault(blen, [])
+            group.append(idx)
+            if len(group) < accum:
+                continue
+            groups[blen] = []
+            if to_skip > 0:          # a skipped step: nothing collated
+                to_skip -= 1
+                continue
+            collator.pad_to = blen
+            micro = [collator([examples[i] for i in g]) for g in group]
+            out = {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+            if accum == 1:
+                out = {k: v[0] for k, v in out.items()}
+            yield out
+        if not made_progress:
+            raise ValueError(
+                f"dataset yields no full batch: {len(examples)} examples < "
+                f"per_device_train_batch_size={batch_size}")
+        epoch += 1
+
+
+def _numel(tree) -> int:
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def train(args: Args) -> dict:
+    from qlora_tpu_torch.train import (
+        CausalCollator, TrainState, init_train_state, make_dataset, make_eval_step,
+        make_optimizer, make_train_step,
+    )
+    from qlora_tpu_torch.utils.checkpoint import (
+        get_last_checkpoint, load_checkpoint, mark_completed, save_checkpoint,
+    )
+    from qlora_tpu_torch.utils.metrics import MetricsLogger, StepTimer, maybe_profile
+
+    check_supported(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    all_metrics = {"run_name": args.output_dir}
+
+    ckpt_dir, completed = get_last_checkpoint(args.output_dir)
+    if completed:
+        logger.info("training already completed; skipping")
+        return all_metrics
+
+    params, lora, cfg, lcfg, tokenizer = build_model_and_tokenizer(args, device)
+    mode = "full" if args.full_finetune else "lora"
+    trainable = params if args.full_finetune else lora
+    n_train, n_total = _numel(trainable), _numel(params)
+    logger.info("trainable params: %d || all params: %d || trainable: %.4f%%",
+                n_train, n_total, 100.0 * n_train / max(n_total, 1))
+
+    if args.fp16:
+        logger.warning("fp16 unsupported; using bf16 compute")
+    opt_name = "adam8bit" if args.adam8bit else args.optim
+    optimizer = make_optimizer(
+        opt_name, args.learning_rate, total_steps=args.max_steps,
+        warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm, b2=args.adam_beta2,
+        offload_state=args.optim_host_offload)
+    state = init_train_state(trainable, optimizer, device=device)
+    start_step = 0
+    if ckpt_dir is not None:
+        loaded, opt_state, info = load_checkpoint(ckpt_dir, state.trainable, state.opt_state)
+        start_step = int(info.get("step", 0))
+        state = TrainState(step=start_step, trainable=loaded,
+                           opt_state=opt_state if opt_state is not None else state.opt_state)
+        logger.info("resumed from %s at step %d", ckpt_dir, start_step)
+
+    collator = CausalCollator(tokenizer, source_max_len=args.source_max_len,
+                              target_max_len=args.target_max_len,
+                              train_on_source=args.train_on_source)
+    mlogger = MetricsLogger(args.output_dir, report_to=args.report_to)
+    timer = StepTimer()          # no device sync a step: the host reads only at logging steps
+    metrics_hist = []
+    data_seed = args.data_seed if args.data_seed is not None else 42
+    if args.do_train and start_step < args.max_steps:
+        train_ds, eval_ds = make_dataset(
+            args.dataset, dataset_format=args.dataset_format,
+            do_eval=args.do_eval or args.do_predict,
+            eval_dataset_size=args.eval_dataset_size,
+            max_train_samples=args.max_train_samples,
+            max_eval_samples=args.max_eval_samples, seed=data_seed)
+        step_fn = make_train_step(
+            cfg, lcfg, optimizer, accum_steps=args.gradient_accumulation_steps, mode=mode,
+            remat=args.remat_policy if args.gradient_checkpointing else False, device=device)
+        eval_fn = (make_eval_step(cfg, lcfg, mode=mode, device=device)
+                   if args.do_eval and eval_ds else None)
+        batches = _iter_batches(
+            train_ds, collator, args.per_device_train_batch_size,
+            args.gradient_accumulation_steps, args.seed, args.group_by_length, tokenizer,
+            args.source_max_len + args.target_max_len, skip_steps=start_step)
+        # restarts from the seed on resume, as the JAX driver's PRNGKey(seed)
+        generator = torch.Generator(device=device).manual_seed(args.seed)
+        t0 = time.time()
+        for step in range(start_step, args.max_steps):
+            profiling = args.report_profile and step == start_step + 5
+            with maybe_profile(args.output_dir, profiling):
+                timer.tick()
+                state, m = step_fn(state, params, next(batches), generator)
+                timer.tock()
+            if (step + 1) % args.logging_steps == 0:
+                loss = float(m["loss"])
+                dt = (time.time() - t0) / args.logging_steps
+                logger.info("step %d: loss %.4f (%.2fs/step)", step + 1, loss, dt)
+                row = {"step": step + 1, "loss": loss, "seconds_per_step": dt,
+                       "grad_norm": float(m["grad_norm"])}
+                metrics_hist.append(row)
+                mlogger.log(row, step=step + 1)
+                t0 = time.time()
+            if args.save_strategy == "steps" and (step + 1) % args.save_steps == 0:
+                save_checkpoint(args.output_dir, step + 1, state.trainable, state.opt_state)
+                _prune_checkpoints(args.output_dir, args.save_total_limit)
+            if args.eval_steps and (step + 1) % args.eval_steps == 0:
+                if eval_fn is not None:
+                    ev_loss = _eval_pass(args, eval_fn, state, params, collator, eval_ds)
+                    logger.info("step %d: eval_loss %.4f", step + 1, ev_loss)
+                    mlogger.log({"eval_loss": ev_loss}, step=step + 1)
+                if args.do_mmlu_eval:
+                    res = _run_mmlu(args, params, state, cfg, lcfg, tokenizer, mode, device)
+                    all_metrics.update(res)
+                    mlogger.log({k: v for k, v in res.items()
+                                 if k in ("mmlu_loss", "mmlu_eval_accuracy")}, step=step + 1)
+        save_checkpoint(args.output_dir, args.max_steps, state.trainable, state.opt_state)
+        mark_completed(args.output_dir)
+        all_metrics["train_metrics"] = metrics_hist
+
+    if args.do_eval:
+        _, eval_ds = make_dataset(
+            args.dataset, dataset_format=args.dataset_format, do_eval=True,
+            eval_dataset_size=args.eval_dataset_size,
+            max_eval_samples=args.max_eval_samples, seed=data_seed)
+        ev = make_eval_step(cfg, lcfg, mode=mode, device=device)
+        all_metrics["eval_loss"] = _eval_pass(args, ev, state, params, collator, eval_ds)
+        logger.info("eval_loss: %.4f", all_metrics["eval_loss"])
+
+    if args.do_mmlu_eval and not args.do_train:
+        all_metrics.update(_run_mmlu(args, params, state, cfg, lcfg, tokenizer, mode, device))
+
+    if args.do_predict:
+        all_metrics.update(_run_predict(args, params, state, cfg, lcfg, tokenizer, collator,
+                                        mode, device))
+
+    if timer.times:
+        all_metrics["seconds_per_step_mean"] = timer.mean
+    mlogger.close()
+    with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
+        json.dump(all_metrics, f, indent=2)
+    return all_metrics
+
+
+def _padded_batches(ds, bs):
+    """Yield (chunk, n_real) covering every example: the last partial batch
+    is padded to bs by repeating its last example (static shapes), and
+    n_real marks the genuine rows."""
+    for i in range(0, len(ds), bs):
+        chunk = list(ds[i: i + bs])
+        n_real = len(chunk)
+        if n_real < bs:
+            chunk = chunk + [chunk[-1]] * (bs - n_real)
+        yield chunk, n_real
+
+
+def _mask_pad_rows(batch: dict, n_real: int) -> dict:
+    """Labels -100 on the padded rows: they count no token in the loss."""
+    if n_real < batch["labels"].shape[0]:
+        batch = dict(batch)
+        labels = batch["labels"].copy()
+        labels[n_real:] = -100
+        batch["labels"] = labels
+    return batch
+
+
+def _eval_pass(args, eval_fn, state, params, collator, eval_ds) -> float:
+    bs = max(args.per_device_eval_batch_size, 1)
+    tot, n_tot = 0.0, 0
+    save_pad = collator.pad_to
+    collator.pad_to = args.source_max_len + args.target_max_len
+    for chunk, n_real in _padded_batches(eval_ds, bs):
+        loss, n = eval_fn(state.trainable, params, _mask_pad_rows(collator(chunk), n_real))
+        tot += float(loss) * int(n)
+        n_tot += int(n)
+    collator.pad_to = save_pad
+    return tot / max(n_tot, 1)
+
+
+# bundled MMLU files that are not the canonical splits (data/mmlu/README.md):
+# the five-shot files derive their shots from val records instead of the
+# official dev split, and the test files are odd-indexed val stand-ins
+_MMLU_DERIVED = {
+    "five_shot_mmlu_val.json",
+    "zero_shot_mmlu_test.json",
+    "five_shot_mmlu_test.json",
+}
+
+
+def _resolve_mmlu_path(args) -> Optional[str]:
+    """--mmlu_dataset mmlu-zs|mmlu-fs + --mmlu_split eval|test → data file;
+    an explicit --mmlu_data_path wins."""
+    if args.mmlu_data_path:
+        return args.mmlu_data_path
+    tag = "zero_shot" if args.mmlu_dataset == "mmlu-zs" else "five_shot"
+    split = "val" if args.mmlu_split in ("eval", "val") else "test"
+    fname = f"{tag}_mmlu_{split}.json"
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for cand in (
+        os.path.join("data", "mmlu", fname),             # cwd-relative
+        os.path.join(repo_root, "data", "mmlu", fname),  # bundled
+    ):
+        if os.path.exists(cand):
+            # scripts/get_mmlu_data.py stamps CANONICAL next to the files it
+            # built from the official data; the bundled derived files give
+            # numbers that are not comparable to published ones
+            stamp = os.path.join(os.path.dirname(cand), "CANONICAL")
+            canonical = set()
+            if os.path.exists(stamp):
+                with open(stamp) as f:
+                    canonical = {ln.strip() for ln in f}
+            if fname in _MMLU_DERIVED and fname not in canonical:
+                logger.warning(
+                    "MMLU data %s is a bundled DERIVED split (shots/records "
+                    "re-derived from the val file, data/mmlu/README.md): "
+                    "accuracies are self-consistent but NOT comparable to "
+                    "published MMLU numbers. Build the canonical splits "
+                    "OFFLINE from the official data.tar with "
+                    "scripts/get_mmlu_data.py --from_tar PATH (or "
+                    "--from_hub with network).", cand)
+            return cand
+    return None
+
+
+def _prune_checkpoints(output_dir: str, keep: int):
+    """save_total_limit: delete the oldest checkpoint dirs beyond `keep`."""
+    if not keep or keep <= 0:
+        return
+    ckpts = []
+    for name in os.listdir(output_dir):
+        m = re.fullmatch(r"checkpoint-(\d+)", name)
+        if m:
+            ckpts.append((int(m.group(1)), name))
+    for _, name in sorted(ckpts)[:-keep]:
+        shutil.rmtree(os.path.join(output_dir, name), ignore_errors=True)
+
+
+def _run_mmlu(args, params, state, cfg, lcfg, tokenizer, mode, device):
+    from qlora_tpu_torch.eval import evaluate_mmlu, load_mmlu_file
+
+    path = _resolve_mmlu_path(args)
+    if not path:
+        logger.warning("do_mmlu_eval set but no MMLU data found (--mmlu_data_path or "
+                       "data/mmlu/, see scripts/get_mmlu_data.py); skipping")
+        return {}
+    examples = load_mmlu_file(path, args.max_mmlu_samples)
+    lora = state.trainable if mode == "lora" else None
+    base = params if mode == "lora" else state.trainable
+    res = evaluate_mmlu(base, lora, cfg, tokenizer, examples, lcfg=lcfg,
+                        batch_size=max(args.per_device_eval_batch_size, 1),
+                        source_max_len=args.mmlu_source_max_len, device=device)
+    logger.info("MMLU accuracy: %.4f", res.get("mmlu_eval_accuracy", 0.0))
+    return res
+
+
+def _run_predict(args, params, state, cfg, lcfg, tokenizer, collator, mode, device):
+    from qlora_tpu_torch.generate import SamplingParams, generate
+    from qlora_tpu_torch.train.data import make_dataset
+
+    _, predict_ds = make_dataset(
+        args.dataset, dataset_format=args.dataset_format, do_eval=True,
+        eval_dataset_size=args.eval_dataset_size,
+        max_eval_samples=args.max_eval_samples, seed=42)
+    collator.predict_with_generate = True
+    collator.pad_to = args.source_max_len
+    sp = SamplingParams(
+        do_sample=args.do_sample, temperature=args.temperature, top_k=args.top_k,
+        top_p=args.top_p, typical_p=args.typical_p,
+        repetition_penalty=args.repetition_penalty,
+        no_repeat_ngram_size=args.no_repeat_ngram_size)
+    lora = state.trainable if mode == "lora" else None
+    base = params if mode == "lora" else state.trainable
+    decode_params = None
+    if args.predict_decode_impl == "int8":
+        # the serving copy, made once for every predict batch
+        from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
+
+        with torch.no_grad():
+            decode_params = requantize_params_int8_unstacked(base)
+    bs = max(args.per_device_eval_batch_size, 1)
+    out_path = os.path.join(args.output_dir, "predictions.jsonl")
+    with open(out_path, "w") as f:
+        for chunk, n_real in _padded_batches(predict_ds, bs):
+            b = collator(chunk)
+            toks = generate(
+                base, lora, b["input_ids"], b["attention_mask"].sum(-1), cfg, lcfg,
+                max_new_tokens=args.max_new_tokens, min_new_tokens=args.min_new_tokens or 0,
+                eos_id=tokenizer.eos_token_id, sparams=sp,
+                generator=torch.Generator(device=device).manual_seed(args.seed),
+                decode_impl=args.predict_decode_impl, decode_params=decode_params,
+                device=device)
+            for ex, row in zip(chunk[:n_real], toks.cpu().numpy()[:n_real]):
+                text = tokenizer.decode([t for t in row.tolist() if t != tokenizer.eos_token_id])
+                f.write(json.dumps({**ex, "prediction": text}) + "\n")
+    logger.info("wrote %s", out_path)
+    return {"predictions_path": out_path}
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    return train(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,9 @@
 (the ``debug`` config, JAX params carried across), in three configurations:
 optimistic admission over a pool that preempts, the same with
 ``decode_impl="w8a8"`` (every decode step's linears on the int8 codes the
-w8a8 kernel decodes from the NF4 weights), and speculative verify chunks of
-4 drafts.
+w8a8 kernel decodes from the NF4 weights), speculative verify chunks of 4
+drafts, and a sliding window whose pages are evicted as sequences roll past
+them.
 
 Every request runs to its budget (no eos), so without speculation the
 schedule depends only on lengths: the engine steps, the preemptions and the
@@ -14,6 +15,8 @@ against JAX, test_torch_model), where bf16 rounded in another order may
 pick the other token.  Under speculation the steps and ``spec_chunks``
 follow the tokens, so that test runs prompts without near-ties and pins
 them with ``spec_tokens`` and ``spec_plain_dispatches``."""
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -43,11 +46,14 @@ def _run(engine):
     return steps, engine.preemptions, log
 
 
-def _both(traffic, **kw):
+def _both(traffic, window=None, buckets=(16,), **kw):
     jcfg, cfg = jget_config("debug"), get_config("debug")
+    if window:
+        jcfg = dataclasses.replace(jcfg, sliding_window=window)
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     jparams = jinit_params(jax.random.PRNGKey(0), jcfg)
     params, _ = bridge(jparams, None, cfg)
-    base = dict(page_size=8, max_pages_per_seq=8, prefill_buckets=(16,), eos_id=-1)
+    base = dict(page_size=8, max_pages_per_seq=8, prefill_buckets=buckets, eos_id=-1)
     engines = (JPagedBatcher(jparams, None, jcfg, **base, **kw),
                PagedBatcher(params, None, cfg, device="cpu", **base, **kw))
     for e in engines:
@@ -123,3 +129,20 @@ def test_speculative_chunks_match_jax_engine():
     assert _compare_tokens(params, cfg, traffic, jpb._test_reqs, pb._test_reqs)
     assert got == want and pb.spec_chunks == jpb.spec_chunks
     assert pb.spec_tokens > pb.spec_chunks > 0      # some drafts were accepted
+
+
+def test_sliding_window_eviction_with_preemption_matches_jax_engine():
+    """``sliding_window`` 8 over pages of 8, rolling eviction on: pages behind
+    every row's window go back to the pool as the sequences grow, and a pool
+    of 6 pages (5 usable) still preempts (seed 1's prompts of 12-19 tokens, 40
+    new tokens each).  Steps, preemptions and the preemption log equal the
+    JAX engine's; tokens up to the first near-tie of the windowed forward."""
+    rng = np.random.default_rng(1)
+    traffic = [(rng.integers(1, 64, size=int(n)).tolist(), 40)
+               for n in rng.integers(5, 20, size=4)]
+    params, cfg, (jpb, pb) = _both(traffic, window=8, buckets=(16, 32), num_slots=3,
+                                   n_pages=6, admission="optimistic", rolling_eviction=True)
+    want, got = _run(jpb), _run(pb)
+    assert got == want and want[1] > 0          # steps, preemptions, log; it preempted
+    assert max(len(p) for p, _ in traffic) + 40 > 5 * 8    # no row fits the pool unevicted
+    _compare_tokens(params, cfg, traffic, jpb._test_reqs, pb._test_reqs)
