@@ -232,6 +232,33 @@ them.  Phases, each failing the run on any mismatch or exception:
    position whose top-2 margin is under NEAR_TIE.  Requests/s, tokens/s and
    the median and p90 time to first token, host clock.
 
+23. search (inside serve, after serve-int8, on its weights): beam, group-beam
+   and contrastive search and single-stream speculation.  First at 2 layers,
+   the CPU's plain path against the card: beam search (paged, pages of 16),
+   group beam search (4 beams in 2 groups, diversity 0.5) and contrastive
+   search (α 0.6, top-k 4) on two prompts of unequal lengths, the card
+   forced along the CPU's decisions (every forward's logits within
+   LOGIT_TOL, contrastive's hidden states within HIDDEN_TOL; every decision
+   it takes itself equal to the CPU's where the CPU's margin is clear of the
+   measured rounding), and greedy speculation
+   (8 drafts) token by token.  Then at full depth on two of serve's prompts
+   (200 and 97 tokens, 32 tokens each): ``beam_search`` paged (its prompt
+   pages shared by the 4 beams, ``paged_attention_split.cu`` at page 16) and
+   contiguous, held to one another step by step up to the first decision
+   within the measured rounding; ``group_beam_search`` (length_penalty
+   0.8); ``contrastive_search``; then ``generate_speculative`` (8 drafts, 64
+   tokens) on serve's four prompts (verify chunks of 36 rows on the NF4
+   ``wgmma`` kernel) and on the 97-token one (9 rows, the decode kernel),
+   each held token by token to ``generate()``'s greedy tokens,
+   ``generate_stream_speculative`` equal to the latter bit for bit, and one
+   run over serve-int8's serving tree held token by token to int8
+   ``generate()``.  Exact launch counts from each loop's own steps and
+   chunks; ms a step or chunk, tokens/s, peak memory and the memory held
+   above the resident weights, beside serve's step, each path timed in a
+   call without the checks' trace.  ``kernels`` gains the NF4 forward at
+   M = 36 and M = 9, kernels-int8 ``qmm_i8_direct`` at M = 9, and
+   kernels-paged the beams' shape (B = 8, pages of 16, prompt pages shared).
+
 The last two lines are the ``kernels`` JSON object and the result line.
 
 ``python3 chip_smoke.py serve-paged-w8a8`` builds the kernels and runs the
@@ -240,12 +267,15 @@ with a checkout of another commit that this script is copied into;
 ``python3 chip_smoke.py train`` does the same for the train phase (at the
 checkout's default remat), ``python3 chip_smoke.py train-gemma`` runs
 train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
-(on weights of its own), and ``python3 chip_smoke.py cli`` and
-``python3 chip_smoke.py serve-http`` those phases alone.
+(on weights of its own), and ``python3 chip_smoke.py cli``,
+``python3 chip_smoke.py serve-http`` and ``python3 chip_smoke.py search``
+(serve's weights, its greedy ``generate()`` and serving tree made first)
+those phases alone.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -264,6 +294,10 @@ QMM_TOL = (2e-2, 1e-2)    # atol, rtol: one bf16 ulp of the output + f32 reassoc
 ATTN_TOL = 2e-2           # of each (row, head)'s max |out|: bf16 probabilities against
                           # chunk-wise running maxima, up to 2^-8 of the values' scale
 LOGIT_TOL = 0.15          # 7B width, 2 layers: bf16 activations rounded in other orders
+HIDDEN_TOL = 0.05         # the same, for the final norm's output as a unit vector (contrastive
+                          # search's cosines): |u_card - u_cpu| at each position, where bf16
+                          # rounding of each element (2^-9 of it) in other orders through two
+                          # layers moves it by ~2^-7
 
 FLASH_TOL = 2e-2          # o: of each (row, head)'s max |o| (bf16 probabilities against
                           # tile-wise running maxima); dq, dk, dv: of the largest |value| of
@@ -299,8 +333,10 @@ TRAIN_LR = 2e-4
 # training (M = 2 x 512, forward and backward) and decode (M = 4) rows,
 # decode attention at the serving width, flash attention at the training one
 QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
-QMM_ROWS = (2048, 1024, 4, 8, 16, 40)   # + decode: generate()'s 4 rows, serve-paged's 8
-                                        # slots, DECODE_ROWS, a verify step's 8 x 5
+QMM_ROWS = (2048, 1024, 4, 8, 16, 40, 36, 9)   # + decode: generate()'s 4 rows, serve-paged's
+                                               # 8 slots (and 2 x 4 beams), DECODE_ROWS, a
+                                               # verify step's 8 x 5, search's speculation at
+                                               # 4 x 9 and 1 x 9 (the decode kernel's two tiles)
 FEW_ROWS = 64             # up to here a row count is timed in a CUDA graph, with the tile
                           # kernel ("before") and the decode kernel beside it
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
@@ -316,6 +352,7 @@ ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
 )
 ATTN_LONG = (4, 32, 32, 128, 2048, (0, 511, 1500, 2047), None, False)   # five splits of 448
 I8_DECODE_ROWS = (4, 8, 16)      # the int8 forward at decode rows: generate()'s 4, 8 slots, 16
+I8_DIRECT_ROWS = I8_DECODE_ROWS + (9,)   # qmm_i8_direct also at search's int8 verify chunk, 1 x 9
 
 
 PAGE, PPS = 64, 16               # serve-paged's pages: 64 tokens, 16 per sequence (T = 1024)
@@ -323,13 +360,23 @@ PAGED_B = 8                      # serve-paged's slots
 SPEC_DRAFT = 4                   # drafts per verify chunk (C = 5)
 DECODE_LENS = (0, 1, 63, 64, 65, 300, 511, 1022)
 CHUNK_LENS = (0, 1, 63, 64, 65, 300, 510, 1019)   # 510 % 64 == 62: across a page; 1019 + 5 == T
-PAGED_CASES = (  # C (None: the decode kernel), KVH, lengths, sliding window, evicted, planted
-    (None, 32, DECODE_LENS, None, False, False),
-    (None, 8, DECODE_LENS, 256, True, False),     # GQA G=4, window, entries behind it on page 0
-    (None, 8, DECODE_LENS, 256, True, True),      # an off-by-one moves it O(1)
-    (SPEC_DRAFT + 1, 32, CHUNK_LENS, None, False, False),
-    (SPEC_DRAFT + 1, 8, CHUNK_LENS, 256, True, False),
-    (SPEC_DRAFT + 1, 8, CHUNK_LENS, 256, True, True),
+# C (None: the decode kernel), KVH, lengths, sliding window, evicted, planted edges; page,
+# pages a sequence, and beams sharing each prompt's full pages (0: no sharing)
+PagedCase = collections.namedtuple(
+    "PagedCase", "C KVH lens window evict planted page pps beams prompts",
+    defaults=(PAGE, PPS, 0, ()))
+PAGED_CASES = (
+    PagedCase(None, 32, DECODE_LENS, None, False, False),
+    PagedCase(None, 8, DECODE_LENS, 256, True, False),   # GQA G=4, window, entries behind it
+    PagedCase(None, 8, DECODE_LENS, 256, True, True),    # an off-by-one moves it O(1)
+    PagedCase(SPEC_DRAFT + 1, 32, CHUNK_LENS, None, False, False),
+    PagedCase(SPEC_DRAFT + 1, 8, CHUNK_LENS, 256, True, False),
+    PagedCase(SPEC_DRAFT + 1, 8, CHUNK_LENS, 256, True, True),
+    # the search phase's paged beams: 2 rows x 4 beams, pages of 16, each row's full
+    # prompt pages shared by its beams (prompts 200 and 97, 15 tokens generated:
+    # 112 appends at a page's first slot)
+    PagedCase(None, 32, (215,) * 4 + (112,) * 4, None, False, False, page=16, pps=16, beams=4,
+              prompts=(200, 97)),
 )
 SERVE_PAGED = dict(num_slots=PAGED_B, page_size=PAGE, max_pages_per_seq=PPS,
                    prefill_buckets=(128, 256, 512), eos_id=-1, admit_batch=4,
@@ -379,6 +426,14 @@ CLI_STEPS, CLI_RESUME_AT, CLI_SAVE, CLI_KEEP = 6, 4, 2, 2
 CLI_EVAL_BATCH, CLI_MMLU, CLI_MMLU_LEN, CLI_NEW = 4, 16, 2032, 32   # 2032 + 16: S = 2048, flash
 # serve-http: the OpenAI-compatible endpoint over PagedBatcher, 16 clients at once
 HTTP_REQUESTS, HTTP_CHAT = 16, 4         # 12 completions and 4 chats, half of each streamed
+# search: beams, group beams, contrastive search and speculation on serve's weights
+SEARCH_ROWS = (2, 3)                     # serve's prompts of 200 and 97 tokens
+SEARCH_BEAMS, SEARCH_GROUPS, SEARCH_DIVERSITY, SEARCH_LP = 4, 2, 0.5, 0.8
+SEARCH_NEW, SEARCH_PAGE = 32, 16
+CONTRASTIVE_ALPHA, CONTRASTIVE_K = 0.6, 4
+SEARCH_DRAFT = 8                         # drafts a verify chunk: 4 x 9 = 36 rows at B = 4
+SEARCH_PARITY = (48, 31, 5, 8)           # 2 layers: prompt lengths, new tokens (searches,
+                                         # speculation)
 NEAR_TIE = 2 * LOGIT_TOL                 # a top-2 margin (teacher-forced, no cache) under
                                          # which bf16 rounded in another order (a cached
                                          # decode, another batch) may pick the other token:
@@ -627,13 +682,16 @@ def plant_flash_edges(q, k, v, lens, window):
                     v[b, :, t] = 2.0 * (t % 5 - 2) + 0.5
 
 
-def paged_case(g, dev, B, C, H, KVH, hd, page, pps, lens, window, evict=False, planted=False):
+def paged_case(g, dev, B, C, H, KVH, hd, page, pps, lens, window, evict=False, planted=False,
+               beams=0, prompts=()):
     """Inputs of one paged-attention call, drawn from `g`: q, new_k, new_v
     ([B, C, ...], or with C None the decode's [B, ...]), pools of noise with
     B * pps + 9 pages, lengths, and tables of distinct scattered pages.  A
     row of length 0 is an inactive slot: its table is all page 0.  With
     `evict` the entries wholly behind the window point at page 0, as
-    ``PagedPool.evict_before`` leaves them."""
+    ``PagedPool.evict_before`` leaves them.  With `beams`, each run of
+    `beams` rows shares its first prompt // page pages (``prompts``, one a
+    run), as ``generate/search.py``'s paged beams do."""
     import torch
 
     mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
@@ -648,6 +706,9 @@ def paged_case(g, dev, B, C, H, KVH, hd, page, pps, lens, window, evict=False, p
             tables[b] = 0
         elif evict and window:
             tables[b, :max(0, n + 1 - window) // page] = 0
+        if beams and b % beams:
+            fb = prompts[b // beams] // page
+            tables[b, :fb] = tables[b - b % beams, :fb]
     if planted:
         plant_paged_edges(q, kp, tables, lens, window)
     return q, nk, nv, kp, vp, torch.tensor(lens, device=dev, dtype=torch.int32), tables
@@ -673,13 +734,14 @@ def plant_paged_edges(q, kp, tables, lens, window):
                 kp[int(tables[b, t // page]), :, t % page] = key[b]
 
 
-def paged_bound(B, C, H, KVH, hd, lens, window, T, pps):
+def paged_bound(B, C, H, KVH, hd, lens, window, T, pps, shared=0):
     """(bound_ms, bound_by) of a paged call: the pool keys each row attends
-    (read once), q and out, the C new k/v rows read and written into the
-    pool, lengths and tables; 4 * hd operations per (query, key) pair, the
-    chunk's own keys included, at the f32 rate."""
+    (read once; `shared` of them are pages another row reads too, which the
+    card need read only once), q and out, the C new k/v rows read and written
+    into the pool, lengths and tables; 4 * hd operations per (query, key)
+    pair, the chunk's own keys included, at the f32 rate."""
     keys = [max(0, min(n, T) - (max(0, n - window + 1) if window else 0)) for n in lens]
-    nbytes = (2 * KVH * hd * 2 * sum(keys) + 2 * B * C * H * hd * 2
+    nbytes = (2 * KVH * hd * 2 * (sum(keys) - shared) + 2 * B * C * H * hd * 2
               + 2 * 2 * B * C * KVH * hd * 2 + B * 4 + B * pps * 4)
     ops = sum(4 * C * H * hd * (k + C) for k in keys)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
@@ -736,10 +798,11 @@ def paged_kernel_phase(dev, results):
     pa = importlib.import_module("qlora_tpu_torch.ops.paged_attention")
 
     g = torch.Generator(device=dev).manual_seed(8642)
-    H, hd, B, T = 32, 128, PAGED_B, PAGE * PPS
-    for C, KVH, lens, window, evict, planted in PAGED_CASES:
-        q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, C, H, KVH, hd, PAGE, PPS, lens,
-                                                  window, evict, planted)
+    H, hd, B = 32, 128, PAGED_B
+    for C, KVH, lens, window, evict, planted, page, pps, beams, prompts in PAGED_CASES:
+        T = page * pps
+        q, nk, nv, kp, vp, L, tables = paged_case(g, dev, B, C, H, KVH, hd, page, pps, lens,
+                                                  window, evict, planted, beams, prompts)
         name = "paged_decode_attention_cuda" if C is None else "paged_chunk_attention_cuda"
         kernel, plain, before = (
             (paged_decode_attention_cuda, paged_decode_plain, pa._paged_decode_before) if C is None
@@ -760,12 +823,14 @@ def paged_kernel_phase(dev, results):
                              sliding_window=window + 1)
             moved = (o3.float() - o2.float()).abs().max().item()
         Cq = C or 1
-        shape = (f"B={B}{'' if C is None else f' C={C}'} H={H} KVH={KVH} hd={hd} page={PAGE} "
-                 f"pps={PPS} lens={list(lens)} window={window}"
-                 + (" evicted" if evict else "") + (" planted edges" if planted else ""))
+        shape = (f"B={B}{'' if C is None else f' C={C}'} H={H} KVH={KVH} hd={hd} page={page} "
+                 f"pps={pps} lens={list(lens)} window={window}"
+                 + (" evicted" if evict else "") + (" planted edges" if planted else "")
+                 + (f" beams={beams} shared prompts={list(prompts)}" if beams else ""))
         more = {"tile_err": paged_split_checks(shape, kernel, before, q, nk, nv, kp, vp, L,
                                                tables, kw, o1, o2)}
-        bound_ms, bound_by, keys = paged_bound(B, Cq, H, KVH, hd, lens, window, T, PPS)
+        shared = sum((beams - 1) * (n // page) * page for n in prompts)
+        bound_ms, bound_by, keys = paged_bound(B, Cq, H, KVH, hd, lens, window, T, pps, shared)
         pools = [(k1, v1)] + [(k1.clone(), v1.clone())
                               for _ in range(copies_past_l2(2 * KVH * hd * 2 * keys) - 1)]
         # device times in CUDA graphs: the wrapper's host time exceeds the split kernel's
@@ -792,7 +857,7 @@ def paged_kernel_phase(dev, results):
         flat = tables.reshape(-1)
 
         def gathered(pages):
-            return pages.index_select(0, flat).reshape(B, PPS, KVH, PAGE, hd).transpose(
+            return pages.index_select(0, flat).reshape(B, pps, KVH, page, hd).transpose(
                 1, 2).reshape(B, KVH, T, hd)
 
         lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
@@ -1470,17 +1535,18 @@ def int8_kernel_phase(dev, results):
     exact_tol = "equal bit for bit, int32 accumulators and bf16 output"
 
     # qmm_i8_direct: the decode steps' launches (M = 4 in serve-int8, 8 in
-    # serve-paged-int8, and 16) on qmm_i8_direct_decode.cu, which quantizes the
-    # rows itself, timed in CUDA graphs beside qmm_i8_direct.cu through its C
-    # entry on rows quantized beforehand (tile_ms, the "before"); then a ragged
-    # shape, which the decode kernel's plan refuses (qmm_i8_direct.cu, events)
+    # serve-paged-int8, 16, and search's int8 verify chunk of 9) on
+    # qmm_i8_direct_decode.cu, which quantizes the rows itself, timed in CUDA
+    # graphs beside qmm_i8_direct.cu through its C entry on rows quantized
+    # beforehand (tile_ms, the "before"); then a ragged shape, which the decode
+    # kernel's plan refuses (qmm_i8_direct.cu, events)
     for K, N in QMM_SHAPES + (LM_HEAD_SHAPE,):
         w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
         qt = quantize(w, block_size=K, quant_type="int8", double_quant=False)
         del w
         qts = clones(qt)
         s_out = absmax_f32(qt).reshape(-1) / 127.0
-        for M in I8_DECODE_ROWS:
+        for M in I8_DIRECT_ROWS:
             x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
             shape = f"M={M} K={K} N={N}"
             err, y = i8_direct_decode_check(shape, x, qt)
@@ -2179,7 +2245,10 @@ def serve_phase(dev):
         fail("serve: tokens out of range or wrong shape")
     stats = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
                  decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib)
-    int8_counts, int8_stats = serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, toks)
+    int8_counts, int8_stats, dec = serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, toks)
+    search = search_phase(dev, cfg, params, lora, lcfg, ids, lengths, toks, dec, stats)
+    del dec
+    gc_cuda()
     t0 = time.perf_counter()
     paged = serve_paged_phase(dev, cfg, params, lora, lcfg)
     print(f"serve-paged: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2188,13 +2257,14 @@ def serve_phase(dev):
     print(f"serve-paged-spec: {time.perf_counter() - t0:.1f} s", flush=True)
     del params, lora
     torch.cuda.empty_cache()
-    return counts, stats, int8_counts, int8_stats, paged, spec
+    return counts, stats, int8_counts, int8_stats, paged, spec, search
 
 
 def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
     """The serve phase's requests again through ``decode_impl="int8"``: the
     prefill on the NF4 params (the exact path), every decode step on a
-    per-column int8 serving tree made once."""
+    per-column int8 serving tree made once, which it returns for the search
+    phase's int8 speculation."""
     import torch
 
     from qlora_tpu_torch.generate import generate
@@ -2248,10 +2318,9 @@ def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
     # the first token comes from the prefill's logits, which both runs compute alike
     if not torch.equal(toks[:, 0], nf4_toks[:, 0]):
         fail("serve-int8: the first tokens differ from the NF4 run's")
-    del dec
     return counts, dict(decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
                         decode_tok_s=toks.numel() / decode_s, peak_gib=peak_gib,
-                        requantize_s=requant_s, tokens_equal=agree)
+                        requantize_s=requant_s, tokens_equal=agree), dec
 
 
 def serve_i8base_phase(dev, nf4_stats):
@@ -3775,6 +3844,589 @@ def serve_http_phase(dev, card=""):
                         direct_tok_s=direct_tokens / direct_s, equal=equal)
 
 
+@contextlib.contextmanager
+def search_trace(keep=True, force=None):
+    """Record what the search and speculation loops decide on, by wrapping
+    the model forward in the generation modules and the loops' helpers:
+    each forward's input tokens, its logits on the host (a decode step's
+    last position, all positions otherwise) and its hidden states where it
+    returns them; the beams' sources; each ``_top_k`` call's sorted values
+    (one more than it returns), its indices and the forward it follows; and
+    each contrastive step's degeneration scores.  With `force` (the trace of
+    another run on the same prompts), every ``_top_k`` call and every score
+    returns that run's values instead of its own, so this run takes the
+    other's decisions and records its own beside them.  Without `keep` it
+    records only what a timed run needs: the number of forwards, and the
+    host time, after a synchronize, at which the loop's first forward
+    starts (its prefill is the first forward); nothing else waits on the
+    card or copies.  Launches stay counted by the wrappers."""
+    import torch
+
+    import qlora_tpu_torch.generate.engine as engine
+    import qlora_tpu_torch.generate.search as search
+    import qlora_tpu_torch.generate.speculative as speculative
+
+    tr = {"fwd": [], "srcs": [], "topk": [], "score": [], "t_loop": None}
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (engine, "forward"), (search, "forward"), (speculative, "forward"),
+        (search, "_reorder_beams"), (search, "_top_k"), (search, "_degeneration_scores"))]
+    real_fwd, real_reorder, real_top_k, real_scores = (f for _, _, f in saved[2:])
+
+    def forward(params, lora, ids, *a, **kw):
+        if len(tr["fwd"]) == 1:
+            torch.cuda.synchronize()
+            tr["t_loop"] = time.perf_counter()
+        out = real_fwd(params, lora, ids, *a, **kw)
+        if not keep:
+            tr["fwd"].append(None)
+            return out
+        last = ids.shape[1] == 1
+        rec = {"ids": ids.cpu(), "logits": (out[0][:, 0] if last else out[0]).float().cpu()}
+        if len(out) == 3:
+            rec["hidden"] = (out[2][:, 0] if last else out[2]).float().cpu()
+        tr["fwd"].append(rec)
+        return out
+
+    def reorder(cache, gather_rows, *a):
+        tr["srcs"].append(gather_rows.cpu())
+        return real_reorder(cache, gather_rows, *a)
+
+    def top_k(x, n):
+        v, i = real_top_k(x, n + 1)
+        tr["topk"].append({"v": v.cpu(), "i": i[:, :n].cpu(), "cont": x.shape[-1] == 2 * n,
+                           "fwd": len(tr["fwd"]) - 1})
+        if force is None:
+            return v[:, :n], i[:, :n]
+        f = force["topk"][len(tr["topk"]) - 1]
+        return f["v"][:, :n].to(x.device, x.dtype), f["i"].to(x.device)
+
+    def scores(*a):
+        s = real_scores(*a)
+        tr["score"].append(s.cpu())
+        return s if force is None else force["score"][len(tr["score"]) - 1].to(s.device)
+
+    wrapped = (forward, forward, forward) + ((reorder, top_k, scores) if keep else ())
+    for (m, n, _), f in zip(saved, wrapped):
+        setattr(m, n, f)
+    try:
+        yield tr
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def step_logits(tr, i, lengths):
+    """The logits forward `i` of a trace decided on: a prompt's at each
+    row's last token, a decode step's as recorded."""
+    import torch
+
+    x = tr["fwd"][i]["logits"]
+    return x[torch.arange(len(lengths)), lengths.long() - 1] if x.ndim == 3 else x
+
+
+def forced_agreement(tag, ref, card, lengths):
+    """Hold a run forced along `ref`'s decisions (``search_trace(force=)``)
+    to `ref`: the same inputs at every forward, so every forward's logits
+    within LOGIT_TOL of ref's (their largest difference d) and its hidden
+    states, where it returns them, within HIDDEN_TOL as unit vectors (their
+    largest distance dh, at each row's positions inside its prompt); and the
+    decisions the run would have taken itself equal to ref's wherever ref's
+    margin is clear of the rounding: each ``_top_k`` rank (a beam's
+    candidate scores, the prior scores being ref's, each off by at most
+    2 d; contrastive's candidates by log-probability, the same) up to a
+    row's first gap within 4 d; and contrastive's scores, whose
+    probabilities are ref's (forced) and whose cosines are each off by at
+    most 2 dh, so the scores by at most 2 α dh: each pick whose best two
+    differ by more than twice the largest score difference ds, and at least
+    one such pick.  Returns (decisions compared, worst logit difference,
+    forwards)."""
+    import torch
+
+    if len(ref["fwd"]) != len(card["fwd"]) or len(ref["topk"]) != len(card["topk"]):
+        fail(f"{tag}: the forced run took {len(card['fwd'])} forwards, the reference "
+             f"{len(ref['fwd'])}")
+    d, dh = [], 0.0
+    unit = lambda h: h / h.norm(dim=-1, keepdim=True)
+    for i, (a, b) in enumerate(zip(ref["fwd"], card["fwd"])):
+        if not torch.equal(a["ids"], b["ids"]):
+            fail(f"{tag}: forward {i}'s inputs differ in the forced run")
+        d.append((step_logits(ref, i, lengths) - step_logits(card, i, lengths)).abs().max().item())
+        if ("hidden" in a) != ("hidden" in b):
+            fail(f"{tag}: forward {i} returned hidden states in one run only")
+        if "hidden" in a:
+            dist = (unit(a["hidden"]) - unit(b["hidden"])).norm(dim=-1)
+            if dist.ndim == 2:                 # a prompt's: its rows' positions inside it
+                dist = dist[torch.arange(dist.shape[1])[None, :] < lengths[:, None]]
+            dh = max(dh, dist.max().item())
+    if max(d) > LOGIT_TOL:
+        fail(f"{tag}: logits differ by {max(d)} > {LOGIT_TOL} on the same inputs")
+    if dh > HIDDEN_TOL:
+        fail(f"{tag}: hidden states differ by {dh} > {HIDDEN_TOL} as unit vectors")
+    compared = 0
+    for ca, cb in zip(ref["topk"], card["topk"]):
+        v = ca["v"].log() if ref["score"] else ca["v"]     # contrastive: probabilities
+        gaps = v[:, :-1] - v[:, 1:]
+        for r in range(v.shape[0]):
+            for p in range(ca["i"].shape[1]):
+                if gaps[r, p] <= 4 * d[ca["fwd"]]:
+                    break
+                if int(cb["i"][r, p]) != int(ca["i"][r, p]):
+                    fail(f"{tag}: a candidate ranked {p} differs at a margin {gaps[r, p]:.4g} "
+                         f"> {4 * d[ca['fwd']]:.4g}")
+                compared += 1
+    if ref["score"]:
+        ds = max((sa - sb).abs().max().item() for sa, sb in zip(ref["score"], card["score"]))
+        bound = 2 * CONTRASTIVE_ALPHA * dh + 1e-5      # + f32 rounding of the scores
+        if ds > bound:
+            fail(f"{tag}: degeneration scores differ by {ds:.4g} > 2 α dh = {bound:.4g}")
+        clear_picks = 0
+        for sa, sb in zip(ref["score"], card["score"]):
+            top2 = sa.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * ds
+            if not torch.equal(sa.argmax(1)[clear], sb.argmax(1)[clear]):
+                fail(f"{tag}: a contrastive pick differs at a clear margin")
+            clear_picks += int(clear.sum())
+        if not clear_picks:
+            fail(f"{tag}: no contrastive pick was clear of twice the score difference {ds:.4g}")
+        compared += clear_picks
+        print(f"{tag}: hidden states within {dh:.4g} <= {HIDDEN_TOL} as unit vectors, scores "
+              f"within {ds:.4g} <= 2 α dh; {clear_picks} of "
+              f"{sum(len(sa) for sa in ref['score'])} picks clear", flush=True)
+    return compared, max(d), len(d)
+
+
+def beam_agreement(tag, ref, other, lengths, G, tol):
+    """Hold two free-running beam searches on the same prompts (paged
+    against contiguous) to one another step by step: while every decision
+    so far was alike, both runs saw the same inputs, so each step's logits
+    must agree within `tol`, and their largest difference d bounds how far a
+    candidate's score (a sum of log-probabilities, each off by at most 2 d)
+    can have moved; a step's decision (the kg-th against the (kg+1)-th
+    continuing candidate of each group) is then taken alike unless its
+    margin is within twice that bound: up to the first such step the
+    sources and tokens must be equal, and if there is none, nor at the final
+    choice, so must the outputs.  Returns (steps decided alike and checked,
+    worst logit difference, final score bound)."""
+    import torch
+
+    T = len(ref["srcs"])
+    cont = [c["v"] for c in ref["topk"] if c["cont"]]
+    bound, worst = 0.0, 0.0
+    for t in range(T):
+        d = (step_logits(ref, t, lengths) - step_logits(other, t, lengths)).abs().max().item()
+        worst = max(worst, d)
+        if d > tol:
+            fail(f"{tag}: step {t}'s logits differ by {d} > {tol} on the same inputs")
+        bound += 2 * d
+        kg = cont[t * G].shape[-1] - 1
+        margin = min((v[:, kg - 1] - v[:, kg]).min().item() for v in cont[t * G:(t + 1) * G])
+        if bound > 0 and margin <= 2 * bound:     # equal values break alike
+            return t, worst, bound
+        if not (torch.equal(ref["srcs"][t], other["srcs"][t])
+                and torch.equal(ref["fwd"][t + 1]["ids"], other["fwd"][t + 1]["ids"])):
+            fail(f"{tag}: step {t}'s beams differ with a deciding margin {margin:.4g} > "
+                 f"{2 * bound:.4g}")
+    last = torch.cat([v[:, :-1] for v in cont[-G:]], 1).sort(-1, descending=True).values
+    tied = bound > 0 and (last[:, 0] - last[:, 1]).min().item() <= 2 * bound
+    return (T - 1 if tied else T), worst, bound
+
+
+def position_logits(tr, lengths, budget, draft=None):
+    """For each row, the logits that decided each of its `budget` greedy
+    tokens: ``generate``'s (the prompt's last, then each decode step's) or,
+    with `draft`, a speculative run's (the prompt's last, then each verify
+    chunk's first accepted positions, the acceptance replayed from the
+    chunk's inputs and logits as the loop takes it)."""
+    import torch
+
+    B = len(lengths)
+    per = [[row] for row in step_logits(tr, 0, lengths)]
+    for f in tr["fwd"][1:]:
+        if draft is None:
+            for b in range(B):
+                per[b].append(f["logits"][b])
+            continue
+        toks = f["logits"].argmax(-1)
+        for b in range(B):
+            acc = 0
+            while acc < draft and int(f["ids"][b, acc + 1]) == int(toks[b, acc]):
+                acc += 1
+            per[b].extend(f["logits"][b, :max(0, min(acc + 1, budget - len(per[b])))])
+    return [torch.stack(p[:budget]) for p in per]
+
+
+def token_agreement(tag, ref_toks, ref_pos, toks, pos, tol):
+    """Greedy tokens of two runs (rows of ref_toks / toks, the logits that
+    decided each in ref_pos / pos) held position by position: while every
+    token so far was alike both saw the same context, so the logits must
+    agree within `tol`; a token is decided alike unless ref's top-2 margin
+    is within twice their difference.  Returns (tokens compared before each
+    row's first such position, worst logit difference)."""
+    compared, worst = 0, 0.0
+    for b in range(len(ref_pos)):
+        for p in range(len(ref_pos[b])):
+            d = (ref_pos[b][p] - pos[b][p]).abs().max().item()
+            worst = max(worst, d)
+            if d > tol:
+                fail(f"{tag}: row {b} position {p}'s logits differ by {d} > {tol}")
+            top2 = ref_pos[b][p].topk(2).values
+            if top2[0] - top2[1] <= 2 * d:
+                break
+            if int(ref_toks[b][p]) != int(toks[b][p]):
+                fail(f"{tag}: row {b} position {p} differs at a margin "
+                     f"{(top2[0] - top2[1]).item():.4g} > {2 * d:.4g}")
+            compared += 1
+    return compared, worst
+
+
+def search_parity(dev):
+    """search's first part: LLaMA-7B width, 2 layers, the same weights on
+    the CPU's plain path and on the card.  Beam search (paged, pages of 16),
+    group beam search (k 4, G 2, diversity 0.5) and contrastive search (α
+    0.6, top-k 4) on two prompts of unequal lengths, the card forced along
+    the CPU's decisions: every forward's logits within LOGIT_TOL, and every
+    decision the card takes itself equal to the CPU's where the CPU's margin
+    is clear of the measured rounding (:func:`forced_agreement`).  Greedy
+    speculation (8 drafts) free-running on both, tokens held position by
+    position (:func:`token_agreement`), the chunk count equal where every
+    token was compared.  Returns its lines' numbers."""
+    import torch
+
+    from qlora_tpu_torch.generate import (
+        beam_search, contrastive_search, generate_speculative, group_beam_search,
+    )
+    from qlora_tpu_torch.models import init_params
+    from qlora_tpu_torch.utils import move_to
+
+    cfg = seven_b(num_layers=2)
+    p_gpu = init_params(cfg, seed=1, device=dev)
+    lora_gpu, lcfg = random_lora(cfg, dev, seed=2)
+    p_cpu, lora_cpu = move_to(p_gpu, "cpu"), move_to(lora_gpu, "cpu")
+    lens = SEARCH_PARITY[:2]
+    ids, lengths = padded_requests(lens, max(lens), cfg.vocab_size, 3)
+    new, spec_new = SEARCH_PARITY[2:]
+    kw = dict(max_new_tokens=new, eos_id=-1)
+    runs = {
+        "beam": lambda p, lo, d: beam_search(p, lo, ids, lengths, cfg, lcfg,
+                                             num_beams=SEARCH_BEAMS, page_size=SEARCH_PAGE,
+                                             device=d, **kw),
+        "group-beam": lambda p, lo, d: group_beam_search(
+            p, lo, ids, lengths, cfg, lcfg, num_beams=SEARCH_BEAMS, num_beam_groups=SEARCH_GROUPS,
+            diversity_penalty=SEARCH_DIVERSITY, page_size=SEARCH_PAGE, device=d, **kw),
+        "contrastive": lambda p, lo, d: contrastive_search(
+            p, lo, ids, lengths, cfg, lcfg, top_k=CONTRASTIVE_K, penalty_alpha=CONTRASTIVE_ALPHA,
+            device=d, **kw),
+    }
+    lines = {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        with search_trace() as ref:
+            want = run(p_cpu, lora_cpu, "cpu")
+        with search_trace(force=ref) as card:
+            got = run(p_gpu, lora_gpu, dev).cpu()
+        if not torch.equal(got, want):
+            fail(f"search-parity {name}: the card, forced along the CPU's decisions, "
+                 "returned other tokens")
+        compared, worst, n_fwd = forced_agreement(f"search-parity {name}", ref, card, lengths)
+        lines[name] = dict(compared=compared, worst=worst, forwards=n_fwd)
+        print(f"search-parity {name}: the card forced along the CPU's decisions: logits within "
+              f"{LOGIT_TOL} at all {n_fwd} forwards (worst max|d| {worst:.4g}); {compared} "
+              f"decisions the card took itself clear of the measured rounding, all the CPU's; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out = []
+    for p, lo, d in ((p_cpu, lora_cpu, "cpu"), (p_gpu, lora_gpu, dev)):
+        with search_trace() as tr:
+            toks, st = generate_speculative(p, lo, ids, lengths, cfg, lcfg,
+                                            max_new_tokens=spec_new, eos_id=-1,
+                                            draft_len=SEARCH_DRAFT, with_stats=True, device=d)
+        out.append((toks.cpu(), st, position_logits(tr, lengths, spec_new, SEARCH_DRAFT)))
+    (want, st_cpu, pos_cpu), (got, st_card, pos_card) = out
+    compared, worst = token_agreement("search-parity speculation", want, pos_cpu, got, pos_card,
+                                      LOGIT_TOL)
+    if compared == want.numel() and st_cpu != st_card:
+        fail(f"search-parity speculation: chunks {st_card} on the card, {st_cpu} on the CPU")
+    lines["speculation"] = dict(compared=compared, tokens=want.numel(), worst=worst,
+                                chunks=st_card["chunks"])
+    print(f"search-parity speculation (greedy, {SEARCH_DRAFT} drafts): {compared} of "
+          f"{want.numel()} tokens decided clear of the measured rounding (worst max|d| "
+          f"{worst:.4g}), all equal; chunks card {st_card['chunks']}, CPU {st_cpu['chunks']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del p_gpu, p_cpu, lora_gpu, lora_cpu
+    torch.cuda.empty_cache()
+    return lines
+
+
+def same_result(a, b) -> bool:
+    """Two results of an entry point equal bit for bit (tensors, the stats
+    dicts beside them, a stream's token lists)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_result(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def search_run(tag, fn, want, trace=False):
+    """One counted, timed call of a search or speculation entry point, its
+    trace recording only the loop's start, so that nothing in the timed
+    window copies to the host or waits on the card: returns (its result,
+    counts, stats); fails on other launch counts than `want(result,
+    forwards)` gives.  With `trace`, a traced call first, for the checks
+    (stats["trace"]), held to the same counts, and its result equal to the
+    timed call's bit for bit (the kernels use no atomics).  Stats: the
+    loop's host time a step (the prefill, the first forward, excluded), peak
+    memory, and the memory the call held above what was resident when it
+    started."""
+    import torch
+
+    def counted(keep):
+        reset_counts()
+        with search_trace(keep=keep) as tr:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        counts = read_counts()
+        expect = want(out, len(tr["fwd"]) - 1)
+        if counts != expect:
+            fail(f"{tag}: launch counts {counts} != {expect}")
+        return out, counts, tr, t0, t1
+
+    traced = counted(True) if trace else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    out, counts, tr, t0, t1 = counted(False)
+    if traced and not same_result(traced[0], out):
+        fail(f"{tag}: the traced call and the timed call returned other results")
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(tr["fwd"]) - 1
+    stats = dict(steps=steps, total_s=t1 - t0, prefill_s=tr["t_loop"] - t0,
+                 ms_per_step=(t1 - tr["t_loop"]) / steps * 1e3, peak_gib=peak / 2 ** 30,
+                 held_gib=(peak - resident) / 2 ** 30, trace=traced and traced[2])
+    return out, counts, stats
+
+
+def search_phase(dev, cfg, params, lora, lcfg, ids, lengths, greedy, dec, serve_stats):
+    """search: group (diverse) beam search, contrastive search and single-
+    stream speculation at LLaMA-7B full depth on serve's weights: search
+    parity first (2 layers, card against CPU); then beams (two of serve's
+    prompts, 200 and 97 tokens; 4 beams, 32 tokens) paged (pages of 16, the
+    prompt pages shared) and contiguous, held to one another step by step;
+    group beams (G 2, diversity 0.5, length_penalty 0.8); contrastive search
+    (α 0.6, top-k 4); greedy speculation (8 drafts, 64 tokens) on serve's
+    four prompts and on the 97-token one, each equal to serve's greedy
+    ``generate()`` up to a row's first near-tie, the stream equal to the
+    batch bit for bit, and one run on serve-int8's serving tree held to int8
+    ``generate()`` on the same prompt.  Exact launch counts from each loop's
+    own step and chunk counts.  Each path timed in a call of its own without
+    the trace (:func:`search_run`).  Returns (the launches summed over the
+    timed calls, per-path stats)."""
+    import torch
+
+    from qlora_tpu_torch.generate import (
+        beam_search, contrastive_search, generate, generate_speculative,
+        generate_stream_speculative, group_beam_search,
+    )
+    from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
+
+    t_phase = time.perf_counter()
+    parity = search_parity(dev)
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+    rows = list(SEARCH_ROWS)
+    S = int(lengths[rows].max())
+    bids, blens = ids[rows, :S].to(dev), lengths[rows].to(dev)
+    B, k, T = len(rows), SEARCH_BEAMS, SEARCH_NEW
+    kw = dict(max_new_tokens=T, eos_id=-1, device=dev)
+
+    def nf4(prefill_rows, step_rows, steps):
+        """The NF4 forward's counts: a prefill of `prefill_rows` and `steps`
+        forwards of `step_rows`, each on the decode kernel up to DECODE_ROWS
+        rows and on the wgmma kernel above."""
+        calls = ((prefill_rows, 1), (step_rows, steps))
+        return dict(qmm_nf4_fwd_dq=n_lin * (steps + 1),
+                    qmm_nf4_decode_dq=n_lin * sum(n for m, n in calls if m <= DECODE_ROWS),
+                    qmm_nf4_wgmma_dq=n_lin * sum(n for m, n in calls if m > DECODE_ROWS))
+
+    def decode_counts(attention, prefill_rows, split=None):
+        def want(out, steps):
+            if steps != T:
+                fail(f"search: {steps} loop forwards for {T} tokens")
+            attn = {attention: L * steps, **({split: L * steps} if split else {})}
+            return expected_counts(**nf4(prefill_rows, B * k, steps), **attn)
+        return want
+
+    Sp = -(-S // SEARCH_PAGE) * SEARCH_PAGE        # the paged beams' prefill, padded to pages
+    paged_want = decode_counts("paged_decode_attention_cuda", B * Sp, "paged_decode_split")
+    stats, total = {}, {}
+    runs = [
+        ("beam", lambda: beam_search(params, lora, bids, blens, cfg, lcfg, num_beams=k,
+                                     page_size=SEARCH_PAGE, **kw), paged_want, True),
+        ("beam-contiguous", lambda: beam_search(params, lora, bids, blens, cfg, lcfg,
+                                                num_beams=k, paged_kv=False, **kw),
+         decode_counts("decode_attention_cuda", B * S), True),
+        ("group-beam", lambda: group_beam_search(
+            params, lora, bids, blens, cfg, lcfg, num_beams=k, num_beam_groups=SEARCH_GROUPS,
+            diversity_penalty=SEARCH_DIVERSITY, length_penalty=SEARCH_LP,
+            page_size=SEARCH_PAGE, **kw), paged_want, False),
+        ("contrastive", lambda: contrastive_search(
+            params, lora, bids, blens, cfg, lcfg, top_k=CONTRASTIVE_K,
+            penalty_alpha=CONTRASTIVE_ALPHA, **kw), decode_counts("decode_attention_cuda", B * S),
+         False),
+    ]
+    outs = {}
+    for name, fn, want, trace in runs:
+        outs[name], counts, stats[name] = search_run(f"search {name}", fn, want, trace)
+        total = {c: total.get(c, 0) + v for c, v in counts.items()}
+        out = outs[name]
+        if out.shape != (B, T) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"search {name}: tokens out of range or wrong shape {tuple(out.shape)}")
+    steps, worst, _ = beam_agreement("search beam paged/contiguous", stats["beam"]["trace"],
+                                     stats["beam-contiguous"]["trace"], blens.cpu(), 1,
+                                     LOGIT_TOL)
+    if steps == T and not torch.equal(outs["beam"], outs["beam-contiguous"]):
+        fail("search: paged and contiguous beams differ with every decision clear")
+    agree = dict(steps=steps, worst=worst,
+                 equal=bool(torch.equal(outs["beam"], outs["beam-contiguous"])))
+    print(f"search beam: paged (pages of {SEARCH_PAGE}) against contiguous, {steps} of {T} steps "
+          f"decided alike before the first within the measured rounding, worst max|logits| "
+          f"difference {worst:.4g}; outputs equal {agree['equal']}", flush=True)
+
+    # speculation: serve's four prompts, then the 97-token one alone, each held
+    # to generate()'s greedy tokens on the same prompts (traced here, the same
+    # call as serve's: its tokens must be serve's bit for bit)
+    n_new = greedy.shape[1]
+    spec = dict(max_new_tokens=n_new, eos_id=-1, draft_len=SEARCH_DRAFT, device=dev)
+    with search_trace() as tr:
+        again = generate(params, lora, ids, lengths, cfg, lcfg, max_new_tokens=n_new, eos_id=-1,
+                         device=dev)
+    if not torch.equal(again, greedy):
+        fail("search: generate() on serve's prompts differs from serve's own call")
+    greedy_pos = position_logits(tr, lengths, n_new)
+    del tr
+
+    def chunk_counts(prefill_rows, chunk_rows, int8=False):
+        def want(out, steps):
+            chunks = out[1]["chunks"] if isinstance(out, tuple) else steps
+            if chunks != steps:
+                fail(f"search: {steps} chunk forwards, {chunks} chunks counted")
+            if int8:     # the chunks on qmm_i8_direct, the lm_head too; the prefill exact
+                return expected_counts(**nf4(prefill_rows, chunk_rows, 0),
+                                       qmm_i8_direct=(n_lin + 1) * steps,
+                                       qmm_i8_direct_decode=(n_lin + 1) * steps)
+            return expected_counts(**nf4(prefill_rows, chunk_rows, steps))
+        return want
+
+    one = SEARCH_ROWS[1]
+    n1 = int(lengths[one])
+    sid, slen = ids[one:one + 1, :n1].to(dev), lengths[one:one + 1].to(dev)
+    k1 = SEARCH_DRAFT + 1
+    spec_runs = [
+        ("speculation-b4", lambda: generate_speculative(params, lora, ids.to(dev), lengths.to(dev),
+                                                        cfg, lcfg, with_stats=True, **spec),
+         chunk_counts(ids.numel(), len(lengths) * k1)),
+        ("speculation-b1", lambda: generate_speculative(params, lora, sid, slen, cfg, lcfg,
+                                                        with_stats=True, **spec),
+         chunk_counts(n1, k1)),
+        ("stream-b1", lambda: [int(t[0]) for t in generate_stream_speculative(
+            params, lora, sid, slen, cfg, lcfg, **spec)], chunk_counts(n1, k1)),
+        ("speculation-int8-b1", lambda: generate_speculative(
+            params, lora, sid, slen, cfg, lcfg, with_stats=True, decode_impl="int8",
+            decode_params=dec, **spec), chunk_counts(n1, k1, int8=True)),
+    ]
+    for name, fn, want in spec_runs:
+        outs[name], counts, stats[name] = search_run(f"search {name}", fn, want,
+                                                     trace=name != "stream-b1")
+        total = {c: total.get(c, 0) + v for c, v in counts.items()}
+    b4, st4 = outs["speculation-b4"]
+    b1, st1 = outs["speculation-b1"]
+    g_cpu = greedy.cpu()
+    compared, worst4 = token_agreement(
+        "search speculation-b4", g_cpu, greedy_pos, b4.cpu(),
+        position_logits(stats["speculation-b4"]["trace"], lengths, n_new, SEARCH_DRAFT),
+        LOGIT_TOL)
+    compared1, worst1 = token_agreement(
+        "search speculation-b1", g_cpu[one:one + 1], greedy_pos[one:one + 1], b1.cpu(),
+        position_logits(stats["speculation-b1"]["trace"], lengths[one:one + 1], n_new,
+                        SEARCH_DRAFT), LOGIT_TOL)
+    if outs["stream-b1"] != b1[0].tolist():
+        fail("search: the stream differs from generate_speculative at B = 1")
+    # int8 speculation against int8 generate() on the same prompt: the same
+    # per-column int8 copy at 9 rows and at 1 (a row's result the same at any
+    # row count, kernels-int8), inputs rounded in other orders by the chunk's
+    # attention, each run quantizing its own rows: W8A8_LOGIT_TOL
+    i8, st8 = outs["speculation-int8-b1"]
+    with search_trace() as tr:
+        g8 = generate(params, lora, sid, slen, cfg, lcfg, max_new_tokens=n_new, eos_id=-1,
+                      decode_impl="int8", decode_params=dec, device=dev)
+    compared8, worst8 = token_agreement(
+        "search speculation-int8-b1", g8.cpu(), position_logits(tr, slen.cpu(), n_new), i8.cpu(),
+        position_logits(stats["speculation-int8-b1"]["trace"], slen.cpu(), n_new, SEARCH_DRAFT),
+        W8A8_LOGIT_TOL)
+    del tr
+    for name, tokens in (("speculation-b4", b4.numel()), ("speculation-b1", n_new),
+                         ("stream-b1", n_new), ("speculation-int8-b1", n_new)):
+        stats[name]["tokens_per_chunk"] = tokens / stats[name]["steps"]
+    for name in ("beam", "beam-contiguous", "group-beam", "contrastive"):
+        stats[name]["tokens_per_chunk"] = B    # a token a row a step: the output rows
+    for name, st in stats.items():
+        tok = (b4.numel() if name == "speculation-b4" else
+               B * T if name in ("beam", "beam-contiguous", "group-beam", "contrastive")
+               else n_new)
+        st["tok_s"] = tok / (st["steps"] * st["ms_per_step"] / 1e3)
+        st.pop("trace")
+        print(f"search {name}: {st['steps']} {'steps' if 'beam' in name or name == 'contrastive' else 'chunks'}"
+              f", {st['ms_per_step']:.2f} ms a {'step' if 'beam' in name or name == 'contrastive' else 'chunk'} "
+              f"(prefill {st['prefill_s'] * 1e3:.1f} ms), {st['tok_s']:.1f} output tok/s, "
+              f"{st['tokens_per_chunk']:.3f} tokens a forward; peak {st['peak_gib']:.2f} GiB, "
+              f"{st['held_gib']:.2f} GiB above the resident weights", flush=True)
+    print(f"search speculation: against generate()'s greedy tokens, {compared} of "
+          f"{greedy.numel()} decided clear of the measured rounding (worst max|d| {worst4:.4g}) "
+          f"at B = 4 ({st4['chunks']} chunks) and {compared1} of {n_new} at B = 1 (worst "
+          f"{worst1:.4g}, {st1['chunks']} chunks), all equal; the stream equal bit for bit; int8 "
+          f"against int8 generate() {compared8} of {n_new} (worst {worst8:.4g} <= "
+          f"{W8A8_LOGIT_TOL}, {st8['chunks']} chunks), all equal; every timed call without the "
+          f"trace, equal to its traced call bit for bit; serve's generate() step "
+          f"{serve_stats['decode_ms_per_step']:.2f} ms in this run; search phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"search: launches { {c: v for c, v in total.items() if v} }", flush=True)
+    return total, dict(stats=stats, parity=parity, paged_vs_contiguous=agree,
+                       greedy_compared=(compared, compared1, compared8),
+                       phase_s=time.perf_counter() - t_phase)
+
+
+def search_only(dev) -> None:
+    """``python3 chip_smoke.py search``: serve's weights, its greedy
+    ``generate()`` as the speculation's reference (timed, as serve times
+    it), serve-int8's serving tree, then the search phase."""
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
+    from qlora_tpu_torch.models import init_params
+
+    cfg = seven_b()
+    params = init_params(cfg, seed=7, device=dev)
+    lora, lcfg = random_lora(cfg, dev, seed=8)
+    ids, lengths = padded_requests(SERVE_LENGTHS, max(SERVE_LENGTHS), cfg.vocab_size, 9)
+    generate(params, lora, ids[:, :16], torch.full((4,), 16), cfg, lcfg,
+             max_new_tokens=2, eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = generate(params, lora, ids, lengths, cfg, lcfg, max_new_tokens=SERVE_NEW,
+                      eos_id=-1, device=dev)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0 - timed_prefill(dev, cfg, params, lora, lcfg, ids,
+                                                        lengths)
+    with torch.inference_mode():
+        dec = requantize_params_int8_unstacked(params)
+    search_phase(dev, cfg, params, lora, lcfg, ids, lengths, greedy, dec,
+                 dict(decode_ms_per_step=decode_s / SERVE_NEW * 1e3))
+
+
 def train_split(results, per_step, stats, quant_type="nf4"):
     """Split the optimizer step by kernel: each kernel's launches per step
     times its kernel-phase time at the train shape (M = 1024, S = 512).  What
@@ -4090,6 +4742,7 @@ def main() -> int:
               "train-gemma": lambda dev: train_gemma_phase(dev),
               "train-data": lambda dev: train_data_phase(dev, card=card),
               "cli": lambda dev: cli_phase(dev, card),
+              "search": search_only,
               "serve-http": lambda dev: serve_http_phase(dev, card)}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
@@ -4137,8 +4790,8 @@ def main() -> int:
     t0 = time.perf_counter()
     (serve_counts, serve_stats, int8_counts, int8_stats,
      (paged_counts, paged_stats, paged8_counts, paged8_stats, pagedw_counts, pagedw_stats),
-     (spec_counts, spec_stats)) = serve_phase(dev)
-    print(f"serve, serve-int8, serve-paged and serve-paged-spec: "
+     (spec_counts, spec_stats), (search_counts, search_stats)) = serve_phase(dev)
+    print(f"serve, serve-int8, search, serve-paged and serve-paged-spec: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     i8base_counts, i8base_stats = serve_i8base_phase(dev, serve_stats)
@@ -4271,8 +4924,8 @@ def main() -> int:
             entry.update(sources=I8_DIRECT_SOURCES,
                          before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
                          decode_launches=int8_counts["qmm_i8_direct_decode"])
-    for entry in summary:     # the driver's entry points: the cli and serve-http phases
-        for tag, run in (("cli", cli_counts), ("http", http_counts)):
+    for entry in summary:     # the driver's entry points (cli, serve-http) and the searches
+        for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts)):
             if run.get(entry["name"]):
                 entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
@@ -4358,6 +5011,15 @@ def main() -> int:
           f"against {http_stats['direct_tok_s']:.1f} tok/s for a direct PagedBatcher on the same "
           f"prompts and serve-paged's {paged_stats['tok_s']:.1f}; time to first token median "
           f"{http_stats['ttft_ms'][0]:.1f} ms, p90 {http_stats['ttft_ms'][1]:.1f} ms", flush=True)
+    ss = search_stats["stats"]
+    print(f"search ({card}): ms a step, beams paged {ss['beam']['ms_per_step']:.2f}, "
+          f"contiguous {ss['beam-contiguous']['ms_per_step']:.2f}, group beams "
+          f"{ss['group-beam']['ms_per_step']:.2f}, contrastive {ss['contrastive']['ms_per_step']:.2f}"
+          f"; a verify chunk at B = 4 {ss['speculation-b4']['ms_per_step']:.2f} "
+          f"({ss['speculation-b4']['tokens_per_chunk']:.3f} tokens a chunk), at B = 1 "
+          f"{ss['speculation-b1']['ms_per_step']:.2f} ({ss['speculation-b1']['tokens_per_chunk']:.3f}"
+          f"), int8 {ss['speculation-int8-b1']['ms_per_step']:.2f}; against generate()'s "
+          f"{serve_stats['decode_ms_per_step']:.2f} ms a step at B = 4", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

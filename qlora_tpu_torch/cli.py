@@ -5,8 +5,9 @@ The flags are the JAX package's (``qlora_tpu/cli.py``), name for name and
 default for default, plus ``--device`` (CUDA unless given; ``cpu`` runs the
 plain PyTorch path).  Unknown flags are an error.  What the port does not
 run yet raises ``NotImplementedError`` naming its ROADMAP item: a mesh or
-several processes (A7), ``--predict_speculative`` (A5), beam, group-beam
-and contrastive search and their penalties (A4).
+several processes (A7).  Predict runs ``generate()`` with the search flags
+(beam, group-beam and contrastive search and their penalties), or
+``generate_speculative`` under ``--predict_speculative``.
 
 Order of work: resume detection, model build, data, the train loop
 (logging and save cadence, in-training eval and MMLU), eval, standalone
@@ -181,18 +182,6 @@ def check_supported(args: Args) -> None:
         raise NotImplementedError(
             "several processes (coordinator_address / num_processes) are not ported: "
             "ROADMAP A7, parallelism")
-    if args.predict_speculative > 0:
-        raise NotImplementedError(
-            "predict_speculative (single-stream speculation) is not ported: ROADMAP A5")
-    search = {"num_beams": args.num_beams > 1, "num_beam_groups": args.num_beam_groups > 1,
-              "penalty_alpha": bool(args.penalty_alpha),
-              "length_penalty": args.length_penalty != 1.0,
-              "diversity_penalty": args.diversity_penalty != 0.0}
-    asked = [k for k, v in search.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: beam, group-beam and contrastive search are not ported: "
-            "ROADMAP A4, generation")
 
 
 def build_model_and_tokenizer(args: Args, device):
@@ -539,7 +528,7 @@ def _run_mmlu(args, params, state, cfg, lcfg, tokenizer, mode, device):
 
 
 def _run_predict(args, params, state, cfg, lcfg, tokenizer, collator, mode, device):
-    from qlora_tpu_torch.generate import SamplingParams, generate
+    from qlora_tpu_torch.generate import SamplingParams, generate, generate_speculative
     from qlora_tpu_torch.train.data import make_dataset
 
     _, predict_ds = make_dataset(
@@ -562,18 +551,32 @@ def _run_predict(args, params, state, cfg, lcfg, tokenizer, collator, mode, devi
 
         with torch.no_grad():
             decode_params = requantize_params_int8_unstacked(base)
+    spec_k = int(args.predict_speculative or 0)
+    if spec_k > 0 and (args.num_beams > 1 or args.penalty_alpha or args.min_new_tokens):
+        raise ValueError("--predict_speculative composes with greedy/sampled decoding only "
+                         "(not beams/contrastive/min_new_tokens)")
     bs = max(args.per_device_eval_batch_size, 1)
     out_path = os.path.join(args.output_dir, "predictions.jsonl")
     with open(out_path, "w") as f:
         for chunk, n_real in _padded_batches(predict_ds, bs):
             b = collator(chunk)
-            toks = generate(
-                base, lora, b["input_ids"], b["attention_mask"].sum(-1), cfg, lcfg,
-                max_new_tokens=args.max_new_tokens, min_new_tokens=args.min_new_tokens or 0,
-                eos_id=tokenizer.eos_token_id, sparams=sp,
-                generator=torch.Generator(device=device).manual_seed(args.seed),
-                decode_impl=args.predict_decode_impl, decode_params=decode_params,
-                device=device)
+            kw = dict(max_new_tokens=args.max_new_tokens, eos_id=tokenizer.eos_token_id,
+                      sparams=sp, generator=torch.Generator(device=device).manual_seed(args.seed),
+                      decode_impl=args.predict_decode_impl, decode_params=decode_params,
+                      device=device)
+            if spec_k > 0:
+                # prompt-lookup speculation: greedy-exact / rejection-sampled,
+                # up to spec_k + 1 tokens a pass over the weights
+                toks = generate_speculative(base, lora, b["input_ids"],
+                                            b["attention_mask"].sum(-1), cfg, lcfg,
+                                            draft_len=spec_k, **kw)
+            else:
+                toks = generate(
+                    base, lora, b["input_ids"], b["attention_mask"].sum(-1), cfg, lcfg,
+                    min_new_tokens=args.min_new_tokens or 0, num_beams=args.num_beams,
+                    length_penalty=args.length_penalty, num_beam_groups=args.num_beam_groups,
+                    diversity_penalty=args.diversity_penalty, penalty_alpha=args.penalty_alpha,
+                    **kw)
             for ex, row in zip(chunk[:n_real], toks.cpu().numpy()[:n_real]):
                 text = tokenizer.decode([t for t in row.tolist() if t != tokenizer.eos_token_id])
                 f.write(json.dumps({**ex, "prediction": text}) + "\n")

@@ -1,15 +1,18 @@
 """Generation engine: prefill, then token-at-a-time decode with a KV cache.
 
-* batch predict — :func:`generate` (prefill + :func:`decode_loop`)
+* batch predict — :func:`generate` (prefill + :func:`decode_loop`), which
+  dispatches on the reference's GenerationArguments: ``penalty_alpha`` →
+  contrastive search, ``num_beam_groups > 1`` → group (diverse) beam search,
+  ``num_beams > 1`` → :func:`beam_search` (``generate/search.py``)
 * streaming     — :func:`generate_stream` (yields [B] token ids per step)
 
-Both run under ``torch.inference_mode()`` and update the KV cache in place:
-the decode-attention kernel appends each token into the cache it is given.
-``decode_impl="int8"`` runs the token loop on a per-column int8 copy of the
-weights (``serve_int8``) through the int8 tensor-core kernels, under
-``default_impl("w8a8")``; the prefill stays on the exact path.  Beam,
-contrastive and group search are later slices of the port and raise
-``NotImplementedError``.
+They run under ``torch.inference_mode()`` and update the KV cache in place:
+the decode-attention kernels append each token into the cache they are
+given.  ``decode_impl="int8"`` runs the token loop on a per-column int8 copy
+of the weights (``serve_int8``) through the int8 tensor-core kernels, under
+``default_impl("w8a8")``; the prefill stays on the exact path.  The searches
+run the exact path only (``decode_impl`` with a search raises
+``NotImplementedError``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -114,10 +117,6 @@ def _check_search(num_beams, num_beam_groups, penalty_alpha, decode_impl):
         raise NotImplementedError(
             "decode_impl composes with greedy/sampled decode only; "
             "beam/contrastive search runs the exact bf16 path")
-    if penalty_alpha:
-        raise NotImplementedError("contrastive search is ROADMAP A4 (generation, the rest)")
-    if searching:
-        raise NotImplementedError("beam search is ROADMAP A4 (generation, the rest)")
 
 
 def _decode_params(params, decode_impl, decode_params):
@@ -145,17 +144,40 @@ def generate(params, lora, ids, lengths, cfg: ModelConfig, lcfg: LoraConfig = Lo
              *, max_new_tokens: int = 256, eos_id: int = 2,
              sparams: SamplingParams = SamplingParams(),
              generator: Optional[torch.Generator] = None, max_len: Optional[int] = None,
-             min_new_tokens: int = 0, num_beams: int = 1, num_beam_groups: int = 1,
+             min_new_tokens: int = 0, num_beams: int = 1, length_penalty: float = 1.0,
+             num_beam_groups: int = 1, diversity_penalty: float = 0.0,
              penalty_alpha: Optional[float] = None, decode_impl: Optional[str] = None,
              decode_params: Optional[dict] = None, device=None) -> torch.Tensor:
     """Batch generation: new tokens [B, max_new_tokens] int32, eos-padded
     after each row stops.  ids [B, S] right-padded prompts, lengths [B].
     Runs on CUDA unless `device` names another device; `params` must live
-    there.  ``decode_impl="int8"`` opts the token loop into the int8
+    there.  Dispatches as the JAX package's: ``penalty_alpha`` → contrastive
+    search (``top_k = max(sparams.top_k, 2)``); ``num_beam_groups > 1`` →
+    group beam search; ``num_beams > 1`` → beam search; otherwise the token
+    loop.  ``decode_impl="int8"`` opts the token loop into the int8
     kernels; pass `decode_params` (a
     ``serve_int8.requantize_params_int8_unstacked`` tree) to reuse one
     serving copy across calls."""
     _check_search(num_beams, num_beam_groups, penalty_alpha, decode_impl)
+    if penalty_alpha:
+        from qlora_tpu_torch.generate.search import contrastive_search
+
+        return contrastive_search(
+            params, lora, ids, lengths, cfg, lcfg, max_new_tokens=max_new_tokens,
+            eos_id=eos_id, top_k=max(sparams.top_k, 2), penalty_alpha=penalty_alpha,
+            max_len=max_len, device=device)
+    if num_beam_groups > 1:
+        from qlora_tpu_torch.generate.search import group_beam_search
+
+        return group_beam_search(
+            params, lora, ids, lengths, cfg, lcfg, max_new_tokens=max_new_tokens,
+            eos_id=eos_id, num_beams=num_beams, num_beam_groups=num_beam_groups,
+            diversity_penalty=diversity_penalty, length_penalty=length_penalty,
+            max_len=max_len, device=device)
+    if num_beams > 1:
+        return beam_search(params, lora, ids, lengths, cfg, lcfg, max_new_tokens=max_new_tokens,
+                           eos_id=eos_id, num_beams=num_beams, max_len=max_len,
+                           length_penalty=length_penalty, device=device)
     ids, lengths = _inputs_on(params, ids, lengths, device)
     B, S = ids.shape
     with torch.inference_mode():
@@ -169,6 +191,25 @@ def generate(params, lora, ids, lengths, cfg: ModelConfig, lcfg: LoraConfig = Lo
             sparams=sparams, max_new_tokens=max_new_tokens, eos_id=eos_id,
             min_new_tokens=min_new_tokens, decode_impl=decode_impl)
     return toks
+
+
+def beam_search(params, lora, ids, lengths, cfg: ModelConfig, lcfg: LoraConfig = LoraConfig(),
+                *, max_new_tokens: int = 256, eos_id: int = 2, num_beams: int = 4,
+                max_len: Optional[int] = None, length_penalty: float = 1.0,
+                paged_kv: bool = True, page_size: int = 16, device=None) -> torch.Tensor:
+    """Beam search (GenerationArguments ``num_beams``): group beam search
+    with one group, hypotheses finalized when they emit EOS (HF
+    BeamSearchScorer semantics).  By default the beams run on the
+    copy-on-write paged K/V (prompt pages shared; a reorder gathers the page
+    tables and copies one partial page a beam); ``paged_kv=False`` keeps
+    the contiguous cache."""
+    from qlora_tpu_torch.generate.search import group_beam_search
+
+    return group_beam_search(
+        params, lora, ids, lengths, cfg, lcfg, max_new_tokens=max_new_tokens, eos_id=eos_id,
+        num_beams=num_beams, num_beam_groups=1, diversity_penalty=0.0,
+        length_penalty=length_penalty, max_len=max_len, paged_kv=paged_kv,
+        page_size=page_size, device=device)
 
 
 def generate_stream(params, lora, ids, lengths, cfg: ModelConfig,

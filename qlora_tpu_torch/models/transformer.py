@@ -238,9 +238,13 @@ def forward(
     use_flash: str = "auto",                    # "auto" | "never" | "always"
     generator: Optional[torch.Generator] = None,   # LoRA dropout (lcfg.dropout > 0)
     remat=False,                                # False | True / "full" | "save_linear"
+    return_hidden: bool = False,
 ):
     """Returns (logits [B, S, V] f32, cache or None).  The cache's K/V
     buffers are updated in place; the returned dict carries the new lengths.
+    With ``return_hidden`` a third element: the post-final-norm hidden
+    states [B, S, D] bf16 (HF's last_hidden_state; contrastive search reads
+    them).
 
     Without a cache, attention goes through ``flash_attention`` when
     ``use_flash`` is "always", or "auto" at the JAX package's gate
@@ -325,6 +329,8 @@ def forward(
     new_cache = None
     if cache is not None:
         new_cache = dict(cache, length=(positions[:, -1] + 1).to(torch.int32))
+    if return_hidden:
+        return logits, new_cache, x
     return logits, new_cache
 
 

@@ -364,9 +364,6 @@ def test_option_paths_train_and_resume(tmp_path, case):
 UNPORTED = {
     "mesh_dp": (2, "A7"), "mesh_fsdp": (2, "A7"), "mesh_tp": (2, "A7"), "mesh_sp": (2, "A7"),
     "coordinator_address": ("localhost:1234", "A7"), "num_processes": (2, "A7"),
-    "predict_speculative": (3, "A5"), "num_beams": (4, "A4"), "num_beam_groups": (2, "A4"),
-    "penalty_alpha": ("0.6", "A4"), "length_penalty": (0.8, "A4"),
-    "diversity_penalty": (0.5, "A4"),
 }
 
 
@@ -376,6 +373,106 @@ def test_unported_flags_raise_naming_their_item(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["--output_dir", str(tmp_path), "--device", "cpu", f"--{flag}", str(value)])
     assert not os.listdir(tmp_path)          # nothing built, nothing written
+
+
+@pytest.fixture(scope="module")
+def jax_store(tmp_path_factory):
+    """The debug model saved by JAX, and an alpaca file of prompts of
+    unequal lengths: both CLIs predict from the same weights."""
+    tmp = tmp_path_factory.mktemp("search")
+    jcfg = jget_config("debug")
+    store = str(tmp / "store")
+    jsave_quantized(store, jinit_params(jax.random.PRNGKey(0), jcfg, quantized=True), jcfg)
+    data = _write_alpaca(tmp / "data.json", n=16)
+    rows = json.loads(open(data).read())
+    for i, r in enumerate(rows):
+        r["input"] += " and pears" * (i % 3)
+    (tmp / "data.json").write_text(json.dumps(rows))
+    return tmp, store, data
+
+
+# the predict flags that select a search or speculation (ported with ROADMAP A4, A5)
+SEARCH_FLAGS = {
+    "num_beams": dict(num_beams=4),
+    "length_penalty": dict(num_beams=4, length_penalty=0.8),
+    "num_beam_groups": dict(num_beams=4, num_beam_groups=2),
+    "diversity_penalty": dict(num_beams=4, num_beam_groups=2, diversity_penalty=0.5),
+    "penalty_alpha": dict(penalty_alpha=0.6, top_k=4),
+    "predict_speculative": dict(predict_speculative=3),
+}
+
+
+LOGIT_TIE = 0.035    # the largest |logit| difference between the packages on the debug
+                     # models, rounded up (test_torch_search)
+
+
+@pytest.mark.parametrize("flag", list(SEARCH_FLAGS))
+def test_search_flags_predict_what_jax_cli_predicts(jax_store, flag, monkeypatch):
+    """``--do_predict`` with each search or speculation flag writes the same
+    ``predictions.jsonl`` as JAX's CLI on the same arguments and store (the
+    fresh LoRA has B = 0 in both).  Speculation's tokens, recorded on both
+    sides, are compared up to each row's first near-tie (top-2 logits within
+    LOGIT_TIE, teacher-forced through the port's forward), as
+    test_torch_speculative does; the lines of rows equal in full are equal."""
+    import qlora_tpu.generate.speculative as jspeculative
+
+    tmp, store, data = jax_store
+    kw = dict(model_name_or_path=store, fake_tokenizer=True, dataset=data, do_train=False,
+              do_eval=False, do_predict=True, lora_r=4, eval_dataset_size=4,
+              max_eval_samples=4, per_device_eval_batch_size=2, source_max_len=48,
+              target_max_len=24, max_new_tokens=6, **SEARCH_FLAGS[flag])
+    made = {"jax": [], "port": []}
+    def recording(mod, tag):
+        real = mod.generate_speculative
+
+        def generate_speculative(*a, **k):
+            made[tag].append((np.asarray(a[2]), np.asarray(a[3]), real(*a, **k)))
+            return made[tag][-1][2]
+
+        monkeypatch.setattr(mod, "generate_speculative", generate_speculative)
+
+    recording(jspeculative, "jax")
+    recording(tgenerate, "port")
+    outs = []
+    for mod, extra in ((jcli, {}), (cli, {"device": "cpu"})):
+        out = str(tmp / f"{flag}-{mod.__name__}")
+        mod.train(mod.Args(output_dir=out, **kw, **extra))
+        outs.append(open(os.path.join(out, "predictions.jsonl")).read().splitlines())
+    assert len(outs[1]) == len(outs[0]) == 4
+    if flag != "predict_speculative":
+        assert outs[1] == outs[0]
+        return
+    params, _ = load_quantized(store, device="cpu")
+    cfg = get_config("debug")
+    rows, compared = 0, 0
+    for (ids, lengths, want), (_, _, got) in zip(made["jax"], made["port"]):
+        want, got = np.asarray(want), got.numpy()
+        for b in range(min(2, 4 - rows)):
+            prompt = ids[b, :lengths[b]].tolist()
+            seq = torch.tensor([prompt + want[b].tolist()])
+            with torch.inference_mode():
+                logits = forward(params, None, seq, cfg)[0][0, len(prompt) - 1:-1]
+            top2 = logits.topk(2, dim=-1).values
+            ties = ((top2[:, 0] - top2[:, 1]) <= LOGIT_TIE).nonzero()
+            upto = int(ties[0]) if len(ties) else want.shape[1]
+            assert got[b, :upto].tolist() == want[b, :upto].tolist(), (b, upto)
+            if (got[b] == want[b]).all():
+                assert outs[1][rows] == outs[0][rows]
+            compared += upto
+            rows += 1
+    assert rows == 4 and compared > 0
+
+
+@pytest.mark.parametrize("extra", [dict(num_beams=2), dict(penalty_alpha=0.6),
+                                   dict(min_new_tokens=2)])
+def test_speculation_with_beams_or_contrastive_raises(jax_store, extra):
+    tmp, store, data = jax_store
+    args = cli.Args(model_name_or_path=store, fake_tokenizer=True, dataset=data,
+                    output_dir=str(tmp / "refused"), device="cpu", do_train=False,
+                    do_predict=True, eval_dataset_size=4, max_eval_samples=4,
+                    predict_speculative=3, **extra)
+    with pytest.raises(ValueError, match="predict_speculative"):
+        cli.train(args)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")

@@ -106,11 +106,13 @@ def test_entry_points_need_a_device_or_cuda(model):
                      lambda: generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
-    for kw in (dict(num_beams=2), dict(penalty_alpha=0.6),
-               dict(decode_impl="int8", num_beams=2),
+    for kw in (dict(decode_impl="int8", num_beams=2),
                dict(decode_impl="int8", penalty_alpha=0.6)):
         with pytest.raises(NotImplementedError):
             generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="cpu", **kw)
+    for kw in (dict(num_beams=2), dict(penalty_alpha=0.6)):      # the searches run
+        assert generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="cpu",
+                        **kw).shape == (1, 1)
     with pytest.raises(ValueError, match="only 'int8' or None"):
         generate(p, lo, ids, lengths, cfg, lc, max_new_tokens=1, device="cpu",
                  decode_impl="fp8")

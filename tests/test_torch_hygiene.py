@@ -34,7 +34,8 @@ def test_scan_covers_the_port():
     assert ROOT / "qlora_tpu_torch" / "generate" / "paged.py" in FILES
     assert ROOT / "qlora_tpu_torch" / "utils" / "checkpoint.py" in FILES
     assert ROOT / "qlora_tpu_torch" / "utils" / "hf_import.py" in FILES
-    for entry in ("cli.py", "eval/mmlu.py", "serve_openai.py"):
+    for entry in ("cli.py", "eval/mmlu.py", "serve_openai.py", "generate/search.py",
+                  "generate/speculative.py"):
         assert ROOT / "qlora_tpu_torch" / entry in FILES
 
 
