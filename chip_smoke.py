@@ -259,6 +259,34 @@ them.  Phases, each failing the run on any mismatch or exception:
    M = 36 and M = 9, kernels-int8 ``qmm_i8_direct`` at M = 9, and
    kernels-paged the beams' shape (B = 8, pages of 16, prompt pages shared).
 
+24. examples (after serve-http): the remaining single-card surface on one
+   LLaMA-7B (32 layers, random double-quant NF4, a rank-64 LoRA with nonzero
+   B).  The judge and baseline through the endpoint: two ``ServingEngine``s
+   over the same base, with the LoRA and without it (buckets up to 2048, 32
+   pages of 64, greedy), behind ThreadingHTTPServer on 127.0.0.1, reached by
+   a chat function over urllib that ends the run on any answer but a 200;
+   ``generate_baseline_answers`` on 12 Vicuna questions (4 coding, the 3
+   math, 5 of other categories: all three prompt ids routed), 32 tokens, 8
+   workers, on each engine; then ``run_judge`` (the LoRA engine judging) in
+   threeclass and relative mode, 16 tokens.  Held: one answer a question,
+   none ``#ERROR#``, each within its budget; one review row a question with
+   ``gen_prompt``'s reviewer and prompt ids and the parser's score; no
+   prompt cut by the batcher; exact launch counts around each run (every
+   decode on the NF4 decode kernel and split paged attention, every prefill
+   on the wgmma kernel).  The four examples through their ``main(argv)`` in
+   process, only their load helpers replaced (these weights, the LoRA as a
+   saved checkpoint, ``ShownTokenizer``): ``guanaco_generate`` (64 sampled
+   tokens, seed 0, plain and ``--decode_impl int8``), ``chat_demo`` (two
+   turns from a replaced stdin, plain and ``--speculative 4``),
+   ``serve_demo`` (8 prompts, 4 slots, a pool that preempts) and
+   ``web_demo`` (two streamed chats over HTTP, a webhook server), each
+   printed or streamed text equal bit for bit to the port's direct call with
+   the same seed, every launch on the decode, wgmma and split kernels.  Then
+   ``python3 -m qlora_tpu_torch.scripts.convert_checkpoint`` on a 2-layer
+   HF checkpoint: exit 0, every tensor byte-equal to ``save_quantized(
+   load_hf_model(src))`` here, seconds a layer; and ``guanaco_generate`` on
+   the HF directory, only the tokenizer replaced.
+
 The last two lines are the ``kernels`` JSON object and the result line.
 
 ``python3 chip_smoke.py serve-paged-w8a8`` builds the kernels and runs the
@@ -270,7 +298,7 @@ train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
 (on weights of its own), and ``python3 chip_smoke.py cli``,
 ``python3 chip_smoke.py serve-http`` and ``python3 chip_smoke.py search``
 (serve's weights, its greedy ``generate()`` and serving tree made first)
-those phases alone.
+and ``python3 chip_smoke.py examples`` those phases alone.
 """
 
 from __future__ import annotations
@@ -279,6 +307,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -426,6 +455,21 @@ CLI_STEPS, CLI_RESUME_AT, CLI_SAVE, CLI_KEEP = 6, 4, 2, 2
 CLI_EVAL_BATCH, CLI_MMLU, CLI_MMLU_LEN, CLI_NEW = 4, 16, 2032, 32   # 2032 + 16: S = 2048, flash
 # serve-http: the OpenAI-compatible endpoint over PagedBatcher, 16 clients at once
 HTTP_REQUESTS, HTTP_CHAT = 16, 4         # 12 completions and 4 chats, half of each streamed
+# examples: the judge and baseline through the endpoint, the four examples' main(argv), the
+# converter; one LLaMA-7B (32 layers, random NF4, rank-64 LoRA) for all of them
+JUDGE_CATEGORIES = (("coding", 4), ("math", 3))   # + EXAMPLES_OTHER questions of other
+EXAMPLES_OTHER = 5                                # categories: prompt ids 2, 3 and 1 all routed
+BASELINE_TOKENS, JUDGE_TOKENS, JUDGE_WORKERS = 32, 16, 8
+JUDGE_ENGINE = dict(slots=8, page_size=64, max_pages_per_seq=32, n_pages=8 * 32 + 1,
+                    prefill_buckets=(128, 256, 512, 1024, 2048), admit_batch=2,
+                    steps_per_dispatch=1, temperature=0.0)    # judge prompts: 1-2 k tokens
+                                         # (the prefill's f32 scores: 0.5 GB a row a layer at
+                                         # 2048, so 2 rows an admission)
+EXAMPLE_NEW = 64                         # guanaco_generate's sampled tokens
+CHAT_TURNS, CHAT_NEW, CHAT_DRAFT = ("Tell me about alpacas.", "And llamas?"), 24, 4
+SERVE_DEMO = dict(num_slots=4, n_pages=80, max_new_tokens=40)   # 16-token pages: it preempts
+SERVE_DEMO_PROMPTS = 8
+WEB_NEW = 24
 # search: beams, group beams, contrastive search and speculation on serve's weights
 SEARCH_ROWS = (2, 3)                     # serve's prompts of 200 and 97 tokens
 SEARCH_BEAMS, SEARCH_GROUPS, SEARCH_DIVERSITY, SEARCH_LP = 4, 2, 0.5, 0.8
@@ -3201,6 +3245,39 @@ def write_safetensors(path, tensors):
             f.write(b)
 
 
+def write_hf_checkpoint(path, layers, seed):
+    """A `layers`-layer LLaMA-7B-width checkpoint in HF's names under `path`
+    (created): config.json and random bf16 weights from `seed` as
+    model.safetensors.  Returns its config."""
+    import torch
+
+    cfg = seven_b(layers)
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "max_position_embeddings": cfg.max_position_embeddings, "rms_norm_eps": cfg.norm_eps,
+        "tie_word_embeddings": False}))
+    g = torch.Generator().manual_seed(seed)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    rand = lambda out_dim, in_dim: torch.randn(out_dim, in_dim, generator=g) * in_dim ** -0.5
+    tensors = {"model.embed_tokens.weight": torch.randn(V, D, generator=g) * 0.02,
+               "model.norm.weight": 1 + 0.1 * torch.randn(D, generator=g),
+               "lm_head.weight": rand(V, D)}
+    for i in range(layers):
+        pre = f"model.layers.{i}."
+        for name, (o, n) in {"self_attn.q_proj": (D, D), "self_attn.k_proj": (D, D),
+                             "self_attn.v_proj": (D, D), "self_attn.o_proj": (D, D),
+                             "mlp.gate_proj": (I, D), "mlp.up_proj": (I, D),
+                             "mlp.down_proj": (D, I)}.items():
+            tensors[f"{pre}{name}.weight"] = rand(o, n)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{pre}{name}.weight"] = 1 + 0.1 * torch.randn(D, generator=g)
+    write_safetensors(path / "model.safetensors", tensors)
+    return cfg
+
+
 def hf_import_phase(dev, tmp, card):
     """A HF_LAYERS-layer checkpoint at LLaMA-7B width in HF's LLaMA names,
     random bf16 weights from a seed, written as model.safetensors; the
@@ -3212,32 +3289,9 @@ def hf_import_phase(dev, tmp, card):
     from qlora_tpu_torch.models import forward, init_cache
     from qlora_tpu_torch.utils import load_hf_model
 
-    cfg = seven_b(HF_LAYERS)
     path = Path(tmp) / "hf"
-    path.mkdir()
-    (path / "config.json").write_text(json.dumps({
-        "model_type": "llama", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
-        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": HF_LAYERS,
-        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
-        "max_position_embeddings": cfg.max_position_embeddings, "rms_norm_eps": cfg.norm_eps,
-        "tie_word_embeddings": False}))
-    g = torch.Generator().manual_seed(71)
-    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    rand = lambda out_dim, in_dim: torch.randn(out_dim, in_dim, generator=g) * in_dim ** -0.5
-    tensors = {"model.embed_tokens.weight": torch.randn(V, D, generator=g) * 0.02,
-               "model.norm.weight": 1 + 0.1 * torch.randn(D, generator=g),
-               "lm_head.weight": rand(V, D)}
-    for i in range(HF_LAYERS):
-        pre = f"model.layers.{i}."
-        for name, (o, n) in {"self_attn.q_proj": (D, D), "self_attn.k_proj": (D, D),
-                             "self_attn.v_proj": (D, D), "self_attn.o_proj": (D, D),
-                             "mlp.gate_proj": (I, D), "mlp.up_proj": (I, D),
-                             "mlp.down_proj": (D, I)}.items():
-            tensors[f"{pre}{name}.weight"] = rand(o, n)
-        for name in ("input_layernorm", "post_attention_layernorm"):
-            tensors[f"{pre}{name}.weight"] = 1 + 0.1 * torch.randn(D, generator=g)
-    write_safetensors(path / "model.safetensors", tensors)
-    del tensors
+    cfg = write_hf_checkpoint(path, HF_LAYERS, 71)
+    V = cfg.vocab_size
     nbytes = (path / "model.safetensors").stat().st_size
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3842,6 +3896,532 @@ def serve_http_phase(dev, card=""):
     return counts, dict(tok_s=tokens / wall, req_s=len(served) / wall, wall_s=wall,
                         ttft_ms=(float(np.percentile(ttft, 50)), float(np.percentile(ttft, 90))),
                         direct_tok_s=direct_tokens / direct_s, equal=equal)
+
+
+def judge_questions():
+    """The judge's questions from vicuna_questions.jsonl: JUDGE_CATEGORIES'
+    first ones (coding and math, each with a reviewer of its own), then the
+    first question of each of EXAMPLES_OTHER other categories, which fall
+    back to the first reviewer."""
+    from qlora_tpu_torch.eval.judge import load_jsonl
+
+    rows = load_jsonl(str(ROOT / "eval" / "prompts" / "vicuna_questions.jsonl"))
+    picked = []
+    for cat, n in JUDGE_CATEGORIES:
+        picked += [q for q in rows if q["category"] == cat][:n]
+    others = []
+    for q in rows:
+        if q["category"] not in dict(JUDGE_CATEGORIES) and q["category"] not in others:
+            others.append(q["category"])
+            picked.append(q)
+    return picked[:sum(n for _, n in JUDGE_CATEGORIES) + EXAMPLES_OTHER]
+
+
+def start_endpoint(dev, cfg, params, lora, lcfg, tok, model_id):
+    """``ServingEngine`` (JUDGE_ENGINE) behind ThreadingHTTPServer on
+    127.0.0.1, its forwards counted by ``instrument`` and each admission's
+    prompt length before and after the batcher's cut recorded."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from qlora_tpu_torch.serve_openai import ServingEngine, make_handler
+
+    engine = ServingEngine(params, lora, cfg, tok, lcfg=lcfg, model_id=model_id, device=dev,
+                           **JUDGE_ENGINE)
+    pb = engine.pb
+    ep = dict(engine=engine, st=instrument(pb), admitted=[], usage=[])
+    finish = pb._finish_admit
+
+    def recorded_finish(slot, req, uid, L, tok_):
+        ep["admitted"].append((len(req.prompt), L))
+        finish(slot, req, uid, L, tok_)
+
+    pb._finish_admit = recorded_finish
+    ep["srv"] = srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    ep["url"] = f"http://127.0.0.1:{srv.server_address[1]}"
+    return ep
+
+
+def endpoint_chat(ep, messages, max_tokens):
+    """The reply of /v1/chat/completions.  Anything but a 200 answer ends the
+    run here: the judge retries every exception, sleeping up to 100 s each
+    time, and would hang the run instead of failing it."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        ep["url"] + "/v1/chat/completions",
+        data=json.dumps({"messages": messages, "max_tokens": max_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, json.loads(r.read())
+    except Exception as e:  # noqa: BLE001 — SystemExit passes the judge's retry loop
+        fail(f"examples: a chat request failed ({e!r})")
+    if status != 200:
+        fail(f"examples: a chat request got {status}")
+    ep["usage"].append((max_tokens, body["usage"]))
+    return body["choices"][0]["message"]["content"]
+
+
+def endpoint_part(tag, ep, fn, cfg, card):
+    """Run fn() against endpoint `ep`, the launch counts read around it and
+    held exactly to the engine's counted forwards (serve-http's expectation:
+    every decode forward's qmm on the NF4 decode kernel, every prefill's on
+    the wgmma kernel, every paged decode on the split kernel), each request
+    within its max_tokens, no prompt cut.  Returns (fn's result, counts,
+    stats)."""
+    import torch
+
+    st, before, n_used, n_admitted = ep["st"], dict(ep["st"]), len(ep["usage"]), len(ep["admitted"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    dec, pre = st["decode"] - before["decode"], st["prefill"] - before["prefill"]
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+    want = expected_counts(qmm_nf4_fwd_dq=n_lin * (dec + pre), qmm_nf4_decode_dq=n_lin * dec,
+                           qmm_nf4_wgmma_dq=n_lin * pre, paged_decode_attention_cuda=L * dec,
+                           paged_decode_split=L * dec)
+    usage = ep["usage"][n_used:]
+    admitted = ep["admitted"][n_admitted:]
+    tokens = sum(u["completion_tokens"] for _, u in usage)
+    longest = max(u["prompt_tokens"] for _, u in usage)
+    widest = max(st["prefill_rows"][len(st["prefill_rows"]) - pre:], default=0)
+    print(f"examples {tag} ({card}): {len(usage)} requests in {wall:.3f} s = "
+          f"{len(usage) / wall:.2f} requests/s, {tokens} tokens = {tokens / wall:.1f} tok/s; "
+          f"prompts up to {longest} tokens, {len(admitted)} admissions, "
+          f"{sum(a != b for a, b in admitted)} cut; {dec} decode forwards, {pre} prefills "
+          f"({widest} rows at most); launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != want:
+        fail(f"examples {tag}: launch counts {counts} != {want}")
+    if st["verify"] != before["verify"] or ep["engine"].error is not None:
+        fail(f"examples {tag}: a verify chunk ran or the engine failed ({ep['engine'].error!r})")
+    if any(u["completion_tokens"] > n for n, u in usage):
+        fail(f"examples {tag}: an answer exceeds its max_tokens")
+    if any(a != b for a, b in admitted):
+        fail(f"examples {tag}: the batcher cut a prompt ({admitted})")
+    return out, counts, dict(wall_s=wall, requests=len(usage), tokens=tokens,
+                             req_s=len(usage) / wall, tok_s=tokens / wall, longest=longest)
+
+
+def judge_part(dev, cfg, params, lora, lcfg, card):
+    """Baseline answers from the LoRA engine and from the base engine (the
+    paper's adapter against its base), then the LoRA engine judging them in
+    both modes; every row checked against ``gen_prompt`` and the parsers."""
+    from qlora_tpu_torch.eval import generate_baseline_answers, run_judge
+    from qlora_tpu_torch.eval.judge import (
+        gen_prompt, load_jsonl, parse_score_pair, parse_three_class_score,
+    )
+    from qlora_tpu_torch.utils import FakeTokenizer
+
+    tok = FakeTokenizer()
+    banks = ROOT / "eval" / "prompts"
+    questions = judge_questions()
+    # random weights review in noise: the parsers' error log would fill the output
+    logging.getLogger("qlora_tpu_torch.eval.judge").setLevel(logging.CRITICAL)
+    qids = sorted(q["question_id"] for q in questions)
+    reviewers = load_jsonl(str(banks / "reviewer.jsonl"))
+    eps = {"lora": start_endpoint(dev, cfg, params, lora, lcfg, tok, "llama-7b-lora"),
+           "base": start_endpoint(dev, cfg, params, None, lcfg, tok, "llama-7b")}
+    total, stats, answers = collections.Counter(), {}, {}
+    try:
+        for name, ep in eps.items():
+            ask = lambda text, n, ep=ep: endpoint_chat(ep, [{"role": "user", "content": text}], n)
+            answers[name], counts, stats[f"baseline-{name}"] = endpoint_part(
+                f"baseline-{name}", ep, lambda: generate_baseline_answers(
+                    questions, ask, max_tokens=BASELINE_TOKENS, max_workers=JUDGE_WORKERS),
+                cfg, card)
+            total.update(counts)
+            got = answers[name]
+            if ([a["question_id"] for a in got] != qids
+                    or any(a["text"] == "#ERROR#" for a in got)):
+                fail(f"examples baseline-{name}: answers {got}")
+        review = lambda s, u, n: endpoint_chat(
+            eps["lora"], [{"role": "system", "content": s}, {"role": "user", "content": u}], n)
+        by_id = {q["question_id"]: q for q in questions}
+        a1 = {a["question_id"]: a["text"] for a in answers["lora"]}
+        a2 = {a["question_id"]: a["text"] for a in answers["base"]}
+        for mode, bank, parse in (
+                ("threeclass", "vicuna_prompt_threeclass.jsonl", parse_three_class_score),
+                ("relative", "vicuna_prompt_relative.jsonl", parse_score_pair)):
+            prompts = load_jsonl(str(banks / bank))
+            rows, counts, stats[f"judge-{mode}"] = endpoint_part(
+                f"judge-{mode}", eps["lora"], lambda: run_judge(
+                    questions, answers["lora"], answers["base"], reviewers, prompts, review,
+                    mode=mode, max_tokens=JUDGE_TOKENS, max_workers=JUDGE_WORKERS), cfg, card)
+            total.update(counts)
+            if [r["question_id"] for r in rows] != qids:
+                fail(f"examples judge-{mode}: review rows for {[r['question_id'] for r in rows]}")
+            for r in rows:
+                q = by_id[r["question_id"]]
+                _, _, rid, pid = gen_prompt(reviewers, prompts, q["category"], q["text"],
+                                            a1[q["question_id"]], a2[q["question_id"]])
+                if ((r["reviewer_id"], r["prompt_id"]) != (rid, pid)
+                        or r["category"] != q["category"]):
+                    fail(f"examples judge-{mode}: row {r} routed other than gen_prompt's "
+                         f"({rid}, {pid})")
+                if repr(r["score"]) != repr(parse(r["review"])):
+                    fail(f"examples judge-{mode}: score {r['score']} of review {r['review']!r}")
+            routed = sorted({r["prompt_id"] for r in rows})
+            scores = collections.Counter(repr(r["score"]) for r in rows)
+            print(f"examples judge-{mode}: prompt ids {routed} routed, scores {dict(scores)}",
+                  flush=True)
+            if routed != [1, 2, 3]:
+                fail(f"examples judge-{mode}: prompt ids {routed} routed, not all three")
+    finally:
+        for ep in eps.values():
+            ep["srv"].shutdown()
+            ep["srv"].server_close()
+            ep["engine"].shutdown()
+    return total, stats
+
+
+@contextlib.contextmanager
+def example_loads(modules, model, tok):
+    """The examples' load helpers replaced: each hands out `tok`, and
+    `model` (params, cfg) where one is given."""
+    saved = [(m, m.load_model, m.load_tokenizer) for m in modules]
+    try:
+        for m in modules:
+            if model is not None:
+                m.load_model = lambda path, device: model
+            m.load_tokenizer = lambda path: tok
+        yield
+    finally:
+        for m, load_model, load_tokenizer in saved:
+            m.load_model, m.load_tokenizer = load_model, load_tokenizer
+
+
+# what each example's main may launch (all of it on the decode, wgmma and split kernels),
+# and what it must
+EXAMPLE_KERNELS = {"plain": ({"qmm_nf4_fwd_dq", "qmm_nf4_decode_dq", "qmm_nf4_wgmma_dq",
+                              "decode_attention_cuda"}, None),
+                   "int8": ({"qmm_nf4_fwd_dq", "qmm_nf4_wgmma_dq", "qmm_i8_direct",
+                             "qmm_i8_direct_decode", "decode_attention_cuda"}, None),
+                   "speculative": ({"qmm_nf4_fwd_dq", "qmm_nf4_decode_dq", "qmm_nf4_wgmma_dq",
+                                    "decode_attention_cuda"}, {"decode_attention_cuda"}),
+                   "paged": ({"qmm_nf4_fwd_dq", "qmm_nf4_decode_dq", "qmm_nf4_wgmma_dq",
+                              "paged_decode_attention_cuda", "paged_decode_split"}, None)}
+
+
+def check_example_counts(tag, kind, counts):
+    """Every launch on the kernels EXAMPLE_KERNELS[kind] allows, each of
+    them launched but the optional ones, and none off the decode, wgmma and
+    split kernels."""
+    allowed, optional = EXAMPLE_KERNELS[kind]
+    ran = {k for k, v in counts.items() if v}
+    print(f"examples {tag}: launches { {k: counts[k] for k in sorted(ran)} }", flush=True)
+    if not allowed - (optional or set()) <= ran <= allowed:
+        fail(f"examples {tag}: launched {sorted(ran)}, expected {sorted(allowed)}")
+    if (counts["qmm_nf4_fwd_dq"] != counts["qmm_nf4_decode_dq"] + counts["qmm_nf4_wgmma_dq"]
+            or counts["qmm_i8_direct"] != counts["qmm_i8_direct_decode"]
+            or counts["paged_decode_attention_cuda"] != counts["paged_decode_split"]):
+        fail(f"examples {tag}: a launch off the decode, wgmma and split kernels: {counts}")
+
+
+def example_main(tag, kind, main, argv, total, stdin=""):
+    """main(argv) in process with stdin replaced; its printed output.  Its
+    launch counts, read around the call, pass ``check_example_counts`` and
+    join `total`."""
+    import io
+
+    import torch
+
+    out, stdin_was = io.StringIO(), sys.stdin
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+    finally:
+        sys.stdin = stdin_was
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"examples {tag}: main in {wall:.2f} s", flush=True)
+    check_example_counts(tag, kind, counts)
+    total.update(counts)
+    return out.getvalue()
+
+
+def streamed(tok, stream):
+    """What chat_demo prints for a token stream, and the reply's text."""
+    printed, reply = "", []
+    for step in stream:
+        t = int(step[0])
+        if t == tok.eos_token_id:
+            break
+        reply.append(t)
+        printed += tok.decode(reply)[len(tok.decode(reply[:-1])):]
+    return printed, tok.decode(reply)
+
+
+def webhook_server():
+    """A server that keeps every JSON body POSTed to it."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    hooked = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            hooked.append(json.loads(self.rfile.read(n)))
+            self.send_response(200)
+            self.end_headers()
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}/", hooked
+
+
+def web_chat(url, history, message):
+    """The SSE events of one POST /chat."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/chat",
+                                 json.dumps({"history": history, "message": message}).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = r.read().decode()
+    return [json.loads(e[6:]) for e in body.split("\n\n") if e.startswith("data: ")]
+
+
+def examples_part(dev, cfg, params, lora, lcfg, tmp, total):
+    """The four examples through main(argv) at full depth, only their load
+    helpers replaced (the weights built once, ShownTokenizer), each held bit
+    for bit to the port's direct calls with the same seeds."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from qlora_tpu_torch.examples import chat_demo, guanaco_generate, serve_demo, web_demo
+    from qlora_tpu_torch.generate import (
+        SamplingParams, generate, generate_stream, generate_stream_speculative,
+    )
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+    from qlora_tpu_torch.utils.checkpoint import save_checkpoint
+    from qlora_tpu_torch.utils.testing import ShownTokenizer
+
+    tok = ShownTokenizer()
+    eos = tok.eos_token_id
+    sp = SamplingParams(do_sample=True, temperature=0.7, top_p=0.9)   # the examples' defaults
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    adapter = Path(tmp) / "adapter"
+    ckpt = save_checkpoint(str(adapter), 1, lora)
+    common = ["--model_path", "llama-7b", "--adapter_path", str(adapter)]
+    with example_loads((guanaco_generate, chat_demo, serve_demo, web_demo), (params, cfg), tok):
+        ids = [tok.bos_token_id] + tok.encode(
+            guanaco_generate.PROMPT_TEMPLATE.format(user_question="Tell me about alpacas."))
+        for impl in (None, "int8"):
+            printed = example_main(f"guanaco_generate {impl or 'nf4'}", impl or "plain",
+                                   guanaco_generate.main,
+                                   common + ["--max_new_tokens", str(EXAMPLE_NEW), "--seed", "0"]
+                                   + (["--decode_impl", impl] if impl else []), total)
+            toks = generate(params, lora, torch.tensor([ids]), torch.tensor([len(ids)]), cfg,
+                            lcfg, max_new_tokens=EXAMPLE_NEW, eos_id=eos, sparams=sp,
+                            generator=gen(0), decode_impl=impl, device=dev)
+            text = tok.decode([t for t in toks[0].tolist() if t != eos])
+            if printed != f"loaded adapter from {ckpt}\n{text}\n":
+                fail(f"examples guanaco_generate {impl}: printed {printed!r}, direct {text!r}")
+
+        for draft in (0, CHAT_DRAFT):
+            printed = example_main(
+                f"chat_demo speculative={draft}", "speculative" if draft else "plain",
+                chat_demo.main, common + ["--max_new_tokens", str(CHAT_NEW)]
+                + (["--speculative", str(draft)] if draft else []), total,
+                stdin="\n".join(CHAT_TURNS) + "\n\n")
+            want, history = "Chat ready — empty line to quit.\n", []
+            for user in CHAT_TURNS:
+                history.append((user, ""))
+                ids = [tok.bos_token_id] + tok.encode(chat_demo.build_prompt(history))
+                kw = dict(max_new_tokens=CHAT_NEW, eos_id=eos, sparams=sp, generator=gen(0),
+                          device=dev)
+                x, n = torch.tensor([ids]), torch.tensor([len(ids)])
+                stream = (generate_stream_speculative(params, lora, x, n, cfg, lcfg,
+                                                      draft_len=draft, **kw) if draft
+                          else generate_stream(params, lora, x, n, cfg, lcfg, **kw))
+                text, reply = streamed(tok, stream)
+                want += f"you> bot> {text}\n"
+                history[-1] = (user, reply)
+            if printed != want + "you> ":
+                fail(f"examples chat_demo speculative={draft}: printed {printed!r}, "
+                     f"direct {want!r}")
+
+        rng = np.random.default_rng(12)
+        words = " ".join(rng.choice(DATA_WORDS, size=2000))
+        prompts = [f"request {i}: {words[int(s):int(s) + int(n)].strip()}" for i, (s, n) in enumerate(
+            zip(rng.integers(0, 8000, SERVE_DEMO_PROMPTS),
+                rng.integers(180, 480, SERVE_DEMO_PROMPTS)))]
+        (Path(tmp) / "prompts.txt").write_text("\n".join(prompts) + "\n")
+        printed = example_main(
+            "serve_demo", "paged", serve_demo.main,
+            common + ["--prompts", str(Path(tmp) / "prompts.txt")]
+            + [f"--{k}={v}" for k, v in SERVE_DEMO.items()], total)
+        direct = PagedBatcher(params, lora, cfg, lcfg, num_slots=SERVE_DEMO["num_slots"],
+                              n_pages=SERVE_DEMO["n_pages"], page_size=16, max_pages_per_seq=64,
+                              eos_id=eos, sparams=sp, device=dev)
+        reqs = {direct.submit([tok.bos_token_id] + tok.encode(p),
+                              max_new_tokens=SERVE_DEMO["max_new_tokens"]).uid: p for p in prompts}
+        done = sorted(direct.run_to_completion(), key=lambda r: r.uid)
+        want = "".join(f"\n=== {reqs[r.uid]} ===\n{tok.decode(r.generated)}\n" for r in done)
+        print(f"examples serve_demo: {len(done)} requests, the direct batcher preempted "
+              f"{direct.preemptions} times", flush=True)
+        if printed != want or direct.preemptions < 1 or len(done) != SERVE_DEMO_PROMPTS:
+            fail(f"examples serve_demo: printed {printed!r}, direct {want!r} "
+                 f"({direct.preemptions} preemptions)")
+        del direct
+
+        hook_srv, webhook, hooked = webhook_server()
+        srv = web_demo.make_server(web_demo.parse_args(
+            common + ["--port", "0", "--max_new_tokens", str(WEB_NEW), "--log_webhook", webhook]))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            history = []
+            torch.cuda.synchronize()
+            reset_counts()
+            for message in CHAT_TURNS:
+                events = web_chat(url, history, message)
+                reply = "".join(e["delta"] for e in events if "delta" in e)
+                if events[-1] != {"done": True} or hooked[-1:] != [
+                        {"history": history, "turn": [message, reply]}]:
+                    fail(f"examples web_demo: events {events}, webhook {hooked}")
+                history = history + [[message, reply]]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            for i, message in enumerate(CHAT_TURNS):
+                direct = "".join(srv.engine.stream_reply([tuple(t) for t in history[:i]], message))
+                if direct != history[i][1]:
+                    fail(f"examples web_demo: streamed {history[i][1]!r}, direct {direct!r}")
+        finally:
+            for s in (srv, hook_srv):
+                s.shutdown()
+                s.server_close()
+        print(f"examples web_demo: {len(hooked)} turns streamed and logged", flush=True)
+        if len(hooked) != len(CHAT_TURNS):
+            fail(f"examples web_demo: {len(hooked)} turns logged")
+        check_example_counts("web_demo", "plain", counts)
+        total.update(counts)
+
+
+def converter_part(dev, tmp, total, card):
+    """``python3 -m qlora_tpu_torch.scripts.convert_checkpoint`` on a
+    HF_LAYERS-layer LLaMA-7B-width HF checkpoint (train-data's writer): it
+    exits 0 and every tensor of its store, and its config, equal
+    ``save_quantized(load_hf_model(src))`` run here.  Then guanaco_generate
+    on the HF directory itself, only the tokenizer replaced, against a
+    direct ``generate()`` on the weights imported here."""
+    import re
+
+    import torch
+
+    from qlora_tpu_torch.examples import guanaco_generate
+    from qlora_tpu_torch.generate import SamplingParams, generate
+    from qlora_tpu_torch.lora import LoraConfig
+    from qlora_tpu_torch.utils import load_hf_model, save_quantized
+    from qlora_tpu_torch.utils.checkpoint import read_arrays
+    from qlora_tpu_torch.utils.quantized_store import CONFIG_FILE, MODEL_FILE
+    from qlora_tpu_torch.utils.testing import ShownTokenizer
+
+    src, dst, ref = Path(tmp) / "hf", Path(tmp) / "converted", Path(tmp) / "in_process"
+    cfg = write_hf_checkpoint(src, HF_LAYERS, 73)
+    nbytes = (src / "model.safetensors").stat().st_size
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "qlora_tpu_torch.scripts.convert_checkpoint",
+                        "--src", str(src), "--dst", str(dst)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"examples converter: exit {r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    said = re.search(r"quantized in ([0-9.]+)s", r.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, got_cfg = load_hf_model(str(src), device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_quantized(str(ref), params, got_cfg)
+    save_s = time.perf_counter() - t0
+    a, b = read_arrays(str(dst / MODEL_FILE)), read_arrays(str(ref / MODEL_FILE))
+    differ = sorted(k for k in set(a) | set(b) if k not in a or k not in b
+                    or not same_bytes(a[k], b[k]))
+    same_config = (dst / CONFIG_FILE).read_text() == (ref / CONFIG_FILE).read_text()
+    print(f"examples converter ({card}): {HF_LAYERS} layers at LLaMA-7B width, "
+          f"{nbytes / 1e9:.3f} GB of bf16 safetensors; python3 -m ...convert_checkpoint "
+          f"{wall:.2f} s wall (process start, CUDA and the build included; it printed "
+          f"'quantized in {said.group(1) if said else '?'}s'); in process: load_hf_model "
+          f"{import_s:.3f} s = {import_s / HF_LAYERS:.3f} s a layer (embedding and lm_head "
+          f"included), save_quantized {save_s:.3f} s; {len(a)} tensors, {len(differ)} differ, "
+          f"config {'equal' if same_config else 'differs'}", flush=True)
+    if differ or not same_config or got_cfg != cfg or not said:
+        fail(f"examples converter: tensors {differ[:10]} differ from the in-process store, "
+             f"config equal {same_config}")
+
+    tok = ShownTokenizer()
+    with example_loads((guanaco_generate,), None, tok):
+        printed = example_main("guanaco_generate on the HF directory", "plain",
+                               guanaco_generate.main,
+                               ["--model_path", str(src), "--max_new_tokens", "16", "--seed", "1"],
+                               total)
+    ids = [tok.bos_token_id] + tok.encode(
+        guanaco_generate.PROMPT_TEMPLATE.format(user_question="Tell me about alpacas."))
+    toks = generate(params, None, torch.tensor([ids]), torch.tensor([len(ids)]), cfg,
+                    LoraConfig(), max_new_tokens=16, eos_id=tok.eos_token_id,
+                    sparams=SamplingParams(do_sample=True, temperature=0.7, top_p=0.9),
+                    generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    text = tok.decode([t for t in toks[0].tolist() if t != tok.eos_token_id])
+    if printed != text + "\n":
+        fail(f"examples converter: guanaco_generate printed {printed!r}, direct {text!r}")
+    return dict(wall_s=wall, import_s=import_s, save_s=save_s,
+                import_s_per_layer=import_s / HF_LAYERS)
+
+
+def examples_phase(dev, card=""):
+    """examples: the judge and baseline through the endpoint, the four
+    examples' main(argv), and the checkpoint converter, on one LLaMA-7B
+    (32 layers, random double-quant NF4, a rank-64 LoRA with nonzero B).
+    Returns (the launch counts over its checked runs, stats)."""
+    import tempfile
+
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    cfg = seven_b()
+    params = init_params(cfg, seed=9, device=dev)
+    lora, lcfg = random_lora(cfg, dev, seed=10)
+    # warm-up outside the counted runs: allocator and cuBLAS handles
+    generate(params, lora, torch.randint(3, 200, (4, 16)), torch.full((4,), 16), cfg, lcfg,
+             max_new_tokens=2, eos_id=-1, device=dev)
+    total, stats = judge_part(dev, cfg, params, lora, lcfg, card)
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        examples_part(dev, cfg, params, lora, lcfg, tmp, total)
+        stats["examples_s"] = time.perf_counter() - t0
+        del params, lora
+        gc_cuda()
+        stats["converter"] = converter_part(dev, tmp, total, card)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"examples ({card}): phase {stats['phase_s']:.1f} s (the four examples "
+          f"{stats['examples_s']:.1f} s); launches over its checked runs "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    gc_cuda()
+    return dict(total), stats
 
 
 @contextlib.contextmanager
@@ -4743,7 +5323,8 @@ def main() -> int:
               "train-data": lambda dev: train_data_phase(dev, card=card),
               "cli": lambda dev: cli_phase(dev, card),
               "search": search_only,
-              "serve-http": lambda dev: serve_http_phase(dev, card)}
+              "serve-http": lambda dev: serve_http_phase(dev, card),
+              "examples": lambda dev: examples_phase(dev, card)}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -4813,6 +5394,8 @@ def main() -> int:
     cli_counts, cli_stats = cli_phase(dev, card)
     gc_cuda()
     http_counts, http_stats = serve_http_phase(dev, card)
+    gc_cuda()
+    examples_counts, examples_stats = examples_phase(dev, card)
     gc_cuda()
     t0 = time.perf_counter()
     worst = train_parity_phase(dev, "int8")
@@ -4924,8 +5507,10 @@ def main() -> int:
             entry.update(sources=I8_DIRECT_SOURCES,
                          before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
                          decode_launches=int8_counts["qmm_i8_direct_decode"])
-    for entry in summary:     # the driver's entry points (cli, serve-http) and the searches
-        for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts)):
+    for entry in summary:     # the CLI and the endpoint (cli, serve-http), the searches, and
+        # the judge, the examples and the converter
+        for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts),
+                         ("examples", examples_counts)):
             if run.get(entry["name"]):
                 entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
@@ -5020,6 +5605,15 @@ def main() -> int:
           f"{ss['speculation-b1']['ms_per_step']:.2f} ({ss['speculation-b1']['tokens_per_chunk']:.3f}"
           f"), int8 {ss['speculation-int8-b1']['ms_per_step']:.2f}; against generate()'s "
           f"{serve_stats['decode_ms_per_step']:.2f} ms a step at B = 4", flush=True)
+    es = examples_stats
+    print(f"examples ({card}): baseline {es['baseline-lora']['req_s']:.2f} requests/s and "
+          f"{es['baseline-lora']['tok_s']:.1f} tok/s on the LoRA engine, "
+          f"{es['baseline-base']['req_s']:.2f} and {es['baseline-base']['tok_s']:.1f} on the base; "
+          f"judge {es['judge-threeclass']['wall_s']:.2f} s threeclass, "
+          f"{es['judge-relative']['wall_s']:.2f} s relative (prompts up to "
+          f"{es['judge-relative']['longest']} tokens); converter "
+          f"{es['converter']['import_s_per_layer']:.3f} s a layer in process; phase "
+          f"{es['phase_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

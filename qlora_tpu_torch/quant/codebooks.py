@@ -3,6 +3,8 @@
 The same pinned values as the JAX package's codebooks (QLoRA paper,
 arXiv:2305.14314 §3.1): NF4 is the 16 normalised quantile midpoints of
 N(0, 1) with an exact zero; FP4 is the E2M1 value set divided by 6, sorted.
+``derive_nf4_codebook`` re-derives the NF4 values from that definition, so
+that a test can guard the pinned table against drift.
 """
 
 from __future__ import annotations
@@ -35,6 +37,24 @@ _FP4_MAGNITUDES = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0], dtype=np.fl
 FP4_CODE = np.sort(np.concatenate([_FP4_MAGNITUDES, -_FP4_MAGNITUDES])).astype(np.float32)
 
 CODEBOOKS = {"nf4": NF4_CODE, "fp4": FP4_CODE}
+
+
+def derive_nf4_codebook() -> np.ndarray:
+    """The NF4 codebook from the N(0, 1) quantile definition.
+
+    Asymmetric quantile midpoints: 8 strictly positive quantiles, exact zero,
+    7 strictly negative ones; the tail probability offset is
+    0.5 (1/32 + 1/30), per the QLoRA paper.  Needs scipy, imported here
+    (the card's machine may not have it).
+    """
+    from scipy.stats import norm
+
+    offset = 0.5 * (1 / 32 + 1 / 30)
+    p = 1 - offset
+    pos = norm.ppf(np.linspace(p, 0.5, 9))[:-1]
+    neg = -norm.ppf(np.linspace(p, 0.5, 8))[:-1]
+    v = np.sort(np.concatenate([neg, [0.0], pos]))
+    return (v / np.abs(v).max()).astype(np.float32)
 
 
 def get_code(quant_type: str) -> np.ndarray:

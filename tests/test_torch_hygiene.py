@@ -35,12 +35,33 @@ def test_scan_covers_the_port():
     assert ROOT / "qlora_tpu_torch" / "utils" / "checkpoint.py" in FILES
     assert ROOT / "qlora_tpu_torch" / "utils" / "hf_import.py" in FILES
     for entry in ("cli.py", "eval/mmlu.py", "serve_openai.py", "generate/search.py",
-                  "generate/speculative.py"):
+                  "generate/speculative.py", "eval/judge.py", "eval/baseline.py",
+                  "examples/web_demo.py", "scripts/convert_checkpoint.py"):
         assert ROOT / "qlora_tpu_torch" / entry in FILES
 
 
-# what the card's machine lacks: imported only inside the function that needs it
-LAZY = ("transformers", "safetensors", "ml_dtypes", "datasets", "wandb")
+RECIPES = sorted((ROOT / "qlora_tpu_torch" / "scripts").glob("*.sh"))
+
+
+@pytest.mark.parametrize("path", RECIPES, ids=lambda p: p.name)
+def test_recipes_call_the_port_on_one_card(path):
+    """A recipe runs the port's modules only (``qlora_tpu_torch.``, never
+    ``qlora_tpu.``) and asks for no device mesh (ROADMAP A7)."""
+    text = path.read_text()
+    assert re.findall(r"\bqlora_tpu_torch\.cli\b", text)
+    assert not re.findall(r"\bqlora_tpu\.\w+", text)
+    assert not re.findall(r"--mesh_\w+", text)
+
+
+def test_recipe_scan_sees_the_recipes():
+    assert len(RECIPES) == 7
+    assert not re.findall(r"\bqlora_tpu\.\w+", "python -m qlora_tpu_torch.cli --x 1")
+    assert re.findall(r"\bqlora_tpu\.\w+", "python -m qlora_tpu.cli --mesh_sp 4")
+
+
+# optional packages, imported only inside the function that needs them (the
+# card's machine has none of them but scipy)
+LAZY = ("transformers", "safetensors", "ml_dtypes", "datasets", "wandb", "openai", "scipy")
 
 
 def _module_level_imports(path: Path):
