@@ -213,7 +213,8 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``python3 -m qlora_tpu_torch.cli`` on run A's directory exits 0 with
    "training already completed".
 22. serve-http: ``qlora_tpu_torch.serve_openai.ServingEngine`` over the serve
-   phase's kind of model (32 layers, random NF4, a rank-64 LoRA) with
+   phase's kind of model (LLaMA-7B width, 16 layers: HTTP_LAYERS, 32 until
+   the tp phase joined the run; random NF4, a rank-64 LoRA) with
    serve-paged's engine (8 slots, pages of 64, buckets 128/256/512, admit 4,
    32 pages: it preempts; greedy), behind ``ThreadingHTTPServer`` on
    127.0.0.1: 16 concurrent clients (12 completions, 4 chats, half of each
@@ -260,8 +261,9 @@ them.  Phases, each failing the run on any mismatch or exception:
    kernels-paged the beams' shape (B = 8, pages of 16, prompt pages shared).
 
 24. examples (after serve-http): the remaining single-card surface on one
-   LLaMA-7B (32 layers, random double-quant NF4, a rank-64 LoRA with nonzero
-   B).  The judge and baseline through the endpoint: two ``ServingEngine``s
+   model at LLaMA-7B width, 8 layers (EXAMPLES_LAYERS: 32 until the tp phase
+   joined the run), random double-quant NF4, a rank-64
+   LoRA with nonzero B.  The judge and baseline through the endpoint: two ``ServingEngine``s
    over the same base, with the LoRA and without it (buckets up to 2048, 32
    pages of 64, greedy), behind ThreadingHTTPServer on 127.0.0.1, reached by
    a chat function over urllib that ends the run on any answer but a 200;
@@ -287,6 +289,40 @@ them.  Phases, each failing the run on any mismatch or exception:
    load_hf_model(src))`` here, seconds a layer; and ``guanaco_generate`` on
    the HF directory, only the tokenizer replaced.
 
+25. tp (after examples): tensor-parallel serving, ``PagedBatcher(tp_mesh=...)``,
+   four ranks at LLaMA-7B full width and depth.  On one card the ranks share
+   it over gloo (NCCL refuses two ranks on one device), with four cards NCCL
+   a card a rank; the phase prints the backend and each rank's device.
+   Random double-quant NF4 weights and a rank-64 LoRA with nonzero B from
+   serve's seeds, the MLP padded 11008 -> 11264 (``pad_mlp``, as
+   ``load_hf_model(pad_intermediate_to=...)`` pads a checkpoint: 11008 / 4 =
+   2752 rows are no whole pair of 64-row blocks, which split-half packing
+   needs).  First, on the single card: the same 8 greedy requests (prompts
+   64-512, 32-48 new tokens; 4 slots, pages of 64, 20 pages: it preempts)
+   through ``PagedBatcher``, each request's top-2 margins teacher-forced
+   without a cache, and the first decode step's logits over a contiguous
+   cache; then every rank's shard cut in the parent (``cut_rank_shards``: a
+   row-parallel linear quantized as the rank's K-chunk alone) and written to
+   a file a rank, so that no rank holds the whole model.  Then the ranks,
+   each reading its own shard: run 1, those requests (every rank's tokens
+   equal and no rank's own ever different from rank 0's, every token within
+   TP_LOGIT_TOL of the best under the single card's teacher-forced logits
+   over the context the engine held, equal to the single card's up to each
+   request's first margin under TP_NEAR_TIE, the first decode step's logits
+   within TP_LOGIT_TOL, one preemption, pools of KVH/4 heads recycled); run 2, 4 requests on the chunk-local int8 tree with
+   the w8a8 prefill, one decode step held to the exact tp step's on one cache
+   within TP_INT8_BAND of its largest |logit| and every token within twice
+   that of the best teacher-forced logit; run 3, 4 requests with 4 drafts a
+   verify chunk; ``examples/serve_tp``'s rank function, 16 greedy tokens
+   (both held to the teacher-forced logits as run 1).  Launch counts exact on every rank (every qmm on the decode or
+   ``wgmma`` kernel at the shard shapes, the int8 decode on
+   ``qmm_i8_direct_decode.cu``, attention on the split kernels), read into
+   ``kernels`` as ``launches_tp``; each rank's peak memory and host seconds,
+   which are no tensor-parallel speed.  The kernels phase times the NF4
+   decode kernel at M = 4 on a rank's shard shapes (``TP_QMM_SHAPES``), and
+   checks ``qmatmul`` of a whole K-sharded tensor on the card (one decode
+   launch a chunk) against its plain version.
+
 The last two lines are the ``kernels`` JSON object and the result line.
 
 ``python3 chip_smoke.py serve-paged-w8a8`` builds the kernels and runs the
@@ -297,8 +333,9 @@ checkout's default remat), ``python3 chip_smoke.py train-gemma`` runs
 train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
 (on weights of its own), and ``python3 chip_smoke.py cli``,
 ``python3 chip_smoke.py serve-http`` and ``python3 chip_smoke.py search``
-(serve's weights, its greedy ``generate()`` and serving tree made first)
-and ``python3 chip_smoke.py examples`` those phases alone.
+(serve's weights, its greedy ``generate()`` and serving tree made first),
+``python3 chip_smoke.py examples`` and ``python3 chip_smoke.py tp`` those
+phases alone.
 """
 
 from __future__ import annotations
@@ -416,6 +453,32 @@ SERVE_PAGED_SEED = 0
 SPEC_REQUESTS = 8
 SPEC_PAGES = 64                  # ample: speculation, not preemption, is what this run shows
 
+# tp: tensor-parallel serving, four ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), or over NCCL a card a rank where there are four cards
+TP = 4
+TP_PAD = 2 * 64 * TP             # the intermediate padded to whole split-half block pairs
+                                 # a rank: 11008 -> 11264, K-chunks of 2816 (11008 / 4 = 2752
+                                 # is no whole pair of 64-row blocks: quantize refuses it)
+TP_ENGINE = dict(num_slots=4, page_size=PAGE, max_pages_per_seq=PPS,
+                 prefill_buckets=(128, 256, 512), eos_id=-1)
+TP_REQUESTS, TP_SEED = 8, 20     # prompts of 64-512 tokens, 32-48 new tokens each
+TP_PAGES = 20                    # 19 usable pages for 4 slots of up to 9: it preempts once
+TP_SMALL = 4                     # run 2 (int8 decode) and run 3 (speculation): 4 requests,
+TP_SMALL_NEW = 16                # 16 new tokens each
+TP_SERVE_NEW = 16                # examples/serve_tp's rank function: greedy tokens
+TP_QMM_SHAPES = ((4096, 1024), (4096, 2816), (1024, 4096), (2816, 4096))   # a rank's wq / wk /
+                                 # wv and wo chunk, w_gate / w_up and w_down chunk at tp 4
+TP_LOGIT_TOL = 0.25              # the first decode step, four ranks against the single card
+                                 # through 32 layers: the f32 all-reduce's order and the
+                                 # row-parallel linears' per-chunk double-quant offsets (each
+                                 # rank's K-chunk quantized alone); 0.090 prefill, 0.106 step
+                                 # read.  Also how far short of the single card's best
+                                 # teacher-forced logit an emitted token may fall
+TP_NEAR_TIE = 2 * TP_LOGIT_TOL   # C1's rule: tokens equal up to a top-2 margin under this
+TP_INT8_BAND = 0.1               # run 2's int8 step against the exact step, of the largest
+                                 # |exact logit|: the JAX package's own test's budget at 2
+                                 # layers, which 32 layers keep (0.057 read)
+
 FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse cotangent
     (2, 32, 32, 128, 512, (512, 300), None, False, False),   # the train run's shape
     (2, 32, 8, 128, 512, (512, 300), 256, False, True),      # GQA G=4, sliding window
@@ -467,6 +530,9 @@ JUDGE_ENGINE = dict(slots=8, page_size=64, max_pages_per_seq=32, n_pages=8 * 32 
                                          # 2048, so 2 rows an admission)
 EXAMPLE_NEW = 64                         # guanaco_generate's sampled tokens
 CHAT_TURNS, CHAT_NEW, CHAT_DRAFT = ("Tell me about alpacas.", "And llamas?"), 24, 4
+EXAMPLES_LAYERS = 8                      # the examples' and serve-http's models: LLaMA-7B
+HTTP_LAYERS = 16                         # width, their depth cut (from 32) to keep the
+                                         # full run in its time once the tp phase joined it
 SERVE_DEMO = dict(num_slots=4, n_pages=80, max_new_tokens=40)   # 16-token pages: it preempts
 SERVE_DEMO_PROMPTS = 8
 WEB_NEW = 24
@@ -3771,7 +3837,8 @@ def http_engine_run(dev, cfg, params, lora, lcfg, tok, traffic, engine_kw):
 
 def serve_http_phase(dev, card=""):
     """serve-http: ``ServingEngine`` over the serve phase's kind of model
-    (32 layers, random NF4 weights, a rank-64 LoRA) behind ThreadingHTTPServer
+    (LLaMA-7B width, HTTP_LAYERS layers, random NF4 weights, a rank-64 LoRA)
+    behind ThreadingHTTPServer
     on 127.0.0.1, 16 concurrent clients; every answer checked, the launch
     counts exact from the engine's counted forwards, and each completion's
     tokens against a direct ``PagedBatcher`` with the same arguments up to
@@ -3785,7 +3852,7 @@ def serve_http_phase(dev, card=""):
     from qlora_tpu_torch.utils import FakeTokenizer
 
     t_phase = time.perf_counter()
-    cfg = seven_b()
+    cfg = seven_b(HTTP_LAYERS)
     params = init_params(cfg, seed=7, device=dev)
     lora, lcfg = random_lora(cfg, dev, seed=8)
     # warm-up outside the counted run: allocator and cuBLAS handles
@@ -4198,7 +4265,7 @@ def web_chat(url, history, message):
 
 
 def examples_part(dev, cfg, params, lora, lcfg, tmp, total):
-    """The four examples through main(argv) at full depth, only their load
+    """The four examples through main(argv) on the phase's model, only their load
     helpers replaced (the weights built once, ShownTokenizer), each held bit
     for bit to the port's direct calls with the same seeds."""
     import threading
@@ -4391,8 +4458,9 @@ def converter_part(dev, tmp, total, card):
 def examples_phase(dev, card=""):
     """examples: the judge and baseline through the endpoint, the four
     examples' main(argv), and the checkpoint converter, on one LLaMA-7B
-    (32 layers, random double-quant NF4, a rank-64 LoRA with nonzero B).
-    Returns (the launch counts over its checked runs, stats)."""
+    width model (EXAMPLES_LAYERS layers, random double-quant NF4, a rank-64
+    LoRA with nonzero B).  Returns (the launch counts over its checked runs,
+    stats)."""
     import tempfile
 
     import torch
@@ -4401,7 +4469,7 @@ def examples_phase(dev, card=""):
     from qlora_tpu_torch.models import init_params
 
     t_phase = time.perf_counter()
-    cfg = seven_b()
+    cfg = seven_b(EXAMPLES_LAYERS)
     params = init_params(cfg, seed=9, device=dev)
     lora, lcfg = random_lora(cfg, dev, seed=10)
     # warm-up outside the counted runs: allocator and cuBLAS handles
@@ -4422,6 +4490,452 @@ def examples_phase(dev, card=""):
           f"{ {k: v for k, v in total.items() if v} }", flush=True)
     gc_cuda()
     return dict(total), stats
+
+
+def tp_qmm_phase(dev, results):
+    """The NF4 forward at M = 4 on a rank's shard shapes at tp 4 (the tp
+    phase's decode launches: wq/wk/wv and w_gate/w_up column shards, the wo
+    and w_down K-chunks), in CUDA graphs beside the tile kernel (the
+    "before"), the plain version and torch.matmul, with the decode kernel's
+    bit-for-bit checks."""
+    import torch
+
+    from qlora_tpu_torch.ops import qmatmul, qmatmul_plain, qmm_nf4_fwd_dq
+    from qlora_tpu_torch.quant import dequantize, quantize, quantize_k_sharded
+
+    _, tile, _ = nf4_kernels()
+    g = torch.Generator(device=dev).manual_seed(4321)
+    M = 4
+    for K, N in TP_QMM_SHAPES:
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        qt = quantize(w)
+        w_bf16 = dequantize(qt, torch.bfloat16)
+        del w
+        qts = [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
+                      for _ in range(copies_past_l2(qt.nbytes) - 1)]
+        ws = [w_bf16] + [w_bf16.clone() for _ in range(copies_past_l2(w_bf16.nbytes) - 1)]
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        y, ref = qmm_nf4_fwd_dq(x, qt), qmatmul_plain(x, qt)
+        torch.cuda.synchronize()
+        diff = (y.float() - ref.float()).abs()
+        if (diff - QMM_TOL[1] * ref.float().abs()).max().item() > QMM_TOL[0]:
+            fail(f"qmm_nf4_fwd_dq M={M} K={K} N={N} differs from its plain version by "
+                 f"{diff.max().item()}")
+        ms = graph_ms(lambda i: qmm_nf4_fwd_dq(x, qts[i % len(qts)]), 200)
+        tile_ms = graph_ms(lambda i: tile(x, qts[i % len(qts)]), 50)
+        lib_ms = graph_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 200)
+        plain_ms = cuda_ms(lambda i: qmatmul_plain(x, qts[i % len(qts)]), 20)
+        record(results, "qmm_nf4_fwd_dq", f"M={M} K={K} N={N} (tp shard)", diff.max().item(),
+               f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|", ms, plain_ms, lib_ms,
+               qmm_bound(M, K, N, True), tile_ms=tile_ms)
+        decode_checks("qmm_nf4_fwd_dq (tp shard)", qmm_nf4_fwd_dq, x, qt, w_bf16)
+    # a whole K-sharded tensor (the storage a JAX-made row-parallel tree
+    # carries) on the card: one decode launch a chunk, against the global
+    # view's plain version
+    K, N = TP * TP_QMM_SHAPES[1][1], TP_QMM_SHAPES[0][0]
+    w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+    qt = quantize_k_sharded(w, TP)
+    del w
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    reset_counts()
+    y = qmatmul(x, qt)
+    counts = read_counts()
+    ref = qmatmul_plain(x, qt)
+    torch.cuda.synchronize()
+    diff = (y.float() - ref.float()).abs()
+    want = expected_counts(qmm_nf4_fwd_dq=TP, qmm_nf4_decode_dq=TP)
+    if counts != want or (diff - 2 * QMM_TOL[1] * ref.float().abs()).max().item() > \
+            2 * QMM_TOL[0]:
+        fail(f"qmatmul of a K-sharded tensor (K={K} N={N}, {TP} chunks): launches {counts} "
+             f"!= {want}, or {diff.max().item()} from its plain version")
+    print(f"qmatmul K-sharded global view M={M} K={K} N={N}: {TP} chunks, one decode launch "
+          f"each, max|err| {diff.max().item():.4g} (tol 2x({QMM_TOL[0]} + "
+          f"{QMM_TOL[1]}*|ref|): each chunk's bf16 partial rounded once more)", flush=True)
+
+
+def pad_mlp(params, lora, cfg, multiple):
+    """The MLP's intermediate dimension padded to a multiple of `multiple`,
+    as ``load_hf_model(pad_intermediate_to=...)`` pads a checkpoint: zero
+    columns of w_gate and w_up, zero rows of w_down, each quantized again
+    (NF4, double quant); zero columns of their LoRA B, zero rows of w_down's
+    A.  The model computes the same function.  The trees change in place;
+    returns the padded config."""
+    import torch
+    import torch.nn.functional as F
+
+    from qlora_tpu_torch.models.layers import QLinear
+    from qlora_tpu_torch.quant import dequantize, quantize
+
+    pad = -cfg.intermediate_size % multiple
+    for block, layer in zip(params["blocks"], lora):
+        for name, where in (("w_gate", (0, pad)), ("w_up", (0, pad)), ("w_down", (0, 0, 0, pad))):
+            w = F.pad(dequantize(block[name].qt, torch.float32), where)
+            block[name] = QLinear(qt=quantize(w), bias=block[name].bias)
+            del w
+        for name in ("w_gate", "w_up"):
+            layer[name]["b"] = F.pad(layer[name]["b"], (0, pad))
+        layer["w_down"]["a"] = F.pad(layer["w_down"]["a"], (0, 0, 0, pad))
+    return dataclasses.replace(cfg, intermediate_size=cfg.intermediate_size + pad)
+
+
+def tp_model(dev):
+    """The tp phase's model on `dev`: LLaMA-7B from serve's seeds, a rank-64
+    LoRA with nonzero B, the MLP padded for 4 ranks; (params, lora, cfg,
+    lcfg).  The parent builds it and cuts every rank's shard from it."""
+    from qlora_tpu_torch.models import init_params
+
+    cfg = seven_b()
+    params = init_params(cfg, seed=7, device=dev)
+    lora, lcfg = random_lora(cfg, dev, seed=8)
+    return params, lora, pad_mlp(params, lora, cfg, TP_PAD), lcfg
+
+
+def tp_rank(mesh, cfg, lcfg, traffic, forced, store):
+    """One rank of the tp phase: its shard (cut by the parent, read from
+    `store`) onto its device, then run 1 (exact, the whole traffic), the
+    first decode step teacher-forced over a contiguous cache, run 2 (int8
+    decode and w8a8 prefill) and its one-step logits against the exact
+    path's on one cache, run 3 (speculation), and examples/serve_tp's rank
+    function; each run's tokens, admissions, disagreements and launch
+    counts on this rank."""
+    import os
+
+    import torch
+
+    from qlora_tpu_torch.examples.serve_tp import serve_rank
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+    from qlora_tpu_torch.models.transformer import init_cache
+    from qlora_tpu_torch.parallel import make_tp_forward_fn, rank_shards, shard_tp_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // TP))   # the ranks share the host
+    dev = mesh.device
+    out = dict(device=str(dev), backend=mesh.backend, rank=mesh.rank, entered=time.time())
+    t0 = time.perf_counter()
+    params, lora = torch.load(os.path.join(store, f"rank{mesh.rank}.pt"), weights_only=False)
+    params, lora = rank_shards(params, lora, mesh)
+    torch.cuda.synchronize(dev)
+    out["load_s"] = time.perf_counter() - t0
+    out["shard_gib"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+
+    def engine_run(reqs, **kw):
+        t0 = time.perf_counter()
+        pb = PagedBatcher(params, lora, cfg, lcfg, n_pages=TP_PAGES, tp_mesh=mesh,
+                          **{**TP_ENGINE, **kw})
+        built_s = time.perf_counter() - t0
+        st = instrument(pb)
+        took = [pb.submit(p, max_new_tokens=n) for p, n in reqs]
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+        reset_counts()
+        mesh.disagreements = 0
+        t0 = time.perf_counter()
+        pb.run_to_completion()
+        torch.cuda.synchronize(dev)
+        run = dict(tokens=[r.generated for r in took], counts=read_counts(),
+                   s=time.perf_counter() - t0, decode=st["decode"], verify=st["verify"],
+                   prefill=st["prefill"], steps=st["steps"], preemptions=pb.preemptions,
+                   admissions=[[(n, L) for uid, n, L in pb.admission_log if uid == r.uid]
+                               for r in took],
+                   disagreements=mesh.disagreements,
+                   recycled=pb.pool.n_free == TP_PAGES - 1 and not pb.pool.tables,
+                   pool_heads=int(pb.pool.k_pages[0].shape[1]),
+                   steps_per_dispatch=pb.steps_per_dispatch, built_s=built_s)
+        if kw.get("spec_draft_len"):
+            run["spec"] = (pb.spec_tokens, pb.spec_chunks)
+        return pb, run
+
+    def step_logits(p, lo, impl=None, cache=None):
+        """Prefill the forced prompt into a contiguous cache of this rank's
+        heads (or take `cache`), then decode the forced token: (the
+        prefill's last logits, the step's logits, the cache before the step)."""
+        fn = make_tp_forward_fn(cfg, lcfg, mesh, impl=impl)
+        ids, tok = forced
+        last = None
+        if cache is None:
+            cache = shard_tp_cache(init_cache(cfg, 1, len(ids) + 2, device=dev), mesh)
+            logits, cache = fn(p, lo, torch.tensor([ids], device=dev), cache)
+            last = logits[0, -1].cpu()
+        before = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+                  for k, v in cache.items()}
+        logits, _ = fn(p, lo, torch.tensor([[tok]], device=dev), cache)
+        return last, logits[0, 0].cpu(), before
+
+    with torch.inference_mode():
+        pb, out["run1"] = engine_run(traffic)
+        last, step, _ = step_logits(pb.params, pb.lora)
+        out["first"] = (last.numpy(), step.numpy())
+        del pb
+        torch.cuda.empty_cache()
+        small = [(p, TP_SMALL_NEW) for p, _ in traffic[:TP_SMALL]]
+        pb, out["run2"] = engine_run(small, decode_impl="int8", prefill_impl="w8a8")
+        _, exact, cache = step_logits(pb.params, pb.lora)
+        _, int8, _ = step_logits(pb.decode_params, pb.lora, impl="w8a8", cache=cache)
+        out["run2"]["int8_of_exact"] = ((int8 - exact).abs().max() / exact.abs().max()).item()
+        del pb, cache
+        torch.cuda.empty_cache()
+        pb, out["run3"] = engine_run(small, spec_draft_len=SPEC_DRAFT)
+        del pb
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+        reset_counts()
+        mesh.disagreements = 0
+        t0 = time.perf_counter()
+        toks = serve_rank(mesh, params, cfg, traffic[0][0], TP_SERVE_NEW, -1, lora=lora,
+                          lcfg=lcfg)
+        torch.cuda.synchronize(dev)
+        out["serve_tp"] = dict(tokens=toks, counts=read_counts(), s=time.perf_counter() - t0,
+                               disagreements=mesh.disagreements,
+                               admissions=[[(0, len(traffic[0][0]))]])
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def tp_shortfalls(params, lora, cfg, lcfg, dev, prompts, tokens, admissions):
+    """Every token an engine emitted held against the single card's
+    teacher-forced logits (no cache) over the context the engine decoded it
+    from: the prompt, or after a preemption the last L of prompt + generated
+    that its re-admission prefilled (``admission_log``).  Returns, over every
+    token, (max(logits) - logits[token], max |logits|, the same shortfall of
+    the token after it in the vocabulary: a control that the check can
+    fail), as flat numpy arrays."""
+    import numpy as np
+    import torch
+
+    from qlora_tpu_torch.models.transformer import forward
+
+    short, scale, shifted = [], [], []
+    with torch.inference_mode():
+        for p, g, adm in zip(prompts, tokens, admissions):
+            for k, (n, L) in enumerate(adm):
+                end = adm[k + 1][0] if k + 1 < len(adm) else len(g)
+                ctx = (list(p) + list(g[:n]))[-L:]
+                logits = forward(params, lora, torch.tensor([ctx + list(g[n:end])], device=dev),
+                                 cfg, lcfg)[0][0, len(ctx) - 1:-1].float()
+                tok = torch.tensor(g[n:end], device=dev)[:, None]
+                best = logits.max(-1).values
+                short.append((best - logits.gather(1, tok)[:, 0]).cpu().numpy())
+                scale.append(logits.abs().max(-1).values.cpu().numpy())
+                shifted.append((best - logits.gather(1, (tok + 1) % cfg.vocab_size)[:, 0])
+                               .cpu().numpy())
+    return np.concatenate(short), np.concatenate(scale), np.concatenate(shifted)
+
+
+def tp_phase(dev, card=""):
+    """tp: tensor-parallel serving at LLaMA-7B full width and depth, four
+    ranks.  On one card they share it over gloo (NCCL refuses two ranks on
+    one device: this shows shard shapes, storage, collectives and control
+    flow, not tensor-parallel speed); with four cards, NCCL a card a rank.
+    Random double-quant NF4 weights from serve's seed, its MLP padded to
+    whole K-chunks (``pad_mlp``), a rank-64 LoRA with nonzero B, built once
+    in the parent.  Before the ranks start: the single-card
+    ``PagedBatcher`` on the traffic (the reference), each request's top-2
+    margins teacher-forced without a cache, the first decode step's logits
+    over a contiguous cache, and every rank's shard cut in the parent
+    (``cut_rank_shards``: a row-parallel linear quantized as the rank's
+    K-chunk alone) and written to a file of its own, so that a rank reads
+    only its shard.  Checks: every rank's tokens equal and no rank's own
+    tokens ever differing from rank 0's (``TPMesh.same``); every token of
+    runs 1 and 3 and serve_tp within TP_LOGIT_TOL of the best under the
+    single card's teacher-forced logits over the context the engine held
+    (run 2's within twice TP_INT8_BAND of the largest |logit|), while the
+    next token in the vocabulary falls short of both; run 1's tokens equal
+    the single card's up to each request's first top-2 margin under
+    TP_NEAR_TIE (run 3's and serve_tp's likewise), the first step's logits
+    within TP_LOGIT_TOL, run 2's one-step logits within TP_INT8_BAND of the
+    exact path's largest |logit|, pools recycled and of KVH/tp heads, launch
+    counts exact on each rank.  Returns (rank 0's launch counts over its
+    checked runs, stats)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from qlora_tpu_torch.generate.paged import PagedBatcher
+    from qlora_tpu_torch.models import init_cache
+    from qlora_tpu_torch.models.transformer import forward
+    from qlora_tpu_torch.parallel import cut_rank_shards, run_ranks
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    four = torch.cuda.device_count() >= TP
+    backend, devices = ("nccl", [f"cuda:{r}" for r in range(TP)]) if four else \
+        ("gloo", ["cuda:0" if dev.type == "cuda" else str(dev)] * TP)
+    params, lora, cfg, lcfg = tp_model(dev)
+    traffic = [(p, 32 + n % 17) for p, n in paged_traffic(cfg.vocab_size, TP_SEED, TP_REQUESTS)]
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+
+    # the single card, the reference
+    with torch.inference_mode():
+        ref = PagedBatcher(params, lora, cfg, lcfg, n_pages=TP_PAGES, device=dev, **TP_ENGINE)
+        took = [ref.submit(p, max_new_tokens=n) for p, n in traffic]
+        ref.run_to_completion()
+        ref_toks = [r.generated for r in took]
+        if ref.preemptions < 1:
+            fail("tp: the single card's run did not preempt; the pool is too large")
+        ref_preempt = ref.preemptions
+        del ref
+        ties = []
+        for (p, _), toks in zip(traffic, ref_toks):
+            logits = forward(params, lora, torch.tensor([p + toks], device=dev), cfg,
+                             lcfg)[0][0, len(p) - 1:-1].float()
+            top2 = logits.topk(2, dim=-1).values
+            tie = ((top2[:, 0] - top2[:, 1]) < TP_NEAR_TIE).nonzero()
+            ties.append(int(tie[0]) if len(tie) else len(toks))
+        forced = (traffic[0][0], ref_toks[0][0])
+        cache = init_cache(cfg, 1, len(forced[0]) + 2, device=dev)
+        last, cache = forward(params, lora, torch.tensor([forced[0]], device=dev), cfg, lcfg,
+                              cache=cache)
+        step, _ = forward(params, lora, torch.tensor([[forced[1]]], device=dev), cfg, lcfg,
+                          cache=cache)
+        card_first = (last[0, -1].float().cpu().numpy(), step[0, 0].float().cpu().numpy())
+        del cache, last, step
+    torch.cuda.synchronize()
+    gc_cuda()
+    print(f"tp: {TP} ranks over {backend}, rank devices {devices}; LLaMA-7B {L} layers, "
+          f"intermediate padded to {cfg.intermediate_size}; the single card's reference "
+          f"{sum(map(len, ref_toks))} tokens, {ref_preempt} preemptions, near-ties at "
+          f"{ties} of {[len(t) for t in ref_toks]} tokens", flush=True)
+
+    # a shard reaches its rank through a file: ``run_ranks(per_rank=...)``
+    # would pass 1.2 GiB a rank through shared memory, whose size on the
+    # machine is not known
+    with tempfile.TemporaryDirectory() as store:
+        t_cut = time.perf_counter()
+        with torch.inference_mode():
+            for r, shard in enumerate(cut_rank_shards(params, lora, TP, device="cpu")):
+                torch.save(shard, os.path.join(store, f"rank{r}.pt"))
+                del shard
+        cut_s = time.perf_counter() - t_cut
+        shard_files = [os.path.getsize(os.path.join(store, f"rank{r}.pt")) / 2 ** 30
+                       for r in range(TP)]
+        gc_cuda()
+        t_ranks, spawned = time.perf_counter(), time.time()
+        ranks = run_ranks(tp_rank, TP, cfg, lcfg, traffic, forced, store, backend=backend,
+                          devices=devices, store_dir=store, timeout_s=900)
+    ranks_s = time.perf_counter() - t_ranks
+    print(f"tp: backend {ranks[0]['backend']}; " + ", ".join(
+        f"rank {r['rank']} on {r['device']}" for r in ranks), flush=True)
+
+    def agree(tag, got, want, upto):
+        """(tokens compared, tokens in all): each got[i] equals want[i] up
+        to request i's first near-tie."""
+        upto = [min(u, len(g), len(w)) for g, w, u in zip(got, want, upto)]
+        for i, (g, w, u) in enumerate(zip(got, want, upto)):
+            if g[:u] != w[:u]:
+                fail(f"tp {tag}: request {i} differs before its first near-tie ({u} tokens)")
+        return sum(upto), sum(min(len(g), len(w)) for g, w in zip(got, want))
+
+    for tag in ("run1", "run2", "run3", "serve_tp"):
+        if any(r[tag]["tokens"] != ranks[0][tag]["tokens"] for r in ranks[1:]):
+            fail(f"tp {tag}: the ranks' tokens differ")
+        if any(r[tag]["disagreements"] for r in ranks):
+            fail(f"tp {tag}: a rank's own tokens differed from rank 0's "
+                 f"{[r[tag]['disagreements'] for r in ranks]} times")
+    r0 = ranks[0]
+    small = [(p, TP_SMALL_NEW) for p, _ in traffic[:TP_SMALL]]
+    for tag, reqs in (("run1", traffic), ("run2", small), ("run3", small)):
+        run = r0[tag]
+        bad = [i for i, (t, (_, n)) in enumerate(zip(run["tokens"], reqs))
+               if len(t) != n or not all(0 <= x < cfg.vocab_size for x in t)]
+        if bad or not all(r[tag]["recycled"] for r in ranks):
+            fail(f"tp {tag}: requests {bad} not at their budget, or a pool not recycled")
+        if run["pool_heads"] != cfg.num_kv_heads // TP or run["steps_per_dispatch"] != 1:
+            fail(f"tp {tag}: pools of {run['pool_heads']} heads, {run['steps_per_dispatch']} "
+                 "steps a dispatch")
+    if r0["run1"]["preemptions"] < 1:
+        fail("tp run1: no preemption")
+
+    # every emitted token against the single card's teacher-forced logits
+    near = {}
+    for tag, reqs in (("run1", traffic), ("run2", small), ("run3", small),
+                      ("serve_tp", traffic[:1])):
+        toks = [r0[tag]["tokens"]] if tag == "serve_tp" else r0[tag]["tokens"]
+        short, scale, shifted = tp_shortfalls(params, lora, cfg, lcfg, dev,
+                                              [p for p, _ in reqs], toks, r0[tag]["admissions"])
+        tol = 2 * TP_INT8_BAND * scale if tag == "run2" else np.full_like(scale, TP_LOGIT_TOL)
+        near[tag] = (len(short), float(short.max()), int((short > 0).sum()),
+                     float(np.median(shifted)), float(tol.max()))
+        if (short > tol).any() or np.median(shifted) <= tol.max():
+            fail(f"tp {tag}: {int((short > tol).sum())} of {len(short)} tokens fall more than "
+                 f"the tolerance (largest {tol.max():.4g}) short of the single card's best "
+                 f"teacher-forced logit (worst {short.max():.4g}), or the control's median "
+                 f"{np.median(shifted):.4g} does not exceed it")
+    del params, lora
+    gc_cuda()
+
+    clear1 = agree("run1", r0["run1"]["tokens"], ref_toks, ties)
+    clear3 = agree("run3", r0["run3"]["tokens"], r0["run1"]["tokens"][:TP_SMALL], ties)
+    clear_s = agree("serve_tp", [r0["serve_tp"]["tokens"]], [r0["run1"]["tokens"][0]], ties[:1])
+    d_last = float(np.abs(r0["first"][0] - card_first[0]).max())
+    d_step = float(np.abs(r0["first"][1] - card_first[1]).max())
+    if max(d_last, d_step) > TP_LOGIT_TOL:
+        fail(f"tp: the first decode step's logits differ from the single card's by "
+             f"{d_last:.4g} (prefill) / {d_step:.4g} (step) > {TP_LOGIT_TOL}")
+    worst8 = max(r["run2"]["int8_of_exact"] for r in ranks)
+    if worst8 >= TP_INT8_BAND:
+        fail(f"tp run2: int8 decode logits {worst8:.4g} of the largest |exact logit| >= "
+             f"{TP_INT8_BAND}")
+
+    def want(tag):
+        run = r0[tag]
+        d, v, p = run["decode"], run["verify"], run["prefill"]
+        if tag == "run2":
+            return expected_counts(qmm_i8_direct=n_lin * d, qmm_i8_direct_decode=n_lin * d,
+                                   qmm_nf4_w8a8=n_lin * p, qmm_nf4_w8a8_wgmma=n_lin * p,
+                                   paged_decode_attention_cuda=L * d, paged_decode_split=L * d)
+        return expected_counts(qmm_nf4_fwd_dq=n_lin * (d + v + p), qmm_nf4_decode_dq=n_lin * d,
+                               qmm_nf4_wgmma_dq=n_lin * (v + p),   # 4 x 5 rows a chunk
+                               paged_decode_attention_cuda=L * d, paged_decode_split=L * d,
+                               paged_chunk_attention_cuda=L * v, paged_chunk_split=L * v)
+
+    new = TP_SERVE_NEW
+    expect = {tag: want(tag) for tag in ("run1", "run2", "run3")}
+    expect["serve_tp"] = expected_counts(qmm_nf4_fwd_dq=n_lin * new, qmm_nf4_wgmma_dq=n_lin,
+                                         qmm_nf4_decode_dq=n_lin * (new - 1),
+                                         decode_attention_cuda=L * (new - 1))
+    for r in ranks:
+        for tag, w in expect.items():
+            if r[tag]["counts"] != w:
+                fail(f"tp {tag} rank {r['rank']}: launch counts {r[tag]['counts']} != {w}")
+    total = collections.Counter()
+    for tag in expect:
+        total.update(r0[tag]["counts"])
+    phase_s = time.perf_counter() - t_phase
+    spec_tok, spec_chunks = r0["run3"]["spec"]
+    print(f"tp ({card}): every rank's tokens equal in every run, no rank's own tokens ever "
+          f"different from rank 0's; every emitted token against the single card's "
+          f"teacher-forced logits over the engine's context (tokens, largest shortfall, "
+          f"tokens short at all, the next-token control's median, tolerance): " + "; ".join(
+              f"{tag} {n} / {w:.4g} / {k} / {c:.4g} / {t:.4g}"
+              for tag, (n, w, k, c, t) in near.items()) + f"; run 1 {TP_REQUESTS} requests, "
+          f"{r0['run1']['preemptions']} preemptions, {clear1[0]} of {clear1[1]} tokens before "
+          f"each request's first top-2 margin under {TP_NEAR_TIE} equal to the single card's; "
+          f"run 3 {clear3[0]} of {clear3[1]} and serve_tp {clear_s[0]} of {clear_s[1]} equal "
+          f"to run 1's there; first decode step max|logits - single card| {d_last:.4g} "
+          f"(prefill) / {d_step:.4g} (step) <= {TP_LOGIT_TOL}; int8 decode {worst8:.4g} of the "
+          f"largest |exact logit| < {TP_INT8_BAND}; speculation {spec_tok} tokens in "
+          f"{spec_chunks} chunks; launch counts exact on every rank, rank 0's "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    print(f"tp ({card}): phase {phase_s:.1f} s, shards cut and written {cut_s:.1f} s "
+          f"({', '.join(f'{g:.2f}' for g in shard_files)} GiB a rank), ranks {ranks_s:.1f} s "
+          f"(start, load, runs); host seconds of rank 0's runs ("
+          f"{'NCCL, a card a rank' if four else 'not a tensor-parallel speed: gloo, four ranks time-sharing one card'}"
+          f"): run 1 "
+          f"{r0['run1']['s']:.1f} ({r0['run1']['steps']} steps), run 2 {r0['run2']['s']:.1f}, "
+          f"run 3 {r0['run3']['s']:.1f}, serve_tp {r0['serve_tp']['s']:.1f}; the ranks in "
+          f"their function {max(r['entered'] for r in ranks) - spawned:.1f} s after the spawn, "
+          f"rank 0's shard loaded in {r0['load_s']:.1f} s ({r0['shard_gib']:.2f} GiB on its "
+          f"device), engines built in {r0['run1']['built_s']:.1f} / {r0['run2']['built_s']:.1f}"
+          f" / {r0['run3']['built_s']:.1f} s; peak memory a rank "
+          f"{', '.join(f'{r['peak_gib']:.2f}' for r in ranks)} GiB", flush=True)
+    gc_cuda()
+    return dict(total), dict(phase_s=phase_s, ranks_s=ranks_s, backend=backend,
+                             d_logits=max(d_last, d_step), int8_of_exact=worst8,
+                             peak_gib=[r["peak_gib"] for r in ranks],
+                             worst_short=max(v[1] for k, v in near.items() if k != "run2"))
 
 
 @contextlib.contextmanager
@@ -5324,7 +5838,8 @@ def main() -> int:
               "cli": lambda dev: cli_phase(dev, card),
               "search": search_only,
               "serve-http": lambda dev: serve_http_phase(dev, card),
-              "examples": lambda dev: examples_phase(dev, card)}
+              "examples": lambda dev: examples_phase(dev, card),
+              "tp": lambda dev: (tp_qmm_phase(dev, []), tp_phase(dev, card))}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -5337,6 +5852,7 @@ def main() -> int:
     results = []
     t0 = time.perf_counter()
     kernel_phase(dev, results)
+    tp_qmm_phase(dev, results)
     flash_phase(dev, results)
     gemma_qmm_phase(dev, results)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5397,15 +5913,17 @@ def main() -> int:
     gc_cuda()
     examples_counts, examples_stats = examples_phase(dev, card)
     gc_cuda()
+    tp_counts, tp_stats = tp_phase(dev, card)
     t0 = time.perf_counter()
     worst = train_parity_phase(dev, "int8")
     train8_counts, train8_per_step, train8_stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)
     print(f"train-int8: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
+    gc_cuda()     # reference cycles of earlier phases hold their models until collected
     t0 = time.perf_counter()
     gemma_counts, gemma_per_step, gemma_stats = train_gemma_phase(dev)
     print(f"train-gemma: {time.perf_counter() - t0:.1f} s", flush=True)
+    gc_cuda()
     t0 = time.perf_counter()
     full_counts, full_stats = train_full_phase(dev)
     print(f"train-full: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5510,7 +6028,7 @@ def main() -> int:
     for entry in summary:     # the CLI and the endpoint (cli, serve-http), the searches, and
         # the judge, the examples and the converter
         for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts),
-                         ("examples", examples_counts)):
+                         ("examples", examples_counts), ("tp", tp_counts)):
             if run.get(entry["name"]):
                 entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
@@ -5614,6 +6132,11 @@ def main() -> int:
           f"{es['judge-relative']['longest']} tokens); converter "
           f"{es['converter']['import_s_per_layer']:.3f} s a layer in process; phase "
           f"{es['phase_s']:.1f} s", flush=True)
+    print(f"tp ({card}): {TP} ranks over {tp_stats['backend']}, phase {tp_stats['phase_s']:.1f} "
+          f"s; logits against the single card {tp_stats['d_logits']:.4g}, int8 "
+          f"{tp_stats['int8_of_exact']:.4g}, every emitted token at most "
+          f"{tp_stats['worst_short']:.4g} short of the single card's best; peak a rank "
+          f"{max(tp_stats['peak_gib']):.2f} GiB", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

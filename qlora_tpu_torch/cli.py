@@ -5,7 +5,7 @@ The flags are the JAX package's (``qlora_tpu/cli.py``), name for name and
 default for default, plus ``--device`` (CUDA unless given; ``cpu`` runs the
 plain PyTorch path).  Unknown flags are an error.  What the port does not
 run yet raises ``NotImplementedError`` naming its ROADMAP item: a mesh or
-several processes (A7).  Predict runs ``generate()`` with the search flags
+several processes (A7b).  Predict runs ``generate()`` with the search flags
 (beam, group-beam and contrastive search and their penalties), or
 ``generate_speculative`` under ``--predict_speculative``.
 
@@ -177,11 +177,12 @@ def check_supported(args: Args) -> None:
     mesh = {k: getattr(args, k) for k in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp")}
     if any(v > 1 for v in mesh.values()):
         raise NotImplementedError(
-            f"a device mesh ({mesh}) is not ported: ROADMAP A7, parallelism")
+            f"a device mesh ({mesh}) is not ported: ROADMAP A7b, the training half of "
+            "parallelism")
     if args.coordinator_address or (args.num_processes or 0) > 1:
         raise NotImplementedError(
             "several processes (coordinator_address / num_processes) are not ported: "
-            "ROADMAP A7, parallelism")
+            "ROADMAP A7b, the training half of parallelism")
 
 
 def build_model_and_tokenizer(args: Args, device):

@@ -21,11 +21,21 @@ plus an in-place ``index_copy_`` of its KV into the pages; a decode burst is
 ``steps_per_dispatch`` forwards and samples with no host read between them;
 a speculative burst drafts by n-gram prompt lookup with tensor ops on the
 device.  Runs on CUDA unless ``device`` names another device.
+
+``PagedBatcher(tp_mesh=...)`` serves a model over a tensor-parallel world
+(``parallel/tp_decode.py``): each rank is a process running the same engine
+on the same requests, with its shard of the params and LoRA and pools of
+its KVH/tp heads.  Every rank samples from the same gathered logits with
+an identically seeded generator; the ranks' tokens are then gathered and
+rank 0's used (``TPMesh.same``, which counts any rank that differed), so
+that every rank's host state (admissions, preemptions, retirements) stays
+the same and the collectives meet.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,6 +45,7 @@ from qlora_tpu_torch.generate.continuous import Request, engine_device
 from qlora_tpu_torch.generate.sampler import SamplingParams, sample_token
 from qlora_tpu_torch.lora import LoraConfig
 from qlora_tpu_torch.models.config import ModelConfig
+from qlora_tpu_torch.models.layers import tp_shard_context
 from qlora_tpu_torch.models.transformer import forward, init_cache
 from qlora_tpu_torch.ops import default_impl
 
@@ -172,6 +183,16 @@ class PagedBatcher:
     prefill.  ``spec_draft_len > 0`` turns each decode step into a verify
     chunk of n-gram prompt-lookup drafts plus the pending token, accepted
     greedily (default sampling) or by rejection sampling.
+
+    ``tp_mesh`` (a ``TPMesh``, one engine a rank) serves tensor-parallel:
+    the params, LoRA and page pools are this rank's shards (the trees given
+    are taken as they are when they carry this rank's shard mark, from
+    ``parallel.shard_decode_params`` and ``shard_lora``, else cut here from
+    the whole), ``decode_impl="int8"`` decodes on the shard's linears
+    requantized per column (the row-parallel ones per K-chunk),
+    ``prefill_impl="w8a8"`` runs on each shard, ``steps_per_dispatch`` is 1
+    (speculation verifies one [slots, C] chunk a dispatch).
+    ``decode_impl="w8a8"`` is single-card only.
     """
 
     def __init__(self, params, lora, cfg, lcfg=None, *, num_slots=128, n_pages=512,
@@ -180,36 +201,43 @@ class PagedBatcher:
                  rolling_eviction=True, tp_mesh=None, steps_per_dispatch=1, admit_batch=1,
                  spec_draft_len=0, spec_ngram=2, spec_adaptive=False, spec_break_even=1.35,
                  admission="optimistic", device=None):
-        if tp_mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp_mesh) is not ported: ROADMAP queue A7, "
-                "parallelism")
         if decode_impl not in (None, "int8", "w8a8"):
             raise ValueError(f"decode_impl={decode_impl!r}: only 'int8', 'w8a8' or None")
         if prefill_impl not in (None, "w8a8"):
             raise ValueError(f"prefill_impl={prefill_impl!r}: only 'w8a8' or None")
         if admission not in ("optimistic", "reserved"):
             raise ValueError(f"admission={admission!r}")
-        self.dev = engine_device(params, device)
+        if tp_mesh is not None and decode_impl == "w8a8":
+            raise NotImplementedError(
+                "decode_impl='w8a8' is single-card; tensor-parallel serving takes "
+                "decode_impl='int8' (chunk-local per-column int8) or the exact kernels")
+        self.tp_mesh = tp_mesh
+        self.dev = tp_mesh.device if tp_mesh is not None else engine_device(params, device)
         self.params, self.lora, self.cfg = params, lora, cfg
         self.lcfg = lcfg or LoraConfig()
         self.num_slots = num_slots
         self.eos_id = eos_id
         self.sparams = sparams or SamplingParams()
         self.gen = torch.Generator(device=self.dev).manual_seed(seed)
-        self.pool = PagedPool(cfg, n_pages, page_size, max_pages_per_seq, device=self.dev)
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.decode_impl, self.prefill_impl = decode_impl, prefill_impl
         self.rolling_eviction = rolling_eviction
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
         self.admit_batch = max(int(admit_batch), 1)
-        if decode_impl == "int8":
+        # the caches' shapes: this rank's KVH/tp heads under tp
+        self._kv_cfg = cfg
+        if tp_mesh is not None:
+            with torch.no_grad():
+                self._shard_for_tp(params, lora)
+        elif decode_impl == "int8":
             from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
 
             with torch.no_grad():
                 self.decode_params = requantize_params_int8_unstacked(params)
         else:
             self.decode_params = params
+        self.pool = PagedPool(self._kv_cfg, n_pages, page_size, max_pages_per_seq,
+                              device=self.dev)
         self.spec_draft_len = int(spec_draft_len)
         self.spec_ngram = int(spec_ngram)
         if self.spec_draft_len > 0:
@@ -245,12 +273,48 @@ class PagedBatcher:
         self._watermark = max(1, n_pages // 64)
         self.preemptions = 0
         self.preemption_log = []    # (uid, tokens generated when evicted)
+        # (uid, tokens generated when admitted, context length prefilled):
+        # the tokens that followed were decoded from the last that many of
+        # prompt + generated
+        self.admission_log = []
         self._reserved: dict = {}   # reserved mode: uid → its worst-case pages
+
+    def _shard_for_tp(self, params, lora):
+        """This rank's shards (cut here unless `params` is this rank's shard
+        already, in which case so is `lora`), and under
+        ``decode_impl="int8"`` the shard's block linears requantized per
+        column (a row-parallel K-chunk per column of its own rows) beside
+        the exact shard's dense lm_head."""
+        from qlora_tpu_torch.generate.serve_int8 import requantize_linear_int8
+        from qlora_tpu_torch.models.layers import QLinear
+        from qlora_tpu_torch.parallel.tp_decode import check_tp_shapes, rank_shards
+
+        mesh = self.tp_mesh
+        check_tp_shapes(self.cfg, mesh.size)
+        self._kv_cfg = dataclasses.replace(self.cfg,
+                                           num_kv_heads=self.cfg.num_kv_heads // mesh.size)
+        self.params, self.lora = params, lora = rank_shards(params, lora, mesh)
+        self.decode_params = params
+        if self.decode_impl == "int8":
+            blocks = [{name: requantize_linear_int8(v) if isinstance(v, QLinear) else v
+                       for name, v in block.items()} for block in params["blocks"]]
+            self.decode_params = dict(params, blocks=blocks)
+        self.steps_per_dispatch = 1
+
+    def _same(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's `t` on every rank (tokens, acceptance counts), every
+        rank's compared (``TPMesh.same``); `t` itself on one card."""
+        return t if self.tp_mesh is None else self.tp_mesh.same(t)
 
     # ------------------------------------------------------------- forwards
 
     def _ctx(self, impl):
-        return default_impl("w8a8") if impl else contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        if self.tp_mesh is not None:
+            ctx.enter_context(tp_shard_context(self.tp_mesh))
+        if impl:
+            ctx.enter_context(default_impl("w8a8"))
+        return ctx
 
     def _decode_forward(self, toks, cache):
         """One decode (or verify-chunk) forward of toks [slots, S]."""
@@ -264,13 +328,14 @@ class PagedBatcher:
         past the real ones carry length 1 and pages all 0: their KV lands in
         the scratch page and their token is dropped."""
         R, bucket = ids.shape
-        cache = init_cache(self.cfg, R, bucket, device=self.dev)
+        cache = init_cache(self._kv_cfg, R, bucket, device=self.dev)
         positions = torch.arange(bucket, device=self.dev)[None, :].expand(R, bucket)
         with self._ctx(self.prefill_impl):
             logits, cache = forward(self.params, self.lora, ids, self.cfg, self.lcfg,
                                     cache=cache, positions=positions)
         rows = torch.arange(R, device=self.dev)
-        toks = sample_token(logits[rows, lengths.long() - 1], self.sparams, None, self.gen)
+        toks = self._same(sample_token(logits[rows, lengths.long() - 1], self.sparams, None,
+                                       self.gen))
         for layer in range(self.cfg.num_layers):
             self.pool.scatter(layer, cache["k"][layer], cache["v"][layer], idx)
         return toks
@@ -320,6 +385,7 @@ class PagedBatcher:
             if self.admission == "reserved":
                 self._reserved[req.uid] = wc
             self.pool.allocate(req.uid, L + 1)   # room for the next token too
+            self.admission_log.append((req.uid, len(req.generated), L))
             admits.append((slot, req, req.uid, L, bucket, prompt))
 
         # consecutive same-bucket admissions prefill together in groups of
@@ -452,7 +518,7 @@ class PagedBatcher:
         out = []
         for _ in range(n):
             logits, cache = self._decode_forward(toks, cache)
-            tok = sample_token(logits[:, 0], self.sparams, None, self.gen)
+            tok = self._same(sample_token(logits[:, 0], self.sparams, None, self.gen))
             out.append(tok)
             toks = tok[:, None]
         self.pool.update_from(cache)
@@ -546,9 +612,9 @@ class PagedBatcher:
             if self.sparams.do_sample:
                 probs = _target_probs(logits.reshape(S * C, -1), self.sparams).reshape(S, C, -1)
                 toks, n_acc = accept_and_resample(probs, drafts, self.gen)
-                toks = toks.long()
+                toks, n_acc = self._same(toks.long()), self._same(n_acc.long())
             else:
-                toks = logits.argmax(-1)
+                toks = self._same(logits.argmax(-1))
                 n_acc = 1 + torch.cumprod((drafts == toks[:, :-1]).long(), 1).sum(1)
             keep = idx[None] < n_acc[:, None]
             kept = torch.where(keep, toks, torch.zeros_like(toks))

@@ -15,20 +15,26 @@ from __future__ import annotations
 import torch
 
 from qlora_tpu_torch.models.layers import DenseLinear, QLinear
-from qlora_tpu_torch.quant.blockwise import dequantize, quantize
+from qlora_tpu_torch.quant.blockwise import dequantize, quantize, quantize_k_sharded
 
 LM_HEAD_PAD = 1024   # the int8 lm_head's columns are padded to a multiple of this
 
 
 def requantize_linear_int8(lin: QLinear, k_shards: int = 1) -> QLinear:
     """One QLinear → per-column int8 QLinear (``block_size = K``), made on
-    the device the weight lives on."""
-    if k_shards > 1:
-        raise NotImplementedError(
-            "per-K-chunk int8 requantization for row-parallel serving waits for "
-            "K-sharded storage (ROADMAP queue A7, parallelism)")
+    the device the weight lives on.
+
+    ``k_shards > 1`` quantizes per column per K-chunk (``block_size`` K /
+    k_shards, ``QuantizedTensor.k_shards`` set), so that a row-parallel
+    rank runs its chunk through the direct int8 kernel and its partial is
+    dequantized by its own chunk's column scales before the all-reduce."""
     w = dequantize(lin.qt, torch.float32)
-    qt = quantize(w, block_size=w.shape[0], quant_type="int8", double_quant=False)
+    K = w.shape[0]
+    if k_shards > 1:
+        qt = quantize_k_sharded(w, k_shards, block_size=K // k_shards, quant_type="int8",
+                                double_quant=False)
+    else:
+        qt = quantize(w, block_size=K, quant_type="int8", double_quant=False)
     return QLinear(qt=qt, bias=lin.bias)
 
 
@@ -61,11 +67,17 @@ def requantize_params_int8_unstacked(params: dict) -> dict:
 
 
 def requantize_params_int8(params: dict, row_parallel_k_shards: int = 1) -> dict:
-    """As :func:`requantize_params_int8_unstacked`: the port's ``blocks`` is a
-    per-layer list already, so the two build the same tree.
-    ``row_parallel_k_shards > 1`` (tensor-parallel serving) is not ported."""
-    if row_parallel_k_shards > 1:
-        raise NotImplementedError(
-            "row_parallel_k_shards > 1 waits for K-sharded storage and tensor-parallel "
-            "serving (ROADMAP queue A7, parallelism)")
-    return requantize_params_int8_unstacked(params)
+    """As :func:`requantize_params_int8_unstacked` (the port's ``blocks`` is
+    a per-layer list already, so the two build the same tree), or, with
+    ``row_parallel_k_shards > 1``, the tensor-parallel serving copy: the
+    row-parallel linears (wo, w_down, w_out) quantized per K-chunk and the
+    lm_head left as it is (the tensor-parallel path shards the dense one)."""
+    if row_parallel_k_shards == 1:
+        return requantize_params_int8_unstacked(params)
+    from qlora_tpu_torch.parallel.megatron_step import ROW_PARALLEL
+
+    blocks = [{name: (requantize_linear_int8(
+                   v, row_parallel_k_shards if name in ROW_PARALLEL else 1)
+                   if isinstance(v, QLinear) else v)
+               for name, v in block.items()} for block in params["blocks"]]
+    return dict(params, blocks=blocks)

@@ -8,6 +8,7 @@ policy).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Union
 
@@ -33,22 +34,133 @@ class DenseLinear:
 
 Linear = Union[QLinear, DenseLinear]
 
+# When a tensor-parallel world is set (``tp_shard_context``), every tensor of
+# the params is this rank's Megatron shard (parallel/megatron_step.py):
+# head-parallel attention and row-parallel output projections, one
+# all-reduce a sub-block, and the collectives go through the world's
+# ``TPMesh``.  The JAX package's other styles (fsdp gathering) wait for
+# ROADMAP A7b.
+_SHARD_CTX: list = [None]
+
+
+@contextlib.contextmanager
+def tp_shard_context(mesh):
+    """Run the model Megatron-sharded over `mesh` (a ``TPMesh``)."""
+    _SHARD_CTX.append(mesh)
+    try:
+        yield
+    finally:
+        _SHARD_CTX.pop()
+
+
+def shard_ctx_axes():
+    """The tensor-parallel mesh in effect (None: one device)."""
+    return _SHARD_CTX[-1]
+
+
+# Megatron's conjugate operators.  The reduction is done in f32: a bf16
+# partial is widened, summed over the ranks and rounded once by the caller.
+
+
+class _IdentFwdPsumBwd(torch.autograd.Function):
+    """Identity forward, all-reduce backward: on the (replicated) input of a
+    column-parallel product, so that the ranks' partial input gradients sum
+    to the whole one on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.float()).to(g.dtype), None
+
+
+class _GatherColsFwdSliceBwd(torch.autograd.Function):
+    """All-gather of the last dimension forward, this rank's slice backward
+    (a gather's transpose would sum the replicated cotangents and scale
+    every upstream gradient by tp)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh, ctx.n = mesh, y.shape[-1]
+        return mesh.all_gather(y, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.rank
+        return g[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
+
+
+class _PsumFwdIdentBwd(torch.autograd.Function):
+    """All-reduce forward (in f32, rounded once to bf16), identity backward:
+    the row-parallel output's reducer; every rank receives the exact
+    cotangent of the replicated output."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        return mesh.all_reduce(y.float()).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ident_fwd_psum_bwd(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _IdentFwdPsumBwd.apply(x, mesh)
+
+
+def gather_cols_fwd_slice_bwd(y: torch.Tensor, mesh) -> torch.Tensor:
+    return _GatherColsFwdSliceBwd.apply(y, mesh)
+
+
+def psum_fwd_ident_bwd(y: torch.Tensor, mesh) -> torch.Tensor:
+    return _PsumFwdIdentBwd.apply(y, mesh)
+
 
 def lookup_embedding(emb: torch.Tensor, ids: torch.Tensor,
                      dtype=torch.bfloat16) -> torch.Tensor:
-    return emb[ids.long()].to(dtype)
+    """Embedding rows; under a tensor-parallel world the table holds this
+    rank's features, gathered across the ranks after the lookup."""
+    x = emb[ids.long()].to(dtype)
+    mesh = _SHARD_CTX[-1]
+    if mesh is not None:
+        x = mesh.all_gather(x, dim=-1)
+    return x
 
 
-def apply_linear(lin: Linear, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+ bias); x [..., K] → [..., N] in bf16 (single device)."""
+def apply_linear(lin: Linear, x: torch.Tensor, tp_mode: str = "gather") -> torch.Tensor:
+    """y = x @ W (+ bias); x [..., K] → [..., N] in bf16.
+
+    tp_mode, under a tensor-parallel world only:
+      "gather"      column-parallel, the input's gradient all-reduced and
+                    the output gathered (the lm_head);
+      "column"      column-parallel with no collective: the output stays
+                    this rank's columns (the caller put ident-fwd/psum-bwd
+                    on the sub-block's input);
+      "row_partial" row-parallel with no collective: the input and the
+                    weight are this rank's K-chunk and the output a partial
+                    sum, which the caller reduces once with the LoRA
+                    partial; the bias is divided by tp, so that the sum
+                    carries it once.
+    """
+    mesh = _SHARD_CTX[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if mesh is not None and tp_mode == "gather":
+        x2 = ident_fwd_psum_bwd(x2, mesh)
     if isinstance(lin, QLinear):
         y = qmatmul(x2, lin.qt)
     else:
         y = bf16_matmul(x2, lin.w).to(torch.bfloat16)
     if lin.bias is not None:
-        y = (y.float() + lin.bias.float()).to(torch.bfloat16)
+        bias = lin.bias.float()
+        if mesh is not None and tp_mode == "row_partial":
+            bias = bias / mesh.size
+        y = (y.float() + bias).to(torch.bfloat16)
+    if mesh is not None and tp_mode == "gather":
+        y = gather_cols_fwd_slice_bwd(y, mesh)
     return y.reshape(*lead, y.shape[-1])
 
 

@@ -19,6 +19,13 @@ Parameter layout:
                  "tables": [B, pages_per_seq] int32 (shared by every layer),
                  "length": [B] int32}
 
+Under a tensor-parallel world (``models/layers.tp_shard_context``,
+``parallel/tp_decode.py``) the params, LoRA and caches are
+this rank's shards: q/k/v and the gate/up (w_qkv, w_fc) linears are
+column-parallel on the rank's heads and columns, wo and w_down (w_out)
+row-parallel over K-sharded storage with one all-reduce a sub-block, the
+embedding's features and the lm_head's columns gathered.
+
 Nothing on the no-cache path writes into a tensor in place, so autograd can
 differentiate it with respect to the LoRA tensors; every other parameter is
 frozen (``requires_grad`` False) and gets no gradient.
@@ -43,10 +50,13 @@ from qlora_tpu_torch.models.layers import (
     attention,
     attention_kvmajor,
     causal_mask,
+    ident_fwd_psum_bwd,
     layer_norm,
     lookup_embedding,
+    psum_fwd_ident_bwd,
     rms_norm,
     rope_frequencies,
+    shard_ctx_axes,
 )
 from qlora_tpu_torch.ops import (
     flash_attention, fused_decode_attention, fused_paged_chunk_attention,
@@ -85,12 +95,15 @@ _LINEAR_RNG_IDS = {
 }
 
 
-def _block_linear(block, lora, name, x, lcfg: LoraConfig, seed=None):
+def _block_linear(block, lora, name, x, lcfg: LoraConfig, seed=None, tp_mode="gather"):
     """Base linear plus its LoRA term.  `seed`, an int or None, is the
     block's dropout seed: each linear draws its mask from a generator seeded
     with it and the linear's id, so a recomputed block (remat) draws the
-    same masks again."""
-    y = apply_linear(block[name], x)
+    same masks again.  Under a tensor-parallel world (`tp_mode` "column" or
+    "row_partial") the adapter is sharded with its base linear (B's columns,
+    or A's rows), so its term is this rank's columns or a partial sum, as
+    the base product's."""
+    y = apply_linear(block[name], x, tp_mode)
     if lora is not None and name in lora:
         gen = None
         if lcfg.dropout > 0 and seed is not None:
@@ -123,13 +136,20 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
     B, S, _ = x.shape
     hd = cfg.head_dim
     rotary_dim = int(cfg.rotary_pct * hd) // 2 * 2
+    mesh = shard_ctx_axes()
+    if mesh is not None:
+        # one ident-fwd/psum-bwd for the sub-block's input; q, k and v then
+        # run on this rank's heads (the head counts follow the shards' widths)
+        x = ident_fwd_psum_bwd(x, mesh)
     if cfg.arch == "llama":
-        q = _block_linear(block, lora, "wq", x, lcfg, seed).reshape(B, S, -1, hd)
-        k = _block_linear(block, lora, "wk", x, lcfg, seed).reshape(B, S, -1, hd)
-        v = _block_linear(block, lora, "wv", x, lcfg, seed).reshape(B, S, -1, hd)
+        q = _block_linear(block, lora, "wq", x, lcfg, seed, "column").reshape(B, S, -1, hd)
+        k = _block_linear(block, lora, "wk", x, lcfg, seed, "column").reshape(B, S, -1, hd)
+        v = _block_linear(block, lora, "wv", x, lcfg, seed, "column").reshape(B, S, -1, hd)
     else:
-        # HF NeoX packs qkv per head: [B, S, H, 3, hd]
-        qkv = _block_linear(block, lora, "w_qkv", x, lcfg, seed).reshape(B, S, -1, 3, hd)
+        # HF NeoX packs qkv per head: [B, S, H, 3, hd] (a column shard is a
+        # run of whole heads)
+        qkv = _block_linear(block, lora, "w_qkv", x, lcfg, seed, "column").reshape(
+            B, S, -1, 3, hd)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     q = apply_rope(q, cos, sin, rotary_dim)
     k = apply_rope(k, cos, sin, rotary_dim)
@@ -170,21 +190,28 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
         attn_out = oh.transpose(1, 2)
     else:
         attn_out = attention(q, k, v, mask)
-    return _block_linear(block, lora, "wo", attn_out.reshape(B, S, -1), lcfg, seed)
+    attn_out = attn_out.reshape(B, S, -1)      # [B, S, local heads * hd]
+    out = _block_linear(block, lora, "wo", attn_out, lcfg, seed, "row_partial")
+    return out if mesh is None else psum_fwd_ident_bwd(out, mesh)
 
 
 def _mlp(cfg, block, lora, lcfg, x, seed=None):
+    mesh = shard_ctx_axes()
+    if mesh is not None:
+        x = ident_fwd_psum_bwd(x, mesh)
+    down = "w_down" if cfg.arch == "llama" else "w_out"
     if cfg.arch == "llama":
-        g = _block_linear(block, lora, "w_gate", x, lcfg, seed)
-        u = _block_linear(block, lora, "w_up", x, lcfg, seed)
+        g = _block_linear(block, lora, "w_gate", x, lcfg, seed, "column")
+        u = _block_linear(block, lora, "w_up", x, lcfg, seed, "column")
         act = (F.gelu(g.float(), approximate="tanh") if cfg.hidden_act == "gelu_tanh"
                else F.silu(g.float()))
         h = (act * u.float()).to(torch.bfloat16)
-        return _block_linear(block, lora, "w_down", h, lcfg, seed)
-    h = _block_linear(block, lora, "w_fc", x, lcfg, seed)
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(h.float(), approximate="tanh").to(torch.bfloat16)
-    return _block_linear(block, lora, "w_out", h, lcfg, seed)
+    else:
+        h = _block_linear(block, lora, "w_fc", x, lcfg, seed, "column")
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(torch.bfloat16)
+    out = _block_linear(block, lora, down, h, lcfg, seed, "row_partial")
+    return out if mesh is None else psum_fwd_ident_bwd(out, mesh)
 
 
 def block_forward(cfg, lcfg, x, block, lora, cos, sin, mask, cache_kv, pos, seed=None,

@@ -72,7 +72,7 @@ from typing import Optional
 import torch
 
 from qlora_tpu_torch.quant.blockwise import (
-    ABSMAX_BLOCK, QuantizedTensor, absmax_f32, dequantize, logical_k, unpack_indices,
+    ABSMAX_BLOCK, QuantizedTensor, absmax_f32, dequantize, k_chunk, logical_k, unpack_indices,
 )
 from qlora_tpu_torch.quant.codebooks import get_code
 
@@ -1134,6 +1134,11 @@ def default_impl(impl: Optional[str]):
 def _forward(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"qmatmul runs on CUDA or the CPU, not {x.device}")
+    if qt.k_shards > 1:
+        # the global view of a K-sharded tensor on the CPU, as the JAX
+        # package computes it outside its kernels: dequantize chunk by
+        # chunk, then one product (CUDA tensors split in ``qmatmul``)
+        return qmatmul_plain(x, qt)
     cuda = x.is_cuda
     if _IMPL_OVERRIDE[0] == "w8a8":
         if _per_column(qt):
@@ -1177,7 +1182,21 @@ def qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     altogether, so nothing is kept and no backward kernel is launched.
     Inside a block checkpointed with ``remat="save_linear"`` the product is
     kept on the block's tape and read back when the block is recomputed
-    (``ops/tape.py``)."""
+    (``ops/tape.py``).  A whole K-sharded tensor on the card runs as a sum
+    over its chunks (:func:`qmatmul_k_chunks`)."""
+    if qt.k_shards > 1 and x.is_cuda:
+        return qmatmul_k_chunks(x, qt)
     if x.requires_grad and torch.is_grad_enabled():
         return _QMatmul.apply(x, qt)
     return taped(_forward, x, qt)
+
+
+def qmatmul_k_chunks(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """``x @ dequant(qt)`` for a whole K-sharded tensor: each chunk's
+    product on its own columns of x through :func:`qmatmul` (the kernels on
+    the card; its backward too), the bf16 partials summed in f32 and
+    rounded once."""
+    Kc = x.shape[-1] // qt.k_shards
+    y = sum(qmatmul(x[:, i * Kc:(i + 1) * Kc].contiguous(), k_chunk(qt, i)).float()
+            for i in range(qt.k_shards))
+    return y.to(torch.bfloat16)

@@ -6,6 +6,7 @@ from .blockwise import (
     dequantize,
     dequantize_absmax,
     double_quantize_absmax,
+    k_chunk,
     local_chunk,
     logical_k,
     quantize,
@@ -17,6 +18,6 @@ from .codebooks import CODEBOOKS, FP4_CODE, NF4_CODE, get_code
 __all__ = [
     "ABSMAX_BLOCK", "DEFAULT_BLOCK", "QuantizedTensor", "absmax_f32",
     "dequantize", "dequantize_absmax", "double_quantize_absmax",
-    "local_chunk", "logical_k", "quantize", "quantize_k_sharded",
+    "k_chunk", "local_chunk", "logical_k", "quantize", "quantize_k_sharded",
     "unpack_indices", "CODEBOOKS", "FP4_CODE", "NF4_CODE", "get_code",
 ]

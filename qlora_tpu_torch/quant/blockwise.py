@@ -18,6 +18,12 @@ The mean offset is a float reduction whose last bit depends on summation
 order, so double-quantized tensors made here may differ from JAX's by an
 ulp in the offset (and hence ±1 in a few int8 codes); the packed nibbles and
 a plain f32 absmax do not depend on it and are identical.
+
+Row-parallel (tensor-parallel) linears store ``W`` K-sharded
+(:func:`quantize_k_sharded`): each of ``k_shards`` K-chunks is quantized and
+packed on its own (shard-local split-half pairing, one mean offset a chunk),
+so that a rank's rows of ``packed``, ``absmax`` and ``absmax_scale`` with its
+entry of the offset vector form a self-contained tensor (:func:`local_chunk`).
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ class QuantizedTensor:
     ``packed`` uint8 [K//2, N] (4-bit) or int8 [K, N] (``quant_type``
     "int8"); ``absmax`` f32 [K//B, N] or, with double
     quant, int8 [K//B, N] with ``absmax_scale`` f32 [ceil(K//B/256), N] and
-    ``absmax_offset`` a 0-dim f32 tensor.  ``shape`` is the logical (K, N).
+    ``absmax_offset`` a 0-dim f32 tensor ([k_shards] when K-sharded).
+    ``shape`` is the logical (K, N); ``k_shards > 1`` marks rows quantized
+    and packed per K-chunk (:func:`quantize_k_sharded`).
     """
 
     packed: torch.Tensor
@@ -50,6 +58,7 @@ class QuantizedTensor:
     shape: tuple
     block_size: int = DEFAULT_BLOCK
     quant_type: str = "nf4"
+    k_shards: int = 1
 
     @property
     def double_quant(self) -> bool:
@@ -103,8 +112,18 @@ def double_quantize_absmax(absmax: torch.Tensor):
 
 def dequantize_absmax(q: torch.Tensor, scales: torch.Tensor,
                       offset: torch.Tensor, out_shape: tuple) -> torch.Tensor:
-    """Inverse of :func:`double_quantize_absmax` → f32 absmax `out_shape`."""
+    """Inverse of :func:`double_quantize_absmax` → f32 absmax `out_shape`.
+
+    `offset` may be a [k_shards] vector (a K-sharded tensor: one mean offset
+    a chunk); each chunk then dequantizes on its own."""
     R, N = out_shape
+    if offset.ndim == 1 and offset.shape[0] > 1:
+        n = offset.shape[0]
+        Rc, Sc = R // n, scales.shape[0] // n
+        return torch.cat([
+            dequantize_absmax(q[i * Rc:(i + 1) * Rc], scales[i * Sc:(i + 1) * Sc],
+                              offset[i], (Rc, N))
+            for i in range(n)], dim=0)
     pad = (-R) % ABSMAX_BLOCK
     blocks = torch.nn.functional.pad(q.to(torch.float32), (0, 0, 0, pad)).reshape(
         -1, ABSMAX_BLOCK, N)
@@ -159,16 +178,46 @@ def logical_k(qt: QuantizedTensor) -> int:
     return qt.packed.shape[-2] * (1 if qt.quant_type == "int8" else 2)
 
 
-def quantize_k_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "K-sharded storage belongs to the megatron tensor-parallel slice "
-        "(ROADMAP queue A, parallelism)")
+def quantize_k_sharded(w: torch.Tensor, n_shards: int, block_size: int = DEFAULT_BLOCK,
+                       quant_type: str = "nf4", double_quant: bool = True) -> QuantizedTensor:
+    """Quantize ``W[K, N]`` with shard-local split-half packing over
+    ``n_shards`` K-chunks, the storage of row-parallel linears: chunk i is
+    rows i of ``packed``, ``absmax`` and ``absmax_scale`` split evenly and
+    entry i of ``absmax_offset``, a self-contained tensor on its rank."""
+    K, N = w.shape
+    if K % n_shards != 0:
+        raise ValueError(f"K={K} not divisible by n_shards={n_shards}")
+    Kc = K // n_shards
+    parts = [quantize(w[i * Kc:(i + 1) * Kc], block_size, quant_type, double_quant)
+             for i in range(n_shards)]
+    cat = lambda ts: torch.cat(ts, dim=0)
+    return QuantizedTensor(
+        packed=cat([p.packed for p in parts]), absmax=cat([p.absmax for p in parts]),
+        absmax_scale=cat([p.absmax_scale for p in parts]) if double_quant else None,
+        absmax_offset=(torch.stack([p.absmax_offset for p in parts])
+                       if double_quant else None),
+        shape=(K, N), block_size=block_size, quant_type=quant_type, k_shards=n_shards)
 
 
-def local_chunk(*args, **kwargs):
-    raise NotImplementedError(
-        "K-sharded storage belongs to the megatron tensor-parallel slice "
-        "(ROADMAP queue A, parallelism)")
+def local_chunk(qt: QuantizedTensor) -> QuantizedTensor:
+    """Re-tag a rank's slice of a K-sharded tensor (its rows of each leaf,
+    its entry of the offset vector) as self-contained (``k_shards`` 1), so
+    that the kernels take it; the dims come from the slice's leaves."""
+    return dataclasses.replace(qt, shape=(logical_k(qt), qt.packed.shape[-1]), k_shards=1)
+
+
+def k_chunk(qt: QuantizedTensor, i: int) -> QuantizedTensor:
+    """Chunk `i` of a whole K-sharded tensor as a self-contained tensor:
+    its rows of each leaf (views) and its entry of the offset vector."""
+    n = qt.k_shards
+
+    def rows(t):
+        return None if t is None else t[i * (t.shape[0] // n):(i + 1) * (t.shape[0] // n)]
+
+    return local_chunk(dataclasses.replace(
+        qt, packed=rows(qt.packed), absmax=rows(qt.absmax),
+        absmax_scale=rows(qt.absmax_scale),
+        absmax_offset=None if qt.absmax_offset is None else qt.absmax_offset[i]))
 
 
 def absmax_f32(qt: QuantizedTensor) -> torch.Tensor:
@@ -179,9 +228,13 @@ def absmax_f32(qt: QuantizedTensor) -> torch.Tensor:
     return qt.absmax.to(torch.float32)
 
 
-def unpack_indices(packed: torch.Tensor) -> torch.Tensor:
-    """uint8 [K//2, N] → uint8 code indices [K, N] (split-half layout)."""
-    return torch.cat([packed & 0x0F, packed >> 4], dim=0)
+def unpack_indices(packed: torch.Tensor, k_shards: int = 1) -> torch.Tensor:
+    """uint8 [K//2, N] → uint8 code indices [K, N] (split-half layout; each
+    K-chunk paired on its own when ``k_shards > 1``)."""
+    low, high = packed & 0x0F, packed >> 4
+    Rc = packed.shape[0] // k_shards
+    return torch.cat([t for i in range(k_shards)
+                      for t in (low[i * Rc:(i + 1) * Rc], high[i * Rc:(i + 1) * Rc])], dim=0)
 
 
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -191,6 +244,6 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
         vals = qt.packed.to(torch.float32) * (1.0 / 127.0)
     else:
         code = torch.as_tensor(get_code(qt.quant_type), device=qt.device)
-        vals = code[unpack_indices(qt.packed).long()]
+        vals = code[unpack_indices(qt.packed, qt.k_shards).long()]
     w = vals.reshape(K // qt.block_size, qt.block_size, N) * absmax_f32(qt)[:, None, :]
     return w.reshape(K, N).to(dtype)

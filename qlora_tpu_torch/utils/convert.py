@@ -4,7 +4,8 @@ The input is a nested dict of numpy arrays (the JAX tree with each leaf
 passed through ``np.asarray``) or of CPU tensors (a file read by
 ``utils/checkpoint.read_arrays``): a ``QuantizedTensor`` as a dict of
 ``packed``, ``absmax``, ``absmax_scale``, ``absmax_offset`` plus its static
-``shape``, ``block_size`` and ``quant_type``; a ``QLinear`` as
+``shape``, ``block_size``, ``quant_type`` and ``k_shards`` (1 where absent;
+a K-sharded tensor's offset is a vector, kept as it is); a ``QLinear`` as
 ``{"qt": ..., "bias": ...}``; a ``DenseLinear`` as ``{"w": ..., "bias": ...}``.
 Block and LoRA leaves stacked over layers ``[L, ...]`` become per-layer
 lists; ``lora_to_numpy`` goes the other way, so that an adapter trained
@@ -50,7 +51,7 @@ def _quantized(d: dict, i, device) -> QuantizedTensor:
         absmax_scale=to_tensor(pick(d.get("absmax_scale")), device),
         absmax_offset=to_tensor(pick(d.get("absmax_offset")), device),
         shape=tuple(d["shape"]), block_size=int(d["block_size"]),
-        quant_type=str(d["quant_type"]))
+        quant_type=str(d["quant_type"]), k_shards=int(d.get("k_shards", 1)))
 
 
 def _linear(d: dict, i, device):

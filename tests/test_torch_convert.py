@@ -37,7 +37,7 @@ def jax_to_numpy(tree):
             "absmax_scale": jax_to_numpy(tree.absmax_scale),
             "absmax_offset": jax_to_numpy(tree.absmax_offset),
             "shape": tuple(tree.shape), "block_size": tree.block_size,
-            "quant_type": tree.quant_type,
+            "quant_type": tree.quant_type, "k_shards": tree.k_shards,
         }
     if isinstance(tree, JQLinear):
         return {"qt": jax_to_numpy(tree.qt), "bias": jax_to_numpy(tree.bias)}

@@ -29,7 +29,7 @@ from qlora_tpu_torch.generate import (
 )
 from qlora_tpu_torch.generate.paged import PagedBatcher
 from qlora_tpu_torch.lora import LoraConfig
-from qlora_tpu_torch.models import get_config, init_lora_params, init_params
+from qlora_tpu_torch.models import forward, get_config, init_lora_params, init_params
 from qlora_tpu_torch.utils.checkpoint import save_checkpoint
 from qlora_tpu_torch.utils.testing import FakeTokenizer, ShownTokenizer
 
@@ -158,9 +158,39 @@ def test_serve_demo_prints_the_direct_batcher(loaded, capsys, tmp_path):
     assert capsys.readouterr().out == want
 
 
-def test_serve_demo_tensor_parallel_names_a7(loaded):
-    with pytest.raises(NotImplementedError, match="A7"):
-        serve_demo.main(["--model_path", "hf", "--tp", "2", "--device", "cpu"])
+def test_serve_demo_tensor_parallel_names_a7(loaded, capsys, tmp_path):
+    """``--tp 2`` (ROADMAP A7a): two gloo ranks of its own, each a
+    ``PagedBatcher(tp_mesh=...)`` over its shard of the model and adapter;
+    rank 0's completions printed.  At temperature 0 each token is the argmax:
+    equal to the single device's up to the first top-2 margin under 0.1
+    (the two paths' logits differ by up to 0.04 at this size: the row-parallel
+    linears re-packed per K-chunk, the all-reduce's order)."""
+    m = loaded
+    prompts = [f"request {i}: " + "abcdefghij" * (1 + i) for i in range(3)]
+    (tmp_path / "p.txt").write_text("\n".join(prompts) + "\n")
+    argv = ["--model_path", "hf", "--adapter_path", m.adapter, "--prompts",
+            str(tmp_path / "p.txt"), "--num_slots", "2", "--n_pages", "20", "--page_size", "8",
+            "--max_pages_per_seq", "32", "--max_new_tokens", "10", "--temperature", "0",
+            "--device", "cpu"]
+    done = serve_demo.main(argv + ["--tp", "2"])
+    want = "".join(f"\n=== {prompts[uid - 1]} ===\n{m.tok.decode(g)}\n" for uid, g in done)
+    assert capsys.readouterr().out == want and [uid for uid, _ in done] == [1, 2, 3]
+    single = dict(serve_demo.main(argv))
+    capsys.readouterr()
+    compared = 0
+    for uid, got in done:
+        ids = [m.tok.bos_token_id] + m.tok.encode(prompts[uid - 1])
+        ref = single[uid]
+        assert len(got) == len(ref) == 10
+        with torch.no_grad():
+            logits = forward(m.params, m.lora, torch.tensor([ids + ref]), m.cfg,
+                             m.lcfg)[0][0, len(ids) - 1:-1]
+        top2 = logits.topk(2, dim=-1).values
+        ties = ((top2[:, 0] - top2[:, 1]) < 0.1).nonzero()
+        upto = int(ties[0]) if len(ties) else len(ref)
+        assert got[:upto] == ref[:upto]
+        compared += upto
+    assert compared > 0
 
 
 def test_examples_need_a_device_where_no_card_is_present(loaded, monkeypatch):

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of qlora_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package (qlora_tpu); its CUDA
+"""The port stands alone: no module of qlora_tpu_torch/, not chip_smoke.py
+and not the tensor-parallel tests' rank module (tests/torch_tp_worker.py)
+imports jax, flax or the JAX package (qlora_tpu); its CUDA
 sources include nothing of them, quote no figure measured on a TPU, and each
 says which TPU kernel it replaces."""
 
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 BANNED = ("jax", "jaxlib", "flax", "optax", "qlora_tpu")
-FILES = sorted((ROOT / "qlora_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "qlora_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                             ROOT / "tests" / "torch_tp_worker.py"]
 
 
 def _imports(path: Path):
@@ -36,7 +38,9 @@ def test_scan_covers_the_port():
     assert ROOT / "qlora_tpu_torch" / "utils" / "hf_import.py" in FILES
     for entry in ("cli.py", "eval/mmlu.py", "serve_openai.py", "generate/search.py",
                   "generate/speculative.py", "eval/judge.py", "eval/baseline.py",
-                  "examples/web_demo.py", "scripts/convert_checkpoint.py"):
+                  "examples/web_demo.py", "scripts/convert_checkpoint.py",
+                  "parallel/__init__.py", "parallel/distributed.py", "parallel/megatron_step.py",
+                  "parallel/tp_decode.py", "examples/serve_tp.py"):
         assert ROOT / "qlora_tpu_torch" / entry in FILES
 
 

@@ -387,8 +387,9 @@ def test_int8_impls_complete(debug_params, kw):
 
 def test_engine_arguments(debug_params):
     cfg, params = debug_params
-    with pytest.raises(NotImplementedError, match="A7"):
-        _batcher(params, cfg, tp_mesh=object())
+    # tensor-parallel serving decodes exact or on the chunk-local int8 tree, as JAX's
+    with pytest.raises(NotImplementedError, match="decode_impl='w8a8' is single-card"):
+        _batcher(params, cfg, tp_mesh=object(), decode_impl="w8a8")
     for bad in (dict(decode_impl="fp8"), dict(prefill_impl="int8"), dict(admission="greedy")):
         with pytest.raises(ValueError):
             _batcher(params, cfg, **bad)

@@ -90,7 +90,16 @@ def test_round_trip_error_and_rejections():
     with pytest.raises(ValueError):
         quantize(torch.zeros(96, 8), quant_type="int8")  # K not a multiple of 64
     assert quantize(torch.zeros(64, 8), quant_type="int8").packed.dtype == torch.int8
-    with pytest.raises(NotImplementedError):
-        quantize_k_sharded(w, 2)
-    with pytest.raises(NotImplementedError):
-        local_chunk(None)
+    # K-sharded storage: two self-contained chunks, each within the same bound
+    ks = quantize_k_sharded(w, 2)
+    assert ks.k_shards == 2 and tuple(ks.absmax_offset.shape) == (2,)
+    assert (dequantize(ks, torch.float32) - w).abs().max().item() <= 0.14 * w.abs().max().item()
+    with pytest.raises(ValueError):
+        quantize_k_sharded(w, 3)                         # K not a multiple of 3
+    rows = lambda t: t[t.shape[0] // 2:]
+    second = local_chunk(QuantizedTensor(rows(ks.packed), rows(ks.absmax),
+                                         rows(ks.absmax_scale), rows(ks.absmax_offset),
+                                         ks.shape, ks.block_size, ks.quant_type, ks.k_shards))
+    assert second.k_shards == 1 and second.shape == (128, 64)
+    torch.testing.assert_close(dequantize(second, torch.float32),
+                               dequantize(ks, torch.float32)[128:], rtol=0, atol=0)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from qlora_tpu.generate.serve_int8 import requantize_params_int8 as jrequantize_params_int8
 from qlora_tpu.generate.serve_int8 import (
     requantize_params_int8_unstacked as jrequantize_unstacked,
 )
@@ -236,14 +237,21 @@ def test_requantize_params_matches_jax(trees):
     np.testing.assert_array_equal(lm.qt.packed.numpy(), np.asarray(jlm.qt.packed))
     np.testing.assert_array_equal(lm.qt.absmax.numpy(), np.asarray(jlm.qt.absmax))
     assert (lm.qt.packed[:, V:] == 0).all() and (lm.qt.absmax[:, V:] == 0).all()
-    # the other entry point builds the same tree; what is not ported says where it waits
+    # the other entry point builds the same tree; its tensor-parallel copy quantizes the
+    # row-parallel linears per K-chunk and leaves the lm_head dense, as JAX's
     again = requantize_params_int8(params)
     assert torch.equal(again["blocks"][1]["w_down"].qt.packed, dec["blocks"][1]["w_down"].qt.packed)
     assert requantize_params_int8_unstacked(dec)["lm_head"] is lm      # already quantized
-    with pytest.raises(NotImplementedError, match="A7"):
-        requantize_params_int8(params, row_parallel_k_shards=2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        requantize_linear_int8(params["blocks"][0]["wq"], k_shards=2)
+    tp2 = requantize_params_int8(params, row_parallel_k_shards=2)
+    jtp2 = jrequantize_params_int8(jparams, row_parallel_k_shards=2)
+    assert tp2["lm_head"] is params["lm_head"]
+    for name in ("wq", "wo", "w_down"):
+        qt, jqt = tp2["blocks"][1][name].qt, jtp2["blocks"][name].qt
+        assert qt.k_shards == jqt.k_shards == (1 if name == "wq" else 2)
+        np.testing.assert_array_equal(qt.packed.numpy(), np.asarray(jqt.packed[1]))
+        np.testing.assert_array_equal(qt.absmax.numpy(), np.asarray(jqt.absmax[1]))
+    wq2 = requantize_linear_int8(params["blocks"][0]["wq"], k_shards=2).qt
+    assert wq2.k_shards == 2 and wq2.block_size == cfg.hidden_size // 2
 
 
 def test_lm_head_bias_is_padded_and_logits_are_cut(trees):
