@@ -479,8 +479,33 @@ TP_INT8_BAND = 0.1               # run 2's int8 step against the exact step, of 
                                  # |exact logit|: the JAX package's own test's budget at 2
                                  # layers, which 32 layers keep (0.057 read)
 
+MESH_STEPS = 2                   # train-mesh: Megatron's optimizer steps; the gather style's
+MESH_GATHER_STEPS = 1            # one step costs 16-45 s over gloo (rank 0 sends ~1800
+                                 # collectives a step, each ~9-25 ms: it waits for the card's
+                                 # time slice), so run 1 takes one and its checkpoint's resumed
+                                 # step on the single card shows the loss falling
+MESH_GATHER = ("--mesh_fsdp", "2", "--mesh_tp", "2")                          # (1, 2, 2)
+MESH_MEGATRON = ("--tp_style", "megatron", "--mesh_dp", "2", "--mesh_tp", "2")  # (2, 1, 2)
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 2e-3, 5e-3   # the JAX package's bounds for its sharded steps
+MESH_SAMPLES = 4                 # the training examples: every step's two micro-batches
+MESH_START = 1                   # every run resumes from one single-card checkpoint at this
+                                 # step: serve's adapters (B ~ N(0, 0.05)) and AdamW with its
+                                 # count at 1, so that the first step's rate is not 0.  From
+                                 # B = 0 the first update's LoRA term is ~1e-4, under half a
+                                 # bf16 ulp of the base output it is added to, and whether it
+                                 # survives depends on where each layout rounds (PERF.md §6)
+MESH_END = MESH_START + MESH_STEPS          # Megatron's last step
+MESH_GATHER_END = MESH_START + MESH_GATHER_STEPS
+MESH_SEED = "7"                  # serve's weights (init_params seed 7), a fresh LoRA (seed 8)
+MESH_M = TRAIN_MICRO[1]          # a data rank's rows a micro-batch: 1 x 512
+# a rank's NF4 linears, (K, N): the gather style's tp shards gathered over fsdp (q/k/v/o,
+# gate/up, down), the Megatron column shards and row K-chunks (wo, w_down)
+MESH_QMM_SHAPES = ((4096, 2048), (4096, 5504), (11008, 2048), (2048, 4096), (5504, 4096))
+
 FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse cotangent
     (2, 32, 32, 128, 512, (512, 300), None, False, False),   # the train run's shape
+    (1, 32, 32, 128, 512, (437,), None, False, False),       # train-mesh's gather style, a rank
+    (1, 16, 16, 128, 512, (437,), None, False, False),       # train-mesh's Megatron, a rank
     (2, 32, 8, 128, 512, (512, 300), 256, False, True),      # GQA G=4, sliding window
     (2, 32, 32, 128, 600, (600, 333), None, False, False),   # S no multiple of 64
     (2, 32, 32, 128, 512, (512, 0), None, False, True),      # a row of length 0
@@ -4529,6 +4554,7 @@ def tp_qmm_phase(dev, results):
                f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|", ms, plain_ms, lib_ms,
                qmm_bound(M, K, N, True), tile_ms=tile_ms)
         decode_checks("qmm_nf4_fwd_dq (tp shard)", qmm_nf4_fwd_dq, x, qt, w_bf16)
+    mesh_qmm_timings(dev, g, results, tile)
     # a whole K-sharded tensor (the storage a JAX-made row-parallel tree
     # carries) on the card: one decode launch a chunk, against the global
     # view's plain version
@@ -4551,6 +4577,55 @@ def tp_qmm_phase(dev, results):
     print(f"qmatmul K-sharded global view M={M} K={K} N={N}: {TP} chunks, one decode launch "
           f"each, max|err| {diff.max().item():.4g} (tol 2x({QMM_TOL[0]} + "
           f"{QMM_TOL[1]}*|ref|): each chunk's bf16 partial rounded once more)", flush=True)
+
+
+def mesh_qmm_timings(dev, g, results, tile):
+    """The NF4 forward and dx at a train-mesh rank's shard shapes
+    (MESH_QMM_SHAPES) at M = MESH_M rows, each launch on its wgmma kernel,
+    against the plain version within QMM_TOL, timed with CUDA events beside
+    the tile kernels (the "befores"), the plain versions and torch.matmul on
+    the dequantized weight."""
+    import torch
+
+    from qlora_tpu_torch.ops import (
+        qmatmul_bwd_plain, qmatmul_plain, qmm_nf4_bwd, qmm_nf4_fwd_dq,
+    )
+    from qlora_tpu_torch.quant import dequantize, quantize
+
+    bwd_tile = nf4_kernels()[2]
+    M = MESH_M
+    for K, N in MESH_QMM_SHAPES:
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        qt = quantize(w)
+        w_bf16 = dequantize(qt, torch.bfloat16)
+        del w
+        qts = [qt] + [dataclasses.replace(qt, packed=qt.packed.clone(), absmax=qt.absmax.clone())
+                      for _ in range(copies_past_l2(qt.nbytes) - 1)]
+        ws = [w_bf16] + [w_bf16.clone() for _ in range(copies_past_l2(w_bf16.nbytes) - 1)]
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
+        for name, wrapper, plain, tile_fn, a, lib in (
+                ("qmm_nf4_fwd_dq", qmm_nf4_fwd_dq, qmatmul_plain, tile, x,
+                 lambda i: torch.matmul(x, ws[i % len(ws)])),
+                ("qmm_nf4_bwd", qmm_nf4_bwd, qmatmul_bwd_plain, bwd_tile, gr,
+                 lambda i: torch.matmul(gr, ws[i % len(ws)].T))):
+            before = wrapper.wgmma_launches
+            y, ref = wrapper(a, qt), plain(a, qt)
+            torch.cuda.synchronize()
+            if wrapper.wgmma_launches != before + 1:
+                fail(f"{name} M={M} K={K} N={N} (mesh shard) did not take its wgmma kernel")
+            diff = (y.float() - ref.float()).abs()
+            if (diff - QMM_TOL[1] * ref.float().abs()).max().item() > QMM_TOL[0]:
+                fail(f"{name} M={M} K={K} N={N} (mesh shard) differs from its plain version by "
+                     f"{diff.max().item()}")
+            ms = cuda_ms(lambda i: wrapper(a, qts[i % len(qts)]), 20)
+            tile_ms = cuda_ms(lambda i: tile_fn(a, qts[i % len(qts)]), 5)
+            plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3)
+            record(results, name, f"M={M} K={K} N={N} (mesh shard)", diff.max().item(),
+                   f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|", ms, plain_ms, cuda_ms(lib, 20),
+                   qmm_bound(M, K, N, True), tile_ms=tile_ms)
+        wgmma_checks("qmm_nf4_fwd_dq (mesh shard)", qmm_nf4_fwd_dq, x, qt, w_bf16)
+        wgmma_checks("qmm_nf4_bwd (mesh shard)", qmm_nf4_bwd, gr, qt, w_bf16, bwd=True)
 
 
 def pad_mlp(params, lora, cfg, multiple):
@@ -4936,6 +5011,344 @@ def tp_phase(dev, card=""):
                              d_logits=max(d_last, d_step), int8_of_exact=worst8,
                              peak_gib=[r["peak_gib"] for r in ranks],
                              worst_short=max(v[1] for k, v in near.items() if k != "run2"))
+
+
+def tensor_digest(t):
+    """Two int64 sums of a tensor's bytes (read as int32 words where they
+    fill them): plain and position-weighted.  Two tensors with other bits
+    get other digests but for a collision of both sums."""
+    import torch
+
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4 == 0:
+        v = b.view(torch.int32).to(torch.int64)
+    else:
+        v = b.to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521 + 1
+    return torch.stack([v.sum(), (v * w).sum()])
+
+
+def tree_bytes(tree):
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def mesh_hook(event, ctx):
+    """train-mesh's probe in every rank of a ``cli.train`` mesh run (the
+    CLI calls it at "start", after each "step" and at the "end"): the
+    rank's frozen and optimizer-state bytes, its kernel launches and peak
+    memory over the loop, the collectives of each step by axis, after each
+    step the number of adapter tensors whose bits differ from those of the
+    rank holding the same tensor with the lowest world rank (digests
+    gathered and compared: nothing is broadcast), and whether the frozen
+    shard kept its bits."""
+    import torch
+
+    from qlora_tpu_torch.parallel import megatron_lora_specs
+    from qlora_tpu_torch.parallel.megatron_step import _spec_leaves
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+
+    rep, mesh, state = ctx["report"], ctx["mesh"], ctx["state"]
+    dev = mesh.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    frozen_digest = lambda: torch.stack([tensor_digest(t) for t in tree_leaves(ctx["frozen"])])
+    if event == "start":
+        sync()
+        rep.update(rank=mesh.rank, device=str(dev), backend=mesh.backend,
+                   frozen_bytes=tree_bytes(ctx["frozen"]), opt_bytes=tree_bytes(state.opt_state),
+                   lora_bytes=tree_bytes(state.trainable), collectives=[], differing=[],
+                   frozen0=frozen_digest().cpu())
+        reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        rep["base"] = mesh.collectives()
+        rep["entered"], rep["started"] = ctx["entered"], time.time()
+        return
+    if event == "step":
+        now = mesh.collectives()
+        rep["collectives"].append({k: now[k] - rep["base"][k] for k in now})
+        leaves = tree_leaves(state.trainable)
+        if ctx["style"] == "megatron":
+            sharded = [sp is not None for sp in _spec_leaves(
+                state.trainable, megatron_lora_specs(state.trainable))]
+        else:
+            sharded = [False] * len(leaves)
+        mine = torch.stack([tensor_digest(t) for t in leaves])
+        every = mesh.world.all_gather(mine[None], dim=0)        # [world, leaves, 2]
+        # the rank of lowest world rank holding each tensor: rank 0, or for a
+        # tp-sharded tensor the rank of this tp coordinate with d = 0
+        ref = torch.stack([every[mesh.tp.rank if sh else 0, j] for j, sh in enumerate(sharded)])
+        holders = torch.tensor(
+            [[r % mesh.shape["tp"] == mesh.tp.rank or not sh for sh in sharded]
+             for r in range(mesh.world.size)], device=every.device)
+        differ = ((every != ref[None]).any(-1) & holders).sum().item()
+        rep["differing"].append(int(differ))
+        rep["base"] = mesh.collectives()
+        return
+    sync()
+    rep["ended"] = time.time()
+    rep["counts"] = read_counts()
+    rep["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda"
+                       else 0.0)
+    rep["frozen_same"] = bool(torch.equal(frozen_digest().cpu(), rep.pop("frozen0")))
+
+
+def mesh_argv(data, out, steps, dev, *extra):
+    """train-mesh's command line: the cli phase's (LLaMA-7B, the alpaca
+    file, 2 x 512 a micro-batch, 2 a step, its learning rate 2e-4) with
+    serve's seed, MESH_SAMPLES training examples (each step sees the same
+    four, so that the loss shows the update of the step before), a
+    checkpoint only at the end, no eval."""
+    return cli_argv(data, out, steps, dev, "--seed", MESH_SEED,
+                    "--max_train_samples", str(MESH_SAMPLES), "--save_steps", "1000",
+                    "--do_eval", "false", *extra)
+
+
+def together(*fns):
+    """Each of `fns` called in a thread of its own, all at once; their
+    results in order, or the first one's exception (a failed check's
+    ``SystemExit`` included) raised here."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def call(i, fn):
+        try:
+            out[i] = (True, fn())
+        except BaseException as e:
+            out[i] = (False, e)
+
+    threads = [threading.Thread(target=call, args=(i, fn)) for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for ok, value in out:
+        if not ok:
+            raise value
+    return [value for _, value in out]
+
+
+def mesh_agree(tag, got, ref, falls=True):
+    """Each step's loss and grad norm of a mesh run against the single
+    card's, and (`falls`) the loss falling; returns the worst relative
+    differences."""
+    pick = lambda m: [(h["step"], h["loss"], h["grad_norm"]) for h in m["train_metrics"]]
+    g, r = pick(got), pick(ref)
+    if [s for s, _, _ in g] != [s for s, _, _ in r]:
+        fail(f"train-mesh {tag}: steps {g} against the single card's {r}")
+    dl = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, r))
+    dg = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(g, r))
+    print(f"train-mesh {tag}: losses " + ", ".join(f"{x[1]:.6f}" for x in g) + " (single card "
+          + ", ".join(f"{x[1]:.6f}" for x in r) + "), grad norms " + ", ".join(
+              f"{x[2]:.5f}" for x in g) + " (single card " + ", ".join(f"{x[2]:.5f}" for x in r)
+          + f"); worst relative difference {dl:.3g} (loss, <= {MESH_LOSS_RTOL}), {dg:.3g} (grad "
+          f"norm, <= {MESH_GNORM_RTOL})", flush=True)
+    if dl > MESH_LOSS_RTOL or dg > MESH_GNORM_RTOL:
+        fail(f"train-mesh {tag}: a step's loss or grad norm differs from the single card's "
+             f"({dl:.3g} > {MESH_LOSS_RTOL} or {dg:.3g} > {MESH_GNORM_RTOL})")
+    losses = [x[1] for x in g]
+    if not all_finite(losses) or (falls and not losses[-1] < losses[0]):
+        fail(f"train-mesh {tag}: the losses {losses} are not finite and falling")
+    return dl, dg
+
+
+def all_finite(values) -> bool:
+    import math
+
+    return all(math.isfinite(v) for v in values)
+
+
+def train_mesh_phase(dev, card=""):
+    """train-mesh: LoRA finetuning over four ranks through ``cli.train`` at
+    LLaMA-7B full width and depth (32 layers, NF4 double quant, serve's
+    weights, a rank-64 LoRA on all 7 linears, paged_adamw_32bit, remat
+    "save_linear"), the cli phase's alpaca file and argv: a global batch of
+    2 x 512, 2 micro-batches a step, so that each data rank takes 1 x 512 a
+    micro-batch.  Every run resumes from one single-card checkpoint at step
+    MESH_START (serve's adapters, AdamW's count at 1).  Run 1: the gather
+    style at (dp, fsdp, tp) = (1, 2, 2) with ZeRO-1, MESH_GATHER_STEPS
+    steps, its last checkpoint then resumed on the single card through
+    ``cli.main`` for one more step; run 2: Megatron at (2, 1, 2) on the
+    re-packed tree (row-parallel linears K-sharded over 2), MESH_STEPS
+    steps.  On one card the ranks are gloo processes sharing it, both runs
+    and the single card's at once (this shows shards, collectives and
+    control flow, not parallel speed); with four cards, NCCL a card a rank,
+    one run after the other.  Each run against the single card on the same
+    weights, argv and stream (run 2's on the re-packed tree, whose K-sharded
+    tensors run chunk by chunk): each step's loss within MESH_LOSS_RTOL and
+    grad norm within MESH_GNORM_RTOL relative (run 1's resumed step among
+    them), the loss falling; on every rank after every step each adapter
+    tensor bit-equal to its holder of lowest rank, the frozen shard
+    unchanged, its bytes about 1/(fsdp tp) or 1/tp of the model's and (run
+    1) the optimizer state's about 1/fsdp of the single card's; rank 0's
+    launches exact, every NF4 forward and dx on the wgmma kernels; the
+    collectives of a step by axis, Megatron's fewer.  Returns (rank 0's
+    launch counts over both runs, stats)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from qlora_tpu_torch import cli
+    from qlora_tpu_torch.parallel import requantize_row_parallel
+    from qlora_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    four = torch.cuda.device_count() >= 4 if dev.type == "cuda" else False
+    ranks = None if four else ("gloo", [str(dev) if dev.type != "cuda" else "cuda:0"] * 4)
+    backend = "nccl" if four else "gloo"
+    L = seven_b().num_layers
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = str(Path(tmp) / "alpaca.jsonl")
+        alpaca_jsonl(data, DATA_EXAMPLES, seed=51)
+        out = lambda tag: str(Path(tmp) / tag)
+        t0 = time.perf_counter()
+        args = cli.parse_args(mesh_argv(data, out("ref"), MESH_END, dev))
+        params, lora, cfg, lcfg, tok = cli.build_model_and_tokenizer(args, dev)
+        model = (params, lora, cfg, lcfg, tok)
+        whole = {"gather": tree_bytes(params)}
+        opt_whole = 2 * tree_bytes(lora)          # AdamW's mu and nu on one card, f32
+        # what every run starts from: a single-card checkpoint at MESH_START,
+        # linked into each run's directory
+        lora_r = random_lora(cfg, dev, seed=8)[0]
+        opt_r = cli._make_optimizer(args).init(lora_r)
+        opt_r["count"] = MESH_START
+        start = save_checkpoint(out("start"), MESH_START, lora_r, opt_r)
+        del lora_r, opt_r
+        build_s = time.perf_counter() - t0
+
+        def seeded(tag):
+            dst = Path(out(tag)) / Path(start).name
+            for path in Path(start).rglob("*"):
+                target = dst / path.relative_to(start)
+                if path.is_dir():
+                    target.mkdir(parents=True, exist_ok=True)
+                else:
+                    target.parent.mkdir(parents=True, exist_ok=True)
+                    os.link(path, target)
+            return out(tag)
+
+        def run(tag, argv, **kw):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0, called = time.perf_counter(), time.time()
+            m = cli.train(cli.parse_args(argv), **kw)
+            torch.cuda.synchronize()
+            stats[f"{tag}_s"] = time.perf_counter() - t0
+            where = ""
+            if "mesh_report" in m:      # rank 0's loop, and what came before and after it
+                r0 = m["mesh_report"][0]
+                where = (f" (before the ranks' loop {r0['started'] - called:.1f} s, of which the "
+                         f"ranks' start {max(r['entered'] for r in m['mesh_report']) - called:.1f}"
+                         f" s, the loop "
+                         f"{r0['ended'] - r0['started']:.1f} s, after it "
+                         f"{called + stats[f'{tag}_s'] - r0['ended']:.1f} s)")
+            print(f"train-mesh {tag}: {stats[f'{tag}_s']:.1f} s{where}, steps " + ", ".join(
+                f"{h['seconds_per_step']:.2f}" for h in m["train_metrics"]) + " s", flush=True)
+            gc_cuda()
+            return m
+
+        # the single card one step further: the step run 1's checkpoint resumes to
+        repacked = requantize_row_parallel(params, 2)
+        whole["megatron"] = tree_bytes(repacked)
+        model2 = (repacked, lora, cfg, lcfg, tok)
+        work = (
+            # the single card, one step further for run 1: the step its checkpoint resumes to
+            lambda: (run("ref1", mesh_argv(data, seeded("ref"), MESH_GATHER_END + 1, dev),
+                         model=model),
+                     run("ref2", mesh_argv(data, seeded("ref2"), MESH_END, dev), model=model2)),
+            lambda: run("run1", mesh_argv(data, seeded("run1"), MESH_GATHER_END, dev, *MESH_GATHER),
+                        ranks=ranks, model=model, hook=mesh_hook),
+            lambda: run("run2", mesh_argv(data, seeded("run2"), MESH_END, dev, *MESH_MEGATRON),
+                        ranks=ranks, model=model2, hook=mesh_hook))
+        # on one card the single-card runs and both mesh runs go at once
+        # (eight gloo processes and the parent share it: their starts,
+        # hand-overs and checkpoints overlap); on four cards one after the
+        # other (a card holds one rank of a NCCL world)
+        (ref1, ref2), run1, run2 = [f() for f in work] if four else together(*work)
+        del model2, repacked
+        gc_cuda()
+        # run 1's last checkpoint resumed on the single card for one more step
+        # through cli.main (its own model build from the seed)
+        os.remove(Path(out("run1")) / "completed")
+        t0 = time.perf_counter()
+        res1 = cli.main(mesh_argv(data, out("run1"), MESH_GATHER_END + 1, dev))
+        stats["resume_s"] = time.perf_counter() - t0
+        del model, params, lora
+        gc_cuda()
+
+    # run 1's step, then its checkpoint's resumed step, against the single card's two
+    d1 = mesh_agree("run 1 (gather, 1 x 2 x 2)",
+                    dict(run1, train_metrics=run1["train_metrics"] + res1["train_metrics"]),
+                    ref1)
+    d2 = mesh_agree("run 2 (megatron, 2 x 1 x 2)", run2, ref2)
+    if [h["step"] for h in res1["train_metrics"]] != [MESH_GATHER_END + 1]:
+        fail(f"train-mesh: the resumed run logged steps {res1['train_metrics']}")
+    per_step = train_counts(L)
+    total = collections.Counter()
+    summary = {}
+    for tag, m, frac, style, steps in (("run 1", run1, 4, "gather", MESH_GATHER_STEPS),
+                                       ("run 2", run2, 2, "megatron", MESH_STEPS)):
+        reps = m["mesh_report"]
+        r0 = reps[0]
+        total.update(r0["counts"])
+        want = expected_counts(**{k: steps * v for k, v in per_step.items() if v})
+        if r0["counts"] != want:
+            fail(f"train-mesh {tag}: rank 0's launches {r0['counts']} != {want}")
+        bad = [(r["rank"], r["differing"]) for r in reps if any(r["differing"])]
+        if bad or len(r0["differing"]) != steps:
+            fail(f"train-mesh {tag}: adapter tensors differing from their holder of lowest rank "
+                 f"(rank, per step): {bad}")
+        if not all(r["frozen_same"] for r in reps):
+            fail(f"train-mesh {tag}: a rank's frozen shard changed")
+        shares = [r["frozen_bytes"] / whole[style] for r in reps]
+        if any(not 0.97 / frac <= x <= 1.03 / frac for x in shares):
+            fail(f"train-mesh {tag}: the ranks' frozen shares {shares} are not about 1/{frac}")
+        opt_shares = [r["opt_bytes"] / opt_whole for r in reps]
+        if style == "gather" and any(not 0.49 <= x <= 0.51 for x in opt_shares):
+            fail(f"train-mesh {tag}: the ranks' optimizer state shares {opt_shares} are not "
+                 "about 1/2 (ZeRO-1 over fsdp 2)")
+        coll = r0["collectives"]
+        if any(c != coll[0] for c in coll):
+            fail(f"train-mesh {tag}: rank 0's collectives differ from step to step: {coll}")
+        secs = [h["seconds_per_step"] for h in m["train_metrics"]]
+        summary[tag] = dict(collectives={k: v for k, v in coll[0].items() if v},
+                            n_collectives=sum(v for k, v in coll[0].items()),
+                            step_s=secs, peak_gib=[r["peak_gib"] for r in reps],
+                            frozen_gib=[r["frozen_bytes"] / 2 ** 30 for r in reps],
+                            opt_gib=[r["opt_bytes"] / 2 ** 30 for r in reps], shares=shares,
+                            opt_shares=opt_shares, s=stats[tag.replace(" ", "")  + "_s"])
+        print(f"train-mesh {tag} ({style}, {backend}"
+              f"{', a card a rank' if four else ', four ranks on one card beside the other run'}): "
+              f"rank 0's collectives a step {summary[tag]['collectives']} "
+              f"({summary[tag]['n_collectives']} in all; the probe's own gathers left out); "
+              f"seconds a step on rank 0's host clock {', '.join(f'{x:.3f}' for x in secs)}; "
+              f"frozen storage a rank {', '.join(f'{x:.3f}' for x in summary[tag]['frozen_gib'])} "
+              f"GiB ({', '.join(f'{x:.4f}' for x in shares)} of the model's "
+              f"{whole[style] / 2 ** 30:.3f} GiB); optimizer state a rank "
+              f"{', '.join(f'{x:.3f}' for x in summary[tag]['opt_gib'])} GiB "
+              f"({', '.join(f'{x:.4f}' for x in opt_shares)} of the single card's "
+              f"{opt_whole / 2 ** 30:.3f} GiB); peak a rank "
+              f"{', '.join(f'{x:.2f}' for x in summary[tag]['peak_gib'])} GiB; adapters bit-equal "
+              f"to their holders' after every step on every rank, frozen shards unchanged; "
+              f"rank 0's launches {dict((k, v) for k, v in r0['counts'].items() if v)}",
+              flush=True)
+    if summary["run 2"]["n_collectives"] >= summary["run 1"]["n_collectives"]:
+        fail("train-mesh: Megatron makes no fewer collectives a step than the gather style")
+    phase_s = time.perf_counter() - t_phase
+    print(f"train-mesh ({card}): phase {phase_s:.1f} s (model built in {build_s:.1f} s; the single "
+          f"card {stats['ref1_s']:.1f} + {stats['ref2_s']:.1f} s, run 1 {stats['run1_s']:.1f} s, "
+          f"run 2 {stats['run2_s']:.1f} s, each run's shards cut, written and read, the ranks "
+          f"started and a checkpoint gathered and written included; resumed through cli.main "
+          f"{stats['resume_s']:.1f} s); the single card's steps "
+          f"{', '.join(f'{h['seconds_per_step']:.3f}' for h in ref1['train_metrics'])} s; "
+          f"worst relative differences: loss {max(d1[0], d2[0]):.3g}, grad norm "
+          f"{max(d1[1], d2[1]):.3g}", flush=True)
+    return dict(total), dict(phase_s=phase_s, backend=backend, runs=summary,
+                             worst=(max(d1[0], d2[0]), max(d1[1], d2[1])))
 
 
 @contextlib.contextmanager
@@ -5839,7 +6252,8 @@ def main() -> int:
               "search": search_only,
               "serve-http": lambda dev: serve_http_phase(dev, card),
               "examples": lambda dev: examples_phase(dev, card),
-              "tp": lambda dev: (tp_qmm_phase(dev, []), tp_phase(dev, card))}
+              "tp": lambda dev: (tp_qmm_phase(dev, []), tp_phase(dev, card)),
+              "train-mesh": lambda dev: (tp_qmm_phase(dev, []), train_mesh_phase(dev, card))}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -5914,6 +6328,9 @@ def main() -> int:
     examples_counts, examples_stats = examples_phase(dev, card)
     gc_cuda()
     tp_counts, tp_stats = tp_phase(dev, card)
+    gc_cuda()
+    mesh_counts, mesh_stats = train_mesh_phase(dev, card)
+    gc_cuda()
     t0 = time.perf_counter()
     worst = train_parity_phase(dev, "int8")
     train8_counts, train8_per_step, train8_stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)
@@ -6028,7 +6445,8 @@ def main() -> int:
     for entry in summary:     # the CLI and the endpoint (cli, serve-http), the searches, and
         # the judge, the examples and the converter
         for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts),
-                         ("examples", examples_counts), ("tp", tp_counts)):
+                         ("examples", examples_counts), ("tp", tp_counts),
+                         ("train_mesh", mesh_counts)):
             if run.get(entry["name"]):
                 entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
@@ -6137,6 +6555,15 @@ def main() -> int:
           f"{tp_stats['int8_of_exact']:.4g}, every emitted token at most "
           f"{tp_stats['worst_short']:.4g} short of the single card's best; peak a rank "
           f"{max(tp_stats['peak_gib']):.2f} GiB", flush=True)
+    ms = mesh_stats["runs"]
+    print(f"train-mesh ({card}): 4 ranks over {mesh_stats['backend']}, phase "
+          f"{mesh_stats['phase_s']:.1f} s; s a step on rank 0, gather style (1, 2, 2) "
+          f"{sum(ms['run 1']['step_s']) / len(ms['run 1']['step_s']):.3f}, Megatron (2, 1, 2) "
+          f"{sum(ms['run 2']['step_s']) / len(ms['run 2']['step_s']):.3f}; collectives a step "
+          f"{ms['run 1']['n_collectives']} / {ms['run 2']['n_collectives']}; worst relative "
+          f"difference from the single card: loss {mesh_stats['worst'][0]:.3g}, grad norm "
+          f"{mesh_stats['worst'][1]:.3g}; peak a rank {max(ms['run 1']['peak_gib']):.2f} / "
+          f"{max(ms['run 2']['peak_gib']):.2f} GiB", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,28 @@
 """CLI and train / eval / predict driver: the qlora.py ``train()``
-equivalent, on one device.
+equivalent, on one device or over a mesh of ranks.
 
 The flags are the JAX package's (``qlora_tpu/cli.py``), name for name and
 default for default, plus ``--device`` (CUDA unless given; ``cpu`` runs the
 plain PyTorch path).  Unknown flags are an error.  What the port does not
-run yet raises ``NotImplementedError`` naming its ROADMAP item: a mesh or
-several processes (A7b).  Predict runs ``generate()`` with the search flags
-(beam, group-beam and contrastive search and their penalties), or
-``generate_speculative`` under ``--predict_speculative``.
+run yet raises ``NotImplementedError`` naming its ROADMAP item: sequence
+parallelism, full finetuning on a mesh and several hosts (A7b's second
+half).  Predict runs ``generate()`` with the search flags (beam, group-beam
+and contrastive search and their penalties), or ``generate_speculative``
+under ``--predict_speculative``.
+
+``--mesh_dp/--mesh_fsdp/--mesh_tp`` train LoRA over dp·fsdp·tp ranks, one
+process a rank (``parallel/``): ``--tp_style gather`` (the default) runs
+the dp×fsdp×tp step with fsdp weight gathering and ZeRO-1 optimizer state,
+``--tp_style megatron`` the Megatron step over a dp×tp mesh.  The ranks run
+over NCCL, rank r on ``cuda:r`` (it raises when the machine has fewer
+cards), or with ``--device cpu`` over gloo on the CPU.  The parent builds
+the model once, cuts every rank's shard and hands each rank only its own;
+``--per_device_train_batch_size`` is the global batch, as in JAX, which
+dp·fsdp divides, and data rank d·F + f takes its rows of the same seeded
+stream.  Checkpoints are written by rank 0 in the single-device layout, so
+that a mesh checkpoint resumes on one card and a single-card one on a
+mesh.  What follows training (the final eval, MMLU, predict) runs in the
+parent as on one card, with the trained adapters gathered.
 
 Order of work: resume detection, model build, data, the train loop
 (logging and save cadence, in-training eval and MMLU), eval, standalone
@@ -23,9 +38,11 @@ import argparse
 import dataclasses
 import json
 import logging
+import math
 import os
 import re
 import shutil
+import tempfile
 import time
 from typing import Optional
 
@@ -172,23 +189,62 @@ def parse_args(argv=None) -> Args:
     return Args(**vars(ns))
 
 
+def mesh_shape(args: Args) -> tuple:
+    """(dp, fsdp, tp) of the run's mesh."""
+    return args.mesh_dp, args.mesh_fsdp, args.mesh_tp
+
+
+def _optimizer_name(args: Args) -> str:
+    return "adam8bit" if args.adam8bit else args.optim
+
+
 def check_supported(args: Args) -> None:
-    """Raise for every flag whose path is not ported yet, naming its item."""
-    mesh = {k: getattr(args, k) for k in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp")}
-    if any(v > 1 for v in mesh.values()):
+    """Raise for every flag whose path is not ported yet, naming its item,
+    and for the mesh combinations the JAX CLI refuses (ValueError)."""
+    if args.mesh_sp > 1:
         raise NotImplementedError(
-            f"a device mesh ({mesh}) is not ported: ROADMAP A7b, the training half of "
-            "parallelism")
+            f"sequence parallelism (mesh_sp={args.mesh_sp}, ring attention) is not ported: "
+            "ROADMAP A7b, the second half of the training half of parallelism")
     if args.coordinator_address or (args.num_processes or 0) > 1:
         raise NotImplementedError(
-            "several processes (coordinator_address / num_processes) are not ported: "
-            "ROADMAP A7b, the training half of parallelism")
+            "several hosts (coordinator_address / num_processes) are not ported: "
+            "ROADMAP A7b, the second half of the training half of parallelism")
+    if math.prod(mesh_shape(args)) > 1:
+        if args.full_finetune:
+            raise NotImplementedError(
+                "full finetuning on a mesh (GSPMD) is not ported: ROADMAP A7b, the second "
+                "half of the training half of parallelism")
+        if args.tp_style not in ("gather", "megatron"):
+            raise ValueError(f"unknown tp_style {args.tp_style!r}")
+        if args.tp_style == "megatron" and args.mesh_fsdp > 1:
+            raise ValueError("tp_style=megatron requires mesh_fsdp=1 (compose fsdp via "
+                             "tp_style=gather)")
+    if (_optimizer_name(args) in ("adam8bit", "paged_adamw_8bit")
+            and args.tp_style == "megatron" and args.mesh_tp > 1):
+        raise ValueError(
+            "adam8bit does not compose with tp_style=megatron (8-bit blockwise optimizer "
+            "state cannot follow tp-sharded params); use tp_style=gather or a 32-bit optimizer")
+
+
+def rank_devices(n: int, device) -> tuple:
+    """(backend, devices) of a mesh of `n` ranks: NCCL with rank r on
+    ``cuda:r``, or gloo on the CPU when `device` is the CPU.  Raises when
+    the machine has fewer cards than ranks."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "gloo", ["cpu"] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"a mesh of {n} ranks needs {n} cards (NCCL, a card a rank), have "
+                         f"{have}; pass --device cpu to run the ranks on the CPU over gloo")
+    return "nccl", [f"cuda:{r}" for r in range(n)]
 
 
 def build_model_and_tokenizer(args: Args, device):
     """(params, lora or None, cfg, lcfg, tokenizer) on `device`: random
     weights from the seed, a store written by ``save_quantized``, or an HF
-    checkpoint directory."""
+    checkpoint directory (on a mesh its intermediate size and vocabulary
+    padded to 128 × fsdp·tp: the model computes the same function)."""
     from qlora_tpu_torch.lora import LoraConfig
     from qlora_tpu_torch.models import get_config, init_lora_params, init_params
 
@@ -206,27 +262,32 @@ def build_model_and_tokenizer(args: Args, device):
         else:
             from qlora_tpu_torch.utils.hf_import import load_hf_model
 
+            shards = max(args.mesh_fsdp * args.mesh_tp, 1)
+            pad_to = 128 * shards if shards > 1 else None
             params, cfg = load_hf_model(args.model_name_or_path, quantize_base=quantize_base,
                                         quant_type=quant_type, double_quant=args.double_quant,
+                                        pad_intermediate_to=pad_to, pad_vocab_to=pad_to,
                                         device=device)
     else:
         cfg = get_config(args.model_name_or_path)
         params = init_params(cfg, seed=args.seed, quantized=quantize_base, device=device,
                              quant_type=quant_type)
 
-    if args.fake_tokenizer:
-        from qlora_tpu_torch.utils.testing import FakeTokenizer
-
-        tokenizer = FakeTokenizer()
-    else:
-        from qlora_tpu_torch.utils.tokenizer import load_tokenizer
-
-        tokenizer, _ = load_tokenizer(args.model_name_or_path)
-
+    tokenizer = _tokenizer(args)
     lora = None
     if not args.full_finetune:
         lora = init_lora_params(cfg, lcfg, seed=args.seed + 1, device=device)
     return params, lora, cfg, lcfg, tokenizer
+
+
+def _tokenizer(args: Args):
+    if args.fake_tokenizer:
+        from qlora_tpu_torch.utils.testing import FakeTokenizer
+
+        return FakeTokenizer()
+    from qlora_tpu_torch.utils.tokenizer import load_tokenizer
+
+    return load_tokenizer(args.model_name_or_path)[0]
 
 
 def _iter_batches(examples, collator, batch_size, accum, seed, group_by_length,
@@ -291,18 +352,74 @@ def _numel(tree) -> int:
     return sum(t.numel() for t in tree_leaves(tree))
 
 
-def train(args: Args) -> dict:
+def _make_optimizer(args: Args):
+    from qlora_tpu_torch.train import make_optimizer
+
+    return make_optimizer(
+        _optimizer_name(args), args.learning_rate, total_steps=args.max_steps,
+        warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm, b2=args.adam_beta2,
+        offload_state=args.optim_host_offload)
+
+
+def _remat(args: Args):
+    return args.remat_policy if args.gradient_checkpointing else False
+
+
+def _datasets(args: Args, do_eval: bool):
+    from qlora_tpu_torch.train import make_dataset
+
+    data_seed = args.data_seed if args.data_seed is not None else 42
+    return make_dataset(
+        args.dataset, dataset_format=args.dataset_format, do_eval=do_eval,
+        eval_dataset_size=args.eval_dataset_size, max_train_samples=args.max_train_samples,
+        max_eval_samples=args.max_eval_samples, seed=data_seed)
+
+
+def _collator(args: Args, tokenizer):
+    from qlora_tpu_torch.train import CausalCollator
+
+    return CausalCollator(tokenizer, source_max_len=args.source_max_len,
+                          target_max_len=args.target_max_len,
+                          train_on_source=args.train_on_source)
+
+
+def _batches(args: Args, train_ds, collator, tokenizer, start_step: int):
+    return _iter_batches(
+        train_ds, collator, args.per_device_train_batch_size,
+        args.gradient_accumulation_steps, args.seed, args.group_by_length, tokenizer,
+        args.source_max_len + args.target_max_len, skip_steps=start_step)
+
+
+def train(args: Args, *, ranks: Optional[tuple] = None, model: Optional[tuple] = None,
+          hook=None) -> dict:
+    """Train, evaluate and predict as the flags say; returns the metrics
+    written to ``metrics.json``.
+
+    ``ranks``: (backend, devices) of a mesh run's ranks, where the caller
+    names them (four gloo ranks on one card, say); by default NCCL, a card a
+    rank, or gloo on the CPU under ``--device cpu``.  ``model``: (params,
+    lora, cfg, lcfg, tokenizer) built by the caller, in place of
+    :func:`build_model_and_tokenizer`.  ``hook``: on a mesh, a module-level
+    function ``hook(event, ctx)`` that every rank calls at "start", after
+    each "step" and at the "end" of its loop, with ``ctx`` holding the
+    rank's mesh, state, shard, step and metrics (and the time it entered
+    its function, ``entered``); what it puts in
+    ``ctx["report"]`` comes back, rank by rank, as the returned dict's
+    ``"mesh_report"`` (not written to ``metrics.json``)."""
     from qlora_tpu_torch.train import (
-        CausalCollator, TrainState, init_train_state, make_dataset, make_eval_step,
-        make_optimizer, make_train_step,
+        TrainState, init_train_state, make_eval_step, make_train_step,
     )
     from qlora_tpu_torch.utils.checkpoint import (
-        get_last_checkpoint, load_checkpoint, mark_completed, save_checkpoint,
+        CHECKPOINT_PREFIX, get_last_checkpoint, load_checkpoint, mark_completed, save_checkpoint,
     )
     from qlora_tpu_torch.utils.metrics import MetricsLogger, StepTimer, maybe_profile
 
     check_supported(args)
     device = resolve_device(args.device)
+    n_ranks = math.prod(mesh_shape(args))
+    if n_ranks > 1:
+        ranks = ranks or rank_devices(n_ranks, device)
     os.makedirs(args.output_dir, exist_ok=True)
     all_metrics = {"run_name": args.output_dir}
 
@@ -311,7 +428,7 @@ def train(args: Args) -> dict:
         logger.info("training already completed; skipping")
         return all_metrics
 
-    params, lora, cfg, lcfg, tokenizer = build_model_and_tokenizer(args, device)
+    params, lora, cfg, lcfg, tokenizer = model or build_model_and_tokenizer(args, device)
     mode = "full" if args.full_finetune else "lora"
     trainable = params if args.full_finetune else lora
     n_train, n_total = _numel(trainable), _numel(params)
@@ -320,46 +437,46 @@ def train(args: Args) -> dict:
 
     if args.fp16:
         logger.warning("fp16 unsupported; using bf16 compute")
-    opt_name = "adam8bit" if args.adam8bit else args.optim
-    optimizer = make_optimizer(
-        opt_name, args.learning_rate, total_steps=args.max_steps,
-        warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
-        max_grad_norm=args.max_grad_norm, b2=args.adam_beta2,
-        offload_state=args.optim_host_offload)
+    optimizer = _make_optimizer(args)
     state = init_train_state(trainable, optimizer, device=device)
-    start_step = 0
+    start_step, resumed_opt = 0, False
     if ckpt_dir is not None:
         loaded, opt_state, info = load_checkpoint(ckpt_dir, state.trainable, state.opt_state)
         start_step = int(info.get("step", 0))
         state = TrainState(step=start_step, trainable=loaded,
                            opt_state=opt_state if opt_state is not None else state.opt_state)
+        resumed_opt = opt_state is not None
         logger.info("resumed from %s at step %d", ckpt_dir, start_step)
 
-    collator = CausalCollator(tokenizer, source_max_len=args.source_max_len,
-                              target_max_len=args.target_max_len,
-                              train_on_source=args.train_on_source)
+    collator = _collator(args, tokenizer)
     mlogger = MetricsLogger(args.output_dir, report_to=args.report_to)
     timer = StepTimer()          # no device sync a step: the host reads only at logging steps
-    metrics_hist = []
-    data_seed = args.data_seed if args.data_seed is not None else 42
-    if args.do_train and start_step < args.max_steps:
-        train_ds, eval_ds = make_dataset(
-            args.dataset, dataset_format=args.dataset_format,
-            do_eval=args.do_eval or args.do_predict,
-            eval_dataset_size=args.eval_dataset_size,
-            max_train_samples=args.max_train_samples,
-            max_eval_samples=args.max_eval_samples, seed=data_seed)
+    if args.do_train and start_step < args.max_steps and n_ranks > 1:
+        if args.tp_style == "megatron":
+            from qlora_tpu_torch.parallel import requantize_row_parallel
+
+            params = requantize_row_parallel(params, args.mesh_tp)
+        out = _train_on_mesh(args, cfg, lcfg, params, state, start_step,
+                             state.opt_state if resumed_opt else None, ranks, hook)
+        all_metrics.update(out["metrics"])
+        trained = None
+        if args.do_eval or args.do_mmlu_eval or args.do_predict:
+            # the adapters rank 0 wrote whole at the last step
+            trained = load_checkpoint(os.path.join(
+                args.output_dir, f"{CHECKPOINT_PREFIX}{args.max_steps}"), state.trainable)[0]
+        state = TrainState(step=args.max_steps, trainable=trained, opt_state=None)
+        timer.times = out["times"]
+    elif args.do_train and start_step < args.max_steps:
+        train_ds, eval_ds = _datasets(args, args.do_eval or args.do_predict)
         step_fn = make_train_step(
             cfg, lcfg, optimizer, accum_steps=args.gradient_accumulation_steps, mode=mode,
-            remat=args.remat_policy if args.gradient_checkpointing else False, device=device)
+            remat=_remat(args), device=device)
         eval_fn = (make_eval_step(cfg, lcfg, mode=mode, device=device)
                    if args.do_eval and eval_ds else None)
-        batches = _iter_batches(
-            train_ds, collator, args.per_device_train_batch_size,
-            args.gradient_accumulation_steps, args.seed, args.group_by_length, tokenizer,
-            args.source_max_len + args.target_max_len, skip_steps=start_step)
+        batches = _batches(args, train_ds, collator, tokenizer, start_step)
         # restarts from the seed on resume, as the JAX driver's PRNGKey(seed)
         generator = torch.Generator(device=device).manual_seed(args.seed)
+        metrics_hist = []
         t0 = time.time()
         for step in range(start_step, args.max_steps):
             profiling = args.report_profile and step == start_step + 5
@@ -367,37 +484,20 @@ def train(args: Args) -> dict:
                 timer.tick()
                 state, m = step_fn(state, params, next(batches), generator)
                 timer.tock()
-            if (step + 1) % args.logging_steps == 0:
-                loss = float(m["loss"])
-                dt = (time.time() - t0) / args.logging_steps
-                logger.info("step %d: loss %.4f (%.2fs/step)", step + 1, loss, dt)
-                row = {"step": step + 1, "loss": loss, "seconds_per_step": dt,
-                       "grad_norm": float(m["grad_norm"])}
-                metrics_hist.append(row)
-                mlogger.log(row, step=step + 1)
-                t0 = time.time()
+            t0 = _log_step(args, step, m, t0, metrics_hist, mlogger)
             if args.save_strategy == "steps" and (step + 1) % args.save_steps == 0:
                 save_checkpoint(args.output_dir, step + 1, state.trainable, state.opt_state)
                 _prune_checkpoints(args.output_dir, args.save_total_limit)
             if args.eval_steps and (step + 1) % args.eval_steps == 0:
-                if eval_fn is not None:
-                    ev_loss = _eval_pass(args, eval_fn, state, params, collator, eval_ds)
-                    logger.info("step %d: eval_loss %.4f", step + 1, ev_loss)
-                    mlogger.log({"eval_loss": ev_loss}, step=step + 1)
-                if args.do_mmlu_eval:
-                    res = _run_mmlu(args, params, state, cfg, lcfg, tokenizer, mode, device)
-                    all_metrics.update(res)
-                    mlogger.log({k: v for k, v in res.items()
-                                 if k in ("mmlu_loss", "mmlu_eval_accuracy")}, step=step + 1)
+                _in_loop_eval(args, step, eval_fn, state, params, collator, eval_ds, mlogger,
+                              all_metrics, lambda: _run_mmlu(args, params, state, cfg, lcfg,
+                                                             tokenizer, mode, device))
         save_checkpoint(args.output_dir, args.max_steps, state.trainable, state.opt_state)
         mark_completed(args.output_dir)
         all_metrics["train_metrics"] = metrics_hist
 
     if args.do_eval:
-        _, eval_ds = make_dataset(
-            args.dataset, dataset_format=args.dataset_format, do_eval=True,
-            eval_dataset_size=args.eval_dataset_size,
-            max_eval_samples=args.max_eval_samples, seed=data_seed)
+        _, eval_ds = _datasets(args, True)
         ev = make_eval_step(cfg, lcfg, mode=mode, device=device)
         all_metrics["eval_loss"] = _eval_pass(args, ev, state, params, collator, eval_ds)
         logger.info("eval_loss: %.4f", all_metrics["eval_loss"])
@@ -414,7 +514,242 @@ def train(args: Args) -> dict:
     mlogger.close()
     with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
         json.dump(all_metrics, f, indent=2)
+    if n_ranks > 1 and hook is not None and args.do_train and start_step < args.max_steps:
+        all_metrics["mesh_report"] = out["reports"]
     return all_metrics
+
+
+def _log_step(args, step, m, t0, metrics_hist, mlogger):
+    """The logging cadence: a row of loss, s/step and grad norm every
+    ``logging_steps``; returns the clock's new start."""
+    if (step + 1) % args.logging_steps:
+        return t0
+    loss = float(m["loss"])
+    dt = (time.time() - t0) / args.logging_steps
+    logger.info("step %d: loss %.4f (%.2fs/step)", step + 1, loss, dt)
+    row = {"step": step + 1, "loss": loss, "seconds_per_step": dt,
+           "grad_norm": float(m["grad_norm"])}
+    metrics_hist.append(row)
+    if mlogger is not None:
+        mlogger.log(row, step=step + 1)
+    return time.time()
+
+
+def _in_loop_eval(args, step, eval_fn, state, params, collator, eval_ds, mlogger, all_metrics,
+                  mmlu):
+    """The eval cadence's work at step `step`: the eval loss and, with
+    ``--do_mmlu_eval``, MMLU (``mmlu()``); logged where `mlogger` is given."""
+    if eval_fn is not None:
+        ev_loss = _eval_pass(args, eval_fn, state, params, collator, eval_ds)
+        logger.info("step %d: eval_loss %.4f", step + 1, ev_loss)
+        if mlogger is not None:
+            mlogger.log({"eval_loss": ev_loss}, step=step + 1)
+    if args.do_mmlu_eval:
+        res = mmlu()
+        all_metrics.update(res)
+        if mlogger is not None:
+            mlogger.log({k: v for k, v in res.items()
+                         if k in ("mmlu_loss", "mmlu_eval_accuracy")}, step=step + 1)
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+
+def _train_on_mesh(args, cfg, lcfg, params, state, start_step, opt_state, ranks, hook):
+    """Start :func:`mesh_rank` on every rank and, while the processes
+    start, cut every rank's shard of `params` (the gather style's N-shards,
+    or the Megatron shards of a re-packed tree) into a file of its own, and
+    the run's job (flags, configs, the adapters to start from and the
+    optimizer state a checkpoint held, or None: each rank makes its own)
+    into another; a rank reads each file once it is whole.  Returns rank
+    0's result."""
+    import threading
+
+    from qlora_tpu_torch.parallel import mesh_coords, run_ranks, shard_params, shard_sharded_params
+    from qlora_tpu_torch.train.optimizer import tree_map
+
+    backend, devices = ranks
+    dp, F, T = mesh_shape(args)
+    n = dp * F * T
+    logger.info("mesh %d x %d x %d (%s style): %d ranks over %s on %s", dp, F, T,
+                args.tp_style, n, backend, ", ".join(map(str, devices)))
+    # one file a distinct shard: ranks that differ only in dp share it
+    if args.tp_style == "megatron":
+        key = lambda r: mesh_coords(r, dp, F, T)[2]
+        cut = lambda r: shard_params(params, key(r), T, "cpu")
+    else:
+        key = lambda r: mesh_coords(r, dp, F, T)[1:]
+        cut = lambda r: shard_sharded_params(params, key(r)[1], key(r)[0], T, F, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        names = {}
+        for r in range(n):
+            names.setdefault(key(r), os.path.join(tmp, f"shard-{len(names)}.pt"))
+        job = os.path.join(tmp, "job.pt")
+        done: dict = {}
+
+        def ranks_run():
+            try:
+                done["results"] = run_ranks(
+                    mesh_rank, n, job, hook, per_rank=[(names[key(r)],) for r in range(n)],
+                    backend=backend, devices=devices, store_dir=tmp, timeout_s=None)
+            except BaseException as e:      # re-raised in the parent's thread below
+                done["error"] = e
+
+        thread = threading.Thread(target=ranks_run)
+        thread.start()
+        try:
+            with torch.no_grad():
+                cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
+                _write(job, dict(args=args, cfg=cfg, lcfg=lcfg, trainable=cpu(state.trainable),
+                                 opt_state=None if opt_state is None else cpu(opt_state),
+                                 start_step=start_step))
+                written = set()
+                for r in range(n):
+                    if key(r) not in written:
+                        _write(names[key(r)], cut(r))
+                        written.add(key(r))
+        except BaseException:
+            _write(os.path.join(tmp, "failed"), None)      # the ranks stop waiting
+            thread.join()
+            raise
+        thread.join()
+    if "error" in done:
+        raise done["error"]
+    out = done["results"][0]
+    out["reports"] = [r["report"] for r in done["results"]]
+    return out
+
+
+def _write(path: str, obj) -> None:
+    """`obj` saved to `path` whole: written beside it, then renamed."""
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _read(path: str):
+    """The object :func:`_write` saved at `path`, once it is there (a
+    ``failed`` file beside it ends the wait)."""
+    failed = os.path.join(os.path.dirname(path), "failed")
+    while not os.path.exists(path):
+        if os.path.exists(failed):
+            raise RuntimeError(f"the parent did not write {path}")
+        time.sleep(0.05)
+    return torch.load(path, weights_only=False)
+
+
+def _full_trees(args, state, optimizer, mesh):
+    """The adapters and the optimizer state whole, in the single-device
+    layout (collective: every rank calls it)."""
+    from qlora_tpu_torch.parallel import gather_megatron_tree, megatron_lora_specs
+    from qlora_tpu_torch.parallel.megatron_step import _opt_specs_like
+    from qlora_tpu_torch.parallel.sharded_step import full_opt_state
+
+    if args.tp_style == "megatron":
+        specs = megatron_lora_specs(state.trainable)
+        return (gather_megatron_tree(state.trainable, specs, mesh.tp),
+                gather_megatron_tree(state.opt_state, _opt_specs_like(state.opt_state, specs),
+                                     mesh.tp))
+    return state.trainable, full_opt_state(state, optimizer, mesh)
+
+
+def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
+    """One rank of a mesh run: its shard (read from `shard_path` once the
+    parent has written it, put on its device), the mesh's groups, the adapters and optimizer state as this
+    rank holds them, the same seeded data stream as every rank, and the
+    train loop with its logging, save and eval cadence; rank 0 writes the
+    log and the checkpoints (the last one holds the trained adapters
+    whole).  Returns the hook's report and the step times, and on rank 0
+    the metrics."""
+    from qlora_tpu_torch.parallel import (
+        init_megatron_state, init_sharded_train_state, make_megatron_train_step,
+        make_parallel_mesh, make_sharded_eval_step, make_sharded_train_step, tree_to,
+    )
+    from qlora_tpu_torch.train.optimizer import tree_map
+    from qlora_tpu_torch.utils.checkpoint import mark_completed, save_checkpoint
+    from qlora_tpu_torch.utils.metrics import MetricsLogger, StepTimer, maybe_profile
+
+    entered = time.time()
+    job = _read(job_path)
+    args, cfg, lcfg = job["args"], job["cfg"], job["lcfg"]
+    mesh = make_parallel_mesh(world, *mesh_shape(args))
+    dev = mesh.device
+    if dev.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world.size))
+    frozen = tree_to(_read(shard_path), dev)
+    tokenizer = _tokenizer(args)
+    optimizer = _make_optimizer(args)
+    megatron = args.tp_style == "megatron"
+    kw = dict(accum_steps=args.gradient_accumulation_steps, clip_norm=args.max_grad_norm,
+              remat=_remat(args))
+    if megatron:
+        state = init_megatron_state(job["trainable"], optimizer, mesh, job["opt_state"])
+        step_fn = make_megatron_train_step(cfg, lcfg, optimizer, mesh, **kw)
+    else:
+        state = init_sharded_train_state(job["trainable"], optimizer, mesh, job["opt_state"])
+        step_fn = make_sharded_train_step(cfg, lcfg, optimizer, mesh, **kw)
+    start_step = job["start_step"]
+    state.step = start_step
+    del job
+    lead = world.rank == 0
+    mlogger = MetricsLogger(args.output_dir, report_to=args.report_to) if lead else None
+    collator = _collator(args, tokenizer)
+    train_ds, eval_ds = _datasets(args, args.do_eval or args.do_predict)
+    eval_fn = (make_sharded_eval_step(cfg, lcfg, mesh, args.tp_style)
+               if args.do_eval and eval_ds else None)
+    batches = _batches(args, train_ds, collator, tokenizer, start_step)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    timer = StepTimer()
+    metrics_hist, all_metrics = [], {}
+    ctx = dict(mesh=mesh, state=state, frozen=frozen, step=start_step, metrics=None,
+               report={}, style=args.tp_style, entered=entered)
+    if hook is not None:
+        hook("start", ctx)
+
+    def save(step):
+        lora, opt_state = _full_trees(args, state, optimizer, mesh)
+        if lead:
+            cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
+            save_checkpoint(args.output_dir, step, cpu(lora), cpu(opt_state))
+            _prune_checkpoints(args.output_dir, args.save_total_limit)
+
+    def mmlu():
+        from qlora_tpu_torch.models.layers import tp_shard_context
+
+        T, F = mesh.shape["tp"], mesh.shape["fsdp"]
+        with tp_shard_context(mesh.tp if T > 1 else None, mesh.fsdp if F > 1 else None,
+                              args.tp_style):
+            return _run_mmlu(args, frozen, state, cfg, lcfg, tokenizer, "lora", dev)
+
+    t0 = time.time()
+    for step in range(start_step, args.max_steps):
+        profiling = args.report_profile and step == start_step + 5 and lead
+        with maybe_profile(args.output_dir, profiling):
+            timer.tick()
+            state, m = step_fn(state, frozen, next(batches), generator)
+            timer.tock()
+        t0 = _log_step(args, step, m, t0, metrics_hist, mlogger)
+        if hook is not None:
+            ctx.update(state=state, step=step + 1, metrics=m)
+            hook("step", ctx)
+        if args.save_strategy == "steps" and (step + 1) % args.save_steps == 0:
+            save(step + 1)
+        if args.eval_steps and (step + 1) % args.eval_steps == 0:
+            _in_loop_eval(args, step, eval_fn, state, frozen, collator, eval_ds, mlogger,
+                          all_metrics, mmlu)
+    save(args.max_steps)
+    if lead:
+        mark_completed(args.output_dir)
+        mlogger.close()
+    if hook is not None:
+        ctx.update(state=state, step=args.max_steps)
+        hook("end", ctx)
+    out = dict(report=ctx["report"], times=timer.times)
+    if lead:
+        all_metrics["train_metrics"] = metrics_hist
+        out.update(metrics=all_metrics)
+    return out
 
 
 def _padded_batches(ds, bs):

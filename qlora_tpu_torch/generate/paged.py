@@ -311,7 +311,7 @@ class PagedBatcher:
     def _ctx(self, impl):
         ctx = contextlib.ExitStack()
         if self.tp_mesh is not None:
-            ctx.enter_context(tp_shard_context(self.tp_mesh))
+            ctx.enter_context(tp_shard_context(self.tp_mesh, style="megatron"))
         if impl:
             ctx.enter_context(default_impl("w8a8"))
         return ctx

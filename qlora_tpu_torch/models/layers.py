@@ -15,6 +15,8 @@ from typing import Optional, Union
 import torch
 
 from qlora_tpu_torch.ops import bf16_matmul, qmatmul
+from qlora_tpu_torch.ops.qmatmul import qmatmul_backward, qmatmul_forward
+from qlora_tpu_torch.ops.tape import taped
 from qlora_tpu_torch.quant.blockwise import QuantizedTensor
 
 
@@ -34,32 +36,48 @@ class DenseLinear:
 
 Linear = Union[QLinear, DenseLinear]
 
-# When a tensor-parallel world is set (``tp_shard_context``), every tensor of
-# the params is this rank's Megatron shard (parallel/megatron_step.py):
-# head-parallel attention and row-parallel output projections, one
-# all-reduce a sub-block, and the collectives go through the world's
-# ``TPMesh``.  The JAX package's other styles (fsdp gathering) wait for
-# ROADMAP A7b.
-_SHARD_CTX: list = [None]
+# When a tensor-parallel context is set (``tp_shard_context``), the params
+# are this rank's shards and the collectives go through the axes' ``TPMesh``
+# views (parallel/distributed.py).  The style is the JAX package's:
+#   "gather"   every linear is column-parallel over tp: its input gets
+#              ident-fwd/psum-bwd, its output columns are gathered
+#              (all-gather forward, this rank's slice backward); with an
+#              fsdp axis each linear's storage is further split over fsdp
+#              along N and gathered just in time (ZeRO-3 for the frozen
+#              weights), fsdp minor: rank (t, f) stores N-shard t·F + f;
+#   "megatron" head-parallel attention and row-parallel output projections
+#              over K-sharded storage, one all-reduce a sub-block
+#              (parallel/megatron_step.py).
+_SHARD_CTX: list = [(None, None, "gather")]
+STYLES = ("gather", "megatron")
 
 
 @contextlib.contextmanager
-def tp_shard_context(mesh):
-    """Run the model Megatron-sharded over `mesh` (a ``TPMesh``)."""
-    _SHARD_CTX.append(mesh)
+def tp_shard_context(tp, fsdp=None, style: str = "gather"):
+    """Run the model sharded over `tp` (a ``TPMesh``, or None) and, under
+    "gather", weight-gathered over `fsdp`."""
+    if style not in STYLES:
+        raise ValueError(f"style={style!r}: one of {STYLES}")
+    if style == "megatron" and fsdp is not None:
+        raise ValueError("the megatron style has no fsdp axis")
+    _SHARD_CTX.append((tp, fsdp, style))
     try:
         yield
     finally:
         _SHARD_CTX.pop()
 
 
-def shard_ctx_axes():
-    """The tensor-parallel mesh in effect (None: one device)."""
-    return _SHARD_CTX[-1]
+def megatron_axis():
+    """The tp mesh when the Megatron style is in effect, else None."""
+    tp, _fsdp, style = _SHARD_CTX[-1]
+    return tp if style == "megatron" else None
 
 
 # Megatron's conjugate operators.  The reduction is done in f32: a bf16
 # partial is widened, summed over the ranks and rounded once by the caller.
+# The forward collectives are kept on the tape of a block checkpointed with
+# remat="save_linear" (ops/tape.py), so that the recomputed block makes
+# none of them again.
 
 
 class _IdentFwdPsumBwd(torch.autograd.Function):
@@ -85,12 +103,16 @@ class _GatherColsFwdSliceBwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, mesh):
         ctx.mesh, ctx.n = mesh, y.shape[-1]
-        return mesh.all_gather(y, dim=-1)
+        return taped(mesh.all_gather, y, -1)
 
     @staticmethod
     def backward(ctx, g):
         r = ctx.mesh.rank
         return g[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
+
+
+def _reduce_f32(y: torch.Tensor, mesh) -> torch.Tensor:
+    return mesh.all_reduce(y.float()).to(y.dtype)
 
 
 class _PsumFwdIdentBwd(torch.autograd.Function):
@@ -100,7 +122,7 @@ class _PsumFwdIdentBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, mesh):
-        return mesh.all_reduce(y.float()).to(y.dtype)
+        return taped(_reduce_f32, y, mesh)
 
     @staticmethod
     def backward(ctx, g):
@@ -119,23 +141,87 @@ def psum_fwd_ident_bwd(y: torch.Tensor, mesh) -> torch.Tensor:
     return _PsumFwdIdentBwd.apply(y, mesh)
 
 
+# fsdp: the just-in-time gather of a linear's storage
+
+
+def _gather_last(tensors: list, fsdp) -> list:
+    """Each tensor's fsdp shards concatenated along its last dimension, in
+    one all-gather of their bytes (the shards of a tensor are the same shape
+    on every rank; the bytes are moved as uint8, never cast)."""
+    flat = [t.contiguous().view(torch.uint8).reshape(-1) for t in tensors]
+    sizes = [f.numel() for f in flat]
+    whole = fsdp.all_gather(torch.cat(flat), dim=0).reshape(fsdp.size, -1)
+    out, at = [], 0
+    for t, n in zip(tensors, sizes):
+        parts = whole[:, at:at + n].reshape(fsdp.size, *t.shape[:-1], -1)
+        parts = parts.view(t.dtype)                  # [F, ..., n_local]
+        out.append(torch.cat(list(parts.unbind(0)), dim=-1))
+        at += n
+    return out
+
+
+def fsdp_gather_qt(qt: QuantizedTensor, fsdp) -> QuantizedTensor:
+    """This rank's tp column shard of a quantized tensor whose storage is
+    split over fsdp along N (packed, absmax and the meta-scales alike; the
+    column-aligned layout splits at any column)."""
+    names = ["packed", "absmax"] + (["absmax_scale"] if qt.absmax_scale is not None else [])
+    whole = _gather_last([getattr(qt, n) for n in names], fsdp)
+    return dataclasses.replace(qt, shape=(qt.shape[0], qt.shape[1] * fsdp.size),
+                               **dict(zip(names, whole)))
+
+
+def _gathered_product(x, qt, fsdp):
+    return qmatmul_forward(x, fsdp_gather_qt(qt, fsdp))
+
+
+class _FsdpQMatmul(torch.autograd.Function):
+    """``x @ dequant(gather(qt))`` over fsdp-split storage: the gathered
+    weight lives only inside the forward and inside the backward, each
+    gathering it again; the graph keeps the rank's own shard, so that the
+    layers' gathered weights are never alive together.  The forward's
+    gather and product are kept on a save_linear tape as one."""
+
+    @staticmethod
+    def forward(ctx, x, qt, fsdp):
+        ctx.qt, ctx.fsdp, ctx.x_dtype = qt, fsdp, x.dtype
+        return taped(_gathered_product, x.detach(), qt, fsdp)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        return (qmatmul_backward(g, fsdp_gather_qt(ctx.qt, ctx.fsdp)).to(ctx.x_dtype),
+                None, None)
+
+
+def fsdp_qmatmul(x: torch.Tensor, qt: QuantizedTensor, fsdp) -> torch.Tensor:
+    if x.requires_grad and torch.is_grad_enabled():
+        return _FsdpQMatmul.apply(x, qt, fsdp)
+    return taped(_gathered_product, x, qt, fsdp)
+
+
 def lookup_embedding(emb: torch.Tensor, ids: torch.Tensor,
                      dtype=torch.bfloat16) -> torch.Tensor:
-    """Embedding rows; under a tensor-parallel world the table holds this
-    rank's features, gathered across the ranks after the lookup."""
+    """Embedding rows, aware of the table's feature sharding: fsdp is a
+    batch axis as well, so the table's fsdp columns are gathered before the
+    lookup (each fsdp rank looks up rows of its own); the tp features are
+    gathered after it, on the activations."""
+    tp, fsdp, _style = _SHARD_CTX[-1]
+    if fsdp is not None:
+        emb = _gather_last([emb], fsdp)[0]
     x = emb[ids.long()].to(dtype)
-    mesh = _SHARD_CTX[-1]
-    if mesh is not None:
-        x = mesh.all_gather(x, dim=-1)
+    if tp is not None:
+        x = tp.all_gather(x, dim=-1)
     return x
 
 
 def apply_linear(lin: Linear, x: torch.Tensor, tp_mode: str = "gather") -> torch.Tensor:
     """y = x @ W (+ bias); x [..., K] → [..., N] in bf16.
 
-    tp_mode, under a tensor-parallel world only:
+    tp_mode, under a tensor-parallel context only:
       "gather"      column-parallel, the input's gradient all-reduced and
-                    the output gathered (the lm_head);
+                    the output gathered (every linear of the gather style,
+                    the lm_head of either);
       "column"      column-parallel with no collective: the output stays
                     this rank's columns (the caller put ident-fwd/psum-bwd
                     on the sub-block's input);
@@ -144,23 +230,29 @@ def apply_linear(lin: Linear, x: torch.Tensor, tp_mode: str = "gather") -> torch
                     sum, which the caller reduces once with the LoRA
                     partial; the bias is divided by tp, so that the sum
                     carries it once.
+    With an fsdp axis the linear's storage is gathered first (the product
+    over gathered quantized storage keeps only the shard for its backward).
     """
-    mesh = _SHARD_CTX[-1]
+    tp, fsdp, _style = _SHARD_CTX[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if mesh is not None and tp_mode == "gather":
-        x2 = ident_fwd_psum_bwd(x2, mesh)
+    if tp is not None and tp_mode == "gather":
+        x2 = ident_fwd_psum_bwd(x2, tp)
+    bias = lin.bias
+    if fsdp is not None and bias is not None:
+        bias = _gather_last([bias], fsdp)[0]
     if isinstance(lin, QLinear):
-        y = qmatmul(x2, lin.qt)
+        y = qmatmul(x2, lin.qt) if fsdp is None else fsdp_qmatmul(x2, lin.qt, fsdp)
     else:
-        y = bf16_matmul(x2, lin.w).to(torch.bfloat16)
-    if lin.bias is not None:
-        bias = lin.bias.float()
-        if mesh is not None and tp_mode == "row_partial":
-            bias = bias / mesh.size
+        w = lin.w if fsdp is None else _gather_last([lin.w], fsdp)[0]
+        y = bf16_matmul(x2, w).to(torch.bfloat16)
+    if bias is not None:
+        bias = bias.float()
+        if tp is not None and tp_mode == "row_partial":
+            bias = bias / tp.size
         y = (y.float() + bias).to(torch.bfloat16)
-    if mesh is not None and tp_mode == "gather":
-        y = gather_cols_fwd_slice_bwd(y, mesh)
+    if tp is not None and tp_mode == "gather":
+        y = gather_cols_fwd_slice_bwd(y, tp)
     return y.reshape(*lead, y.shape[-1])
 
 

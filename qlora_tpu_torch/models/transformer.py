@@ -19,12 +19,16 @@ Parameter layout:
                  "tables": [B, pages_per_seq] int32 (shared by every layer),
                  "length": [B] int32}
 
-Under a tensor-parallel world (``models/layers.tp_shard_context``,
-``parallel/tp_decode.py``) the params, LoRA and caches are
-this rank's shards: q/k/v and the gate/up (w_qkv, w_fc) linears are
-column-parallel on the rank's heads and columns, wo and w_down (w_out)
-row-parallel over K-sharded storage with one all-reduce a sub-block, the
-embedding's features and the lm_head's columns gathered.
+Under a tensor-parallel context (``models/layers.tp_shard_context``) the
+params, LoRA and caches are this rank's shards.  In the Megatron style
+(``parallel/tp_decode.py``, ``parallel/megatron_step.py``) q/k/v and the
+gate/up (w_qkv, w_fc) linears are column-parallel on the rank's heads and
+columns, wo and w_down (w_out) row-parallel over K-sharded storage with one
+all-reduce a sub-block.  In the gather style (``parallel/sharded_step.py``)
+every rank runs every head: each linear computes its column shard and
+gathers its output (its storage gathered over fsdp first), and the LoRA
+adapters are whole.  The embedding's features and the lm_head's columns are
+gathered in both.
 
 Nothing on the no-cache path writes into a tensor in place, so autograd can
 differentiate it with respect to the LoRA tensors; every other parameter is
@@ -54,9 +58,9 @@ from qlora_tpu_torch.models.layers import (
     layer_norm,
     lookup_embedding,
     psum_fwd_ident_bwd,
+    megatron_axis,
     rms_norm,
     rope_frequencies,
-    shard_ctx_axes,
 )
 from qlora_tpu_torch.ops import (
     flash_attention, fused_decode_attention, fused_paged_chunk_attention,
@@ -102,7 +106,8 @@ def _block_linear(block, lora, name, x, lcfg: LoraConfig, seed=None, tp_mode="ga
     same masks again.  Under a tensor-parallel world (`tp_mode` "column" or
     "row_partial") the adapter is sharded with its base linear (B's columns,
     or A's rows), so its term is this rank's columns or a partial sum, as
-    the base product's."""
+    the base product's (each rank's partial rounded to bf16 with its LoRA
+    partial, as the JAX package's)."""
     y = apply_linear(block[name], x, tp_mode)
     if lora is not None and name in lora:
         gen = None
@@ -136,19 +141,20 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
     B, S, _ = x.shape
     hd = cfg.head_dim
     rotary_dim = int(cfg.rotary_pct * hd) // 2 * 2
-    mesh = shard_ctx_axes()
+    mesh = megatron_axis()
+    col, row = ("column", "row_partial") if mesh is not None else ("gather", "gather")
     if mesh is not None:
         # one ident-fwd/psum-bwd for the sub-block's input; q, k and v then
         # run on this rank's heads (the head counts follow the shards' widths)
         x = ident_fwd_psum_bwd(x, mesh)
     if cfg.arch == "llama":
-        q = _block_linear(block, lora, "wq", x, lcfg, seed, "column").reshape(B, S, -1, hd)
-        k = _block_linear(block, lora, "wk", x, lcfg, seed, "column").reshape(B, S, -1, hd)
-        v = _block_linear(block, lora, "wv", x, lcfg, seed, "column").reshape(B, S, -1, hd)
+        q = _block_linear(block, lora, "wq", x, lcfg, seed, col).reshape(B, S, -1, hd)
+        k = _block_linear(block, lora, "wk", x, lcfg, seed, col).reshape(B, S, -1, hd)
+        v = _block_linear(block, lora, "wv", x, lcfg, seed, col).reshape(B, S, -1, hd)
     else:
         # HF NeoX packs qkv per head: [B, S, H, 3, hd] (a column shard is a
         # run of whole heads)
-        qkv = _block_linear(block, lora, "w_qkv", x, lcfg, seed, "column").reshape(
+        qkv = _block_linear(block, lora, "w_qkv", x, lcfg, seed, col).reshape(
             B, S, -1, 3, hd)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     q = apply_rope(q, cos, sin, rotary_dim)
@@ -191,26 +197,27 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
     else:
         attn_out = attention(q, k, v, mask)
     attn_out = attn_out.reshape(B, S, -1)      # [B, S, local heads * hd]
-    out = _block_linear(block, lora, "wo", attn_out, lcfg, seed, "row_partial")
+    out = _block_linear(block, lora, "wo", attn_out, lcfg, seed, row)
     return out if mesh is None else psum_fwd_ident_bwd(out, mesh)
 
 
 def _mlp(cfg, block, lora, lcfg, x, seed=None):
-    mesh = shard_ctx_axes()
+    mesh = megatron_axis()
+    col, row = ("column", "row_partial") if mesh is not None else ("gather", "gather")
     if mesh is not None:
         x = ident_fwd_psum_bwd(x, mesh)
     down = "w_down" if cfg.arch == "llama" else "w_out"
     if cfg.arch == "llama":
-        g = _block_linear(block, lora, "w_gate", x, lcfg, seed, "column")
-        u = _block_linear(block, lora, "w_up", x, lcfg, seed, "column")
+        g = _block_linear(block, lora, "w_gate", x, lcfg, seed, col)
+        u = _block_linear(block, lora, "w_up", x, lcfg, seed, col)
         act = (F.gelu(g.float(), approximate="tanh") if cfg.hidden_act == "gelu_tanh"
                else F.silu(g.float()))
         h = (act * u.float()).to(torch.bfloat16)
     else:
-        h = _block_linear(block, lora, "w_fc", x, lcfg, seed, "column")
+        h = _block_linear(block, lora, "w_fc", x, lcfg, seed, col)
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(torch.bfloat16)
-    out = _block_linear(block, lora, down, h, lcfg, seed, "row_partial")
+    out = _block_linear(block, lora, down, h, lcfg, seed, row)
     return out if mesh is None else psum_fwd_ident_bwd(out, mesh)
 
 

@@ -1158,6 +1158,17 @@ def _backward(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return qmm_i8_bwd(g, qt) if qt.quant_type == "int8" else qmm_nf4_bwd(g, qt)
 
 
+def qmatmul_forward(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """``x @ dequant(qt)`` by the forward's dispatch alone: no autograd, no
+    tape (for callers that keep the product themselves)."""
+    return _forward(x, qt)
+
+
+def qmatmul_backward(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """``g @ dequant(qt)ᵀ`` by the backward's dispatch (the dx kernels)."""
+    return _backward(g, qt)
+
+
 class _QMatmul(torch.autograd.Function):
     """``x @ dequant(qt)`` with the JAX package's vjp: a gradient for x
     only; the backward re-dequantizes the frozen weight."""

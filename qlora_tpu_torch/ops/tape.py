@@ -11,7 +11,10 @@ the block's forward runs under :meth:`Tape.recording`, every call wrapped in
 tensors and launch nothing.  The wrapped calls are the base matmul of each
 block linear (``ops/qmatmul.py``, the JAX package's ``linear_out``; its
 LoRA term is recomputed) and flash attention's forward, o and lse
-(``ops/flash_attention.py``, JAX's ``attn_out``).  The recomputed forward
+(``ops/flash_attention.py``, JAX's ``attn_out``); under a tensor-parallel
+context also the forward collectives (``models/layers.py``: a linear's
+output gather, the row-parallel all-reduce, the fsdp gather with its
+product), so that the recomputed block makes none of them again.  The recomputed forward
 then runs only the elementwise work and the LoRA products, and builds the
 graph that the kernels' backward (dx, flash dq and dk/dv) is taken through.
 """

@@ -1,16 +1,24 @@
-"""Tensor parallelism: one process a rank under ``torch.distributed``.
+"""Parallelism over several ranks: one process a rank under
+``torch.distributed``.
 
-The serving half (ROADMAP A7a): the Megatron partition rules over K-sharded
-NF4 storage (``megatron_step``), the process group of a world on one host
-(``distributed``) and the tensor-parallel forward and caches
-(``tp_decode``), which ``PagedBatcher(tp_mesh=...)`` serves through.  The
-training half (data parallelism, ZeRO-1, the Megatron train step, ring
-attention) waits for ROADMAP A7b.
+* Serving (ROADMAP A7a): the Megatron partition rules over K-sharded NF4
+  storage (``megatron_step``), the tensor-parallel forward and caches
+  (``tp_decode``), which ``PagedBatcher(tp_mesh=...)`` serves through.
+* Training (ROADMAP A7b, first half): the dp×fsdp×tp step with fsdp weight
+  gathering and ZeRO-1 optimizer state (``sharded_step``, ``tp_step``) and
+  the Megatron train step (``megatron_step``), over a mesh of named axes
+  (``distributed.make_parallel_mesh``).  Ring attention, GSPMD full
+  finetuning and the multi-host ``initialize`` wait for A7b's second half.
 """
 
-from .distributed import TPMesh, destroy_process_group, init_process_group, run_ranks
+from .distributed import (
+    ParallelMesh, TPMesh, destroy_process_group, init_process_group, make_parallel_mesh,
+    mesh_coords, run_ranks,
+)
 from .megatron_step import (
     ROW_PARALLEL,
+    gather_megatron_tree,
+    init_megatron_state,
     make_megatron_train_step,
     megatron_lora_specs,
     megatron_param_specs,
@@ -19,6 +27,21 @@ from .megatron_step import (
     shard_tree,
     tree_to,
 )
+from .sharded_step import (
+    Zero1Layout,
+    full_opt_state,
+    init_sharded_train_state,
+    init_zero1_opt_state,
+    make_sharded_eval_step,
+    make_sharded_train_step,
+    opt_state_full_to_zero1,
+    opt_state_zero1_to_full,
+    shard_sharded_params,
+    sharded_param_specs,
+    zero1_chunk,
+    zero1_gather,
+)
+from .tp_step import make_tp_train_step, tp_param_specs
 from .tp_decode import (
     CACHE_SPECS,
     PAGED_CACHE_SPECS,
@@ -34,10 +57,17 @@ from .tp_decode import (
 )
 
 __all__ = [
-    "TPMesh", "destroy_process_group", "init_process_group", "run_ranks",
-    "ROW_PARALLEL", "make_megatron_train_step", "megatron_lora_specs",
+    "ParallelMesh", "TPMesh", "destroy_process_group", "init_process_group",
+    "make_parallel_mesh", "mesh_coords", "run_ranks",
+    "ROW_PARALLEL", "gather_megatron_tree", "init_megatron_state", "make_megatron_train_step",
+    "megatron_lora_specs",
     "megatron_param_specs", "requantize_row_parallel", "shard_params", "shard_tree",
     "tree_to",
+    "Zero1Layout", "full_opt_state", "init_sharded_train_state", "init_zero1_opt_state",
+    "make_sharded_eval_step", "make_sharded_train_step", "opt_state_full_to_zero1",
+    "opt_state_zero1_to_full", "shard_sharded_params", "sharded_param_specs", "zero1_chunk",
+    "zero1_gather",
+    "make_tp_train_step", "tp_param_specs",
     "CACHE_SPECS", "PAGED_CACHE_SPECS", "SHARD_KEY", "cut_rank_shards", "make_tp_forward_fn",
     "make_tp_mesh",
     "rank_shards", "shard_decode_params", "shard_lora", "shard_paged_cache", "shard_tp_cache",

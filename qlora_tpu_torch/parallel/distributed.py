@@ -20,8 +20,15 @@ cross the host.
 Rendezvous goes through a ``FileStore`` in a directory the caller names,
 never a TCP port, so that several worlds on one host cannot collide.
 :func:`run_ranks` starts a world's processes and gathers what each returns.
-The multi-host ``initialize`` and the data-parallel meshes of the JAX
-package belong to the training half of the port (ROADMAP A7b).
+
+Training runs over a mesh of named axes ``("dp", "fsdp", "tp")`` in the
+JAX package's device order (``reshape(dp, fsdp, tp)``, row-major: rank =
+(d·F + f)·T + t).  :func:`make_parallel_mesh` gives each axis, and the
+joint data axes ``("dp", "fsdp")``, a process group of its own, each seen
+by the rank as a :class:`TPMesh` (its rank on the axis, the axis' size,
+``all_reduce``, ``all_gather``), so that the conjugate operators run on
+any axis unchanged.  The multi-host ``initialize`` of the JAX package waits
+for the second half of ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -51,17 +58,24 @@ class TPMesh:
     device: torch.device
     backend: str
     disagreements: int = 0
+    collectives: int = 0
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's `x` (same shape and dtype on each); every
-        rank gets the same bits."""
+        rank gets the same bits.  A world of one returns a copy of `x` and
+        makes none."""
         t = x.clone()
-        dist.all_reduce(t, group=self.group)
+        if self.size > 1:
+            self.collectives += 1
+            dist.all_reduce(t, group=self.group)
         return t
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's `x` concatenated along `dim` in rank order."""
         t = x.contiguous()
+        if self.size == 1:
+            return t
+        self.collectives += 1
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim=dim)
@@ -93,10 +107,94 @@ def init_process_group(size: int, rank: int, *, backend: str, device, store_dir:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     store = dist.FileStore(os.path.join(store_dir, "store"), size)
+    # NCCL binds its communicators to the rank's card up front when it is
+    # named (without it, the first collective guesses the device)
+    extra = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(backend, store=store, rank=rank, world_size=size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=timeout_s), **extra)
     return TPMesh(rank=rank, size=size, group=dist.group.WORLD, device=device,
                   backend=backend)
+
+
+def mesh_coords(rank: int, dp: int, fsdp: int, tp: int) -> tuple:
+    """(d, f, t) of world rank `rank` on a ``reshape(dp, fsdp, tp)`` mesh."""
+    if not 0 <= rank < dp * fsdp * tp:
+        raise ValueError(f"rank {rank} outside a mesh of {dp} x {fsdp} x {tp}")
+    return rank // (fsdp * tp), (rank // tp) % fsdp, rank % tp
+
+
+@dataclasses.dataclass
+class ParallelMesh:
+    """One rank's view of a ``(dp, fsdp, tp)`` world: its world rank, the
+    axes' sizes, and a :class:`TPMesh` for each axis (``dp``, ``fsdp``,
+    ``tp``), for the joint data axes (``data``: rank d·F + f of dp·F) and
+    for the whole world (``world``)."""
+    rank: int
+    shape: dict
+    world: TPMesh
+    dp: TPMesh
+    fsdp: TPMesh
+    tp: TPMesh
+    data: TPMesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def backend(self) -> str:
+        return self.world.backend
+
+    def axis(self, name: str) -> TPMesh:
+        return getattr(self, name)
+
+    def collectives(self) -> dict:
+        """The collectives made so far, by axis (a world of one makes none)."""
+        return {a: self.axis(a).collectives for a in ("dp", "fsdp", "tp", "data", "world")}
+
+
+def _axis_groups(dp: int, fsdp: int, tp: int) -> dict:
+    """Every group of world ranks along each axis, in a fixed order."""
+    grid = [[[(d * fsdp + f) * tp + t for t in range(tp)] for f in range(fsdp)]
+            for d in range(dp)]
+    return {
+        "dp": [[grid[d][f][t] for d in range(dp)] for f in range(fsdp) for t in range(tp)],
+        "fsdp": [[grid[d][f][t] for f in range(fsdp)] for d in range(dp) for t in range(tp)],
+        "tp": [grid[d][f] for d in range(dp) for f in range(fsdp)],
+        "data": [[grid[d][f][t] for d in range(dp) for f in range(fsdp)] for t in range(tp)],
+    }
+
+
+def make_parallel_mesh(world: TPMesh, dp: int = 1, fsdp: int = 1, tp: int = 1) -> ParallelMesh:
+    """The ``(dp, fsdp, tp)`` mesh over an initialized world of dp·fsdp·tp
+    ranks.  Every rank creates every group (``dist.new_group`` is collective
+    over the world), in the same order; an axis of size 1 gets no group and
+    its collectives are identities, an axis of the whole world uses the
+    world's."""
+    if dp * fsdp * tp != world.size:
+        raise ValueError(f"a mesh of {dp} x {fsdp} x {tp} needs {dp * fsdp * tp} ranks, "
+                         f"the world has {world.size}")
+    sizes = {"dp": dp, "fsdp": fsdp, "tp": tp, "data": dp * fsdp}
+    views, made = {}, {}
+    for name, groups in _axis_groups(dp, fsdp, tp).items():
+        mine = None
+        for ranks in groups:
+            group = None
+            if 1 < sizes[name] < world.size:
+                # the data axes are dp's or fsdp's ranks when the other is 1:
+                # one group serves both
+                if tuple(ranks) not in made:
+                    made[tuple(ranks)] = dist.new_group(ranks)
+                group = made[tuple(ranks)]
+            if world.rank in ranks:
+                mine = (ranks.index(world.rank), group)
+        r, group = mine
+        if sizes[name] == world.size:
+            group = world.group
+        views[name] = TPMesh(rank=r, size=sizes[name], group=group, device=world.device,
+                             backend=world.backend)
+    return ParallelMesh(rank=world.rank, shape={"dp": dp, "fsdp": fsdp, "tp": tp},
+                        world=world, **views)
 
 
 def destroy_process_group() -> None:

@@ -18,8 +18,11 @@ A spec tree mirrors its params tree with, in place of each tensor, the
 dimension it splits over or None (whole on every rank); :func:`shard_tree`
 cuts a tree down to one rank's shard, and :func:`shard_params` cuts a
 params tree with each row-parallel linear quantized as the rank's K-chunk
-alone.  This is the serving half: the Megatron train step waits for
-ROADMAP A7b.
+alone.  Serving runs on these shards (``parallel/tp_decode.py``), and so
+does the Megatron train step (:func:`make_megatron_train_step`): the LoRA
+adapters and AdamW's moments sharded with their base linears
+(:func:`init_megatron_state`), gathered whole for checkpoints
+(:func:`gather_megatron_tree`).
 """
 
 from __future__ import annotations
@@ -50,13 +53,14 @@ def _check_packable(name: str, qt: QuantizedTensor, tp: int) -> None:
 def requantize_row_parallel(params: dict, tp: int) -> dict:
     """Re-pack the row-parallel linears with shard-local split-half packing
     over `tp` K-chunks (one dequantize and quantize of each, at set-up), on
-    the device they live on; every other tensor is shared."""
+    the device they live on; a linear already K-sharded over `tp` chunks,
+    and every other tensor, is shared as it is."""
     blocks = []
     for block in params["blocks"]:
         block = dict(block)
         for name in ROW_PARALLEL & set(block):
             lin = block[name]
-            if not isinstance(lin, QLinear):
+            if not isinstance(lin, QLinear) or lin.qt.k_shards == tp:
                 continue
             qt = lin.qt
             _check_packable(name, qt, tp)
@@ -118,7 +122,12 @@ def _cut(t: torch.Tensor, dim, rank: int, size: int, device) -> torch.Tensor:
         if n % size:
             raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide {size}")
         t = t.narrow(dim, rank * (n // size), n // size)
-    return t.to(device).clone(memory_format=torch.contiguous_format)
+    device = torch.device(device)
+    if t.device == device:
+        return t.clone(memory_format=torch.contiguous_format)
+    # made whole where it lives, then moved: a strided copy across devices is
+    # several times slower
+    return t.contiguous().to(device)
 
 
 def shard_tree(tree, specs, rank: int, size: int, device=None):
@@ -213,7 +222,125 @@ def tree_to(tree, device):
     return tree
 
 
-def make_megatron_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the Megatron train step (dp x tp, sharded optimizer state) is the training half "
-        "of tensor parallelism: ROADMAP A7b")
+def _spec_leaves(tree, specs) -> list:
+    """The spec of each tensor of `tree`, in ``tree_leaves`` order."""
+    if isinstance(tree, torch.Tensor):
+        return [specs]
+    if isinstance(tree, dict):
+        return [s for k, v in tree.items() for s in _spec_leaves(v, specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v, sp in zip(tree, specs) for s in _spec_leaves(v, sp)]
+    return []
+
+
+def _opt_specs_like(opt_state, lora_specs):
+    """The split dimension of each tensor of an optimizer state whose
+    moments follow the LoRA tree (AdamW's mu and nu); the count is whole.
+    The 8-bit state's blocks do not follow the shards: ValueError, as the
+    JAX CLI raises for adam8bit under Megatron."""
+    if isinstance(opt_state, dict) and set(opt_state) == {"count", "mu", "nu"}:
+        return {"count": None, "mu": lora_specs, "nu": lora_specs}
+    raise ValueError("the Megatron step's optimizer state follows the tp-sharded adapters: "
+                     "an AdamW-family optimizer only (adam8bit does not compose with "
+                     "tp_style=megatron)")
+
+
+def init_megatron_state(lora: list, optimizer, mesh, opt_state=None):
+    """Step 0 on this rank of a (dp, tp) mesh: its shard of the whole LoRA
+    tree by :func:`megatron_lora_specs` on its device, and the optimizer
+    state over that shard (made by the optimizer, or cut from `opt_state`,
+    a single-device state to resume)."""
+    from qlora_tpu_torch.parallel.sharded_step import _like_placement
+    from qlora_tpu_torch.train.step import TrainState
+
+    specs = megatron_lora_specs(lora)
+    t, T = mesh.tp.rank, mesh.shape["tp"]
+    shard = shard_tree(lora, specs, t, T, mesh.device)
+    fresh = optimizer.init(shard)
+    if opt_state is not None:
+        fresh = _like_placement(
+            shard_tree(opt_state, _opt_specs_like(opt_state, specs), t, T, mesh.device), fresh)
+    return TrainState(step=0, trainable=shard, opt_state=fresh)
+
+
+def gather_megatron_tree(tree, specs, tp):
+    """A tree of tp shards (the LoRA adapters, or AdamW's state) gathered
+    whole along each tensor's split dimension, the split tensors' bytes in
+    one all-gather (collective over `tp`: every rank calls it)."""
+    from qlora_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    leaves = tree_leaves(tree)
+    dims = _spec_leaves(tree, specs)
+    split = [j for j, d in enumerate(dims) if d is not None]
+    if not split or tp.size == 1:
+        return tree
+    raw = [leaves[j].detach().to(tp.device).contiguous().view(torch.uint8).reshape(-1)
+           for j in split]
+    whole = tp.all_gather(torch.cat(raw), dim=0).reshape(tp.size, -1)
+    out, at = list(leaves), 0
+    for j, r in zip(split, raw):
+        t = leaves[j]
+        parts = whole[:, at:at + r.numel()].contiguous().view(t.dtype).reshape(tp.size, *t.shape)
+        out[j] = torch.cat(list(parts.unbind(0)), dim=dims[j]).to(t.device)
+        at += r.numel()
+    return tree_unflatten(tree, out)
+
+
+def make_megatron_train_step(cfg, lcfg, optimizer, mesh, accum_steps: int = 1,
+                             clip_norm=0.3, remat="save_linear"):
+    """Returns ``train_step(state, frozen, batch, generator=None) -> (state,
+    metrics)`` for this rank of a (dp, tp) mesh (fsdp 1), the JAX package's
+    Megatron step: head-parallel attention, row-parallel output projections
+    over K-sharded storage, two all-reduces a block.
+
+    `frozen` is this rank's shard (:func:`shard_params` of a tree whose
+    row-parallel linears are re-packed by :func:`requantize_row_parallel`),
+    the state from :func:`init_megatron_state`.  `batch` is the global
+    batch; data rank d takes its B/dp rows.  The gradients are JAX's: the
+    tp-sharded leaves (column linears' B, row linears' A) are exact on
+    their rank and all-reduced over dp; the replicated halves (column A,
+    row B) see only this rank's partial path and are all-reduced over dp
+    and tp.  The global norm sums the sharded leaves' squares over tp;
+    `clip_norm` clips with it before the optimizer, whose own clip, on the
+    rank's shard, then does nothing."""
+    from qlora_tpu_torch.models.layers import tp_shard_context
+    from qlora_tpu_torch.parallel.sharded_step import _all_reduce_flat, _rows, local_grads
+    from qlora_tpu_torch.train.optimizer import apply_updates, tree_map, tree_unflatten
+    from qlora_tpu_torch.train.step import TrainState
+
+    if mesh.shape["fsdp"] != 1:
+        raise ValueError("tp_style=megatron requires mesh_fsdp=1 (compose fsdp via "
+                         "tp_style=gather)")
+    T = mesh.shape["tp"]
+    if cfg.num_heads % T or cfg.num_kv_heads % T:
+        raise ValueError(f"heads ({cfg.num_heads}/{cfg.num_kv_heads}) must divide tp={T}")
+
+    def ctx():
+        return tp_shard_context(mesh.tp, None, "megatron")
+
+    def train_step(state, frozen, batch, generator=None):
+        rows = _rows(batch, mesh.dp.rank, mesh.shape["dp"], accum_steps)
+        g_local, loss = local_grads(cfg, lcfg, state.trainable, frozen, rows, accum_steps,
+                                    mesh.dp, remat, generator, ctx)
+        sharded = [s is not None for s in _spec_leaves(state.trainable,
+                                                       megatron_lora_specs(state.trainable))]
+        sh = _all_reduce_flat([g for g, s in zip(g_local, sharded) if s], mesh.dp)
+        rep = _all_reduce_flat([g for g, s in zip(g_local, sharded) if not s], mesh.world)
+        it_sh, it_rep = iter(sh), iter(rep)
+        g_leaves = [next(it_sh) if s else next(it_rep) for s in sharded]
+        with torch.no_grad():
+            sq = lambda gs: torch.stack([g.square().sum() for g in gs]).sum() if gs \
+                else torch.zeros((), device=mesh.device)
+            gnorm = torch.sqrt(mesh.tp.all_reduce(sq(sh)) + sq(rep))
+            if clip_norm is not None:
+                scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
+                g_leaves = [g * scale for g in g_leaves]
+            grads = tree_unflatten(state.trainable, g_leaves)
+            params = tree_map(lambda p: p.detach(), state.trainable)
+            updates, opt_state = optimizer.update(grads, state.opt_state, params)
+            del grads
+            new = TrainState(step=state.step + 1, trainable=apply_updates(params, updates),
+                             opt_state=opt_state)
+        return new, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step

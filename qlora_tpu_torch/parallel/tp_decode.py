@@ -131,7 +131,7 @@ def make_tp_forward_fn(cfg: ModelConfig, lcfg: LoraConfig, mesh: TPMesh, paged: 
             raise ValueError(f"a {'paged' if paged else 'contiguous'} cache has {want}, "
                              f"got {sorted(cache)}")
         ctx = default_impl(impl) if impl else contextlib.nullcontext()
-        with tp_shard_context(mesh), ctx:
+        with tp_shard_context(mesh, style="megatron"), ctx:
             return forward(params, lora, ids.to(mesh.device), cfg, lcfg, cache=cache)
 
     return fn

@@ -40,7 +40,8 @@ def test_scan_covers_the_port():
                   "generate/speculative.py", "eval/judge.py", "eval/baseline.py",
                   "examples/web_demo.py", "scripts/convert_checkpoint.py",
                   "parallel/__init__.py", "parallel/distributed.py", "parallel/megatron_step.py",
-                  "parallel/tp_decode.py", "examples/serve_tp.py"):
+                  "parallel/tp_decode.py", "examples/serve_tp.py", "parallel/sharded_step.py",
+                  "parallel/tp_step.py"):
         assert ROOT / "qlora_tpu_torch" / entry in FILES
 
 

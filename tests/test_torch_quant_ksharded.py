@@ -13,6 +13,7 @@ codes within ±1 and each meta-scale within the offset's ulp and its own).  A K-
 dequantizes bit for bit."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -371,5 +372,7 @@ def test_unpackable_k_chunks_and_the_train_step_say_what_to_do():
         requantize_row_parallel(params, 4)        # w_down: 160-row chunks
     with pytest.raises(ValueError, match="pad_intermediate_to"):
         shard_params(params, 0, 4)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        make_megatron_train_step()
+    # the Megatron train step has no fsdp axis: it names the style that does
+    mesh = types.SimpleNamespace(shape={"dp": 1, "fsdp": 2, "tp": 2})
+    with pytest.raises(ValueError, match="tp_style=gather"):
+        make_megatron_train_step(cfg, None, None, mesh)
