@@ -196,8 +196,8 @@ them.  Phases, each failing the run on any mismatch or exception:
    written by a few lines here, through ``load_hf_model`` onto the card and
    onto the CPU: prefill logits within LOGIT_TOL.  Sizes and seconds are
    printed beside the card's name and power limit.
-21. cli (after train-data): the driver, ``qlora_tpu_torch.cli.main(argv)``
-   in process, on ``huggyllama/llama-7b`` at full width and depth
+21. cli (the second process's first phase): the driver,
+   ``qlora_tpu_torch.cli.main(argv)`` in process, on ``huggyllama/llama-7b`` at full width and depth
    (``--init_random --fake_tokenizer``, dropout 0) over an alpaca .jsonl of
    64 examples (8 held out), on the train cell's shapes (2 x 512: source 384
    + target 128, 2 micro-batches a step, no length grouping).  Run A takes 6
@@ -322,6 +322,20 @@ them.  Phases, each failing the run on any mismatch or exception:
    decode kernel at M = 4 on a rank's shard shapes (``TP_QMM_SHAPES``), and
    checks ``qmatmul`` of a whole K-sharded tensor on the card (one decode
    launch a chunk) against its plain version.
+26. train-mesh (after both processes below): LoRA finetuning over four
+   ranks through ``cli.train`` at LLaMA-7B full width and depth, the gather
+   style at (dp, fsdp, tp) = (1, 2, 2) and Megatron at (2, 1, 2), each
+   against the single card on the same weights and stream
+   (``train_mesh_phase``); then train-full.
+
+Two processes share the card after the kernel phases: this one runs parity
+to train-data, while a second (``chip_smoke.py lane``, started by
+``start_lane``) runs cli, serve-http, examples, tp, train-int8 and
+train-gemma (``LANE``) and hands back their launch counts and stats.  The
+kernels are timed before it starts, on an idle card; the host times of the
+phases of either process are taken beside the other's.  A failure in
+either fails the run, and the second process and everything it started end
+with the first (its own process group).
 
 The last two lines are the ``kernels`` JSON object and the result line.
 
@@ -6216,6 +6230,104 @@ def serve_w8a8_only(dev) -> None:
           f"{stats['tok_s']:.1f} tok/s", flush=True)
 
 
+def train_int8_phase(dev):
+    """train-int8: train-parity and train over an int8 base.  Returns the
+    train phase's (counts, per-step counts, stats)."""
+    t0 = time.perf_counter()
+    worst = train_parity_phase(dev, "int8")
+    counts, per_step, stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)
+    print(f"train-int8: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, per_step, stats
+
+
+def timed_gemma_phase(dev):
+    t0 = time.perf_counter()
+    out = train_gemma_phase(dev)
+    print(f"train-gemma: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# the phases of the second process (``start_lane``), in its order: host-bound
+# single-card phases, and tp, whose ranks wait on their collectives.  The main
+# process runs parity to train-data beside them; on the 80 GB card the two
+# sequences' peaks (tp's ~22 GiB, train-gemma's 37, the main sequence's 24 at
+# most) fit together, while train-mesh (~60 GiB over its eight ranks and the
+# single card) and train-full (69 GiB) run alone after both
+LANE = (("cli", lambda dev, card: cli_phase(dev, card)),
+        ("serve-http", lambda dev, card: serve_http_phase(dev, card)),
+        ("examples", lambda dev, card: examples_phase(dev, card)),
+        ("tp", lambda dev, card: tp_phase(dev, card)),
+        ("train-int8", lambda dev, card: train_int8_phase(dev)),
+        ("train-gemma", lambda dev, card: timed_gemma_phase(dev)))
+
+
+def lane_main(dev, out_path, card):
+    """The second process: LANE's phases in order, their results pickled to
+    `out_path`.  It leads a process group of its own (its ranks join it) and
+    ends that group if its parent goes away."""
+    import os
+    import pickle
+    import signal
+    import threading
+
+    parent = os.getppid()
+
+    def watch():
+        while True:
+            time.sleep(2.0)
+            if os.getppid() != parent:
+                os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=watch, daemon=True).start()
+    t0 = time.perf_counter()
+    out = {}
+    for name, phase in LANE:
+        out[name] = phase(dev, card)
+        gc_cuda()
+    out["lane_s"] = time.perf_counter() - t0
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def start_lane(card):
+    """Start LANE's phases in a second process (``chip_smoke.py lane``)."""
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_lane_", suffix=".pkl")
+    os.close(fd)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "lane", path, card],
+                            process_group=0)
+    return proc, path
+
+
+def finish_lane(lane):
+    """Wait for the second process; its phases' results."""
+    import pickle
+
+    proc, path = lane
+    rc = proc.wait()
+    if rc != 0:
+        fail(f"the second process ({', '.join(n for n, _ in LANE)}) exited with code {rc}")
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def stop_lane(lane):
+    """End the second process and every process it started, if it still runs."""
+    import os
+    import signal
+
+    proc, path = lane
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    if os.path.exists(path):
+        os.unlink(path)
+
+
 def main() -> int:
     import torch
 
@@ -6230,6 +6342,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if sys.argv[1:2] == ["lane"] and len(sys.argv) == 4:    # start_lane's second process
+        from qlora_tpu_torch.ops import _build
+
+        _build.build_all()
+        return lane_main(dev, sys.argv[2], sys.argv[3])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -6276,70 +6393,74 @@ def main() -> int:
     t0 = time.perf_counter()
     paged_kernel_phase(dev, results)
     print(f"kernels-paged: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    worst = parity_phase(dev)
-    print(f"parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    worst = parity_phase(dev, "int8")
-    print(f"parity-i8base: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    worst = {}
-    for seed in PARITY_INT8_SEEDS:
-        w, _ = parity_int8_phase(dev, seed)
-        worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
-    print(f"parity-int8: over seeds {PARITY_INT8_SEEDS}, worst max|logits cpu - card| "
-          f"{worst['free']:.4g} <= {W8A8_LOGIT_TOL}, on the CPU's row codes "
-          f"{worst['replayed']:.4g} <= {LOGIT_TOL}, int8 against exact "
-          f"{worst['of_exact']:.4f} < {INT8_LOGIT_BAND}; {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    worst = paged_parity_phase(dev)
-    print(f"paged-parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    (serve_counts, serve_stats, int8_counts, int8_stats,
-     (paged_counts, paged_stats, paged8_counts, paged8_stats, pagedw_counts, pagedw_stats),
-     (spec_counts, spec_stats), (search_counts, search_stats)) = serve_phase(dev)
-    print(f"serve, serve-int8, search, serve-paged and serve-paged-spec: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    i8base_counts, i8base_stats = serve_i8base_phase(dev, serve_stats)
-    print(f"serve-i8base: {time.perf_counter() - t0:.1f} s", flush=True)
-    nodq_counts = nodq_phase(dev)
-    t0 = time.perf_counter()
-    worst = train_parity_phase(dev)
-    print(f"train-parity: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    train_counts, train_per_step, train_stats, made = train_phase(dev)
-    print(f"train: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    remat_runs = train_remat_phase(dev, made, train_stats)
-    print(f"train remat: {time.perf_counter() - t0:.1f} s", flush=True)
-    train_data_phase(dev, made, card)
-    del made
-    torch.cuda.empty_cache()
-    cli_counts, cli_stats = cli_phase(dev, card)
-    gc_cuda()
-    http_counts, http_stats = serve_http_phase(dev, card)
-    gc_cuda()
-    examples_counts, examples_stats = examples_phase(dev, card)
-    gc_cuda()
-    tp_counts, tp_stats = tp_phase(dev, card)
+    # parity to train-data in this process; LANE's phases in a second one
+    # beside them, started once the kernels have been timed on an idle card
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))    # so that stop_lane runs
+    t_lanes = time.perf_counter()
+    lane = start_lane(card)
+    try:
+        t0 = time.perf_counter()
+        worst = parity_phase(dev)
+        print(f"parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        worst = parity_phase(dev, "int8")
+        print(f"parity-i8base: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        worst = {}
+        for seed in PARITY_INT8_SEEDS:
+            w, _ = parity_int8_phase(dev, seed)
+            worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+        print(f"parity-int8: over seeds {PARITY_INT8_SEEDS}, worst max|logits cpu - card| "
+              f"{worst['free']:.4g} <= {W8A8_LOGIT_TOL}, on the CPU's row codes "
+              f"{worst['replayed']:.4g} <= {LOGIT_TOL}, int8 against exact "
+              f"{worst['of_exact']:.4f} < {INT8_LOGIT_BAND}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        worst = paged_parity_phase(dev)
+        print(f"paged-parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        (serve_counts, serve_stats, int8_counts, int8_stats,
+         (paged_counts, paged_stats, paged8_counts, paged8_stats, pagedw_counts, pagedw_stats),
+         (spec_counts, spec_stats), (search_counts, search_stats)) = serve_phase(dev)
+        print(f"serve, serve-int8, search, serve-paged and serve-paged-spec: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        i8base_counts, i8base_stats = serve_i8base_phase(dev, serve_stats)
+        print(f"serve-i8base: {time.perf_counter() - t0:.1f} s", flush=True)
+        nodq_counts = nodq_phase(dev)
+        t0 = time.perf_counter()
+        worst = train_parity_phase(dev)
+        print(f"train-parity: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        train_counts, train_per_step, train_stats, made = train_phase(dev)
+        print(f"train: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        remat_runs = train_remat_phase(dev, made, train_stats)
+        print(f"train remat: {time.perf_counter() - t0:.1f} s", flush=True)
+        train_data_phase(dev, made, card)
+        del made
+        torch.cuda.empty_cache()
+        main_s = time.perf_counter() - t_lanes
+        lane_out = finish_lane(lane)
+    finally:
+        stop_lane(lane)
+    print(f"two processes: this one's phases {main_s:.1f} s, the second's "
+          f"({', '.join(n for n, _ in LANE)}) {lane_out['lane_s']:.1f} s, both "
+          f"{time.perf_counter() - t_lanes:.1f} s", flush=True)
+    cli_counts, cli_stats = lane_out["cli"]
+    http_counts, http_stats = lane_out["serve-http"]
+    examples_counts, examples_stats = lane_out["examples"]
+    tp_counts, tp_stats = lane_out["tp"]
+    train8_counts, train8_per_step, train8_stats = lane_out["train-int8"]
+    gemma_counts, gemma_per_step, gemma_stats = lane_out["train-gemma"]
     gc_cuda()
     mesh_counts, mesh_stats = train_mesh_phase(dev, card)
-    gc_cuda()
-    t0 = time.perf_counter()
-    worst = train_parity_phase(dev, "int8")
-    train8_counts, train8_per_step, train8_stats, _ = train_phase(dev, "int8", TRAIN_INT8_STEPS)
-    print(f"train-int8: worst gradient difference {worst:.4g} <= {GRAD_TOL}, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    gc_cuda()     # reference cycles of earlier phases hold their models until collected
-    t0 = time.perf_counter()
-    gemma_counts, gemma_per_step, gemma_stats = train_gemma_phase(dev)
-    print(f"train-gemma: {time.perf_counter() - t0:.1f} s", flush=True)
     gc_cuda()
     t0 = time.perf_counter()
     full_counts, full_stats = train_full_phase(dev)
