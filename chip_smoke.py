@@ -326,7 +326,19 @@ them.  Phases, each failing the run on any mismatch or exception:
    ranks through ``cli.train`` at LLaMA-7B full width and depth, the gather
    style at (dp, fsdp, tp) = (1, 2, 2) and Megatron at (2, 1, 2), each
    against the single card on the same weights and stream
-   (``train_mesh_phase``); then train-full.
+   (``train_mesh_phase``); then train-sp, then train-full.
+27. train-sp (after train-mesh): ring-attention sequence parallelism
+   through ``cli.train`` at LLaMA-7B full width and depth on the
+   long-context recipe's S = 8192, the recipe's ring (1, 1, 1, 4) at batch
+   1 and the weight-sharded ring (1, 2, 1, 2) with ZeRO-1 at batch 2, each
+   against the single card on the same weights and stream
+   (``train_sp_phase``): losses and grad norms, adapters bit-equal on every
+   rank, every rank's launches exact (its flash chunks rank-dependent),
+   rotations a step, each rank's activation peak against the single
+   card's.  The kernels phase holds the flash kernels at the ring's chunk
+   shapes (``ring_kernel_phase``: a non-causal chunk, the causal diagonal,
+   both backward on the merged lse and di) against their plain versions and
+   times them beside SDPA.
 
 Two processes share the card after the kernel phases: this one runs parity
 to train-data, while a second (``chip_smoke.py lane``, started by
@@ -348,7 +360,8 @@ train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
 (on weights of its own), and ``python3 chip_smoke.py cli``,
 ``python3 chip_smoke.py serve-http`` and ``python3 chip_smoke.py search``
 (serve's weights, its greedy ``generate()`` and serving tree made first),
-``python3 chip_smoke.py examples`` and ``python3 chip_smoke.py tp`` those
+``python3 chip_smoke.py examples``, ``python3 chip_smoke.py tp`` and
+``python3 chip_smoke.py train-sp`` (the ring's chunk kernels first) those
 phases alone.
 """
 
@@ -515,6 +528,16 @@ MESH_M = TRAIN_MICRO[1]          # a data rank's rows a micro-batch: 1 x 512
 # a rank's NF4 linears, (K, N): the gather style's tp shards gathered over fsdp (q/k/v/o,
 # gate/up, down), the Megatron column shards and row K-chunks (wo, w_down)
 MESH_QMM_SHAPES = ((4096, 2048), (4096, 5504), (11008, 2048), (2048, 4096), (5504, 4096))
+
+# train-sp: the long-context recipe (scripts/finetune_longcontext_sp.sh) through cli.train
+SP_SOURCE, SP_TARGET = 2048, 6144        # the recipe's lengths: S = 8192, every token real
+SP_STEPS = 2                             # optimizer steps a run, from MESH_START's checkpoint
+# (tag, flags, global batch): run 1 the recipe's ring of 4 (2048 positions a rank, batch 1);
+# run 2 the weight-sharded ring, ZeRO-1 over fsdp 2, which is also a batch axis (a row a
+# data rank: batch 2), 4096 positions a rank
+SP_RUNS = (("run 1", ("--mesh_sp", "4"), 1),
+           ("run 2", ("--mesh_fsdp", "2", "--mesh_sp", "2"), 2))
+SP_CHUNK = (1, 32, 32, 128, 2048)        # B, H, KVH, hd, S of a run-1 rank's ring chunk
 
 FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse cotangent
     (2, 32, 32, 128, 512, (512, 300), None, False, False),   # the train run's shape
@@ -765,18 +788,20 @@ def attn_bound(B, H, KVH, hd, lens, T, window):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_bounds(B, H, KVH, hd, S, lens, window):
+def flash_bounds(B, H, KVH, hd, S, lens, window, causal=True):
     """(bound_ms, bound_by) for flash_fwd, flash_bwd_dq, flash_bwd_dkv: each
     input read once and each output written once, and the products over the
-    (query, key) pairs that these lengths and this window leave visible
-    (2 products forward, 3 for dq, 4 for dk and dv; 2 * hd operations each)."""
+    (query, key) pairs that these lengths, causality and this window leave
+    visible (2 products forward, 3 for dq, 4 for dk and dv; 2 * hd
+    operations each)."""
     import numpy as np
 
     row = np.arange(S)
     pairs = 0
     for n in lens:
         lo = np.maximum(0, row - window + 1) if window else 0
-        pairs += int(np.maximum(0, np.minimum(row + 1, n) - lo).sum())
+        hi = np.minimum(row + 1, n) if causal else np.full(S, n)
+        pairs += int(np.maximum(0, hi - lo).sum())
     qo = B * H * S * hd * 2            # q, o, do or dq: bf16 [B, H, S, hd]
     kv = B * KVH * S * hd * 2          # k, v, dk or dv
     stat = B * H * S * 4               # lse or di, f32
@@ -1499,6 +1524,111 @@ def causal_sdpa(dev, sets, B, H, hd, S, sm):
           f"mask (PyTorch's flash backend): forward {lib_fwd:.4f} ms with events, {lib_graph:.4f} "
           f"in a graph, against the wgmma kernel's {fwd:.4f} (graph); whole backward "
           f"{lib_bwd:.4f} ms (events) against dq + dk/dv {bwd:.4f} (graphs)", flush=True)
+
+
+def ring_kernel_phase(dev, results):
+    """The flash kernels at the ring's chunk shapes (train-sp run 1: a rank's
+    2048 queries over a shard of 2048 keys, B=1 H=32 hd=128), each against
+    its plain version on the same inputs and timed beside it, SDPA and the
+    bound: the forward over an earlier shard (non-causal, full length), the
+    forward over the rank's own shard (the causal diagonal), and both
+    chunks' backward fed the MERGED lse and di = sum(o * do) of the two
+    chunks' combined output, as ``ops/ring_attention.py`` feeds them (no
+    chunk of length 0 is launched: a rank skips the shards after its own).
+    Returns the forward time of each chunk kind, for the phase's split."""
+    import torch
+    import torch.nn.functional as F
+
+    from qlora_tpu_torch.ops import (
+        flash_bwd_dkv, flash_bwd_dq, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+    )
+    from qlora_tpu_torch.ops.ring_attention import _merge
+
+    B, H, KVH, hd, S = SP_CHUNK
+    sm = hd ** -0.5
+    g = torch.Generator(device=dev).manual_seed(2468)
+    mk = lambda *sh: torch.randn(*sh, device=dev, generator=g).to(torch.bfloat16)
+    q, do = mk(B, H, S, hd), mk(B, H, S, hd)
+    kv = {"earlier": (mk(B, KVH, S, hd), mk(B, KVH, S, hd)),
+          "diagonal": (mk(B, KVH, S, hd), mk(B, KVH, S, hd))}
+    causal = {"earlier": False, "diagonal": True}
+    L = torch.full((B,), S, device=dev, dtype=torch.int32)
+    plain = {c: flash_fwd_plain(q, *kv[c], L, sm, causal[c], None) for c in kv}
+    ninf = lambda lse: torch.where(lse > 1e37, torch.full_like(lse, float("-inf")), lse)
+    lse_m, o_m = _merge(ninf(plain["diagonal"][1]), plain["diagonal"][0].float(),
+                        ninf(plain["earlier"][1]), plain["earlier"][0].float())
+    o_m = o_m.to(torch.bfloat16)
+    di = (o_m.float() * do.float()).sum(-1)
+
+    def excess(got, ref, dims):
+        d = (got.float() - ref.float()).abs()
+        tol = FLASH_TOL * ref.float().abs().amax(dims, keepdim=True)
+        return d.max().item(), (d - tol).max().item()
+
+    n_sets = copies_past_l2(4 * q.nbytes + 2 * kv["earlier"][0].nbytes)
+    copy = lambda: (q.clone(), do.clone(), {c: tuple(t.clone() for t in kv[c]) for c in kv})
+    sets = [(q, do, kv)] + [copy() for _ in range(n_sets - 1)]
+    pick = lambda i: sets[i % n_sets]
+    fwd_ms = {}
+    for chunk in ("earlier", "diagonal"):
+        cz = causal[chunk]
+        k, v = kv[chunk]
+        wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+        n0 = [w.wgmma_launches for w in wrappers]
+        o, lse = flash_fwd(q, k, v, L, sm, cz, None)
+        dq = flash_bwd_dq(q, k, v, L, do, lse_m, di, sm, cz, None)
+        dk, dv = flash_bwd_dkv(q, k, v, L, do, lse_m, di, sm, cz, None)
+        torch.cuda.synchronize()
+        if [w.wgmma_launches - a for w, a in zip(wrappers, n0)] != [1, 1, 1]:
+            fail(f"ring chunk {chunk}: not one launch each on the wgmma kernels")
+        rq, rk, rv = flash_bwd_plain(q, k, v, L, o_m, lse_m, do, sm, cz, None)
+        ek, ev = excess(dk, rk, (-2, -1)), excess(dv, rv, (-2, -1))
+        errs = {"flash_fwd": excess(o, plain[chunk][0], -1),
+                "flash_bwd_dq": excess(dq, rq, (-2, -1)),
+                "flash_bwd_dkv": (max(ek[0], ev[0]), max(ek[1], ev[1]))}
+        lse_err = (lse - plain[chunk][1]).abs().max().item()
+        ms = {"flash_fwd": graph_ms(lambda i: flash_fwd(pick(i)[0], *pick(i)[2][chunk], L, sm, cz,
+                                                        None), 50),
+              "flash_bwd_dq": graph_ms(lambda i: flash_bwd_dq(pick(i)[0], *pick(i)[2][chunk], L,
+                                                              pick(i)[1], lse_m, di, sm, cz,
+                                                              None), 50),
+              "flash_bwd_dkv": graph_ms(lambda i: flash_bwd_dkv(pick(i)[0], *pick(i)[2][chunk], L,
+                                                                pick(i)[1], lse_m, di, sm, cz,
+                                                                None), 50)}
+        fwd_ms[chunk] = ms["flash_fwd"]
+        plain_fwd = cuda_ms(lambda i: flash_fwd_plain(pick(i)[0], *pick(i)[2][chunk], L, sm, cz,
+                                                      None), 5)
+        plain_bwd = cuda_ms(lambda i: flash_bwd_plain(pick(i)[0], *pick(i)[2][chunk], L, o_m,
+                                                      lse_m, pick(i)[1], sm, cz, None), 5)
+        sdpa = lambda qq, kk, vv: F.scaled_dot_product_attention(qq, kk, vv, is_causal=cz,
+                                                                 scale=sm)
+        lib_fwd = cuda_ms(lambda i: sdpa(pick(i)[0], *pick(i)[2][chunk]), 50)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves)
+        lib_bwd = cuda_ms(lambda i: torch.autograd.grad(out, leaves, pick(i)[1],
+                                                        retain_graph=True), 20)
+        bounds = flash_bounds(B, H, KVH, hd, S, (S,), None, causal=cz)
+        shape = (f"ring chunk {chunk}: B={B} H={H} KVH={KVH} hd={hd} Sq=Sk={S} "
+                 f"{'causal' if cz else 'non-causal'}; backward on the merged lse, di")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            fwd = name == "flash_fwd"
+            results.append(dict(name=name, shape=shape, max_abs_err=errs[name][0], ms=ms[name],
+                                plain_ms=plain_fwd if fwd else plain_bwd,
+                                library_ms=lib_fwd if fwd else lib_bwd,
+                                bound_ms=bounds[name][0], bound_by=bounds[name][1]))
+            print(f"kernel {name} {shape}: max|d|={errs[name][0]:.3g} (tol {FLASH_TOL}*max|ref|) "
+                  f"ms={ms[name]:.4f} (graph) plain_ms={plain_fwd if fwd else plain_bwd:.4f} "
+                  f"library_ms={lib_fwd if fwd else lib_bwd:.4f} (SDPA, "
+                  f"{'forward' if fwd else 'whole backward'}) bound_ms={bounds[name][0]:.4f} "
+                  f"({bounds[name][1]})", flush=True)
+        print(f"  lse max|d|={lse_err:.3g} (tol {LSE_TOL})", flush=True)
+        bad = [n for n, (_, ex) in errs.items() if ex > 0]
+        if bad or lse_err > LSE_TOL:
+            fail(f"ring chunk {chunk}: {bad} differ from their plain versions ({errs}), "
+                 f"lse {lse_err}")
+        del leaves, out
+    del sets
+    return fwd_ms
 
 
 def int8_bound(M, K, N, weight_bytes, peak_ops, act_bytes):
@@ -5144,27 +5274,27 @@ def together(*fns):
     return [value for _, value in out]
 
 
-def mesh_agree(tag, got, ref, falls=True):
+def mesh_agree(tag, got, ref, falls=True, phase="train-mesh"):
     """Each step's loss and grad norm of a mesh run against the single
     card's, and (`falls`) the loss falling; returns the worst relative
     differences."""
     pick = lambda m: [(h["step"], h["loss"], h["grad_norm"]) for h in m["train_metrics"]]
     g, r = pick(got), pick(ref)
     if [s for s, _, _ in g] != [s for s, _, _ in r]:
-        fail(f"train-mesh {tag}: steps {g} against the single card's {r}")
+        fail(f"{phase} {tag}: steps {g} against the single card's {r}")
     dl = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, r))
     dg = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(g, r))
-    print(f"train-mesh {tag}: losses " + ", ".join(f"{x[1]:.6f}" for x in g) + " (single card "
+    print(f"{phase} {tag}: losses " + ", ".join(f"{x[1]:.6f}" for x in g) + " (single card "
           + ", ".join(f"{x[1]:.6f}" for x in r) + "), grad norms " + ", ".join(
               f"{x[2]:.5f}" for x in g) + " (single card " + ", ".join(f"{x[2]:.5f}" for x in r)
           + f"); worst relative difference {dl:.3g} (loss, <= {MESH_LOSS_RTOL}), {dg:.3g} (grad "
           f"norm, <= {MESH_GNORM_RTOL})", flush=True)
     if dl > MESH_LOSS_RTOL or dg > MESH_GNORM_RTOL:
-        fail(f"train-mesh {tag}: a step's loss or grad norm differs from the single card's "
+        fail(f"{phase} {tag}: a step's loss or grad norm differs from the single card's "
              f"({dl:.3g} > {MESH_LOSS_RTOL} or {dg:.3g} > {MESH_GNORM_RTOL})")
     losses = [x[1] for x in g]
     if not all_finite(losses) or (falls and not losses[-1] < losses[0]):
-        fail(f"train-mesh {tag}: the losses {losses} are not finite and falling")
+        fail(f"{phase} {tag}: the losses {losses} are not finite and falling")
     return dl, dg
 
 
@@ -5172,6 +5302,35 @@ def all_finite(values) -> bool:
     import math
 
     return all(math.isfinite(v) for v in values)
+
+
+def loop_times(m, called, took):
+    """Where a mesh run's `took` seconds since `called` (``time.time()``)
+    went: before rank 0's loop (the ranks' start, their shards written and
+    read), the loop, after it (the checkpoint gathered and written, the
+    ranks' end); "" for a single-card run."""
+    if "mesh_report" not in m:
+        return ""
+    r0 = m["mesh_report"][0]
+    return (f" (before the ranks' loop {r0['started'] - called:.1f} s, of which the ranks' start "
+            f"{max(r['entered'] for r in m['mesh_report']) - called:.1f} s, the loop "
+            f"{r0['ended'] - r0['started']:.1f} s, after it {called + took - r0['ended']:.1f} s)")
+
+
+def seed_run(start, out):
+    """Directory `out` holding checkpoint `start` (hard links): a run that
+    resumes from it."""
+    import os
+
+    dst = Path(out) / Path(start).name
+    for path in Path(start).rglob("*"):
+        target = dst / path.relative_to(start)
+        if path.is_dir():
+            target.mkdir(parents=True, exist_ok=True)
+        else:
+            target.parent.mkdir(parents=True, exist_ok=True)
+            os.link(path, target)
+    return out
 
 
 def train_mesh_phase(dev, card=""):
@@ -5234,16 +5393,7 @@ def train_mesh_phase(dev, card=""):
         del lora_r, opt_r
         build_s = time.perf_counter() - t0
 
-        def seeded(tag):
-            dst = Path(out(tag)) / Path(start).name
-            for path in Path(start).rglob("*"):
-                target = dst / path.relative_to(start)
-                if path.is_dir():
-                    target.mkdir(parents=True, exist_ok=True)
-                else:
-                    target.parent.mkdir(parents=True, exist_ok=True)
-                    os.link(path, target)
-            return out(tag)
+        seeded = lambda tag: seed_run(start, out(tag))
 
         def run(tag, argv, **kw):
             torch.cuda.synchronize()
@@ -5252,14 +5402,7 @@ def train_mesh_phase(dev, card=""):
             m = cli.train(cli.parse_args(argv), **kw)
             torch.cuda.synchronize()
             stats[f"{tag}_s"] = time.perf_counter() - t0
-            where = ""
-            if "mesh_report" in m:      # rank 0's loop, and what came before and after it
-                r0 = m["mesh_report"][0]
-                where = (f" (before the ranks' loop {r0['started'] - called:.1f} s, of which the "
-                         f"ranks' start {max(r['entered'] for r in m['mesh_report']) - called:.1f}"
-                         f" s, the loop "
-                         f"{r0['ended'] - r0['started']:.1f} s, after it "
-                         f"{called + stats[f'{tag}_s'] - r0['ended']:.1f} s)")
+            where = loop_times(m, called, stats[f"{tag}_s"])
             print(f"train-mesh {tag}: {stats[f'{tag}_s']:.1f} s{where}, steps " + ", ".join(
                 f"{h['seconds_per_step']:.2f}" for h in m["train_metrics"]) + " s", flush=True)
             gc_cuda()
@@ -5363,6 +5506,292 @@ def train_mesh_phase(dev, card=""):
           f"{max(d1[1], d2[1]):.3g}", flush=True)
     return dict(total), dict(phase_s=phase_s, backend=backend, runs=summary,
                              worst=(max(d1[0], d2[0]), max(d1[1], d2[1])))
+
+
+def long_alpaca_jsonl(path, n, seed):
+    """`n` seeded alpaca examples from DATA_WORDS long enough for the
+    long-context recipe: under FakeTokenizer (a token a byte) each prompt
+    runs past SP_SOURCE and each output past SP_TARGET, so that the
+    collator cuts both and all 8192 positions hold real tokens (the
+    prompt's labels ignored, the output's counted)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def text(chars):
+        words = []
+        while sum(len(w) + 1 for w in words) < chars:
+            words.append(str(rng.choice(DATA_WORDS)))
+        return " ".join(words)
+
+    with open(path, "w") as f:
+        for _ in range(n):
+            f.write(json.dumps({"instruction": text(40), "input": text(SP_SOURCE + 200),
+                                "output": text(SP_TARGET + 200)}) + "\n")
+
+
+def sp_argv(data, out, steps, dev, batch, *extra):
+    """train-sp's command line: the long-context recipe's lengths (source
+    2048 + target 6144, no length grouping: every row S = 8192) at LLaMA-7B
+    with serve's seed, `batch` rows a step and no accumulation, the `batch`
+    training examples every step sees again (so that the loss shows the
+    update of the step before), remat "full" (JAX's sp step's own default:
+    the least activation memory), a checkpoint only at the end, no eval."""
+    return ["--model_name_or_path", CLI_MODEL, "--init_random", "--fake_tokenizer",
+            "--dataset", data, "--output_dir", out, "--device", str(dev),
+            "--per_device_train_batch_size", str(batch), "--gradient_accumulation_steps", "1",
+            "--source_max_len", str(SP_SOURCE), "--target_max_len", str(SP_TARGET),
+            "--group_by_length", "false", "--lora_dropout", "0", "--max_steps", str(steps),
+            "--save_steps", "1000", "--logging_steps", "1", "--do_eval", "false",
+            "--seed", MESH_SEED, "--max_train_samples", str(batch), "--remat_policy", "full",
+            *extra]
+
+
+class TimedRotation:
+    """A rotation whose ``wait`` adds the host's time blocked in it to
+    ``now[0]`` (no reference cycle: the received blocks go when the ring
+    drops it, as they do without the probe)."""
+
+    def __init__(self, rot, now):
+        self.rot, self.now = rot, now
+
+    def wait(self):
+        t0 = time.perf_counter()
+        out = self.rot.wait()
+        self.now[0] += time.perf_counter() - t0
+        return out
+
+
+def sp_hook(event, ctx):
+    """train-sp's probe in every rank: train-mesh's (``mesh_hook``), the
+    memory the rank holds when its loop starts (its shard, adapters and
+    optimizer state: the peak beyond it is the step's activations and
+    transients), and the time its host spends blocked in the ring's
+    rotations (``Rotation.wait``) with their bytes, a step at a time."""
+    import torch
+
+    mesh_hook(event, ctx)
+    rep, sp = ctx["report"], ctx["mesh"].sp
+    if event == "start":
+        dev = ctx["mesh"].device
+        rep["start_gib"] = (torch.cuda.memory_allocated(dev) / 2 ** 30 if dev.type == "cuda"
+                            else 0.0)
+        rep.update(rot_wait_s=[], rot_gib=[], rot_now=[0.0, 0])
+        start = sp.rotate
+
+        def rotate(tensors, shift=1, tag=0):
+            rep["rot_now"][1] += sum(t.numel() * t.element_size() for t in tensors)
+            return TimedRotation(start(tensors, shift, tag), rep["rot_now"])
+
+        sp.rotate = rotate
+    elif event == "step":
+        rep["rot_wait_s"].append(rep["rot_now"][0])
+        rep["rot_gib"].append(rep["rot_now"][1] / 2 ** 30)
+        rep["rot_now"] = [0.0, 0]
+
+
+def sp_counts(L, s, steps):
+    """The launches of sp rank `s` over `steps` steps of one row a data rank
+    (remat "full"): train's single micro-batch with the flash kernels once a
+    ring chunk, s + 1 chunks a layer (the diagonal and the s shards before
+    it), the forward twice (the recomputed block's), every launch on the
+    wgmma kernels."""
+    per = train_counts(L, remat="full", micro=1)
+    flash = {"flash_fwd": 2 * (s + 1) * L, "flash_bwd_dq": (s + 1) * L,
+             "flash_bwd_dkv": (s + 1) * L}
+    per.update(flash, **{k: flash[n] for k, n in WGMMA_COUNTS.items() if n in flash})
+    return {k: steps * v for k, v in per.items()}
+
+
+def train_sp_phase(dev, card="", results=(), chunk_ms=None):
+    """train-sp: ring-attention sequence parallelism through ``cli.train``
+    at LLaMA-7B full width and depth (32 layers, NF4 double quant, serve's
+    weights, a rank-64 LoRA on all 7 linears, paged_adamw_32bit) on the
+    long-context recipe's lengths, S = 8192 (every position a real token).
+    Every run resumes from one single-card checkpoint at MESH_START (serve's
+    adapters, AdamW's count at 1) for SP_STEPS steps: run 1 the recipe's
+    ring, (dp, fsdp, tp, sp) = (1, 1, 1, 4), batch 1 (2048 positions a rank);
+    run 2 the weight-sharded ring (1, 2, 1, 2) with ZeRO-1, batch 2 (fsdp is
+    a batch axis: a row and 4096 positions a rank).  The single card runs
+    each run's argv beside it (its peak memory its own: it starts once the
+    mesh run's parent has made its state on the card), the runs one after
+    the other: on one card four gloo processes sharing it, with four cards
+    NCCL a card a rank (the single card first).  Each run
+    against its single card on the same weights, argv and stream: each
+    step's loss within MESH_LOSS_RTOL and grad norm within MESH_GNORM_RTOL
+    relative, the loss falling; on every rank after every step the adapters
+    bit-equal to rank 0's and the frozen shard unchanged, its bytes the
+    model's (run 1) or half (run 2), and ZeRO-1's optimizer state half the
+    single card's (run 2); every rank's launches exact (its flash chunks
+    rank-dependent, every NF4 forward and dx at 2048 or 4096 rows on the
+    wgmma kernels); the collectives of a step by axis (the rotations on sp);
+    each rank's activation peak about 1/4 of the single card's (a quarter of
+    its tokens) and at most half.  `results` (the kernel phases') and
+    `chunk_ms` (``ring_kernel_phase``'s) split a run-1 step.  Returns (the
+    launches summed over both runs' ranks, stats)."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from qlora_tpu_torch import cli
+    from qlora_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    four = torch.cuda.device_count() >= 4 if dev.type == "cuda" else False
+    ranks = None if four else ("gloo", [str(dev) if dev.type != "cuda" else "cuda:0"] * 4)
+    backend = "nccl" if four else "gloo"
+    cuda = dev.type == "cuda"
+    L = seven_b().num_layers
+    end = MESH_START + SP_STEPS
+    stats, refs, runs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = lambda tag: str(Path(tmp) / tag)
+        data = out("long.jsonl")
+        long_alpaca_jsonl(data, max(b for _, _, b in SP_RUNS), seed=53)
+        t0 = time.perf_counter()
+        args = cli.parse_args(sp_argv(data, out("ref"), end, dev, 1))
+        params, lora, cfg, lcfg, tok = cli.build_model_and_tokenizer(args, dev)
+        model = (params, lora, cfg, lcfg, tok)
+        whole, opt_whole = tree_bytes(params), 2 * tree_bytes(lora)
+        lora_r = random_lora(cfg, dev, seed=8)[0]
+        opt_r = cli._make_optimizer(args).init(lora_r)
+        opt_r["count"] = MESH_START
+        start = save_checkpoint(out("start"), MESH_START, lora_r, opt_r)
+        del lora_r, opt_r
+        build_s = time.perf_counter() - t0
+
+        def run(tag, batch, flags=(), after=None, **kw):
+            if after is not None:     # the single card: its activations and transients alone
+                after.wait()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() if cuda else 0
+            t0, called = time.perf_counter(), time.time()
+            m = cli.train(cli.parse_args(sp_argv(data, seed_run(start, out(tag)), end, dev,
+                                                 batch, *flags)), **kw)
+            if cuda:
+                torch.cuda.synchronize()
+            stats[f"{tag}_s"] = time.perf_counter() - t0
+            if after is not None:
+                stats[f"{tag}_act_gib"] = ((torch.cuda.max_memory_allocated() - held) / 2 ** 30
+                                           if cuda else 0.0)
+            where = loop_times(m, called, stats[f"{tag}_s"])
+            print(f"train-sp {tag}: {stats[f'{tag}_s']:.1f} s{where}, steps " + ", ".join(
+                f"{h['seconds_per_step']:.2f}" for h in m["train_metrics"]) + " s"
+                + (f", activation peak {stats[f'{tag}_act_gib']:.2f} GiB"
+                   if f"{tag}_act_gib" in stats else ""), flush=True)
+            return m
+
+        # each run beside its single card (on four cards, after it): the single card
+        # starts once the mesh run's parent has made its adapters and optimizer state
+        # and gone on to the ranks (it makes nothing more on the card), so that its
+        # peak is its own.  One run after the other: both runs' eight ranks at once
+        # fill the card
+        entered = threading.Event()
+        real = cli._train_on_mesh
+        cli._train_on_mesh = lambda *a, **kw: (entered.set(), real(*a, **kw))[1]
+        try:
+            for tag, flags, batch in SP_RUNS:
+                gc_cuda()
+                reset_counts()
+                entered.clear()
+                def mesh():
+                    try:
+                        return run(tag, batch, flags, ranks=ranks, model=model, hook=sp_hook)
+                    finally:
+                        entered.set()      # a run that failed early frees the single card
+
+                single = lambda: run(f"ref {tag}", batch, after=entered, model=model)
+                if four:
+                    entered.set()
+                    refs[tag], runs[tag] = single(), mesh()
+                else:
+                    runs[tag], refs[tag] = together(mesh, single)
+        finally:
+            cli._train_on_mesh = real
+        del model, params, lora
+        gc_cuda()
+
+    total = collections.Counter()
+    summary, worst = {}, [0.0, 0.0]
+    for tag, flags, batch in SP_RUNS:
+        m, ref = runs[tag], refs[tag]
+        d = mesh_agree(f"{tag} ({' '.join(flags)})", m, ref, phase="train-sp")
+        worst = [max(a, b) for a, b in zip(worst, d)]
+        reps = m["mesh_report"]
+        n_sp = int(flags[flags.index("--mesh_sp") + 1])
+        fsdp = int(flags[flags.index("--mesh_fsdp") + 1]) if "--mesh_fsdp" in flags else 1
+        for r in reps:
+            total.update(r["counts"])
+            want = expected_counts(**{k: v for k, v in sp_counts(L, r["rank"] % n_sp,
+                                                                 SP_STEPS).items() if v})
+            if r["counts"] != want:
+                fail(f"train-sp {tag}: rank {r['rank']}'s launches {r['counts']} != {want}")
+        bad = [(r["rank"], r["differing"]) for r in reps if any(r["differing"])]
+        if bad or any(len(r["differing"]) != SP_STEPS for r in reps):
+            fail(f"train-sp {tag}: adapter tensors differing from rank 0's (rank, per step): {bad}")
+        if not all(r["frozen_same"] for r in reps):
+            fail(f"train-sp {tag}: a rank's frozen shard changed")
+        shares = [r["frozen_bytes"] / whole for r in reps]
+        opt_shares = [r["opt_bytes"] / opt_whole for r in reps]
+        if any(not 0.97 / fsdp <= x <= 1.03 / fsdp for x in shares) or any(
+                not 0.98 / fsdp <= x <= 1.02 / fsdp for x in opt_shares):
+            fail(f"train-sp {tag}: frozen shares {shares}, optimizer state shares {opt_shares}: "
+                 f"not about 1/{fsdp}")
+        coll = [c for r in reps for c in r["collectives"]]
+        if any(c["sp"] != L * (3 * (n_sp - 1) + n_sp) or c["data_sp"] != 2 for c in coll):
+            fail(f"train-sp {tag}: collectives a step {coll}: want {L * (3 * (n_sp - 1) + n_sp)} "
+                 "rotations on sp (remat 'full': n - 1 forward twice, n - 1 and n backward) "
+                 "and 2 all-reduces on (dp, fsdp, sp)")
+        act = [r["peak_gib"] - r["start_gib"] for r in reps]
+        ref_act = stats[f"ref {tag}_act_gib"]
+        if cuda and any(a > 0.5 * ref_act for a in act):
+            fail(f"train-sp {tag}: the ranks' activation peaks {act} GiB are not under half the "
+                 f"single card's {ref_act:.2f} GiB")
+        secs = [h["seconds_per_step"] for h in m["train_metrics"]]
+        summary[tag] = dict(collectives={k: v for k, v in coll[0].items() if v}, step_s=secs,
+                            ref_step_s=[h["seconds_per_step"] for h in ref["train_metrics"]],
+                            peak_gib=[r["peak_gib"] for r in reps], act_gib=act,
+                            ref_act_gib=ref_act, shares=shares, opt_shares=opt_shares,
+                            rot_wait_s=[r["rot_wait_s"] for r in reps],
+                            rot_gib=reps[0]["rot_gib"][0], s=stats[f"{tag}_s"],
+                            ref_s=stats[f"ref {tag}_s"],
+                            flash_fwd=[r["counts"]["flash_fwd"] for r in reps])
+        where = (", a card a rank" if four else ", four ranks on one card; each rotation card "
+                 "to card through CUDA IPC, gloo carrying the signals (it sends no CUDA tensor)")
+        print(f"train-sp {tag} ({backend}{where}):"
+              f" collectives a step {summary[tag]['collectives']} (rank 0; the probe's own "
+              f"gathers left out), {summary[tag]['rot_gib']:.3f} GiB sent in rotations a step a "
+              f"rank; host blocked in rotations a step, by rank "
+              f"{[[round(x, 2) for x in w] for w in summary[tag]['rot_wait_s']]} s of steps "
+              f"{', '.join(f'{x:.2f}' for x in secs)} s (rank 0's host clock; the single card's "
+              f"{', '.join(f'{x:.2f}' for x in summary[tag]['ref_step_s'])} s); flash forward "
+              f"launches by rank {summary[tag]['flash_fwd']}; peak a rank "
+              f"{', '.join(f'{x:.2f}' for x in summary[tag]['peak_gib'])} GiB, of which "
+              f"activations {', '.join(f'{x:.2f}' for x in act)} against the single card's "
+              f"{ref_act:.2f} GiB ({', '.join(f'{x / max(ref_act, 1e-9):.3f}' for x in act)}"
+              f"); frozen shares {', '.join(f'{x:.4f}' for x in shares)}, optimizer state shares "
+              f"{', '.join(f'{x:.4f}' for x in opt_shares)}; adapters bit-equal on every rank "
+              f"after every step, frozen shards unchanged, every rank's launches exact",
+              flush=True)
+    if chunk_ms and results:
+        # run 1, rank 3 (the most chunks): the flash chunks at ring_kernel_phase's times, the
+        # NF4 forward at M = 2048 at the kernel phase's (the dx at 2048 is not timed: in "other")
+        per = sp_counts(L, 3, 1)
+        qmm = qmm_ms_per_forward(results, L, 2048) * 2
+        flash = (L * (2 * chunk_ms["diagonal"] + 2 * 3 * chunk_ms["earlier"]))
+        print(f"train-sp run 1, rank 3, a step: NF4 forward kernels ~{qmm:.0f} ms "
+              f"({per['qmm_nf4_fwd_dq']} at M=2048), flash forward chunks ~{flash:.0f} ms "
+              f"({per['flash_fwd']}), host blocked in rotations "
+              f"{summary['run 1']['rot_wait_s'][3][-1]:.2f} s, of "
+              f"{summary['run 1']['step_s'][-1]:.2f} s on rank 0's clock", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"train-sp ({card}): phase {phase_s:.1f} s (model built in {build_s:.1f} s; the single "
+          f"card {', '.join(f'{summary[t]['ref_s']:.1f}' for t in summary)} s beside the runs "
+          f"{', '.join(f'{summary[t]['s']:.1f}' for t in summary)} s); worst relative "
+          f"differences: loss {worst[0]:.3g}, grad norm {worst[1]:.3g}", flush=True)
+    return dict(total), dict(phase_s=phase_s, backend=backend, runs=summary, worst=worst)
 
 
 @contextlib.contextmanager
@@ -6370,7 +6799,8 @@ def main() -> int:
               "serve-http": lambda dev: serve_http_phase(dev, card),
               "examples": lambda dev: examples_phase(dev, card),
               "tp": lambda dev: (tp_qmm_phase(dev, []), tp_phase(dev, card)),
-              "train-mesh": lambda dev: (tp_qmm_phase(dev, []), train_mesh_phase(dev, card))}
+              "train-mesh": lambda dev: (tp_qmm_phase(dev, []), train_mesh_phase(dev, card)),
+              "train-sp": lambda dev: train_sp_phase(dev, card, (), ring_kernel_phase(dev, []))}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -6385,6 +6815,7 @@ def main() -> int:
     kernel_phase(dev, results)
     tp_qmm_phase(dev, results)
     flash_phase(dev, results)
+    chunk_ms = ring_kernel_phase(dev, results)
     gemma_qmm_phase(dev, results)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -6461,6 +6892,8 @@ def main() -> int:
     gemma_counts, gemma_per_step, gemma_stats = lane_out["train-gemma"]
     gc_cuda()
     mesh_counts, mesh_stats = train_mesh_phase(dev, card)
+    gc_cuda()
+    sp_total, sp_stats = train_sp_phase(dev, card, results, chunk_ms)
     gc_cuda()
     t0 = time.perf_counter()
     full_counts, full_stats = train_full_phase(dev)
@@ -6567,7 +7000,7 @@ def main() -> int:
         # the judge, the examples and the converter
         for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts),
                          ("examples", examples_counts), ("tp", tp_counts),
-                         ("train_mesh", mesh_counts)):
+                         ("train_mesh", mesh_counts), ("train_sp", sp_total)):
             if run.get(entry["name"]):
                 entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
@@ -6685,6 +7118,15 @@ def main() -> int:
           f"difference from the single card: loss {mesh_stats['worst'][0]:.3g}, grad norm "
           f"{mesh_stats['worst'][1]:.3g}; peak a rank {max(ms['run 1']['peak_gib']):.2f} / "
           f"{max(ms['run 2']['peak_gib']):.2f} GiB", flush=True)
+    ss = sp_stats["runs"]
+    print(f"train-sp ({card}): 4 ranks over {sp_stats['backend']}, phase "
+          f"{sp_stats['phase_s']:.1f} s, S = {SP_SOURCE + SP_TARGET}; s a step on rank 0, "
+          f"run 1 (1, 1, 1, 4) {', '.join(f'{x:.2f}' for x in ss['run 1']['step_s'])}, run 2 "
+          f"(1, 2, 1, 2) {', '.join(f'{x:.2f}' for x in ss['run 2']['step_s'])}; worst relative "
+          f"difference from the single card: loss {sp_stats['worst'][0]:.3g}, grad norm "
+          f"{sp_stats['worst'][1]:.3g}; activation peak a rank {max(ss['run 1']['act_gib']):.2f}"
+          f" / {max(ss['run 2']['act_gib']):.2f} GiB against the single card's "
+          f"{ss['run 1']['ref_act_gib']:.2f} / {ss['run 2']['ref_act_gib']:.2f}", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,17 +4,20 @@ equivalent, on one device or over a mesh of ranks.
 The flags are the JAX package's (``qlora_tpu/cli.py``), name for name and
 default for default, plus ``--device`` (CUDA unless given; ``cpu`` runs the
 plain PyTorch path).  Unknown flags are an error.  What the port does not
-run yet raises ``NotImplementedError`` naming its ROADMAP item: sequence
-parallelism, full finetuning on a mesh and several hosts (A7b's second
-half).  Predict runs ``generate()`` with the search flags (beam, group-beam
-and contrastive search and their penalties), or ``generate_speculative``
-under ``--predict_speculative``.
+run yet raises ``NotImplementedError`` naming its ROADMAP item: full
+finetuning on a mesh and several hosts (A7b's items 2 and 3).  Predict
+runs ``generate()`` with the search flags (beam, group-beam and
+contrastive search and their penalties), or ``generate_speculative`` under
+``--predict_speculative``.
 
 ``--mesh_dp/--mesh_fsdp/--mesh_tp`` train LoRA over dp·fsdp·tp ranks, one
 process a rank (``parallel/``): ``--tp_style gather`` (the default) runs
 the dp×fsdp×tp step with fsdp weight gathering and ZeRO-1 optimizer state,
-``--tp_style megatron`` the Megatron step over a dp×tp mesh.  The ranks run
-over NCCL, rank r on ``cuda:r`` (it raises when the machine has fewer
+``--tp_style megatron`` the Megatron step over a dp×tp mesh, and
+``--mesh_sp`` the sequence-parallel step (ring attention over sp ranks,
+composed with the gather style's fsdp and tp; each batch's length padded
+to a multiple of sp with ignored labels, as JAX's CLI pads it).  The ranks
+run over NCCL, rank r on ``cuda:r`` (it raises when the machine has fewer
 cards), or with ``--device cpu`` over gloo on the CPU.  The parent builds
 the model once, cuts every rank's shard and hands each rank only its own;
 ``--per_device_train_batch_size`` is the global batch, as in JAX, which
@@ -190,8 +193,15 @@ def parse_args(argv=None) -> Args:
 
 
 def mesh_shape(args: Args) -> tuple:
-    """(dp, fsdp, tp) of the run's mesh."""
-    return args.mesh_dp, args.mesh_fsdp, args.mesh_tp
+    """(dp, fsdp, tp, sp) of the run's mesh."""
+    return args.mesh_dp, args.mesh_fsdp, args.mesh_tp, args.mesh_sp
+
+
+def mesh_style(args: Args) -> str:
+    """The mesh step a run takes: "sp" (the sequence-parallel step, which
+    shards its weights in the gather style) whenever mesh_sp > 1, else the
+    tp style."""
+    return "sp" if args.mesh_sp > 1 else args.tp_style
 
 
 def _optimizer_name(args: Args) -> str:
@@ -200,11 +210,13 @@ def _optimizer_name(args: Args) -> str:
 
 def check_supported(args: Args) -> None:
     """Raise for every flag whose path is not ported yet, naming its item,
-    and for the mesh combinations the JAX CLI refuses (ValueError)."""
+    and for the mesh combinations the JAX CLI refuses (its exceptions)."""
     if args.mesh_sp > 1:
-        raise NotImplementedError(
-            f"sequence parallelism (mesh_sp={args.mesh_sp}, ring attention) is not ported: "
-            "ROADMAP A7b, the second half of the training half of parallelism")
+        if args.full_finetune:
+            raise NotImplementedError("full_finetune does not compose with mesh_sp")
+        if args.mesh_tp > 1 and args.tp_style == "megatron":
+            raise ValueError("mesh_sp needs tp_style=gather (head-parallel attention does not "
+                             "compose with the ring)")
     if args.coordinator_address or (args.num_processes or 0) > 1:
         raise NotImplementedError(
             "several hosts (coordinator_address / num_processes) are not ported: "
@@ -216,11 +228,11 @@ def check_supported(args: Args) -> None:
                 "half of the training half of parallelism")
         if args.tp_style not in ("gather", "megatron"):
             raise ValueError(f"unknown tp_style {args.tp_style!r}")
-        if args.tp_style == "megatron" and args.mesh_fsdp > 1:
+        if mesh_style(args) == "megatron" and args.mesh_fsdp > 1:
             raise ValueError("tp_style=megatron requires mesh_fsdp=1 (compose fsdp via "
                              "tp_style=gather)")
     if (_optimizer_name(args) in ("adam8bit", "paged_adamw_8bit")
-            and args.tp_style == "megatron" and args.mesh_tp > 1):
+            and mesh_style(args) == "megatron" and args.mesh_tp > 1):
         raise ValueError(
             "adam8bit does not compose with tp_style=megatron (8-bit blockwise optimizer "
             "state cannot follow tp-sharded params); use tp_style=gather or a 32-bit optimizer")
@@ -452,7 +464,7 @@ def train(args: Args, *, ranks: Optional[tuple] = None, model: Optional[tuple] =
     mlogger = MetricsLogger(args.output_dir, report_to=args.report_to)
     timer = StepTimer()          # no device sync a step: the host reads only at logging steps
     if args.do_train and start_step < args.max_steps and n_ranks > 1:
-        if args.tp_style == "megatron":
+        if mesh_style(args) == "megatron":
             from qlora_tpu_torch.parallel import requantize_row_parallel
 
             params = requantize_row_parallel(params, args.mesh_tp)
@@ -571,16 +583,16 @@ def _train_on_mesh(args, cfg, lcfg, params, state, start_step, opt_state, ranks,
     from qlora_tpu_torch.train.optimizer import tree_map
 
     backend, devices = ranks
-    dp, F, T = mesh_shape(args)
-    n = dp * F * T
-    logger.info("mesh %d x %d x %d (%s style): %d ranks over %s on %s", dp, F, T,
-                args.tp_style, n, backend, ", ".join(map(str, devices)))
-    # one file a distinct shard: ranks that differ only in dp share it
-    if args.tp_style == "megatron":
-        key = lambda r: mesh_coords(r, dp, F, T)[2]
+    dp, F, T, SP = shape = mesh_shape(args)
+    n = dp * F * T * SP
+    logger.info("mesh %d x %d x %d x %d (%s style): %d ranks over %s on %s", dp, F, T, SP,
+                mesh_style(args), n, backend, ", ".join(map(str, devices)))
+    # one file a distinct shard: ranks that differ only in dp or sp share it
+    if mesh_style(args) == "megatron":
+        key = lambda r: mesh_coords(r, *shape)[2]
         cut = lambda r: shard_params(params, key(r), T, "cpu")
     else:
-        key = lambda r: mesh_coords(r, dp, F, T)[1:]
+        key = lambda r: mesh_coords(r, *shape)[1:]
         cut = lambda r: shard_sharded_params(params, key(r)[1], key(r)[0], T, F, "cpu")
     with tempfile.TemporaryDirectory() as tmp:
         names = {}
@@ -646,7 +658,7 @@ def _full_trees(args, state, optimizer, mesh):
     from qlora_tpu_torch.parallel.megatron_step import _opt_specs_like
     from qlora_tpu_torch.parallel.sharded_step import full_opt_state
 
-    if args.tp_style == "megatron":
+    if mesh_style(args) == "megatron":
         specs = megatron_lora_specs(state.trainable)
         return (gather_megatron_tree(state.trainable, specs, mesh.tp),
                 gather_megatron_tree(state.opt_state, _opt_specs_like(state.opt_state, specs),
@@ -664,7 +676,8 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
     the metrics."""
     from qlora_tpu_torch.parallel import (
         init_megatron_state, init_sharded_train_state, make_megatron_train_step,
-        make_parallel_mesh, make_sharded_eval_step, make_sharded_train_step, tree_to,
+        make_parallel_mesh, make_sharded_eval_step, make_sharded_train_step, make_sp_train_step,
+        tree_to,
     )
     from qlora_tpu_torch.train.optimizer import tree_map
     from qlora_tpu_torch.utils.checkpoint import mark_completed, save_checkpoint
@@ -680,15 +693,18 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
     frozen = tree_to(_read(shard_path), dev)
     tokenizer = _tokenizer(args)
     optimizer = _make_optimizer(args)
-    megatron = args.tp_style == "megatron"
+    style = mesh_style(args)
+    # the model's sharding: the sp step shards its weights in the gather style
+    shard_style = "megatron" if style == "megatron" else "gather"
     kw = dict(accum_steps=args.gradient_accumulation_steps, clip_norm=args.max_grad_norm,
               remat=_remat(args))
-    if megatron:
+    if style == "megatron":
         state = init_megatron_state(job["trainable"], optimizer, mesh, job["opt_state"])
         step_fn = make_megatron_train_step(cfg, lcfg, optimizer, mesh, **kw)
     else:
         state = init_sharded_train_state(job["trainable"], optimizer, mesh, job["opt_state"])
-        step_fn = make_sharded_train_step(cfg, lcfg, optimizer, mesh, **kw)
+        make = make_sp_train_step if style == "sp" else make_sharded_train_step
+        step_fn = make(cfg, lcfg, optimizer, mesh, **kw)
     start_step = job["start_step"]
     state.step = start_step
     del job
@@ -696,14 +712,14 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
     mlogger = MetricsLogger(args.output_dir, report_to=args.report_to) if lead else None
     collator = _collator(args, tokenizer)
     train_ds, eval_ds = _datasets(args, args.do_eval or args.do_predict)
-    eval_fn = (make_sharded_eval_step(cfg, lcfg, mesh, args.tp_style)
+    eval_fn = (make_sharded_eval_step(cfg, lcfg, mesh, shard_style)
                if args.do_eval and eval_ds else None)
     batches = _batches(args, train_ds, collator, tokenizer, start_step)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     timer = StepTimer()
     metrics_hist, all_metrics = [], {}
     ctx = dict(mesh=mesh, state=state, frozen=frozen, step=start_step, metrics=None,
-               report={}, style=args.tp_style, entered=entered)
+               report={}, style=style, entered=entered)
     if hook is not None:
         hook("start", ctx)
 
@@ -719,7 +735,7 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
 
         T, F = mesh.shape["tp"], mesh.shape["fsdp"]
         with tp_shard_context(mesh.tp if T > 1 else None, mesh.fsdp if F > 1 else None,
-                              args.tp_style):
+                              shard_style):
             return _run_mmlu(args, frozen, state, cfg, lcfg, tokenizer, "lora", dev)
 
     t0 = time.time()
@@ -727,7 +743,7 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
         profiling = args.report_profile and step == start_step + 5 and lead
         with maybe_profile(args.output_dir, profiling):
             timer.tick()
-            state, m = step_fn(state, frozen, next(batches), generator)
+            state, m = step_fn(state, frozen, _pad_to(next(batches), args.mesh_sp), generator)
             timer.tock()
         t0 = _log_step(args, step, m, t0, metrics_hist, mlogger)
         if hook is not None:
@@ -750,6 +766,21 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
         all_metrics["train_metrics"] = metrics_hist
         out.update(metrics=all_metrics)
     return out
+
+
+def _pad_to(batch: dict, multiple: int) -> dict:
+    """The batch's sequences padded on the right to a multiple of
+    `multiple` (the sp ring's shards): ids 0, labels ``IGNORE_INDEX``, the
+    attention mask 0.  Causality keeps the pads out of every real token's
+    attention, and the loss ignores them (JAX's CLI pads the same way)."""
+    from qlora_tpu_torch.train.loss import IGNORE_INDEX
+
+    pad = -batch["input_ids"].shape[-1] % multiple
+    if not pad:
+        return batch
+    fill = {"labels": IGNORE_INDEX}
+    widths = [(0, 0)] * (batch["input_ids"].ndim - 1) + [(0, pad)]
+    return {k: np.pad(v, widths, constant_values=fill.get(k, 0)) for k, v in batch.items()}
 
 
 def _padded_batches(ds, bs):

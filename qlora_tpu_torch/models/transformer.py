@@ -64,7 +64,7 @@ from qlora_tpu_torch.models.layers import (
 )
 from qlora_tpu_torch.ops import (
     flash_attention, fused_decode_attention, fused_paged_chunk_attention,
-    fused_paged_decode_attention,
+    fused_paged_decode_attention, ring_attention,
 )
 from qlora_tpu_torch.ops.tape import Tape
 from qlora_tpu_torch.quant.blockwise import quantize
@@ -133,11 +133,13 @@ def _write_prefill(buf: torch.Tensor, new: torch.Tensor, starts) -> None:
 
 
 def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
-          flash_lengths=None):
+          flash_lengths=None, sp=None):
     """Attention sub-block; cache_kv None, (k_buf, v_buf) [B, KVH, T, hd] or
     the paged (k_pages, v_pages, tables), the buffers updated in place.
     flash_lengths: [B] valid-key lengths; when set (and there is no cache)
-    attention goes through ``flash_attention``."""
+    attention goes through ``flash_attention``.  sp: the sequence-parallel
+    axis (a ``TPMesh``): this rank's queries attend every rank's keys
+    through ``ring_attention``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     rotary_dim = int(cfg.rotary_pct * hd) // 2 * 2
@@ -187,6 +189,13 @@ def _attn(cfg, block, lora, lcfg, x, cos, sin, mask, cache_kv, pos, seed=None,
             _write_prefill(k_buf, k.transpose(1, 2).to(k_buf.dtype), starts)
             _write_prefill(v_buf, v.transpose(1, 2).to(v_buf.dtype), starts)
             attn_out = attention_kvmajor(q, k_buf, v_buf, mask)
+    elif sp is not None:
+        # causal over the global positions; the kv heads rotate unrepeated
+        # (the chunks' kernels take GQA as they do)
+        oh = ring_attention(
+            q.transpose(1, 2).to(torch.bfloat16), k.transpose(1, 2).to(torch.bfloat16),
+            v.transpose(1, 2).to(torch.bfloat16), sp, sm_scale=1.0 / hd ** 0.5, causal=True)
+        attn_out = oh.transpose(1, 2)
     elif flash_lengths is not None:
         # GQA is handled inside the kernel (query head h reads kv head h // G)
         oh = flash_attention(
@@ -222,16 +231,17 @@ def _mlp(cfg, block, lora, lcfg, x, seed=None):
 
 
 def block_forward(cfg, lcfg, x, block, lora, cos, sin, mask, cache_kv, pos, seed=None,
-                  flash_lengths=None):
+                  flash_lengths=None, sp=None):
     """One transformer block; returns x (the cache is updated in place)."""
     if cfg.arch == "llama":
         h = rms_norm(x, _nscale(cfg, block["attn_norm"]), cfg.norm_eps)
         x = x + _attn(cfg, block, lora, lcfg, h, cos, sin, mask, cache_kv, pos, seed,
-                      flash_lengths)
+                      flash_lengths, sp)
         h2 = rms_norm(x, _nscale(cfg, block["mlp_norm"]), cfg.norm_eps)
         return x + _mlp(cfg, block, lora, lcfg, h2, seed)
     h1 = layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"], cfg.norm_eps)
-    a = _attn(cfg, block, lora, lcfg, h1, cos, sin, mask, cache_kv, pos, seed, flash_lengths)
+    a = _attn(cfg, block, lora, lcfg, h1, cos, sin, mask, cache_kv, pos, seed, flash_lengths,
+              sp)
     if cfg.use_parallel_residual:
         h2 = layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"], cfg.norm_eps)
         return x + a + _mlp(cfg, block, lora, lcfg, h2, seed)
@@ -273,6 +283,7 @@ def forward(
     generator: Optional[torch.Generator] = None,   # LoRA dropout (lcfg.dropout > 0)
     remat=False,                                # False | True / "full" | "save_linear"
     return_hidden: bool = False,
+    sp=None,                                    # the sequence-parallel axis (a TPMesh)
 ):
     """Returns (logits [B, S, V] f32, cache or None).  The cache's K/V
     buffers are updated in place; the returned dict carries the new lengths.
@@ -283,9 +294,24 @@ def forward(
     Without a cache, attention goes through ``flash_attention`` when
     ``use_flash`` is "always", or "auto" at the JAX package's gate
     (S % 128 == 0 and head_dim % 64 == 0); otherwise it is the plain grouped
-    softmax.  ``remat`` checkpoints each block when gradients are recorded."""
+    softmax.  ``remat`` checkpoints each block when gradients are recorded.
+
+    ``sp`` (the JAX package's ``sp_axis``): sequence-parallel training, `ids`
+    being this rank's contiguous shard of the sequence (shard r holds
+    positions r·S ..).  The RoPE positions are global, there is no mask (no
+    padding: the loss masks the labels), and attention goes through
+    ``ring_attention``, causal over the whole sequence.  A sliding window
+    raises: JAX's ring has none, so under sp it would attend globally."""
     B, S = ids.shape
     dev = ids.device
+    if sp is not None:
+        if cache is not None:
+            raise ValueError("sp is a training path: no cache")
+        if cfg.sliding_window:
+            raise ValueError(
+                f"sliding_window={cfg.sliding_window} under sequence parallelism: the ring "
+                "attends the whole sequence (JAX's ring has no window, ROADMAP C12)")
+        positions = (sp.rank * S + torch.arange(S, device=dev))[None, :].repeat(B, 1)
     x = lookup_embedding(params["embed"], ids, torch.bfloat16)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=torch.bfloat16, device=dev)
@@ -301,7 +327,9 @@ def forward(
 
     flash_lengths = None
     paged = cache is not None and "k_pages" in cache
-    if cache is not None:
+    if sp is not None:
+        mask = None                  # ring attention is causal over the global positions
+    elif cache is not None:
         if S == 1 or paged:
             mask = None              # the decode and paged kernels mask by length
         else:
@@ -345,7 +373,7 @@ def forward(
 
         def body(x, block=block, lora_l=lora_l, cache_l=cache_l, seed=seed):
             return block_forward(cfg, lcfg, x, block, lora_l, cos, sin, mask, cache_l,
-                                 positions, seed, flash_lengths)
+                                 positions, seed, flash_lengths, sp)
 
         if remat == "save_linear":
             x = checkpoint(body, x, use_reentrant=False, context_fn=Tape().contexts)

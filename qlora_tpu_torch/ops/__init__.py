@@ -45,6 +45,7 @@ from .qmatmul import (
     w8a8_codes,
     w8a8_scales,
 )
+from .ring_attention import ring_attention
 
 __all__ = [
     "decode_attention_cuda", "decode_attention_plain", "fused_decode_attention",
@@ -56,5 +57,5 @@ __all__ = [
     "qmatmul_plain", "qmm_i8_bwd", "qmm_i8_bwd_plain", "qmm_i8_direct", "qmm_i8_direct_plain",
     "qmm_i8_fwd", "qmm_i8_fwd_plain", "qmm_nf4_bwd", "qmm_nf4_fwd_dq", "qmm_nf4_fwd_f32",
     "qmm_nf4_w8a8", "qmm_nf4_w8a8_plain", "quantize_rows", "set_default_impl", "w8a8_codes",
-    "w8a8_scales",
+    "w8a8_scales", "ring_attention",
 ]

@@ -4,11 +4,12 @@
 * Serving (ROADMAP A7a): the Megatron partition rules over K-sharded NF4
   storage (``megatron_step``), the tensor-parallel forward and caches
   (``tp_decode``), which ``PagedBatcher(tp_mesh=...)`` serves through.
-* Training (ROADMAP A7b, first half): the dp×fsdp×tp step with fsdp weight
-  gathering and ZeRO-1 optimizer state (``sharded_step``, ``tp_step``) and
-  the Megatron train step (``megatron_step``), over a mesh of named axes
-  (``distributed.make_parallel_mesh``).  Ring attention, GSPMD full
-  finetuning and the multi-host ``initialize`` wait for A7b's second half.
+* Training (ROADMAP A7b): the dp×fsdp×tp step with fsdp weight gathering
+  and ZeRO-1 optimizer state (``sharded_step``, ``tp_step``), the Megatron
+  train step (``megatron_step``) and the sequence-parallel step over ring
+  attention (``sp_step``, ``ops/ring_attention.py``), over a mesh of named
+  axes (``distributed.make_parallel_mesh``).  GSPMD full finetuning and the
+  multi-host ``initialize`` wait for A7b's items 2 and 3.
 """
 
 from .distributed import (
@@ -41,6 +42,7 @@ from .sharded_step import (
     zero1_chunk,
     zero1_gather,
 )
+from .sp_step import make_sp_train_step
 from .tp_step import make_tp_train_step, tp_param_specs
 from .tp_decode import (
     CACHE_SPECS,
@@ -67,6 +69,7 @@ __all__ = [
     "make_sharded_eval_step", "make_sharded_train_step", "opt_state_full_to_zero1",
     "opt_state_zero1_to_full", "shard_sharded_params", "sharded_param_specs", "zero1_chunk",
     "zero1_gather",
+    "make_sp_train_step",
     "make_tp_train_step", "tp_param_specs",
     "CACHE_SPECS", "PAGED_CACHE_SPECS", "SHARD_KEY", "cut_rank_shards", "make_tp_forward_fn",
     "make_tp_mesh",

@@ -371,12 +371,16 @@ def _gather_flat(chunks: list, mesh) -> list:
 
 
 def local_grads(cfg, lcfg, trainable, frozen, batch, accum_steps, data, remat, generator,
-                ctx) -> tuple:
+                ctx, loss=None) -> tuple:
     """This rank's gradients of the global mean loss from its rows, before
     the reduction over the data ranks: each micro-batch's local token-loss
     sum differentiated, divided by the global token count, summed over the
-    micro-batches and divided by their number (f32).  Returns (grads as a
+    micro-batches and divided by their number (f32).  `loss(trainable,
+    frozen, micro_batch, generator) -> (mean, n)` is the micro-batch's
+    loss (by default :func:`loss_fn`'s, remat `remat`).  Returns (grads as a
     list in ``tree_leaves`` order, the global loss)."""
+    if loss is None:
+        loss = lambda tr, fr, mb, gen: loss_fn(tr, fr, mb, cfg, lcfg, gen, True, "lora", remat)
     dev = data.device
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(trainable)]
     micros = [batch] if accum_steps == 1 else [{k: v[i] for k, v in batch.items()}
@@ -387,9 +391,8 @@ def local_grads(cfg, lcfg, trainable, frozen, batch, accum_steps, data, remat, g
     for mb in micros:
         mb = {k: v.to(dev) for k, v in mb.items()}
         with ctx():
-            loss, n = loss_fn(tree_unflatten(trainable, leaves), frozen, mb, cfg, lcfg,
-                              generator, True, "lora", remat)
-            lsum = loss * n                    # LOCAL token-loss sum: no collective
+            mean, n = loss(tree_unflatten(trainable, leaves), frozen, mb, generator)
+            lsum = mean * n                    # LOCAL token-loss sum: no collective
             g = torch.autograd.grad(lsum, leaves)
         lsum_g, n_g = _sum_scalars([lsum.detach(), n], data)
         denom = torch.clamp(n_g, min=1.0)
@@ -434,31 +437,41 @@ def make_sharded_train_step(cfg: ModelConfig, lcfg: LoraConfig, optimizer: Optim
         rows = _rows(batch, mesh.data.rank, mesh.data.size, accum_steps)
         g_local, loss = local_grads(cfg, lcfg, state.trainable, frozen, rows, accum_steps,
                                     mesh.data, remat, generator, ctx)
-        # the one heavy collective: the partial gradients summed over the data axes
-        g_leaves = _all_reduce_flat(g_local, mesh.data)
-        grads = tree_unflatten(state.trainable, g_leaves)
-        with torch.no_grad():
-            gnorm = global_norm(grads)
-            params = state.trainable
-            if use_zero1:
-                if clip_norm is not None:
-                    scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
-                    grads = tree_map(lambda g: g * scale, grads)
-                lay = Zero1Layout(params, F)
-                rank = mesh.fsdp.rank
-                upd, opt_state = optimizer.update(lay.chunk(grads, rank), state.opt_state,
-                                                  lay.chunk(params, rank))
-                keys = [k for k, _ in lay.groups]
-                whole = dict(zip(keys, _gather_flat([upd[k].float() for k in keys], mesh.fsdp)))
-                updates = tree_unflatten(params, lay.unstack(whole))
-            else:
-                updates, opt_state = optimizer.update(grads, state.opt_state, params)
-            del grads
-            new = TrainState(step=state.step + 1, trainable=apply_updates(params, updates),
-                             opt_state=opt_state)
-        return new, {"loss": loss, "grad_norm": gnorm}
+        return update_step(state, g_local, loss, optimizer, mesh, mesh.data, use_zero1,
+                           clip_norm)
 
     return train_step
+
+
+def update_step(state: TrainState, g_local: list, loss, optimizer: Optimizer,
+                mesh: ParallelMesh, data, use_zero1: bool, clip_norm) -> tuple:
+    """The step after the local gradients: the one heavy collective (the
+    partial gradients summed over the data axes `data`), the global norm,
+    and the optimizer's update of the whole tree or, under ZeRO-1, of this
+    rank's chunk (clipped first with the true global norm), the chunks'
+    updates gathered over fsdp.  Returns (state, metrics)."""
+    g_leaves = _all_reduce_flat(g_local, data)
+    grads = tree_unflatten(state.trainable, g_leaves)
+    with torch.no_grad():
+        gnorm = global_norm(grads)
+        params = state.trainable
+        if use_zero1:
+            if clip_norm is not None:
+                scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
+                grads = tree_map(lambda g: g * scale, grads)
+            lay = Zero1Layout(params, mesh.shape["fsdp"])
+            rank = mesh.fsdp.rank
+            upd, opt_state = optimizer.update(lay.chunk(grads, rank), state.opt_state,
+                                              lay.chunk(params, rank))
+            keys = [k for k, _ in lay.groups]
+            whole = dict(zip(keys, _gather_flat([upd[k].float() for k in keys], mesh.fsdp)))
+            updates = tree_unflatten(params, lay.unstack(whole))
+        else:
+            updates, opt_state = optimizer.update(grads, state.opt_state, params)
+        del grads
+        new = TrainState(step=state.step + 1, trainable=apply_updates(params, updates),
+                         opt_state=opt_state)
+    return new, {"loss": loss, "grad_norm": gnorm}
 
 
 def make_sharded_eval_step(cfg: ModelConfig, lcfg: LoraConfig, mesh: ParallelMesh,

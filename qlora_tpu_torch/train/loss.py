@@ -16,6 +16,15 @@ def causal_shift(ids: torch.Tensor, labels: torch.Tensor):
     return ids[:, :-1], labels[:, 1:]
 
 
+def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+    """The next-token targets of a whole sequence, before it is cut into
+    shards: position t's label is labels[..., t + 1], the last
+    ``IGNORE_INDEX`` ([B, S] or [accum, B, S])."""
+    pad = torch.full(labels.shape[:-1] + (1,), IGNORE_INDEX, dtype=labels.dtype,
+                     device=labels.device)
+    return torch.cat([labels[..., 1:], pad], dim=-1)
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     """Mean CE over positions where labels != IGNORE_INDEX.
 

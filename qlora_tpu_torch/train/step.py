@@ -55,6 +55,18 @@ def loss_fn(trainable, frozen, batch, cfg, lcfg, generator=None, train=True, mod
     return masked_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
+def sp_loss_fn(trainable, frozen, batch, cfg, lcfg, sp, generator=None, remat="full"):
+    """The sequence-parallel variant of :func:`loss_fn` (LoRA): this rank's
+    token-loss mean over its shard of the sequence, whose labels
+    (``labels_shifted``, ``loss.shift_labels``) were shifted over the whole
+    sequence before it was cut, so that the prediction at each shard's last
+    position counts (a local shift would drop it).  Returns (loss, n_valid)
+    of the shard; `sp` is the sequence axis' ``TPMesh``."""
+    logits, _ = forward(frozen, trainable, batch["input_ids"], cfg, lcfg, generator=generator,
+                        remat=remat, sp=sp)
+    return masked_cross_entropy(logits, batch["labels_shifted"])
+
+
 def make_train_step(cfg: ModelConfig, lcfg: LoraConfig, optimizer: Optimizer,
                     accum_steps: int = 1, mode: str = "lora", remat="save_linear",
                     device=None):

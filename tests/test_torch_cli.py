@@ -364,7 +364,6 @@ def test_option_paths_train_and_resume(tmp_path, case):
 # what the port does not run yet names its ROADMAP item; the mesh
 # combinations the JAX CLI refuses raise its ValueError
 UNPORTED = {
-    "mesh_sp": (["--mesh_sp", "2"], NotImplementedError, "ROADMAP A7b"),
     "coordinator_address": (["--coordinator_address", "localhost:1234"], NotImplementedError,
                             "ROADMAP A7b"),
     "num_processes": (["--num_processes", "2"], NotImplementedError, "ROADMAP A7b"),
@@ -374,6 +373,10 @@ UNPORTED = {
                       "requires mesh_fsdp=1"),
     "megatron_adam8bit": (["--tp_style", "megatron", "--mesh_tp", "2", "--adam8bit"],
                           ValueError, "adam8bit does not compose"),
+    "sp_megatron": (["--mesh_sp", "2", "--tp_style", "megatron", "--mesh_tp", "2"], ValueError,
+                    "mesh_sp needs tp_style=gather"),
+    "sp_full_finetune": (["--mesh_sp", "2", "--full_finetune", "--bits", "16"],
+                         NotImplementedError, "does not compose with mesh_sp"),
 }
 
 
@@ -489,3 +492,21 @@ def test_speculation_with_beams_or_contrastive_raises(jax_store, extra):
 def test_no_device_and_no_cuda_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.train(cli.Args(output_dir=str(tmp_path / "out")))
+
+
+@pytest.mark.parametrize("shape", [(2, 71), (2, 2, 71), (2, 72)])
+def test_pad_to_sp_multiple(shape):
+    """``--mesh_sp``: a batch whose length is no multiple of sp gets right
+    pads (ids 0, labels -100, mask 0) up to the next multiple, as JAX's CLI
+    pads it; a multiple is left as it is."""
+    ids = np.arange(np.prod(shape)).reshape(shape) % 50 + 1
+    batch = {"input_ids": ids, "labels": ids.copy(), "attention_mask": np.ones_like(ids)}
+    out = cli._pad_to(batch, 2)
+    S = shape[-1] + shape[-1] % 2
+    assert all(v.shape == shape[:-1] + (S,) for v in out.values())
+    np.testing.assert_array_equal(out["input_ids"][..., :shape[-1]], ids)
+    if S > shape[-1]:
+        assert (out["labels"][..., -1] == -100).all() and (out["input_ids"][..., -1] == 0).all()
+        assert (out["attention_mask"][..., -1] == 0).all()
+    else:
+        assert out is batch

@@ -1,5 +1,6 @@
 """The CLI's mesh branches (``--mesh_dp/--mesh_fsdp/--mesh_tp``, both
-``--tp_style``s) against the JAX package's CLI on the same argv.
+``--tp_style``s, and ``--mesh_sp``: the sequence-parallel step) against the
+JAX package's CLI on the same argv.
 
 Both CLIs train the debug model from a store JAX wrote and resume from
 one single-device checkpoint JAX wrote at step 1 (so that both start from
@@ -34,10 +35,14 @@ import torch_train_worker
 torch.set_num_threads(2)
 LOSS_RTOL, GNORM_RTOL = 2e-3, 5e-3
 MESHES = {"gather": ["--mesh_fsdp", "2", "--mesh_tp", "2"],
-          "megatron": ["--tp_style", "megatron", "--mesh_dp", "2", "--mesh_tp", "2"]}
+          "megatron": ["--tp_style", "megatron", "--mesh_dp", "2", "--mesh_tp", "2"],
+          # (dp, sp) = (2, 2); 47 + 24 = 71 positions, padded to 72 for the ring
+          "sp": ["--mesh_dp", "2", "--mesh_sp", "2", "--source_max_len", "47"]}
 
 
 def _argv(store, data, out, steps, *extra):
+    """The runs' flags; `extra` comes last, so that a run's own flags (the
+    sp run's odd length) override these."""
     return ["--model_name_or_path", store, "--fake_tokenizer", "--dataset", data,
             "--output_dir", out, "--max_steps", str(steps), "--per_device_train_batch_size", "4",
             "--gradient_accumulation_steps", "2", "--source_max_len", "48",
@@ -79,7 +84,9 @@ def runs(tmp_path_factory):
             shutil.copytree(os.path.join(start, "checkpoint-1"), os.path.join(d, "checkpoint-1"))
             mesh = run(_argv(store, data, d, 4, *flags))
             os.remove(os.path.join(d, "completed"))
-            one = run(_argv(store, data, d, 5))          # the mesh checkpoint on one device
+            # the mesh checkpoint on one device, on the mesh run's data
+            one = run(_argv(store, data, d, 5, *flags[flags.index("--source_max_len"):]
+                            if "--source_max_len" in flags else ()))
             got[who] = (mesh, one, d)
         out[style] = got
     return out

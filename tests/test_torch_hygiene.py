@@ -1,6 +1,7 @@
 """The port stands alone: no module of qlora_tpu_torch/, not chip_smoke.py
-and not the tensor-parallel tests' rank module (tests/torch_tp_worker.py)
-imports jax, flax or the JAX package (qlora_tpu); its CUDA
+and not the parallel tests' rank modules (tests/torch_tp_worker.py,
+tests/torch_train_worker.py) imports jax, flax or the JAX package
+(qlora_tpu); its CUDA
 sources include nothing of them, quote no figure measured on a TPU, and each
 says which TPU kernel it replaces."""
 
@@ -12,8 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 BANNED = ("jax", "jaxlib", "flax", "optax", "qlora_tpu")
-FILES = sorted((ROOT / "qlora_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                             ROOT / "tests" / "torch_tp_worker.py"]
+FILES = sorted((ROOT / "qlora_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
+    ROOT / "tests" / "torch_train_worker.py"]
 
 
 def _imports(path: Path):
@@ -41,7 +43,7 @@ def test_scan_covers_the_port():
                   "examples/web_demo.py", "scripts/convert_checkpoint.py",
                   "parallel/__init__.py", "parallel/distributed.py", "parallel/megatron_step.py",
                   "parallel/tp_decode.py", "examples/serve_tp.py", "parallel/sharded_step.py",
-                  "parallel/tp_step.py"):
+                  "parallel/tp_step.py", "parallel/sp_step.py", "ops/ring_attention.py"):
         assert ROOT / "qlora_tpu_torch" / entry in FILES
 
 
@@ -51,15 +53,17 @@ RECIPES = sorted((ROOT / "qlora_tpu_torch" / "scripts").glob("*.sh"))
 @pytest.mark.parametrize("path", RECIPES, ids=lambda p: p.name)
 def test_recipes_call_the_port_on_one_card(path):
     """A recipe runs the port's modules only (``qlora_tpu_torch.``, never
-    ``qlora_tpu.``) and asks for no device mesh (ROADMAP A7)."""
+    ``qlora_tpu.``) and asks for no device mesh, but the long-context
+    recipe, whose ring is four sp ranks (as JAX's recipe)."""
     text = path.read_text()
     assert re.findall(r"\bqlora_tpu_torch\.cli\b", text)
     assert not re.findall(r"\bqlora_tpu\.\w+", text)
-    assert not re.findall(r"--mesh_\w+", text)
+    meshes = re.findall(r"--mesh_\w+ \d+", text)
+    assert meshes == (["--mesh_sp 4"] if path.stem == "finetune_longcontext_sp" else [])
 
 
 def test_recipe_scan_sees_the_recipes():
-    assert len(RECIPES) == 7
+    assert len(RECIPES) == 8
     assert not re.findall(r"\bqlora_tpu\.\w+", "python -m qlora_tpu_torch.cli --x 1")
     assert re.findall(r"\bqlora_tpu\.\w+", "python -m qlora_tpu.cli --mesh_sp 4")
 

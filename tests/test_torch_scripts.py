@@ -29,7 +29,8 @@ from test_torch_judge import stub_judge
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 RECIPES = ("finetune", "finetune_guanaco_7b", "finetune_guanaco_13b", "finetune_guanaco_33b",
-           "finetune_guanaco_65b", "finetune_llama2_guanaco_7b", "generate")
+           "finetune_guanaco_65b", "finetune_llama2_guanaco_7b", "generate",
+           "finetune_longcontext_sp")
 
 
 def recipe(path):
@@ -64,7 +65,7 @@ def test_recipe_parses_to_jax_s_args(name):
     common = {f.name for f in dataclasses.fields(got)} & {f.name for f in dataclasses.fields(want)}
     assert len(common) > 80
     assert {k: getattr(got, k) for k in common} == {k: getattr(want, k) for k in common}
-    tcli.check_supported(got)              # one card: nothing the recipe asks for is missing
+    tcli.check_supported(got)              # nothing the recipe asks for is missing
 
 
 @pytest.fixture(scope="module")

@@ -1,25 +1,29 @@
-"""Rank functions of tests/test_torch_sharded_step.py and
-tests/test_torch_megatron_train.py: each runs in a process of a 4-rank gloo
-world on the CPU, started by ``parallel.distributed.run_ranks``, and
-returns numpy arrays, numbers and lists.  Not collected by pytest; it
-imports torch, numpy and the port only, so that a rank starts without JAX.
+"""Rank functions of tests/test_torch_sharded_step.py,
+tests/test_torch_megatron_train.py, tests/test_torch_zero1.py,
+tests/test_torch_ring_attention.py and tests/test_torch_sp_step.py: each
+runs in a process of a 4-rank gloo world on the CPU, started by
+``parallel.distributed.run_ranks``, and returns numpy arrays, numbers and
+lists.  Not collected by pytest; it imports torch, numpy and the port only,
+so that a rank starts without JAX.
 
 ``world(mesh, cases)`` runs a list of ``(name, function name, kwargs)`` in
 one world and returns ``{name: result}``: one world a test module, however
 many cases, since each start of a world costs seconds.  Each case builds
-its ``(dp, fsdp, tp)`` mesh over the world (``make_parallel_mesh``: every
-case creates its groups on every rank, in the same order)."""
+its ``(dp, fsdp, tp)`` or ``(dp, fsdp, tp, sp)`` mesh over the world
+(``make_parallel_mesh``: every case creates its groups on every rank, in
+the same order)."""
 
 from __future__ import annotations
 
 import torch
 
 from qlora_tpu_torch.lora import LoraConfig
+from qlora_tpu_torch.ops import ring_attention
 from qlora_tpu_torch.parallel import (
     full_opt_state, init_megatron_state, init_sharded_train_state, make_megatron_train_step,
-    make_parallel_mesh, make_sharded_eval_step, make_sharded_train_step, make_tp_train_step,
-    megatron_lora_specs, gather_megatron_tree, mesh_coords, shard_params, shard_sharded_params,
-    zero1_gather,
+    make_parallel_mesh, make_sharded_eval_step, make_sharded_train_step, make_sp_train_step,
+    make_tp_train_step, megatron_lora_specs, gather_megatron_tree, mesh_coords, shard_params,
+    shard_sharded_params, zero1_gather,
 )
 from qlora_tpu_torch.train import make_optimizer
 from qlora_tpu_torch.train.optimizer import Optimizer, tree_leaves, tree_map
@@ -56,9 +60,11 @@ def train(world, cfg, lcfg_kw, params_np, lora_np, batch, shape, style="gather",
     """`steps` optimizer steps of the port's mesh step on every rank's shard
     of the JAX tree: each step's loss and grad norm, the trainable tree at
     the end (whole), the collectives of each step by axis, and under
-    ZeRO-1 this rank's chunk sizes and the state's global view."""
-    dp, fsdp, tp = shape
-    mesh = make_parallel_mesh(world, dp, fsdp, tp)
+    ZeRO-1 this rank's chunk sizes and the state's global view.  `shape`
+    is (dp, fsdp, tp), or (dp, fsdp, tp, sp) with the style "sp" (the
+    sequence-parallel step)."""
+    dp, fsdp, tp = shape[:3]
+    mesh = make_parallel_mesh(world, *shape)
     lcfg = LoraConfig(**lcfg_kw)
     params = params_from_numpy(params_np, cfg, "cpu")
     lora = lora_from_numpy(lora_np, "cpu")
@@ -69,16 +75,17 @@ def train(world, cfg, lcfg_kw, params_np, lora_np, batch, shape, style="gather",
         step = make_megatron_train_step(cfg, lcfg, optimizer, mesh, accum_steps=accum,
                                         clip_norm=clip_norm, remat=remat)
     else:
-        _, f, t = mesh_coords(world.rank, dp, fsdp, tp)
+        _, f, t = mesh_coords(world.rank, *shape)
         frozen = shard_sharded_params(params, t, f, tp, fsdp, "cpu")
         state = init_sharded_train_state(lora, optimizer, mesh)
-        make = make_tp_train_step if via_tp_step else make_sharded_train_step
+        make = (make_sp_train_step if style == "sp" else
+                make_tp_train_step if via_tp_step else make_sharded_train_step)
         step = make(cfg, lcfg, optimizer, mesh, accum_steps=accum, clip_norm=clip_norm,
                     remat=remat)
     out = {"loss": [], "grad_norm": [], "collectives": [],
            "frozen_share": sum(t.numel() * t.element_size() for t in tree_leaves(frozen))
            / sum(t.numel() * t.element_size() for t in tree_leaves(params))}
-    if fsdp > 1 and style == "gather" and opt != "sgd":
+    if fsdp > 1 and style != "megatron" and opt != "sgd":
         out["chunk_sizes"] = [t.numel() for t in tree_leaves(state.opt_state)]
     base = mesh.collectives()
     for _ in range(steps):
@@ -91,7 +98,7 @@ def train(world, cfg, lcfg_kw, params_np, lora_np, batch, shape, style="gather",
     out["held_shapes"] = {n: {k: tuple(t.shape) for k, t in ad.items()}
                           for n, ad in state.trainable[0].items()}
     out["lora"] = lora_to_numpy(_whole_lora(state, mesh, style))
-    if fsdp > 1 and style == "gather" and opt != "sgd":
+    if fsdp > 1 and style != "megatron" and opt != "sgd":
         out["zero1_global"] = _numpy(zero1_gather(state.opt_state, mesh.fsdp))
         out["full_state"] = _numpy(full_opt_state(state, optimizer, mesh))
     return out
@@ -122,6 +129,56 @@ def groups(world):
         out[shape] = {a: (mesh.axis(a).rank, mesh.axis(a).size,
                           mesh.axis(a).all_gather(x, dim=0).tolist())
                       for a in ("dp", "fsdp", "tp", "data")}
+    return out
+
+
+def ring(world, q, k, v, do, shape, causal=True, impl="auto"):
+    """``ring_attention`` over the sp axis of a ``(dp, fsdp, tp, sp)`` mesh
+    on this rank's shard of the whole q, k, v (numpy f32, rounded to bf16
+    here): its output and the gradients of q, k and v under the cotangent
+    `do`, and the rotations the sp axis made."""
+    mesh = make_parallel_mesh(world, *shape)
+    n, r = mesh.sp.size, mesh.sp.rank
+    cut = lambda x: x[:, :, r * (x.shape[2] // n):(r + 1) * (x.shape[2] // n)]
+    leaf = lambda x: torch.tensor(cut(x)).to(torch.bfloat16).requires_grad_(True)
+    qs, ks, vs = leaf(q), leaf(k), leaf(v)
+    o = ring_attention(qs, ks, vs, mesh.sp, sm_scale=q.shape[-1] ** -0.5, causal=causal,
+                       impl=impl)
+    o.backward(torch.tensor(cut(do)).to(torch.bfloat16))
+    f32 = lambda t: t.detach().float().numpy()
+    return dict(o=f32(o), dq=f32(qs.grad), dk=f32(ks.grad), dv=f32(vs.grad),
+                rotations=mesh.sp.collectives, sp_rank=r)
+
+
+def rotations(world):
+    """``TPMesh.rotate`` on the sp axis of (1, 1, 1, 4) and (1, 1, 2, 2):
+    what each rank receives from a rotation by +1 and by -1 of tensors of
+    three dtypes (a bf16 one of odd size: the packing pads it), two in
+    flight at once, and the count."""
+    out = {}
+    for shape in ((1, 1, 1, 4), (1, 1, 2, 2)):
+        mesh = make_parallel_mesh(world, *shape)
+        mine = [torch.full((3,), world.rank, dtype=torch.bfloat16),
+                torch.arange(5, dtype=torch.float32) + 10 * world.rank,
+                torch.full((2, 2), world.rank, dtype=torch.int32)]
+        fwd = mesh.sp.rotate(mine, shift=1, tag=0)
+        back = mesh.sp.rotate(mine, shift=-1, tag=1)
+        got = [[t.float().tolist() for t in rot.wait()] for rot in (fwd, back)]
+        out[shape] = dict(got=got, count=mesh.sp.collectives,
+                          shapes=[(tuple(t.shape), str(t.dtype)) for t in fwd.wait()])
+    return out
+
+
+def sp_groups(world):
+    """Each axis' (rank on the axis, size, world ranks gathered in axis
+    order) on this rank, for every (dp, fsdp, tp, sp) mesh of 4 with sp > 1."""
+    out = {}
+    for shape in ((1, 1, 1, 4), (2, 1, 1, 2), (1, 2, 1, 2), (1, 1, 2, 2)):
+        mesh = make_parallel_mesh(world, *shape)
+        x = torch.tensor([float(world.rank)])
+        out[shape] = {a: (mesh.axis(a).rank, mesh.axis(a).size,
+                          mesh.axis(a).all_gather(x, dim=0).tolist())
+                      for a in ("dp", "fsdp", "tp", "sp", "data", "data_sp")}
     return out
 
 
