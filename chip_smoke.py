@@ -290,7 +290,7 @@ them.  Phases, each failing the run on any mismatch or exception:
    the HF directory, only the tokenizer replaced.
 
 25. tp (after examples): tensor-parallel serving, ``PagedBatcher(tp_mesh=...)``,
-   four ranks at LLaMA-7B full width and depth.  On one card the ranks share
+   four ranks at LLaMA-7B full width, TP_LAYERS (8) layers.  On one card the ranks share
    it over gloo (NCCL refuses two ranks on one device), with four cards NCCL
    a card a rank; the phase prints the backend and each rank's device.
    Random double-quant NF4 weights and a rank-64 LoRA with nonzero B from
@@ -323,7 +323,7 @@ them.  Phases, each failing the run on any mismatch or exception:
    checks ``qmatmul`` of a whole K-sharded tensor on the card (one decode
    launch a chunk) against its plain version.
 26. train-mesh (after both processes below): LoRA finetuning over four
-   ranks through ``cli.train`` at LLaMA-7B full width and depth, the gather
+   ranks through ``cli.train`` at LLaMA-7B full width, MESH_LAYERS (8) layers, the gather
    style at (dp, fsdp, tp) = (1, 2, 2) and Megatron at (2, 1, 2), each
    against the single card on the same weights and stream
    (``train_mesh_phase``); then train-sp, then train-full.
@@ -339,11 +339,29 @@ them.  Phases, each failing the run on any mismatch or exception:
    shapes (``ring_kernel_phase``: a non-causal chunk, the causal diagonal,
    both backward on the merged lse and di) against their plain versions and
    times them beside SDPA.
+28. train-gspmd (after train-sp): full finetuning on a mesh through
+   ``cli.train --full_finetune --bits 16`` at LLaMA-7B width (GSPMD_LAYERS
+   layers, dense bf16, ``mode="full"``): run 1 at (dp, fsdp, tp) =
+   (1, 2, 2), four gloo ranks on the card; run 2 at (2, 1, 2) as two
+   processes of two ranks (``chip_smoke.py gspmd-host``, each building the
+   model from the seed) joined through ``--coordinator_address
+   localhost:<port> --num_processes 2 --process_id i``; each against the
+   single card's ``mode="full"`` steps on the same weights and
+   micro-batches (``train_gspmd_phase``): every step's loss and grad norm,
+   whole tensors bit-equal on every rank and shards on their dp replicas,
+   each rank's trainable and optimizer bytes ~1/(fsdp·tp) of the single
+   card's, rank 0's flash launches exact (rows 5 and 6 at the ranks'
+   shapes), run 1's checkpoint resumed on the single card for a step.
+29. dryrun (the second process's first phase): ``dryrun_multichip(4)``
+   (``qlora_tpu_torch/dryrun.py``), every path JAX's dry run takes at
+   n = 4 (GSPMD, the dp×fsdp×tp step, Megatron, the ring, tp serving, the
+   tp ``PagedBatcher`` with int8 and speculation) in one world of four
+   gloo ranks on the card, each path's kernel launches read on rank 0.
 
 Two processes share the card after the kernel phases: this one runs parity
 to train-data, while a second (``chip_smoke.py lane``, started by
-``start_lane``) runs cli, serve-http, examples, tp, train-int8 and
-train-gemma (``LANE``) and hands back their launch counts and stats.  The
+``start_lane``) runs paged-parity, parity-int8, dryrun, cli, serve-http, examples, tp,
+train-int8 and train-gemma (``LANE``) and hands back their launch counts and stats.  The
 kernels are timed before it starts, on an idle card; the host times of the
 phases of either process are taken beside the other's.  A failure in
 either fails the run, and the second process and everything it started end
@@ -361,8 +379,9 @@ train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
 ``python3 chip_smoke.py serve-http`` and ``python3 chip_smoke.py search``
 (serve's weights, its greedy ``generate()`` and serving tree made first),
 ``python3 chip_smoke.py examples``, ``python3 chip_smoke.py tp`` and
-``python3 chip_smoke.py train-sp`` (the ring's chunk kernels first) those
-phases alone.
+``python3 chip_smoke.py train-sp`` (the ring's chunk kernels first),
+``python3 chip_smoke.py train-gspmd`` and ``python3 chip_smoke.py dryrun``
+those phases alone.
 """
 
 from __future__ import annotations
@@ -483,6 +502,7 @@ SPEC_PAGES = 64                  # ample: speculation, not preemption, is what t
 # tp: tensor-parallel serving, four ranks on the one card over gloo (NCCL refuses two
 # ranks on one device), or over NCCL a card a rank where there are four cards
 TP = 4
+TP_LAYERS = 8                    # tp's depth, cut from 32 to make room for train-gspmd and dryrun
 TP_PAD = 2 * 64 * TP             # the intermediate padded to whole split-half block pairs
                                  # a rank: 11008 -> 11264, K-chunks of 2816 (11008 / 4 = 2752
                                  # is no whole pair of 64-row blocks: quantize refuses it)
@@ -496,16 +516,17 @@ TP_SERVE_NEW = 16                # examples/serve_tp's rank function: greedy tok
 TP_QMM_SHAPES = ((4096, 1024), (4096, 2816), (1024, 4096), (2816, 4096))   # a rank's wq / wk /
                                  # wv and wo chunk, w_gate / w_up and w_down chunk at tp 4
 TP_LOGIT_TOL = 0.25              # the first decode step, four ranks against the single card
-                                 # through 32 layers: the f32 all-reduce's order and the
-                                 # row-parallel linears' per-chunk double-quant offsets (each
-                                 # rank's K-chunk quantized alone); 0.090 prefill, 0.106 step
-                                 # read.  Also how far short of the single card's best
-                                 # teacher-forced logit an emitted token may fall
+                                 # (set when the phase ran 32 layers): the f32 all-reduce's
+                                 # order and the row-parallel linears' per-chunk double-quant
+                                 # offsets (each rank's K-chunk quantized alone); 0.090
+                                 # prefill, 0.106 step read.  Also how far short of the single
+                                 # card's best teacher-forced logit an emitted token may fall
 TP_NEAR_TIE = 2 * TP_LOGIT_TOL   # C1's rule: tokens equal up to a top-2 margin under this
 TP_INT8_BAND = 0.1               # run 2's int8 step against the exact step, of the largest
                                  # |exact logit|: the JAX package's own test's budget at 2
                                  # layers, which 32 layers keep (0.057 read)
 
+MESH_LAYERS = 8                  # train-mesh's depth, cut from 32 to make room for train-gspmd
 MESH_STEPS = 2                   # train-mesh: Megatron's optimizer steps; the gather style's
 MESH_GATHER_STEPS = 1            # one step costs 16-45 s over gloo (rank 0 sends ~1800
                                  # collectives a step, each ~9-25 ms: it waits for the card's
@@ -538,6 +559,16 @@ SP_STEPS = 2                             # optimizer steps a run, from MESH_STAR
 SP_RUNS = (("run 1", ("--mesh_sp", "4"), 1),
            ("run 2", ("--mesh_fsdp", "2", "--mesh_sp", "2"), 2))
 SP_CHUNK = (1, 32, 32, 128, 2048)        # B, H, KVH, hd, S of a run-1 rank's ring chunk
+
+# train-gspmd: full finetuning on a mesh (dense bf16, 14 bytes a parameter on the single card)
+GSPMD_LAYERS = 4                         # LLaMA-7B width, the depth cut to fit the phase's time
+GSPMD_STEPS = 2                          # optimizer steps a mesh run (the first at rate 0:
+                                         # the warmup starts there), then one resumed
+GSPMD_SEED = 43                          # init_params seed of the dense model, every process
+GSPMD_LR = 1e-4
+GSPMD_RUNS = (("run 1", (1, 2, 2), 1),   # (tag, (dp, fsdp, tp), processes)
+              ("run 2", (2, 1, 2), 2))
+DRYRUN_PATHS = ("gspmd", "sharded", "megatron", "ring", "tp-serving", "paged-tp")   # JAX's at 4
 
 FLASH_CASES = (  # B, H, KVH, hd, S, lengths, sliding window, planted edges, lse cotangent
     (2, 32, 32, 128, 512, (512, 300), None, False, False),   # the train run's shape
@@ -4798,12 +4829,12 @@ def pad_mlp(params, lora, cfg, multiple):
 
 
 def tp_model(dev):
-    """The tp phase's model on `dev`: LLaMA-7B from serve's seeds, a rank-64
-    LoRA with nonzero B, the MLP padded for 4 ranks; (params, lora, cfg,
-    lcfg).  The parent builds it and cuts every rank's shard from it."""
+    """The tp phase's model on `dev`: LLaMA-7B width, TP_LAYERS layers from
+    serve's seeds, a rank-64 LoRA with nonzero B, the MLP padded for 4 ranks;
+    (params, lora, cfg, lcfg).  The parent builds it and cuts every rank's shard from it."""
     from qlora_tpu_torch.models import init_params
 
-    cfg = seven_b()
+    cfg = seven_b(TP_LAYERS)
     params = init_params(cfg, seed=7, device=dev)
     lora, lcfg = random_lora(cfg, dev, seed=8)
     return params, lora, pad_mlp(params, lora, cfg, TP_PAD), lcfg
@@ -4942,8 +4973,8 @@ def tp_shortfalls(params, lora, cfg, lcfg, dev, prompts, tokens, admissions):
 
 
 def tp_phase(dev, card=""):
-    """tp: tensor-parallel serving at LLaMA-7B full width and depth, four
-    ranks.  On one card they share it over gloo (NCCL refuses two ranks on
+    """tp: tensor-parallel serving at LLaMA-7B full width (TP_LAYERS layers),
+    four ranks.  On one card they share it over gloo (NCCL refuses two ranks on
     one device: this shows shard shapes, storage, collectives and control
     flow, not tensor-parallel speed); with four cards, NCCL a card a rank.
     Random double-quant NF4 weights from serve's seed, its MLP padded to
@@ -5190,7 +5221,7 @@ def mesh_hook(event, ctx):
     import torch
 
     from qlora_tpu_torch.parallel import megatron_lora_specs
-    from qlora_tpu_torch.parallel.megatron_step import _spec_leaves
+    from qlora_tpu_torch.parallel.megatron_step import spec_leaves
     from qlora_tpu_torch.train.optimizer import tree_leaves
 
     rep, mesh, state = ctx["report"], ctx["mesh"], ctx["state"]
@@ -5214,7 +5245,7 @@ def mesh_hook(event, ctx):
         rep["collectives"].append({k: now[k] - rep["base"][k] for k in now})
         leaves = tree_leaves(state.trainable)
         if ctx["style"] == "megatron":
-            sharded = [sp is not None for sp in _spec_leaves(
+            sharded = [sp is not None for sp in spec_leaves(
                 state.trainable, megatron_lora_specs(state.trainable))]
         else:
             sharded = [False] * len(leaves)
@@ -5333,17 +5364,34 @@ def seed_run(start, out):
     return out
 
 
+def cut_model(args, dev, layers):
+    """``cli.build_model_and_tokenizer``'s random model for `args` (its
+    seeds: the weights from ``--seed``, the LoRA from ``--seed`` + 1) at
+    LLaMA-7B width and `layers` layers: (params, lora, cfg, lcfg,
+    tokenizer)."""
+    from qlora_tpu_torch import cli
+    from qlora_tpu_torch.lora import LoraConfig
+    from qlora_tpu_torch.models import init_lora_params, init_params
+
+    cfg = seven_b(layers)
+    lcfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
+    params = init_params(cfg, seed=args.seed, quantized=True, device=dev,
+                         quant_type=args.quant_type)
+    lora = init_lora_params(cfg, lcfg, seed=args.seed + 1, device=dev)
+    return params, lora, cfg, lcfg, cli._tokenizer(args)
+
+
 def train_mesh_phase(dev, card=""):
     """train-mesh: LoRA finetuning over four ranks through ``cli.train`` at
-    LLaMA-7B full width and depth (32 layers, NF4 double quant, serve's
-    weights, a rank-64 LoRA on all 7 linears, paged_adamw_32bit, remat
+    LLaMA-7B full width, MESH_LAYERS layers (NF4 double quant, the CLI's
+    weights from serve's seed, a rank-64 LoRA on all 7 linears, paged_adamw_32bit, remat
     "save_linear"), the cli phase's alpaca file and argv: a global batch of
     2 x 512, 2 micro-batches a step, so that each data rank takes 1 x 512 a
     micro-batch.  Every run resumes from one single-card checkpoint at step
     MESH_START (serve's adapters, AdamW's count at 1).  Run 1: the gather
     style at (dp, fsdp, tp) = (1, 2, 2) with ZeRO-1, MESH_GATHER_STEPS
     steps, its last checkpoint then resumed on the single card through
-    ``cli.main`` for one more step; run 2: Megatron at (2, 1, 2) on the
+    ``cli.train`` for one more step; run 2: Megatron at (2, 1, 2) on the
     re-packed tree (row-parallel linears K-sharded over 2), MESH_STEPS
     steps.  On one card the ranks are gloo processes sharing it, both runs
     and the single card's at once (this shows shards, collectives and
@@ -5372,7 +5420,7 @@ def train_mesh_phase(dev, card=""):
     four = torch.cuda.device_count() >= 4 if dev.type == "cuda" else False
     ranks = None if four else ("gloo", [str(dev) if dev.type != "cuda" else "cuda:0"] * 4)
     backend = "nccl" if four else "gloo"
-    L = seven_b().num_layers
+    L = MESH_LAYERS
     stats = {}
     with tempfile.TemporaryDirectory() as tmp:
         data = str(Path(tmp) / "alpaca.jsonl")
@@ -5380,8 +5428,7 @@ def train_mesh_phase(dev, card=""):
         out = lambda tag: str(Path(tmp) / tag)
         t0 = time.perf_counter()
         args = cli.parse_args(mesh_argv(data, out("ref"), MESH_END, dev))
-        params, lora, cfg, lcfg, tok = cli.build_model_and_tokenizer(args, dev)
-        model = (params, lora, cfg, lcfg, tok)
+        params, lora, cfg, lcfg, tok = model = cut_model(args, dev, MESH_LAYERS)
         whole = {"gather": tree_bytes(params)}
         opt_whole = 2 * tree_bytes(lora)          # AdamW's mu and nu on one card, f32
         # what every run starts from: a single-card checkpoint at MESH_START,
@@ -5429,10 +5476,10 @@ def train_mesh_phase(dev, card=""):
         del model2, repacked
         gc_cuda()
         # run 1's last checkpoint resumed on the single card for one more step
-        # through cli.main (its own model build from the seed)
         os.remove(Path(out("run1")) / "completed")
         t0 = time.perf_counter()
-        res1 = cli.main(mesh_argv(data, out("run1"), MESH_GATHER_END + 1, dev))
+        res1 = cli.train(cli.parse_args(mesh_argv(data, out("run1"), MESH_GATHER_END + 1, dev)),
+                         model=model)
         stats["resume_s"] = time.perf_counter() - t0
         del model, params, lora
         gc_cuda()
@@ -5792,6 +5839,350 @@ def train_sp_phase(dev, card="", results=(), chunk_ms=None):
           f"{', '.join(f'{summary[t]['s']:.1f}' for t in summary)} s); worst relative "
           f"differences: loss {worst[0]:.3g}, grad norm {worst[1]:.3g}", flush=True)
     return dict(total), dict(phase_s=phase_s, backend=backend, runs=summary, worst=worst)
+
+
+def gspmd_argv(data, out, steps, dev, *extra):
+    """train-gspmd's command line: the cli phase's (the alpaca file, 2 x 512
+    a micro-batch, 2 a step) with full finetuning (bits 16), MESH_SAMPLES
+    training examples, a checkpoint only at the end, no eval."""
+    return cli_argv(data, out, steps, dev, "--full_finetune", "--bits", "16",
+                    "--learning_rate", str(GSPMD_LR), "--max_train_samples", str(MESH_SAMPLES),
+                    "--save_steps", "1000", "--do_eval", "false", *extra)
+
+
+def gspmd_model(dev):
+    """train-gspmd's model (LLaMA-7B width, GSPMD_LAYERS layers, dense bf16
+    from GSPMD_SEED) made on the card and held on the host: every process
+    makes the same, and a mesh run's parent only cuts it."""
+    from qlora_tpu_torch.lora import LoraConfig
+    from qlora_tpu_torch.models import init_params
+    from qlora_tpu_torch.train.optimizer import tree_map
+    from qlora_tpu_torch.utils.testing import FakeTokenizer
+
+    cfg = seven_b(GSPMD_LAYERS)
+    params = tree_map(lambda t: t.cpu(), init_params(cfg, seed=GSPMD_SEED, quantized=False,
+                                                     device=dev))
+    gc_cuda()
+    return params, None, cfg, LoraConfig(), FakeTokenizer()
+
+
+def gspmd_hook(event, ctx):
+    """train-gspmd's probe in every rank of a ``cli.train`` GSPMD run: the
+    rank's trainable and optimizer bytes, its launches and peak over the
+    loop, and after each step the number of tensors whose bits differ from
+    rank 0's (whole tensors: the norms) or from their dp replica's at d = 0
+    (shards), digests gathered and compared."""
+    import torch
+
+    from qlora_tpu_torch.parallel.megatron_step import spec_leaves
+    from qlora_tpu_torch.parallel.mesh import param_specs
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+
+    rep, mesh, state = ctx["report"], ctx["mesh"], ctx["state"]
+    dev = mesh.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    if event == "start":
+        sync()
+        rep.update(rank=mesh.rank, device=str(dev), backend=mesh.backend,
+                   trainable_bytes=tree_bytes(state.trainable),
+                   opt_bytes=tree_bytes(state.opt_state), differing=[])
+        reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        rep["entered"], rep["started"] = ctx["entered"], time.time()
+        return
+    if event == "step":
+        leaves = tree_leaves(state.trainable)
+        whole = [d is None for d in spec_leaves(state.trainable, param_specs(state.trainable))]
+        mine = torch.stack([tensor_digest(t) for t in leaves])
+        every = mesh.world.all_gather(mine[None], dim=0)          # [world, leaves, 2]
+        replicas = mesh.dp.all_gather(mine[None], dim=0)          # [dp, leaves, 2]
+        differ = sum(int((every[:, j] != every[0, j]).any(-1).sum()) if w else
+                     int((replicas[:, j] != replicas[0, j]).any(-1).sum())
+                     for j, w in enumerate(whole))
+        rep["differing"].append(differ)
+        rep["n_whole"] = sum(whole)
+        return
+    sync()
+    rep["ended"] = time.time()
+    rep["counts"] = read_counts()
+    rep["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda"
+                       else 0.0)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def gspmd_host_main(dev, spec_path):
+    """``chip_smoke.py gspmd-host <spec>``: one process of train-gspmd's run
+    2 (a host): the model from the seed, then ``cli.train`` with the
+    spec's argv over its ranks (gloo on the card); its metrics and its ranks'
+    reports pickled where the spec says."""
+    import pickle
+
+    from qlora_tpu_torch import cli
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    m = cli.train(cli.parse_args(spec["argv"]), ranks=spec["ranks"], model=gspmd_model(dev),
+                  hook=gspmd_hook)
+    with open(spec["out"], "wb") as f:
+        pickle.dump(m, f)
+    return 0
+
+
+def gspmd_single_card(args, model, dev):
+    """The single card's ``mode="full"`` steps of the CLI's run for `args`:
+    its data stream, optimizer, step and generator (``cli``'s own helpers),
+    without the CLI's checkpoint (10 GB at 4 layers).  Returns its
+    ``train_metrics``."""
+    import torch
+
+    from qlora_tpu_torch import cli
+    from qlora_tpu_torch.train import init_train_state, make_train_step
+
+    params, _, cfg, lcfg, tok = model
+    optimizer = cli._make_optimizer(args)
+    state = init_train_state(params, optimizer, device=dev)
+    step = make_train_step(cfg, lcfg, optimizer, accum_steps=args.gradient_accumulation_steps,
+                           mode="full", remat=cli._remat(args), device=dev)
+    train_ds, _ = cli._datasets(args, False)
+    batches = cli._batches(args, train_ds, cli._collator(args, tok), tok, 0)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    metrics = []
+    for i in range(args.max_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, None, next(batches), generator)
+        metrics.append({"step": i + 1, "loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "seconds_per_step": time.perf_counter() - t0})
+    return {"train_metrics": metrics}
+
+
+def gspmd_hosts(argv, n_procs, ranks_of, tmp):
+    """Run `argv` as `n_procs` processes (``chip_smoke.py gspmd-host``),
+    process i's ranks on ``ranks_of(i)`` (backend, devices), joined through
+    a coordinator on a free local port; each one's metrics, in process
+    order.  A process that fails ends the others."""
+    import os
+    import pickle
+    import signal
+
+    port = free_port()
+    procs, outs = [], []
+    try:
+        for i in range(n_procs):
+            spec, out = Path(tmp) / f"host{i}.pkl", Path(tmp) / f"host{i}.out.pkl"
+            flags = ["--coordinator_address", f"localhost:{port}", "--num_processes",
+                     str(n_procs), "--process_id", str(i)]
+            with open(spec, "wb") as f:
+                pickle.dump(dict(argv=argv + flags, ranks=ranks_of(i), out=str(out)), f)
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "gspmd-host", str(spec)], process_group=0))
+            outs.append(out)
+        while any(p.poll() is None for p in procs):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if bad:
+                fail(f"train-gspmd: a host process exited with code {bad[0].returncode}")
+            time.sleep(0.5)
+        if any(p.returncode != 0 for p in procs):
+            fail(f"train-gspmd: host processes exited with {[p.returncode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    results = []
+    for o in outs:
+        with open(o, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def train_gspmd_phase(dev, card=""):
+    """train-gspmd: full finetuning on a mesh (``--full_finetune --bits
+    16``, the GSPMD step) through ``cli.train`` at LLaMA-7B width,
+    GSPMD_LAYERS layers of dense bf16 weights from GSPMD_SEED, the cli
+    phase's alpaca file and micro-batches (2 x 512, 2 a step), AdamW
+    (f32 moments), GSPMD_STEPS steps a run.  Run 1: (dp, fsdp, tp) = (1, 2,
+    2), four gloo ranks on the card; its checkpoint then resumed on the
+    single card for one step.  Run 2: (2, 1, 2) as two processes of two
+    ranks each (a host's parent and its ranks), each building the model
+    from the seed, joined through a coordinator on a local port.  Each run
+    against the single card's steps on the same weights and stream (the
+    CLI's data, optimizer and step, its loop without the checkpoint): each
+    step's loss within MESH_LOSS_RTOL and grad norm within MESH_GNORM_RTOL
+    relative; on every rank after every step whole tensors bit-equal to
+    rank 0's and shards to their dp replica's; each rank's trainable and
+    optimizer bytes ~1/(fsdp·tp) of the single card's; rank 0's flash
+    launches exact, no qmm (dense).  Returns (rank 0's launch counts over
+    both runs, stats)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from qlora_tpu_torch import cli
+    from qlora_tpu_torch.train.optimizer import tree_leaves
+
+    tag = "train-gspmd"
+    t_phase = time.perf_counter()
+    # one card: gloo ranks sharing it; four: NCCL, a card a rank (run 2's
+    # second process on the second pair)
+    four = torch.cuda.device_count() >= 4 if dev.type == "cuda" else False
+    one = str(dev) if dev.type != "cuda" else "cuda:0"
+    local = lambda n, first=0: (("nccl", [f"cuda:{first + r}" for r in range(n)]) if four
+                                else ("gloo", [one] * n))
+    L = GSPMD_LAYERS
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = str(Path(tmp) / "alpaca.jsonl")
+        alpaca_jsonl(data, DATA_EXAMPLES, seed=51)
+        out = lambda t: str(Path(tmp) / t)
+        t0 = time.perf_counter()
+        model = gspmd_model(dev)
+        params = model[0]
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        whole_bytes = tree_bytes(params)
+        opt_whole = 8 * n_params           # AdamW's f32 mu and nu on the single card
+        stats["build_s"] = time.perf_counter() - t0
+        print(f"{tag}: LLaMA-7B width, {L} layers, dense bf16 ({n_params / 1e9:.3f} B "
+              f"parameters, {whole_bytes / 2 ** 30:.2f} GiB; AdamW's moments "
+              f"{opt_whole / 2 ** 30:.2f} GiB), made in {stats['build_s']:.1f} s", flush=True)
+
+        def run(t, fn):
+            t0, called = time.perf_counter(), time.time()
+            m = fn()
+            torch.cuda.synchronize()
+            stats[f"{t}_s"] = time.perf_counter() - t0
+            where = loop_times(m, called, stats[f"{t}_s"]) if isinstance(m, dict) else ""
+            gc_cuda()
+            print(f"{tag} {t}: {stats[f'{t}_s']:.1f} s{where}", flush=True)
+            return m
+
+        # one run at a time: beside the single card's run, run 1's gloo ranks
+        # wait for the card's time slices longer than the single card takes
+        # (107.4 s together against 21.1 + 64.6 s apart on one H100)
+        # the single card, one step further: the step run 1's checkpoint resumes to
+        ref = run("ref", lambda: gspmd_single_card(
+            cli.parse_args(gspmd_argv(data, out("ref"), GSPMD_STEPS + 1, dev)), model, dev))
+        run1 = run("run1", lambda: cli.train(
+            cli.parse_args(gspmd_argv(data, out("run1"), GSPMD_STEPS, dev, "--mesh_fsdp", "2",
+                                      "--mesh_tp", "2")),
+            ranks=local(4), model=model, hook=gspmd_hook))
+        hosts = run("run2", lambda: gspmd_hosts(
+            gspmd_argv(data, out("run2"), GSPMD_STEPS, dev, "--mesh_dp", "2", "--mesh_tp", "2"),
+            2, lambda i: local(2, 2 * i), tmp))
+        run2 = dict(hosts[0], mesh_report=hosts[0]["mesh_report"] + hosts[1]["mesh_report"])
+        if hosts[1].get("process") != 1 or "train_metrics" in hosts[1]:
+            fail(f"{tag} run 2: process 1 returned {sorted(hosts[1])}")
+        if not os.path.exists(Path(out("run2")) / f"checkpoint-{GSPMD_STEPS}"):
+            fail(f"{tag} run 2: process 0 wrote no checkpoint")
+        # run 1's checkpoint on the single card for one more step
+        os.remove(Path(out("run1")) / "completed")
+        res1 = run("resume", lambda: cli.train(
+            cli.parse_args(gspmd_argv(data, out("run1"), GSPMD_STEPS + 1, dev)), model=model))
+        del model, params
+        gc_cuda()
+
+    ref_two = dict(ref, train_metrics=ref["train_metrics"][:GSPMD_STEPS])
+    d1 = mesh_agree("run 1 (1 x 2 x 2, then resumed on the single card)",
+                    dict(run1, train_metrics=run1["train_metrics"] + res1["train_metrics"]),
+                    ref, falls=False, phase=tag)
+    d2 = mesh_agree("run 2 (2 x 1 x 2, two processes)", run2, ref_two, falls=False, phase=tag)
+    losses = [h["loss"] for h in ref["train_metrics"]]
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the single card's loss did not fall ({losses})")
+    if [h["step"] for h in res1["train_metrics"]] != [GSPMD_STEPS + 1]:
+        fail(f"{tag}: the resumed run logged steps {res1['train_metrics']}")
+    per_step = train_counts(L, remat="full", mode="full")
+    want = expected_counts(**{k: GSPMD_STEPS * v for k, v in per_step.items() if v})
+    total = collections.Counter()
+    summary = {}
+    for t, m, (dp, F, T) in (("run 1", run1, GSPMD_RUNS[0][1]), ("run 2", run2, GSPMD_RUNS[1][1])):
+        reps = sorted(m["mesh_report"], key=lambda r: r["rank"])
+        r0 = reps[0]
+        total.update(r0["counts"])
+        if [r["rank"] for r in reps] != list(range(dp * F * T)):
+            fail(f"{tag} {t}: reports from ranks {[r['rank'] for r in reps]}")
+        if r0["counts"] != want:
+            fail(f"{tag} {t}: rank 0's launches {r0['counts']} != {want}")
+        bad = [(r["rank"], r["differing"]) for r in reps if any(r["differing"])]
+        if bad or len(r0["differing"]) != GSPMD_STEPS:
+            fail(f"{tag} {t}: tensors differing from their replicas (rank, per step): {bad}")
+        shares = [r["trainable_bytes"] / whole_bytes for r in reps]
+        opt_shares = [r["opt_bytes"] / opt_whole for r in reps]
+        frac = F * T
+        if any(not 0.99 / frac <= x <= 1.03 / frac for x in shares + opt_shares):
+            fail(f"{tag} {t}: the ranks' trainable shares {shares} or optimizer shares "
+                 f"{opt_shares} are not about 1/{frac}")
+        secs = [h["seconds_per_step"] for h in m["train_metrics"]]
+        summary[t] = dict(step_s=secs, peak_gib=[r["peak_gib"] for r in reps], shares=shares,
+                          opt_shares=opt_shares, s=stats[t.replace(" ", "") + "_s"])
+        print(f"{tag} {t} ((dp, fsdp, tp) = {(dp, F, T)}, "
+              f"{'two processes of two ranks' if t == 'run 2' else 'one process'}, "
+              f"{r0['backend']}): seconds a step on rank 0's host clock "
+              f"{', '.join(f'{x:.3f}' for x in secs)}; trainable a rank "
+              f"{', '.join(f'{x:.4f}' for x in shares)} of the model's "
+              f"{whole_bytes / 2 ** 30:.3f} GiB, optimizer state "
+              f"{', '.join(f'{x:.4f}' for x in opt_shares)} of the single card's "
+              f"{opt_whole / 2 ** 30:.3f} GiB; peak a rank "
+              f"{', '.join(f'{x:.2f}' for x in summary[t]['peak_gib'])} GiB; {r0['n_whole']} "
+              f"whole tensors bit-equal on every rank and shards on their dp replicas after "
+              f"every step; rank 0's launches {dict((k, v) for k, v in r0['counts'].items() if v)}",
+              flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"{tag} ({card}): phase {phase_s:.1f} s (model made in {stats['build_s']:.1f} s; the "
+          f"single card {stats['ref_s']:.1f} s, run 1 {stats['run1_s']:.1f} s, run 2 "
+          f"{stats['run2_s']:.1f} s, resumed {stats['resume_s']:.1f} s); the single card's steps "
+          f"{', '.join(f'{h['seconds_per_step']:.3f}' for h in ref['train_metrics'])} s; worst "
+          f"relative differences: loss {max(d1[0], d2[0]):.3g}, grad norm "
+          f"{max(d1[1], d2[1]):.3g}", flush=True)
+    return dict(total), dict(phase_s=phase_s, runs=summary,
+                             worst=(max(d1[0], d2[0]), max(d1[1], d2[1])))
+
+
+def dryrun_probe(event, name):
+    """dryrun's probe in every rank: the launch counters zeroed before each
+    path and read after it (the nonzero ones)."""
+    if event == "start":
+        reset_counts()
+        return None
+    return {k: v for k, v in read_counts().items() if v}
+
+
+def dryrun_phase(dev, card=""):
+    """dryrun: ``dryrun_multichip(4)`` on the card (four gloo ranks sharing
+    it, one world): every path JAX's dry run takes at n = 4, in order, each
+    launching kernels on rank 0.  Returns (each path's launches on rank 0,
+    stats)."""
+    from qlora_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, dev, probe=dryrun_probe, verbose=False)
+    lines = out[0]
+    names = tuple(name for name, *_ in lines)
+    if names != DRYRUN_PATHS:
+        fail(f"dryrun: paths {names} != {DRYRUN_PATHS}")
+    by_path = {}
+    for name, line, secs, counts in lines:
+        print(f"dryrun_multichip OK ({line} [{secs:.2f} s; rank 0's launches {counts}]",
+              flush=True)
+        if not counts:
+            fail(f"dryrun {name}: no kernel launched on rank 0")
+        by_path[name] = counts
+    phase_s = time.perf_counter() - t0
+    print(f"dryrun ({card}): {len(lines)} paths in one world of 4 gloo ranks on the card, "
+          f"{phase_s:.1f} s", flush=True)
+    total = collections.Counter()
+    for counts in by_path.values():
+        total.update(counts)
+    return dict(total), dict(phase_s=phase_s, paths=by_path)
 
 
 @contextlib.contextmanager
@@ -6683,7 +7074,33 @@ def timed_gemma_phase(dev):
 # sequences' peaks (tp's ~22 GiB, train-gemma's 37, the main sequence's 24 at
 # most) fit together, while train-mesh (~60 GiB over its eight ranks and the
 # single card) and train-full (69 GiB) run alone after both
-LANE = (("cli", lambda dev, card: cli_phase(dev, card)),
+def parity_int8_seeds(dev):
+    """parity-int8 at every seed of PARITY_INT8_SEEDS; the worst readings."""
+    t0 = time.perf_counter()
+    worst = {}
+    for seed in PARITY_INT8_SEEDS:
+        w, _ = parity_int8_phase(dev, seed)
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+    print(f"parity-int8: over seeds {PARITY_INT8_SEEDS}, worst max|logits cpu - card| "
+          f"{worst['free']:.4g} <= {W8A8_LOGIT_TOL}, on the CPU's row codes "
+          f"{worst['replayed']:.4g} <= {LOGIT_TOL}, int8 against exact "
+          f"{worst['of_exact']:.4f} < {INT8_LOGIT_BAND}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return worst
+
+
+def timed_paged_parity(dev):
+    t0 = time.perf_counter()
+    worst = paged_parity_phase(dev)
+    print(f"paged-parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+LANE = (("paged-parity", lambda dev, card: timed_paged_parity(dev)),
+        ("parity-int8", lambda dev, card: parity_int8_seeds(dev)),
+        ("dryrun", lambda dev, card: dryrun_phase(dev, card)),
+        ("cli", lambda dev, card: cli_phase(dev, card)),
         ("serve-http", lambda dev, card: serve_http_phase(dev, card)),
         ("examples", lambda dev, card: examples_phase(dev, card)),
         ("tp", lambda dev, card: tp_phase(dev, card)),
@@ -6776,6 +7193,11 @@ def main() -> int:
 
         _build.build_all()
         return lane_main(dev, sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["gspmd-host"] and len(sys.argv) == 3:    # train-gspmd's run 2
+        from qlora_tpu_torch.ops import _build
+
+        _build.build_all()
+        return gspmd_host_main(dev, sys.argv[2])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -6800,7 +7222,9 @@ def main() -> int:
               "examples": lambda dev: examples_phase(dev, card),
               "tp": lambda dev: (tp_qmm_phase(dev, []), tp_phase(dev, card)),
               "train-mesh": lambda dev: (tp_qmm_phase(dev, []), train_mesh_phase(dev, card)),
-              "train-sp": lambda dev: train_sp_phase(dev, card, (), ring_kernel_phase(dev, []))}
+              "train-sp": lambda dev: train_sp_phase(dev, card, (), ring_kernel_phase(dev, [])),
+              "train-gspmd": lambda dev: train_gspmd_phase(dev, card),
+              "dryrun": lambda dev: dryrun_phase(dev, card)}
     if sys.argv[1:]:
         if len(sys.argv) != 2 or sys.argv[1] not in single:
             print(f"chip_smoke: one phase alone is one of {sorted(single)}", file=sys.stderr)
@@ -6841,20 +7265,6 @@ def main() -> int:
         print(f"parity-i8base: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        worst = {}
-        for seed in PARITY_INT8_SEEDS:
-            w, _ = parity_int8_phase(dev, seed)
-            worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
-        print(f"parity-int8: over seeds {PARITY_INT8_SEEDS}, worst max|logits cpu - card| "
-              f"{worst['free']:.4g} <= {W8A8_LOGIT_TOL}, on the CPU's row codes "
-              f"{worst['replayed']:.4g} <= {LOGIT_TOL}, int8 against exact "
-              f"{worst['of_exact']:.4f} < {INT8_LOGIT_BAND}; {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        worst = paged_parity_phase(dev)
-        print(f"paged-parity: worst max|d| {worst:.4g} <= {LOGIT_TOL}, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
         (serve_counts, serve_stats, int8_counts, int8_stats,
          (paged_counts, paged_stats, paged8_counts, paged8_stats, pagedw_counts, pagedw_stats),
          (spec_counts, spec_stats), (search_counts, search_stats)) = serve_phase(dev)
@@ -6884,6 +7294,7 @@ def main() -> int:
     print(f"two processes: this one's phases {main_s:.1f} s, the second's "
           f"({', '.join(n for n, _ in LANE)}) {lane_out['lane_s']:.1f} s, both "
           f"{time.perf_counter() - t_lanes:.1f} s", flush=True)
+    dryrun_counts, dryrun_stats = lane_out["dryrun"]
     cli_counts, cli_stats = lane_out["cli"]
     http_counts, http_stats = lane_out["serve-http"]
     examples_counts, examples_stats = lane_out["examples"]
@@ -6894,6 +7305,8 @@ def main() -> int:
     mesh_counts, mesh_stats = train_mesh_phase(dev, card)
     gc_cuda()
     sp_total, sp_stats = train_sp_phase(dev, card, results, chunk_ms)
+    gc_cuda()
+    gspmd_total, gspmd_stats = train_gspmd_phase(dev, card)
     gc_cuda()
     t0 = time.perf_counter()
     full_counts, full_stats = train_full_phase(dev)
@@ -7000,7 +7413,8 @@ def main() -> int:
         # the judge, the examples and the converter
         for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts),
                          ("examples", examples_counts), ("tp", tp_counts),
-                         ("train_mesh", mesh_counts), ("train_sp", sp_total)):
+                         ("train_mesh", mesh_counts), ("train_sp", sp_total),
+                         ("train_gspmd", gspmd_total), ("dryrun", dryrun_counts)):
             if run.get(entry["name"]):
                 entry[f"launches_{tag}"] = run[entry["name"]]
     summary[0]["launches_train"] = train_counts["qmm_nf4_fwd_dq"]
@@ -7127,6 +7541,15 @@ def main() -> int:
           f"{sp_stats['worst'][1]:.3g}; activation peak a rank {max(ss['run 1']['act_gib']):.2f}"
           f" / {max(ss['run 2']['act_gib']):.2f} GiB against the single card's "
           f"{ss['run 1']['ref_act_gib']:.2f} / {ss['run 2']['ref_act_gib']:.2f}", flush=True)
+    gs = gspmd_stats["runs"]
+    print(f"train-gspmd ({card}): {GSPMD_LAYERS} layers of dense bf16 at LLaMA-7B width, phase "
+          f"{gspmd_stats['phase_s']:.1f} s; s a step on rank 0, run 1 (1, 2, 2) "
+          f"{', '.join(f'{x:.2f}' for x in gs['run 1']['step_s'])}, run 2 (2, 1, 2, two "
+          f"processes) {', '.join(f'{x:.2f}' for x in gs['run 2']['step_s'])}; worst relative "
+          f"difference from the single card: loss {gspmd_stats['worst'][0]:.3g}, grad norm "
+          f"{gspmd_stats['worst'][1]:.3g}; peak a rank {max(gs['run 1']['peak_gib']):.2f} / "
+          f"{max(gs['run 2']['peak_gib']):.2f} GiB; dryrun {dryrun_stats['phase_s']:.1f} s, "
+          f"{len(dryrun_stats['paths'])} paths", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,31 +1,41 @@
 """CLI and train / eval / predict driver: the qlora.py ``train()``
-equivalent, on one device or over a mesh of ranks.
+equivalent, on one device, over a mesh of ranks, or over several hosts.
 
 The flags are the JAX package's (``qlora_tpu/cli.py``), name for name and
 default for default, plus ``--device`` (CUDA unless given; ``cpu`` runs the
-plain PyTorch path).  Unknown flags are an error.  What the port does not
-run yet raises ``NotImplementedError`` naming its ROADMAP item: full
-finetuning on a mesh and several hosts (A7b's items 2 and 3).  Predict
-runs ``generate()`` with the search flags (beam, group-beam and
-contrastive search and their penalties), or ``generate_speculative`` under
+plain PyTorch path).  Unknown flags are an error.  Predict runs
+``generate()`` with the search flags (beam, group-beam and contrastive
+search and their penalties), or ``generate_speculative`` under
 ``--predict_speculative``.
 
-``--mesh_dp/--mesh_fsdp/--mesh_tp`` train LoRA over dp·fsdp·tp ranks, one
-process a rank (``parallel/``): ``--tp_style gather`` (the default) runs
-the dp×fsdp×tp step with fsdp weight gathering and ZeRO-1 optimizer state,
-``--tp_style megatron`` the Megatron step over a dp×tp mesh, and
+``--mesh_dp/--mesh_fsdp/--mesh_tp`` train over dp·fsdp·tp ranks, one
+process a rank (``parallel/``).  LoRA: ``--tp_style gather`` (the default)
+runs the dp×fsdp×tp step with fsdp weight gathering and ZeRO-1 optimizer
+state, ``--tp_style megatron`` the Megatron step over a dp×tp mesh, and
 ``--mesh_sp`` the sequence-parallel step (ring attention over sp ranks,
 composed with the gather style's fsdp and tp; each batch's length padded
-to a multiple of sp with ignored labels, as JAX's CLI pads it).  The ranks
-run over NCCL, rank r on ``cuda:r`` (it raises when the machine has fewer
-cards), or with ``--device cpu`` over gloo on the CPU.  The parent builds
-the model once, cuts every rank's shard and hands each rank only its own;
+to a multiple of sp with ignored labels, as JAX's CLI pads it).
+``--full_finetune`` (bits 16) runs the GSPMD step: the dense model and its
+AdamW moments sharded over fsdp·tp, the rows over dp
+(``parallel/gspmd_step.py``).  The ranks run over NCCL, rank r on
+``cuda:r`` (it raises when the machine has fewer cards), or with
+``--device cpu`` over gloo on the CPU.  The parent builds the model once,
+cuts every rank's shard and hands each rank only its own;
 ``--per_device_train_batch_size`` is the global batch, as in JAX, which
-dp·fsdp divides, and data rank d·F + f takes its rows of the same seeded
-stream.  Checkpoints are written by rank 0 in the single-device layout, so
-that a mesh checkpoint resumes on one card and a single-card one on a
-mesh.  What follows training (the final eval, MMLU, predict) runs in the
-parent as on one card, with the trained adapters gathered.
+the data axes divide (dp·fsdp, or dp under GSPMD), and each data rank
+takes its rows of the same seeded stream.  Checkpoints are written by
+rank 0 in the single-device layout, so that a mesh checkpoint resumes on
+one card and a single-card one on a mesh.  What follows training (the
+final eval, MMLU, predict) runs in the parent as on one card, with the
+trained tree read back from the last checkpoint.
+
+``--coordinator_address host:port --num_processes N --process_id i`` run
+one process a host (``parallel/distributed.py: initialize``): each host's
+parent builds the model from the same seed or checkpoint, cuts its own
+ranks' shards and starts them (ranks p·L .. p·L + L - 1 of the mesh, L the
+mesh's ranks over N), and the world meets through process 0's store.  Only
+process 0 writes checkpoints, logs, metrics and predictions, and runs what
+follows training; the other processes wait for it and return.
 
 Order of work: resume detection, model build, data, the train loop
 (logging and save cadence, in-training eval and MMLU), eval, standalone
@@ -199,9 +209,12 @@ def mesh_shape(args: Args) -> tuple:
 
 def mesh_style(args: Args) -> str:
     """The mesh step a run takes: "sp" (the sequence-parallel step, which
-    shards its weights in the gather style) whenever mesh_sp > 1, else the
-    tp style."""
-    return "sp" if args.mesh_sp > 1 else args.tp_style
+    shards its weights in the gather style) whenever mesh_sp > 1, "gspmd"
+    (the GSPMD step, ``parallel/gspmd_step.py``) for full finetuning, else
+    the tp style."""
+    if args.mesh_sp > 1:
+        return "sp"
+    return "gspmd" if args.full_finetune else args.tp_style
 
 
 def _optimizer_name(args: Args) -> str:
@@ -209,25 +222,24 @@ def _optimizer_name(args: Args) -> str:
 
 
 def check_supported(args: Args) -> None:
-    """Raise for every flag whose path is not ported yet, naming its item,
-    and for the mesh combinations the JAX CLI refuses (its exceptions)."""
+    """Raise for the mesh combinations the JAX CLI refuses (its
+    exceptions), and for the one the port adds: full finetuning on a mesh
+    with an 8-bit optimizer, whose blockwise state does not follow the
+    model's column shards."""
     if args.mesh_sp > 1:
         if args.full_finetune:
             raise NotImplementedError("full_finetune does not compose with mesh_sp")
         if args.mesh_tp > 1 and args.tp_style == "megatron":
             raise ValueError("mesh_sp needs tp_style=gather (head-parallel attention does not "
                              "compose with the ring)")
-    if args.coordinator_address or (args.num_processes or 0) > 1:
-        raise NotImplementedError(
-            "several hosts (coordinator_address / num_processes) are not ported: "
-            "ROADMAP A7b, the second half of the training half of parallelism")
     if math.prod(mesh_shape(args)) > 1:
-        if args.full_finetune:
-            raise NotImplementedError(
-                "full finetuning on a mesh (GSPMD) is not ported: ROADMAP A7b, the second "
-                "half of the training half of parallelism")
         if args.tp_style not in ("gather", "megatron"):
             raise ValueError(f"unknown tp_style {args.tp_style!r}")
+        if args.full_finetune and args.tp_style == "megatron":
+            raise NotImplementedError("full_finetune shards via GSPMD (tp_style=gather)")
+        if args.full_finetune and _optimizer_name(args) in ("adam8bit", "paged_adamw_8bit"):
+            raise ValueError("full_finetune on a mesh needs an AdamW-family optimizer (8-bit "
+                             "blockwise state does not follow the model's column shards)")
         if mesh_style(args) == "megatron" and args.mesh_fsdp > 1:
             raise ValueError("tp_style=megatron requires mesh_fsdp=1 (compose fsdp via "
                              "tp_style=gather)")
@@ -239,9 +251,9 @@ def check_supported(args: Args) -> None:
 
 
 def rank_devices(n: int, device) -> tuple:
-    """(backend, devices) of a mesh of `n` ranks: NCCL with rank r on
-    ``cuda:r``, or gloo on the CPU when `device` is the CPU.  Raises when
-    the machine has fewer cards than ranks."""
+    """(backend, devices) of the `n` ranks this process starts: NCCL with
+    local rank r on ``cuda:r``, or gloo on the CPU when `device` is the
+    CPU.  Raises when the machine has fewer cards than ranks."""
     device = torch.device(device)
     if device.type == "cpu":
         return "gloo", ["cpu"] * n
@@ -425,13 +437,15 @@ def train(args: Args, *, ranks: Optional[tuple] = None, model: Optional[tuple] =
     from qlora_tpu_torch.utils.checkpoint import (
         CHECKPOINT_PREFIX, get_last_checkpoint, load_checkpoint, mark_completed, save_checkpoint,
     )
+    from qlora_tpu_torch.train.optimizer import tree_map
     from qlora_tpu_torch.utils.metrics import MetricsLogger, StepTimer, maybe_profile
 
     check_supported(args)
     device = resolve_device(args.device)
     n_ranks = math.prod(mesh_shape(args))
+    procs = _join_processes(args, n_ranks)
     if n_ranks > 1:
-        ranks = ranks or rank_devices(n_ranks, device)
+        ranks = ranks or rank_devices(n_ranks // procs, device)
     os.makedirs(args.output_dir, exist_ok=True)
     all_metrics = {"run_name": args.output_dir}
 
@@ -450,7 +464,14 @@ def train(args: Args, *, ranks: Optional[tuple] = None, model: Optional[tuple] =
     if args.fp16:
         logger.warning("fp16 unsupported; using bf16 compute")
     optimizer = _make_optimizer(args)
-    state = init_train_state(trainable, optimizer, device=device)
+    if n_ranks > 1 and args.do_train:
+        # the ranks make their own optimizer state; the parent holds one only
+        # to resume it (on the host: a full model's moments need not fit a card)
+        cpu_trainable = tree_map(lambda t: t.detach().cpu(), trainable)
+        state = TrainState(step=0, trainable=trainable,
+                           opt_state=optimizer.init(cpu_trainable) if ckpt_dir else None)
+    else:
+        state = init_train_state(trainable, optimizer, device=device)
     start_step, resumed_opt = 0, False
     if ckpt_dir is not None:
         loaded, opt_state, info = load_checkpoint(ckpt_dir, state.trainable, state.opt_state)
@@ -470,10 +491,19 @@ def train(args: Args, *, ranks: Optional[tuple] = None, model: Optional[tuple] =
             params = requantize_row_parallel(params, args.mesh_tp)
         out = _train_on_mesh(args, cfg, lcfg, params, state, start_step,
                              state.opt_state if resumed_opt else None, ranks, hook)
+        if procs > 1 and out["process"] != 0:
+            # process 0 writes every file; the others wait until it is done
+            from qlora_tpu_torch.parallel import distributed
+
+            distributed.end_of_run()
+            all_metrics["process"] = out["process"]
+            if hook is not None:
+                all_metrics["mesh_report"] = out["reports"]
+            return all_metrics
         all_metrics.update(out["metrics"])
         trained = None
         if args.do_eval or args.do_mmlu_eval or args.do_predict:
-            # the adapters rank 0 wrote whole at the last step
+            # the trainable tree rank 0 wrote whole at the last step
             trained = load_checkpoint(os.path.join(
                 args.output_dir, f"{CHECKPOINT_PREFIX}{args.max_steps}"), state.trainable)[0]
         state = TrainState(step=args.max_steps, trainable=trained, opt_state=None)
@@ -528,7 +558,29 @@ def train(args: Args, *, ranks: Optional[tuple] = None, model: Optional[tuple] =
         json.dump(all_metrics, f, indent=2)
     if n_ranks > 1 and hook is not None and args.do_train and start_step < args.max_steps:
         all_metrics["mesh_report"] = out["reports"]
+    if procs > 1:
+        from qlora_tpu_torch.parallel import distributed
+
+        distributed.end_of_run()
     return all_metrics
+
+
+def _join_processes(args: Args, n_ranks: int) -> int:
+    """Join the run's processes where the flags name several
+    (``--coordinator_address/--num_processes/--process_id``, one process a
+    host: its parent and the mesh ranks it starts); their number."""
+    if not (args.coordinator_address or (args.num_processes or 0) > 1):
+        return 1
+    from qlora_tpu_torch.parallel import distributed
+
+    distributed.initialize(args.coordinator_address, args.num_processes, args.process_id)
+    procs = distributed.process_count()
+    if n_ranks % procs or n_ranks < procs:
+        raise ValueError(f"a mesh of {n_ranks} ranks does not split over {procs} processes "
+                         "(each starts the same number of ranks)")
+    logger.info("distributed: process %d/%d, %d local / %d global ranks",
+                distributed.process_index(), procs, n_ranks // procs, n_ranks)
+    return procs
 
 
 def _log_step(args, step, m, t0, metrics_hist, mlogger):
@@ -570,33 +622,48 @@ def _in_loop_eval(args, step, eval_fn, state, params, collator, eval_ds, mlogger
 
 
 def _train_on_mesh(args, cfg, lcfg, params, state, start_step, opt_state, ranks, hook):
-    """Start :func:`mesh_rank` on every rank and, while the processes
-    start, cut every rank's shard of `params` (the gather style's N-shards,
-    or the Megatron shards of a re-packed tree) into a file of its own, and
-    the run's job (flags, configs, the adapters to start from and the
-    optimizer state a checkpoint held, or None: each rank makes its own)
-    into another; a rank reads each file once it is whole.  Returns rank
-    0's result."""
+    """Start :func:`mesh_rank` on every rank of this process and, while the
+    processes start, cut each of its ranks' shard into a file of its own
+    (the gather style's N-shards of `params`, the Megatron shards of a
+    re-packed tree, or under GSPMD the rank's slice of the trainable model
+    and of the optimizer state a checkpoint held), and the run's job (flags,
+    configs, the adapters to start from and the optimizer state a
+    checkpoint held, or None: each rank makes its own) into another; a rank
+    reads each file once it is whole.  Returns the result of this process's
+    first rank, with its process id and every local rank's report."""
     import threading
 
-    from qlora_tpu_torch.parallel import mesh_coords, run_ranks, shard_params, shard_sharded_params
+    from qlora_tpu_torch.parallel import (
+        distributed, mesh_coords, run_ranks, shard_params, shard_sharded_params,
+    )
+    from qlora_tpu_torch.parallel.gspmd_step import cut_state
+    from qlora_tpu_torch.parallel.mesh import MeshAxes
     from qlora_tpu_torch.train.optimizer import tree_map
 
     backend, devices = ranks
     dp, F, T, SP = shape = mesh_shape(args)
     n = dp * F * T * SP
-    logger.info("mesh %d x %d x %d x %d (%s style): %d ranks over %s on %s", dp, F, T, SP,
-                mesh_style(args), n, backend, ", ".join(map(str, devices)))
+    style = mesh_style(args)
+    first = distributed.process_index() * len(devices)
+    local = range(first, first + len(devices))
+    logger.info("mesh %d x %d x %d x %d (%s style): ranks %d..%d of %d over %s on %s", dp, F, T,
+                SP, style, local[0], local[-1], n, backend, ", ".join(map(str, devices)))
+    cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
     # one file a distinct shard: ranks that differ only in dp or sp share it
-    if mesh_style(args) == "megatron":
+    if style == "megatron":
         key = lambda r: mesh_coords(r, *shape)[2]
         cut = lambda r: shard_params(params, key(r), T, "cpu")
+    elif style == "gspmd":
+        key = lambda r: mesh_coords(r, *shape)[1:]
+        cut = lambda r: dict(zip(("trainable", "opt_state"), cut_state(
+            state.trainable, opt_state, MeshAxes(dp, F, T), *key(r), "full", "cpu")))
     else:
         key = lambda r: mesh_coords(r, *shape)[1:]
         cut = lambda r: shard_sharded_params(params, key(r)[1], key(r)[0], T, F, "cpu")
+    whole = style != "gspmd"          # the job carries the whole trainable tree
     with tempfile.TemporaryDirectory() as tmp:
         names = {}
-        for r in range(n):
+        for r in local:
             names.setdefault(key(r), os.path.join(tmp, f"shard-{len(names)}.pt"))
         job = os.path.join(tmp, "job.pt")
         done: dict = {}
@@ -604,7 +671,7 @@ def _train_on_mesh(args, cfg, lcfg, params, state, start_step, opt_state, ranks,
         def ranks_run():
             try:
                 done["results"] = run_ranks(
-                    mesh_rank, n, job, hook, per_rank=[(names[key(r)],) for r in range(n)],
+                    mesh_rank, n, job, hook, per_rank=[(names[key(r)],) for r in local],
                     backend=backend, devices=devices, store_dir=tmp, timeout_s=None)
             except BaseException as e:      # re-raised in the parent's thread below
                 done["error"] = e
@@ -613,12 +680,13 @@ def _train_on_mesh(args, cfg, lcfg, params, state, start_step, opt_state, ranks,
         thread.start()
         try:
             with torch.no_grad():
-                cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
-                _write(job, dict(args=args, cfg=cfg, lcfg=lcfg, trainable=cpu(state.trainable),
-                                 opt_state=None if opt_state is None else cpu(opt_state),
+                _write(job, dict(args=args, cfg=cfg, lcfg=lcfg,
+                                 trainable=cpu(state.trainable) if whole else None,
+                                 opt_state=None if opt_state is None or not whole
+                                 else cpu(opt_state),
                                  start_step=start_step))
                 written = set()
-                for r in range(n):
+                for r in local:
                     if key(r) not in written:
                         _write(names[key(r)], cut(r))
                         written.add(key(r))
@@ -631,6 +699,7 @@ def _train_on_mesh(args, cfg, lcfg, params, state, start_step, opt_state, ranks,
         raise done["error"]
     out = done["results"][0]
     out["reports"] = [r["report"] for r in done["results"]]
+    out["process"] = distributed.process_index()
     return out
 
 
@@ -652,12 +721,27 @@ def _read(path: str):
 
 
 def _full_trees(args, state, optimizer, mesh):
-    """The adapters and the optimizer state whole, in the single-device
-    layout (collective: every rank calls it)."""
+    """The trainable tree and the optimizer state whole, in the
+    single-device layout (collective: every rank calls it).  Under GSPMD
+    the model's shards are gathered a tensor at a time onto rank 0's host,
+    and only the model group of rank 0 gathers: the other ranks get
+    (None, None)."""
     from qlora_tpu_torch.parallel import gather_megatron_tree, megatron_lora_specs
     from qlora_tpu_torch.parallel.megatron_step import _opt_specs_like
     from qlora_tpu_torch.parallel.sharded_step import full_opt_state
 
+    if mesh_style(args) == "gspmd":
+        from qlora_tpu_torch.parallel.gspmd_step import gather_tree, trainable_specs
+        from qlora_tpu_torch.parallel.mesh import opt_specs_like
+
+        if mesh.dp.rank != 0:
+            return None, None
+        keep = mesh.rank == 0
+        specs = trainable_specs(state.trainable, "full")
+        return (gather_tree(state.trainable, specs, mesh.model, keep=keep),
+                gather_tree(state.opt_state,
+                            opt_specs_like(state.opt_state, state.trainable, specs),
+                            mesh.model, keep=keep))
     if mesh_style(args) == "megatron":
         specs = megatron_lora_specs(state.trainable)
         return (gather_megatron_tree(state.trainable, specs, mesh.tp),
@@ -668,37 +752,57 @@ def _full_trees(args, state, optimizer, mesh):
 
 def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
     """One rank of a mesh run: its shard (read from `shard_path` once the
-    parent has written it, put on its device), the mesh's groups, the adapters and optimizer state as this
-    rank holds them, the same seeded data stream as every rank, and the
-    train loop with its logging, save and eval cadence; rank 0 writes the
-    log and the checkpoints (the last one holds the trained adapters
-    whole).  Returns the hook's report and the step times, and on rank 0
-    the metrics."""
+    parent has written it, put on its device: the frozen model's, or under
+    GSPMD its slice of the trainable model and optimizer state), the
+    mesh's groups, the trainable tree and optimizer state as this rank
+    holds them, the same seeded data stream as every rank, and the train
+    loop with its logging, save and eval cadence; world rank 0 writes the
+    log and the checkpoints (the last one holds the trained tree whole).
+    Returns the hook's report and the step times, and on rank 0 the
+    metrics."""
     from qlora_tpu_torch.parallel import (
-        init_megatron_state, init_sharded_train_state, make_megatron_train_step,
+        init_megatron_state, init_sharded_train_state, make_global_mesh, make_megatron_train_step,
         make_parallel_mesh, make_sharded_eval_step, make_sharded_train_step, make_sp_train_step,
         tree_to,
     )
+    from qlora_tpu_torch.parallel.gspmd_step import (
+        make_gspmd_eval_step, make_gspmd_train_step, model_context,
+    )
+    from qlora_tpu_torch.parallel.mesh import MeshAxes
     from qlora_tpu_torch.train.optimizer import tree_map
     from qlora_tpu_torch.utils.checkpoint import mark_completed, save_checkpoint
     from qlora_tpu_torch.utils.metrics import MetricsLogger, StepTimer, maybe_profile
 
     entered = time.time()
+    # remat's first checkpoint imports torch._dynamo, seconds on a busy host:
+    # a rank takes that while the parent is still writing its shard (where
+    # the fork server has not: parallel/distributed.py)
+    import torch._dynamo  # noqa: F401
     job = _read(job_path)
     args, cfg, lcfg = job["args"], job["cfg"], job["lcfg"]
-    mesh = make_parallel_mesh(world, *mesh_shape(args))
+    style = mesh_style(args)
+    if style == "gspmd":
+        mesh = make_global_mesh(world, MeshAxes(args.mesh_dp, args.mesh_fsdp, args.mesh_tp),
+                                model_axis=True)
+    else:
+        mesh = make_parallel_mesh(world, *mesh_shape(args))
     dev = mesh.device
     if dev.type == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world.size))
-    frozen = tree_to(_read(shard_path), dev)
+        # a CPU mesh's ranks share the host's cores with whatever else runs there
+        torch.set_num_threads(1)
+    shard = tree_to(_read(shard_path), dev)
+    frozen = None if style == "gspmd" else shard
     tokenizer = _tokenizer(args)
     optimizer = _make_optimizer(args)
-    style = mesh_style(args)
     # the model's sharding: the sp step shards its weights in the gather style
     shard_style = "megatron" if style == "megatron" else "gather"
     kw = dict(accum_steps=args.gradient_accumulation_steps, clip_norm=args.max_grad_norm,
               remat=_remat(args))
-    if style == "megatron":
+    if style == "gspmd":
+        state = init_sharded_train_state(shard["trainable"], optimizer, mesh,
+                                         shard["opt_state"], zero1=False)
+        step_fn = make_gspmd_train_step(cfg, lcfg, optimizer, mesh, mode="full", **kw)
+    elif style == "megatron":
         state = init_megatron_state(job["trainable"], optimizer, mesh, job["opt_state"])
         step_fn = make_megatron_train_step(cfg, lcfg, optimizer, mesh, **kw)
     else:
@@ -712,8 +816,12 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
     mlogger = MetricsLogger(args.output_dir, report_to=args.report_to) if lead else None
     collator = _collator(args, tokenizer)
     train_ds, eval_ds = _datasets(args, args.do_eval or args.do_predict)
-    eval_fn = (make_sharded_eval_step(cfg, lcfg, mesh, shard_style)
-               if args.do_eval and eval_ds else None)
+    if not (args.do_eval and eval_ds):
+        eval_fn = None
+    elif style == "gspmd":
+        eval_fn = make_gspmd_eval_step(cfg, lcfg, mesh, "full")
+    else:
+        eval_fn = make_sharded_eval_step(cfg, lcfg, mesh, shard_style)
     batches = _batches(args, train_ds, collator, tokenizer, start_step)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     timer = StepTimer()
@@ -724,15 +832,19 @@ def mesh_rank(world, shard_path: str, job_path: str, hook=None) -> dict:
         hook("start", ctx)
 
     def save(step):
-        lora, opt_state = _full_trees(args, state, optimizer, mesh)
+        trained, opt_state = _full_trees(args, state, optimizer, mesh)
         if lead:
             cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
-            save_checkpoint(args.output_dir, step, cpu(lora), cpu(opt_state))
+            save_checkpoint(args.output_dir, step, cpu(trained), cpu(opt_state))
             _prune_checkpoints(args.output_dir, args.save_total_limit)
+        del trained, opt_state
 
     def mmlu():
         from qlora_tpu_torch.models.layers import tp_shard_context
 
+        if style == "gspmd":
+            with model_context(mesh):
+                return _run_mmlu(args, frozen, state, cfg, lcfg, tokenizer, "full", dev)
         T, F = mesh.shape["tp"], mesh.shape["fsdp"]
         with tp_shard_context(mesh.tp if T > 1 else None, mesh.fsdp if F > 1 else None,
                               shard_style):

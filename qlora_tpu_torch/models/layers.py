@@ -205,13 +205,14 @@ def lookup_embedding(emb: torch.Tensor, ids: torch.Tensor,
     """Embedding rows, aware of the table's feature sharding: fsdp is a
     batch axis as well, so the table's fsdp columns are gathered before the
     lookup (each fsdp rank looks up rows of its own); the tp features are
-    gathered after it, on the activations."""
+    gathered after it, on the activations (forward; the backward takes this
+    rank's slice, so that a trainable table's shard gets its gradient)."""
     tp, fsdp, _style = _SHARD_CTX[-1]
     if fsdp is not None:
         emb = _gather_last([emb], fsdp)[0]
     x = emb[ids.long()].to(dtype)
     if tp is not None:
-        x = tp.all_gather(x, dim=-1)
+        x = gather_cols_fwd_slice_bwd(x, tp)
     return x
 
 

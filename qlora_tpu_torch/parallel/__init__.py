@@ -13,9 +13,14 @@
 """
 
 from .distributed import (
-    ParallelMesh, TPMesh, destroy_process_group, init_process_group, make_parallel_mesh,
-    mesh_coords, run_ranks,
+    ParallelMesh, ProcessInfo, TPMesh, destroy_process_group, global_batch_from_local,
+    init_process_group, initialize, make_global_mesh, make_parallel_mesh, mesh_coords,
+    process_info, run_ranks,
 )
+from .gspmd_step import (
+    cut_state, gather_tree, make_gspmd_eval_step, make_gspmd_train_step,
+)
+from .mesh import MODEL_AXES, MeshAxes
 from .megatron_step import (
     ROW_PARALLEL,
     gather_megatron_tree,
@@ -59,8 +64,11 @@ from .tp_decode import (
 )
 
 __all__ = [
-    "ParallelMesh", "TPMesh", "destroy_process_group", "init_process_group",
-    "make_parallel_mesh", "mesh_coords", "run_ranks",
+    "ParallelMesh", "ProcessInfo", "TPMesh", "destroy_process_group",
+    "global_batch_from_local", "init_process_group", "initialize", "make_global_mesh",
+    "make_parallel_mesh", "mesh_coords", "process_info", "run_ranks",
+    "cut_state", "gather_tree", "make_gspmd_eval_step",
+    "make_gspmd_train_step", "MODEL_AXES", "MeshAxes",
     "ROW_PARALLEL", "gather_megatron_tree", "init_megatron_state", "make_megatron_train_step",
     "megatron_lora_specs",
     "megatron_param_specs", "requantize_row_parallel", "shard_params", "shard_tree",

@@ -1,4 +1,4 @@
-"""The process group of a tensor-parallel world on one host.
+"""The process groups of a world of ranks, on one host or several.
 
 The JAX package runs one process over a ``("tp",)`` mesh; the port runs one
 process a rank under ``torch.distributed``.  Each rank holds its own shard
@@ -19,9 +19,13 @@ cross the host.  Its point-to-point sends are another matter: they abort
 the process on a CUDA tensor, so :meth:`TPMesh.rotate` moves CUDA blocks
 between ranks of one card itself (CUDA IPC, :class:`_SameCard`).
 
-Rendezvous goes through a ``FileStore`` in a directory the caller names,
-never a TCP port, so that several worlds on one host cannot collide.
-:func:`run_ranks` starts a world's processes and gathers what each returns.
+On one host, rendezvous goes through a ``FileStore`` in a directory the
+caller names, never a TCP port, so that several worlds on one host cannot
+collide.  Across hosts, :func:`initialize` joins one process a host through
+a ``TCPStore`` that process 0 serves at the coordinator's address; each
+world then meets under a key prefix of its own there, and its global ranks
+are process-major.  :func:`run_ranks` starts this process's ranks of a
+world and gathers what each returns.
 
 Training runs over a mesh of named axes ``("dp", "fsdp", "tp", "sp")`` in
 the JAX package's device order (``reshape(dp, fsdp, tp, sp)``, row-major:
@@ -32,20 +36,23 @@ step's joint axes ``("dp", "fsdp", "sp")`` a process group of their own,
 each seen by the rank as a :class:`TPMesh` (its rank on the axis, the
 axis' size, ``all_reduce``, ``all_gather``, ``rotate``), so that the
 conjugate operators run on any axis unchanged and the ring attention
-rotates over the sp axis.  The multi-host ``initialize`` of the JAX
-package waits for ROADMAP A7b's item 3.
+rotates over the sp axis; GSPMD training's joint model axis ``("fsdp",
+"tp")`` has one too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import importlib.util
 import math
 import os
 import pickle
+import time
 import traceback
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -259,11 +266,15 @@ class TPMesh:
         dist.barrier(group=self.group)
 
 
-def init_process_group(size: int, rank: int, *, backend: str, device, store_dir: str,
-                       timeout_s: float = 600.0) -> TPMesh:
-    """Join rank `rank` of a world of `size` through a ``FileStore`` in
-    `store_dir` (one directory a world), on `backend` ("nccl" or "gloo"),
-    the rank running on `device`."""
+def init_process_group(size: int, rank: int, *, backend: str, device,
+                       store_dir: Optional[str] = None, timeout_s: float = 600.0,
+                       tcp: Optional[tuple] = None) -> TPMesh:
+    """Join rank `rank` of a world of `size` on `backend` ("nccl" or
+    "gloo"), the rank running on `device`: through a ``FileStore`` in
+    `store_dir` (one directory a world, on one host), or with `tcp` =
+    (host, port, prefix) through the ``TCPStore`` that process 0 of a
+    multi-process run serves (:func:`initialize`), under a key prefix of
+    the world's own."""
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}: one of {BACKENDS}")
     device = torch.device(device)
@@ -271,14 +282,181 @@ def init_process_group(size: int, rank: int, *, backend: str, device, store_dir:
         raise ValueError("the nccl backend needs a CUDA device a rank")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    store = dist.FileStore(os.path.join(store_dir, "store"), size)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if tcp is not None:
+        host, port, prefix = tcp
+        store = dist.PrefixStore(prefix, dist.TCPStore(host, port, is_master=False,
+                                                       timeout=timeout))
+    else:
+        store = dist.FileStore(os.path.join(store_dir, "store"), size)
     # NCCL binds its communicators to the rank's card up front when it is
     # named (without it, the first collective guesses the device)
     extra = {"device_id": device} if backend == "nccl" else {}
-    dist.init_process_group(backend, store=store, rank=rank, world_size=size,
-                            timeout=datetime.timedelta(seconds=timeout_s), **extra)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=size, timeout=timeout,
+                            **extra)
     return TPMesh(rank=rank, size=size, group=dist.group.WORLD, device=device,
                   backend=backend, ranks=tuple(range(size)))
+
+
+# ---------------------------------------------------------------------------
+# several processes (hosts)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ProcessInfo:
+    """Where this process stands in a multi-process run: its id, the number
+    of processes, the ranks (devices) each starts, and the world's ranks."""
+    process_id: int
+    process_count: int
+    local_devices: int
+    global_devices: int
+
+
+# this process' place, set by initialize() in a host's parent and by
+# _rank_main in each rank it starts: id, count, local ranks (None: not yet
+# known), the coordinator's (host, port), the parent's store client, the
+# worlds started so far
+_PROCESS: dict = {}
+
+
+def _parse_address(address: str) -> tuple:
+    host, sep, port = address.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(f"coordinator_address {address!r}: expected host:port")
+    return host, int(port)
+
+
+def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
+               process_id: Optional[int] = None, local_device_ids: Optional[list] = None,
+               timeout_s: float = 600.0) -> bool:
+    """Join a run of `num_processes` processes, one a host (the JAX
+    package's ``initialize``): process 0 serves a ``TCPStore`` at
+    `coordinator_address` ("host:port"), every process connects to it and
+    waits until all have.  Returns True when more than one process runs
+    after the call; with no arguments, or one process, it starts nothing
+    and returns whether an earlier call joined several.  A call that repeats
+    the arguments of the one before is a no-op.
+
+    Here a process is a host's parent: the ranks of a mesh are processes it
+    starts (:func:`run_ranks`), and the world's global ranks are
+    process-major, process p's local rank l being p·L + l (as JAX's
+    ``jax.devices()`` is ordered by process).  `local_device_ids` names the
+    devices (CUDA ordinals) this process's ranks run on; by default its
+    cards.  A TPU pod's runtime discovers all of this itself; nothing here
+    does, so each of the three is required once one is given."""
+    if num_processes is not None and num_processes <= 1:
+        return False
+    if coordinator_address is None and num_processes is None:
+        return process_count() > 1
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise ValueError("several processes need coordinator_address, num_processes and "
+                         "process_id together (no runtime discovers them)")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} outside {num_processes} processes")
+    host, port = _parse_address(coordinator_address)
+    key = (host, port, num_processes, process_id)
+    if _PROCESS.get("key") == key:
+        return True
+    if _PROCESS.get("key") is not None:
+        raise RuntimeError(f"this process already joined {_PROCESS['key']}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.TCPStore(host, port, is_master=process_id == 0, timeout=timeout,
+                          wait_for_workers=False)
+    store.add("processes", 1)
+    deadline = datetime.datetime.now() + timeout
+    while store.add("processes", 0) < num_processes:
+        if datetime.datetime.now() > deadline:
+            raise RuntimeError(f"{store.add('processes', 0)} of {num_processes} processes "
+                               f"reached {coordinator_address} within {timeout_s} s")
+        time.sleep(0.05)
+    _PROCESS.update(key=key, address=(host, port), count=num_processes, id=process_id,
+                    local=None if local_device_ids is None else len(local_device_ids),
+                    store=store, worlds=0)
+    return True
+
+
+def process_count() -> int:
+    return _PROCESS.get("count", 1)
+
+
+def process_index() -> int:
+    return _PROCESS.get("id", 0)
+
+
+def process_info() -> ProcessInfo:
+    """This process's place (JAX's ``process_info``): in a host's parent
+    its local devices are those `local_device_ids` named, else its cards;
+    in a rank, the ranks its parent started."""
+    local = _PROCESS.get("local")
+    if local is None:
+        local = torch.cuda.device_count()
+    return ProcessInfo(process_id=process_index(), process_count=process_count(),
+                       local_devices=local, global_devices=local * process_count())
+
+
+def end_of_run(ok: bool = True, timeout_s: float = 3600.0) -> None:
+    """The processes' last meeting, after process 0 has done what follows
+    training: process 0 says it is done and waits until every other
+    process has heard it (the store it serves goes when it exits); the
+    others wait for that word.  No-op in a single process."""
+    if process_count() <= 1:
+        return
+    store = _PROCESS["store"]
+    store.set_timeout(datetime.timedelta(seconds=timeout_s))
+    if process_index() == 0:
+        store.set("run/done", "1" if ok else "0")
+        deadline = time.time() + timeout_s
+        while store.add("run/heard", 0) < process_count() - 1 and time.time() < deadline:
+            time.sleep(0.05)
+    else:
+        store.wait(["run/done"])
+        store.add("run/heard", 1)
+
+
+def make_global_mesh(world: TPMesh, axes, model_axis: bool = False) -> "ParallelMesh":
+    """The ``(dp, fsdp, tp)`` mesh over every process's ranks (JAX's
+    ``make_global_mesh``): ranks process-major, dp outermost, so that when
+    fsdp·tp divides a process's ranks each fsdp×tp group stays within a
+    process and only the gradients' all-reduce over dp crosses hosts.
+    Where a group spans processes it warns, as JAX does: the weight
+    collectives then cross hosts.  `model_axis`: as in
+    :func:`make_parallel_mesh`."""
+    n = axes.dp * axes.fsdp * axes.tp
+    if n != world.size:
+        raise ValueError(f"mesh {axes} needs {n} ranks, the world has {world.size}")
+    if process_count() > 1:
+        local = n // process_count()
+        group = axes.fsdp * axes.tp
+        spans = any(len({r // local for r in range(d * group, (d + 1) * group)}) > 1
+                    for d in range(axes.dp))
+        if spans:
+            import warnings
+
+            warnings.warn(
+                f"mesh {axes}: fsdp×tp groups span multiple processes — weight-gather/psum "
+                "collectives will cross hosts (slow). Prefer fsdp*tp ≤ the ranks of a process "
+                "with dp a multiple of the process count.", stacklevel=2)
+    return make_parallel_mesh(world, axes.dp, axes.fsdp, axes.tp, model_axis=model_axis)
+
+
+def global_batch_from_local(mesh: "ParallelMesh", local_batch: dict) -> dict:
+    """The global batch, from each process's local rows (JAX's
+    ``global_batch_from_local``): every process passes its own
+    ``[local_B, ...]`` arrays, and every rank gets ``[local_B ×
+    process_count, ...]`` in process order, which the steps slice into
+    each data rank's rows.  One all-gather over the world (collective);
+    in a single process the batch as it is."""
+    if process_count() == 1:
+        return dict(local_batch)
+    world = mesh.world
+    local = world.size // process_count()
+    out = {}
+    for k, v in local_batch.items():
+        x = torch.as_tensor(np.asarray(v)).to(world.device)
+        every = world.all_gather(x[None], dim=0)[::local]        # one copy a process
+        out[k] = every.reshape(-1, *x.shape[1:]).cpu().numpy()
+    return out
 
 
 def mesh_coords(rank: int, dp: int, fsdp: int, tp: int, sp: int = 1) -> tuple:
@@ -296,7 +474,10 @@ class ParallelMesh:
     the axes' sizes, and a :class:`TPMesh` for each axis (``dp``, ``fsdp``,
     ``tp``, ``sp``), for the joint data axes (``data``: rank d·F + f of
     dp·F), for the sequence-parallel step's joint axes (``data_sp``: rank
-    (d·F + f)·SP + s of dp·F·SP) and for the whole world (``world``)."""
+    (d·F + f)·SP + s of dp·F·SP), for the whole world (``world``) and,
+    where the mesh was made for GSPMD training, for the joint model axis
+    (``model``: rank f·T + t of F·T, fsdp-major as JAX's ``("fsdp",
+    "tp")``; None otherwise)."""
     rank: int
     shape: dict
     world: TPMesh
@@ -306,6 +487,7 @@ class ParallelMesh:
     data: TPMesh
     sp: TPMesh
     data_sp: TPMesh
+    model: Optional[TPMesh] = None
 
     @property
     def device(self) -> torch.device:
@@ -321,7 +503,8 @@ class ParallelMesh:
     def collectives(self) -> dict:
         """The collectives made so far, by axis (a world of one makes none)."""
         return {a: self.axis(a).collectives
-                for a in ("dp", "fsdp", "tp", "sp", "data", "data_sp", "world")}
+                for a in ("dp", "fsdp", "tp", "sp", "data", "data_sp", "model", "world")
+                if self.axis(a) is not None}
 
 
 def _axis_groups(dp: int, fsdp: int, tp: int, sp: int = 1) -> dict:
@@ -336,24 +519,29 @@ def _axis_groups(dp: int, fsdp: int, tp: int, sp: int = 1) -> dict:
         "data": [[r(d, f, t, s) for d in D for f in F] for t in T for s in S],
         "sp": [[r(d, f, t, s) for s in S] for d in D for f in F for t in T],
         "data_sp": [[r(d, f, t, s) for d in D for f in F for s in S] for t in T],
+        "model": [[r(d, f, t, s) for f in F for t in T] for d in D for s in S],
     }
 
 
 def make_parallel_mesh(world: TPMesh, dp: int = 1, fsdp: int = 1, tp: int = 1,
-                       sp: int = 1) -> ParallelMesh:
+                       sp: int = 1, model_axis: bool = False) -> ParallelMesh:
     """The ``(dp, fsdp, tp, sp)`` mesh over an initialized world of
-    dp·fsdp·tp·sp ranks.  Every rank creates every group (``dist.new_group``
-    is collective over the world), in the same order; an axis of size 1 gets
-    no group and its collectives are identities, an axis of the whole world
-    uses the world's, and an axis whose ranks another axis already grouped
-    (the data axes when the others are 1) shares that group."""
+    dp·fsdp·tp·sp ranks, with the joint model axis of GSPMD training where
+    `model_axis` (the other steps never use it).  Every rank creates every
+    group (``dist.new_group`` is collective over the world), in the same
+    order; an axis of size 1 gets no group and its collectives are
+    identities, an axis of the whole world uses the world's, and an axis
+    whose ranks another axis already grouped (the data axes when the others
+    are 1) shares that group."""
     if dp * fsdp * tp * sp != world.size:
         raise ValueError(f"a mesh of {dp} x {fsdp} x {tp} x {sp} needs {dp * fsdp * tp * sp} "
                          f"ranks, the world has {world.size}")
     sizes = {"dp": dp, "fsdp": fsdp, "tp": tp, "data": dp * fsdp, "sp": sp,
-             "data_sp": dp * fsdp * sp}
+             "data_sp": dp * fsdp * sp, "model": fsdp * tp}
     views, made = {}, {}
     for name, groups in _axis_groups(dp, fsdp, tp, sp).items():
+        if name == "model" and not model_axis:
+            continue
         mine = None
         for ranks in groups:
             group = None
@@ -379,10 +567,20 @@ def destroy_process_group() -> None:
         dist.destroy_process_group()
 
 
-def _rank_main(fn, rank, size, backend, devices, store_dir, args, queue):
+# what the fork server imports once for every rank it forks: torch and the
+# port, and torch._dynamo (remat's first checkpoint imports it, seconds of CPU
+# a rank) where triton is absent; with triton, importing it warms a pool of
+# compile workers that would outlive the server
+_FORKSERVER_PRELOAD = ["torch", "qlora_tpu_torch.parallel"] + (
+    ["torch._dynamo"] if importlib.util.find_spec("triton") is None else [])
+
+
+def _rank_main(fn, rank, size, backend, device, store_dir, tcp, layout, args, queue):
     try:
-        mesh = init_process_group(size, rank, backend=backend, device=devices[rank],
-                                  store_dir=store_dir)
+        if layout is not None:      # this rank's process layout, for process_info()
+            _PROCESS.update(id=layout[0], count=layout[1], local=layout[2])
+        mesh = init_process_group(size, rank, backend=backend, device=device,
+                                  store_dir=store_dir, tcp=tcp)
         try:
             out = fn(mesh, *args)
         finally:
@@ -395,45 +593,71 @@ def _rank_main(fn, rank, size, backend, devices, store_dir, args, queue):
 
 def run_ranks(fn: Callable, size: int, *args, backend: str, devices, store_dir: str,
               per_rank: Optional[list] = None, timeout_s: Optional[float] = 1800.0) -> list:
-    """Run ``fn(mesh, *args)`` in `size` new processes, rank r on
-    ``devices[r]``, and return their results in rank order.
+    """Run ``fn(mesh, *args)`` in new processes, one a rank of a world of
+    `size`, and return their results in rank order.
+
+    In one process it starts every rank, rank r on ``devices[r]``.  After
+    :func:`initialize` joined several, it starts only this process's
+    ranks, ``len(devices)`` of them (process p's local rank l is world rank
+    p·L + l, on ``devices[l]``), and returns theirs; the world meets through
+    process 0's store, and a rank that fails in any process ends the world
+    in every process.
 
     `fn` must be importable by name (a module-level function) and its
-    results picklable; `args` go to every rank.  With `per_rank` (a list of
-    `size` tuples) rank r runs ``fn(mesh, *per_rank[r], *args)``: what only
-    that rank receives (its shard, say) comes first.  A rank that raises ends
-    the world: the others are stopped and the first traceback raised here.
-    The processes are started with ``spawn``: a CUDA context does not
-    survive ``fork``."""
+    results picklable; `args` go to every rank.  With `per_rank` (a tuple
+    for each rank this call starts) such a rank runs ``fn(mesh,
+    *per_rank[i], *args)``: what only that rank receives (its shard, say)
+    comes first.  A rank that raises ends the world: the others are stopped
+    and the first traceback raised here.  The processes are forked by a
+    fork server that has imported torch and the port (``_FORKSERVER_PRELOAD``)
+    and touched no CUDA:
+    a CUDA context does not survive ``fork``, and a fresh interpreter a rank
+    (``spawn``) would import torch again for every rank (seconds of CPU
+    each)."""
     import queue as queue_mod
 
     import torch.multiprocessing as mp
 
-    if len(devices) != size:
-        raise ValueError(f"{len(devices)} devices for {size} ranks")
-    ctx = mp.get_context("spawn")
+    procs_n = process_count()
+    local = len(devices)
+    if local * procs_n != size:
+        raise ValueError(f"{local} devices a process x {procs_n} processes for {size} ranks")
+    if per_rank is not None and len(per_rank) != local:
+        raise ValueError(f"{len(per_rank)} per-rank argument tuples for {local} ranks")
+    first = process_index() * local
+    tcp = layout = failed_key = None
+    store = _PROCESS.get("store")
+    if procs_n > 1:
+        # every process starts its worlds in the same order: the count names each
+        _PROCESS["worlds"] += 1
+        prefix = f"world{_PROCESS['worlds']}/"
+        tcp = (*_PROCESS["address"], prefix)
+        layout = (process_index(), procs_n, local)
+        failed_key = prefix + "failed"
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_FORKSERVER_PRELOAD)
     q = ctx.Queue()
-    if per_rank is not None and len(per_rank) != size:
-        raise ValueError(f"{len(per_rank)} per-rank argument tuples for {size} ranks")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, size, backend, list(devices), store_dir,
-                               (tuple(per_rank[r]) if per_rank else ()) + args, q),
+                         args=(fn, first + i, size, backend, devices[i], store_dir, tcp, layout,
+                               (tuple(per_rank[i]) if per_rank else ()) + args, q),
                          daemon=True)
-             for r in range(size)]
+             for i in range(local)]
     for p in procs:
         p.start()
     results, error = {}, None
     deadline = None if timeout_s is None else datetime.datetime.now() + \
         datetime.timedelta(seconds=timeout_s)
     try:
-        while len(results) < size and error is None:
+        while len(results) < local and error is None:
             try:
                 rank, ok, payload = q.get(timeout=1.0)
             except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0) and r not in results]
+                dead = [first + i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and first + i not in results]
                 if dead:
-                    error = f"rank {dead[0]} exited with code {procs[dead[0]].exitcode}"
+                    error = f"rank {dead[0]} exited with code {procs[dead[0] - first].exitcode}"
+                elif failed_key is not None and store.check([failed_key]):
+                    error = f"another process's rank failed:\n{store.get(failed_key).decode()}"
                 elif deadline is not None and datetime.datetime.now() > deadline:
                     error = f"the world did not finish within {timeout_s} s"
                 continue
@@ -442,6 +666,8 @@ def run_ranks(fn: Callable, size: int, *args, backend: str, devices, store_dir: 
             else:
                 error = f"rank {rank} raised:\n{payload}"
     finally:
+        if error is not None and failed_key is not None and not store.check([failed_key]):
+            store.set(failed_key, f"process {process_index()}: {error}")
         for p in procs:
             if error is not None and p.is_alive():
                 p.terminate()
@@ -451,4 +677,4 @@ def run_ranks(fn: Callable, size: int, *args, backend: str, devices, store_dir: 
                 p.join()
     if error is not None:
         raise RuntimeError(error)
-    return [results[r] for r in range(size)]
+    return [results[first + i] for i in range(local)]

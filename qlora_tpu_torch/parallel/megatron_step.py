@@ -222,14 +222,20 @@ def tree_to(tree, device):
     return tree
 
 
-def _spec_leaves(tree, specs) -> list:
-    """The spec of each tensor of `tree`, in ``tree_leaves`` order."""
+def spec_leaves(tree, specs) -> list:
+    """The spec of each tensor of `tree` (dicts, lists and the linears'
+    dataclasses; a None spec covers a whole subtree), in ``tree_leaves``
+    order."""
     if isinstance(tree, torch.Tensor):
         return [specs]
+    sub = lambda get: None if specs is None else get(specs)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [s for f in dataclasses.fields(tree)
+                for s in spec_leaves(getattr(tree, f.name), sub(lambda sp: getattr(sp, f.name)))]
     if isinstance(tree, dict):
-        return [s for k, v in tree.items() for s in _spec_leaves(v, specs[k])]
+        return [s for k, v in tree.items() for s in spec_leaves(v, sub(lambda sp: sp[k]))]
     if isinstance(tree, (list, tuple)):
-        return [s for v, sp in zip(tree, specs) for s in _spec_leaves(v, sp)]
+        return [s for i, v in enumerate(tree) for s in spec_leaves(v, sub(lambda sp: sp[i]))]
     return []
 
 
@@ -270,7 +276,7 @@ def gather_megatron_tree(tree, specs, tp):
     from qlora_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
 
     leaves = tree_leaves(tree)
-    dims = _spec_leaves(tree, specs)
+    dims = spec_leaves(tree, specs)
     split = [j for j, d in enumerate(dims) if d is not None]
     if not split or tp.size == 1:
         return tree
@@ -322,7 +328,7 @@ def make_megatron_train_step(cfg, lcfg, optimizer, mesh, accum_steps: int = 1,
         rows = _rows(batch, mesh.dp.rank, mesh.shape["dp"], accum_steps)
         g_local, loss = local_grads(cfg, lcfg, state.trainable, frozen, rows, accum_steps,
                                     mesh.dp, remat, generator, ctx)
-        sharded = [s is not None for s in _spec_leaves(state.trainable,
+        sharded = [s is not None for s in spec_leaves(state.trainable,
                                                        megatron_lora_specs(state.trainable))]
         sh = _all_reduce_flat([g for g, s in zip(g_local, sharded) if s], mesh.dp)
         rep = _all_reduce_flat([g for g, s in zip(g_local, sharded) if not s], mesh.world)

@@ -361,15 +361,15 @@ def test_option_paths_train_and_resume(tmp_path, case):
     assert [h["step"] for h in m["train_metrics"]] == [steps + 1]
 
 
-# what the port does not run yet names its ROADMAP item; the mesh
-# combinations the JAX CLI refuses raise its ValueError
+# the mesh combinations the JAX CLI refuses raise its exceptions (full
+# finetuning shards by GSPMD alone, and not with sp); the port adds one: an
+# 8-bit optimizer's blockwise state cannot follow the full model's shards
 UNPORTED = {
-    "coordinator_address": (["--coordinator_address", "localhost:1234"], NotImplementedError,
-                            "ROADMAP A7b"),
-    "num_processes": (["--num_processes", "2"], NotImplementedError, "ROADMAP A7b"),
-    "full_finetune_mesh": (["--full_finetune", "--bits", "16", "--mesh_fsdp", "2"],
-                           NotImplementedError, "ROADMAP A7b"),
-    "megatron_fsdp": (["--tp_style", "megatron", "--mesh_fsdp", "2"], ValueError,
+    "full_finetune_megatron": (["--full_finetune", "--bits", "16", "--tp_style", "megatron",
+                                "--mesh_tp", "2"], NotImplementedError, "shards via GSPMD"),
+    "full_finetune_mesh_adam8bit": (["--full_finetune", "--bits", "16", "--mesh_fsdp", "2",
+                                     "--adam8bit"], ValueError, "AdamW-family"),
+"megatron_fsdp": (["--tp_style", "megatron", "--mesh_fsdp", "2"], ValueError,
                       "requires mesh_fsdp=1"),
     "megatron_adam8bit": (["--tp_style", "megatron", "--mesh_tp", "2", "--adam8bit"],
                           ValueError, "adam8bit does not compose"),

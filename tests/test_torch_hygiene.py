@@ -1,6 +1,6 @@
 """The port stands alone: no module of qlora_tpu_torch/, not chip_smoke.py
 and not the parallel tests' rank modules (tests/torch_tp_worker.py,
-tests/torch_train_worker.py) imports jax, flax or the JAX package
+tests/torch_train_worker.py, tests/torch_multihost_worker.py) imports jax, flax or the JAX package
 (qlora_tpu); its CUDA
 sources include nothing of them, quote no figure measured on a TPU, and each
 says which TPU kernel it replaces."""
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 BANNED = ("jax", "jaxlib", "flax", "optax", "qlora_tpu")
 FILES = sorted((ROOT / "qlora_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_worker.py",
-    ROOT / "tests" / "torch_train_worker.py"]
+    ROOT / "tests" / "torch_train_worker.py", ROOT / "tests" / "torch_multihost_worker.py"]
 
 
 def _imports(path: Path):
@@ -43,7 +43,8 @@ def test_scan_covers_the_port():
                   "examples/web_demo.py", "scripts/convert_checkpoint.py",
                   "parallel/__init__.py", "parallel/distributed.py", "parallel/megatron_step.py",
                   "parallel/tp_decode.py", "examples/serve_tp.py", "parallel/sharded_step.py",
-                  "parallel/tp_step.py", "parallel/sp_step.py", "ops/ring_attention.py"):
+                  "parallel/tp_step.py", "parallel/sp_step.py", "ops/ring_attention.py",
+                  "parallel/mesh.py", "parallel/gspmd_step.py", "dryrun.py"):
         assert ROOT / "qlora_tpu_torch" / entry in FILES
 
 

@@ -1,6 +1,8 @@
 """Rank functions of tests/test_torch_sharded_step.py,
 tests/test_torch_megatron_train.py, tests/test_torch_zero1.py,
-tests/test_torch_ring_attention.py and tests/test_torch_sp_step.py: each
+tests/test_torch_ring_attention.py, tests/test_torch_sp_step.py,
+tests/test_torch_gspmd_step.py, tests/test_torch_multihost.py and
+tests/test_torch_dryrun.py: each
 runs in a process of a 4-rank gloo world on the CPU, started by
 ``parallel.distributed.run_ranks``, and returns numpy arrays, numbers and
 lists.  Not collected by pytest; it imports torch, numpy and the port only,
@@ -14,6 +16,8 @@ its ``(dp, fsdp, tp)`` or ``(dp, fsdp, tp, sp)`` mesh over the world
 the same order)."""
 
 from __future__ import annotations
+
+import hashlib
 
 import torch
 
@@ -180,6 +184,104 @@ def sp_groups(world):
                           mesh.axis(a).all_gather(x, dim=0).tolist())
                       for a in ("dp", "fsdp", "tp", "sp", "data", "data_sp")}
     return out
+
+
+def gspmd(world, cfg, lcfg_kw, params_np, lora_np, batch, shape, mode="full", accum=1, steps=3,
+          opt="paged_adamw_32bit", lr=1e-3, clip_norm=0.3):
+    """`steps` GSPMD steps (``parallel/gspmd_step.py``) on this rank's slice
+    of the JAX tree (`params_np` the trainable model in mode "full", the
+    frozen one in mode "lora"): each step's loss and grad norm, the
+    gradients the optimizer got at the first step and the update it made at
+    the second (the first moves nothing: the warmup starts at 0; this
+    rank's slices, f32), the split dimension of each trainable tensor, the
+    trainable tree at the end gathered whole (rank 0), a digest of the bytes
+    of every tensor the rank holds (replicas compared across the ranks by
+    the test), and the rank's trainable and optimizer bytes."""
+    from qlora_tpu_torch.parallel import (
+        MeshAxes, cut_state, gather_tree, make_gspmd_train_step,
+    )
+    from qlora_tpu_torch.parallel.gspmd_step import trainable_specs
+    from qlora_tpu_torch.parallel.mesh import shard_params as gspmd_shard_params
+    from qlora_tpu_torch.parallel.megatron_step import spec_leaves
+
+    dp, fsdp, tp = shape
+    mesh = make_parallel_mesh(world, dp, fsdp, tp, model_axis=True)
+    _, f, t = mesh_coords(world.rank, dp, fsdp, tp)
+    axes = MeshAxes(dp, fsdp, tp)
+    lcfg = LoraConfig(**lcfg_kw)
+    params = params_from_numpy(params_np, cfg, "cpu")
+    seen = {}
+    inner = _optimizer(opt, lr)
+
+    def update(grads, state, params):
+        upd, state = inner.update(grads, state, params)
+        f32 = lambda tree: [x.detach().float().numpy().copy() for x in tree_leaves(tree)]
+        if "grads" not in seen:
+            seen["grads"] = f32(grads)
+        elif "update" not in seen:
+            seen["update"] = f32(upd)
+        return upd, state
+
+    optimizer = Optimizer(inner.init, update)
+    if mode == "full":
+        whole, frozen = params, None
+    else:
+        whole, frozen = lora_from_numpy(lora_np, "cpu"), gspmd_shard_params(params, axes, f, t)
+    mine, _ = cut_state(whole, None, axes, f, t, mode)
+    state = init_sharded_train_state(mine, optimizer, mesh, zero1=False)
+    step = make_gspmd_train_step(cfg, lcfg, optimizer, mesh, mode=mode, accum_steps=accum,
+                                 clip_norm=clip_norm)
+    nbytes = lambda tree: sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    specs = trainable_specs(state.trainable, mode)
+    out = {"loss": [], "grad_norm": [], "trainable_bytes": nbytes(state.trainable),
+           "trainable_numel": sum(x.numel() for x in tree_leaves(state.trainable)),
+           "opt_bytes": nbytes(state.opt_state), "whole_bytes": nbytes(whole),
+           "dims": spec_leaves(state.trainable, specs), "coords": (f, t)}
+    for _ in range(steps):
+        state, m = step(state, frozen, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out.update(seen)
+    gathered = gather_tree(state.trainable, specs, mesh.model, keep=world.rank == 0)
+    if world.rank == 0:
+        out["whole"] = [x.float().numpy() for x in tree_leaves(gathered)]
+    out["digests"] = [hashlib.sha1(x.detach().contiguous().view(torch.uint8).numpy()).hexdigest()
+                      for x in tree_leaves(state.trainable)]
+    return out
+
+
+def multihost(world, local_batch, spans_of=(), **train_kw):
+    """JAX's multi-host skeleton (tests/multihost_worker.py) on the port:
+    the global mesh over every process's ranks (``make_global_mesh``), the
+    global batch from this process's rows (``global_batch_from_local``),
+    then :func:`train`'s steps on it; with it, whether ``make_global_mesh``
+    warned for each shape of `spans_of` (fsdp×tp groups spanning processes),
+    this rank's ``process_info`` and the global batch's sum."""
+    import dataclasses as _dc
+    import warnings
+
+    from qlora_tpu_torch.parallel import (
+        MeshAxes, global_batch_from_local, make_global_mesh, process_info,
+    )
+
+    mesh = make_global_mesh(world, MeshAxes(*train_kw["shape"]))
+    batch = global_batch_from_local(mesh, local_batch)
+    out = train(world, batch=batch, **train_kw)
+    out["warned"] = {}
+    for shape in spans_of:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            make_global_mesh(world, MeshAxes(*shape))
+        out["warned"][shape] = any("span multiple processes" in str(w.message) for w in seen)
+    out["info"] = _dc.asdict(process_info())
+    out["batch_sum"] = int(batch["input_ids"].sum())
+    out["rank"] = world.rank
+    return out
+
+
+def path_probe(event, name):
+    """A ``dryrun_rank`` probe: what "end" returns is kept beside the path."""
+    return (event, name) if event == "end" else None
 
 
 def world(mesh, cases):
