@@ -26,9 +26,13 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``qmm_nf4_bwd_wgmma.cu`` (each packed byte decoded once for both nibble
    planes), timed beside ``qmm_nf4_bwd.cu`` through its C entry (``tile_ms``,
    the "before", also held to QMM_TOL) and held bit for bit the same way
-   (identity rows of g read out columns of ``dequantize``'s weight).  At 4, 8
-   and 16 rows the NF4 dx stays on ``qmm_nf4_bwd.cu`` (no path runs it):
-   held to QMM_TOL and timed in CUDA graphs beside ``g @ Wᵀ``.  Flash
+   (identity rows of g read out columns of ``dequantize``'s weight).  At 1,
+   4, 8 and 16 rows the NF4 dx runs the split-N decode kernel of
+   ``qmm_nf4_bwd_decode.cu``, f32 and double-quantized absmax: within
+   QMM_TOL, two calls, each row alone and identity rows bit for bit, timed in
+   CUDA graphs beside ``qmm_nf4_bwd.cu`` through its C entry (``tile_ms``,
+   the "before") and ``g @ Wᵀ``; a ragged shape its plan accepts and one it
+   refuses (N % 16 != 0: ``qmm_nf4_bwd.cu`` takes it).  Flash
    attention's forward, dq and dk/dv at the train shapes run the wgmma
    kernels of ``flash_attention_wgmma.cu``, each timed beside the kernel of
    ``flash_attention.cu`` that it replaced (``tile_ms``, the "before", also
@@ -93,8 +97,12 @@ them.  Phases, each failing the run on any mismatch or exception:
    for bit), ``torch._int_mm`` (``library_ms``, in a graph) and the wrapper
    back to back (``wrapper_ms``, events); the ragged shape stays on
    ``qmm_i8_direct.cu``.
-   ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 4, 8,
-   16 on ``qmm_i8.cu``, which no path runs, and 1024) within the NF4 kernels'
+   ``qmm_i8_direct`` at a verify chunk's 40 rows (8 slots x 5) stays on
+   ``qmm_i8_direct.cu``: bit for bit, timed beside ``torch._int_mm`` (the
+   next kernel in line, measured only).
+   ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 1, 4,
+   8, 16 on the split-N decode kernel of ``qmm_i8_bwd_decode.cu``, checked
+   and timed as the NF4 dx's, and 1024) within the NF4 kernels'
    tolerance, f32 and double-quantized absmax, and
    reading out ``dequantize``'s weight bit for bit from identity operands.
    Up to 16 rows the forward runs the split-K kernel of
@@ -357,12 +365,20 @@ them.  Phases, each failing the run on any mismatch or exception:
    n = 4 (GSPMD, the dp×fsdp×tp step, Megatron, the ring, tp serving, the
    tp ``PagedBatcher`` with int8 and speculation) in one world of four
    gloo ranks on the card, each path's kernel launches read on rank 0.
+30. train-parity-few (in the second process, after parity-int8): train-parity
+   at 2 x 8 tokens over an NF4 and an int8 base (LLaMA-7B width, 2 layers,
+   remat "full"): 16 rows, so every block linear's forward runs a decode
+   kernel and every dx a dx decode kernel (7 L - 3 a micro-batch), attention
+   below the flash gate; the loss within LOSS_TOL and every LoRA gradient
+   within GRAD_TOL of the CPU's plain path, launch counts exact, no flash
+   and no wgmma.
 
 Two processes share the card after the kernel phases: this one runs parity
 to train-data, while a second (``chip_smoke.py lane``, started by
-``start_lane``) runs paged-parity, parity-int8, dryrun, cli, serve-http, examples, tp,
-train-int8 and train-gemma (``LANE``) and hands back their launch counts and stats.  The
-kernels are timed before it starts, on an idle card; the host times of the
+``start_lane``) runs paged-parity, parity-int8, train-parity-few, dryrun, cli,
+serve-http, examples, tp, train-int8 and train-gemma (``LANE``) and hands back
+their launch counts and stats.  The kernels are timed before it starts, on an
+idle card; the host times of the
 phases of either process are taken beside the other's.  A failure in
 either fails the run, and the second process and everything it started end
 with the first (its own process group).
@@ -440,6 +456,8 @@ TRAIN_STEPS = 5
 TRAIN_INT8_STEPS = 5      # the int8 base's run: a zero step, a repeat, three that have moved
                           # (the mean of steps 1..4, as the NF4 run's)
 TRAIN_LR = 2e-4
+TRAIN_FEW_S = 8           # train-parity-few: 2 x 8 = 16 rows, the most the dx decode
+                          # kernels take (DECODE_ROWS), under the flash gate (S % 128)
 
 # kernel phase: the LLaMA-7B block linears (K, N) at prefill (M = 4 x 512),
 # training (M = 2 x 512, forward and backward) and decode (M = 4) rows,
@@ -452,7 +470,12 @@ QMM_ROWS = (2048, 1024, 4, 8, 16, 40, 36, 9)   # + decode: generate()'s 4 rows, 
 FEW_ROWS = 64             # up to here a row count is timed in a CUDA graph, with the tile
                           # kernel ("before") and the decode kernel beside it
 QMM_BWD_ROWS = TRAIN_MICRO[0] * TRAIN_MICRO[1]
-NF4_BWD_FEW_ROWS = (4, 8, 16)    # the NF4 dx up to DECODE_ROWS: qmm_nf4_bwd.cu, no path runs it
+BWD_DECODE_ROWS = (1, 4, 8, 16)  # the dx decode kernels' rows: a row alone and the micro-batches
+                                 # of 4, 8 and 16 tokens that train-parity-few's 2 x 8 stands for
+# a ragged shape the dx decode plans accept (K/2 % 32 != 0, block 4: each
+# element's own absmax) and one they refuse (N % 16 != 0: the tile kernels keep it)
+BWD_DECODE_RAGGED = (5, 200, 48, 4)
+BWD_DECODE_REFUSED = (5, 192, 200, 32)
 LM_HEAD_SHAPE = (4096, 32768)     # the int8 serving copy pads 32000 columns to 32768
 W8A8_ROWS = (128, 512, 2048)     # the parity-int8 prefill (1 x 128), the serve-paged prefill of
                                  # one row at bucket 512 (its commonest), a 4 x 512 group
@@ -465,6 +488,8 @@ ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
 ATTN_LONG = (4, 32, 32, 128, 2048, (0, 511, 1500, 2047), None, False)   # five splits of 448
 I8_DECODE_ROWS = (4, 8, 16)      # the int8 forward at decode rows: generate()'s 4, 8 slots, 16
 I8_DIRECT_ROWS = I8_DECODE_ROWS + (9,)   # qmm_i8_direct also at search's int8 verify chunk, 1 x 9
+I8_DIRECT_VERIFY = 40            # qmm_i8_direct.cu's rows in PagedBatcher(decode_impl="int8",
+                                 # spec_draft_len=4): a verify chunk of 8 slots x 5 (measured only)
 
 
 PAGE, PPS = 64, 16               # serve-paged's pages: 64 tokens, 16 per sequence (T = 1024)
@@ -1212,30 +1237,112 @@ def kernel_phase(dev, results):
             if excess > QMM_TOL[0]:
                 fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
             wgmma_checks("qmm_nf4_bwd", qmm_nf4_bwd, gr, qt, w_bf16, bwd=True)
-            # the dx at decode rows: qmm_nf4_bwd.cu itself (no path runs it), in a
-            # graph beside g @ Wᵀ on the dequantized weight
-            for M in NF4_BWD_FEW_ROWS:
-                gr = torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16)
-                before = qmm_nf4_bwd.wgmma_launches
-                dx, ref = qmm_nf4_bwd(gr, qt), qmatmul_bwd_plain(gr, qt)
-                torch.cuda.synchronize()
-                if qmm_nf4_bwd.wgmma_launches != before:
-                    fail(f"qmm_nf4_bwd M={M} K={K} N={N} took the wgmma kernel")
-                diff = (dx.float() - ref.float()).abs()
-                err = diff.max().item()
-                shape = f"M={M} K={K} N={N} {'dq' if dq else 'f32'} absmax"
-                if (diff - QMM_TOL[1] * ref.float().abs()).max().item() > QMM_TOL[0]:
-                    fail(f"qmm_nf4_bwd {shape} differs from its plain version by {err}")
-                ms = graph_ms(lambda i: qmm_nf4_bwd(gr, qts[i % len(qts)]), 50)
-                plain_ms = cuda_ms(lambda i: qmatmul_bwd_plain(gr, qts[i % len(qts)]), 20)
-                lib_ms = graph_ms(lambda i: torch.matmul(gr, ws[i % len(ws)].T), 200)
-                record(results, "qmm_nf4_bwd", shape, err,
-                       f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|", ms, plain_ms, lib_ms,
-                       qmm_bound(M, K, N, dq))
-                print(f"  qmm_nf4_bwd.cu's dx at {M} rows {ms / lib_ms:.2f}x torch.matmul's "
-                      "time", flush=True)
+            # the dx at decode rows: the dx decode kernel, in a graph beside
+            # qmm_nf4_bwd.cu through its C entry (the "before") and g @ Wᵀ
+            bwd_decode_rows("qmm_nf4_bwd", qmm_nf4_bwd, qmatmul_bwd_plain, bwd_tile, qt, qts, ws,
+                            w_bf16, g, results, lambda M: qmm_bound(M, K, N, dq))
+        bwd_decode_edges("qmm_nf4_bwd", qmm_nf4_bwd, qmatmul_bwd_plain, "nf4", dq, g)
 
     decode_attention_phase(dev, g, results)
+
+
+def bwd_decode_bits(name, shape, wrapper, g, qt, w_bf16, dx):
+    """The dx decode kernel bit for bit at g's rows (dx its output): two calls
+    equal, each row alone equal to its row of the batch, rows of the identity
+    read out columns of ``dequantize``'s weight.  Fails the run if one is
+    broken."""
+    import torch
+
+    M, N = g.shape
+    twice = torch.equal(wrapper(g, qt), dx)
+    alone = all(torch.equal(wrapper(g[i:i + 1], qt), dx[i:i + 1]) for i in range(M))
+    cs = one_hot_cols(N, max(M, 4))
+    eye = torch.zeros(len(cs), N, device=g.device, dtype=torch.bfloat16)
+    eye[torch.arange(len(cs)), torch.tensor(cs)] = 1
+    readout = torch.equal(wrapper(eye, qt), w_bf16[:, cs].T)
+    print(f"kernel {name} {shape} (dx decode kernel): two calls equal {twice}, each row alone "
+          f"equal {alone}, identity rows read out columns {cs} of dequantize's weight "
+          f"{readout}", flush=True)
+    if not (twice and alone and readout):
+        fail(f"{name} {shape} (dx decode kernel): deterministic {twice}, batch-invariant "
+             f"{alone}, one-hot readout {readout}")
+
+
+def bwd_decode_rows(name, wrapper, plain, before, qt, qts, ws, w_bf16, gen, results, bound):
+    """The dx at BWD_DECODE_ROWS rows on the dx decode kernel of qt's
+    storage: it takes the call (``decode_launches``), within QMM_TOL of the
+    plain version; two calls equal, each row alone equal to its row of the
+    batch, rows of the identity read out columns of ``dequantize``'s weight,
+    all bit for bit.  Timed in CUDA graphs beside the kernel it replaced
+    through its C entry (``tile_ms``, the "before", also held to QMM_TOL),
+    ``g @ Wᵀ`` on the dequantized weight (``library_ms``) and its bound;
+    each as a multiple of the library's time."""
+    import torch
+
+    K, N = w_bf16.shape
+    kind = "dq" if qt.double_quant else "f32"
+    for M in BWD_DECODE_ROWS:
+        gr = torch.randn(M, N, device=qt.packed.device, generator=gen).to(torch.bfloat16)
+        took = wrapper.decode_launches
+        dx, ref, old = wrapper(gr, qt), plain(gr, qt), before(gr, qt)
+        torch.cuda.synchronize()
+        if wrapper.decode_launches != took + 1:
+            fail(f"{name} M={M} K={K} N={N}: the dx decode kernel did not take the call")
+        shape = f"M={M} K={K} N={N} {kind} absmax"
+        diff = (dx.float() - ref.float()).abs()
+        err = diff.max().item()
+        excess = (diff - QMM_TOL[1] * ref.float().abs()).max().item()
+        excess = max(excess, ((old.float() - ref.float()).abs()
+                              - QMM_TOL[1] * ref.float().abs()).max().item())
+        if excess > QMM_TOL[0]:
+            fail(f"{name} {shape} (dx decode kernel or its before) differs from its plain "
+                 f"version by {err}")
+        bwd_decode_bits(name, shape, wrapper, gr, qt, w_bf16, dx)
+        ms = graph_ms(lambda i: wrapper(gr, qts[i % len(qts)]), 200)
+        tile_ms = graph_ms(lambda i: before(gr, qts[i % len(qts)]), 10)
+        plain_ms = cuda_ms(lambda i: plain(gr, qts[i % len(qts)]), 20)
+        lib_ms = graph_ms(lambda i: torch.matmul(gr, ws[i % len(ws)].T), 200)
+        record(results, name, shape, err, f"tol {QMM_TOL[0]} + {QMM_TOL[1]}*|ref|", ms,
+               plain_ms, lib_ms, bound(M), tile_ms=tile_ms)
+        print(f"  the dx decode kernel {tile_ms / ms:.1f}x the before's speed, "
+              f"{ms / lib_ms:.2f}x g @ Wᵀ's time", flush=True)
+
+
+def bwd_decode_edges(name, wrapper, plain, quant_type, dq, gen):
+    """The dx decode kernel on a ragged shape its plan accepts (within
+    QMM_TOL, ``bwd_decode_bits``), and a shape its plan refuses, which takes
+    the tile kernel and says why."""
+    import torch
+
+    from qlora_tpu_torch.ops.qmatmul import i8_bwd_decode_plan, nf4_bwd_decode_plan
+    from qlora_tpu_torch.quant import dequantize, quantize
+
+    plan_fn = i8_bwd_decode_plan if quant_type == "int8" else nf4_bwd_decode_plan
+    dev = gen.device
+    for (M, K, N, B), accepted in ((BWD_DECODE_RAGGED, True), (BWD_DECODE_REFUSED, False)):
+        qt = quantize(torch.randn(K, N, device=dev, generator=gen) * K ** -0.5, block_size=B,
+                      quant_type=quant_type, double_quant=dq)
+        gr = torch.randn(M, N, device=dev, generator=gen).to(torch.bfloat16)
+        plan = plan_fn(K, N, B, 132)     # whether it accepts does not depend on the SMs
+        took = wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches
+        dx, ref = wrapper(gr, qt), plain(gr, qt)
+        torch.cuda.synchronize()
+        shape = f"M={M} K={K} N={N} block {B} {'dq' if dq else 'f32'} absmax"
+        diff = (dx.float() - ref.float()).abs()
+        if (diff - QMM_TOL[1] * ref.float().abs()).max().item() > QMM_TOL[0]:
+            fail(f"{name} {shape} differs from its plain version by {diff.max().item()}")
+        counts = (wrapper.launches - took[0], wrapper.decode_launches - took[1],
+                  wrapper.wgmma_launches - took[2])
+        if plan.accepted != accepted or counts != (1, int(accepted), 0):
+            fail(f"{name} {shape}: plan accepted {plan.accepted} ({plan.reason}), launches "
+                 f"(all, decode, wgmma) {counts}")
+        if accepted:
+            print(f"kernel {name} {shape}: the dx decode plan accepts the ragged shape, within "
+                  "QMM_TOL", flush=True)
+            bwd_decode_bits(name, shape, wrapper, gr, qt, dequantize(qt, torch.bfloat16), dx)
+        else:
+            print(f"kernel {name} {shape}: the dx decode plan refuses it ({plan.reason}); "
+                  f"the tile kernel took it, within QMM_TOL", flush=True)
 
 
 def gemma_qmm_phase(dev, results):
@@ -1878,6 +1985,28 @@ def int8_kernel_phase(dev, results):
                    int8_bound(M, K, N, K * N + N * 4, PEAK_INT8, 2), **more)
             print(f"  the decode kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
                   f"{ms / lib_ms:.2f}x torch._int_mm's time", flush=True)
+        # the next kernel in line, measured only: qmm_i8_direct.cu at a verify chunk's
+        # rows (PagedBatcher(decode_impl="int8", spec_draft_len=4): 8 slots x 5), on
+        # rows quantized beforehand, beside torch._int_mm and the wrapper
+        M = I8_DIRECT_VERIFY
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        shape = f"M={M} K={K} N={N}"
+        took = qmm_i8_direct.decode_launches
+        err, _ = w8a8_check("qmm_i8_direct", shape, qmm_i8_direct, qmm_i8_direct_plain, x, qt,
+                            qt.packed)
+        if qmm_i8_direct.decode_launches != took:
+            fail(f"qmm_i8_direct {shape}: the decode kernel took a verify chunk's rows")
+        x8, xs = quantize_rows(x)
+        ms = graph_ms(lambda i: launch_w8a8("qmm_i8_direct", x8, qts[i % len(qts)], None, s_out,
+                                            xs), 50)
+        wrapper_ms = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 50)
+        plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
+        lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200, graph_ms)
+        bound = int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1)
+        record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms, bound,
+               wrapper_ms=wrapper_ms)
+        print(f"  qmm_i8_direct.cu at a verify chunk's {M} rows: {ms / lib_ms:.2f}x "
+              f"torch._int_mm's time, {ms / bound[0]:.1f}x its bound", flush=True)
         del qts, qt
     M, K, N = 5, 200, 328
     qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5, block_size=K,
@@ -2024,7 +2153,7 @@ def int8_kernel_phase(dev, results):
             for name, kernel, plain, rows in (("qmm_i8_fwd", qmm_i8_fwd, qmm_i8_fwd_plain,
                                                I8_DECODE_ROWS + (QMM_BWD_ROWS, 2048)),
                                               ("qmm_i8_bwd", qmm_i8_bwd, qmm_i8_bwd_plain,
-                                               I8_DECODE_ROWS + (QMM_BWD_ROWS,))):
+                                               (QMM_BWD_ROWS,))):
                 fwd = name == "qmm_i8_fwd"
                 for M in rows:
                     a = torch.randn(M, K if fwd else N, device=dev, generator=g).to(torch.bfloat16)
@@ -2051,12 +2180,6 @@ def int8_kernel_phase(dev, results):
                         more["tile_ms"] = cuda_ms(lambda i: i8_tile(a, qts[i % len(qts)], fwd), 5)
                         plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 3)
                         lib_ms = cuda_ms(mat, 20)
-                    elif not fwd:
-                        # the dx at decode rows: qmm_i8.cu itself (no path runs it), in a
-                        # graph beside g @ Wᵀ on the dequantized weight
-                        ms = graph_ms(lambda i: kernel(a, qts[i % len(qts)]), 50)
-                        plain_ms = cuda_ms(lambda i: plain(a, qts[i % len(qts)]), 20)
-                        lib_ms = graph_ms(mat, 200)
                     else:
                         # device times in a graph: the decode kernel is shorter than its
                         # wrapper's host time
@@ -2069,14 +2192,17 @@ def int8_kernel_phase(dev, results):
                            int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2), **more)
                     if M > DECODE_ROWS:
                         wgmma_checks(name, kernel, a, qt, w_bf16, bwd=not fwd)
-                    elif not fwd:
-                        print(f"  qmm_i8.cu's dx at {M} rows {ms / lib_ms:.2f}x torch.matmul's "
-                              "time", flush=True)
                     else:
                         print(f"  the decode kernel {more['tile_ms'] / ms:.1f}x qmm_i8.cu's "
                               f"speed, {ms / lib_ms:.2f}x torch.matmul's time", flush=True)
                         decode_checks(f"{name} (decode kernel)", kernel, a, qt, w_bf16)
+            # the dx at decode rows: the dx decode kernel, in a graph beside
+            # qmm_i8.cu's 16-row tile through its C entry (the "before") and g @ Wᵀ
+            bwd_decode_rows("qmm_i8_bwd", qmm_i8_bwd, qmm_i8_bwd_plain,
+                            lambda a, q: i8_tile(a, q, False), qt, qts, ws, w_bf16, g, results,
+                            lambda M: int8_bound(M, K, N, K * N + am_bytes, PEAK_BF16, 2))
             del qts, ws, w_bf16, qt
+        bwd_decode_edges("qmm_i8_bwd", qmm_i8_bwd, qmm_i8_bwd_plain, "int8", dq, g)
         # identity operands read the decoded weight out of both kernels: dequantize's, bit
         # for bit (two meta-blocks of absmax rows; a ragged shape)
         for K, N in ((64 * 260, 64), (192, 200)):
@@ -2424,7 +2550,10 @@ def counters():
 # qmm_i8_wgmma.cu (more rows), read as qmm_i8_wgmma_fwd / _bwd; the rest took
 # qmm_i8.cu.
 # The NF4 dx counts those that took qmm_nf4_bwd_wgmma.cu, read as
-# qmm_nf4_wgmma_bwd; the rest took qmm_nf4_bwd.cu.  The w8a8 forward over NF4
+# qmm_nf4_wgmma_bwd, and those that took qmm_nf4_bwd_decode.cu (M <=
+# DECODE_ROWS), read as qmm_nf4_bwd_decode; the int8 dx those that took
+# qmm_i8_bwd_decode.cu, read as qmm_i8_bwd_decode; the rest took
+# qmm_nf4_bwd.cu and qmm_i8.cu.  The w8a8 forward over NF4
 # counts those that took qmm_nf4_w8a8_wgmma.cu (more rows), read as
 # qmm_nf4_w8a8_wgmma, and those that took qmm_nf4_w8a8_decode.cu (M <=
 # DECODE_ROWS), read as qmm_nf4_w8a8_decode; the rest took qmm_i8_direct.cu.
@@ -2440,7 +2569,8 @@ def counters():
 # _bwd_dq / _bwd_dkv (0 where a checkout's wrappers have no such counter)
 DECODE_COUNTS = {"qmm_nf4_decode_dq": "qmm_nf4_fwd_dq", "qmm_nf4_decode_f32": "qmm_nf4_fwd_f32",
                  "qmm_i8_decode_fwd": "qmm_i8_fwd", "qmm_i8_direct_decode": "qmm_i8_direct",
-                 "qmm_nf4_w8a8_decode": "qmm_nf4_w8a8"}
+                 "qmm_nf4_w8a8_decode": "qmm_nf4_w8a8", "qmm_nf4_bwd_decode": "qmm_nf4_bwd",
+                 "qmm_i8_bwd_decode": "qmm_i8_bwd"}
 WGMMA_COUNTS = {"qmm_nf4_wgmma_dq": "qmm_nf4_fwd_dq", "qmm_nf4_wgmma_f32": "qmm_nf4_fwd_f32",
                 "qmm_i8_wgmma_fwd": "qmm_i8_fwd", "qmm_i8_wgmma_bwd": "qmm_i8_bwd",
                 "qmm_nf4_wgmma_bwd": "qmm_nf4_bwd", "flash_wgmma_fwd": "flash_fwd",
@@ -2997,7 +3127,7 @@ def qmm_counters(quant_type):
 
 
 def train_counts(L, quant_type="nf4", remat="save_linear", mode="lora", micro=TRAIN_ACCUM,
-                 wide=False):
+                 wide=False, few=False):
     """The launches of `micro` micro-batches' forward and backward over L
     layers (block linears M = rows x S > 16: every NF4 or int8 forward and dx
     on a wgmma kernel).  Per micro-batch: the 7 L block linears' forward once,
@@ -3005,30 +3135,40 @@ def train_counts(L, quant_type="nf4", remat="save_linear", mode="lora", micro=TR
     reads them back); their dx 7 L - 3 times (layer 0's wq, wk, wv see the
     embeddings, which need no gradient in LoRA training); flash forward L
     times, 2 L under "full", flash dq and dk, dv L times each, at head dim
-    256 (`wide`) all on the WIDE_D tiles.  Mode "full" has no qmm."""
+    256 (`wide`) all on the WIDE_D tiles.  Mode "full" has no qmm.  With
+    `few` (a micro-batch of at most DECODE_ROWS tokens, its S under the
+    flash gate): no flash, every forward on a decode kernel and every dx on
+    a dx decode kernel."""
     runs = 2 if remat in ("full", True) else 1
     fwd_name, bwd_name = qmm_counters(quant_type)
-    flash = {"flash_fwd": micro * runs * L, "flash_bwd_dq": micro * L,
-             "flash_bwd_dkv": micro * L}
+    flash = {} if few else {"flash_fwd": micro * runs * L, "flash_bwd_dq": micro * L,
+                            "flash_bwd_dkv": micro * L}
     counts = {**flash, **{k: flash[n] for k, n in WGMMA_COUNTS.items() if n in flash}}
     if wide:
         counts.update({k: flash[n] for k, n in WIDE_COUNTS.items()})
     if mode == "lora":
         fwd, bwd = micro * runs * 7 * L, micro * (7 * L - 3)
         counts.update({fwd_name: fwd, bwd_name: bwd})
-        counts.update({"qmm_nf4_wgmma_dq": fwd, "qmm_nf4_wgmma_bwd": bwd} if quant_type == "nf4"
-                      else {"qmm_i8_wgmma_fwd": fwd, "qmm_i8_wgmma_bwd": bwd})
+        kernels = {("nf4", False): ("qmm_nf4_wgmma_dq", "qmm_nf4_wgmma_bwd"),
+                   ("int8", False): ("qmm_i8_wgmma_fwd", "qmm_i8_wgmma_bwd"),
+                   ("nf4", True): ("qmm_nf4_decode_dq", "qmm_nf4_bwd_decode"),
+                   ("int8", True): ("qmm_i8_decode_fwd", "qmm_i8_bwd_decode")}
+        counts.update(zip(kernels[quant_type, few], (fwd, bwd)))
     return expected_counts(**counts)
 
 
-def train_parity_phase(dev, quant_type="nf4", cfg=None, S=256, remat="full", tag=None):
+def train_parity_phase(dev, quant_type="nf4", cfg=None, S=256, remat="full", tag=None,
+                       with_counts=False):
     """One collated micro-batch of 2 rows through ``loss_fn`` on 2 layers at
     full width, the plain path on the CPU against the kernels on the card:
     the loss and every LoRA gradient must agree, and the card's launches be
-    exactly ``train_counts``'."""
+    exactly ``train_counts``' (at 2 x S <= DECODE_ROWS tokens, its ``few``
+    variant).  Returns the worst gradient difference, and with
+    ``with_counts`` the card's launches too."""
     import torch
 
     from qlora_tpu_torch.models import init_params
+    from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS
     from qlora_tpu_torch.train import loss_fn
     from qlora_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
     from qlora_tpu_torch.utils import move_to
@@ -3063,7 +3203,8 @@ def train_parity_phase(dev, quant_type="nf4", cfg=None, S=256, remat="full", tag
         if rel > worst:
             worst, worst_name = rel, name
     d_loss = abs(loss_g.item() - loss_c.item())
-    want = train_counts(cfg.num_layers, quant_type, remat, micro=1, wide=cfg.head_dim == 256)
+    want = train_counts(cfg.num_layers, quant_type, remat, micro=1, wide=cfg.head_dim == 256,
+                        few=2 * S <= DECODE_ROWS)
     print(f"{tag}: 2 x {S} collated tokens (lengths {lengths}, {n_c} target tokens), remat "
           f"{remat!r}; loss card {loss_g.item():.5f} cpu {loss_c.item():.5f} |d|={d_loss:.3g} "
           f"(tol {LOSS_TOL}); {len(names)} LoRA gradients, worst |g_card - g_cpu|/|g_cpu| = "
@@ -3074,7 +3215,24 @@ def train_parity_phase(dev, quant_type="nf4", cfg=None, S=256, remat="full", tag
         fail(f"{tag} launch counts {counts} != {want}")
     del p_gpu, p_cpu, lora_gpu, lora_cpu, grads_g, grads_c
     torch.cuda.empty_cache()
-    return worst
+    return (worst, counts) if with_counts else worst
+
+
+def train_parity_few(dev):
+    """train-parity-few: train-parity at 2 x TRAIN_FEW_S tokens (16 rows:
+    every block linear's forward on a decode kernel and every dx on a dx
+    decode kernel, attention below the flash gate) over an NF4 and an int8
+    base.  Returns {storage: the card's launches}."""
+    t0 = time.perf_counter()
+    out, worst = {}, 0.0
+    for quant_type in ("nf4", "int8"):
+        w, out[quant_type] = train_parity_phase(dev, quant_type, S=TRAIN_FEW_S,
+                                                tag=f"train-parity-few-{quant_type}",
+                                                with_counts=True)
+        worst = max(worst, w)
+    print(f"train-parity-few: NF4 and int8, 2 x {TRAIN_FEW_S} tokens, worst gradient "
+          f"difference {worst:.4g} <= {GRAD_TOL}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def frozen_tensors(params):
@@ -6849,19 +7007,29 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
     "paged_chunk_attention_cuda": ("qlora_tpu_torch/csrc/paged_attention_split.cu",
                                    "qlora_tpu/ops/paged_attention.py:478 "
                                    "(fused_paged_chunk_attention, pallas_call at :544)"),
+    # the dx at decode rows (train-parity-few's 16 rows): the dx decode kernels
+    "qmm_nf4_bwd_decode": ("qlora_tpu_torch/csrc/qmm_nf4_bwd_decode.cu",
+                           "qlora_tpu/ops/qmatmul.py:651 (_qmm_bwd_pallas, pallas_call at :679; "
+                           "M <= 16)"),
+    "qmm_i8_bwd_decode": ("qlora_tpu_torch/csrc/qmm_i8_bwd_decode.cu",
+                          "qlora_tpu/ops/qmatmul.py:475 (_qmm_bwd_pallas_i8, pallas_call at :487; "
+                          "M <= 16)"),
 }
 # the NF4 forward's three sources, by shape (ops/qmatmul.py: DECODE_ROWS, tile_plan)
 NF4_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_decode.cu",
                "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_wgmma.cu",
                "M > 16, K % 16 != 0": "qlora_tpu_torch/csrc/qmm_nf4_fwd.cu"}
 # the NF4 dx's two sources, by shape (ops/qmatmul.py: nf4_bwd_tile_plan)
-NF4_BWD_SOURCES = {"M > 16": "qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
-                   "M <= 16, or N % 8 != 0": "qlora_tpu_torch/csrc/qmm_nf4_bwd.cu"}
+NF4_BWD_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_bwd_decode.cu",
+                   "M > 16": "qlora_tpu_torch/csrc/qmm_nf4_bwd_wgmma.cu",
+                   "M <= 16 and N % 16 != 0, or M > 16 and N % 8 != 0":
+                       "qlora_tpu_torch/csrc/qmm_nf4_bwd.cu"}
 # the int8 forward's and dx's three sources, by shape (ops/qmatmul.py:
 # i8_decode_plan, i8_tile_plan)
 I8_SOURCES = {"M <= 16, forward": "qlora_tpu_torch/csrc/qmm_i8_decode.cu",
+              "M <= 16, backward": "qlora_tpu_torch/csrc/qmm_i8_bwd_decode.cu",
               "M > 16": "qlora_tpu_torch/csrc/qmm_i8_wgmma.cu",
-              "M <= 16 backward, or M > 16 and a contraction % 8 != 0":
+              "M <= 16 backward and N % 16 != 0, or M > 16 and a contraction % 8 != 0":
                   "qlora_tpu_torch/csrc/qmm_i8.cu"}
 # the w8a8 forward's two sources over NF4, by shape (ops/qmatmul.py: w8a8_tile_plan)
 W8A8_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_decode.cu",
@@ -6874,13 +7042,18 @@ I8_DIRECT_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
                      "M > 16, or K % 32 or N % 16 not 0": "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
 # summary entries read from another wrapper's rows, and the rows they keep
 # (by the row count in the shape): the int8 forward's decode kernel and its
-# wgmma kernel share the rows of qmm_i8_fwd
+# wgmma kernel share the rows of qmm_i8_fwd, each dx's decode and wgmma
+# kernels the rows of its wrapper
 def _rows(shape):
     return int(shape.split()[0][2:]) if shape.startswith("M=") else 0
 
 
 RESULT_OF = {"qmm_i8_fwd_decode": ("qmm_i8_fwd", lambda s: _rows(s) <= 16),
              "qmm_i8_fwd": ("qmm_i8_fwd", lambda s: _rows(s) > 16),
+             "qmm_nf4_bwd_decode": ("qmm_nf4_bwd", lambda s: _rows(s) <= 16),
+             "qmm_nf4_bwd": ("qmm_nf4_bwd", lambda s: _rows(s) > 16),
+             "qmm_i8_bwd_decode": ("qmm_i8_bwd", lambda s: _rows(s) <= 16),
+             "qmm_i8_bwd": ("qmm_i8_bwd", lambda s: _rows(s) > 16),
              "qmm_nf4_w8a8_decode": ("qmm_nf4_w8a8", lambda s: _rows(s) <= 16),
              "qmm_nf4_w8a8": ("qmm_nf4_w8a8", lambda s: _rows(s) > 16),
              **{f"{n}{hd}": (n, (lambda s: "hd=256" in s) if hd else (lambda s: "hd=256" not in s))
@@ -6909,7 +7082,10 @@ HEADLINE = {"qmm_nf4_fwd_dq": "M=4 K=4096 N=4096", "qmm_nf4_fwd_f32": "M=4 K=409
             "qmm_i8_fwd_decode": "M=4 K=4096 N=4096 dq",
             # serve-paged's decode step and its verify chunk, full attention
             "paged_decode_attention_cuda": "B=8 H=32 KVH=32",
-            "paged_chunk_attention_cuda": "B=8 C=5 H=32 KVH=32"}
+            "paged_chunk_attention_cuda": "B=8 C=5 H=32 KVH=32",
+            # a train step's dx at 4 tokens, the decode row count of every other entry
+            "qmm_nf4_bwd_decode": "M=4 K=4096 N=4096 dq",
+            "qmm_i8_bwd_decode": "M=4 K=4096 N=4096 dq"}
 
 
 def qmm_ms_per_forward(results, num_layers, M):
@@ -7099,6 +7275,7 @@ def timed_paged_parity(dev):
 
 LANE = (("paged-parity", lambda dev, card: timed_paged_parity(dev)),
         ("parity-int8", lambda dev, card: parity_int8_seeds(dev)),
+        ("train-parity-few", lambda dev, card: train_parity_few(dev)),
         ("dryrun", lambda dev, card: dryrun_phase(dev, card)),
         ("cli", lambda dev, card: cli_phase(dev, card)),
         ("serve-http", lambda dev, card: serve_http_phase(dev, card)),
@@ -7301,6 +7478,7 @@ def main() -> int:
     tp_counts, tp_stats = lane_out["tp"]
     train8_counts, train8_per_step, train8_stats = lane_out["train-int8"]
     gemma_counts, gemma_per_step, gemma_stats = lane_out["train-gemma"]
+    few_counts = lane_out["train-parity-few"]
     gc_cuda()
     mesh_counts, mesh_stats = train_mesh_phase(dev, card)
     gc_cuda()
@@ -7330,7 +7508,9 @@ def main() -> int:
                     paged_chunk_attention_cuda=spec_counts["paged_chunk_attention_cuda"],
                     flash_fwd_hd256=gemma_counts["flash_wide_fwd"],
                     flash_bwd_dq_hd256=gemma_counts["flash_wide_bwd_dq"],
-                    flash_bwd_dkv_hd256=gemma_counts["flash_wide_bwd_dkv"])
+                    flash_bwd_dkv_hd256=gemma_counts["flash_wide_bwd_dkv"],
+                    qmm_nf4_bwd_decode=few_counts["nf4"]["qmm_nf4_bwd_decode"],
+                    qmm_i8_bwd_decode=few_counts["int8"]["qmm_i8_bwd_decode"])
     idle = [name for name in SOURCES if launches[name] <= 0]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")
@@ -7387,6 +7567,13 @@ def main() -> int:
         if entry["name"] == "qmm_i8_fwd_decode":
             entry.update(sources=I8_SOURCES, before_source="qlora_tpu_torch/csrc/qmm_i8.cu",
                          decode_launches=i8base_counts["qmm_i8_decode_fwd"])
+        if entry["name"] == "qmm_nf4_bwd_decode":
+            entry.update(sources=NF4_BWD_SOURCES,
+                         before_source="qlora_tpu_torch/csrc/qmm_nf4_bwd.cu",
+                         decode_launches=few_counts["nf4"]["qmm_nf4_bwd_decode"])
+        if entry["name"] == "qmm_i8_bwd_decode":
+            entry.update(sources=I8_SOURCES, before_source="qlora_tpu_torch/csrc/qmm_i8.cu",
+                         decode_launches=few_counts["int8"]["qmm_i8_bwd_decode"])
         if entry["name"] == "decode_attention_cuda":
             entry.update(before_source="qlora_tpu_torch/csrc/decode_attention.cu")
         if entry["name"] == "qmm_nf4_w8a8":

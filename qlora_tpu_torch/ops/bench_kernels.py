@@ -41,7 +41,8 @@ def qmm_repeat(x, packed, am, shape, block_size, quant_type, reps=64):
 
 def qmm_bwd_repeat(g, packed, am, shape, block_size, quant_type, reps=32):
     """dx = g @ dequant(packed, am)ᵀ, `reps` times through ``qmm_nf4_bwd``
-    (the TPU kernel ``_qmm_bwd_pallas``)."""
+    (the TPU kernel ``_qmm_bwd_pallas``): the kernel its dispatch takes for
+    these rows, ``qmm_nf4_bwd_decode.cu`` up to ``DECODE_ROWS`` rows."""
     qt = _f32_absmax_tensor(packed, am, shape, block_size, quant_type)
     fn = qmm_nf4_bwd if g.is_cuda else qmatmul_bwd_plain
     for _ in range(reps):

@@ -28,9 +28,8 @@ takes every shape ``quantize`` makes);
 forward and dx alike take the wgmma design (``csrc/qmm_i8_wgmma.cu``,
 ``wgmma_launches``) above ``DECODE_ROWS`` rows wherever ``i8_tile_plan``
 accepts the shape (a row stride of the activation in multiples of 16
-bytes); the tile kernel of ``csrc/qmm_i8.cu``, the decode kernel's
-"before", takes the dx at ``DECODE_ROWS`` rows or fewer and the shapes
-``i8_tile_plan`` refuses.  The two ``w8a8`` kernels
+bytes); the tile kernel of ``csrc/qmm_i8.cu``, the decode kernels'
+"before", takes the shapes the plans refuse.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue: the serving engines' decode path.
 Over per-column int8 storage up to ``DECODE_ROWS`` rows, wherever
@@ -58,7 +57,14 @@ under ``"w8a8"``, and gives no leaf of the ``QuantizedTensor`` a gradient.
 The NF4/FP4 dx above ``DECODE_ROWS`` rows runs the same wgmma design, each
 packed byte decoded once for both nibble planes (``csrc/qmm_nf4_bwd_wgmma.cu``,
 ``wgmma_launches``), wherever ``nf4_bwd_tile_plan`` accepts the shape (N %
-8 == 0); fewer rows and the rest take ``csrc/qmm_nf4_bwd.cu``.
+8 == 0).  At 1 to ``DECODE_ROWS`` rows (a train step's micro-batch of 16
+tokens or fewer) both dx run a split-N weight-streaming kernel: dx's columns
+cut into strips of weight rows, the contraction N into splits that one
+thread-block cluster adds in split order (``csrc/qmm_nf4_bwd_decode.cu``,
+``csrc/qmm_i8_bwd_decode.cu``, ``decode_launches``), wherever
+``nf4_bwd_decode_plan`` / ``i8_bwd_decode_plan`` accept the shape (N % 16 ==
+0: every model linear).  The rest take ``csrc/qmm_nf4_bwd.cu`` and
+``csrc/qmm_i8.cu``.
 """
 
 from __future__ import annotations
@@ -507,15 +513,16 @@ def nf4_bwd_tile_smem(tm: int) -> int:
 
 def nf4_bwd_tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -> TilePlan:
     """The NF4 dx kernel's plan for dx = g [M, N] @ dequant(W)ᵀ [N, K] on a
-    card of ``sms`` SMs.  It refuses up to ``DECODE_ROWS`` rows and N % 8
-    != 0 (TMA reads g in boxes of [rows, 64 columns] and needs its row
-    stride in multiples of 16 bytes): ``qmm_nf4_bwd.cu`` keeps those.  Its
+    card of ``sms`` SMs.  It refuses up to ``DECODE_ROWS`` rows (the dx
+    decode kernel's) and N % 8 != 0 (TMA reads g in boxes of [rows, 64
+    columns] and needs its row stride in multiples of 16 bytes):
+    ``qmm_nf4_bwd.cu`` keeps the latter.  Its
     CTAs cover ceil((K/2) / 64) runs of packed rows; ragged M, N and K/2
     are masked in the kernel; block sizes that are no multiple of 4 take a
     slower decode.  A CTA takes 256 rows where 128-row tiles would need more
     than one wave of CTAs, else 128."""
     if M <= DECODE_ROWS:
-        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} stay on qmm_nf4_bwd.cu")
+        return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} take qmm_nf4_bwd_decode.cu")
     if N % 8:
         return TilePlan(False, f"N={N} is no multiple of 8: TMA needs a 16-byte row stride")
     if K <= 0 or N <= 0 or block_size <= 0 or K % (2 * block_size):
@@ -526,30 +533,175 @@ def nf4_bwd_tile_plan(M: int, K: int, N: int, block_size: int, sms: int = 132) -
                          steps=-(-N // _TILE_KP), smem=nf4_bwd_tile_smem(tm))
 
 
-def qmm_nf4_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """The backward kernel (TPU _qmm_bwd_pallas): dx = g @ dequant(qt)ᵀ for
-    g [M, N] on the card → [M, K] bf16.  Double-quantized absmax is decoded
-    in the kernel with the forward's arithmetic.  Above ``DECODE_ROWS`` rows,
-    where ``nf4_bwd_tile_plan`` accepts the shape, the wgmma kernel (counted
-    in ``wgmma_launches``); else ``qmm_nf4_bwd.cu``."""
-    if qt.quant_type == "int8":
-        raise ValueError("the NF4 kernels do not read int8 storage")
-    _check_rows(g, qt.packed.shape[-1], "g")
-    K, N, scale, offset = _check_quantized(qt, g.device)
-    plan = _plan_on(nf4_bwd_tile_plan, g.device, g.shape[0], K, N, qt.block_size)
-    if plan.accepted:
-        dx = _wgmma_launch("qmm_nf4_bwd_wgmma", "qmm_nf4_bwd_wgmma", g, qt, K, scale, offset,
-                           plan)
-    else:      # no rows: no launch
-        dx = _launch("qmm_nf4_bwd", "qmm_nf4_bwd", g, qt, K, scale, offset)
-    qmm_nf4_bwd.launches += g.shape[0] > 0
-    qmm_nf4_bwd.wgmma_launches += plan.accepted
+# The dx at decode rows: ``csrc/qmm_nf4_bwd_decode.cu`` and
+# ``csrc/qmm_i8_bwd_decode.cu`` cut dx's columns into strips of weight rows
+# (32 packed rows for NF4, 64 dx columns; 64 rows of W for int8) and the
+# contraction N into splits of whole 128-column k-steps, one block each; the
+# splits of a strip are one cluster, which adds them in split order.  The
+# plan depends on (K, N) and the SM count, never on the rows.
+_BWD_DECODE_KSTEP = 128      # contraction columns of a k-step
+_BWD_DECODE_PASS = 1024      # contraction columns of g a block stages at once
+_NF4_BWD_STRIP = 32          # packed rows of a block of the NF4 dx decode kernel
+_I8_BWD_STRIP = 64           # rows of W of a block of the int8 dx decode kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdDecodePlan:
+    """How a dx decode kernel cuts dx = g [M, N] @ Wᵀ: ``strips`` of
+    ``strip`` weight rows (packed rows for NF4, each two dx columns, one in
+    each nibble plane: ``planes`` 2) times ``splits`` runs of whole
+    128-column k-steps of N, one block each, staged ``cols`` columns at a
+    time.  ``accepted`` says whether the shape takes the kernel; ``reason``
+    says why not."""
+    accepted: bool
+    reason: str
+    strip: int = 0
+    planes: int = 1
+    strips: int = 0
+    splits: int = 0
+    cols: int = 0
+
+    def split_cols(self, N: int) -> list:
+        """[(c0, c1)] contraction columns of each split, as the kernel
+        computes them."""
+        units = -(-N // _BWD_DECODE_KSTEP)
+        return [(s * units // self.splits * _BWD_DECODE_KSTEP,
+                 min((s + 1) * units // self.splits * _BWD_DECODE_KSTEP, N))
+                for s in range(self.splits)]
+
+    def strip_cols(self, K: int) -> list:
+        """[[(k0, k1), ...]] the runs of dx columns each strip writes, clipped
+        as the kernel masks them: NF4 a run in each plane (packed rows p0 ..
+        p1 at p and at K/2 + p), int8 one."""
+        rows = K // self.planes
+        runs = []
+        for i in range(self.strips):
+            r0, r1 = i * self.strip, min((i + 1) * self.strip, rows)
+            runs.append([(pl * rows + r0, pl * rows + r1) for pl in range(self.planes)])
+        return runs
+
+    def smem(self, M: int, block_size: int) -> int:
+        """Dynamic shared memory of a block at M rows: g's rows of a pass
+        (8 or 16, pitch cols / 2 + 4 words) and, where the block size is a
+        multiple of the strip, the strip's absmax rows of the pass in f32,
+        4 floats of padding after every 32 columns."""
+        rows = 8 if M <= 8 else 16
+        aligned = block_size % self.strip == 0
+        am = self.planes * (self.cols + 4 * (self.cols // 32)) if aligned else 0
+        return (rows * (self.cols // 2 + 4) + am) * 4
+
+
+def _bwd_decode_plan(rows: int, N: int, strip: int, planes: int, sms: int) -> BwdDecodePlan:
+    """As :func:`decode_plan`'s: about ``_DECODE_BLOCKS_PER_SM`` blocks per
+    SM, at most one cluster of splits per strip; a split longer than
+    ``_BWD_DECODE_PASS`` columns is staged in several passes."""
+    strips = -(-rows // strip)
+    units = -(-N // _BWD_DECODE_KSTEP)
+    splits = min(units, _DECODE_MAX_SPLITS, -(-_DECODE_BLOCKS_PER_SM * sms // strips))
+    cols = min(-(-units // splits) * _BWD_DECODE_KSTEP, _BWD_DECODE_PASS)
+    return BwdDecodePlan(True, "", strip, planes, strips, splits, cols)
+
+
+def nf4_bwd_decode_plan(K: int, N: int, block_size: int, sms: int) -> BwdDecodePlan:
+    """The NF4 dx decode kernel's cut of dx = g [M <= 16, N] @ dequant(W)ᵀ
+    on a card of ``sms`` SMs: strips of 32 packed rows (64 dx columns) times
+    splits of the contraction.  It refuses, and ``qmm_nf4_bwd.cu`` keeps: N
+    % 16 != 0 (a lane loads 16 bytes of a packed row, which needs the row
+    stride in multiples of 16).  Ragged K/2 is masked in the kernel; block
+    sizes that are no multiple of 32 take its per-element absmax.  Every
+    model linear passes."""
+    if K <= 0 or N <= 0 or block_size <= 0 or K % (2 * block_size):
+        return BwdDecodePlan(False, f"no NF4 shape: K={K} N={N} block {block_size}")
+    if N % 16:
+        return BwdDecodePlan(False, f"N={N} is no multiple of 16: a lane loads 16 bytes of a "
+                                    "packed row; qmm_nf4_bwd.cu keeps it")
+    return _bwd_decode_plan(K // 2, N, _NF4_BWD_STRIP, 2, sms)
+
+
+def i8_bwd_decode_plan(K: int, N: int, block_size: int, sms: int) -> BwdDecodePlan:
+    """The int8 dx decode kernel's cut of dx = g [M <= 16, N] @ dequant(W)ᵀ
+    on a card of ``sms`` SMs: strips of 64 rows of W times splits of the
+    contraction.  It refuses, and ``qmm_i8.cu`` keeps: N % 16 != 0 (a lane
+    loads 16 bytes of a row of W).  Ragged K is masked in the kernel; block
+    sizes that are no multiple of 64 take its per-element absmax.  Every
+    model linear passes."""
+    if K <= 0 or N <= 0 or block_size <= 0 or K % block_size:
+        return BwdDecodePlan(False, f"no int8 shape: K={K} N={N} block {block_size}")
+    if N % 16:
+        return BwdDecodePlan(False, f"N={N} is no multiple of 16: a lane loads 16 bytes of a "
+                                    "row of W; qmm_i8.cu keeps it")
+    return _bwd_decode_plan(K, N, _I8_BWD_STRIP, 1, sms)
+
+
+def _bwd_decode_launch(g: torch.Tensor, qt: QuantizedTensor, scale, offset,
+                       plan: BwdDecodePlan) -> torch.Tensor:
+    """Launch the dx decode kernel of qt's storage (``qmm_nf4_bwd_decode`` or
+    ``qmm_i8_bwd_decode``) on checked operands and an accepted plan: g [M,
+    N] bf16 on the card → dx [M, K] bf16.  It takes any M (groups of 16
+    rows); the dispatch sends it 1 .. ``DECODE_ROWS``."""
+    K, N = logical_k(qt), qt.packed.shape[-1]
+    g = _aligned(g.to(torch.bfloat16))
+    M, dev = g.shape[0], g.device
+    dx = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    lib = "qmm_i8_bwd_decode" if qt.quant_type == "int8" else "qmm_nf4_bwd_decode"
+    fn = _build.kernel(lib, lib, [_P] * 7 + [_I] * 6 + [_P])
+    code = None if qt.quant_type == "int8" else _code_on(qt.quant_type, dev).data_ptr()
+    err = fn(g.data_ptr(), qt.packed.data_ptr(), qt.absmax.data_ptr(),
+             None if scale is None else scale.data_ptr(),
+             None if offset is None else offset.data_ptr(),
+             code, dx.data_ptr(), M, K, N, qt.block_size, int(qt.double_quant), plan.splits,
+             _build.stream_ptr(g))
+    _build.check(err, lib)
     return dx
 
 
-# launches: every call that ran a kernel; wgmma_launches: those of them that
-# took qmm_nf4_bwd_wgmma.cu (the rest took qmm_nf4_bwd.cu)
-qmm_nf4_bwd.launches = qmm_nf4_bwd.wgmma_launches = 0
+def _bwd_launch(g: torch.Tensor, qt: QuantizedTensor) -> tuple:
+    """Check the operands and launch the dx kernel that the shape takes: g
+    [M, N] on the card → (dx [M, K] bf16, which kernel): "decode" for 1 ..
+    ``DECODE_ROWS`` rows where the storage's decode plan accepts the shape,
+    "wgmma" above where its tile plan does, else "tile" (``qmm_nf4_bwd.cu``
+    or ``qmm_i8.cu``).  No rows, no launch ("none")."""
+    int8 = qt.quant_type == "int8"
+    _check_rows(g, qt.packed.shape[-1], "g")
+    K, N, scale, offset = _check_quantized(qt, g.device)
+    M, dev = g.shape[0], g.device
+    if M == 0:
+        return torch.empty((0, K), dtype=torch.bfloat16, device=dev), "none"
+    if M <= DECODE_ROWS:
+        plan_fn = i8_bwd_decode_plan if int8 else nf4_bwd_decode_plan
+        plan = _plan_on(plan_fn, dev, K, N, qt.block_size)
+        if plan.accepted:
+            return _bwd_decode_launch(g, qt, scale, offset, plan), "decode"
+    if int8:      # (library, C entry) of the wgmma kernel and of the tile kernel
+        plan = _plan_on(i8_tile_plan, dev, M, K, N, qt.block_size, True)
+        wgmma, tile = ("qmm_i8_wgmma", "qmm_i8_wgmma_bwd"), ("qmm_i8", "qmm_i8_bwd")
+    else:
+        plan = _plan_on(nf4_bwd_tile_plan, dev, M, K, N, qt.block_size)
+        wgmma, tile = ("qmm_nf4_bwd_wgmma",) * 2, ("qmm_nf4_bwd",) * 2
+    if plan.accepted:
+        return _wgmma_launch(*wgmma, g, qt, K, scale, offset, plan), "wgmma"
+    return _launch(*tile, g, qt, K, scale, offset), "tile"
+
+
+def qmm_nf4_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The backward kernel (TPU _qmm_bwd_pallas): dx = g @ dequant(qt)ᵀ for
+    g [M, N] on the card → [M, K] bf16.  Double-quantized absmax is decoded
+    in the kernel with the forward's arithmetic.  Up to ``DECODE_ROWS`` rows,
+    where ``nf4_bwd_decode_plan`` accepts the shape, the dx decode kernel
+    (counted in ``decode_launches``); above, where ``nf4_bwd_tile_plan``
+    accepts it, the wgmma kernel (``wgmma_launches``); else
+    ``qmm_nf4_bwd.cu``."""
+    if qt.quant_type == "int8":
+        raise ValueError("the NF4 kernels do not read int8 storage")
+    dx, took = _bwd_launch(g, qt)
+    _count(qmm_nf4_bwd, took)
+    return dx
+
+
+# launches: every call that ran a kernel; decode_launches: those of them that
+# took qmm_nf4_bwd_decode.cu; wgmma_launches: those that took
+# qmm_nf4_bwd_wgmma.cu (the rest took qmm_nf4_bwd.cu)
+qmm_nf4_bwd.launches = qmm_nf4_bwd.decode_launches = qmm_nf4_bwd.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -587,8 +739,7 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
     """The int8 wgmma kernel's plan on a card of ``sms`` SMs: the forward
     x [M, K] @ W [K, N] (output [M, N], contraction K) or, with ``bwd``, dx
     = g [M, N] @ Wᵀ (output [M, K], contraction N).  It refuses up to
-    ``DECODE_ROWS`` rows (the decode kernel keeps the forward's, ``qmm_i8.cu``
-    the backward's) and a contraction that
+    ``DECODE_ROWS`` rows (the decode kernels keep them) and a contraction that
     is no multiple of 8: TMA reads the activation in boxes of [rows, 64
     columns] and needs its row stride in multiples of 16 bytes.  Ragged M,
     output and contraction are masked in the kernel; block sizes that are no
@@ -598,7 +749,7 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
     C, O = (N, K) if bwd else (K, N)
     if M <= DECODE_ROWS:
         return TilePlan(False, f"M={M} rows: up to {DECODE_ROWS} take qmm_i8_decode.cu "
-                               "forward and qmm_i8.cu backward")
+                               "forward and qmm_i8_bwd_decode.cu backward")
     if C % 8:
         return TilePlan(False, f"{'N' if bwd else 'K'}={C} is no multiple of 8: TMA needs a "
                                "16-byte row stride")
@@ -610,31 +761,28 @@ def i8_tile_plan(M: int, K: int, N: int, block_size: int, bwd: bool,
                     steps=-(-C // _TILE_KP), smem=i8_tile_smem(tm))
 
 
-def _i8_launch(a: torch.Tensor, qt: QuantizedTensor, bwd: bool) -> tuple:
-    """Check the operands and launch the int8 kernel that the shape takes:
-    x [M, K] (forward) or g [M, N] (``bwd``) on the card → (the output
-    bf16, which kernel): "decode" for the forward up to ``DECODE_ROWS``
-    rows (a shape ``i8_decode_plan`` refuses raises), "wgmma" where
-    ``i8_tile_plan`` accepts it, else "tile" (``qmm_i8.cu``).  No rows, no
-    launch ("none")."""
-    what = "qmm_i8_bwd" if bwd else "qmm_i8_fwd"
-    _check_int8(qt, what)
-    _check_rows(a, qt.packed.shape[-1] if bwd else logical_k(qt), "g" if bwd else "x")
-    K, N, scale, offset = _check_quantized(qt, a.device)
-    M = a.shape[0]
+def _i8_launch(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
+    """Check the operands and launch the int8 forward kernel that the shape
+    takes: x [M, K] on the card → (y [M, N] bf16, which kernel): "decode" up
+    to ``DECODE_ROWS`` rows (a shape ``i8_decode_plan`` refuses raises),
+    "wgmma" where ``i8_tile_plan`` accepts it, else "tile" (``qmm_i8.cu``).
+    No rows, no launch ("none")."""
+    _check_int8(qt, "qmm_i8_fwd")
+    _check_rows(x, logical_k(qt), "x")
+    K, N, scale, offset = _check_quantized(qt, x.device)
+    M = x.shape[0]
     if M == 0:
-        return torch.empty((0, K if bwd else N), dtype=torch.bfloat16, device=a.device), "none"
-    if not bwd and M <= DECODE_ROWS:
-        plan = _decode_plan_on(qt, a.device)
+        return torch.empty((0, N), dtype=torch.bfloat16, device=x.device), "none"
+    if M <= DECODE_ROWS:
+        plan = _decode_plan_on(qt, x.device)
         if not plan.accepted:
             raise ValueError(f"qmm_i8_fwd: {plan.reason}")
-        return _decode_launch(a, qt, scale, offset, plan), "decode"
-    plan = _plan_on(i8_tile_plan, a.device, M, K, N, qt.block_size, bwd)
+        return _decode_launch(x, qt, scale, offset, plan), "decode"
+    plan = _plan_on(i8_tile_plan, x.device, M, K, N, qt.block_size, False)
     if plan.accepted:
-        entry = "qmm_i8_wgmma_bwd" if bwd else "qmm_i8_wgmma_fwd"
-        return _wgmma_launch("qmm_i8_wgmma", entry, a, qt, K if bwd else N, scale, offset,
+        return _wgmma_launch("qmm_i8_wgmma", "qmm_i8_wgmma_fwd", x, qt, N, scale, offset,
                              plan), "wgmma"
-    return _launch("qmm_i8", what, a, qt, K if bwd else N, scale, offset), "tile"
+    return _launch("qmm_i8", "qmm_i8_fwd", x, qt, N, scale, offset), "tile"
 
 
 def qmm_i8_fwd(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -643,25 +791,30 @@ def qmm_i8_fwd(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     absmax, decoded in the kernel.  Up to ``DECODE_ROWS`` rows the decode
     kernel (counted in ``decode_launches``), above the wgmma kernel
     (``wgmma_launches``)."""
-    y, took = _i8_launch(x, qt, bwd=False)
+    y, took = _i8_launch(x, qt)
     _count(qmm_i8_fwd, took)
     return y
 
 
 def qmm_i8_bwd(g: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The backward kernel over int8 storage (TPU _qmm_bwd_pallas_i8):
-    g [M, N] on the card → dx = g @ dequant(qt)ᵀ [M, K] bf16."""
-    dx, took = _i8_launch(g, qt, bwd=True)
-    qmm_i8_bwd.launches += took != "none"
-    qmm_i8_bwd.wgmma_launches += took == "wgmma"
+    g [M, N] on the card → dx = g @ dequant(qt)ᵀ [M, K] bf16.  Up to
+    ``DECODE_ROWS`` rows, where ``i8_bwd_decode_plan`` accepts the shape,
+    the dx decode kernel (counted in ``decode_launches``); above, where
+    ``i8_tile_plan`` accepts it, the wgmma kernel (``wgmma_launches``); else
+    ``qmm_i8.cu``."""
+    _check_int8(qt, "qmm_i8_bwd")
+    dx, took = _bwd_launch(g, qt)
+    _count(qmm_i8_bwd, took)
     return dx
 
 
-# launches: every call that ran a kernel; decode_launches (forward only):
-# those of them that took qmm_i8_decode.cu; wgmma_launches: those that took
-# qmm_i8_wgmma.cu (the rest took the tile kernel of qmm_i8.cu)
+# launches: every call that ran a kernel; decode_launches: those of them
+# that took qmm_i8_decode.cu (forward) or qmm_i8_bwd_decode.cu (dx);
+# wgmma_launches: those that took qmm_i8_wgmma.cu (the rest took the tile
+# kernel of qmm_i8.cu)
 qmm_i8_fwd.launches = qmm_i8_fwd.decode_launches = qmm_i8_fwd.wgmma_launches = 0
-qmm_i8_bwd.launches = qmm_i8_bwd.wgmma_launches = 0
+qmm_i8_bwd.launches = qmm_i8_bwd.decode_launches = qmm_i8_bwd.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------

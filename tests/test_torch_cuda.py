@@ -22,11 +22,14 @@ many or too few at a window edge move the output by O(1).  Caches
 byte-equal.
 
 The qmm backward kernels (the wgmma kernel of ``qmm_nf4_bwd_wgmma.cu``
-above DECODE_ROWS rows where N % 8 == 0, ``qmm_nf4_bwd.cu`` for the rest)
+above DECODE_ROWS rows where N % 8 == 0; the split-N decode kernels of
+``qmm_nf4_bwd_decode.cu`` and ``qmm_i8_bwd_decode.cu`` up to DECODE_ROWS
+rows where N % 16 == 0; ``qmm_nf4_bwd.cu`` and ``qmm_i8.cu`` for the rest)
 decode the weight with the forward's arithmetic and sum g·Wᵀ in f32 in
-another order: rtol 1e-2, atol 2e-2, as the forward.  The wgmma kernel is
-also held bit for bit: rows of the identity read out ``dequantize``'s
-weight, two calls agree, a row's result does not depend on the other rows.  The flash kernels (the wgmma kernels of
+another order: rtol 1e-2, atol 2e-2, as the forward.  The wgmma and decode
+kernels are also held bit for bit: rows of the identity read out
+``dequantize``'s weight, two calls agree, a row's result does not depend on
+the other rows.  The flash kernels (the wgmma kernels of
 ``flash_attention_wgmma.cu``; ``flash_attention.cu``, which they replaced,
 through its private wrappers) round the probabilities against tile-wise
 running maxima where the plain version has the row's maximum, and sum in
@@ -410,17 +413,19 @@ NF4_BWD_WGMMA_CASES = [
 ] + NF4_BWD_WGMMA_CASES)
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_qmm_bwd_kernel_matches_plain(cuda, M, K, N, block_size, double_quant):
-    """dx through autograd: the wgmma kernel above DECODE_ROWS rows where N %
-    8 == 0, else qmm_nf4_bwd.cu, within the tolerance of the plain version."""
+    """dx through autograd: the dx decode kernel up to DECODE_ROWS rows where
+    N % 16 == 0, the wgmma kernel above where N % 8 == 0, else
+    qmm_nf4_bwd.cu, within the tolerance of the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
     qt = quantize(w, block_size=block_size, double_quant=double_quant)
     g = torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16)
     x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16).requires_grad_()
-    before = qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches
+    before = qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches, qmm_nf4_bwd.decode_launches
     qmatmul(x, qt).backward(g)
-    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches) == (
-        before[0] + 1, before[1] + (M > DECODE_ROWS and N % 8 == 0))
+    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches, qmm_nf4_bwd.decode_launches) == (
+        before[0] + 1, before[1] + (M > DECODE_ROWS and N % 8 == 0),
+        before[2] + (M <= DECODE_ROWS and N % 16 == 0))
     assert x.grad.dtype == torch.bfloat16 and x.grad.shape == (M, K)
     torch.testing.assert_close(x.grad.float(), qmatmul_bwd_plain(g, qt).float(),
                                rtol=1e-2, atol=2e-2)
@@ -493,15 +498,20 @@ def test_nf4_bwd_wgmma_deterministic_and_batch_invariant(cuda, K, N, block_size,
 
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_nf4_bwd_wgmma_dispatch_edge(cuda, double_quant):
-    """DECODE_ROWS rows take qmm_nf4_bwd.cu, one more the wgmma kernel; an N
-    whose row stride TMA cannot take (N % 8 != 0) takes qmm_nf4_bwd.cu."""
-    for K, N, B, M, took in ((320, 64, 32, DECODE_ROWS, 0), (320, 64, 32, DECODE_ROWS + 1, 1),
-                             (480, 50, 12, 40, 0), (480, 56, 12, 40, 1)):
+    """DECODE_ROWS rows take the dx decode kernel, one more the wgmma kernel;
+    an N whose row stride TMA cannot take (N % 8 != 0) takes qmm_nf4_bwd.cu
+    above DECODE_ROWS rows, and one the decode kernel's plan refuses (N % 16
+    != 0) up to them."""
+    for K, N, B, M, took in ((320, 64, 32, DECODE_ROWS, "decode"),
+                             (320, 64, 32, DECODE_ROWS + 1, "wgmma"),
+                             (480, 50, 12, 40, "tile"), (480, 56, 12, 40, "wgmma"),
+                             (480, 56, 12, DECODE_ROWS, "tile")):
         qt, g = _nf4_bwd_case(cuda, M, K, N, B, double_quant)
-        before = qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches
+        before = qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches, qmm_nf4_bwd.decode_launches
         dx = qmm_nf4_bwd(g, qt)
-        assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches) == (before[0] + 1,
-                                                                      before[1] + took), (K, N, M)
+        assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches,
+                qmm_nf4_bwd.decode_launches) == (before[0] + 1, before[1] + (took == "wgmma"),
+                                                 before[2] + (took == "decode")), (K, N, M)
         torch.testing.assert_close(dx.float(), qmatmul_bwd_plain(g, qt).float(), rtol=1e-2,
                                    atol=2e-2)
 
@@ -1192,8 +1202,8 @@ def test_i8_wgmma_deterministic_and_batch_invariant(cuda, K, N, block_size, doub
 
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_i8_wgmma_dispatch_edge(cuda, double_quant):
-    """DECODE_ROWS rows take the decode kernel forward and qmm_i8.cu
-    backward, one more the wgmma kernel, in both directions; a contraction
+    """DECODE_ROWS rows take the decode kernels forward and backward, one
+    more the wgmma kernel, in both directions; a contraction
     whose row stride TMA cannot take (K % 8 != 0 forward, N % 8 != 0
     backward) above DECODE_ROWS rows takes qmm_i8.cu, and the other
     direction of the same weight the wgmma kernel."""
@@ -1205,11 +1215,11 @@ def test_i8_wgmma_dispatch_edge(cuda, double_quant):
         qt, x, g = _i8_case(cuda, M, K, N, B, double_quant)
         wrapper, plain, a = (qmm_i8_bwd, qmm_i8_bwd_plain, g) if bwd else (
             qmm_i8_fwd, qmm_i8_fwd_plain, x)
-        before = wrapper.launches, wrapper.wgmma_launches, qmm_i8_fwd.decode_launches
+        before = wrapper.launches, wrapper.wgmma_launches, wrapper.decode_launches
         y = wrapper(a, qt)
         assert (wrapper.launches, wrapper.wgmma_launches) == (before[0] + 1, before[1] + took), (
             K, N, M, bwd)
-        assert qmm_i8_fwd.decode_launches == before[2] + (not bwd and M <= DECODE_ROWS)
+        assert wrapper.decode_launches == before[2] + (M <= DECODE_ROWS)
         torch.testing.assert_close(y.float(), plain(a, qt).float(), rtol=1e-2, atol=2e-2)
 
 
@@ -1251,18 +1261,90 @@ def test_i8_decode_deterministic_and_batch_invariant(cuda, K, N, block_size, dou
 
 @pytest.mark.parametrize("double_quant", [True, False])
 def test_i8_decode_dispatch_edge(cuda, double_quant):
-    """DECODE_ROWS rows take the decode kernel, one more the wgmma kernel;
-    the dx at DECODE_ROWS rows takes qmm_i8.cu, counted in neither."""
+    """DECODE_ROWS rows take the decode kernel, one more the wgmma kernel,
+    forward and dx."""
     qt, x, g = _i8_case(cuda, DECODE_ROWS + 1, 1024, 320, 64, double_quant)
     for M, bwd, took in ((DECODE_ROWS, False, "decode"), (DECODE_ROWS + 1, False, "wgmma"),
-                         (DECODE_ROWS, True, "tile")):
+                         (DECODE_ROWS, True, "decode"), (DECODE_ROWS + 1, True, "wgmma")):
         wrapper, plain, a = (qmm_i8_bwd, qmm_i8_bwd_plain, g) if bwd else (
             qmm_i8_fwd, qmm_i8_fwd_plain, x)
-        before = (wrapper.launches, qmm_i8_fwd.decode_launches, wrapper.wgmma_launches)
+        before = (wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches)
         y = wrapper(a[:M], qt)
-        assert (wrapper.launches, qmm_i8_fwd.decode_launches, wrapper.wgmma_launches) == (
+        assert (wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches) == (
             before[0] + 1, before[1] + (took == "decode"), before[2] + (took == "wgmma")), M
         torch.testing.assert_close(y.float(), plain(a[:M], qt).float(), rtol=1e-2, atol=2e-2)
+
+
+# the dx at decode rows (the split-N decode kernels): the LLaMA-7B shapes,
+# block sizes that are no multiple of the strip (4, 12, 32: each element's own
+# absmax; K = 200: a ragged last strip, K/2 % 32 != 0), two meta-blocks of
+# absmax with the planes in different ones (K = 64 * 520), N not a multiple of
+# the 128-column k-step (N = 48, 4096 + 16), splits past the 1024 columns a
+# block stages at once (N = 11008)
+BWD_DECODE_CASES = [(4096, 4096, 64), (4096, 11008, 64), (11008, 4096, 64), (200, 48, 4),
+                    (320, 64, 32), (480, 96, 12), (64 * 520, 64, 64), (256, 4096 + 16, 64)]
+
+
+def _bwd_decode_case(cuda, quant_type, M, K, N, block_size, double_quant):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + block_size)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5
+    qt = quantize(w, block_size=block_size, quant_type=quant_type, double_quant=double_quant)
+    wrapper = qmm_i8_bwd if quant_type == "int8" else qmm_nf4_bwd
+    return qt, torch.randn(M, N, device=cuda, generator=gen).to(torch.bfloat16), wrapper
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16])
+@pytest.mark.parametrize("K,N,block_size", BWD_DECODE_CASES)
+@pytest.mark.parametrize("double_quant", [True, False])
+@pytest.mark.parametrize("quant_type", ["nf4", "int8"])
+def test_bwd_decode_kernels_match_plain(cuda, quant_type, M, K, N, block_size, double_quant):
+    """dx at 1 to DECODE_ROWS rows takes the decode kernel of its storage
+    (counted in ``decode_launches``) and agrees with its plain version."""
+    qt, g, wrapper = _bwd_decode_case(cuda, quant_type, M, K, N, block_size, double_quant)
+    before = wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches
+    dx = wrapper(g, qt)
+    assert (wrapper.launches, wrapper.decode_launches, wrapper.wgmma_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert dx.dtype == torch.bfloat16 and dx.shape == (M, K)
+    torch.testing.assert_close(dx.float(), qmatmul_bwd_plain(g, qt).float(), rtol=1e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("K,N,block_size", BWD_DECODE_CASES)
+@pytest.mark.parametrize("double_quant", [True, False])
+@pytest.mark.parametrize("quant_type", ["nf4", "int8"])
+def test_bwd_decode_deterministic_and_batch_invariant(cuda, quant_type, K, N, block_size,
+                                                      double_quant):
+    """Two calls give the same bits, and each row alone, and the first 4 and
+    8 rows, give their rows of the 16-row batch bit for bit: the plan and the
+    order of the sums (warps, then splits in split order) do not depend on M."""
+    qt, g, wrapper = _bwd_decode_case(cuda, quant_type, DECODE_ROWS, K, N, block_size,
+                                      double_quant)
+    dx = wrapper(g, qt)
+    assert torch.equal(dx, wrapper(g, qt))
+    for i in range(DECODE_ROWS):
+        assert torch.equal(wrapper(g[i:i + 1], qt)[0], dx[i]), i
+    for M in (4, 8):
+        assert torch.equal(wrapper(g[:M], qt), dx[:M]), M
+
+
+@pytest.mark.parametrize("K,N,block_size", BWD_DECODE_CASES)
+@pytest.mark.parametrize("double_quant", [True, False])
+@pytest.mark.parametrize("quant_type", ["nf4", "int8"])
+def test_bwd_decode_identity_reads_out_the_weight(cuda, quant_type, K, N, block_size,
+                                                  double_quant):
+    """16 rows of the identity as g (both sides of a 128-column k-step, the
+    last columns) read ``dequantize``'s bf16 weight out of the decode kernel
+    bit for bit, as rows of dx: every dx column, both nibble planes."""
+    qt, _, wrapper = _bwd_decode_case(cuda, quant_type, DECODE_ROWS, K, N, block_size,
+                                      double_quant)
+    cs = one_hot_cols(N, DECODE_ROWS)
+    g = torch.zeros(len(cs), N, device=cuda, dtype=torch.bfloat16)
+    g[torch.arange(len(cs)), torch.tensor(cs)] = 1
+    before = wrapper.decode_launches
+    dx = wrapper(g, qt)
+    assert wrapper.decode_launches == before + 1
+    assert torch.equal(dx, dequantize(qt, torch.bfloat16)[:, cs].T.contiguous())
 
 
 def test_i8_no_backward_launch_without_input_grad(cuda):

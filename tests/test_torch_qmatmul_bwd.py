@@ -2,8 +2,10 @@
 
 JAX-quantized weights are carried across byte for byte; x and the cotangent
 g are made with numpy from a seed and given to both in bf16.  JAX runs
-``impl="pallas"`` (the TPU backward kernel in interpret mode on the CPU,
-where the shape tiles) and ``impl="xla"`` (dequantize + dot).
+``impl="pallas"`` (the TPU backward kernel, ``_qmm_bwd_pallas`` or, over
+int8 storage, ``_qmm_bwd_pallas_i8``, in interpret mode on the CPU, where the
+shape tiles) and ``impl="xla"`` (dequantize + dot).  The few-row cases (M =
+1, 4, 16) are the rows the card's dx decode kernels take.
 
 Tolerance: both sides multiply the same bf16 g with the same bf16 weight
 and accumulate in f32, so dx differs only by summation order before its
@@ -31,7 +33,7 @@ def _bf16(a):
 
 
 @pytest.mark.parametrize("shape", [(32, 256, 128), (16, 256, 384), (9, 512, 128),
-                                   (16, 256, 256)])
+                                   (16, 256, 256), (1, 256, 128), (4, 512, 256)])
 @pytest.mark.parametrize("double_quant", [True, False])
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 def test_dx_matches_jax_vjp(shape, double_quant, impl):
@@ -52,6 +54,28 @@ def test_dx_matches_jax_vjp(shape, double_quant, impl):
     np.testing.assert_allclose(yt.detach().float().numpy(), np.asarray(y, np.float32),
                                rtol=1e-2, atol=1e-2)
     # the CPU dispatch is the plain backward itself
+    assert torch.equal(xt.grad, qmatmul_bwd_plain(_bf16(g), _carry(jqt)))
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("double_quant", [True, False])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_int8_dx_at_decode_rows_matches_jax_vjp(M, double_quant, impl):
+    """dx over int8 storage at the rows of the card's int8 dx decode kernel,
+    against JAX's vjp (``_qmm_bwd_pallas_i8`` in interpret mode)."""
+    K, N = 256, 384
+    rng = np.random.default_rng(100 + M)
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    g = rng.normal(size=(M, N)).astype(np.float32)
+    jqt = jquantize(jnp.asarray(w), quant_type="int8", double_quant=double_quant)
+    _, vjp = jax.vjp(lambda x_: jqmatmul(x_, jqt, impl), jnp.asarray(x, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(g, jnp.bfloat16))
+    xt = _bf16(x).requires_grad_()
+    qmatmul(xt, _carry(jqt)).backward(_bf16(g))
+    assert xt.grad.dtype == torch.bfloat16 and xt.grad.shape == (M, K)
+    np.testing.assert_allclose(xt.grad.float().numpy(), np.asarray(want, np.float32),
+                               rtol=1e-2, atol=1e-2)
     assert torch.equal(xt.grad, qmatmul_bwd_plain(_bf16(g), _carry(jqt)))
 
 

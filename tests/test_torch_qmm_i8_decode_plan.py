@@ -123,7 +123,8 @@ def _recording(monkeypatch):
 def test_i8_dispatch_sends_decode_rows_to_the_decode_kernel(monkeypatch, double_quant):
     """The forward takes the decode kernel at 1 to 16 rows, with one plan
     for all of them, and counts it in ``decode_launches``; 17 rows take the
-    wgmma kernel; the dx at 16 rows takes qmm_i8.cu; no rows, no launch."""
+    wgmma kernel; the dx at 16 rows takes qmm_i8.cu here, since the dx decode
+    kernel's plan refuses N = 72 (N % 16 != 0); no rows, no launch."""
     calls = _recording(monkeypatch)
     g = torch.Generator().manual_seed(3)
     qt = quantize(torch.randn(256, 72, generator=g), quant_type="int8",

@@ -141,9 +141,11 @@ def test_nf4_bwd_plan_refuses_decode_rows_and_n_not_multiple_of_8():
 def test_nf4_bwd_dispatch_follows_the_plan(monkeypatch, double_quant):
     """``qmm_nf4_bwd`` launches the wgmma kernel exactly where the plan
     accepts the shape (17 rows; not 16, not N % 8 != 0) and counts it in
-    ``wgmma_launches``, else ``qmm_nf4_bwd.cu``; no rows, no launch.  The
-    launchers are replaced by recording stand-ins (the kernels run only on
-    the card), so this checks the dispatch on the CPU."""
+    ``wgmma_launches``; up to 16 rows the dx decode kernel where its plan
+    accepts the shape (N % 16 == 0), counted in ``decode_launches``; else
+    ``qmm_nf4_bwd.cu``; no rows, no launch.  The launchers are replaced by
+    recording stand-ins (the kernels run only on the card), so this checks
+    the dispatch on the CPU."""
     qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
     calls = []
 
@@ -155,27 +157,36 @@ def test_nf4_bwd_dispatch_follows_the_plan(monkeypatch, double_quant):
         calls.append((lib, None))
         return qmatmul_bwd_plain(a, qt)
 
+    def fake_decode(a, qt, scale, offset, plan):
+        calls.append(("qmm_nf4_bwd_decode", plan.splits))
+        return qmatmul_bwd_plain(a, qt)
+
     monkeypatch.setattr(qm, "_wgmma_launch", fake_wgmma)
     monkeypatch.setattr(qm, "_launch", fake_launch)
+    monkeypatch.setattr(qm, "_bwd_decode_launch", fake_decode)
     monkeypatch.setitem(qm._SMS, torch.device("cpu"), 132)
     monkeypatch.setattr(qmm_nf4_bwd, "launches", 0)
     monkeypatch.setattr(qmm_nf4_bwd, "wgmma_launches", 0)
+    monkeypatch.setattr(qmm_nf4_bwd, "decode_launches", 0)
     gen = torch.Generator().manual_seed(9)
-    cases = [(320, 64, 32, DECODE_ROWS, "qmm_nf4_bwd"),
+    cases = [(320, 64, 32, DECODE_ROWS, "qmm_nf4_bwd_decode"),
              (320, 64, 32, DECODE_ROWS + 1, "qmm_nf4_bwd_wgmma"),
-             (480, 50, 12, 20, "qmm_nf4_bwd"), (200, 72, 2, 300, "qmm_nf4_bwd_wgmma"),
-             (4096, 64, 64, 1024, "qmm_nf4_bwd_wgmma")]
+             (480, 50, 12, 20, "qmm_nf4_bwd"), (480, 56, 12, DECODE_ROWS, "qmm_nf4_bwd"),
+             (200, 72, 2, 300, "qmm_nf4_bwd_wgmma"), (4096, 64, 64, 1024, "qmm_nf4_bwd_wgmma")]
     for K, N, B, M, lib in cases:
         qt = quantize(torch.randn(K, N, generator=gen), block_size=B, double_quant=double_quant)
         g = torch.randn(M, N, generator=gen).to(torch.bfloat16)
         dx = qmm_nf4_bwd(g, qt)
         assert calls[-1][0] == lib and dx.shape == (M, K), (K, N, M)
         assert torch.equal(dx, qmatmul_bwd_plain(g, qt))
-    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches) == (5, 3)
-    # 1024 rows of a 4096-column dx: 8 x 32 CTAs of 128 rows, more than a wave
-    assert [tm for _, tm in calls] == [None, 128, None, 128, 256]
+    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches, qmm_nf4_bwd.decode_launches) == (
+        6, 3, 1)
+    # 1024 rows of a 4096-column dx: 8 x 32 CTAs of 128 rows, more than a wave;
+    # the decode kernel's plan: one split (a single 128-column k-step)
+    assert [tm for _, tm in calls] == [1, 128, None, None, 128, 256]
     qmm_nf4_bwd(torch.zeros(0, 64, dtype=torch.bfloat16), qt)
-    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches) == (5, 3)
+    assert (qmm_nf4_bwd.launches, qmm_nf4_bwd.wgmma_launches, qmm_nf4_bwd.decode_launches) == (
+        6, 3, 1)
 
 
 @pytest.mark.parametrize("K,N,block_size", [(320, 64, 32), (200, 72, 2), (480, 56, 12),
