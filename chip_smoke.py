@@ -97,9 +97,12 @@ them.  Phases, each failing the run on any mismatch or exception:
    for bit), ``torch._int_mm`` (``library_ms``, in a graph) and the wrapper
    back to back (``wrapper_ms``, events); the ragged shape stays on
    ``qmm_i8_direct.cu``.
-   ``qmm_i8_direct`` at a verify chunk's 40 rows (8 slots x 5) stays on
-   ``qmm_i8_direct.cu``: bit for bit, timed beside ``torch._int_mm`` (the
-   next kernel in line, measured only).
+   ``qmm_i8_direct`` at 17, 24, 33, 40 (a verify chunk of 8 slots x 5) and
+   64 rows runs the same kernel on its verify plan (two warps side by side
+   over a strip, up to 8 B tiles of 8 rows), with the same checks and rows
+   of the identity reading the codes out of its int32 sums, timed as at
+   decode rows; ``qmm_i8_direct.cu`` at 128 and 512 rows, past the kernel's
+   64, bit for bit and timed beside ``torch._int_mm`` (measured only).
    ``qmm_i8_fwd`` (M = 4, 8, 16, 1024, 2048) and ``qmm_i8_bwd`` (M = 1, 4,
    8, 16 on the split-N decode kernel of ``qmm_i8_bwd_decode.cu``, checked
    and timed as the NF4 dx's, and 1024) within the NF4 kernels'
@@ -164,7 +167,12 @@ them.  Phases, each failing the run on any mismatch or exception:
    ``qmm_nf4_w8a8_decode.cu``, the prefill exact), its decode step split into
    kernels and the rest.
 15. serve-paged-spec: the same engine with 4 drafts per verify chunk on 8
-   requests whose prompts repeat a 16-token phrase.
+   requests whose prompts repeat a 16-token phrase.  Then
+   serve-paged-spec-int8: the same requests with ``decode_impl="int8"``,
+   every verify chunk's 40 rows and every decode step on
+   ``qmm_i8_direct_decode.cu`` (exact counts); its tokens held to the same
+   requests without drafts up to each request's first near-tie, and every
+   token it emitted within NEAR_TIE of the best teacher-forced logit.
 16. parity-i8base: parity over an int8-stored base (``--bits 8``, double
    quant): the prefill on the int8 wgmma kernel, the decode steps on the
    int8 decode kernel, logits within LOGIT_TOL, exact launch counts.
@@ -388,7 +396,9 @@ The last two lines are the ``kernels`` JSON object and the result line.
 ``python3 chip_smoke.py serve-paged-w8a8`` builds the kernels and runs the
 serve weights through serve-paged-w8a8 alone, to time the route in turns
 with a checkout of another commit that this script is copied into;
-``python3 chip_smoke.py train`` does the same for the train phase (at the
+``python3 chip_smoke.py serve-paged-spec-int8`` runs serve-paged-spec-int8
+alone on the same weights; ``python3 chip_smoke.py train`` does the same for
+the train phase (at the
 checkout's default remat), ``python3 chip_smoke.py train-gemma`` runs
 train-gemma alone, ``python3 chip_smoke.py train-data`` train-data alone
 (on weights of its own), and ``python3 chip_smoke.py cli``,
@@ -488,8 +498,10 @@ ATTN_CASES = (   # B, H, KVH, hd, T, lengths, sliding window, planted edges
 ATTN_LONG = (4, 32, 32, 128, 2048, (0, 511, 1500, 2047), None, False)   # five splits of 448
 I8_DECODE_ROWS = (4, 8, 16)      # the int8 forward at decode rows: generate()'s 4, 8 slots, 16
 I8_DIRECT_ROWS = I8_DECODE_ROWS + (9,)   # qmm_i8_direct also at search's int8 verify chunk, 1 x 9
-I8_DIRECT_VERIFY = 40            # qmm_i8_direct.cu's rows in PagedBatcher(decode_impl="int8",
-                                 # spec_draft_len=4): a verify chunk of 8 slots x 5 (measured only)
+I8_DIRECT_VERIFY = (17, 24, 33, 40, 64)   # qmm_i8_direct past 16 rows, on the split-K kernel's
+                                 # verify plan: 40 is serve-paged-spec-int8's verify chunk (8 slots
+                                 # x 5), 17 and 33 ragged B tiles, 64 the most it takes
+I8_DIRECT_BEYOND = (128, 512)    # qmm_i8_direct.cu past 64 rows, beside torch._int_mm (measured)
 
 
 PAGE, PPS = 64, 16               # serve-paged's pages: 64 tokens, 16 per sequence (T = 1024)
@@ -1830,7 +1842,7 @@ def w8a8_check(name, shape, wrapper, plain, x, qt, w8):
 
 
 def i8_direct_decode_check(shape, x, qt):
-    """``qmm_i8_direct`` at decode rows: the decode kernel took the call; its
+    """``qmm_i8_direct`` at up to 64 rows: the split-K kernel took the call; its
     x8 and xs equal ``quantize_rows``' on the card, its int32 accumulators the
     exact integer product and its bf16 output the plain version's, bit for
     bit; two calls equal, and each row alone equal to its row of the batch.
@@ -1861,6 +1873,23 @@ def i8_direct_decode_check(shape, x, qt):
         fail(f"qmm_i8_direct {shape}: the decode kernel differs from its plain version "
              f"(codes {codes}, sums {sums}, max|d| {err}, two calls {twice}, rows alone {alone})")
     return err, y
+
+
+def i8_direct_identity_check(shape, qt, g):
+    """Rows of the identity (one 1 each, at random k) read the codes out of
+    the split-K kernel's int32 accumulators: 127 x row k of W, bit for bit."""
+    import torch
+
+    from qlora_tpu_torch.ops.qmatmul import _i8_direct_decode_outputs
+
+    M = int(shape.split()[0][2:])
+    K = qt.packed.shape[0]
+    ks = torch.randint(0, K, (M,), device=qt.packed.device, generator=g)
+    eye = torch.zeros(M, K, device=qt.packed.device, dtype=torch.bfloat16)
+    eye[torch.arange(M, device=eye.device), ks] = 1
+    acc = _i8_direct_decode_outputs(eye, qt)[0]
+    if not torch.equal(acc, 127 * qt.packed[ks].to(torch.int32)):
+        fail(f"qmm_i8_direct {shape}: identity rows do not read the codes out")
 
 
 def nf4_w8a8_decode_check(shape, x, qt, w8):
@@ -1985,28 +2014,52 @@ def int8_kernel_phase(dev, results):
                    int8_bound(M, K, N, K * N + N * 4, PEAK_INT8, 2), **more)
             print(f"  the decode kernel {more['tile_ms'] / ms:.2f}x qmm_i8_direct.cu's speed, "
                   f"{ms / lib_ms:.2f}x torch._int_mm's time", flush=True)
-        # the next kernel in line, measured only: qmm_i8_direct.cu at a verify chunk's
-        # rows (PagedBatcher(decode_impl="int8", spec_draft_len=4): 8 slots x 5), on
-        # rows quantized beforehand, beside torch._int_mm and the wrapper
-        M = I8_DIRECT_VERIFY
-        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-        shape = f"M={M} K={K} N={N}"
-        took = qmm_i8_direct.decode_launches
-        err, _ = w8a8_check("qmm_i8_direct", shape, qmm_i8_direct, qmm_i8_direct_plain, x, qt,
-                            qt.packed)
-        if qmm_i8_direct.decode_launches != took:
-            fail(f"qmm_i8_direct {shape}: the decode kernel took a verify chunk's rows")
-        x8, xs = quantize_rows(x)
-        ms = graph_ms(lambda i: launch_w8a8("qmm_i8_direct", x8, qts[i % len(qts)], None, s_out,
-                                            xs), 50)
-        wrapper_ms = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 50)
-        plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
-        lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200, graph_ms)
-        bound = int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1)
-        record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms, bound,
-               wrapper_ms=wrapper_ms)
-        print(f"  qmm_i8_direct.cu at a verify chunk's {M} rows: {ms / lib_ms:.2f}x "
-              f"torch._int_mm's time, {ms / bound[0]:.1f}x its bound", flush=True)
+        # past 16 rows (verify chunks, wide decode batches; I8_DIRECT_VERIFY) the
+        # same kernel on its verify plan, with the same checks and identity rows,
+        # timed beside qmm_i8_direct.cu (tile_ms, the "before") and the wrapper
+        for M in I8_DIRECT_VERIFY:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            shape = f"M={M} K={K} N={N}"
+            err, y = i8_direct_decode_check(shape, x, qt)
+            i8_direct_identity_check(shape, qt, g)
+            x8, xs = quantize_rows(x)
+            yt = launch_w8a8("qmm_i8_direct", x8, qt, None, s_out, xs)
+            torch.cuda.synchronize()
+            if not torch.equal(yt, y):
+                fail(f"qmm_i8_direct {shape}: qmm_i8_direct.cu (the before) differs from the "
+                     "split-K kernel")
+            ms = graph_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 100)
+            more = dict(tile_ms=graph_ms(lambda i: launch_w8a8(
+                "qmm_i8_direct", x8, qts[i % len(qts)], None, s_out, xs), 50))
+            more["wrapper_ms"] = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 100)
+            plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
+            lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 200, graph_ms)
+            record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms,
+                   int8_bound(M, K, N, K * N + N * 4, PEAK_INT8, 2), **more)
+            print(f"  the split-K kernel at {M} rows {more['tile_ms'] / ms:.2f}x "
+                  f"qmm_i8_direct.cu's speed, {ms / lib_ms:.2f}x torch._int_mm's time",
+                  flush=True)
+        # past 64 rows qmm_i8_direct.cu, measured for the queue: on rows quantized
+        # beforehand, beside torch._int_mm and the wrapper
+        for M in I8_DIRECT_BEYOND:
+            x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+            shape = f"M={M} K={K} N={N}"
+            took = qmm_i8_direct.decode_launches
+            err, _ = w8a8_check("qmm_i8_direct", shape, qmm_i8_direct, qmm_i8_direct_plain, x,
+                                qt, qt.packed)
+            if qmm_i8_direct.decode_launches != took:
+                fail(f"qmm_i8_direct {shape}: the split-K kernel took more than 64 rows")
+            x8, xs = quantize_rows(x)
+            ms = graph_ms(lambda i: launch_w8a8("qmm_i8_direct", x8, qts[i % len(qts)], None,
+                                                s_out, xs), 50)
+            wrapper_ms = cuda_ms(lambda i: qmm_i8_direct(x, qts[i % len(qts)]), 50)
+            plain_ms = cuda_ms(lambda i: qmm_i8_direct_plain(x, qts[i % len(qts)]), 3)
+            lib_ms = int_mm_ms(x8, [q.packed for q in qts], s_out, xs, 100, graph_ms)
+            bound = int8_bound(M, K, N, K * N + N * 4 + M * 4, PEAK_INT8, 1)
+            record(results, "qmm_i8_direct", shape, err, exact_tol, ms, plain_ms, lib_ms, bound,
+                   wrapper_ms=wrapper_ms)
+            print(f"  qmm_i8_direct.cu at {M} rows: {ms / lib_ms:.2f}x torch._int_mm's time, "
+                  f"{ms / bound[0]:.1f}x its bound", flush=True)
         del qts, qt
     M, K, N = 5, 200, 328
     qt = quantize(torch.randn(K, N, device=dev, generator=g) * K ** -0.5, block_size=K,
@@ -2695,9 +2748,12 @@ def serve_phase(dev):
     t0 = time.perf_counter()
     spec = serve_paged_spec_phase(dev, cfg, params, lora, lcfg)
     print(f"serve-paged-spec: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    spec8 = serve_paged_spec_int8_phase(dev, cfg, params, lora, lcfg)
+    print(f"serve-paged-spec-int8: {time.perf_counter() - t0:.1f} s", flush=True)
     del params, lora
     torch.cuda.empty_cache()
-    return counts, stats, int8_counts, int8_stats, paged, spec, search
+    return counts, stats, int8_counts, int8_stats, paged, spec, spec8, search
 
 
 def serve_int8(dev, cfg, params, lora, lcfg, ids, lengths, nf4_toks):
@@ -2928,6 +2984,7 @@ def serve_paged_run(tag, dev, cfg, params, lora, lcfg, traffic, n_pages, **kw):
              f"tables {sorted(pb.pool.tables)})")
     tokens = sum(len(r.generated) for r in reqs)
     stats = dict(total_s=total_s, tokens=tokens, tok_s=tokens / total_s,
+                 generated=[list(r.generated) for r in reqs],
                  ms_per_step=st["step_s"] / max(st["steps"], 1) * 1e3,
                  admit_s=st["admit_s"], peak_gib=peak_gib, preemptions=pb.preemptions,
                  decode_forwards=st["decode"], verify_forwards=st["verify"],
@@ -3058,6 +3115,125 @@ def serve_paged_spec_phase(dev, cfg, params, lora, lcfg):
         fail("serve-paged-spec: no verify chunk ran")
     del pb
     torch.cuda.empty_cache()
+    return counts, stats
+
+
+def serve_paged_spec_int8_phase(dev, cfg, params, lora, lcfg):
+    """serve-paged-spec-int8: serve-paged-spec's requests through
+    ``PagedBatcher(decode_impl="int8", spec_draft_len=SPEC_DRAFT)``: every
+    verify chunk's 8 x 5 rows, lm_head included, on the split-K direct int8
+    kernel (its verify plan), every plain decode forward's on its decode
+    plan, the prefill exact on the NF4 wgmma kernel; exact launch counts.  Its
+    tokens are held to the same requests through ``decode_impl="int8"``
+    without drafts up to each request's first top-2 margin under NEAR_TIE,
+    the margins teacher-forced the way that engine decides: the prompt
+    prefilled exact, the tokens after it through its int8 tree.  Every token
+    it emitted lies within NEAR_TIE of the best logit, teacher-forced the same
+    way over its own tokens (random weights leave few margins clear of the
+    rounding, so this is the check that reaches every token), and the next
+    token in the vocabulary, a control, does not."""
+    import torch
+
+    from qlora_tpu_torch.models import forward, init_cache
+    from qlora_tpu_torch.ops import default_impl
+    from qlora_tpu_torch.ops.qmatmul import I8_DIRECT_ROWS
+
+    traffic = phrase_traffic(cfg.vocab_size, 5, SPEC_REQUESTS)
+    L, n_lin = cfg.num_layers, 7 * cfg.num_layers
+    verify_rows = SERVE_PAGED["num_slots"] * (SPEC_DRAFT + 1)
+    if verify_rows > I8_DIRECT_ROWS:
+        fail(f"serve-paged-spec-int8: verify chunks of {verify_rows} rows pass the split-K "
+             f"kernel's {I8_DIRECT_ROWS}")
+
+    def want(st):
+        fwds = st["decode"] + st["verify"]
+        return expected_counts(qmm_i8_direct=(n_lin + 1) * fwds,          # + 1: the lm_head
+                               qmm_i8_direct_decode=(n_lin + 1) * fwds,   # 8 and 40 rows: all
+                               qmm_nf4_fwd_dq=n_lin * st["prefill"],      # the prefill exact
+                               qmm_nf4_wgmma_dq=n_lin * st["prefill"],
+                               paged_decode_attention_cuda=L * st["decode"],
+                               paged_decode_split=L * st["decode"],
+                               paged_chunk_attention_cuda=L * st["verify"],
+                               paged_chunk_split=L * st["verify"])
+
+    t0 = time.perf_counter()
+    pb, st, counts, stats = serve_paged_run("serve-paged-spec-int8", dev, cfg, params, lora,
+                                            lcfg, traffic, SPEC_PAGES, spec_draft_len=SPEC_DRAFT,
+                                            decode_impl="int8")
+    built_s = time.perf_counter() - t0 - stats["total_s"]
+    per_chunk = pb.spec_tokens / max(pb.spec_chunks, 1)
+    ms_chunk = st["verify_s"] / max(st["verify_steps"], 1) * 1e3
+    stats.update(tokens_per_chunk=per_chunk, ms_per_chunk=ms_chunk, chunks=pb.spec_chunks,
+                 built_s=built_s)
+    print(f"serve-paged-spec-int8: {st['verify']} verify forwards of {verify_rows} rows "
+          f"({pb.spec_chunks} slot chunks, {per_chunk:.3f} tokens retired per chunk, "
+          f"{ms_chunk:.2f} ms per verify step), {st['decode']} plain decode forwards; the int8 "
+          f"tree built with the engine in {built_s:.1f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want(st).items() if v} }: {n_lin} + 1 qmm_i8_direct per decode "
+          "and verify forward, all on qmm_i8_direct_decode.cu)", flush=True)
+    if counts != want(st):
+        fail(f"serve-paged-spec-int8 launch counts {counts} != {want(st)}")
+    if st["verify"] < 1:
+        fail("serve-paged-spec-int8: no verify chunk ran")
+    del pb
+    torch.cuda.empty_cache()
+
+    # the same requests without drafts, and each one's margins teacher-forced as
+    # that engine decides them: the prompt exact, the tokens after it in int8
+    ref_pb, ref_st, ref_counts, ref_stats = serve_paged_run(
+        "serve-paged-spec-int8 (the same requests without drafts)", dev, cfg, params, lora,
+        lcfg, traffic, SPEC_PAGES, decode_impl="int8")
+    if ref_counts != want(ref_st):
+        fail(f"serve-paged-spec-int8 without drafts: launch counts {ref_counts} != "
+             f"{want(ref_st)}")
+    if stats["preemptions"] or ref_stats["preemptions"]:
+        fail("serve-paged-spec-int8: a preemption (the pool is ample for these requests)")
+    dec = ref_pb.decode_params
+
+    def forced(prompt, toks):
+        """The logits that decide each of `toks` after `prompt`, as the int8
+        engine computes them: the prompt exact, the tokens through `dec`."""
+        cache = init_cache(cfg, 1, len(prompt) + len(toks), device=dev)
+        first, cache = forward(params, lora, torch.tensor([prompt], device=dev), cfg, lcfg,
+                               cache=cache)
+        with default_impl("w8a8"):
+            tail, _ = forward(dec, lora, torch.tensor([toks[:-1]], device=dev), cfg, lcfg,
+                              cache=cache)
+        return torch.cat([first[0, -1:], tail[0]]).float()
+
+    clear_upto, compared, equal, short, control = 0, 0, 0, [], []
+    with torch.inference_mode():
+        for (prompt, _), ref, got in zip(traffic, ref_stats["generated"], stats["generated"]):
+            logits = forced(prompt, got)
+            tok = torch.tensor(got, device=dev)[:, None]
+            best = logits.max(-1).values
+            short.append((best - logits.gather(1, tok)[:, 0]).max().item())
+            control.append((best - logits.gather(1, (tok + 1) % cfg.vocab_size)[:, 0])
+                           .median().item())
+            top2 = forced(prompt, ref).topk(2, dim=-1).values
+            ties = ((top2[:, 0] - top2[:, 1]) < NEAR_TIE).nonzero()
+            upto = int(ties[0]) if len(ties) else len(ref)
+            if got[:upto] != ref[:upto]:
+                fail(f"serve-paged-spec-int8: a request's tokens differ from the draftless int8 "
+                     f"engine's before its first near-tie ({upto} of {len(ref)} tokens)")
+            clear_upto += upto
+            compared += len(ref)
+            equal += got == ref
+    print(f"serve-paged-spec-int8: against the same requests without drafts "
+          f"({ref_stats['ms_per_step']:.2f} ms a decode step there): {equal} of {len(traffic)} "
+          f"equal in full; {clear_upto} of {compared} tokens before each one's first top-2 "
+          f"margin under {NEAR_TIE}, all equal; every emitted token within {max(short):.4g} of "
+          f"the best teacher-forced logit (the next token's median shortfall, a control: "
+          f"{min(control):.4g} at the least)", flush=True)
+    if max(short) > NEAR_TIE or min(control) <= NEAR_TIE:
+        fail(f"serve-paged-spec-int8: an emitted token falls {max(short):.4g} short of the best "
+             f"teacher-forced logit (> {NEAR_TIE}), or the control's {min(control):.4g} does "
+             "not exceed it")
+    stats.update(equal=equal, clear_upto=clear_upto, compared=compared, worst_short=max(short),
+                 ref_ms_per_step=ref_stats["ms_per_step"])
+    del ref_pb, dec
+    gc_cuda()
     return counts, stats
 
 
@@ -6982,7 +7158,7 @@ SOURCES = {    # the two NF4 forward entries: the decode kernel at their headlin
     # the direct int8 w8a8 forward: the decode kernel at its headline (M = 4)
     "qmm_i8_direct": ("qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
                       "qlora_tpu/ops/qmatmul.py:325 (_qmm_pallas_i8_direct, pallas_call at "
-                      ":358; M <= 16)"),
+                      ":358; M <= 64)"),
     # the w8a8 forward over NF4: the int8 wgmma kernel at its headline (M = 512)
     "qmm_nf4_w8a8": ("qlora_tpu_torch/csrc/qmm_nf4_w8a8_wgmma.cu",
                      "qlora_tpu/ops/qmatmul.py:239 (_qmm_pallas_w8a8, pallas_call at :270)"),
@@ -7038,8 +7214,8 @@ W8A8_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_nf4_w8a8_decode.cu",
                 "N % 8 or the block size % 8 not 0": "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
 # the direct int8 w8a8 forward's two sources, by shape (ops/qmatmul.py:
 # i8_direct_decode_plan)
-I8_DIRECT_SOURCES = {"M <= 16": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
-                     "M > 16, or K % 32 or N % 16 not 0": "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
+I8_DIRECT_SOURCES = {"M <= 64": "qlora_tpu_torch/csrc/qmm_i8_direct_decode.cu",
+                     "M > 64, or K % 32 or N % 16 not 0": "qlora_tpu_torch/csrc/qmm_i8_direct.cu"}
 # summary entries read from another wrapper's rows, and the rows they keep
 # (by the row count in the shape): the int8 forward's decode kernel and its
 # wgmma kernel share the rows of qmm_i8_fwd, each dx's decode and wgmma
@@ -7164,6 +7340,22 @@ def w8a8_prefill_split(results, num_layers, stats):
                 qmm_before_ms=total["tile_ms"] / n)
 
 
+def verify_int8_split(results, num_layers, stats):
+    """serve-paged-spec-int8's verify forward by kernel: 7 ``qmm_i8_direct``
+    launches a layer and the lm_head's at a verify chunk's rows, each at its
+    kernel-phase time on the split-K kernel (``ms``; ``wrapper_ms`` with the
+    wrapper) and on qmm_i8_direct.cu (``tile_ms``, the "before", rows
+    quantized beforehand)."""
+    M = PAGED_B * (SPEC_DRAFT + 1)
+    rows = {r["shape"]: r for r in results if r["name"] == "qmm_i8_direct"}
+    lin = {k: rows[f"M={M} K={k[0]} N={k[1]}"] for k in QMM_SHAPES + (LM_HEAD_SHAPE,)}
+    per_forward = lambda key: num_layers * (
+        4 * lin[(4096, 4096)][key] + 2 * lin[(4096, 11008)][key]
+        + lin[(11008, 4096)][key]) + lin[LM_HEAD_SHAPE][key]
+    return dict(step_ms=stats["ms_per_chunk"], qmm_ms=per_forward("ms"),
+                qmm_wrapper_ms=per_forward("wrapper_ms"), qmm_before_ms=per_forward("tile_ms"))
+
+
 def chunk_split(results, num_layers, stats):
     """serve-paged-spec's verify step: one chunk attention launch a layer at
     the kernel phase's full-attention chunk time (the split kernel, and
@@ -7224,6 +7416,26 @@ def serve_w8a8_only(dev) -> None:
     print(f"serve-paged-w8a8 only ({'qmm_nf4_w8a8_decode.cu' if decode else 'qmm_i8_direct.cu'}"
           f" at decode rows): {stats['ms_per_step']:.2f} ms per decode step, "
           f"{stats['tok_s']:.1f} tok/s", flush=True)
+
+
+def serve_spec_int8_only(dev) -> None:
+    """``python3 chip_smoke.py serve-paged-spec-int8``: the serve weights and
+    serve-paged-spec-int8 alone."""
+    import torch
+
+    from qlora_tpu_torch.generate import generate
+    from qlora_tpu_torch.models import init_params
+
+    cfg = seven_b()
+    params = init_params(cfg, seed=7, device=dev)
+    lora, lcfg = random_lora(cfg, dev, seed=8)
+    generate(params, lora, torch.randint(3, 200, (4, 16)), torch.full((4,), 16), cfg, lcfg,
+             max_new_tokens=2, eos_id=-1, device=dev)
+    t0 = time.perf_counter()
+    _, stats = serve_paged_spec_int8_phase(dev, cfg, params, lora, lcfg)
+    print(f"serve-paged-spec-int8 only: {stats['ms_per_chunk']:.2f} ms a verify step, "
+          f"{stats['tokens_per_chunk']:.3f} tokens a chunk, {stats['tok_s']:.1f} tok/s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def train_int8_phase(dev):
@@ -7395,6 +7607,7 @@ def main() -> int:
               "train-data": lambda dev: train_data_phase(dev, card=card),
               "cli": lambda dev: cli_phase(dev, card),
               "search": search_only,
+              "serve-paged-spec-int8": serve_spec_int8_only,
               "serve-http": lambda dev: serve_http_phase(dev, card),
               "examples": lambda dev: examples_phase(dev, card),
               "tp": lambda dev: (tp_qmm_phase(dev, []), tp_phase(dev, card)),
@@ -7444,8 +7657,9 @@ def main() -> int:
         t0 = time.perf_counter()
         (serve_counts, serve_stats, int8_counts, int8_stats,
          (paged_counts, paged_stats, paged8_counts, paged8_stats, pagedw_counts, pagedw_stats),
-         (spec_counts, spec_stats), (search_counts, search_stats)) = serve_phase(dev)
-        print(f"serve, serve-int8, search, serve-paged and serve-paged-spec: "
+         (spec_counts, spec_stats), (spec8_counts, spec8_stats),
+         (search_counts, search_stats)) = serve_phase(dev)
+        print(f"serve, serve-int8, search, serve-paged, serve-paged-spec and -spec-int8: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         i8base_counts, i8base_stats = serve_i8base_phase(dev, serve_stats)
@@ -7595,10 +7809,13 @@ def main() -> int:
         if entry["name"] == "qmm_i8_direct":
             entry.update(sources=I8_DIRECT_SOURCES,
                          before_source="qlora_tpu_torch/csrc/qmm_i8_direct.cu",
-                         decode_launches=int8_counts["qmm_i8_direct_decode"])
+                         decode_launches=int8_counts["qmm_i8_direct_decode"],
+                         decode_launches_serve_paged_spec_int8=spec8_counts[
+                             "qmm_i8_direct_decode"])
     for entry in summary:     # the CLI and the endpoint (cli, serve-http), the searches, and
         # the judge, the examples and the converter
         for tag, run in (("cli", cli_counts), ("http", http_counts), ("search", search_counts),
+                         ("serve_paged_spec_int8", spec8_counts),
                          ("examples", examples_counts), ("tp", tp_counts),
                          ("train_mesh", mesh_counts), ("train_sp", sp_total),
                          ("train_gspmd", gspmd_total), ("dryrun", dryrun_counts)):
@@ -7661,6 +7878,15 @@ def main() -> int:
           f"~{ch['attention_ms']:.2f} ms (on paged_attention.cu, the before: "
           f"~{ch['attention_before_ms']:.2f} ms) and qmm kernels ~{verify_qmm:.2f} ms "
           "(kernel-phase times x launches)", flush=True)
+    v8 = verify_int8_split(results, seven_b().num_layers, spec8_stats)
+    print(f"serve-paged-spec-int8: verify step {v8['step_ms']:.2f} ms ({spec8_stats['chunks']} "
+          f"slot chunks, {spec8_stats['tokens_per_chunk']:.3f} tokens a chunk; "
+          f"{spec8_stats['tok_s']:.1f} tok/s over the run), of which the int8 qmm kernels "
+          f"~{v8['qmm_ms']:.2f} ms a verify forward on the split-K kernel (with the wrapper "
+          f"~{v8['qmm_wrapper_ms']:.2f} ms; on qmm_i8_direct.cu, the before: "
+          f"~{v8['qmm_before_ms']:.2f} ms, rows quantized beforehand) at M="
+          f"{PAGED_B * (SPEC_DRAFT + 1)} (kernel-phase times x launches); serve-paged-spec's NF4 "
+          f"verify step {spec_stats['ms_per_chunk']:.2f} ms in this run", flush=True)
     ts = train_split(results, train_per_step, train_stats)
     print(f"train: optimizer step {ts['step_ms']:.0f} ms = qmm forward kernel "
           f"~{ts['qmm_fwd_ms']:.0f} ms ({train_per_step['qmm_nf4_fwd_dq']} launches) + qmm_nf4_bwd "

@@ -11,10 +11,10 @@
 // fewer only where ops/qmatmul.py: nf4_w8a8_decode_plan refuses the shape (K
 // % 64, N % 16 or the block size % 32 not 0) and as the "before" of
 // qmm_nf4_w8a8_decode.cu, which takes those rows.  The direct
-// (per-column) entry is the "before" of qmm_i8_direct_decode.cu at 16 rows
-// or fewer, which it times through this C entry: it keeps more rows and the
-// shapes ops/qmatmul.py: i8_direct_decode_plan refuses (K % 32 != 0, N % 16
-// != 0).  As there, the
+// (per-column) entry is the "before" of qmm_i8_direct_decode.cu at 64 rows
+// or fewer, which chip_smoke.py times through this C entry: it keeps more
+// rows and the shapes ops/qmatmul.py: i8_direct_decode_plan and
+// i8_direct_verify_plan refuse (K % 32 != 0, N % 16 != 0).  As there, the
 // rows of x are quantized to int8 before the kernel (xs = max|x| / 127,
 // x8 = round(x / xs)) and the per-column scales are made before it
 // (s_out = col / 127; for NF4, ratio = absmax * (127 / col) with col the

@@ -1,18 +1,19 @@
-// Direct int8 x int8 matmul for a few rows (decode), the rows of x quantized
-// in the kernel: the serving engines' decode path over a per-column int8
-// weight (w8a8).
+// Direct int8 x int8 matmul for a few rows (decode steps and verify chunks),
+// the rows of x quantized in the kernel: the serving engines' decode path over
+// a per-column int8 weight (w8a8).
 //   xs[m] = max|x[m]| / 127 (1 for a zero row), x8 = round(x / xs),
 //   y[m, n] = bf16(bf16(float(x8 @ codes)[m, n] * s_out[n]) * bf16(xs[m])),
-//   s_out = col / 127, with M <= 16.
+//   s_out = col / 127, with M <= 64.
 //
 // Replaces the TPU kernel qlora_tpu/ops/qmatmul.py::_qmm_pallas_i8_direct
-// (_i8_direct_kernel, pallas_call at qmatmul.py:358) at decode rows, and the
-// row quantization that its jitted body does before the pallas_call.  It
+// (_i8_direct_kernel, pallas_call at qmatmul.py:358) at up to 64 rows, and
+// the row quantization that its jitted body does before the pallas_call.  It
 // takes the place of qmm_i8_direct.cu (a WMMA tile kernel: 16-row fragments,
 // ceil(N/64) blocks each walking all of K, no load in flight during the
 // products, rows quantized by PyTorch ops before it), which stays as the
-// "before" and keeps more rows and the shapes the plan refuses
-// (ops/qmatmul.py: i8_direct_decode_plan).
+// "before" and keeps more rows and the shapes the plans refuse
+// (ops/qmatmul.py: i8_direct_decode_plan up to 16 rows, i8_direct_verify_plan
+// at 17 to 64).
 //
 // Arithmetic, that of quantize_rows and qmm_i8_direct_plain on the card, bit
 // for bit: PyTorch divides a CUDA tensor by a Python scalar (amax / 127.0,
@@ -27,33 +28,46 @@
 //
 // What bounds it on an H100: the bytes of the weight, K*N codes, over 3.35
 // TB/s (a 4096 x 4096 weight: 16.8 MB, 0.005 ms).  The products (2*M*K*N)
-// are few, and x is at most 16 rows.
+// are few, and x is at most 64 rows.
 //
 // Design (qmm_i8_decode.cu's, with int8 operands and the rows quantized in
 // the kernel):
 // - Split K across blocks.  A block owns a strip of 128 output columns and
 //   one split: a run of whole 32-row k-steps, from a plan that depends only on
-//   (K, N) and the SM count (ops/qmatmul.py: i8_direct_decode_plan), never on
-//   M.  The splits of a strip form one thread-block cluster (at most 16).
-//   Its 4 warps walk consecutive k-steps of the split.
-// - A lane streams 16 bytes (16 columns) of 8 rows of each k-step (rows 4t ..
-//   4t + 3 and 16 + 4t .. 16 + 4t + 3) with ld.global.nc, L1 no-allocate; 8
-//   lanes read 128 contiguous bytes of a row.  The next k-step is in flight
-//   while one is multiplied; the codes are used as stored.
+//   (K, N), the SM count and whether M passes 16 (ops/qmatmul.py:
+//   i8_direct_decode_plan, i8_direct_verify_plan), never on the rows' values.
+//   The splits of a strip form one thread-block cluster (at most 16).
+// - Rows of x in MT B tiles of 8 (MT = ceil(M / 8), 1 to 8): each transposed
+//   weight fragment is multiplied by every B tile, so the weight is streamed
+//   once for all the rows and only the products grow with M.  The accumulators
+//   a lane holds are MT x 4 a 16-column tile, so the layout changes past 16
+//   rows (Lay below):
+//   up to 16 rows (MT <= 2), a lane streams 16 bytes (16 columns, 8 tiles) of
+//   8 rows of each k-step and the block's 4 warps walk consecutive k-steps of
+//   the split; past 16 rows, a lane streams 8 bytes (8 columns, 4 tiles), two
+//   warps side by side cover the strip's 128 columns and each pair walks half
+//   of the split's k-steps (at MT = 8: 128 accumulators a lane, registers
+//   bounded for 2 blocks an SM).
+// - A lane reads rows 4t .. 4t + 3 and 16 + 4t .. 16 + 4t + 3 of each k-step
+//   with ld.global.nc, L1 no-allocate; 8 lanes read 128 (64 past 16 rows)
+//   contiguous bytes of a row.  The next k-step is in flight while one is
+//   multiplied; the codes are used as stored.
 // - Products on mma.sync m16n8k32 (s8 in, s32 accumulators) with the roles
 //   swapped: the weight is the 16-row A operand (16 output columns) and x8
-//   the 8-column B operand (8 rows of x), so M <= 8 pads nothing.  An A
-//   register holds 4 consecutive k of one column, so the lane's 4 x 4 blocks
-//   of bytes (4 rows by 4 columns) are transposed with prmt (__byte_perm); a
-//   B register is 4 consecutive bytes of a row of x8, so x8 is staged as it
-//   lies.
+//   the 8-column B operand (8 rows of x), so M pads only to a multiple of 8.
+//   An A register holds 4 consecutive k of one column, so the lane's 4 x 4
+//   blocks of bytes (4 rows by 4 columns) are transposed with prmt
+//   (__byte_perm); a B register is 4 consecutive bytes of a row of x8, so x8
+//   is staged as it lies.
 // - Rows quantized in the kernel: the first weight loads are requested, then
-//   each block stages its split's slice of x (bf16) and takes each row's
-//   largest |x| over it.  After a cluster barrier every block reads all the
-//   splits' maxima from their shared memories (distributed shared memory),
-//   so every block of every cluster sees the row's full max; it makes xs and
-//   its slice of x8 in shared memory.
-// - The warps' int32 partials are added in warp order in shared memory; after
+//   each block stages its split's slice of x (bf16; past 16 rows it only reads
+//   it, and reads it again to quantize: 64 rows of bf16 would crowd out a
+//   second block) and takes each row's largest |x| over it.  After a cluster
+//   barrier every block reads all the splits' maxima from their shared
+//   memories (distributed shared memory), so every block of every cluster
+//   sees the row's full max; it makes xs and its slice of x8 in shared memory.
+// - The warps' int32 partials are added in the order of their k-steps (each
+//   column group apart) in shared memory; after
 //   a cluster barrier each block reads a slice of the strip's output from all
 //   the cluster's shared memories and adds the splits in split order.  One
 //   epilogue.  No atomics: two calls give the same bits, and a row's result
@@ -64,8 +78,9 @@
 //   versions bit for bit.  With `given` it reads x8 and xs from there instead
 //   of quantizing x (a replay of other row codes, and decode_sweep's variant
 //   with the rows quantized outside the kernel).
-// - Shapes: K % 32 == 0, N % 16 == 0 (a lane's 16 columns are in range or
-//   not), a split of at most 4096 rows (its slice of x staged whole).
+// - Shapes: K % 32 == 0, N % 16 == 0 (a lane's 16 or 8 columns are in range
+//   or not), a split of at most 4096 rows up to 16 rows of x (its slice of x
+//   staged whole) and 1536 past them (x8 of 64 rows of it staged whole).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,21 +92,38 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int COLS = 128;       // output columns of a block: 16 bytes a lane, 8 lanes a row
-constexpr int TILES = 8;        // mma tiles of a warp per k-step (16 columns each)
-constexpr int WARPS = 4;        // warps of a block, each a part of the split's k-steps
+constexpr int TILES = 8;        // mma tiles of a warp per k-step up to 16 rows (16 columns each)
+constexpr int WIDE_TILES = 4;   // the same past 16 rows: two warps side by side over the columns
+constexpr int WARPS = 4;        // warps of a block
 constexpr int KSTEP = 32;       // rows of W a k-step: one m16n8k32's depth
 constexpr int DEPTH = 1;        // k-steps of weight rows in flight per lane beside the one multiplied
-constexpr int MAX_ROWS = 4096;  // rows of W a split: its slice of x is staged whole
+constexpr int MAX_ROWS = 4096;  // rows of W a split up to 16 rows: its slice of x is staged whole
+constexpr int WIDE_MAX_ROWS = 1536;  // the same past 16 rows: x8 of the slice is staged whole
 constexpr int MAX_SPLITS = 16;  // the largest cluster (non-portable above 8)
-constexpr int MAX_M = 16;       // rows of x
+constexpr int NARROW_M = 16;    // rows of x the 16-column layout takes
+constexpr int MAX_M = 64;       // rows of x
 constexpr float INV127 = 1.f / 127.f;
 
-__device__ __forceinline__ uint4 ld_stream(const uint8_t* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
+// the layout at MT B tiles: T mma tiles a warp a k-step (LW words of 4
+// columns a lane a row), CG warps side by side over the block's columns, KG
+// warps (or pairs) one after another over the split's k-steps
+template <int MT>
+struct Lay {
+  static constexpr bool WIDE = MT * 8 > NARROW_M;
+  static constexpr int T = WIDE ? WIDE_TILES : TILES;
+  static constexpr int LW = T / 2;
+  static constexpr int CG = TILES / T;
+  static constexpr int KG = WARPS / CG;
+};
+
+template <int LW>
+__device__ __forceinline__ void ld_stream(const uint8_t* p, uint32_t (&v)[LW]) {
+  if constexpr (LW == 4)
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+        : "l"(p));
+  else
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];" : "=r"(v[0]), "=r"(v[1]) : "l"(p));
 }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -101,10 +133,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
 // a 4 x 4 block of bytes transposed: w[r] holds row r's byte e at bits 8e;
@@ -125,17 +153,93 @@ __device__ __forceinline__ uint32_t code_of(uint32_t bf16_bits, float xs) {
   return (uint32_t)__float2int_rn(__fdiv_rn(__uint_as_float(bf16_bits << 16), xs)) & 0xffu;
 }
 
+// four bf16 of a row (two words) over xs: their codes in one word
+__device__ __forceinline__ uint32_t codes_of(uint32_t lo, uint32_t hi, float xs) {
+  return code_of(lo & 0xffffu, xs) | code_of(lo >> 16, xs) << 8 | code_of(hi & 0xffffu, xs) << 16 |
+         code_of(hi >> 16, xs) << 24;
+}
+
+// the largest |x| of 8 bf16 as bf16 bits without the sign (which order as
+// the values do), folded into mx two halves at a time
+__device__ __forceinline__ uint32_t max_of(uint32_t mx, const uint4& v) {
+  return __vmaxu2(mx, __vmaxu2(__vmaxu2(v.x & 0x7fff7fffu, v.y & 0x7fff7fffu),
+                               __vmaxu2(v.z & 0x7fff7fffu, v.w & 0x7fff7fffu)));
+}
+
+// Past 16 rows, a split's slice of x is read from global memory (L2) twice,
+// by loops that keep many loads in flight: the rows' maxima, warp wk taking
+// rows wk, wk + WARPS, .. all at once (R of them), and then x8, each thread
+// R x 8 bytes of it a pass.
+template <int R>
+__device__ __forceinline__ void wide_row_max(const __nv_bfloat16* x, uint32_t* pmax, int M, int K,
+                                             int r0, int rows, int wk, int lane) {
+  uint32_t mx[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) mx[r] = 0;
+  for (int ch = lane; ch < rows / 8; ch += 32) {
+    uint4 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int m = wk + WARPS * r;
+      v[r] = m < M ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K + r0) + ch)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) mx[r] = max_of(mx[r], v[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    uint32_t m2 = max(mx[r] & 0xffffu, mx[r] >> 16);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m2 = max(m2, __shfl_xor_sync(0xffffffffu, m2, o));
+    if (lane == 0 && wk + WARPS * r < M) pmax[wk + WARPS * r] = m2 << 16;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void wide_quantize(const __nv_bfloat16* x, const float* xsv,
+                                              uint32_t* x8s, int8_t* x8_io, bool keep, int M,
+                                              int tile_rows, int rows, int K, int r0, int pitch,
+                                              int tid) {
+  const int pairs = rows / 8;             // 8 bf16 of a row of the slice: two words of x8
+  const int total = tile_rows * pairs;    // over the B tiles' rows, 0 past M
+  for (int i0 = tid; i0 < total; i0 += WARPS * 32 * R) {
+    uint4 b[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int i = i0 + WARPS * 32 * u, m = i / pairs, j = i % pairs;
+      b[u] = i < total && m < M
+                 ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K + r0) + j)
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int i = i0 + WARPS * 32 * u, m = i / pairs, j = i % pairs;
+      if (i >= total) break;
+      uint2 v = make_uint2(0, 0);
+      if (m < M) {
+        const float xs = xsv[m];
+        v = make_uint2(codes_of(b[u].x, b[u].y, xs), codes_of(b[u].z, b[u].w, xs));
+        if (keep) *reinterpret_cast<uint2*>(x8_io + (size_t)m * K + r0 + 8 * j) = v;
+      }
+      *reinterpret_cast<uint2*>(x8s + m * pitch + 2 * j) = v;
+    }
+  }
+}
+
 template <int MT>
-__global__ void __launch_bounds__(WARPS * 32, 3)
+__global__ void __launch_bounds__(WARPS * 32, Lay<MT>::WIDE ? 2 : 3)
 qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
                             const int8_t* __restrict__ codes, const float* __restrict__ col,
                             void* __restrict__ y, int8_t* __restrict__ x8_io,
                             float* __restrict__ xs_io, int M, int K, int N, int splits,
                             int given, int pitch, int xpitch) {
   // [0, 2 * MAX_M) words: the split's row maxima (f32 bits) and the rows' xs;
-  // then x8 of the slice [MT*8][pitch] words and the slice of x [M][xpitch]
-  // bf16; after the k loop, from x8 on, the warps' partials and then the
-  // block's partial [M][COLS] int32, which the cluster reads
+  // then x8 of the slice [MT*8][pitch] words and (up to 16 rows) the slice of
+  // x [M][xpitch] bf16; after the k loop, from x8 on, the warps' partials and
+  // then the block's partial [M][COLS] int32, which the cluster reads
+  using L = Lay<MT>;
+  constexpr int T = L::T, LW = L::LW;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* pmax = smem;
   float* xsv = reinterpret_cast<float*>(smem + MAX_M);
@@ -145,6 +249,7 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int lane = tid & 31, wk = tid >> 5;
+  const int cw = wk % L::CG, kw = wk / L::CG;   // the warp's columns and its part of the k-steps
   const int g = lane >> 2, t = lane & 3;
   const int split = blockIdx.y;
   const int ksteps = K / KSTEP;
@@ -152,32 +257,39 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
   const int s_hi = (int)((long long)(split + 1) * ksteps / splits);
   const int r0 = s_lo * KSTEP;                       // the split's first row of W
   const int nsteps = s_hi - s_lo;
-  const int w0 = wk * nsteps / WARPS, w1 = (wk + 1) * nsteps / WARPS;   // the warp's k-steps
+  const int w0 = kw * nsteps / L::KG, w1 = (kw + 1) * nsteps / L::KG;   // the warp's k-steps
 
   const int cb = blockIdx.x * COLS;  // the block's columns
-  const int c = cb + g * 16;         // this lane's 16 columns, all in range or none
+  const int c = cb + cw * (COLS / L::CG) + g * 4 * LW;  // the lane's 4 LW columns, all in range or none
   const bool live = c < N;
   const uint8_t* cu = reinterpret_cast<const uint8_t*>(codes);
 
   // k-step s of the split: the lane's rows 4t + h and 16 + 4t + h (h < 4)
-  auto load_step = [&](uint4 (&v)[8], int s) {
+  auto load_step = [&](uint32_t (&v)[8][LW], int s) {
 #pragma unroll
     for (int h = 0; h < 8; ++h) {
       const int row = r0 + KSTEP * s + 4 * t + (h & 3) + 16 * (h >> 2);
-      v[h] = live ? ld_stream(cu + (size_t)row * N + c) : make_uint4(0, 0, 0, 0);
+      if (live) {
+        ld_stream<LW>(cu + (size_t)row * N + c, v[h]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < LW; ++j) v[h][j] = 0;
+      }
     }
   };
 
   // the first k-steps of weight rows, requested before the rows are quantized
-  uint4 ring[DEPTH][8];
+  uint32_t ring[DEPTH][8][LW];
 #pragma unroll
   for (int j = 0; j < DEPTH; ++j)
     if (w0 + j < w1) load_step(ring[j], w0 + j);
 
-  // the split's slice of x staged, and each row's largest |x| over it (as
-  // bf16 bits without the sign, which order as the values do)
+  // the split's slice of x staged (up to 16 rows), and each row's largest |x|
+  // over it (as bf16 bits without the sign, which order as the values do)
   const int rows = nsteps * KSTEP;
-  if (!given) {
+  if (!given && L::WIDE) {
+    wide_row_max<MT * 8 / WARPS>(x, pmax, M, K, r0, rows, wk, lane);
+  } else if (!given) {
     for (int m = wk; m < M; m += WARPS) {
       const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)m * K + r0);
       uint4* dst = reinterpret_cast<uint4*>(xb + (size_t)m * xpitch);
@@ -185,8 +297,7 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
       for (int ch = lane; ch < rows / 8; ch += 32) {
         const uint4 v = __ldg(src + ch);
         dst[ch] = v;
-        mx = __vmaxu2(mx, __vmaxu2(__vmaxu2(v.x & 0x7fff7fffu, v.y & 0x7fff7fffu),
-                                   __vmaxu2(v.z & 0x7fff7fffu, v.w & 0x7fff7fffu)));
+        mx = max_of(mx, v);
       }
       mx = max(mx & 0xffffu, mx >> 16);
 #pragma unroll
@@ -214,30 +325,32 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();
   const int words = rows / 4;
   const bool keep = !given && x8_io != nullptr && blockIdx.x == 0;
-  for (int i = tid; i < MT * 8 * words; i += WARPS * 32) {
-    const int m = i / words, j = i % words;
-    uint32_t v = 0;
-    if (m < M) {
-      uint32_t* at = reinterpret_cast<uint32_t*>(x8_io + (size_t)m * K + r0) + j;
-      if (given) {
-        v = *at;
-      } else {
-        const uint2 b = *reinterpret_cast<const uint2*>(xb + (size_t)m * xpitch + 4 * j);
-        const float xs = xsv[m];
-        v = code_of(b.x & 0xffffu, xs) | code_of(b.x >> 16, xs) << 8 |
-            code_of(b.y & 0xffffu, xs) << 16 | code_of(b.y >> 16, xs) << 24;
-        if (keep) *at = v;
+  if (!given && L::WIDE) {
+    wide_quantize<8>(x, xsv, x8s, x8_io, keep, M, MT * 8, rows, K, r0, pitch, tid);
+  } else {
+    for (int i = tid; i < MT * 8 * words; i += WARPS * 32) {
+      const int m = i / words, j = i % words;
+      uint32_t v = 0;
+      if (m < M) {
+        uint32_t* at = reinterpret_cast<uint32_t*>(x8_io + (size_t)m * K + r0) + j;
+        if (given) {
+          v = *at;
+        } else {
+          const uint2 b = *reinterpret_cast<const uint2*>(xb + (size_t)m * xpitch + 4 * j);
+          v = codes_of(b.x, b.y, xsv[m]);
+          if (keep) *at = v;
+        }
       }
+      x8s[m * pitch + j] = v;
     }
-    x8s[m * pitch + j] = v;
   }
   __syncthreads();
 
-  int acc[MT][TILES][4];
+  int acc[MT][T][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < TILES; ++i)
+    for (int i = 0; i < T; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0;
 
@@ -253,20 +366,19 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
         bx[mt][0] = x8s[(mt * 8 + g) * pitch + 8 * s + t];
         bx[mt][1] = x8s[(mt * 8 + g) * pitch + 8 * s + 4 + t];
       }
-      // tr[hh][j][e]: column 4j + e of the lane's 16 at k 4t + 16 hh .. + 3
-      uint32_t tr[2][4][4];
+      // tr[hh][j][e]: column 4j + e of the lane's 4 LW at k 4t + 16 hh .. + 3
+      uint32_t tr[2][LW][4];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t w[4] = {word_of(ring[jr][4 * hh], j), word_of(ring[jr][4 * hh + 1], j),
-                                 word_of(ring[jr][4 * hh + 2], j),
-                                 word_of(ring[jr][4 * hh + 3], j)};
+        for (int j = 0; j < LW; ++j) {
+          const uint32_t w[4] = {ring[jr][4 * hh][j], ring[jr][4 * hh + 1][j],
+                                 ring[jr][4 * hh + 2][j], ring[jr][4 * hh + 3][j]};
           transpose4(w, tr[hh][j]);
         }
       if (s + DEPTH < w1) load_step(ring[jr], s + DEPTH);  // refill DEPTH k-steps ahead
 #pragma unroll
-      for (int i = 0; i < TILES; ++i) {
+      for (int i = 0; i < T; ++i) {
         // tile i: columns c + 2i (A row g) and c + 2i + 1 (A row g + 8)
         const int j = i >> 1, e = 2 * (i & 1);
         const uint32_t a[4] = {tr[0][j][e], tr[0][j][e + 1], tr[1][j][e], tr[1][j][e + 1]};
@@ -276,33 +388,34 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // the warps' partials added in warp order
-  constexpr int RA = MT * TILES * 4;  // accumulators a lane
-  __syncthreads();                    // x8 consumed: the buffer takes the partials
+  // the warps' partials added in the order of their k-steps, each column
+  // group's apart
+  constexpr int RA = MT * T * 4;  // accumulators a lane
+  __syncthreads();                // x8 consumed: the buffer takes the partials
   int* red = reinterpret_cast<int*>(x8s);
-  int* part = red + (WARPS - 1) * RA * 32;  // the block's partial [M][COLS]
-  if (wk > 0) {
-    int* dst = red + (wk - 1) * RA * 32 + lane;
+  int* part = red + (WARPS - L::CG) * RA * 32;  // the block's partial [M][COLS]
+  if (kw > 0) {
+    int* dst = red + (wk - L::CG) * RA * 32 + lane;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < TILES; ++i)
+      for (int i = 0; i < T; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[((mt * TILES + i) * 4 + e) * 32] = acc[mt][i][e];
+        for (int e = 0; e < 4; ++e) dst[((mt * T + i) * 4 + e) * 32] = acc[mt][i][e];
   }
   __syncthreads();
-  if (wk == 0) {
-    for (int k = 1; k < WARPS; ++k) {
-      const int* src = red + (k - 1) * RA * 32 + lane;
+  if (kw == 0) {
+    for (int k = 1; k < L::KG; ++k) {
+      const int* src = red + ((k - 1) * L::CG + cw) * RA * 32 + lane;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < TILES; ++i)
+        for (int i = 0; i < T; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][i][e] += src[((mt * TILES + i) * 4 + e) * 32];
+          for (int e = 0; e < 4; ++e) acc[mt][i][e] += src[((mt * T + i) * 4 + e) * 32];
     }
-    // lane (g, t) holds rows 2t, 2t + 1 (+ 8 mt) at columns 16g + 2i (A row g)
-    // and 16g + 2i + 1 (A row g + 8)
+    // lane (g, t) holds rows 2t, 2t + 1 (+ 8 mt) at columns c + 2i (A row g)
+    // and c + 2i + 1 (A row g + 8)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -310,8 +423,8 @@ qmm_i8_direct_decode_kernel(const __nv_bfloat16* __restrict__ x,
         const int m = mt * 8 + 2 * t + h;
         if (m >= M) continue;
 #pragma unroll
-        for (int i = 0; i < TILES; i += 2)
-          *reinterpret_cast<int4*>(part + m * COLS + g * 16 + 2 * i) =
+        for (int i = 0; i < T; i += 2)
+          *reinterpret_cast<int4*>(part + m * COLS + (c - cb) + 2 * i) =
               make_int4(acc[mt][i][h], acc[mt][i][2 + h], acc[mt][i + 1][h], acc[mt][i + 1][2 + h]);
       }
   }
@@ -396,9 +509,9 @@ int launch(const void* x, const void* codes, const void* col, void* y, void* x8,
 // accumulators [M, N] in y instead of bf16 [M, N]; x8 int8 [M, K] and xs f32
 // [M]: null, or written with the rows as the kernel quantized them, or read
 // instead of quantizing x when `given` is 1.  The plan: `splits` (1 to 16,
-// one cluster) runs of whole 32-row k-steps, at most 4096 rows each.  M <= 16,
-// K % 32 == 0, N % 16 == 0.  Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for a bad shape or plan).
+// one cluster) runs of whole 32-row k-steps, at most 4096 rows each up to 16
+// rows of x and 1536 past them.  M <= 64, K % 32 == 0, N % 16 == 0.  Returns
+// the launch's cudaError_t (cudaErrorInvalidValue for a bad shape or plan).
 extern "C" int qmm_i8_direct_decode(const void* x, const void* codes, const void* col, void* y,
                                     void* x8, void* xs, int M, int K, int N, int splits,
                                     int given, void* stream) {
@@ -406,16 +519,31 @@ extern "C" int qmm_i8_direct_decode(const void* x, const void* codes, const void
   if (M < 1 || M > MAX_M || K < KSTEP || K % KSTEP || N < 16 || N % 16 || splits < 1 ||
       splits > MAX_SPLITS || splits > ksteps || (given && (x8 == nullptr || xs == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = M > NARROW_M;
   const int rows = (ksteps + splits - 1) / splits * KSTEP;  // the longest split
-  if (rows > MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
-  const int mt = M > 8 ? 2 : 1;
+  if (rows > (wide ? WIDE_MAX_ROWS : MAX_ROWS)) return static_cast<int>(cudaErrorInvalidValue);
+  const int mt = (M + 7) / 8;
+  const int tiles = wide ? WIDE_TILES : TILES;
   const int pitch = (rows / 4 + 31) / 32 * 32 + 4;  // words; 4 mod 32: conflict-free B loads
   const int xpitch = rows;
-  const size_t stage = (size_t)mt * 8 * pitch * 4 + (given ? 0 : (size_t)M * xpitch * 2);
-  const size_t parts = ((size_t)(WARPS - 1) * mt * TILES * 4 * 32 + (size_t)M * COLS) * 4;
+  const size_t stage = (size_t)mt * 8 * pitch * 4 + (given || wide ? 0 : (size_t)M * xpitch * 2);
+  const size_t parts =
+      ((size_t)(WARPS - TILES / tiles) * mt * tiles * 4 * 32 + (size_t)M * COLS) * 4;
   const size_t smem = 2 * MAX_M * 4 + (stage > parts ? stage : parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mt == 2)
-    return launch<2>(x, codes, col, y, x8, xs, M, K, N, splits, given, pitch, xpitch, smem, s);
-  return launch<1>(x, codes, col, y, x8, xs, M, K, N, splits, given, pitch, xpitch, smem, s);
+  switch (mt) {
+#define QMM_I8_DIRECT_MT(n) \
+  case n:                   \
+    return launch<n>(x, codes, col, y, x8, xs, M, K, N, splits, given, pitch, xpitch, smem, s);
+    QMM_I8_DIRECT_MT(1)
+    QMM_I8_DIRECT_MT(2)
+    QMM_I8_DIRECT_MT(3)
+    QMM_I8_DIRECT_MT(4)
+    QMM_I8_DIRECT_MT(5)
+    QMM_I8_DIRECT_MT(6)
+    QMM_I8_DIRECT_MT(7)
+    QMM_I8_DIRECT_MT(8)
+#undef QMM_I8_DIRECT_MT
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -54,7 +54,7 @@ def i8_direct_repeat(x8, w8, s_out, shape, reps=32):
     """(x8 @ w8) * s_out[n] rounded to bf16 for int8 x8 [M, K] and per-column
     int8 w8 [K, N], `reps` times through the kernel that ``qmm_i8_direct``'s
     dispatch takes for these rows (the TPU kernel ``_qmm_pallas_i8_direct``)
-    with every row scale xs = 1: up to ``DECODE_ROWS`` rows of a shape its
+    with every row scale xs = 1: up to ``I8_DIRECT_ROWS`` rows of a shape its
     plan accepts ``qmm_i8_direct_decode.cu``, handed x8 and xs as its rows
     (it makes the column scales from the stored absmax, here s_out * 127, as
     col * (1/127)); else ``qmm_i8_direct.cu``."""

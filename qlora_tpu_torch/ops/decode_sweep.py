@@ -18,7 +18,8 @@ the dequantized bf16 weight; the int8 kernel also runs as built on plans of
 built, with no products, with loads only (no transposes, no products), with
 the rows quantized outside the kernel (its x8 and xs given: what the wrapper
 did before) and on plans of 1 to 3 blocks per SM, on the block linears and
-the padded lm_head at M = 4 and 8, beside ``qmm_i8_direct.cu`` (rows
+the padded lm_head at M = 4, 8 and a verify chunk's 40 (past 16 rows on its
+plan for them, two warps side by side), beside ``qmm_i8_direct.cu`` (rows
 quantized beforehand) and ``torch._int_mm`` with the epilogue.  The w8a8
 kernel over NF4 runs as built, with no products, with no decode (the packed
 words go to the products as they are), with loads only (no transposes, no
@@ -95,7 +96,8 @@ W8A8_VARIANTS = {
 }
 W8A8_BLOCKS_PER_SM = (1, 2, 3)              # the plan's; as built takes 2
 W8A8_SHAPES = ((256, 128), (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32768))
-W8A8_ROWS = (4, 8)                          # serve-int8's decode step, serve-paged-int8's
+W8A8_ROWS = (4, 8, 40)                      # serve-int8's decode step, serve-paged-int8's,
+                                            # serve-paged-spec-int8's verify chunk
 # the w8a8 decode kernel over NF4: its two planes' products, its decode of a
 # word of packed bytes to one plane's codes, and the transposes
 _N_MMA = [(f"for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][i], a{p}, b{p}[mt][0], b{p}[mt][1]);",
@@ -293,12 +295,14 @@ def w8a8_sweep(dev, g, sms: int) -> None:
         copies = copies_past_l2(qt)
         col = qt.absmax.reshape(-1)
         s_out = col / 127.0
-        plan = qm.i8_direct_decode_plan(K, N, sms)
-        plans = {}
-        for per_sm in W8A8_BLOCKS_PER_SM:
-            splits = min(K // 32, 16, max(-(-per_sm * sms // plan.strips), -(-K // 4096)))
-            plans[f" ({per_sm}/SM, {splits} splits)"] = splits
         for M in W8A8_ROWS:
+            wide = M > qm.DECODE_ROWS
+            plan = (qm.i8_direct_verify_plan if wide else qm.i8_direct_decode_plan)(K, N, sms)
+            longest = -(-K // (qm._I8_DIRECT_WIDE_MAX_ROWS if wide else qm._I8_DIRECT_MAX_ROWS))
+            plans = {}
+            for per_sm in W8A8_BLOCKS_PER_SM:
+                splits = min(K // 32, 16, max(-(-per_sm * sms // plan.strips), longest))
+                plans[f" ({per_sm}/SM, {splits} splits)"] = splits
             x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
             x8, xs = qm.quantize_rows(x)
             xs1 = xs.reshape(-1).contiguous()

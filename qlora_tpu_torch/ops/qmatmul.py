@@ -32,10 +32,11 @@ bytes); the tile kernel of ``csrc/qmm_i8.cu``, the decode kernels'
 "before", takes the shapes the plans refuse.  The two ``w8a8`` kernels
 quantize each row of x to int8, multiply int8 by int8 into int32 on the
 tensor cores and scale in the epilogue: the serving engines' decode path.
-Over per-column int8 storage up to ``DECODE_ROWS`` rows, wherever
-``i8_direct_decode_plan`` accepts the shape (K % 32 and N % 16 both 0: every
-model linear and the padded lm_head), a split-K kernel on int8 mma.sync
-quantizes the rows itself (``csrc/qmm_i8_direct_decode.cu``,
+Over per-column int8 storage up to ``I8_DIRECT_ROWS`` rows (decode steps and
+verify chunks), wherever ``i8_direct_decode_plan`` (up to ``DECODE_ROWS``)
+or ``i8_direct_verify_plan`` (above) accepts the shape (K % 32 and N % 16
+both 0: every model linear and the padded lm_head), a split-K kernel on int8
+mma.sync quantizes the rows itself (``csrc/qmm_i8_direct_decode.cu``,
 ``decode_launches``); over NF4/FP4 storage up to ``DECODE_ROWS`` rows,
 wherever ``nf4_w8a8_decode_plan`` accepts the shape (K % 64, N % 16 and the
 block size % 32 all 0: every model linear), the same design decodes the
@@ -891,8 +892,10 @@ def _per_column(qt: QuantizedTensor) -> bool:
 # The direct int8 forward at decode rows: ``csrc/qmm_i8_direct_decode.cu``,
 # the int8 decode kernel's split-K cluster design on int8 mma.sync
 # (m16n8k32), the rows of x quantized inside the kernel.
+I8_DIRECT_ROWS = 64          # rows of x the kernel takes over per-column int8 storage
 _I8_DIRECT_KSTEP = 32        # rows of a k-step: one m16n8k32's depth
-_I8_DIRECT_MAX_ROWS = 4096   # rows of W a split: its slice of x is staged whole
+_I8_DIRECT_MAX_ROWS = 4096   # rows of W a split up to 16 rows of x: its slice of x staged whole
+_I8_DIRECT_WIDE_MAX_ROWS = 1536   # the same above 16 rows: x8 of 64 rows of it staged whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -914,16 +917,11 @@ class I8DirectDecodePlan:
                  (s + 1) * steps // self.splits * _I8_DIRECT_KSTEP) for s in range(self.splits)]
 
 
-def i8_direct_decode_plan(K: int, N: int, sms: int) -> I8DirectDecodePlan:
-    """The direct int8 decode kernel's split of a weight [K, N] on a card of
-    ``sms`` SMs, as :func:`i8_decode_plan`'s: about
-    ``_DECODE_BLOCKS_PER_SM`` blocks per SM, at most one cluster of splits
-    per strip, more splits where a split would pass 4096 rows (whose slice
-    of x a block stages whole).  It depends on neither M nor the rows'
-    values.  It refuses, and ``qmm_i8_direct.cu`` keeps: K % 32 != 0 (a
-    k-step is one m16n8k32's depth), N % 16 != 0 (a lane streams 16
-    columns) and K past 16 splits of 4096 rows.  Every LLaMA-7B linear
-    passes, and so does the lm_head padded to 32768 columns."""
+def _i8_direct_plan(K: int, N: int, sms: int, max_rows: int) -> I8DirectDecodePlan:
+    """The direct int8 kernel's split of a weight [K, N] on a card of
+    ``sms`` SMs: about ``_DECODE_BLOCKS_PER_SM`` blocks per SM, more splits
+    where a split would pass ``max_rows`` rows, at most one cluster of them;
+    the refusals of :func:`i8_direct_decode_plan`."""
     if K <= 0 or N <= 0:
         return I8DirectDecodePlan(False, f"no int8 shape: K={K} N={N}")
     if K % _I8_DIRECT_KSTEP:
@@ -934,20 +932,47 @@ def i8_direct_decode_plan(K: int, N: int, sms: int) -> I8DirectDecodePlan:
                                          "columns; qmm_i8_direct.cu keeps it")
     steps = K // _I8_DIRECT_KSTEP
     strips = -(-N // _DECODE_COLS)
-    longest = -(-K // _I8_DIRECT_MAX_ROWS)
     splits = min(steps, _DECODE_MAX_SPLITS,
-                 max(-(-_DECODE_BLOCKS_PER_SM * sms // strips), longest))
-    if -(-steps // splits) * _I8_DIRECT_KSTEP > _I8_DIRECT_MAX_ROWS:
-        return I8DirectDecodePlan(False, f"K={K}: 16 splits of at most 4096 rows cannot "
+                 max(-(-_DECODE_BLOCKS_PER_SM * sms // strips), -(-K // max_rows)))
+    if -(-steps // splits) * _I8_DIRECT_KSTEP > max_rows:
+        return I8DirectDecodePlan(False, f"K={K}: 16 splits of at most {max_rows} rows cannot "
                                          "cover it; qmm_i8_direct.cu keeps it")
     return I8DirectDecodePlan(True, "", splits, strips)
 
 
+def i8_direct_decode_plan(K: int, N: int, sms: int) -> I8DirectDecodePlan:
+    """The direct int8 decode kernel's split of a weight [K, N] on a card of
+    ``sms`` SMs for 1 to ``DECODE_ROWS`` rows of x, as
+    :func:`i8_decode_plan`'s: about ``_DECODE_BLOCKS_PER_SM`` blocks per SM,
+    at most one cluster of splits per strip, more splits where a split would
+    pass 4096 rows (whose slice of x a block stages whole).  It depends on
+    neither M nor the rows' values.  It refuses, and ``qmm_i8_direct.cu``
+    keeps: K % 32 != 0 (a k-step is one m16n8k32's depth), N % 16 != 0 (a
+    lane streams 16 columns) and K past 16 splits of 4096 rows.  Every
+    LLaMA-7B linear passes, and so does the lm_head padded to 32768
+    columns."""
+    return _i8_direct_plan(K, N, sms, _I8_DIRECT_MAX_ROWS)
+
+
+def i8_direct_verify_plan(K: int, N: int, sms: int) -> I8DirectDecodePlan:
+    """The same kernel's split for ``DECODE_ROWS`` + 1 to ``I8_DIRECT_ROWS``
+    rows of x (verify chunks, wide decode batches): as
+    :func:`i8_direct_decode_plan`'s, with splits of at most 1536 rows (x8 of
+    64 rows of one is staged whole, and two blocks fit an SM).  It depends on
+    neither M nor the rows' values, and refuses what
+    :func:`i8_direct_decode_plan` refuses and K past 16 splits of 1536 rows.
+    Since the sums are exact integers, the two plans' splits give the same
+    bits."""
+    return _i8_direct_plan(K, N, sms, _I8_DIRECT_WIDE_MAX_ROWS)
+
+
 def _i8_direct_decode_launch(x: torch.Tensor, qt: QuantizedTensor, plan: I8DirectDecodePlan,
                              raw: bool = False, rows=None):
-    """Launch ``qmm_i8_direct_decode`` on x [M <= 16, K] bf16 on the card
+    """Launch ``qmm_i8_direct_decode`` on x [M <= 64, K] bf16 on the card
     (checked by the caller) over per-column int8 storage, on an accepted
-    plan: y bf16 [M, N], or with ``raw`` the int32 accumulators [M, N].
+    plan for M (:func:`i8_direct_decode_plan` up to ``DECODE_ROWS`` rows,
+    :func:`i8_direct_verify_plan` above): y bf16 [M, N], or with ``raw`` the
+    int32 accumulators [M, N].
     ``rows`` None: the kernel quantizes x's rows itself; "out": it also
     writes the x8 int8 [M, K] and xs f32 [M, 1] it made, and the call
     returns (y, x8, xs); a pair (x8, xs): it multiplies those instead of
@@ -1158,24 +1183,27 @@ def _w8a8_accumulators(x8: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def _i8_direct_decode_plan_on(x: torch.Tensor, qt: QuantizedTensor):
-    """The decode kernel's plan for x's rows over qt's storage (per-column
-    int8: :func:`i8_direct_decode_plan`; NF4/FP4:
-    :func:`nf4_w8a8_decode_plan`), or None where they stay on
-    ``qmm_i8_direct.cu``: no rows, more than ``DECODE_ROWS``, or a shape the
-    plan refuses."""
-    if not 0 < x.shape[0] <= DECODE_ROWS:
-        return None
+    """The split-K kernel's plan for x's rows over qt's storage (per-column
+    int8: :func:`i8_direct_decode_plan` up to ``DECODE_ROWS`` rows,
+    :func:`i8_direct_verify_plan` up to ``I8_DIRECT_ROWS``; NF4/FP4:
+    :func:`nf4_w8a8_decode_plan` up to ``DECODE_ROWS``), or None where they
+    stay on ``qmm_i8_direct.cu``: no rows, more, or a shape the plan
+    refuses."""
+    M = x.shape[0]
     K, N = logical_k(qt), qt.packed.shape[-1]
-    if qt.quant_type == "int8":
-        plan = _plan_on(i8_direct_decode_plan, x.device, K, N)
-    else:
+    if qt.quant_type == "int8" and 0 < M <= I8_DIRECT_ROWS:
+        fn = i8_direct_decode_plan if M <= DECODE_ROWS else i8_direct_verify_plan
+        plan = _plan_on(fn, x.device, K, N)
+    elif qt.quant_type != "int8" and 0 < M <= DECODE_ROWS:
         plan = _plan_on(nf4_w8a8_decode_plan, x.device, K, N, qt.block_size)
+    else:
+        return None
     return plan if plan.accepted else None
 
 
 def _i8_direct_decode_outputs(x: torch.Tensor, qt: QuantizedTensor) -> tuple:
     """For the checks only: (int32 accumulators [M, N], x8 int8 [M, K], xs f32
-    [M, 1]) as the direct decode kernel makes them from x [M <= 16, K] on the
+    [M, 1]) as the direct split-K kernel makes them from x [M <= 64, K] on the
     card.  No launch is counted."""
     _check_quantized(qt, x.device)
     plan = _i8_direct_decode_plan_on(x, qt)
@@ -1200,9 +1228,11 @@ def qmm_i8_direct(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The direct int8 kernel (TPU _qmm_pallas_i8_direct) over a per-column
     int8 tensor (``block_size == K``): x [M, K] on the card → [M, N] bf16,
     ``(x8 @ codes) * xs[m] * (col[n] / 127)`` with the int32 sum exact.  Up
-    to ``DECODE_ROWS`` rows, where ``i8_direct_decode_plan`` accepts the
-    shape, ``qmm_i8_direct_decode.cu`` quantizes the rows itself (counted in
-    ``decode_launches``); else ``quantize_rows`` and ``qmm_i8_direct.cu``."""
+    to ``I8_DIRECT_ROWS`` rows, where the plan for them
+    (``i8_direct_decode_plan`` up to ``DECODE_ROWS``, ``i8_direct_verify_plan``
+    above) accepts the shape, ``qmm_i8_direct_decode.cu`` quantizes the rows
+    itself (counted in ``decode_launches``); else ``quantize_rows`` and
+    ``qmm_i8_direct.cu``."""
     if not _per_column(qt):
         raise ValueError("qmm_i8_direct needs per-column int8 storage (block_size == K)")
     _check_rows(x, logical_k(qt), "x")
@@ -1249,9 +1279,9 @@ def qmm_nf4_w8a8(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 # launches: every call that ran a kernel; decode_launches: those of them that
-# took qmm_i8_direct_decode.cu (qmm_i8_direct) or qmm_nf4_w8a8_decode.cu
-# (qmm_nf4_w8a8); wgmma_launches (qmm_nf4_w8a8): those that took
-# qmm_nf4_w8a8_wgmma.cu (the rest of both took qmm_i8_direct.cu)
+# took qmm_i8_direct_decode.cu (qmm_i8_direct, up to I8_DIRECT_ROWS rows) or
+# qmm_nf4_w8a8_decode.cu (qmm_nf4_w8a8); wgmma_launches (qmm_nf4_w8a8): those
+# that took qmm_nf4_w8a8_wgmma.cu (the rest of both took qmm_i8_direct.cu)
 qmm_i8_direct.launches = qmm_i8_direct.decode_launches = 0
 qmm_nf4_w8a8.launches = qmm_nf4_w8a8.decode_launches = qmm_nf4_w8a8.wgmma_launches = 0
 

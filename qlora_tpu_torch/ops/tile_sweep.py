@@ -86,7 +86,8 @@ proxy fence taken out.  The verify chunk's split-KV attention
 late, row c's window edge taken from row 0, a key row read from the previous
 page, the splits' rescale dropped.  The direct int8 decode kernel
 (``qmm_i8_direct_decode.cu``): a split boundary one k-step off, a row's
-largest |x| taken from its own split only (no cluster maximum).  The w8a8
+largest |x| taken from its own split only (no cluster maximum), and past 16
+rows the second column group's warps reading the first group's columns.  The w8a8
 decode kernel over NF4 (``qmm_nf4_w8a8_decode.cu``): a column's largest
 absmax taken from its own split only, the high plane reading the low
 plane's absmax row, a split boundary one k-step off.
@@ -375,6 +376,9 @@ I8_DIRECT_MUTANTS = {
     "a row's max from its own split only": [
         ("      for (int sp = 0; sp < splits; ++sp) amax = max(amax, *cluster.map_shared_rank(pmax + tid, sp));",
          "      amax = pmax[tid];")],
+    # past 16 rows two warps share the strip's columns
+    "a second column group reading the first's columns": [
+        ("const int c = cb + cw * (COLS / L::CG) + g * 4 * LW;", "const int c = cb + g * 4 * LW;")],
 }
 I8_DIRECT_MUTANT_TESTS = "i8_direct"
 # the w8a8 forward over NF4 at decode rows (qmm_nf4_w8a8_decode.cu)

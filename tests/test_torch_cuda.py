@@ -50,12 +50,14 @@ atol 2e-2 as the NF4 kernels, and an identity operand reads the decoded
 weight out of the forward and the backward, bit for bit; the wgmma kernel
 is also held deterministic and batch-invariant, bit for bit.
 
-The direct int8 w8a8 forward up to DECODE_ROWS rows runs the split-K kernel
-of ``qmm_i8_direct_decode.cu`` wherever ``i8_direct_decode_plan`` accepts the
-shape (K % 32 == 0, N % 16 == 0): it quantizes the rows itself, and its x8,
-xs, int32 accumulators and bf16 output are held bit for bit to the plain
-version's on the card, across two calls and with each row alone;
-``qmm_i8_direct.cu`` keeps more rows and the refused shapes.
+The direct int8 w8a8 forward up to I8_DIRECT_ROWS (64) rows runs the
+split-K kernel of ``qmm_i8_direct_decode.cu`` wherever its plan
+(``i8_direct_decode_plan`` up to DECODE_ROWS, ``i8_direct_verify_plan``
+above) accepts the shape (K % 32 == 0, N % 16 == 0): it quantizes the rows
+itself, and its x8, xs, int32 accumulators and bf16 output are held bit for
+bit to the plain version's on the card, across two calls, with each row
+alone and with rows of the identity; ``qmm_i8_direct.cu`` keeps more rows
+and the refused shapes.
 
 The w8a8 forward over NF4 above DECODE_ROWS rows runs the int8 wgmma
 kernel of ``qmm_nf4_w8a8_wgmma.cu`` wherever ``w8a8_tile_plan`` accepts the
@@ -98,6 +100,7 @@ from qlora_tpu_torch.ops import paged_chunk_attention_cuda, paged_chunk_plain
 from qlora_tpu_torch.ops import paged_decode_attention_cuda, paged_decode_plain
 from qlora_tpu_torch.ops.qmatmul import DECODE_ROWS, _w8a8_accumulators, i8_tile_plan
 from qlora_tpu_torch.ops.qmatmul import _i8_direct_decode_outputs, i8_direct_decode_plan
+from qlora_tpu_torch.ops.qmatmul import I8_DIRECT_ROWS, i8_direct_verify_plan
 from qlora_tpu_torch.ops.qmatmul import _nf4_w8a8_decode_outputs, nf4_w8a8_decode_plan
 from qlora_tpu_torch.ops.qmatmul import w8a8_tile_plan
 from qlora_tpu_torch.generate.serve_int8 import requantize_params_int8_unstacked
@@ -717,8 +720,8 @@ def test_i8_direct_kernel_equals_plain(cuda, M, K, N):
     with default_impl("w8a8"):
         y = qmatmul(x, qt)
     assert qmm_i8_direct.launches == before + 1
-    # up to DECODE_ROWS rows of an accepted shape: qmm_i8_direct_decode.cu
-    took = M <= DECODE_ROWS and i8_direct_decode_plan(K, N, 132).accepted
+    # up to I8_DIRECT_ROWS rows of an accepted shape: qmm_i8_direct_decode.cu
+    took = M <= I8_DIRECT_ROWS and _i8_direct_plan(K, N, M).accepted
     assert qmm_i8_direct.decode_launches == decode + took
     x8, xs = quantize_rows(x)
     acc = _w8a8_accumulators(x8, qt)                   # qmm_i8_direct.cu, the before
@@ -738,6 +741,10 @@ I8_DIRECT_DECODE_SHAPES = [(4096, 4096, False), (4096, 11008, False), (11008, 40
                            (4096, 32768, False), (256, 64, False), (1024, 144, False),
                            (32, 16, False), (512, 96, True)]
 _I8_DIRECT_QT: dict = {}
+
+
+def _i8_direct_plan(K, N, M, sms=132):
+    return (i8_direct_decode_plan if M <= DECODE_ROWS else i8_direct_verify_plan)(K, N, sms)
 
 
 def _i8_direct_qt(cuda, K, N, dq):
@@ -776,11 +783,44 @@ def test_i8_direct_decode_kernel_equals_plain(cuda, K, N, dq):
         assert (y[:, N // 2] == 0).all() and (M <= 2 or (y[M - 1] == 0).all())
 
 
+@pytest.mark.parametrize("K,N,dq", I8_DIRECT_DECODE_SHAPES)
+def test_i8_direct_verify_kernel_equals_plain(cuda, K, N, dq):
+    """At 17 to 64 rows (verify chunks, wide decode batches) the same kernel
+    took the call on its verify plan, and its x8, xs, int32 accumulators and
+    bf16 output equal the plain version's bit for bit (every row count on the
+    small shapes, 17, 24, 33, 40 and 64 on LLaMA-7B's); rows of the identity
+    read the codes out of the accumulators."""
+    qt = _i8_direct_qt(cuda, K, N, dq)
+    gen = torch.Generator(device=cuda).manual_seed(K * 5 + N)
+    rows = (range(DECODE_ROWS + 1, I8_DIRECT_ROWS + 1) if K * N <= 1024 * 144
+            else (17, 24, 33, 40, 64))
+    for M in rows:
+        x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+        x[0, K // 3:] *= 50                            # row 0's max in a later split
+        x[M - 1] = 0
+        n = qmm_i8_direct.decode_launches
+        y = qmm_i8_direct(x, qt)
+        assert qmm_i8_direct.decode_launches == n + 1
+        acc, x8, xs = _i8_direct_decode_outputs(x, qt)
+        rx8, rxs = quantize_rows(x)
+        assert torch.equal(x8, rx8) and torch.equal(xs, rxs), M
+        assert torch.equal(acc, int8_matmul_plain(rx8, qt.packed).to(torch.int32)), M
+        assert torch.equal(y, qmm_i8_direct_plain(x, qt)), M
+        assert (y[:, N // 2] == 0).all() and (y[M - 1] == 0).all()
+        ks = torch.randint(0, K, (M,), device=cuda, generator=gen)
+        eye = torch.zeros(M, K, device=cuda, dtype=torch.bfloat16)
+        eye[torch.arange(M, device=cuda), ks] = 1
+        assert torch.equal(_i8_direct_decode_outputs(eye, qt)[0],
+                           127 * qt.packed[ks].to(torch.int32)), M
+
+
 @pytest.mark.parametrize("K,N,M", [(4096, 4096, 16), (11008, 4096, 5), (4096, 32768, 8),
-                                   (1024, 144, 9)])
+                                   (1024, 144, 9), (4096, 4096, 40), (11008, 4096, 64),
+                                   (4096, 32768, 33), (1024, 144, 17)])
 def test_i8_direct_decode_deterministic_and_batch_invariant(cuda, K, N, M):
     """The decode kernel bit for bit across two calls, with each row alone
-    and with the rows in other batches (8 and 9 rows: one and two B tiles);
+    and with the rows in other batches (8 and 9 rows: one and two B tiles;
+    past 16 rows the verify plan and layout against the decode plan's);
     the rows of another run's codes (``given``) give that run's output."""
     qm = importlib.import_module("qlora_tpu_torch.ops.qmatmul")
     qt = _i8_direct_qt(cuda, K, N, False)
@@ -792,16 +832,17 @@ def test_i8_direct_decode_deterministic_and_batch_invariant(cuda, K, N, M):
         assert torch.equal(qmm_i8_direct(x[m:m + 1], qt), y[m:m + 1]), m
     for a, b in ((0, min(M, 9)), (max(0, M - 8), M)):
         assert torch.equal(qmm_i8_direct(x[a:b], qt), y[a:b]), (a, b)
-    plan = i8_direct_decode_plan(K, N, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    plan = _i8_direct_plan(K, N, M, torch.cuda.get_device_properties(cuda).multi_processor_count)
     x8, xs = quantize_rows(x)
     assert torch.equal(qm._i8_direct_decode_launch(torch.zeros_like(x), qt, plan,
                                                    rows=(x8, xs)), y)
 
 
-@pytest.mark.parametrize("M,K,N,decode", [(4, 4096, 4096, 1), (17, 256, 64, 0), (4, 200, 64, 0)])
+@pytest.mark.parametrize("M,K,N,decode", [(4, 4096, 4096, 1), (17, 256, 64, 1), (4, 200, 64, 0),
+                                          (65, 256, 64, 0)])
 def test_i8_direct_repeat_times_the_dispatch_kernel(cuda, M, K, N, decode):
     """``bench_kernels.i8_direct_repeat`` runs the kernel the dispatch takes
-    for its rows (the decode kernel up to 16 rows of an accepted shape, with
+    for its rows (the decode kernel up to 64 rows of an accepted shape, with
     x8 and xs = 1 as its given rows; qmm_i8_direct.cu else) and gives that
     kernel's result: the exact sum times the column scale the kernel makes
     from s_out * 127."""
@@ -819,16 +860,18 @@ def test_i8_direct_repeat_times_the_dispatch_kernel(cuda, M, K, N, decode):
     epilogue = importlib.import_module("qlora_tpu_torch.ops.qmatmul")._w8a8_epilogue
     ones = torch.ones(M, 1, device=cuda)
     assert torch.equal(y, epilogue(int8_matmul_plain(x8, qt.packed), scale, ones))
-    assert (i8_direct_decode_plan(K, N, 132).accepted and M <= DECODE_ROWS) == bool(decode)
+    assert (_i8_direct_plan(K, N, M).accepted and M <= I8_DIRECT_ROWS) == bool(decode)
 
 
 def test_i8_direct_decode_dispatch_edge(cuda):
-    """16 rows take the decode kernel, 17 qmm_i8_direct.cu; K % 32 != 0 and N
-    % 16 != 0 stay on qmm_i8_direct.cu at any row count; every call equals
-    its plain version bit for bit."""
+    """16, 17 and 64 rows take the decode kernel, 65 qmm_i8_direct.cu; K % 32
+    != 0 and N % 16 != 0 stay on qmm_i8_direct.cu at any row count; every
+    call equals its plain version bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(16)
-    for M, K, N, decode in ((16, 4096, 256, 1), (17, 4096, 256, 0), (4, 200, 64, 0),
-                            (4, 256, 24, 0), (1, 1000, 24, 0), (16, 64, 16, 1)):
+    for M, K, N, decode in ((16, 4096, 256, 1), (17, 4096, 256, 1), (64, 4096, 256, 1),
+                            (65, 4096, 256, 0), (4, 200, 64, 0), (40, 200, 64, 0),
+                            (4, 256, 24, 0), (40, 256, 24, 0), (1, 1000, 24, 0),
+                            (16, 64, 16, 1), (64, 64, 16, 1)):
         qt = quantize(torch.randn(K, N, device=cuda, generator=gen) * K ** -0.5, block_size=K,
                       quant_type="int8", double_quant=False)
         x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)

@@ -1,10 +1,11 @@
 """The port's ``PagedBatcher`` against the JAX package's on the same weights
-(the ``debug`` config, JAX params carried across), in three configurations:
+(the ``debug`` config, JAX params carried across), in these configurations:
 optimistic admission over a pool that preempts, the same with
 ``decode_impl="w8a8"`` (every decode step's linears on the int8 codes the
 w8a8 kernel decodes from the NF4 weights), speculative verify chunks of 4
-drafts, and a sliding window whose pages are evicted as sequences roll past
-them.
+drafts, the same over the per-column int8 tree (``decode_impl="int8"``:
+verify chunks of 4 slots x 5 rows), and a sliding window whose pages are
+evicted as sequences roll past them.
 
 Every request runs to its budget (no eos), so without speculation the
 schedule depends only on lengths: the engine steps, the preemptions and the
@@ -128,6 +129,28 @@ def test_speculative_chunks_match_jax_engine():
                                                           jpb.spec_plain_dispatches)
     assert _compare_tokens(params, cfg, traffic, jpb._test_reqs, pb._test_reqs)
     assert got == want and pb.spec_chunks == jpb.spec_chunks
+    assert pb.spec_tokens > pb.spec_chunks > 0      # some drafts were accepted
+
+
+def test_int8_speculative_chunks_match_jax_engine():
+    """``decode_impl="int8", spec_draft_len=4`` over 4 slots: every verify
+    chunk's 20 rows and every decode step through ``qmm_i8_direct``'s plain
+    version (on the card, the split-K kernel up to 64 rows) on the
+    per-column int8 tree, against the JAX engine's ``_qmm_pallas_i8_direct``
+    (interpret mode); the prefills exact NF4 on both.  Prompts that repeat a
+    4-token phrase, whose continuations have every top-2 margin above MARGIN
+    under the exact forward and under the int8 tree's: tokens, steps,
+    ``spec_tokens`` and ``spec_chunks`` are pinned."""
+    traffic = [([55, 35, 3, 49] * 3, 8), ([43, 34, 41, 17] * 3, 8),
+               ([51, 37, 55, 35] * 3, 8), ([57, 59, 6, 12] * 3, 8)]
+    params, cfg, (jpb, pb) = _both(traffic, num_slots=4, n_pages=64, spec_draft_len=4,
+                                   decode_impl="int8")
+    want, got = _run(jpb), _run(pb)
+    for (prompt, n), r in zip(traffic, pb._test_reqs):
+        assert _clear_prefix(pb.decode_params, cfg, prompt, r.generated, ("w8a8",)) == n
+    assert _compare_tokens(params, cfg, traffic, jpb._test_reqs, pb._test_reqs)
+    assert got == want
+    assert (pb.spec_tokens, pb.spec_chunks) == (jpb.spec_tokens, jpb.spec_chunks)
     assert pb.spec_tokens > pb.spec_chunks > 0      # some drafts were accepted
 
 
